@@ -7,21 +7,28 @@ Phases, each of which must pass (the script exits nonzero otherwise):
 
   1. device: the card's name and count, and ``nvidia-smi``'s name and
      power limit;
-  2. build: both CUDA sources (src/repro_torch/kernels/csrc) compiled by
-     ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v`` report;
-  3. kernels: each of the four kernels (LUT gather and log-domain GEMM,
+  2. build: the three CUDA sources (src/repro_torch/kernels/csrc)
+     compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
+     report;
+  3. kernels: each of the four GEMM kernels (LUT gather and log-domain,
      int and fused forms) against its plain PyTorch version on the card,
      bitwise, at the shapes the qwen3-1.7b serving path gives them (M = 4
      for a decode round of 4 slots, M = 64 for a 4 x 16 prefill, times
-     the model's four (K, N) weight shapes) plus one ragged shape; each
-     timed with CUDA events (L2 flushed before every launch, as the
-     serving path finds its weights cold), beside its plain version's
-     time and the least time the card could take (the larger of bytes
-     over 3.35 TB/s and gathers or int32 operations over the SMs' peak
-     rate at the card's maximum SM clock);
+     the model's four (K, N) weight shapes) plus one ragged shape; then
+     the three attention kernels (fused, and the oracle's scores and PV
+     stages) on every datapath at the serving decode and prefill
+     geometries and the reference tests' geometry: scores bitwise
+     against the plain version, fused bitwise against the oracle, fused
+     and the PV stage within 8 eps of |plain| in every output (only the
+     order of the l sum differs).  Each timed with CUDA events (L2
+     flushed before every launch), beside its plain version's time and
+     the least time the card could take (the larger of the bytes the
+     mask admits over 3.35 TB/s and gathers, int32 or int8 tensor-core
+     operations over the peak rate at the card's maximum SM clock);
   4. reference: the LM on the card against the same LM on the CPU (the
-     kernels' plain versions) on the smoke config, every tier, to a
-     stated tolerance with greedy-token agreement;
+     kernels' plain versions) on the smoke config, every tier of the
+     ladder with and without CiM attention, to a stated tolerance with
+     greedy-token agreement;
   5. serve: ``build_engine`` over the hardware-mode ladder (exact /
      balanced / economy) on full-size qwen3-1.7b with seeded random
      weights, warmup, then a Poisson workload served twice under a
@@ -30,7 +37,17 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      the real clock (tokens/s and per-token p50 per tier); then one
      decode round and one prefill per lane on the host clock, and one
      decode round per lane under torch.profiler (kernels, device busy
-     time and idle share, device time by kernel class).
+     time and idle share, device time by kernel class);
+  6. serve with CiM attention: the same over ``build_tiers(mode=
+     "hardware", attn=True)`` on all 28 layers, 320-token slots and a
+     256-token prompt bucket, prompts of 130-250 tokens (so prefill spans
+     two kv blocks and decode three, the last ragged): no plan misses
+     after warmup, ``attn_fused`` launched 28 times per forward of the
+     balanced and economy lanes and never on the exact lane, no float
+     fallback, identical tokens when served again, one real-clock run,
+     and one profiled decode round per lane.
+
+``--layers`` cuts the depth of phase 5 only (the cut is printed).
 
 It prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device it exits
@@ -41,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -66,6 +84,24 @@ MIX = (("exact", None, 0.3), ("balanced", None, 0.4), ("economy", None, 0.3))
 N_REQUESTS, WORKLOAD_SEED = 12, 1
 REF_TOL = {"exact": 1e-2, "balanced": 4e-2, "economy": 4e-2}
 
+# phase 6: prompts of 130-250 tokens in one 256-token bucket, 320-token
+# slots; seed 3 draws all three tiers (3 balanced, 3 economy, 2 exact)
+ATTN_MIX = (("exact", None, 0.2), ("balanced", None, 0.4),
+            ("economy", None, 0.4))
+ATTN_REQUESTS, ATTN_SEED = 8, 3
+INT8_TC_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8
+# attention geometries (B, H, KH, Sq, Skv, D, variant): the serving decode
+# round (4 slots, ragged fill levels) and prefill (4 x 256, ragged
+# lengths) of qwen3-1.7b, and the reference tests' geometry
+ATTN_MAIN = [(4, 16, 8, 1, 320, 128, "decode"),
+             (4, 16, 8, 256, 256, 128, "prefill")]
+ATTN_SMALL = [(2, 4, 2, 21, 29, 12, v) for v in ("causal", "window",
+                                                  "ragged")] \
+    + [(2, 4, 2, 1, 29, 12, "decode")]
+# an attention kernel against its plain version: |d| <= LSUM_EPS eps |plain|
+# for every output (the l sum's rounding; see _lsum_check)
+LSUM_EPS = 8
+
 SOURCES = {
     "lut_matmul": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
                    "src/repro/kernels/approx_matmul.py:137"),
@@ -75,7 +111,15 @@ SOURCES = {
                         "src/repro/kernels/mitchell_gemm.py:88"),
     "mitchell_matmul_fused": ("src/repro_torch/kernels/csrc/log_gemm.cu",
                               "src/repro/kernels/mitchell_gemm.py:173"),
+    "attn_fused": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
+                   "src/repro/kernels/attn_gemm.py:381"),
+    "attn_scores": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
+                    "src/repro/kernels/attn_gemm.py:447"),
+    "attn_pv": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
+                "src/repro/kernels/attn_gemm.py:461"),
 }
+GEMM_KERNELS = ("lut_matmul", "lut_matmul_fused", "mitchell_matmul",
+                "mitchell_matmul_fused")
 
 
 def fail(msg: str) -> None:
@@ -142,7 +186,7 @@ def check_kernels(torch, sms: int, clock_hz: float):
     lut = ops.lut_table(MultiplierSpec("appro42", 8, True, "orplane", 10),
                         dev)
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
-    rows = {name: [] for name in SOURCES}
+    rows = {name: [] for name in GEMM_KERNELS}
     for shape in MAIN_SHAPES + [RAGGED]:
         m, k, n = shape
         g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
@@ -202,6 +246,195 @@ def check_kernels(torch, sms: int, clock_hz: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, attention: the three kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(torch, dev, b, h, kh, sq, skv, d, variant, seed):
+    """Kernel-layout operands, scales and positions of one geometry.
+    decode: query at each slot's fill level, keys valid up to it; prefill:
+    right-padded prompts (ragged lengths); the small variants are the
+    reference tests' (causal, window 5, ragged keys, one-row decode)."""
+    from repro_torch.kernels import attn_gemm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev)
+    k = torch.randn(b, kh, skv, d, generator=g, device=dev)
+    v = torch.randn(b, kh, skv, d, generator=g, device=dev)
+    kpos = torch.arange(skv, dtype=torch.int32, device=dev).expand(b, skv)
+    window = 5 if variant == "window" else None
+    if variant == "decode" and sq == 1 and skv > 64:
+        fill = torch.tensor([skv - 1, 249, 130, 199], dtype=torch.int32,
+                            device=dev)[:b, None]
+        qpos, kval = fill, kpos <= fill
+    elif variant == "prefill":
+        lens = torch.tensor([256, 200, 131, 250], dtype=torch.int32,
+                            device=dev)[:b, None]
+        qpos, kval = kpos[:, :sq], kpos < lens
+    else:
+        qpos = torch.arange(skv - sq, skv, dtype=torch.int32,
+                            device=dev).expand(b, sq)
+        cut = {"ragged": [17, skv], "decode": [23, skv]}.get(variant,
+                                                              [skv, skv])
+        kval = kpos < torch.tensor(cut, device=dev)[:, None]
+    qpos, kval = qpos.contiguous(), kval.to(torch.int32).contiguous()
+    sc = attn_gemm.attn_scales(q, k, v, 8)
+    return (q, k, v), sc, (qpos, kpos.contiguous(), kval), window
+
+
+def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
+                clock_hz):
+    """(bound_ms, bound_by): the bytes the output depends on, each read or
+    written once, at 3.35 TB/s, against the integer products the data
+    needs, at the path's peak rate.  Both count only what the mask
+    admits: the (query, key) pairs, the q rows and K/V rows that take
+    part in one (the scales are passed in, so no other row is read), and
+    the admitted entries of the oracle's score tensor; every output row
+    is written, every position and scale read."""
+    qpos, kpos, kval = pos
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    m = kval[:, None, :] != 0
+    m = m & (kpos[:, None, :] <= qpos[:, :, None])
+    if window is not None:
+        m = m & (kpos[:, None, :] > qpos[:, :, None] - window)
+    pairs = float(m.sum()) * h                   # (b, h, i, j) admitted
+    q_rows = float(m.any(dim=2).sum()) * h       # (b, h, i) with a key
+    kv_rows = float(m.any(dim=1).sum()) * kh     # (b, kh, j) with a query
+    dots = {"attn_fused": 2, "attn_scores": 1, "attn_pv": 1}[name]
+    products = dots * pairs * d
+    small = 4 * (b * h + 2 * b * kh) + 4 * (b * sq + 2 * b * skv)
+    tab = 0 if table is None else table.numel() * table.element_size()
+    q_in, kv_in, out = 4 * q_rows * d, 4 * kv_rows * d, 4 * q.numel()
+    scores = 4 * pairs
+    nbytes = small + tab + {
+        "attn_fused": q_in + 2 * kv_in + out,
+        "attn_scores": q_in + kv_in + scores,
+        "attn_pv": scores + kv_in + out}[name]
+    if path == "mxu":
+        ops_s = 2 * products / INT8_TC_OPS_PER_S
+    elif path in ("lut", "nibble"):
+        gathers = products * (4 if path == "nibble" else 1)
+        ops_s = gathers / (sms * GATHERS_PER_SM_CLOCK * clock_hz)
+    else:
+        ops_s = products * LOG_OPS[comp] / (sms * INT32_LANES_PER_SM
+                                            * clock_hz)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def _lsum_check(torch, got, want):
+    """(max |d|, outputs that differ, outputs beyond l-sum rounding).
+
+    A kernel and its plain version on one card differ only in the order
+    of the sum l of the probabilities (exp, the scores, pq and acc are
+    the same operations on the same values), so an output moves by l's
+    relative rounding error: at most LSUM_EPS eps of |want|.  One pq
+    level moved by a truncation or a wrong qmax moves it by about
+    max|v| / (127 l), orders of magnitude more."""
+    diff = (got - want).abs()
+    beyond = diff > LSUM_EPS * torch.finfo(torch.float32).eps * want.abs()
+    return float(diff.max()), int((diff > 0).sum()), int(beyond.sum())
+
+
+def check_attention(torch, sms: int, clock_hz: float):
+    from repro_torch.core.autotune import heuristic_attn_block
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import attn_gemm as ag
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    # (label, path, spec, compensated): the balanced tier's multiplier on
+    # the lut path, the economy tier's (mitchell) on the log path, one
+    # log_our case, the exact spec on the nibble path, and mxu
+    paths = [("lut", "lut", MultiplierSpec("appro42", 8, True, "orplane",
+                                           10), False),
+             ("log", "log", None, False),
+             ("log_our", "log", None, True),
+             ("nibble", "nibble", MultiplierSpec("exact", 8, True), False),
+             ("mxu", "mxu", None, False)]
+    rows = {"attn_fused": [], "attn_scores": [], "attn_pv": []}
+    print(f"  {'path':<8} {'geometry':<28} {'kernel':<12} {'ms':>9} "
+          f"{'bound_ms':>9} {'by':>10} {'plain_ms':>9}  fused-plain: max "
+          f"|d|, outputs differing, beyond l-sum rounding", flush=True)
+    for label, path, spec, comp in paths:
+        table = ops._attn_table(path, spec, dev)
+        geoms = ATTN_MAIN + (ATTN_SMALL if label != "log_our" else [])
+        for gi, geom in enumerate(geoms):
+            b, h, kh, sq, skv, d, variant = geom
+            (q, k, v), sc, pos, window = _attn_inputs(
+                torch, dev, *geom, seed=17 * gi + len(label))
+            bk = (16 if geom in ATTN_SMALL else heuristic_attn_block(
+                f"pallas_attn_{path}", sq, skv)[1])
+            kw = dict(path=path, bits=8, causal=True, window=window,
+                      compensated=comp, block=(8, bk))
+            calls = {
+                "attn_fused": (
+                    lambda: ag.attn_fused(q, k, v, *sc, *pos, table, **kw),
+                    lambda: ag.attn_reference(q, k, v, *sc, *pos, table,
+                                              **kw)),
+                "attn_scores": (
+                    lambda: ag.attn_scores(q, k, sc[0], sc[1], *pos, table,
+                                           **kw),
+                    lambda: ag.attn_scores_plain(q, k, sc[0], sc[1], *pos,
+                                                 table, **kw)),
+            }
+            fused, plain = calls["attn_fused"][0](), calls["attn_fused"][1]()
+            scores = calls["attn_scores"][0]()
+            mat = ag.attn_pv(scores, v, sc[2], *pos, table, **kw)
+            calls["attn_pv"] = (
+                lambda: ag.attn_pv(scores, v, sc[2], *pos, table, **kw),
+                lambda: ag.attn_pv_plain(scores, v, sc[2], *pos, table,
+                                         **kw))
+            plain_scores = calls["attn_scores"][1]()
+            torch.cuda.synchronize()
+            where = f"attention {label} {geom}"
+            if not torch.equal(scores, plain_scores):
+                fail(f"{where}: scores kernel != plain version (max |d| "
+                     f"{float((scores - plain_scores).abs().max())})")
+            if not torch.equal(fused, mat):
+                fail(f"{where}: fused != materialized (max |d| "
+                     f"{float((fused - mat).abs().max())})")
+            err, n_diff, n_level = _lsum_check(torch, fused, plain)
+            if n_level:
+                fail(f"{where}: fused vs plain: {n_level} outputs differ by "
+                     f"more than {LSUM_EPS} eps of |plain| (max |d| {err})")
+            pv_plain = calls["attn_pv"][1]()
+            torch.cuda.synchronize()
+            pv_err, _, pv_level = _lsum_check(torch, mat, pv_plain)
+            if pv_level:
+                fail(f"{where}: PV stage vs plain: {pv_level} outputs differ "
+                     f"by more than {LSUM_EPS} eps of |plain| (max |d| "
+                     f"{pv_err})")
+            timed = geom in ATTN_MAIN
+            for name in rows:
+                row = {"path": label, "geometry": geom,
+                       "max_abs_err": (err if name == "attn_fused" else
+                                       0.0 if name == "attn_scores"
+                                       else pv_err)}
+                if timed:
+                    kern, pl = calls[name]
+                    row["ms"] = _timed_ms(torch, kern, 10, flush)
+                    row["plain_ms"] = _timed_ms(torch, pl, 1, flush)
+                    row["bound_ms"], row["bound_by"] = _attn_bound(
+                        name, path, comp, q, k, v, pos, table, window,
+                        sms, clock_hz)
+                    print(f"  {label:<8} {str(geom[:6]):<28} {name:<12} "
+                          f"{row['ms']:9.4f} {row['bound_ms']:9.4f} "
+                          f"{row['bound_by']:>10} {row['plain_ms']:9.3f}"
+                          + (f"  {err:.3e}, {n_diff}, {n_level}"
+                             if name == "attn_fused" else ""), flush=True)
+                rows[name].append(row)
+            if not timed:
+                print(f"  {label:<8} {str(geom):<40} scores bitwise, fused "
+                      f"== oracle, fused-plain {err:.3e} ({n_diff} differ, "
+                      f"none beyond l-sum rounding)", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the LM on the card against the LM on the CPU (small input)
 # ---------------------------------------------------------------------------
 
@@ -216,7 +449,9 @@ def check_reference(torch):
     params_gpu = _to(torch, params_cpu, "cuda")
     rng_tokens = torch.Generator().manual_seed(7)
     toks = torch.randint(0, cfg.vocab, (2, 8), generator=rng_tokens)
-    for tier in build_tiers(mode="hardware"):
+    for tier in (build_tiers(mode="hardware")
+                 + build_tiers(mode="hardware", attn=True)):
+        name = tier.name + (" +attn" if tier.cim.attn else "")
         c = dataclasses.replace(cfg, cim=tier.cim)
         cpu, gpu = LM(c, device="cpu"), LM(c, device="cuda")
         tol = REF_TOL[tier.name]
@@ -229,16 +464,16 @@ def check_reference(torch):
                 a = lc[:, -1].float()
                 b = lg[:, -1].float().cpu()
                 if not torch.isfinite(b).all():
-                    fail(f"reference {tier.name}: non-finite logits")
+                    fail(f"reference {name}: non-finite logits")
                 worst = max(worst, float((a - b).abs().max()))
                 if worst > tol:
-                    fail(f"reference {tier.name} step {step}: max |card - "
+                    fail(f"reference {name} step {step}: max |card - "
                          f"cpu| {worst} > {tol}")
                 top2 = a.topk(2, dim=-1).values
                 for i in range(a.shape[0]):
                     if top2[i, 0] - top2[i, 1] > tol:
                         if int(b[i].argmax()) != int(a[i].argmax()):
-                            fail(f"reference {tier.name}: greedy token "
+                            fail(f"reference {name}: greedy token "
                                  f"differs at step {step} row {i}")
                     else:
                         close += 1
@@ -248,7 +483,7 @@ def check_reference(torch):
                 lc, cc = cpu.decode_step(params_cpu, cc, tok, 8 + step)
                 lg, cg = gpu.decode_step(params_gpu, cg, tok.cuda(),
                                          8 + step)
-        print(f"  {tier.name:<9} card vs cpu: max |logit diff| {worst:.3e} "
+        print(f"  {name:<15} card vs cpu: max |logit diff| {worst:.3e} "
               f"<= {tol} ; greedy tokens equal ({close} near-ties under "
               f"the gap rule)", flush=True)
 
@@ -262,23 +497,44 @@ def _to(torch, tree, device):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve full-size qwen3-1.7b on the hardware ladder
+# phases 5 and 6: serve full-size qwen3-1.7b on the hardware ladder,
+# without and with CiM attention
 # ---------------------------------------------------------------------------
 
 
-def _launch_counts(am, mg):
-    return {n: k.launches for n, k in {**am.KERNELS, **mg.KERNELS}.items()}
+def _kernel_modules():
+    from repro_torch.kernels import approx_matmul, attn_gemm, mitchell_gemm
+
+    return {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS,
+            **attn_gemm.KERNELS}
 
 
-def _reset_counts(am, mg):
-    for k in list(am.KERNELS.values()) + list(mg.KERNELS.values()):
+def _launch_counts():
+    return {n: k.launches for n, k in _kernel_modules().items()}
+
+
+def _reset_counts():
+    for k in _kernel_modules().values():
         k.launches = 0
 
 
-def serve(torch, layers, power):
+def _count_forwards(eng):
+    """Count each lane's LM forwards (prefill groups and decode rounds)."""
+    counts = {name: 0 for name in eng.lanes}
+    for name, lane in eng.lanes.items():
+        lm = lane.backend.lm
+        for meth in ("prefill", "decode_step"):
+            def wrapped(*a, _real=getattr(lm, meth), _name=name, **kw):
+                counts[_name] += 1
+                return _real(*a, **kw)
+            setattr(lm, meth, wrapped)
+    return counts
+
+
+def serve(torch, layers, power, attn: bool):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import approx_matmul as am
-    from repro_torch.kernels import mitchell_gemm as mg
+    from repro_torch.models.attention import (cim_attn_fallbacks,
+                                              reset_cim_attn_fallbacks)
     from repro_torch.serving import (EngineStats, RealClock, SimClock,
                                      build_engine, build_tiers,
                                      poisson_workload)
@@ -287,13 +543,20 @@ def serve(torch, layers, power):
     if layers and layers < cfg.n_layers:
         print(f"  CUT: {layers} of {cfg.n_layers} layers (widths unchanged)")
         cfg = dataclasses.replace(cfg, n_layers=layers, n_periods=layers)
+    if attn:
+        max_len, bucket, plens, news = 320, 256, (130, 250), (4, 8)
+        n_req, mix, seed = ATTN_REQUESTS, ATTN_MIX, ATTN_SEED
+    else:
+        max_len, bucket, plens, news = 32, 16, (8, 16), (4, 16)
+        n_req, mix, seed = N_REQUESTS, MIX, WORKLOAD_SEED
     print(f"  {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
           f"{cfg.n_kv_heads} x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, {cfg.n_layers} layers", flush=True)
-    tiers = build_tiers(mode="hardware")
+          f"{cfg.vocab}, {cfg.n_layers} layers; CiM attention {attn}; "
+          f"{max_len}-token slots, prompt bucket {bucket}", flush=True)
+    tiers = build_tiers(mode="hardware", attn=attn)
     t0 = time.perf_counter()
-    eng = build_engine(cfg, tiers=tiers, slots_per_tier=4, max_len=32,
-                       prompt_buckets=(16,), group_buckets=(1, 2, 4),
+    eng = build_engine(cfg, tiers=tiers, slots_per_tier=4, max_len=max_len,
+                       prompt_buckets=(bucket,), group_buckets=(1, 2, 4),
                        seed=0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(eng.lanes["exact"]
@@ -307,9 +570,10 @@ def serve(torch, layers, power):
     torch.cuda.synchronize()
     print(f"  warmup ran {n} shapes in {time.perf_counter() - t0:.1f}s",
           flush=True)
-    wl = poisson_workload(N_REQUESTS, rate=20.0, vocab=cfg.vocab,
-                          prompt_len=(8, 16), max_new=(4, 16), tier_mix=MIX,
-                          seed=WORKLOAD_SEED)
+    wl = poisson_workload(n_req, rate=20.0, vocab=cfg.vocab,
+                          prompt_len=plens, max_new=news, tier_mix=mix,
+                          seed=seed)
+    forwards = _count_forwards(eng)
 
     def run_sim():
         t = time.perf_counter()
@@ -324,18 +588,32 @@ def serve(torch, layers, power):
             fail(f"{eng.steady_plan_misses()} plan misses after warmup")
         return res, time.perf_counter() - t
 
-    _reset_counts(am, mg)
+    reset_cim_attn_fallbacks()
+    for k in forwards:
+        forwards[k] = 0
+    _reset_counts()
     res_a, secs = run_sim()
-    launches = _launch_counts(am, mg)
+    launches = _launch_counts()
+    fallbacks = cim_attn_fallbacks()
     tiers_used = sorted({r.tier for r in res_a.values()})
     if tiers_used != sorted(t.name for t in tiers):
         fail(f"the workload reached only the tiers {tiers_used}")
     print(f"  simulated-clock run: {len(wl)} requests ({', '.join(tiers_used)}"
           f"), {sum(len(r.tokens) for r in res_a.values())} tokens in "
-          f"{secs:.1f}s; kernel launches {launches}", flush=True)
+          f"{secs:.1f}s; forwards per lane {forwards}; kernel launches "
+          f"{launches}; float-path attention fallbacks {fallbacks}",
+          flush=True)
     for name in ("lut_matmul_fused", "mitchell_matmul_fused"):
         if launches[name] <= 0:
             fail(f"{name} was not launched while serving")
+    approx = forwards["balanced"] + forwards["economy"]
+    want = cfg.n_layers * approx if attn else 0
+    if launches["attn_fused"] != want:
+        fail(f"attn_fused launched {launches['attn_fused']} times, expected "
+             f"{want} ({cfg.n_layers} per forward of the approximate lanes, "
+             "none on the exact lane)")
+    if attn and fallbacks:
+        fail(f"{fallbacks} attention calls fell back to the float path")
     eng.warmup()                      # same start state for the rerun
     res_b, _ = run_sim()
     if any(res_a[r.rid].tokens != res_b[r.rid].tokens for r in wl):
@@ -359,17 +637,24 @@ def serve(torch, layers, power):
               f"{st.p50_ms_per_token:.1f} ms, ttft p50 "
               f"{st.p50_ttft_ms:.1f} ms", flush=True)
 
-    # where the time goes: one pool decode round and one 4 x 16 prefill
-    # per lane, host clock around work that ends in a synchronize
+    # where the time goes: one pool decode round and one 4 x bucket
+    # prefill per lane, host clock around work that ends in a synchronize
     for name, lane in eng.lanes.items():
         b = lane.backend
-        toks = torch.zeros((4, 16), dtype=torch.int64, device=b.device)
-        lens = torch.full((4,), 16, dtype=torch.int32, device=b.device)
+        toks = torch.zeros((4, bucket), dtype=torch.int64, device=b.device)
+        lens = torch.full((4,), bucket, dtype=torch.int32, device=b.device)
         b.reset()
+        _reset_counts()
         t = time.perf_counter()
         for _ in range(3):
             b.decode_round()
+        torch.cuda.synchronize()
         dec = (time.perf_counter() - t) / 3
+        n_attn = _launch_counts()["attn_fused"]
+        want = 3 * cfg.n_layers if attn and name != "exact" else 0
+        if n_attn != want:
+            fail(f"{name}: attn_fused launched {n_attn} times in 3 decode "
+                 f"rounds, expected {want}")
         t = time.perf_counter()
         with torch.inference_mode():
             b.lm.prefill(b.params, {"tokens": toks, "lengths": lens,
@@ -378,7 +663,8 @@ def serve(torch, layers, power):
         pre = time.perf_counter() - t
         b.reset()
         print(f"    {name:<9} decode round (4 slots) {1e3 * dec:.1f} ms, "
-              f"prefill (4 x 16) {1e3 * pre:.1f} ms", flush=True)
+              f"prefill (4 x {bucket}) {1e3 * pre:.1f} ms; attn_fused "
+              f"{n_attn // 3} launches a decode round", flush=True)
         _profile_round(torch, name, b, dec)
         b.reset()
     return launches
@@ -395,6 +681,8 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM LUT kernel"
     if "log_gemm" in low:
         return "CiM log kernel"
+    if "attn_kernel" in low:
+        return "CiM attention kernel"
     if name in matmul_kernels:
         return "torch.matmul"
     if "memcpy" in low or "memset" in low:
@@ -491,26 +779,41 @@ def main():
 
     print("[2] build", flush=True)
     t0 = time.perf_counter()
-    for name, (secs, report) in build.build(["lut_gemm", "log_gemm"]).items():
+    built = build.build(build.SOURCES)
+    for name, (secs, report) in built.items():
         print(f"  {name}.cu: {secs:.1f}s")
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {line.strip()}")
-    print(f"  both sources built in {time.perf_counter() - t0:.1f}s",
+    print(f"  {len(built)} sources built in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
     rows = check_kernels(torch, sms, clock_hz)
+    attn_rows = check_attention(torch, sms, clock_hz)
 
     print("[4] reference: the LM on the card against the CPU", flush=True)
     check_reference(torch)
 
     print("[5] serve", flush=True)
-    launches = serve(torch, args.layers, power)
+    launches = serve(torch, args.layers, power, attn=False)
+    gc.collect()                      # phase 5's engine is gone
+    torch.cuda.empty_cache()
+
+    print("[6] serve with CiM attention", flush=True)
+    attn_launches = serve(torch, 0, power, attn=True)
 
     kernels = []
-    for name, rs in rows.items():
-        timed = [r for r in rs if "ms" in r]
+    # the GEMM rows sum the eight main-path shapes; the attention rows the
+    # serving decode and prefill geometries on the paths the ladder runs
+    # (lut for balanced, log for economy)
+    main = {name: ([r for r in rs if "ms" in r], launches[name])
+            for name, rs in rows.items()}
+    for name, rs in attn_rows.items():
+        main[name] = ([r for r in rs if "ms" in r and r["path"] in
+                       ("lut", "log")], attn_launches[name])
+    every = {**rows, **attn_rows}
+    for name, (timed, n_launch) in main.items():
         ops_ms = sum(r["bound_ms"] for r in timed
                      if r["bound_by"] == "operations")
         bytes_ms = sum(r["bound_ms"] for r in timed
@@ -518,14 +821,15 @@ def main():
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": max(r["max_abs_err"] for r in every[name]),
             "ms": sum(r["ms"] for r in timed),
             "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
-            "shapes": [list(r["shape"]) for r in timed],
+            "shapes": [list(r["shape"]) if "shape" in r
+                       else [r["path"], *r["geometry"]] for r in timed],
         })
     print(f"  total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(power)

@@ -1,5 +1,5 @@
 """Approximate CiM GEMM — the execution front door and dispatch engine
-(GEMM universe).
+(GEMM and attention universes).
 
 Execution modes (as in the JAX package):
 
@@ -37,6 +37,13 @@ Two float frontends execute a routed plan:
 Kernel-backed paths carry a straight-through estimator
 (`torch.autograd.Function`, backward ``g @ w.T`` / ``x.T @ g``).
 
+The attention universe (``op="attn"`` entries) routes `cim_attention`:
+QK^T and PV through the flash CiM attention kernels
+(kernels/attn_gemm.py) on the path the (family, mode) selects, planned
+by `plan_attn` against a shared-memory model and the reference's
+accumulator bit-safety gate, with the `attn_float` straight-through
+backward.
+
 **Plan cache.**  Each frontend resolves its work through a cache keyed
 on (frontend, GemmParams, apply, operand dtypes, power-of-two-bucketed
 shape, backend); a miss routes, builds the forward and counts one
@@ -53,6 +60,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from .autotune import bucket, bucket_attn, heuristic_attn_block
 from .error_model import SurrogateModel
 from .luts import MAX_LUT_BITS, nibble_decomposable
 from .multipliers import MultiplierSpec
@@ -87,6 +95,7 @@ class KernelEntry:
     # entries are eligible only when the caller supplies a spec
     predicate: Optional[Callable[[MultiplierSpec], bool]] = dataclasses.field(
         default=None, compare=False)
+    op: str = "gemm"                   # "gemm" | "attn" (universe)
 
     def supports(self, family: str, mode: str, bits: int,
                  backend: str) -> bool:
@@ -97,13 +106,17 @@ class KernelEntry:
 
 
 _REGISTRY: Dict[str, KernelEntry] = {}
+# set at the end of this module, once the dispatch caches exist: the
+# registrations below run before them and have nothing to invalidate
+_CACHES_DEFINED = False
 
 
 def register_kernel(entry: KernelEntry) -> KernelEntry:
     if entry.name in _REGISTRY:
         raise ValueError(f"kernel {entry.name!r} already registered")
     _REGISTRY[entry.name] = entry
-    _select_kernel_cached.cache_clear()
+    if _CACHES_DEFINED:
+        clear_dispatch_caches()    # late registration invalidates routing
     return entry
 
 
@@ -115,13 +128,14 @@ def registered_kernels() -> Tuple[KernelEntry, ...]:
 def _select_kernel_cached(family: str, mode: str, bits: int, backend: str,
                           spec: Optional[MultiplierSpec]) -> KernelEntry:
     matches = [e for e in _REGISTRY.values()
-               if e.supports(family, mode, bits, backend)
+               if e.op == "gemm" and e.supports(family, mode, bits, backend)
                and (e.predicate is None
                     or (spec is not None and e.predicate(spec)))]
     if not matches:
         raise ValueError(
             f"no kernel for family={family!r} mode={mode!r} bits={bits} "
-            f"backend={backend!r}; registered: {sorted(_REGISTRY)}")
+            f"backend={backend!r}; registered: "
+            f"{sorted(e.name for e in _REGISTRY.values() if e.op == 'gemm')}")
     best = max(matches, key=lambda e: e.priority)
     if best.later:
         raise NotImplementedError(
@@ -170,6 +184,42 @@ register_kernel(KernelEntry(
     families=(), backends=(),
     description="dot + calibrated mean shift (noise term: later slice)"))
 
+# Attention universe (flash-style CiM attention).  Each kernel path has
+# a CUDA entry for "cuda" and its plain version for "cpu", with the
+# reference's priorities; the plain `torch_attn` (the twin of the
+# reference's `attn_xla`) serves bit_exact on any device.  Modes: the
+# quantized integer cores only; float and surrogate attention stay on the
+# models layer's `_chunked_attn` path.
+ATTN_MODES = ("exact", "bit_exact", "hardware")
+
+register_kernel(KernelEntry(
+    name="torch_attn", op="attn", modes=("bit_exact",), families=(),
+    backends=(), max_bits=12,
+    description="plain flash twin (the same bk-tiled online softmax)"))
+for _dev, _cuda in (("cuda", True), ("cpu", False)):
+    _pre = "cuda" if _cuda else "torch"
+    _what = "CUDA flash attention" if _cuda else "plain version of the " \
+        "flash attention kernel"
+    register_kernel(KernelEntry(
+        name=f"{_pre}_attn_mxu", op="attn", modes=("exact",), families=(),
+        backends=(_dev,), priority=10, max_bits=8, cuda=_cuda,
+        description=f"{_what}, exact integer dots (qmax^2*K < 2^24 gated)"))
+    register_kernel(KernelEntry(
+        name=f"{_pre}_attn_lut", op="attn", modes=("hardware",),
+        families=("exact", "appro42"), backends=(_dev,), priority=10,
+        max_bits=8, cuda=_cuda,
+        description=f"{_what}, full-LUT gather QK^T/PV"))
+    register_kernel(KernelEntry(
+        name=f"{_pre}_attn_nibble", op="attn", modes=("hardware",),
+        families=("exact", "appro42"), backends=(_dev,), priority=20,
+        max_bits=8, cuda=_cuda, predicate=nibble_decomposable,
+        description=f"{_what}, nibble sub-LUT QK^T/PV"))
+    register_kernel(KernelEntry(
+        name=f"{_pre}_attn_log", op="attn", modes=("hardware",),
+        families=("mitchell", "log_our"), backends=(_dev,), priority=10,
+        max_bits=12, cuda=_cuda,
+        description=f"{_what}, log-domain QK^T/PV"))
+
 
 def select_kernel(family: str, mode: str, bits: int, backend: str,
                   spec: Optional[MultiplierSpec] = None) -> KernelEntry:
@@ -184,14 +234,6 @@ def select_kernel(family: str, mode: str, bits: int, backend: str,
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     return _select_kernel_cached(family, mode, bits, backend, spec)
-
-
-def bucket(v: int) -> int:
-    """Next power of two >= v (floor 8): the plan cache's shape key."""
-    b = 8
-    while b < v:
-        b <<= 1
-    return b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,6 +486,8 @@ def clear_dispatch_caches() -> None:
     with _LOCK:
         _FORWARDS.clear()
     _select_kernel_cached.cache_clear()
+    _attn_entries_cached.cache_clear()
+    _plan_attn_cached.cache_clear()
 
 
 def _backend(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -495,3 +539,335 @@ def model_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams, *,
     for `hardware`, the activation dtype preserved end to end.
     `apply=False` runs the exact int8 macro (mixed-macro allocation)."""
     return _forward_for("model", gp, apply, x, w)(x, w)
+
+
+# ---------------------------------------------------------------------------
+# Attention planning universe (flash-style CiM attention)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnParams:
+    """Static attention geometry: the masking contract.
+
+    ``causal`` gates ``kpos <= qpos``; ``window`` additionally gates
+    ``kpos > qpos - window``.  Ragged validity rides in the runtime
+    ``kv_valid`` operand, not here: it changes per call, never the plan."""
+
+    causal: bool = True
+    window: Optional[int] = None
+
+    def __post_init__(self):
+        if self.window is not None and self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window}")
+
+
+# entry name -> inner-dot datapath of kernels/attn_gemm.py.  torch_attn
+# resolves per request (_attn_path): it mirrors whichever datapath the
+# request's mode/family would run.
+_ATTN_PATHS = {f"{pre}_attn_{path}": path
+               for pre in ("cuda", "torch")
+               for path in ("mxu", "lut", "nibble", "log")}
+
+
+def _attn_path(entry_name: str, family: str, mode: str) -> str:
+    path = _ATTN_PATHS.get(entry_name)
+    if path is not None:
+        return path
+    if mode == "exact":
+        return "mxu"
+    if family in ("mitchell", "log_our"):
+        return "log"
+    return "lut"
+
+
+def _attn_ref_name(entry_name: str) -> str:
+    """The reference's kernel name for an entry (its block defaults)."""
+    path = _ATTN_PATHS.get(entry_name)
+    return f"pallas_attn_{path}" if path is not None else "attn_xla"
+
+
+def _attn_kernel_fits(entry_name: str, bits: int, block: Tuple[int, int],
+                      head_dim: int) -> bool:
+    """Does one block of the CUDA kernel fit a Hopper SM's shared memory?
+
+    Re-derived from the reference's TPU VMEM model for the layout of
+    csrc/attn_gemm.cu: the path's table, the f32 accumulator and score
+    tile, the int16 probability tile and the quantized q/k/v tiles, at
+    the kernel's largest query block (attn_gemm.ATTN_BQ rows) and the
+    plan's bk.  The head dim is not lane-padded here.  The plain
+    versions are held to the same gate, so a geometry routes alike on
+    both devices."""
+    from repro_torch.kernels.attn_gemm import (ATTN_BQ, SMEM_BYTES,
+                                               attn_smem_bytes)
+
+    path = _ATTN_PATHS[entry_name]
+    return attn_smem_bytes(path, bits, ATTN_BQ, block[1],
+                           head_dim) <= SMEM_BYTES
+
+
+def _attn_bit_safe(bits: int, path: str, head_dim: int, bk: int) -> bool:
+    """True iff every inner-dot partial sum is exactly representable.
+
+    Kept exactly as the reference (lane-padded head dim included) so
+    that routing matches it: QK^T contracts the head dim, PV the kv tile,
+    so the worst accumulator magnitude is qmax^2 * max(dp, bk); the mxu
+    path is exact below 2^24 (the reference sums in f32), the integer
+    paths below 2^31."""
+    qm = (1 << (bits - 1)) - 1
+    dp = max(128, -(-head_dim // 128) * 128)
+    worst = qm * qm * max(dp, bk)
+    return worst < ((1 << 24) if path == "mxu" else (1 << 31))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """A routed attention: entry, masking, (bq, bk) block, backend.  Only
+    bk reaches the numerics; the CUDA kernels pick their own bq."""
+
+    entry: KernelEntry
+    attn: AttnParams
+    block: Tuple[int, int]
+    backend: str
+
+
+@functools.lru_cache(maxsize=1024)
+def _attn_entries_cached(family: str, mode: str, bits: int, backend: str,
+                         spec: Optional[MultiplierSpec]
+                         ) -> Tuple[KernelEntry, ...]:
+    matches = [e for e in _REGISTRY.values()
+               if e.op == "attn" and e.supports(family, mode, bits, backend)
+               and (e.predicate is None
+                    or (spec is not None and e.predicate(spec)))]
+    if not matches:
+        raise ValueError(
+            f"no attention kernel for family={family!r} mode={mode!r} "
+            f"bits={bits} backend={backend!r}; registered: "
+            f"{sorted(e.name for e in _REGISTRY.values() if e.op == 'attn')}")
+    return tuple(sorted(matches, key=lambda e: -e.priority))
+
+
+def _check_attn_request(family: str, mode: str, backend: str) -> None:
+    if mode not in ATTN_MODES:
+        raise ValueError(f"mode {mode!r} not in {ATTN_MODES}")
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r} not in {FAMILIES}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+
+
+def select_attn_kernel(family: str, mode: str, bits: int = 8,
+                       backend: str = "cuda",
+                       spec: Optional[MultiplierSpec] = None) -> KernelEntry:
+    """Highest-priority attention entry for the request (no footprint or
+    bit-safety gate: `plan_attn` applies those against the geometry)."""
+    _check_attn_request(family, mode, backend)
+    return _attn_entries_cached(family, mode, bits, backend, spec)[0]
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_attn_cached(family: str, mode: str, bits: int, bb: int,
+                      heads: int, kv_heads: int, sqb: int, skvb: int,
+                      head_dim: int, attn: AttnParams, backend: str,
+                      block: Optional[Tuple[int, int]],
+                      spec: Optional[MultiplierSpec]) -> AttnPlan:
+    for entry in _attn_entries_cached(family, mode, bits, backend, spec):
+        path = _attn_path(entry.name, family, mode)
+        blk = block
+        if blk is None:
+            blk = heuristic_attn_block(_attn_ref_name(entry.name), sqb, skvb)
+        if entry.name in _ATTN_PATHS and not _attn_kernel_fits(
+                entry.name, bits, blk, head_dim):
+            continue                   # tile too large: try lower priority
+        if not _attn_bit_safe(bits, path, head_dim, blk[1]):
+            continue                   # accumulator could overflow
+        return AttnPlan(entry=entry, attn=attn, block=tuple(blk),
+                        backend=backend)
+    raise ValueError(
+        f"no eligible attention kernel for family={family!r} "
+        f"mode={mode!r} bits={bits} head_dim={head_dim} (bit-safety / "
+        "shared-memory predicates rejected every entry)")
+
+
+def plan_attn(family: str, mode: str, bits: int, b: int, heads: int,
+              kv_heads: int, sq: int, skv: int, head_dim: int,
+              attn: AttnParams = AttnParams(), backend: str = "cuda",
+              block: Optional[Tuple[int, int]] = None,
+              spec: Optional[MultiplierSpec] = None) -> AttnPlan:
+    """Route one attention call to an entry and a (bq, bk) block.
+
+    Memoized on the attention-bucketed shape (autotune.bucket_attn).
+    Entries are gated by the shared-memory model (`_attn_kernel_fits`)
+    and the accumulator bit-safety predicate (`_attn_bit_safe`); a
+    request no entry accepts raises ValueError, and the models layer
+    falls back to the float `_chunked_attn` path."""
+    _check_attn_request(family, mode, backend)
+    if heads % kv_heads:
+        raise ValueError(
+            f"GQA needs heads % kv_heads == 0, got {heads} % {kv_heads}")
+    bb, hh, kh, sqb, skvb, hd = bucket_attn(b, heads, kv_heads, sq, skv,
+                                            head_dim)
+    return _plan_attn_cached(family, mode, bits, bb, hh, kh, sqb, skvb, hd,
+                             attn, backend,
+                             tuple(block) if block is not None else None,
+                             spec)
+
+
+# ---------------------------------------------------------------------------
+# Attention runners.  Kernel layout: q (B, H, Sq, D), k/v (B, KH, Skv, D)
+# float, qpos (B, Sq) + kpos/kval (B, Skv) int32 -> f32 (B, H, Sq, D);
+# tables and scales resolve inside ops.*
+# ---------------------------------------------------------------------------
+
+
+def _attn_run_kwargs(gp: GemmParams, plan: AttnPlan) -> Dict:
+    path = _attn_path(plan.entry.name, gp.family, gp.mode)
+    kw = dict(path=path, bits=gp.bits, causal=plan.attn.causal,
+              window=plan.attn.window,
+              compensated=(gp.family == "log_our"), block=plan.block)
+    if path in ("lut", "nibble"):
+        kw["spec"] = gp.spec
+    return kw
+
+
+def _run_attn_kernel(qh, kh_, vh, qpos, kpos, kval, gp: GemmParams,
+                     plan: AttnPlan):
+    from repro_torch.kernels import ops
+
+    return ops.cim_attn_fused(qh, kh_, vh, qpos, kpos, kval,
+                              **_attn_run_kwargs(gp, plan))
+
+
+def _run_attn_plain(qh, kh_, vh, qpos, kpos, kval, gp: GemmParams,
+                    plan: AttnPlan):
+    from repro_torch.kernels import ops
+
+    return ops.cim_attn_reference(qh, kh_, vh, qpos, kpos, kval,
+                                  **_attn_run_kwargs(gp, plan))
+
+
+ATTN_RUNNERS: Dict[str, Callable] = {"torch_attn": _run_attn_plain}
+ATTN_RUNNERS.update({name: _run_attn_kernel for name in _ATTN_PATHS})
+
+
+def attn_materialized_oracle(q, k, v, gp: GemmParams, plan: AttnPlan,
+                             qpos, kpos, kval):
+    """The bit-exact oracle of a routed attention (kernel layout): the
+    same math as the fused kernel with the score tensor materialized in
+    device memory."""
+    from repro_torch.kernels import ops
+
+    return ops.cim_attn_materialized(q, k, v, qpos, kpos, kval,
+                                     **_attn_run_kwargs(gp, plan))
+
+
+class _STEAttn(torch.autograd.Function):
+    """Model-layout (q, k, v) -> out through the routed integer kernel,
+    with the exact-float VJP of `attn_float` (straight-through past the
+    quantization, as the GEMM frontends)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, kval, run, causal, window):
+        ctx.save_for_backward(q, k, v, qpos, kpos, kval)
+        ctx.causal, ctx.window = causal, window
+        t = lambda a: a.transpose(1, 2)  # noqa: E731
+        return t(run(t(q), t(k), t(v), qpos, kpos, kval))
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.attn_gemm import attn_float
+
+        q, k, v, qpos, kpos, kval = ctx.saved_tensors
+        t = lambda a: a.transpose(1, 2)  # noqa: E731
+        with torch.enable_grad():
+            xs = [a.detach().requires_grad_(True) for a in (q, k, v)]
+            out = t(attn_float(*(t(a) for a in xs), qpos, kpos, kval,
+                               causal=ctx.causal, window=ctx.window))
+            grads = torch.autograd.grad(out, xs, g.to(torch.float32))
+        return (*(d.to(a.dtype) for d, a in zip(grads, (q, k, v))),
+                None, None, None, None, None, None)
+
+
+def _attn_forward(gp: GemmParams, plan: AttnPlan) -> Callable:
+    runner = ATTN_RUNNERS[plan.entry.name]
+
+    def run(qh, kh_, vh, qpos, kpos, kval):
+        return runner(qh, kh_, vh, qpos, kpos, kval, gp, plan)
+
+    def forward(q, k, v, qpos, kpos, kval):
+        return _STEAttn.apply(q, k, v, qpos, kpos, kval, run,
+                              plan.attn.causal, plan.attn.window)
+
+    return forward
+
+
+def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  gp: GemmParams, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  q_positions: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None,
+                  kv_valid: Optional[torch.Tensor] = None,
+                  block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Dispatch + execute one approximate attention.
+
+    q: (B, Sq, H, D) float; k/v: (B, Skv, KH, D) with H % KH == 0.
+    Returns float32 (B, Sq, H, D) with the straight-through exact-float
+    gradients of `attn_float`.  Both inner dots run through the datapath
+    `gp` selects, under online-softmax tiling; `causal`/`window` are plan
+    geometry, `q_positions` (B, Sq), `kv_positions` + `kv_valid` (B, Skv)
+    runtime operands defaulting to dense positions, all valid.
+
+    Integer modes only (`ATTN_MODES`); a geometry every entry rejects
+    raises ValueError, which the models layer turns into the float path.
+    A planned call that its kernel then refuses is a fault, not a
+    fallback, and raises RuntimeError.  Plans are cached on
+    `bucket_attn` (a miss counts in `plan_misses()`)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"cim_attention wants (B, S, H, D) operands; got q.dim="
+            f"{q.dim()} k.dim={k.dim()} v.dim={v.dim()}")
+    b, sq, heads, hd = q.shape
+    skv, kv_heads = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, skv, kv_heads, hd) or v.shape != k.shape:
+        raise ValueError(f"k/v shape mismatch: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    if heads % kv_heads:
+        raise ValueError(
+            f"GQA needs H % KH == 0, got {heads} % {kv_heads}")
+    if gp.mode not in ATTN_MODES:
+        raise ValueError(
+            f"cim_attention runs the integer modes {ATTN_MODES}; "
+            f"mode {gp.mode!r} stays on the float attention path")
+    backend = _backend(q, k)
+    _backend(q, v)
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=dev).expand(b, sq)
+    if kv_positions is None:
+        kv_positions = torch.arange(skv, device=dev).expand(b, skv)
+    if kv_valid is None:
+        kv_valid = torch.ones((b, skv), dtype=torch.int32, device=dev)
+    ap = AttnParams(causal=causal, window=window)
+    key = (("attn", gp, ap, q.dtype, k.dtype, v.dtype,
+            None if block is None else tuple(block), backend)
+           + bucket_attn(b, heads, kv_heads, sq, skv, hd))
+    fn = _FORWARDS.get(key)
+    if fn is None:
+        with _LOCK:
+            fn = _FORWARDS.get(key)
+            if fn is None:
+                plan = plan_attn(gp.family, gp.mode, gp.bits, b, heads,
+                                 kv_heads, sq, skv, hd, ap, backend=backend,
+                                 block=block, spec=gp.spec)
+                fn = _attn_forward(gp, plan)
+                _FORWARDS[key] = fn
+                _PLAN_MISSES[0] += 1
+    try:
+        return fn(q, k, v, q_positions.to(torch.int32),
+                  kv_positions.to(torch.int32), kv_valid.to(torch.int32))
+    except ValueError as err:
+        raise RuntimeError(
+            f"the planned attention kernel refused its call: {err}") from err
+
+
+_CACHES_DEFINED = True

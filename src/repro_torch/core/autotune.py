@@ -1,0 +1,59 @@
+"""Block-size resolution for the kernels (attention half).
+
+The reference resolves every kernel's tile through a measured sweep on
+the TPU and a shape-clipped heuristic elsewhere.  This module ports the
+attention heuristic only; the measured sweep and its disk cache are a
+later slice (ROADMAP queue A 4).
+
+For attention the block is a (bq, bk) pair, and ``bk`` is part of the
+numerics: the online softmax is tiled along the kv axis, so the float
+result depends on it.  The port therefore resolves the reference's
+``bk`` for every entry, on both devices.  ``bq`` is free on Hopper (a
+query row's result does not depend on which rows share its block); the
+CUDA kernels pick their own (kernels/attn_gemm.ATTN_BQ).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+AttnBlock = Tuple[int, int]
+
+# the reference's defaults, keyed by its kernel names (entries of the
+# port map to these through core/approx_gemm._ATTN_REF_NAMES)
+DEFAULT_ATTN_BLOCKS: Dict[str, AttnBlock] = {
+    "pallas_attn_mxu": (128, 128),
+    "pallas_attn_lut": (32, 128),
+    "pallas_attn_nibble": (64, 128),
+    "pallas_attn_log": (16, 128),
+    # the plain fallback tiles its kv loop by bk too
+    "attn_xla": (32, 128),
+}
+
+
+def bucket(v: int) -> int:
+    """Next power of two >= v (floor 8): the plan caches' shape key."""
+    b = 8
+    while b < v:
+        b <<= 1
+    return b
+
+
+def bucket_attn(b: int, heads: int, kv_heads: int, sq: int, skv: int,
+                head_dim: int) -> Tuple[int, ...]:
+    """Attention-shape bucketing (the attention plan cache's key): powers
+    of two on batch and the two sequence axes; heads, kv_heads and
+    head_dim exact."""
+    return (bucket(b), heads, kv_heads, bucket(sq), bucket(skv), head_dim)
+
+
+def _clip_attn_block(block: AttnBlock, sq: int, skv: int) -> AttnBlock:
+    bq, bk = block
+    return (max(8, min(bq, bucket(sq))), max(8, min(bk, bucket(skv))))
+
+
+def heuristic_attn_block(kernel: str, sq: int, skv: int) -> AttnBlock:
+    """The reference's block for `kernel` (a reference kernel name),
+    clipped to the bucketed sequence lengths."""
+    return _clip_attn_block(DEFAULT_ATTN_BLOCKS.get(kernel, (32, 128)),
+                            sq, skv)

@@ -17,14 +17,14 @@ import dataclasses
 from typing import Optional
 
 from . import energy_model, sram_model, yield_analysis
-from .approx_gemm import MODES, GemmParams, GemmPlan, plan_gemm
+from .approx_gemm import FAMILIES, MODES, GemmParams, GemmPlan, plan_gemm
 from .error_model import ErrorMetrics, SurrogateModel, characterize
 from .multipliers import MultiplierSpec
 
 # CiMConfig fields whose non-default values select features of later
-# slices of the port (per-module allocation, fault injection, CiM
-# attention, per-token scales): accepted as fields, refused as values.
-_LATER_SLICE = ("alloc", "fault", "attn", "attn_heads", "per_token")
+# slices of the port (per-module allocation, fault injection, per-token
+# scales): accepted as fields, refused as values.
+_LATER_SLICE = ("alloc", "fault", "per_token")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +44,9 @@ class CiMConfig:
     apply_to: tuple = ()
     alloc: Optional[tuple] = None
     per_token: bool = False
+    # route self-attention's QK^T and PV through the fused CiM attention
+    # kernels in the integer modes; `attn_heads` optionally gives one
+    # family per query head (per-head tier allocation)
     attn: bool = False
     attn_heads: Optional[tuple] = None
     sram: sram_model.SRAMConfig = dataclasses.field(
@@ -59,6 +62,13 @@ class CiMConfig:
                 raise NotImplementedError(
                     f"CiMConfig.{name} is not ported yet (a later slice "
                     "of the PyTorch port)")
+        if self.attn_heads is not None:
+            if not self.attn:
+                raise ValueError("attn_heads requires attn=True")
+            bad = [f for f in self.attn_heads if f not in FAMILIES]
+            if bad:
+                raise ValueError(
+                    f"attn_heads families {bad!r} not in {FAMILIES}")
 
     @property
     def spec(self) -> MultiplierSpec:

@@ -23,6 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+# every kernel source of the port (csrc/<name>.cu)
+SOURCES = ("lut_gemm", "log_gemm", "attn_gemm")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -3,11 +3,15 @@ against a KV cache.  GQA via KV-head grouping; optional QKV bias
 (qwen2.5), per-head q/k RMSNorm (qwen3), fractional RoPE (stablelm 0.25,
 chatglm 0.5).
 
-The score and value products are plain torch operations (the JAX
-package left them to XLA).  `_chunked_attn` follows the reference's
-online-softmax chunking step for step, not
+In the float modes the score and value products are plain torch
+operations (the JAX package left them to XLA).  `_chunked_attn` follows
+the reference's online-softmax chunking step for step, not
 `scaled_dot_product_attention`, so the two stay comparable to a stated
-tolerance.
+tolerance.  With ``CiMConfig(attn=True)`` in an integer mode, self-
+attention runs through the fused CiM attention kernels instead
+(`_cim_sdpa`, core/approx_gemm.cim_attention); a geometry the dispatch
+engine rejects keeps the float path, and `cim_attn_fallbacks()` counts
+each such call.
 
 KV caches are updated IN PLACE (the reference returns new arrays): the
 engine's slot pool owns one buffer per layer for its whole life, and the
@@ -26,6 +30,18 @@ from .common import CiMContext, apply_rope, cim_linear, param, rms_norm, \
     rope_tables
 
 NEG_INF = -1e30
+
+# float-path fallbacks of CiM attention (dispatch rejected the geometry)
+_FALLBACKS = [0]
+
+
+def cim_attn_fallbacks() -> int:
+    """CiM-attention calls that fell back to the float path so far."""
+    return _FALLBACKS[0]
+
+
+def reset_cim_attn_fallbacks() -> None:
+    _FALLBACKS[0] = 0
 
 
 def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
@@ -189,6 +205,78 @@ def _chunked_attn(q, k, v, q_chunk: int, kv_chunk: int, causal: bool,
     return torch.cat(chunks, dim=1)[:, :sq_out]
 
 
+def _use_cim_attn(p, is_cross: bool = False) -> bool:
+    """Route this SDPA through the fused CiM attention kernels?  Integer
+    modes only (the float modes keep `_chunked_attn`), self-attention
+    only."""
+    return (getattr(p, "attn", False)
+            and p.mode in ("hardware", "bit_exact") and not is_cross)
+
+
+def _cim_sdpa(q, k, v, p, *, causal, window, qpos, kpos, kval):
+    """SDPA through core.approx_gemm.cim_attention.
+
+    q: (B, Sq, H, D) float; k/v: (B, Skv, KH, D); qpos (B, Sq), kpos
+    (B, Skv) positions, kval (B, Skv) validity.  Returns the f32
+    attention output, or None when the dispatch engine rejects the
+    geometry (the caller keeps the float path: the documented fallback,
+    counted in `cim_attn_fallbacks()`).
+
+    Per-head tier allocation (``p.attn_heads``: one family per q head):
+    K/V expand to the per-q-head layout (exact, because the scales are
+    per head), then each family's heads run one call and scatter back."""
+    from repro_torch.core.approx_gemm import GemmParams, cim_attention
+
+    def gp_for(family):
+        return GemmParams(family=family, bits=p.bits, mode=p.mode,
+                          mu=p.mu, c0=p.c0, c1=p.c1,
+                          compressor=p.compressor,
+                          n_approx_cols=p.n_approx_cols)
+
+    kw = dict(causal=causal, window=window, q_positions=qpos,
+              kv_positions=kpos, kv_valid=kval)
+    h, kh = q.shape[2], k.shape[2]
+    heads = getattr(p, "attn_heads", None)
+    if heads is not None and len(heads) != h:
+        raise ValueError(
+            f"attn_heads has {len(heads)} entries for {h} query heads")
+    try:
+        if heads is None:
+            return cim_attention(q, k, v, gp_for(p.family), **kw)
+        g = h // kh
+        ke = k.repeat_interleave(g, dim=2)
+        ve = v.repeat_interleave(g, dim=2)
+        out = torch.zeros(q.shape[:3] + (v.shape[-1],), dtype=torch.float32,
+                          device=q.device)
+        for fam in dict.fromkeys(heads):
+            idx = torch.tensor([i for i, f in enumerate(heads) if f == fam],
+                               device=q.device)
+            out[:, :, idx] = cim_attention(q[:, :, idx], ke[:, :, idx],
+                                           ve[:, :, idx], gp_for(fam), **kw)
+        return out
+    except ValueError:
+        _FALLBACKS[0] += 1
+        return None                    # unsupported geometry: float path
+
+
+def _full_sdpa(q, k, v, ctx, q_chunk, kv_chunk, causal, window, positions,
+               valid, seq_info):
+    """SDPA of a whole sequence (no cache, or a prefill): CiM attention
+    when the context asks for it and dispatch admits the geometry, else
+    the float `_chunked_attn`."""
+    if _use_cim_attn(ctx.p):
+        kval = (torch.ones(positions.shape, dtype=torch.int32,
+                           device=positions.device)
+                if valid is None else valid.to(torch.int32))
+        y = _cim_sdpa(q, k, v, ctx.p, causal=causal, window=window,
+                      qpos=positions, kpos=positions, kval=kval)
+        if y is not None:
+            return y
+    return _chunked_attn(q, k, v, q_chunk, kv_chunk, causal, window,
+                         q_offset=0, kv_len_valid=k.shape[1],
+                         seq_info=seq_info)
+
+
 def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
                     rope_fraction, rope_theta, qk_norm, ctx: CiMContext,
                     causal: bool = True, window: Optional[int] = None,
@@ -217,9 +305,8 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
         seq_info = (positions, positions, valid)
 
     if cache is None:
-        y = _chunked_attn(q, k, v, q_chunk, kv_chunk, causal, window,
-                          q_offset=0, kv_len_valid=k.shape[1],
-                          seq_info=seq_info)
+        y = _full_sdpa(q, k, v, ctx, q_chunk, kv_chunk, causal, window,
+                       positions, valid, seq_info)
         return _out_proj(params, y.to(x.dtype), ctx), None
 
     # caches store K/V flattened to (B, T, KH*D), as in the reference
@@ -242,9 +329,8 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
             p0 = skv - t
             ck.copy_(torch.roll(kf[:, p0:].to(ck.dtype), p0 % t, dims=1))
             cv.copy_(torch.roll(vf[:, p0:].to(cv.dtype), p0 % t, dims=1))
-        y = _chunked_attn(q, k, v, q_chunk, kv_chunk, causal, window,
-                          q_offset=0, kv_len_valid=k.shape[1],
-                          seq_info=seq_info)
+        y = _full_sdpa(q, k, v, ctx, q_chunk, kv_chunk, causal, window,
+                       positions, valid, seq_info)
         if valid is not None:
             # per-slot fill level: pad tokens don't count
             pos_out = valid.sum(dim=1).to(torch.int32)
@@ -289,6 +375,21 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
     g = n_heads // kh
     ck4 = ck.reshape(b, t, kh, head_dim)
     cv4 = cv.reshape(b, t, kh, head_dim)
+    if window is None and _use_cim_attn(ctx.p):
+        # dense decode: causal (qpos = pos) + fill-level validity give the
+        # kv_ok mask exactly; window-ring decode keeps the float path (the
+        # ring's slot order scrambles the positions).  The per-head
+        # scales span the whole (B, t) cache, rows past the fill level
+        # included, as in the reference.
+        qpos_d = (pos[:, None] if per_slot
+                  else pos.reshape(1, 1).expand(b, 1)).to(torch.int32)
+        kpos_d = tpos.to(torch.int32).expand(b, t)
+        kval_d = (kv_ok if kv_ok.dim() == 2 else kv_ok.expand(b, t)).to(
+            torch.int32)
+        o = _cim_sdpa(q, ck4, cv4, ctx.p, causal=True, window=None,
+                      qpos=qpos_d, kpos=kpos_d, kval=kval_d)
+        if o is not None:
+            return _out_proj(params, o.to(x.dtype), ctx), new_cache
     qg = q.reshape(b, 1, kh, g, head_dim).to(ck.dtype)
     # cache-dtype products, f32 softmax (as the reference)
     s_ = torch.einsum("bqkgd,btkd->bkgqt", qg, ck4).to(torch.float32) \

@@ -124,6 +124,8 @@ class CiMParams:
     compressor: str = "yang1"
     n_approx_cols: Optional[int] = None
     apply_to: tuple = ()         # name prefixes; () = every matmul
+    attn: bool = False           # fused CiM attention (models/attention.py)
+    attn_heads: Optional[tuple] = None   # per-q-head family allocation
 
     @classmethod
     def from_config(cls, cim: Optional[CiMConfig]) -> "CiMParams":
@@ -134,7 +136,9 @@ class CiMParams:
                    mu=s.mu_rel, c0=s.c0_abs, c1=s.c1_rel,
                    compressor=cim.compressor,
                    n_approx_cols=cim.n_approx_cols,
-                   apply_to=tuple(cim.apply_to))
+                   apply_to=tuple(cim.apply_to), attn=bool(cim.attn),
+                   attn_heads=(tuple(cim.attn_heads)
+                               if cim.attn_heads is not None else None))
 
     def gemm_params(self) -> GemmParams:
         return GemmParams(family=self.family, bits=self.bits,

@@ -258,17 +258,20 @@ class LMLaneBackend:
         return nxt
 
     def reset(self) -> None:
-        """Return every slot to the idle state a fresh pool starts in:
-        token 0 at position 0 in the scheduler's view AND in the caches'
-        fill levels.  Idle slots ride along in each decode round and
-        enter the per-tensor activation scale, so a pool reused from an
-        earlier workload must restart them here to serve a workload
-        exactly as a fresh pool would."""
+        """Return every slot to the state a fresh pool starts in: token 0
+        at position 0 in the scheduler's view, zero fill levels AND zero
+        K/V rows.  Idle slots ride along in each decode round and enter
+        the per-tensor activation scale; with CiM attention an idle
+        slot's attention also reads its stale rows past the fill level
+        (the per-head scales span the whole cache, as in the reference),
+        so a pool reused from an earlier workload must clear both to
+        serve a workload exactly as a fresh pool would."""
         self.slot_tokens[:] = 0
         self.slot_pos[:] = 0
         with torch.inference_mode():
             for layer in self.caches["layers"]:
-                layer["pos"].zero_()
+                for name in ("k", "v", "pos"):
+                    layer[name].zero_()
 
     def warmup(self) -> int:
         """Run every steady-state shape once: each (G, P) prefill (its

@@ -41,18 +41,22 @@ class AccuracyTier:
 def build_tiers(bits: int = 8, mode: str = "surrogate_fast",
                 families: Sequence[str] = ("exact", "appro42", "mitchell",
                                            "log_our"),
-                ) -> Tuple[AccuracyTier, ...]:
+                attn: bool = False) -> Tuple[AccuracyTier, ...]:
     """DSE-characterized default ladder, sorted by ascending NMED.
 
     `mode` is the execution mode of the *approximate* tiers (the exact
     tier always runs the exact int8 macro); "hardware" runs the
-    bit-true GPU kernels."""
+    bit-true GPU kernels.  ``attn=True`` also routes every tier's
+    self-attention through the fused CiM attention kernels; only the
+    integer modes (hardware/bit_exact) take that path, so the exact tier
+    keeps the float attention."""
     pts = dse.enumerate_space(bits=bits, families=tuple(families))
     tiers = []
     if "exact" in families:
         ex = [p for p in pts if p.spec.family == "exact"][0]
         tiers.append(AccuracyTier(
-            "exact", CiMConfig(family="exact", bits=bits, mode="exact"),
+            "exact", CiMConfig(family="exact", bits=bits, mode="exact",
+                               attn=attn),
             ex.nmed, ex.energy_per_mac_j))
     app = dse.select([p for p in pts if p.spec.family == "appro42"])
     if app:
@@ -61,7 +65,8 @@ def build_tiers(bits: int = 8, mode: str = "surrogate_fast",
             "balanced",
             CiMConfig(family="appro42", bits=bits, mode=mode,
                       compressor=best.spec.compressor,
-                      n_approx_cols=best.spec.n_approx_cols),
+                      n_approx_cols=best.spec.n_approx_cols,
+                      attn=attn),
             best.nmed, best.energy_per_mac_j))
     logp = dse.select([p for p in pts
                        if p.spec.family in ("mitchell", "log_our")])
@@ -69,7 +74,7 @@ def build_tiers(bits: int = 8, mode: str = "surrogate_fast",
         best = logp[0]
         tiers.append(AccuracyTier(
             "economy", CiMConfig(family=best.spec.family, bits=bits,
-                                 mode=mode),
+                                 mode=mode, attn=attn),
             best.nmed, best.energy_per_mac_j))
     return tuple(sorted(tiers, key=lambda t: t.nmed))
 

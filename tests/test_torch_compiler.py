@@ -154,5 +154,18 @@ def test_fake_quant_straight_through_gradient():
                                          ("per_token", True),
                                          ("attn", True)])
 def test_later_slice_fields_raise(field, value):
+    """Fields of later slices are refused as values.  `attn` is ported
+    (CiM attention): it is accepted, and validated as the reference
+    validates it."""
+    if field == "attn":
+        assert CiMConfig(family="appro42", mode="hardware", attn=True).attn
+        heads = ("exact", "appro42")
+        assert CiMConfig(mode="hardware", attn=True,
+                         attn_heads=heads).attn_heads == heads
+        with pytest.raises(ValueError, match="requires attn=True"):
+            CiMConfig(mode="hardware", attn_heads=heads)
+        with pytest.raises(ValueError, match="not in"):
+            CiMConfig(mode="hardware", attn=True, attn_heads=("warp",))
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         CiMConfig(family="appro42", mode="hardware", **{field: value})

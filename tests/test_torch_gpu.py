@@ -129,3 +129,121 @@ def test_engine_serves_on_the_card_through_the_kernels():
         counts["mitchell_matmul_fused"]
     assert dataclasses.is_dataclass(res[0])
     assert np.isfinite(eng.lanes["balanced"].backend.last_decode_logits).all()
+
+
+# ---------------------------------------------------------------------------
+# CiM attention kernels
+# ---------------------------------------------------------------------------
+
+# (path, spec or None, compensated)
+ATTN_PATHS = [("lut", BALANCED, False), ("log", None, False),
+              ("log", None, True), ("nibble", MultiplierSpec("exact", 8, True),
+                                    False), ("mxu", None, False)]
+# (B, H, KH, Sq, Skv, D, variant): the reference's test geometry and the
+# serving decode geometry (ragged fill levels)
+ATTN_GEOMS = [(2, 4, 2, 21, 29, 12, "causal"), (2, 4, 2, 21, 29, 12, "window"),
+              (2, 4, 2, 1, 29, 12, "ragged"), (4, 16, 8, 1, 320, 128,
+                                               "ragged")]
+
+
+def _attn_case(dev, b, h, kh, sq, skv, d, variant, seed=0):
+    from repro_torch.kernels import attn_gemm
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, h, sq, d, generator=g)
+    k = torch.randn(b, kh, skv, d, generator=g)
+    v = torch.randn(b, kh, skv, d, generator=g)
+    qpos = torch.arange(skv - sq, skv, dtype=torch.int32).expand(b, sq)
+    kpos = torch.arange(skv, dtype=torch.int32).expand(b, skv)
+    fill = torch.tensor([skv - 3 * i for i in range(b)])[:, None]
+    kval = ((kpos < fill) if variant == "ragged"
+            else torch.ones(b, skv, dtype=torch.bool)).to(torch.int32)
+    ts = [t.contiguous().to(dev) for t in (q, k, v)]
+    sc = attn_gemm.attn_scales(*ts, 8)
+    return ts, sc, [t.contiguous().to(dev) for t in (qpos, kpos, kval)], \
+        (5 if variant == "window" else None)
+
+
+def _beyond_lsum_rounding(got, want):
+    """Outputs of an attention kernel further from its plain version (on
+    the same card) than the l sum's rounding: the two differ only in the
+    order of that sum, which moves an output by at most 8 eps of |want|;
+    one moved pq level moves it by about max|v| / (127 l), far more."""
+    eps = torch.finfo(torch.float32).eps
+    return int(((got - want).abs() > 8 * eps * want.abs()).sum())
+
+
+@pytest.mark.parametrize("geom", ATTN_GEOMS, ids=str)
+@pytest.mark.parametrize("path,spec,comp", ATTN_PATHS, ids=str)
+def test_attn_kernels_against_plain_versions(path, spec, comp, geom):
+    """Scores bitwise against the plain version, fused bitwise against
+    materialized, fused against the plain version within the l sum's
+    rounding in every output (the order of that sum differs)."""
+    from repro_torch.kernels import attn_gemm
+
+    dev = _card()
+    (q, k, v), sc, pos, window = _attn_case(dev, *geom)
+    table = ops._attn_table(path, spec, dev)
+    kw = dict(path=path, bits=8, causal=True, window=window,
+              compensated=comp, block=(8, 128 if geom[4] > 64 else 16))
+    scores = attn_gemm.attn_scores(q, k, sc[0], sc[1], *pos, table, **kw)
+    plain_scores = attn_gemm.attn_scores_plain(q, k, sc[0], sc[1], *pos,
+                                               table, **kw)
+    fused = attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)
+    mat = attn_gemm.attn_materialized(q, k, v, *sc, *pos, table, **kw)
+    plain = attn_gemm.attn_reference(q, k, v, *sc, *pos, table, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(scores, plain_scores)
+    assert torch.equal(fused, mat)
+    assert _beyond_lsum_rounding(fused, plain) == 0
+
+
+def test_attn_kernel_refuses_a_shared_memory_total_not_its_own(monkeypatch):
+    """The planner's shared-memory model (attn_smem_bytes) and the
+    kernel's layout are held together at every launch: a total that
+    drifts from the kernel's is refused, not launched."""
+    from repro_torch.kernels import attn_gemm
+
+    dev = _card()
+    (q, k, v), sc, pos, _ = _attn_case(dev, 2, 4, 2, 21, 29, 12, "causal")
+    table = ops._attn_table("lut", BALANCED, dev)
+    kw = dict(path="lut", bits=8, block=(8, 16))
+    attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)
+    real = attn_gemm.attn_smem_bytes
+    monkeypatch.setattr(attn_gemm, "attn_smem_bytes",
+                        lambda *a: real(*a) + 16)
+    before = attn_gemm.KERNELS["attn_fused"].launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)
+    assert attn_gemm.KERNELS["attn_fused"].launches == before
+
+
+def test_cim_attention_on_the_card_runs_the_kernel():
+    """cim_attention on CUDA tensors launches the fused kernel, which its
+    plan's plain version on the same card matches within the l sum's
+    rounding; against the CPU (whose exp may differ by an ulp and so move
+    a pq level) it is within one probability quantum of max|v|."""
+    from repro_torch.core.approx_gemm import (_attn_run_kwargs,
+                                              cim_attention, plan_attn)
+    from repro_torch.kernels import attn_gemm
+
+    dev = _card()
+    (q, k, v), _, (qpos, kpos, kval), _ = _attn_case(dev, 2, 4, 2, 21, 29,
+                                                     12, "ragged", seed=4)
+    t = lambda a: a.transpose(1, 2).contiguous()  # noqa: E731
+    gp = GemmParams(family="appro42", bits=8, mode="hardware",
+                    compressor="orplane", n_approx_cols=10)
+    before = attn_gemm.KERNELS["attn_fused"].launches
+    got = cim_attention(t(q), t(k), t(v), gp, q_positions=qpos,
+                        kv_positions=kpos, kv_valid=kval)
+    assert attn_gemm.KERNELS["attn_fused"].launches == before + 1
+    plan = plan_attn("appro42", "hardware", 8, 2, 4, 2, 21, 29, 12,
+                     backend="cuda", spec=gp.spec)
+    plain = ops.cim_attn_reference(q, k, v, qpos, kpos, kval,
+                                   **_attn_run_kwargs(gp, plan))
+    assert _beyond_lsum_rounding(got, t(plain)) == 0
+    want = cim_attention(t(q).cpu(), t(k).cpu(), t(v).cpu(), gp,
+                         q_positions=qpos.cpu(), kv_positions=kpos.cpu(),
+                         kv_valid=kval.cpu())
+    assert float((got.cpu() - want).abs().max()) <= \
+        float(v.abs().max()) / 127

@@ -70,13 +70,18 @@ def test_bridge_carries_bf16_bits(models):
 @pytest.mark.parametrize("tier", ["exact", "balanced", "economy"])
 def test_lm_logits_and_greedy_tokens_match_reference(models, tier,
                                                      record_property):
+    record_property("positions_under_gap_rule",
+                    _compare_with_reference(models, tier, attn=False))
+
+
+def _compare_with_reference(models, tier, attn, b=2):
     jcfg, tcfg, jp, _, tp = models
-    jt = {t.name: t for t in jbuild_tiers(mode="hardware")}[tier]
-    tt = {t.name: t for t in tbuild_tiers(mode="hardware")}[tier]
+    jt = {t.name: t for t in jbuild_tiers(mode="hardware", attn=attn)}[tier]
+    tt = {t.name: t for t in tbuild_tiers(mode="hardware", attn=attn)}[tier]
     jlm = JLM(dataclasses.replace(jcfg, cim=jt.cim))
     tlm = TLM(dataclasses.replace(tcfg, cim=tt.cim), device="cpu")
     rng = np.random.default_rng(7)
-    b, s, max_len, steps = 2, 8, 16, 3
+    s, max_len, steps = 8, 16, 3
     toks = rng.integers(0, jcfg.vocab, (b, s))
     jl, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks),
                               "max_len": max_len})
@@ -105,8 +110,8 @@ def test_lm_logits_and_greedy_tokens_match_reference(models, tier,
                                  jnp.int32(s + step))
         with torch.inference_mode():
             tl, tc = tlm.decode_step(tp, tc, torch.as_tensor(tok), s + step)
-    record_property("positions_under_gap_rule", under_gap)
     assert under_gap < b * (steps + 1)
+    return under_gap
 
 
 @pytest.mark.parametrize("sq,qc", [(41, 8), (37, 16)])

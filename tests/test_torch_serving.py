@@ -285,6 +285,69 @@ def test_engine_reused_after_warmup_serves_identically(smoke_lm):
             == ref[r.rid].tokens
 
 
+def test_attn_engine_serves_twice_identically(smoke_lm, monkeypatch):
+    """An attn=True ladder: warmup plans every attention shape (no plan
+    misses while serving), the approximate lanes run CiM attention with
+    no float fallback, and a workload served twice gives identical
+    tokens."""
+    from repro_torch.core import approx_gemm as ag
+    from repro_torch.models import attention as tattn
+
+    cfg, params = smoke_lm
+    tiers = build_tiers(mode="hardware", attn=True)
+    assert all(t.cim.attn for t in tiers)
+    eng = build_engine(cfg, params, tiers=tiers, slots_per_tier=2,
+                       max_len=24, prompt_buckets=(6,), group_buckets=(1, 2),
+                       device="cpu")
+    eng.warmup()
+    calls = []
+    real = ag.cim_attention
+    monkeypatch.setattr(ag, "cim_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    n0 = tattn.cim_attn_fallbacks()
+    wl = poisson_workload(8, rate=500.0, vocab=cfg.vocab,
+                          prompt_len=(3, 6), max_new=(1, 5),
+                          tier_mix=(("exact", None, 1.0),
+                                    ("balanced", None, 1.0),
+                                    ("economy", None, 1.0)), seed=5)
+    first = eng.run(wl, clock=SimClock())
+    assert eng.steady_plan_misses() == 0
+    assert calls and tattn.cim_attn_fallbacks() == n0
+    assert {r.tier for r in first.values()} == {"exact", "balanced",
+                                                 "economy"}
+    eng.warmup()
+    again = eng.run(wl, clock=SimClock())
+    for r in wl:
+        assert len(first[r.rid].tokens) == r.max_new
+        assert first[r.rid].tokens == again[r.rid].tokens
+
+
+@pytest.mark.parametrize("attn", [False, True])
+def test_decode_scales_span_the_whole_cache(smoke_lm, attn):
+    """Mirrored from the reference (its dense decode hands the whole
+    (B, t) cache to CiM attention): the per-head K/V scales are taken
+    over every cache row, those past the fill level included, so stale
+    rows there change a CiM-attention decode although the mask hides
+    them from the softmax.  The float path never reads them.  This is
+    why LMLaneBackend.reset() zeroes the K/V rows."""
+    cfg, params = smoke_lm
+    tier = {t.name: t for t in build_tiers(mode="hardware",
+                                           attn=attn)}["economy"]
+    lm = LM(dataclasses.replace(cfg, cim=tier.cim), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 6)))
+    out = []
+    for stale in (0.0, 50.0):
+        with torch.inference_mode():
+            _, caches = lm.prefill(params, {"tokens": toks, "max_len": 16})
+            for layer in caches["layers"]:
+                layer["k"][:, 8:] = stale          # rows past the fill level
+                layer["v"][:, 8:] = stale
+            lg, _ = lm.decode_step(params, caches, toks[:, -1:], 6)
+        out.append(lg)
+    assert torch.equal(out[0], out[1]) != attn
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -7,14 +7,24 @@ Phases, each of which must pass (the script exits nonzero otherwise):
 
   1. device: the card's name and count, and ``nvidia-smi``'s name and
      power limit;
-  2. build: the three CUDA sources (src/repro_torch/kernels/csrc)
+  2. build: the five CUDA sources (src/repro_torch/kernels/csrc)
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
-     report;
-  3. kernels: each of the four GEMM kernels (LUT gather and log-domain,
-     int and fused forms) against its plain PyTorch version on the card,
-     bitwise, at the shapes the qwen3-1.7b serving path gives them (M = 4
-     for a decode round of 4 slots, M = 64 for a 4 x 16 prefill, times
-     the model's four (K, N) weight shapes) plus one ragged shape; then
+     report; the log kernels' product loop read from their SASS
+     (``cuobjdump``), its instructions a product counted by pipe;
+  3. kernels: each of the six GEMM kernels (full-LUT gather, nibble
+     sub-LUT gather and log-domain, int and fused forms) against its
+     plain PyTorch version on the card, bitwise, at the shapes the
+     qwen3-1.7b serving path gives them (M = 4 for a decode round of 4
+     slots, M = 64 for a 4 x 16 prefill, times the model's four (K, N)
+     weight shapes; bf16 operands), the Table IV CNN's fc shape (f32
+     operands, as the CNN feeds them) and one ragged shape
+     (the nibble kernels for the exact table and appro42 with 4
+     approximate columns, the int form also at the saturating int8
+     minimum); the two implicit-GEMM conv kernels (full LUT, nibble for
+     both specs, Mitchell, Log-our) bitwise at the CNN's five conv
+     geometries at the evaluation batch of 256, the reference tests'
+     ragged shapes and one ResNet-18 conv2_x layer (4 x 56 x 56 x 64 ->
+     64, timed, its routing printed); then
      the three attention kernels (fused, and the oracle's scores and PV
      stages) on every datapath at the serving decode and prefill
      geometries and the reference tests' geometry: scores bitwise
@@ -23,12 +33,14 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      order of the l sum differs).  Each timed with CUDA events (L2
      flushed before every launch), beside its plain version's time and
      the least time the card could take (the larger of the bytes the
-     mask admits over 3.35 TB/s and gathers, int32 or int8 tensor-core
-     operations over the peak rate at the card's maximum SM clock);
+     mask admits over 3.35 TB/s and the products' shared-memory gathers,
+     log-product instructions or int8 tensor-core operations over their
+     peak rates at the card's maximum SM clock);
   4. reference: the LM on the card against the same LM on the CPU (the
      kernels' plain versions) on the smoke config, every tier of the
-     ladder with and without CiM attention, to a stated tolerance with
-     greedy-token agreement;
+     ladder with and without CiM attention, and a hardware lane of
+     appro42 with 4 approximate columns (the nibble GEMM), to a stated
+     tolerance with greedy-token agreement;
   5. serve: ``build_engine`` over the hardware-mode ladder (exact /
      balanced / economy) on full-size qwen3-1.7b with seeded random
      weights, warmup, then a Poisson workload served twice under a
@@ -45,7 +57,16 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      after warmup, ``attn_fused`` launched 28 times per forward of the
      balanced and economy lanes and never on the exact lane, no float
      fallback, identical tokens when served again, one real-clock run,
-     and one profiled decode round per lane.
+     and one profiled decode round per lane;
+  7. Table IV on the card: the CNN trained in float as the benchmark
+     trains it (220 SGD steps), evaluated on 256 shifted images under
+     the benchmark's reference semantics and in hardware mode for the
+     four families (the Table IV rows of both); each hardware forward
+     launches exactly five conv kernels of its family's entry and one fc
+     GEMM kernel and builds no plan after the first, equals the im2col
+     oracle (fused=False) bit for bit, and matches the CPU's plain
+     versions on 16 images to a stated tolerance; one forward per family
+     timed and profiled.
 
 ``--layers`` cuts the depth of phase 5 only (the cut is printed).
 
@@ -69,20 +90,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 GATHERS_PER_SM_CLOCK = 32          # shared-memory words a clock
-INT32_LANES_PER_SM = 64            # int32 ALU lanes a clock
-# int32 operations per log-domain product, counted from log_product and
-# the inner loop of csrc/log_gemm.cu (keyed by `compensated`)
-LOG_OPS = {False: 11, True: 28}
+# SM clocks one log-domain product needs at least, keyed by `compensated`:
+# phase 2 counts the instructions of the log kernels' product loop in
+# their SASS (kernels/sass.py) and keeps the fewest of any instantiation
+LOG_CLOCKS = {}
 LUT_BYTES = (1 << 16) * 2          # the 8-bit int16 product table
 
 WEIGHT_SHAPES = ((2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048))
 MAIN_SHAPES = [(m, k, n) for m in (4, 64) for (k, n) in WEIGHT_SHAPES]
+CNN_FC = (256, 64, 10)             # the Table IV CNN's fc at batch 256
 RAGGED = (33, 70, 17)
+NIBBLE_BYTES = 4 * 16 * 16 * 4     # the 8-bit int32 nibble sub-tables
 MIX = (("exact", None, 0.3), ("balanced", None, 0.4), ("economy", None, 0.3))
 # the served workload: seed 1 draws all three tiers from MIX (6 balanced,
 # 4 economy, 2 exact of 12 requests), which phase 5 checks
 N_REQUESTS, WORKLOAD_SEED = 12, 1
-REF_TOL = {"exact": 1e-2, "balanced": 4e-2, "economy": 4e-2}
+REF_TOL = {"exact": 1e-2, "balanced": 4e-2, "economy": 4e-2,
+           "balanced/4": 4e-2}
 
 # phase 6: prompts of 130-250 tokens in one 256-token bucket, 320-token
 # slots; seed 3 draws all three tiers (3 balanced, 3 economy, 2 exact)
@@ -117,9 +141,41 @@ SOURCES = {
                     "src/repro/kernels/attn_gemm.py:447"),
     "attn_pv": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
                 "src/repro/kernels/attn_gemm.py:461"),
+    "nibble_lut_matmul": ("src/repro_torch/kernels/csrc/nibble_gemm.cu",
+                          "src/repro/kernels/approx_matmul.py:294"),
+    "nibble_lut_matmul_fused": (
+        "src/repro_torch/kernels/csrc/nibble_gemm.cu",
+        "src/repro/kernels/approx_matmul.py:389"),
+    "conv_lut_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+                       "src/repro/kernels/conv_gemm.py:236"),
+    "conv_log_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+                       "src/repro/kernels/conv_gemm.py:321"),
 }
 GEMM_KERNELS = ("lut_matmul", "lut_matmul_fused", "mitchell_matmul",
-                "mitchell_matmul_fused")
+                "mitchell_matmul_fused", "nibble_lut_matmul",
+                "nibble_lut_matmul_fused")
+# the Table IV CNN (models/cnn.py, width 16): its five conv geometries
+# (H, W, C, N), 3x3 at stride 1, at the evaluation batch, and one
+# ResNet-18 conv2_x layer, timed only (B, H, W, C, N)
+CNN_BATCH = 256
+TRAIN_STEPS = 220                  # the benchmark's float training run
+CNN_CONVS = [(16, 16, 3, 16), (16, 16, 16, 16), (8, 8, 16, 32),
+             (8, 8, 32, 32), (4, 4, 32, 64)]
+CONV_RAGGED = [(2, 9, 10, 5, 7, 3, 3, 1), (1, 7, 7, 3, 4, 5, 5, 1),
+               (3, 8, 6, 4, 5, 1, 1, 1), (2, 10, 9, 3, 6, 3, 3, 2)]
+RESNET = (4, 56, 56, 64, 64)
+FAMS = ("exact", "appro42", "log_our", "mitchell")
+# the kernels a hardware forward of the CNN runs, per family: (conv, fc)
+CNN_KERNELS = {"exact": ("conv_lut_fused", "nibble_lut_matmul_fused"),
+               "appro42": ("conv_lut_fused", "lut_matmul_fused"),
+               "mitchell": ("conv_log_fused", "mitchell_matmul_fused"),
+               "log_our": ("conv_log_fused", "mitchell_matmul_fused")}
+# card against CPU logits on 16 images: everything up to the global mean
+# pool is bitwise equal (the conv kernels equal their plain versions),
+# the mean's sum order may differ in the last bit, and that can move one
+# quantized code of the fc input, i.e. a logit by about
+# max|h| / 127 * max|w_fc|: a few 1e-2 for the trained network
+CNN_TOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -155,23 +211,54 @@ def _timed_ms(torch, fn, reps: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def _bound(name: str, m: int, k: int, n: int, sms: int, clock_hz: float):
+def _bound(name: str, m: int, k: int, n: int, sms: int, clock_hz: float,
+           esize: int = 2):
     """(bound_ms, bound_by) for one call: bytes each input read once and
-    each output written once, against gathers or int32 operations at the
-    SMs' peak rate."""
+    each output written once (a fused form's operands `esize` bytes
+    each), against gathers at the SMs' peak rate or the log product's
+    instructions at the rates of the pipes they run on (LOG_CLOCKS)."""
     fused = name.endswith("fused")
-    lut = name.startswith("lut")
-    nbytes = (m * k * 2 + k * n * 2 + 4 + n * 4 + m * n * 4 if fused
+    nbytes = ((m * k + k * n) * esize + 4 + n * 4 + m * n * 4 if fused
               else m * k + k * n + m * n * 4)
-    if lut:
-        nbytes += LUT_BYTES
-        ops_s = m * k * n / (sms * GATHERS_PER_SM_CLOCK * clock_hz)
+    if name.startswith(("lut", "nibble")):
+        nibble = name.startswith("nibble")
+        nbytes += NIBBLE_BYTES if nibble else LUT_BYTES
+        ops_s = (m * k * n * (4 if nibble else 1)
+                 / (sms * GATHERS_PER_SM_CLOCK * clock_hz))
     else:
-        ops_s = m * k * n * LOG_OPS[False] / (sms * INT32_LANES_PER_SM
-                                              * clock_hz)
+        ops_s = m * k * n * LOG_CLOCKS[False] / (sms * clock_hz)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
                                        else "bytes")
+
+
+def log_clocks(build) -> None:
+    """Fill LOG_CLOCKS from the SASS of the built log GEMM and conv
+    libraries: per instantiation of the template's LogCore, the product
+    loop's instructions a product by pipe, and the SM clocks they need."""
+    from repro_torch.kernels import sass
+    from repro_torch.kernels.conv_gemm import ROWS_PER_THREAD, TILE
+
+    print(f"  log product loop, instructions a product (alu / fma / xu / "
+          f"either / all arithmetic) -> SM clocks a product, bound by:")
+    for lib in ("log_gemm", "conv_gemm"):
+        fns = sass.functions(sass.disassemble(build.library_path(lib)))
+        for name, insns in sorted(fns.items()):
+            for comp, tag in ((False, "LogCoreILb0E"), (True, "LogCoreILb1E")):
+                if tag not in name:
+                    continue
+                c = sass.per_product(insns, TILE[1], ROWS_PER_THREAD)
+                clk, by = sass.clocks_per_product(c)
+                LOG_CLOCKS[comp] = min(LOG_CLOCKS.get(comp, clk), clk)
+                inst = name[name.index(tag):][:48]
+                print(f"    {lib:<9} {inst:<48} {c['alu']:.3f} / "
+                      f"{c['fma']:.3f} / {c['xu']:.3f} / {c['either']:.3f} "
+                      f"/ {c['int']:.3f} -> {clk:.4f} ({by})")
+    if set(LOG_CLOCKS) != {False, True}:
+        fail("no LogCore instantiation found in the log libraries' SASS")
+    print(f"  LOG_CLOCKS (fewest of any instantiation): mitchell "
+          f"{LOG_CLOCKS[False]:.4f}, log_our {LOG_CLOCKS[True]:.4f}",
+          flush=True)
 
 
 def check_kernels(torch, sms: int, clock_hz: float):
@@ -185,18 +272,25 @@ def check_kernels(torch, sms: int, clock_hz: float):
     # the balanced tier's multiplier (appro42, orplane cells, 10 columns)
     lut = ops.lut_table(MultiplierSpec("appro42", 8, True, "orplane", 10),
                         dev)
+    # the nibble-decomposable specs: the exact table (timed) and appro42
+    # with its approximate columns in the low half-word (phase 4's lane)
+    subs = {"": ops.nibble_table(MultiplierSpec("exact", 8, True), dev),
+            "[appro42/4]": ops.nibble_table(
+                MultiplierSpec("appro42", 8, True, "orplane", 4), dev)}
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     rows = {name: [] for name in GEMM_KERNELS}
-    for shape in MAIN_SHAPES + [RAGGED]:
+    for shape in MAIN_SHAPES + [CNN_FC, RAGGED]:
         m, k, n = shape
         g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
-        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
-            torch.bfloat16)
+        x = torch.randn(m, k, generator=g, device=dev)
+        w = torch.randn(k, n, generator=g, device=dev) * 0.02
+        if shape != CNN_FC:     # the LM feeds bf16, the CNN's fc f32
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
         xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
                            dtype=torch.int8)
         wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
                            dtype=torch.int8)
+        xq[:, 0] = -128                     # the saturating int8 minimum
         sx, sw = ops._scales(x, w, 8)
         calls = {
             "lut_matmul": (lambda: am.lut_matmul(xq, wq, lut),
@@ -216,6 +310,14 @@ def check_kernels(torch, sms: int, clock_hz: float):
                                                         compensated=c),
                 lambda c=comp: mg.mitchell_matmul_fused_plain(
                     x, w, sx, sw, compensated=c))
+        for sfx, sub in subs.items():
+            calls["nibble_lut_matmul" + sfx] = (
+                lambda t=sub: am.nibble_lut_matmul(xq, wq, t),
+                lambda t=sub: ref.nibble_matmul_ref(xq, wq, t))
+            calls["nibble_lut_matmul_fused" + sfx] = (
+                lambda t=sub: am.nibble_lut_matmul_fused(x, w, t, sx, sw),
+                lambda t=sub: am.nibble_lut_matmul_fused_plain(x, w, t, sx,
+                                                               sw))
         for name, (kern, plain) in calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -224,16 +326,17 @@ def check_kernels(torch, sms: int, clock_hz: float):
                 fail(f"{name} {shape}: kernel != plain version "
                      f"(max |diff| {err})")
             if name not in rows:
-                continue                     # log_our: correctness only
+                continue            # log_our, appro42/4: correctness only
             row = {"shape": shape, "max_abs_err": err}
             if shape != RAGGED:
                 row["ms"] = _timed_ms(torch, kern, 10, flush)
                 row["plain_ms"] = _timed_ms(torch, plain, 1, flush)
-                row["bound_ms"], row["bound_by"] = _bound(name, m, k, n,
-                                                          sms, clock_hz)
+                row["bound_ms"], row["bound_by"] = _bound(
+                    name, m, k, n, sms, clock_hz, x.element_size())
             rows[name].append(row)
-        print(f"  {shape}: all kernels bitwise equal to their plain "
-              f"versions (mitchell and log_our)", flush=True)
+        print(f"  {shape} ({x.dtype} fused operands): all kernels bitwise "
+              f"equal to their plain versions (mitchell and log_our; "
+              f"nibble for exact and appro42/4)", flush=True)
     print(f"  {'kernel':<22} {'M,K,N':>16} {'ms':>9} {'bound_ms':>9} "
           f"{'by':>10} {'plain_ms':>9}")
     for name, rs in rows.items():
@@ -242,6 +345,115 @@ def check_kernels(torch, sms: int, clock_hz: float):
                 print(f"  {name:<22} {str(r['shape']):>16} {r['ms']:9.4f} "
                       f"{r['bound_ms']:9.4f} {r['bound_by']:>10} "
                       f"{r['plain_ms']:9.3f}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3, conv: the implicit-GEMM conv kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _conv_bound(core, comp, b, h, w, c, n, oh, ow, sms, clock_hz):
+    """(bound_ms, bound_by): the image, the weights and the scales read
+    once and the output written once at 3.35 TB/s, against the M*K*N
+    products of the implicit GEMM as gathers (lut; nibble four a
+    product) at the SMs' peak rate or, for log, at LOG_CLOCKS a
+    product."""
+    m, k = b * oh * ow, 9 * c
+    nbytes = 4 * (b * h * w * c + k * n + 1 + n + m * n)
+    nbytes += {"lut": LUT_BYTES, "nibble": NIBBLE_BYTES, "log": 0}[core]
+    products = m * k * n
+    if core == "log":
+        ops_s = products * LOG_CLOCKS[comp] / (sms * clock_hz)
+    else:
+        ops_s = (products * (4 if core == "nibble" else 1)
+                 / (sms * GATHERS_PER_SM_CLOCK * clock_hz))
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def check_conv(torch, sms: int, clock_hz: float):
+    from repro_torch.core.approx_gemm import ConvParams, plan_conv
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import conv_gemm as cg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    # (label, kernel, core, spec, compensated, on the CNN's path): the
+    # appro42 family's full table, the exact family's nibble sub-tables,
+    # appro42 with 4 approximate columns (nibble), mitchell and log_our
+    a8 = MultiplierSpec("appro42", 8, True)
+    ex = MultiplierSpec("exact", 8, True)
+    a4 = MultiplierSpec("appro42", 8, True, n_approx_cols=4)
+    variants = [("lut appro42", "conv_lut_fused", "lut", a8, False, True),
+                ("nibble exact", "conv_lut_fused", "nibble", ex, False, True),
+                ("nibble appro42/4", "conv_lut_fused", "nibble", a4, False,
+                 False),
+                ("mitchell", "conv_log_fused", "log", None, False, True),
+                ("log_our", "conv_log_fused", "log", None, True, True)]
+    geoms = ([(CNN_BATCH, h, w, c, n, 3, 3, 1) for h, w, c, n in CNN_CONVS]
+             + CONV_RAGGED + [RESNET + (3, 3, 1)])
+    rows = {"conv_lut_fused": [], "conv_log_fused": []}
+    print(f"  {'variant':<17} {'B,H,W,C->N':<24} {'ms':>9} {'bound_ms':>9} "
+          f"{'by':>10} {'plain_ms':>9}", flush=True)
+    for gi, geom in enumerate(geoms):
+        b, h, w, c, n, kh, kw, s = geom
+        g = torch.Generator(device=dev).manual_seed(31 * gi + 7)
+        x = torch.randn(b, h, w, c, generator=g, device=dev)
+        w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+        sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+        geo = dict(kh=kh, kw=kw, stride=s)
+        timed = geom not in CONV_RAGGED
+        for label, name, core, spec, comp, main in variants:
+            if core == "log":
+                def kern(c_=comp):
+                    return cg.conv_log_fused(x, w3, sx, sw, compensated=c_,
+                                             **geo)
+
+                def plain(c_=comp):
+                    return cg.conv_log_fused_plain(x, w3, sx, sw,
+                                                   compensated=c_, **geo)
+            else:
+                tab = (ops.nibble_table(spec, dev) if core == "nibble"
+                       else ops.lut_table(spec, dev))
+                nib = core == "nibble"
+
+                def kern(t=tab, nb=nib):
+                    return cg.conv_lut_fused(x, w3, t, sx, sw, nibble=nb,
+                                             **geo)
+
+                def plain(t=tab, nb=nib):
+                    return cg.conv_lut_fused_plain(x, w3, t, sx, sw,
+                                                   nibble=nb, **geo)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            if not torch.equal(got, want):
+                fail(f"{name} ({label}) {geom}: kernel != plain version "
+                     f"(max |diff| {err})")
+            row = {"variant": label, "geometry": geom, "max_abs_err": err,
+                   "main": main and timed and geom[:5] != RESNET}
+            if timed:
+                oh, ow = got.shape[1], got.shape[2]
+                row["ms"] = _timed_ms(torch, kern, 10, flush)
+                row["plain_ms"] = _timed_ms(torch, plain, 1, flush)
+                row["bound_ms"], row["bound_by"] = _conv_bound(
+                    core, comp, b, h, w, c, n, oh, ow, sms, clock_hz)
+                print(f"  {label:<17} {str(geom[:5]):<24} {row['ms']:9.4f} "
+                      f"{row['bound_ms']:9.4f} {row['bound_by']:>10} "
+                      f"{row['plain_ms']:9.3f}", flush=True)
+            rows[name].append(row)
+        if not timed:
+            print(f"  {str(geom):<42} every variant bitwise equal to its "
+                  f"plain version", flush=True)
+    routes = {fam: plan_conv(fam, "hardware", 8, *RESNET, ConvParams(),
+                             "cuda", spec=MultiplierSpec(fam, 8, True))
+              .entry.name for fam in FAMS}
+    print(f"  ResNet-18 conv2_x {RESNET} 3x3 routes on the card: {routes} "
+          f"(the reference's 8 MiB VMEM model sends this plane to "
+          f"conv_im2col)", flush=True)
     return rows
 
 
@@ -286,7 +498,8 @@ def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
                 clock_hz):
     """(bound_ms, bound_by): the bytes the output depends on, each read or
     written once, at 3.35 TB/s, against the integer products the data
-    needs, at the path's peak rate.  Both count only what the mask
+    needs, at the path's peak rate (log: LOG_CLOCKS a product, as the
+    template's log core compiles it).  Both count only what the mask
     admits: the (query, key) pairs, the q rows and K/V rows that take
     part in one (the scales are passed in, so no other row is read), and
     the admitted entries of the oracle's score tensor; every output row
@@ -317,8 +530,7 @@ def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
         gathers = products * (4 if path == "nibble" else 1)
         ops_s = gathers / (sms * GATHERS_PER_SM_CLOCK * clock_hz)
     else:
-        ops_s = products * LOG_OPS[comp] / (sms * INT32_LANES_PER_SM
-                                            * clock_hz)
+        ops_s = products * LOG_CLOCKS[comp] / (sms * clock_hz)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
                                        else "bytes")
@@ -449,9 +661,18 @@ def check_reference(torch):
     params_gpu = _to(torch, params_cpu, "cuda")
     rng_tokens = torch.Generator().manual_seed(7)
     toks = torch.randint(0, cfg.vocab, (2, 8), generator=rng_tokens)
-    for tier in (build_tiers(mode="hardware")
-                 + build_tiers(mode="hardware", attn=True)):
+    tiers = (build_tiers(mode="hardware")
+             + build_tiers(mode="hardware", attn=True))
+    # the balanced multiplier with 4 approximate columns: nibble-
+    # decomposable, so its GEMMs run the nibble kernel
+    bal = next(t for t in tiers if t.name == "balanced")
+    nibble_lane = dataclasses.replace(
+        bal, name="balanced/4", cim=dataclasses.replace(bal.cim,
+                                                        n_approx_cols=4))
+    nibble_kernel = _kernel_modules()["nibble_lut_matmul_fused"]
+    for tier in tiers + (nibble_lane,):
         name = tier.name + (" +attn" if tier.cim.attn else "")
+        nib0 = nibble_kernel.launches
         c = dataclasses.replace(cfg, cim=tier.cim)
         cpu, gpu = LM(c, device="cpu"), LM(c, device="cuda")
         tol = REF_TOL[tier.name]
@@ -483,9 +704,13 @@ def check_reference(torch):
                 lc, cc = cpu.decode_step(params_cpu, cc, tok, 8 + step)
                 lg, cg = gpu.decode_step(params_gpu, cg, tok.cuda(),
                                          8 + step)
+        nib = nibble_kernel.launches - nib0
+        if (tier is nibble_lane) != (nib > 0):
+            fail(f"reference {name}: the nibble GEMM kernel launched {nib} "
+                 "times")
         print(f"  {name:<15} card vs cpu: max |logit diff| {worst:.3e} "
               f"<= {tol} ; greedy tokens equal ({close} near-ties under "
-              f"the gap rule)", flush=True)
+              f"the gap rule); nibble GEMM launches {nib}", flush=True)
 
 
 def _to(torch, tree, device):
@@ -503,10 +728,11 @@ def _to(torch, tree, device):
 
 
 def _kernel_modules():
-    from repro_torch.kernels import approx_matmul, attn_gemm, mitchell_gemm
+    from repro_torch.kernels import (approx_matmul, attn_gemm, conv_gemm,
+                                     mitchell_gemm)
 
     return {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS,
-            **attn_gemm.KERNELS}
+            **conv_gemm.KERNELS, **attn_gemm.KERNELS}
 
 
 def _launch_counts():
@@ -665,9 +891,110 @@ def serve(torch, layers, power, attn: bool):
         print(f"    {name:<9} decode round (4 slots) {1e3 * dec:.1f} ms, "
               f"prefill (4 x {bucket}) {1e3 * pre:.1f} ms; attn_fused "
               f"{n_attn // 3} launches a decode round", flush=True)
-        _profile_round(torch, name, b, dec)
+        _profile(torch, name, b.decode_round, dec)
         b.reset()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Table IV on the card
+# ---------------------------------------------------------------------------
+
+
+def table4(torch):
+    """Train the CNN, evaluate it under both semantics, and hold every
+    hardware forward to its kernels, its im2col oracle and the CPU.
+    Returns the launch counts of the hardware evaluation (the main path of
+    this phase) and the hardware rows."""
+    from repro_torch.core.approx_gemm import plan_misses
+    from repro_torch.launch import table4_cnn as t4
+    from repro_torch.models.cnn import cnn_forward
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params, loss, acc = t4.train_cnn(TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize()
+    print(f"  trained {TRAIN_STEPS} float SGD steps (batch 64, lr {t4.LR}) in "
+          f"{time.perf_counter() - t0:.1f}s: last-batch loss {loss:.4f}, "
+          f"accuracy {acc:.3f}", flush=True)
+    t = time.perf_counter()
+    ref = {fam: t4.evaluate(params, fam) for fam in FAMS}
+    print(f"  reference semantics (bit-exact LUT gather, exact family in "
+          f"exact mode), n={CNN_BATCH}, {time.perf_counter() - t:.1f}s:")
+    for row in t4.table_rows(ref):
+        print(f"    {row}")
+    print(f"    claims (appro42/log_our hold accuracy, LM degrades): "
+          f"{t4.claims(ref)}", flush=True)
+
+    x, ys = t4.eval_images(CNN_BATCH, device=dev)
+    hw, logits = {}, {}
+    _reset_counts()                    # the main path: the hardware forwards
+    for fam in FAMS:
+        ctx = t4.hardware_context(fam)
+        before = _launch_counts()
+        with torch.no_grad():
+            logits[fam] = cnn_forward(params, x, ctx)
+        torch.cuda.synchronize()
+        delta = {n: c - before[n] for n, c in _launch_counts().items()}
+        conv, fc = CNN_KERNELS[fam]
+        want = {n: {conv: 5, fc: 1}.get(n, 0) for n in delta}
+        if delta != want:
+            fail(f"table4 {fam}: one hardware forward launched "
+                 f"{ {n: c for n, c in delta.items() if c} }, expected "
+                 f"5 x {conv} and 1 x {fc} (no conv_im2col)")
+        misses = plan_misses()
+        with torch.no_grad():
+            again = cnn_forward(params, x, ctx)
+        torch.cuda.synchronize()
+        if plan_misses() != misses:
+            fail(f"table4 {fam}: {plan_misses() - misses} plan misses "
+                 "after the first forward")
+        if not torch.equal(again, logits[fam]):
+            fail(f"table4 {fam}: a second forward gave other logits")
+        hw[fam] = t4.top1_top5(logits[fam], ys)
+    launches = _launch_counts()
+    print(f"  hardware mode, n={CNN_BATCH}: 5 conv + 1 fc kernel launches a "
+          f"forward for every family, no plan miss after the first; "
+          f"launches {launches}")
+    for row in t4.table_rows(hw):
+        print(f"    {row}")
+    print(f"    claims (appro42/log_our hold accuracy, LM degrades): "
+          f"{t4.claims(hw)}", flush=True)
+
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    for fam in FAMS:
+        ctx = t4.hardware_context(fam)
+        with torch.no_grad():
+            base = cnn_forward(params, x, ctx, fused=False)
+            card16 = cnn_forward(params, x[:16], ctx)
+            cpu16 = cnn_forward(cpu_params, x[:16].cpu(), ctx)
+        torch.cuda.synchronize()
+        if not torch.equal(base, logits[fam]):
+            fail(f"table4 {fam}: fused != the im2col oracle (max |d| "
+                 f"{float((base - logits[fam]).abs().max())})")
+        diff = float((card16.cpu() - cpu16).abs().max())
+        if not torch.isfinite(card16).all() or diff > CNN_TOL:
+            fail(f"table4 {fam}: card vs cpu max |logit diff| {diff} > "
+                 f"{CNN_TOL}")
+        top2 = cpu16.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > CNN_TOL
+        if (card16.cpu().argmax(-1) != cpu16.argmax(-1))[clear].any():
+            fail(f"table4 {fam}: top-1 differs from the CPU's where the "
+                 f"top-2 gap exceeds {CNN_TOL}")
+        # one forward on the host clock (warm), then under the profiler
+        with torch.no_grad():
+            t = time.perf_counter()
+            cnn_forward(params, x, ctx)
+            torch.cuda.synchronize()
+            fwd = time.perf_counter() - t
+            print(f"    {fam:<9} fused == im2col oracle bitwise; card vs "
+                  f"cpu (16 images) max |logit diff| {diff:.3e} <= "
+                  f"{CNN_TOL}, top-1 equal on {int(clear.sum())} clear "
+                  f"rows; forward ({CNN_BATCH} images) {1e3 * fwd:.2f} ms",
+                  flush=True)
+            _profile(torch, fam, lambda: cnn_forward(params, x, ctx), fwd)
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches, hw
 
 
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
@@ -677,9 +1004,13 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 def _kernel_class(name: str, matmul_kernels) -> str:
     low = name.lower()
-    if "lut_gemm" in low:
+    if "convsrc" in low:
+        return "CiM conv kernel"
+    if "lutcore" in low:
         return "CiM LUT kernel"
-    if "log_gemm" in low:
+    if "nibblecore" in low:
+        return "CiM nibble kernel"
+    if "logcore" in low:
         return "CiM log kernel"
     if "attn_kernel" in low:
         return "CiM attention kernel"
@@ -690,11 +1021,12 @@ def _kernel_class(name: str, matmul_kernels) -> str:
     return "other"
 
 
-def _profile_round(torch, lane: str, backend, unprofiled_s: float) -> None:
-    """One pool decode round under torch.profiler: the Python-level
-    PyTorch ops it dispatched, the kernels it launched, the union of their
-    device intervals against the round's time (the device's idle share),
-    and device time by kernel class and by kernel."""
+def _profile(torch, lane: str, run, unprofiled_s: float) -> None:
+    """One call of `run` (a pool decode round, a CNN forward) under
+    torch.profiler: the Python-level PyTorch ops it dispatched, the
+    kernels it launched, the union of their device intervals against the
+    call's time (the device's idle share), and device time by kernel
+    class and by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -702,7 +1034,7 @@ def _profile_round(torch, lane: str, backend, unprofiled_s: float) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        backend.decode_round()
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     events = prof.events()
@@ -710,7 +1042,7 @@ def _profile_round(torch, lane: str, backend, unprofiled_s: float) -> None:
     n_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
                 and e.cpu_parent is None and e.name.startswith("aten::"))
     if not kern:
-        print(f"    {lane:<9} profiled round: {wall_ms:.1f} ms, {n_ops} "
+        print(f"    {lane:<9} profiled run: {wall_ms:.1f} ms, {n_ops} "
               f"top-level ops; device time not measured (the profiler "
               f"recorded no kernels)", flush=True)
         return
@@ -728,10 +1060,10 @@ def _profile_round(torch, lane: str, backend, unprofiled_s: float) -> None:
         by_class[c] = by_class.get(c, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_ms = busy_us / 1e3
-    print(f"    {lane:<9} profiled round: {wall_ms:.1f} ms host clock "
+    print(f"    {lane:<9} profiled run: {wall_ms:.1f} ms host clock "
           f"({1e3 * unprofiled_s:.1f} ms unprofiled), {n_ops} top-level "
           f"ops, {len(kern)} kernels; device busy {busy_ms:.2f} ms = idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the profiled round, "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the profiled run, "
           f"{100 * max(0.0, 1 - busy_ms / (1e3 * unprofiled_s)):.1f}% of "
           f"the unprofiled one", flush=True)
     print("      by class (ms): " + ", ".join(
@@ -787,9 +1119,11 @@ def main():
                 print(f"    {line.strip()}")
     print(f"  {len(built)} sources built in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    log_clocks(build)
 
     print("[3] kernels against their plain versions", flush=True)
     rows = check_kernels(torch, sms, clock_hz)
+    conv_rows = check_conv(torch, sms, clock_hz)
     attn_rows = check_attention(torch, sms, clock_hz)
 
     print("[4] reference: the LM on the card against the CPU", flush=True)
@@ -802,17 +1136,32 @@ def main():
 
     print("[6] serve with CiM attention", flush=True)
     attn_launches = serve(torch, 0, power, attn=True)
+    gc.collect()                      # phase 6's engine is gone
+    torch.cuda.empty_cache()
+
+    print("[7] Table IV on the card", flush=True)
+    cnn_launches, _ = table4(torch)
 
     kernels = []
-    # the GEMM rows sum the eight main-path shapes; the attention rows the
-    # serving decode and prefill geometries on the paths the ladder runs
-    # (lut for balanced, log for economy)
-    main = {name: ([r for r in rs if "ms" in r], launches[name])
-            for name, rs in rows.items()}
+    # the GEMM rows sum the eight LM shapes and, for the fused forms (the
+    # CNN's fc, f32 operands) and the nibble rows, the CNN's fc shape,
+    # with the launches of the main paths that run them (5: the LM
+    # ladder, 7: the CNN); the conv rows the CNN's five geometries on the
+    # families' variants; the attention rows the serving decode and
+    # prefill geometries on the paths the ladder runs (lut for balanced,
+    # log for economy)
+    main = {}
+    for name, rs in rows.items():
+        fc = name.startswith("nibble") or name.endswith("fused")
+        shapes = MAIN_SHAPES + ([CNN_FC] if fc else [])
+        main[name] = ([r for r in rs if r["shape"] in shapes],
+                      launches[name] + cnn_launches[name])
+    for name, rs in conv_rows.items():
+        main[name] = ([r for r in rs if r["main"]], cnn_launches[name])
     for name, rs in attn_rows.items():
         main[name] = ([r for r in rs if "ms" in r and r["path"] in
                        ("lut", "log")], attn_launches[name])
-    every = {**rows, **attn_rows}
+    every = {**rows, **conv_rows, **attn_rows}
     for name, (timed, n_launch) in main.items():
         ops_ms = sum(r["bound_ms"] for r in timed
                      if r["bound_by"] == "operations")
@@ -829,7 +1178,8 @@ def main():
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "shapes": [list(r["shape"]) if "shape" in r
-                       else [r["path"], *r["geometry"]] for r in timed],
+                       else [r.get("path") or r["variant"], *r["geometry"]]
+                       for r in timed],
         })
     print(f"  total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(power)

@@ -23,8 +23,8 @@ Every (family, mode, bits, backend) combination is routed by a single
 operands' device ("cuda" or "cpu"), never from a global.  A hardware
 GEMM on a CUDA tensor resolves to a ``cuda_*`` entry or raises — the
 ``torch_*`` plain entries are registered for "cpu" only.  Entries that
-exist in the reference but are ported in a later slice (the nibble
-sub-LUT kernel, the fused surrogate kernel) stay registered with their
+exist in the reference but are ported in a later slice (the fused
+surrogate kernel, the exact-mode conv kernel) stay registered with their
 reference priorities, and routing to one raises `NotImplementedError`.
 
 Two float frontends execute a routed plan:
@@ -36,6 +36,13 @@ Two float frontends execute a routed plan:
 
 Kernel-backed paths carry a straight-through estimator
 (`torch.autograd.Function`, backward ``g @ w.T`` / ``x.T @ g``).
+
+The conv universe (``op="conv"`` entries) routes `cim_conv2d`: the
+implicit-GEMM conv kernels (kernels/conv_gemm.py) for hardware mode on
+bit-safe geometries, planned by `plan_conv` against a shared-memory
+model, and the materialized ``conv_im2col`` fallback (im2col + the GEMM
+engine) for everything else, with the float conv's gradient as the
+straight-through backward.
 
 The attention universe (``op="attn"`` entries) routes `cim_attention`:
 QK^T and PV through the flash CiM attention kernels
@@ -53,14 +60,16 @@ zero-retrace contract: after an engine's warmup the count stays flat.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .autotune import bucket, bucket_attn, heuristic_attn_block
+from .autotune import bucket, bucket_attn, bucket_conv, heuristic_attn_block
 from .error_model import SurrogateModel
 from .luts import MAX_LUT_BITS, nibble_decomposable
 from .multipliers import MultiplierSpec
@@ -95,7 +104,7 @@ class KernelEntry:
     # entries are eligible only when the caller supplies a spec
     predicate: Optional[Callable[[MultiplierSpec], bool]] = dataclasses.field(
         default=None, compare=False)
-    op: str = "gemm"                   # "gemm" | "attn" (universe)
+    op: str = "gemm"                   # "gemm" | "conv" | "attn" (universe)
 
     def supports(self, family: str, mode: str, bits: int,
                  backend: str) -> bool:
@@ -138,10 +147,7 @@ def _select_kernel_cached(family: str, mode: str, bits: int, backend: str,
             f"{sorted(e.name for e in _REGISTRY.values() if e.op == 'gemm')}")
     best = max(matches, key=lambda e: e.priority)
     if best.later:
-        raise NotImplementedError(
-            f"family={family!r} mode={mode!r} bits={bits} on {backend!r} "
-            f"routes to {best.name!r} ({best.description}), which is "
-            f"ported in a later slice: {best.later}")
+        raise _later(best, family, mode, bits, backend)
     return best
 
 
@@ -162,10 +168,16 @@ register_kernel(KernelEntry(
     families=("exact", "appro42"), backends=("cpu",), max_bits=8,
     description="plain version of the full-LUT gather kernel"))
 register_kernel(KernelEntry(
-    name="lut_nibble", modes=("hardware",), families=("exact", "appro42"),
-    backends=BACKENDS, priority=20, max_bits=8, predicate=nibble_decomposable,
-    description="nibble-decomposed kernel (4 x 2^{b/2} sub-LUTs)",
-    later="the nibble sub-LUT kernel (ROADMAP queue B)"))
+    name="cuda_lut_nibble", modes=("hardware",),
+    families=("exact", "appro42"), backends=("cuda",), priority=20,
+    max_bits=8, cuda=True, predicate=nibble_decomposable,
+    description="CUDA nibble-decomposed kernel (4 x 2^{b/2} int32 sub-LUTs "
+                "in shared memory)"))
+register_kernel(KernelEntry(
+    name="torch_lut_nibble", modes=("hardware",),
+    families=("exact", "appro42"), backends=("cpu",), priority=20,
+    max_bits=8, predicate=nibble_decomposable,
+    description="plain version of the nibble sub-LUT kernel"))
 register_kernel(KernelEntry(
     name="cuda_log", modes=("hardware",), families=("mitchell", "log_our"),
     backends=("cuda",), priority=10, max_bits=16, cuda=True,
@@ -227,12 +239,7 @@ def select_kernel(family: str, mode: str, bits: int, backend: str,
 
     `backend` is the operands' device type ("cuda" or "cpu").  `spec`
     unlocks predicate-gated entries (the nibble kernel).  Memoized."""
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r} not in {MODES}")
-    if family not in FAMILIES:
-        raise ValueError(f"family {family!r} not in {FAMILIES}")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    _check_request(family, mode, backend)
     return _select_kernel_cached(family, mode, bits, backend, spec)
 
 
@@ -318,6 +325,12 @@ def _run_lut(xq, wq, gp: GemmParams):
     return ops.approx_matmul_bit_exact(xq, wq, gp.spec)
 
 
+def _run_nibble(xq, wq, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.nibble_matmul_bit_exact(xq, wq, gp.spec)
+
+
 def _run_log(xq, wq, gp: GemmParams):
     from repro_torch.kernels import ops
 
@@ -329,6 +342,12 @@ def _run_fused_lut(x, w, gp: GemmParams):
     from repro_torch.kernels import ops
 
     return ops.approx_matmul_fused(x, w, gp.spec)
+
+
+def _run_fused_nibble(x, w, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.nibble_matmul_fused(x, w, gp.spec)
 
 
 def _run_fused_log(x, w, gp: GemmParams):
@@ -343,6 +362,8 @@ INT_RUNNERS: Dict[str, Callable] = {
     "torch_lut": _run_ref_lut,
     "cuda_lut_gather": _run_lut,
     "torch_lut_gather": _run_lut,
+    "cuda_lut_nibble": _run_nibble,
+    "torch_lut_nibble": _run_nibble,
     "cuda_log": _run_log,
     "torch_log": _run_log,
 }
@@ -352,6 +373,8 @@ INT_RUNNERS: Dict[str, Callable] = {
 FUSED_RUNNERS: Dict[str, Callable] = {
     "cuda_lut_gather": _run_fused_lut,
     "torch_lut_gather": _run_fused_lut,
+    "cuda_lut_nibble": _run_fused_nibble,
+    "torch_lut_nibble": _run_fused_nibble,
     "cuda_log": _run_fused_log,
     "torch_log": _run_fused_log,
 }
@@ -409,8 +432,8 @@ def _shift(d: torch.Tensor, mu: float) -> torch.Tensor:
     return d * torch.tensor(1.0 + mu, dtype=d.dtype).item()
 
 
-def _cim_forward(gp: GemmParams, plan: GemmPlan) -> Callable:
-    """Macro frontend: true quantization, f32 out."""
+def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
+    """Macro frontend's rank-2 forward: true quantization, f32 out."""
     mode = gp.mode
     if mode == "exact":
         def forward(xf, wf):
@@ -432,7 +455,12 @@ def _cim_forward(gp: GemmParams, plan: GemmPlan) -> Callable:
         def forward(xf, wf):
             xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits)
             return _shift(dequantize(xq, sx) @ dequantize(wq, sw), gp.mu)
-    return _ste(forward)
+    return forward
+
+
+def _cim_forward(gp: GemmParams, plan: GemmPlan) -> Callable:
+    """Macro frontend: `_cim_core` under the STE."""
+    return _ste(_cim_core(gp, plan))
 
 
 def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
@@ -486,7 +514,8 @@ def clear_dispatch_caches() -> None:
     with _LOCK:
         _FORWARDS.clear()
     _select_kernel_cached.cache_clear()
-    _attn_entries_cached.cache_clear()
+    _entries_cached.cache_clear()
+    _plan_conv_cached.cache_clear()
     _plan_attn_cached.cache_clear()
 
 
@@ -539,6 +568,380 @@ def model_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams, *,
     for `hardware`, the activation dtype preserved end to end.
     `apply=False` runs the exact int8 macro (mixed-macro allocation)."""
     return _forward_for("model", gp, apply, x, w)(x, w)
+
+
+def approx_matmul(x: torch.Tensor, w: torch.Tensor, spec: MultiplierSpec,
+                  surrogate: SurrogateModel,
+                  mode: str = "surrogate") -> torch.Tensor:
+    """Approximate x @ w with straight-through exact gradients: the
+    back-compat wrapper over `cim_matmul` that the Table IV benchmark
+    calls."""
+    return cim_matmul(x, w, GemmParams.from_spec(spec, surrogate, mode))
+
+
+# ---------------------------------------------------------------------------
+# Conv universe: implicit-GEMM convolution
+# ---------------------------------------------------------------------------
+
+# The materialized im2col + GEMM path is registered at priority 0 as the
+# always-eligible fallback; the implicit kernels outrank it when the
+# request, the geometry's bit safety and the shared-memory model admit
+# them (`plan_conv`).  Each kernel has a CUDA entry and its plain version
+# for "cpu", with the reference's priorities.
+register_kernel(KernelEntry(
+    name="conv_im2col", op="conv", modes=MODES, families=(), backends=(),
+    description="materialized-patch fallback: im2col + the GEMM engine "
+                "(every mode)"))
+register_kernel(KernelEntry(
+    name="conv_mxu", op="conv", modes=("exact",), families=(),
+    backends=BACKENDS, priority=10, max_bits=8,
+    description="implicit-GEMM fused-quantization conv, dequantized float "
+                "dot per kernel tap",
+    later="the exact-mode conv kernel (ROADMAP queue B 4)"))
+for _dev, _cuda in (("cuda", True), ("cpu", False)):
+    _pre = "cuda" if _cuda else "torch"
+    _what = "CUDA implicit-GEMM conv" if _cuda else "plain version of the " \
+        "implicit-GEMM conv kernel"
+    register_kernel(KernelEntry(
+        name=f"{_pre}_conv_lut", op="conv", modes=("hardware",),
+        families=("exact", "appro42"), backends=(_dev,), priority=10,
+        max_bits=8, cuda=_cuda, description=f"{_what}, full-LUT gather"))
+    register_kernel(KernelEntry(
+        name=f"{_pre}_conv_nibble", op="conv", modes=("hardware",),
+        families=("exact", "appro42"), backends=(_dev,), priority=20,
+        max_bits=8, cuda=_cuda, predicate=nibble_decomposable,
+        description=f"{_what}, nibble sub-LUT gather"))
+    register_kernel(KernelEntry(
+        name=f"{_pre}_conv_log", op="conv", modes=("hardware",),
+        families=("mitchell", "log_our"), backends=(_dev,), priority=10,
+        max_bits=16, cuda=_cuda, description=f"{_what}, log-domain product"))
+
+# implicit conv entry -> its core in kernels/conv_gemm.py
+_CONV_CORES = {f"{pre}_conv_{core}": core for pre in ("cuda", "torch")
+               for core in ("lut", "nibble", "log")}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvParams:
+    """Static conv geometry: kernel taps + stride, kh//2 zero padding
+    (SAME for stride 1).  Odd kernels only: an even kernel under
+    symmetric kh//2 padding would silently compute another conv."""
+
+    kh: int = 3
+    kw: int = 3
+    stride: int = 1
+
+    def __post_init__(self):
+        if self.kh % 2 != 1 or self.kw % 2 != 1:
+            raise ValueError(
+                f"even conv kernels ({self.kh}x{self.kw}) need asymmetric "
+                "padding, which the symmetric kh//2 scheme cannot express")
+        if self.stride < 1:
+            raise ValueError(f"stride must be >= 1, got {self.stride}")
+
+
+def conv_out_hw(h: int, w: int, kh: int, kw: int,
+                stride: int = 1) -> Tuple[int, int]:
+    """Output plane of a (kh, kw, stride) conv under kh//2 zero padding
+    (SAME for stride 1); the kernels size their launches with it too."""
+    return ((h + 2 * (kh // 2) - kh) // stride + 1,
+            (w + 2 * (kw // 2) - kw) // stride + 1)
+
+
+def im2col_nhwc(x: torch.Tensor, conv: ConvParams) -> torch.Tensor:
+    """(B,H,W,C) -> (B,OH,OW,kh*kw*C) materialized patch matrix (tap-major
+    columns, then channel): the oracle the implicit-GEMM kernels replace,
+    and the `conv_im2col` fallback."""
+    kh, kw, s = conv.kh, conv.kw, conv.stride
+    oh, ow = conv_out_hw(x.shape[1], x.shape[2], kh, kw, s)
+    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    cols = [xp[:, i:i + (oh - 1) * s + 1:s, j:j + (ow - 1) * s + 1:s]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(cols, dim=-1)
+
+
+def _conv_kernel_fits(entry_name: str, bits: int) -> bool:
+    """Does one block of the CUDA conv kernel fit a Hopper SM's shared
+    memory?
+
+    Re-derived from the reference's TPU VMEM model, which held a whole
+    padded input plane (8 MiB budget), for csrc/conv_gemm.cu's layout:
+    the kernel holds no plane, only its core's table and one staged A and
+    B tile (kernels/conv_gemm.gemm_smem_bytes), so the image size does
+    not enter and the answer depends on the core and the operand width
+    alone.  No width the conv entries accept fails it (the largest
+    block, the 8-bit full table's, is 137,216 bytes): it holds the
+    registry to the kernel's layout should an entry widen, and each
+    launch checks the same total again.  The plain versions are held to
+    the same gate, so a geometry routes alike on both devices."""
+    from repro_torch.kernels.build import SMEM_BYTES
+    from repro_torch.kernels.conv_gemm import gemm_smem_bytes
+
+    return gemm_smem_bytes(_CONV_CORES[entry_name], bits) <= SMEM_BYTES
+
+
+def _conv_bit_exact_safe(h: int, w: int, conv: ConvParams) -> bool:
+    """True iff the implicit kernels are bit-identical to the im2col
+    oracle at this geometry.  The implicit path quantizes with
+    quant_scale(x), the oracle with quant_scale(im2col(x)); the
+    max-based scales agree iff every input pixel reaches >= 1 patch:
+    stride <= min(kh, kw) keeps tap coverage contiguous, and the
+    sampling residue (Hp - kh) % stride must not exceed the padding —
+    otherwise trailing real rows/cols are never sampled.  Computed on
+    the *actual* dims (bucketing would mask the residue)."""
+    s = conv.stride
+    if s > min(conv.kh, conv.kw):
+        return False
+    return ((h + 2 * (conv.kh // 2) - conv.kh) % s <= conv.kh // 2
+            and (w + 2 * (conv.kw // 2) - conv.kw) % s <= conv.kw // 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """A routed conv: entry, geometry, backend."""
+
+    entry: KernelEntry
+    conv: ConvParams
+    backend: str
+
+
+@functools.lru_cache(maxsize=1024)
+def _entries_cached(op: str, family: str, mode: str, bits: int, backend: str,
+                    spec: Optional[MultiplierSpec]) -> Tuple[KernelEntry, ...]:
+    """Every entry of universe `op` ("conv" or "attn") supporting the
+    request, highest priority first (the planners walk it)."""
+    matches = [e for e in _REGISTRY.values()
+               if e.op == op and e.supports(family, mode, bits, backend)
+               and (e.predicate is None
+                    or (spec is not None and e.predicate(spec)))]
+    if not matches:
+        raise ValueError(
+            f"no {op} kernel for family={family!r} mode={mode!r} "
+            f"bits={bits} backend={backend!r}; registered: "
+            f"{sorted(e.name for e in _REGISTRY.values() if e.op == op)}")
+    return tuple(sorted(matches, key=lambda e: -e.priority))
+
+
+def _check_request(family: str, mode: str, backend: str,
+                   modes: Tuple[str, ...] = MODES) -> None:
+    if mode not in modes:
+        raise ValueError(f"mode {mode!r} not in {modes}")
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r} not in {FAMILIES}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+
+
+def _later(entry: KernelEntry, family: str, mode: str, bits: int,
+           backend: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"family={family!r} mode={mode!r} bits={bits} on {backend!r} "
+        f"routes to {entry.name!r} ({entry.description}), which is ported "
+        f"in a later slice: {entry.later}")
+
+
+def select_conv_kernel(family: str, mode: str, bits: int = 8,
+                       backend: str = "cuda",
+                       spec: Optional[MultiplierSpec] = None) -> KernelEntry:
+    """Highest-priority conv entry for the request (no footprint or
+    bit-safety gate: `plan_conv` applies those against the geometry)."""
+    _check_request(family, mode, backend)
+    entry = _entries_cached("conv", family, mode, bits, backend, spec)[0]
+    if entry.later:
+        raise _later(entry, family, mode, bits, backend)
+    return entry
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_conv_cached(family: str, mode: str, bits: int, bb: int, hb: int,
+                      wb: int, cb: int, nb: int, conv: ConvParams,
+                      bit_safe: bool, backend: str,
+                      spec: Optional[MultiplierSpec]) -> ConvPlan:
+    for entry in _entries_cached("conv", family, mode, bits, backend, spec):
+        if entry.later:
+            raise _later(entry, family, mode, bits, backend)
+        if entry.name in _CONV_CORES:
+            if not bit_safe:
+                continue           # the im2col path IS the oracle
+            if not _conv_kernel_fits(entry.name, bits):
+                continue           # tile too large: try lower priority
+        return ConvPlan(entry=entry, conv=conv, backend=backend)
+    raise ValueError(                  # conv_im2col always matches
+        f"no eligible conv kernel for family={family!r} mode={mode!r}")
+
+
+def plan_conv(family: str, mode: str, bits: int, b: int, h: int, w: int,
+              c: int, n: int, conv: ConvParams, backend: str = "cuda",
+              spec: Optional[MultiplierSpec] = None) -> ConvPlan:
+    """Route one conv to an entry.
+
+    Memoized on the conv-bucketed shape (autotune.bucket_conv: powers of
+    two on the data dims, taps and stride exact) plus the geometry's
+    exact bit-safety flag (`_conv_bit_exact_safe`, which bucketing would
+    mask).  The implicit kernels are skipped when the flag is False (the
+    materialized fallback is the oracle) or when their block does not
+    fit shared memory (`_conv_kernel_fits`); `conv_im2col` always
+    matches."""
+    _check_request(family, mode, backend)
+    bb, hb, wb, cb, _, _, _ = bucket_conv(b, h, w, c, conv.kh, conv.kw,
+                                          conv.stride)
+    return _plan_conv_cached(family, mode, bits, bb, hb, wb, cb, bucket(n),
+                             conv, _conv_bit_exact_safe(h, w, conv), backend,
+                             spec)
+
+
+def _run_conv_lut(x4, w2, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_lut_fused(x4, w2, gp.spec, kh=plan.conv.kh,
+                                kw=plan.conv.kw, stride=plan.conv.stride)
+
+
+def _run_conv_nibble(x4, w2, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_nibble_fused(x4, w2, gp.spec, kh=plan.conv.kh,
+                                   kw=plan.conv.kw, stride=plan.conv.stride)
+
+
+def _run_conv_log(x4, w2, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_log_fused(x4, w2, bits=gp.bits,
+                                compensated=(gp.family == "log_our"),
+                                kh=plan.conv.kh, kw=plan.conv.kw,
+                                stride=plan.conv.stride)
+
+
+# entry name -> f32 (B,H,W,C) x f32 (kh*kw*C,N) -> f32 (B,OH,OW,N); the
+# patch gather, quantization and the epilogue all run inside one kernel
+CONV_RUNNERS: Dict[str, Callable] = {
+    f"{pre}_conv_{core}": run for pre in ("cuda", "torch")
+    for core, run in (("lut", _run_conv_lut), ("nibble", _run_conv_nibble),
+                      ("log", _run_conv_log))}
+
+
+def _float_conv(x4: torch.Tensor, w2: torch.Tensor,
+                conv: ConvParams) -> torch.Tensor:
+    """Exact float conv (the STE gradient reference): x4 (B,H,W,C), w2
+    (kh*kw*C, N) tap-major -> (B,OH,OW,N)."""
+    c = x4.shape[-1]
+    wk = w2.reshape(conv.kh, conv.kw, c, -1).permute(3, 2, 0, 1)
+    y = F.conv2d(x4.permute(0, 3, 1, 2), wk, stride=conv.stride,
+                 padding=(conv.kh // 2, conv.kw // 2))
+    return y.permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def _full_f32_convs():
+    """cuDNN's f32 convolutions in full f32 (PyTorch allows TF32 there by
+    default, about three decimal digits): the STE gradient is the exact
+    float conv's, as the reference's."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _STEConv(torch.autograd.Function):
+    """A (x4, w2) -> out4 conv forward with the exact float conv's VJP
+    (the conv analogue of g @ w.T / x.T @ g in `_STEMatmul`)."""
+
+    @staticmethod
+    def forward(ctx, x4, w2, forward, conv):
+        ctx.save_for_backward(x4, w2)
+        ctx.conv = conv
+        return forward(x4, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x4, w2 = ctx.saved_tensors
+        with torch.enable_grad(), _full_f32_convs():
+            xs = [t.detach().to(torch.float32).requires_grad_(True)
+                  for t in (x4, w2)]
+            out = _float_conv(*xs, ctx.conv)
+            gx, gw = torch.autograd.grad(out, xs, g.to(torch.float32))
+        return gx.to(x4.dtype), gw.to(w2.dtype), None, None
+
+
+def _conv_forward(gp: GemmParams, plan: ConvPlan,
+                  shape: Tuple[int, int, int, int, int]) -> Callable:
+    """The (x4, w2) -> f32 out4 forward of a routed conv: an implicit-GEMM
+    kernel, or the `conv_im2col` fallback, which materializes the patches
+    and reuses the GEMM engine's macro forward (every mode).  Its inner
+    GEMM plan is resolved once, from the conv-bucketed dims."""
+    conv = plan.conv
+    if plan.entry.name in CONV_RUNNERS:
+        runner = CONV_RUNNERS[plan.entry.name]
+
+        def forward(x4, w2):
+            return runner(x4.to(torch.float32), w2.to(torch.float32), gp,
+                          plan)
+        return forward
+
+    b, h, w_, c, n = shape
+    oh, ow = conv_out_hw(bucket(h), bucket(w_), conv.kh, conv.kw,
+                         conv.stride)
+    gplan = plan_gemm(gp.family, gp.mode, gp.bits, bucket(b) * oh * ow,
+                      conv.kh * conv.kw * bucket(c), bucket(n), plan.backend,
+                      spec=gp.routing_spec)
+    inner = _cim_core(gp, gplan)
+
+    def forward(x4, w2):
+        cols = im2col_nhwc(x4.to(torch.float32), conv)
+        out2 = inner(cols.reshape(-1, cols.shape[-1]), w2.to(torch.float32))
+        return out2.reshape(cols.shape[:3] + (w2.shape[-1],))
+    return forward
+
+
+def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams, *,
+               kh: int = 3, kw: int = 3, stride: int = 1) -> torch.Tensor:
+    """Dispatch + execute one approximate convolution (macro semantics).
+
+    x: (B, H, W, C) float; w: (kh*kw*C, N) float with tap-major rows (the
+    `im2col_nhwc` column order), on one device.  Returns float32
+    (B, OH, OW, N) with the exact float conv's straight-through gradients.
+
+    Hardware mode runs the implicit-GEMM kernels (kernels/conv_gemm.py):
+    the patch gather happens inside the kernel by index arithmetic, so
+    the (M, kh*kw*C) im2col tensor never exists.  The result is
+    bit-identical to `im2col + cim_matmul` wherever the geometry is
+    bit-safe (`_conv_bit_exact_safe`), and `plan_conv` enforces it:
+    other geometries and the other modes run `conv_im2col`.  Plans are
+    cached on the conv-bucketed shape and the bit-safety flag (a miss
+    counts in `plan_misses()`).  Fault injection (a `GemmParams` with a
+    fault config) is a later slice and raises where that is built."""
+    conv = ConvParams(kh, kw, stride)
+    if x.dim() != 4 or w.dim() != 2:
+        raise ValueError(f"cim_conv2d wants x (B,H,W,C), w (K,N); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    b, h, w_, c = x.shape
+    n = w.shape[-1]
+    if w.shape[0] != kh * kw * c:
+        raise ValueError(
+            f"weight rows {w.shape[0]} != kh*kw*C = {kh}*{kw}*{c}")
+    if gp.mode not in MODES:
+        raise ValueError(f"mode {gp.mode!r} not in {MODES}")
+    backend = _backend(x, w)
+    bit_safe = _conv_bit_exact_safe(h, w_, conv)
+    key = (("conv2d", gp, conv, bit_safe, x.dtype, w.dtype, backend)
+           + bucket_conv(b, h, w_, c, kh, kw, stride) + (bucket(n),))
+    fn = _FORWARDS.get(key)
+    if fn is None:
+        with _LOCK:
+            fn = _FORWARDS.get(key)
+            if fn is None:
+                plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_, c,
+                                 n, conv, backend=backend, spec=gp.spec)
+                forward = _conv_forward(gp, plan, (b, h, w_, c, n))
+
+                def fn(x4, w2, _forward=forward):
+                    return _STEConv.apply(x4, w2, _forward, conv)
+                _FORWARDS[key] = fn
+                _PLAN_MISSES[0] += 1
+    return fn(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -631,38 +1034,13 @@ class AttnPlan:
     backend: str
 
 
-@functools.lru_cache(maxsize=1024)
-def _attn_entries_cached(family: str, mode: str, bits: int, backend: str,
-                         spec: Optional[MultiplierSpec]
-                         ) -> Tuple[KernelEntry, ...]:
-    matches = [e for e in _REGISTRY.values()
-               if e.op == "attn" and e.supports(family, mode, bits, backend)
-               and (e.predicate is None
-                    or (spec is not None and e.predicate(spec)))]
-    if not matches:
-        raise ValueError(
-            f"no attention kernel for family={family!r} mode={mode!r} "
-            f"bits={bits} backend={backend!r}; registered: "
-            f"{sorted(e.name for e in _REGISTRY.values() if e.op == 'attn')}")
-    return tuple(sorted(matches, key=lambda e: -e.priority))
-
-
-def _check_attn_request(family: str, mode: str, backend: str) -> None:
-    if mode not in ATTN_MODES:
-        raise ValueError(f"mode {mode!r} not in {ATTN_MODES}")
-    if family not in FAMILIES:
-        raise ValueError(f"family {family!r} not in {FAMILIES}")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-
-
 def select_attn_kernel(family: str, mode: str, bits: int = 8,
                        backend: str = "cuda",
                        spec: Optional[MultiplierSpec] = None) -> KernelEntry:
     """Highest-priority attention entry for the request (no footprint or
     bit-safety gate: `plan_attn` applies those against the geometry)."""
-    _check_attn_request(family, mode, backend)
-    return _attn_entries_cached(family, mode, bits, backend, spec)[0]
+    _check_request(family, mode, backend, ATTN_MODES)
+    return _entries_cached("attn", family, mode, bits, backend, spec)[0]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -671,7 +1049,7 @@ def _plan_attn_cached(family: str, mode: str, bits: int, bb: int,
                       head_dim: int, attn: AttnParams, backend: str,
                       block: Optional[Tuple[int, int]],
                       spec: Optional[MultiplierSpec]) -> AttnPlan:
-    for entry in _attn_entries_cached(family, mode, bits, backend, spec):
+    for entry in _entries_cached("attn", family, mode, bits, backend, spec):
         path = _attn_path(entry.name, family, mode)
         blk = block
         if blk is None:
@@ -701,7 +1079,7 @@ def plan_attn(family: str, mode: str, bits: int, b: int, heads: int,
     and the accumulator bit-safety predicate (`_attn_bit_safe`); a
     request no entry accepts raises ValueError, and the models layer
     falls back to the float `_chunked_attn` path."""
-    _check_attn_request(family, mode, backend)
+    _check_request(family, mode, backend, ATTN_MODES)
     if heads % kv_heads:
         raise ValueError(
             f"GQA needs heads % kv_heads == 0, got {heads} % {kv_heads}")

@@ -1,9 +1,12 @@
-"""Block-size resolution for the kernels (attention half).
+"""Block-size resolution for the kernels, and the plan caches' shape
+buckets.
 
 The reference resolves every kernel's tile through a measured sweep on
 the TPU and a shape-clipped heuristic elsewhere.  This module ports the
-attention heuristic only; the measured sweep and its disk cache are a
-later slice (ROADMAP queue A 4).
+attention heuristic and the attention and conv plan caches' bucketing;
+the measured sweep and its disk cache are a later slice (ROADMAP queue
+A 4).  The CUDA GEMM and conv kernels (csrc/cim_gemm.cuh) run one tile
+fixed at compile time, which no plan chooses.
 
 For attention the block is a (bq, bk) pair, and ``bk`` is part of the
 numerics: the online softmax is tiled along the kv axis, so the float
@@ -45,6 +48,14 @@ def bucket_attn(b: int, heads: int, kv_heads: int, sq: int, skv: int,
     of two on batch and the two sequence axes; heads, kv_heads and
     head_dim exact."""
     return (bucket(b), heads, kv_heads, bucket(sq), bucket(skv), head_dim)
+
+
+def bucket_conv(b: int, h: int, w: int, c: int, kh: int, kw: int,
+                stride: int = 1) -> Tuple[int, ...]:
+    """Conv-shape bucketing (the conv plan cache's key): powers of two on
+    the data dims, the kernel taps and stride exact — they change the
+    kernel's index arithmetic, not just its tiling."""
+    return (bucket(b), bucket(h), bucket(w), bucket(c), kh, kw, stride)
 
 
 def _clip_attn_block(block: AttnBlock, sq: int, skv: int) -> AttnBlock:

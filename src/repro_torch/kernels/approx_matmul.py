@@ -1,18 +1,23 @@
-"""Full-LUT gather GEMMs: CUDA kernels for Hopper and their plain versions.
+"""LUT-gather GEMMs: CUDA kernels for Hopper and their plain versions.
 
 The compiled CiM macro *is* a product LUT (core/luts.py); these
-functions execute it.  Two entry points, as in the JAX package:
+functions execute it, in the JAX package's two table layouts:
 
-  * ``lut_matmul``       — int8 operands -> int32 (the oracle surface);
-  * ``lut_matmul_fused`` — float operands (f32 or bf16) -> f32, with the
-    per-tensor ``sx`` / per-column ``sw`` quantization on load and the
-    ``(acc * sx) * sw`` epilogue inside one kernel.
+  * the **full table** — ``lut_matmul`` (int8 operands -> int32, the
+    oracle surface) and ``lut_matmul_fused`` (f32 or bf16 operands ->
+    f32, with the per-tensor ``sx`` / per-column ``sw`` quantization on
+    load and the ``(acc * sx) * sw`` epilogue inside one kernel), over
+    the int16 signed-product table of kernels/ops.py (the 8-bit table
+    fits shared memory only as int16; every entry is checked to fit);
+  * the **nibble sub-tables** — ``nibble_lut_matmul`` and
+    ``nibble_lut_matmul_fused``, the same two forms over four
+    2^{b/2} x 2^{b/2} int32 sub-tables on saturated magnitudes, for the
+    half-word-decomposable multipliers (core/luts.nibble_sub_luts).
 
-On CUDA tensors each launches its kernel (csrc/lut_gemm.cu) or raises;
-on CPU tensors it runs the plain PyTorch version beside it, which
-repeats the kernel's arithmetic (kernels/ref.py).  The table is the
-int16 signed-product table of kernels/ops.py (the 8-bit table fits
-shared memory only as int16; every entry is checked to fit).
+On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
+csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
+version beside it, which repeats the kernel's arithmetic
+(kernels/ref.py).
 """
 
 from __future__ import annotations
@@ -20,17 +25,22 @@ from __future__ import annotations
 import torch
 
 from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
-from .ref import gather_full, lut_matmul_ref, quantize_tile
+from .ref import (gather_full, lut_matmul_ref, nibble_matmul_ref,
+                  nibble_sum, quantize_tile)
 
-_INT = CudaKernel("lut_gemm", "lut_gemm_int8",
-                  [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
-_FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
-                    [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT,
-                     INT, PTR])
+_INT_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
+_FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+               PTR]
+_INT = CudaKernel("lut_gemm", "lut_gemm_int8", _INT_ARGS)
+_FUSED = CudaKernel("lut_gemm", "lut_gemm_fused", _FUSED_ARGS)
+_NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8", _INT_ARGS)
+_NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused", _FUSED_ARGS)
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
 # resets their launch counts)
-KERNELS = {"lut_matmul": _INT, "lut_matmul_fused": _FUSED}
+KERNELS = {"lut_matmul": _INT, "lut_matmul_fused": _FUSED,
+           "nibble_lut_matmul": _NIB_INT,
+           "nibble_lut_matmul_fused": _NIB_FUSED}
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -44,12 +54,24 @@ def _shapes(x: torch.Tensor, w: torch.Tensor):
     return m, k, n
 
 
-def _check_table(lut: torch.Tensor, bits: int) -> None:
+def check_table(lut: torch.Tensor, bits: int) -> None:
+    """The int16 full table, as every full-LUT kernel takes it."""
     require(2 <= bits <= 8, f"the LUT kernel takes 2..8-bit operands, got {bits}")
     require(lut.dtype == torch.int16 and lut.is_contiguous()
             and lut.numel() == 1 << (2 * bits),
             f"table must be {1 << (2 * bits)} contiguous int16 entries")
     require(lut.data_ptr() % 16 == 0, "table must be 16-byte aligned")
+
+
+def check_subs(subs: torch.Tensor, bits: int) -> None:
+    """The four nibble sub-tables, as every nibble kernel takes them."""
+    require(2 <= bits <= 8 and bits % 2 == 0,
+            f"the nibble kernels take 2..8-bit operands of even width, got "
+            f"{bits}")
+    require(subs.dtype == torch.int32 and subs.is_contiguous()
+            and subs.numel() == 4 << bits,
+            f"sub-tables must be {4 << bits} contiguous int32 entries")
+    require(subs.data_ptr() % 16 == 0, "sub-tables must be 16-byte aligned")
 
 
 def _check_range(t: torch.Tensor, bits: int) -> None:
@@ -63,8 +85,9 @@ def _check_range(t: torch.Tensor, bits: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# plain version of the fused form (the int form's is ref.lut_matmul_ref);
-# CPU tensors, and chip_smoke.py also runs them on the card
+# plain versions of the fused forms (the int forms' are ref.lut_matmul_ref
+# and ref.nibble_matmul_ref); CPU tensors, and chip_smoke.py also runs
+# them on the card
 # ---------------------------------------------------------------------------
 
 
@@ -76,6 +99,17 @@ def lut_matmul_fused_plain(x, w, lut_flat, sx, sw,
     ia = quantize_tile(x.to(torch.float32), sx, half - 1) + half
     ib = quantize_tile(w.to(torch.float32), sw, half - 1) + half
     acc = gather_full(lut_flat, ia, ib, 1 << bits)
+    return (acc.to(torch.float32) * sx) * sw
+
+
+def nibble_lut_matmul_fused_plain(x, w, subs_flat, sx, sw,
+                                  bits: int = 8) -> torch.Tensor:
+    qmax = (1 << (bits - 1)) - 1
+    sx = sx.reshape(()).to(torch.float32)
+    sw = sw.reshape(1, -1).to(torch.float32)
+    a = quantize_tile(x.to(torch.float32), sx, qmax)
+    b = quantize_tile(w.to(torch.float32), sw, qmax)
+    acc = nibble_sum(subs_flat, a, b, bits)
     return (acc.to(torch.float32) * sx) * sw
 
 
@@ -101,10 +135,29 @@ def lut_matmul(xq: torch.Tensor, wq: torch.Tensor, lut_flat: torch.Tensor,
             f"int8 operands expected, got {xq.dtype}, {wq.dtype}")
     require(xq.is_contiguous() and wq.is_contiguous(),
             "operands must be contiguous")
-    _check_table(lut_flat, bits)
+    check_table(lut_flat, bits)
     out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
     _INT(xq.data_ptr(), wq.data_ptr(), lut_flat.data_ptr(), out.data_ptr(),
          m, k, n, bits, stream_of(xq))
+    return out
+
+
+def _check_fused(x, w, sx, sw, n: int) -> None:
+    require(x.dtype in _FLOATS and w.dtype in _FLOATS,
+            f"f32/bf16 operands expected, got {x.dtype}, {w.dtype}")
+    require(x.is_contiguous() and w.is_contiguous(),
+            "operands must be contiguous")
+    require(sx.dtype == torch.float32 and sx.numel() == 1,
+            "sx must be one f32 element")
+    require(sw.dtype == torch.float32 and sw.numel() == n
+            and sw.is_contiguous(), f"sw must be {n} contiguous f32")
+
+
+def _launch_fused(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits):
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+         int(w.dtype == torch.bfloat16), table.data_ptr(), sx.data_ptr(),
+         sw.data_ptr(), out.data_ptr(), m, k, n, bits, stream_of(x))
     return out
 
 
@@ -119,17 +172,43 @@ def lut_matmul_fused(x: torch.Tensor, w: torch.Tensor, lut_flat: torch.Tensor,
     m, k, n = _shapes(x, w)
     if not on_cuda(x, w, lut_flat, sx, sw):
         return lut_matmul_fused_plain(x, w, lut_flat, sx, sw, bits)
-    require(x.dtype in _FLOATS and w.dtype in _FLOATS,
-            f"f32/bf16 operands expected, got {x.dtype}, {w.dtype}")
-    require(x.is_contiguous() and w.is_contiguous(),
+    _check_fused(x, w, sx, sw, n)
+    check_table(lut_flat, bits)
+    return _launch_fused(_FUSED, x, w, lut_flat, sx, sw, m, k, n, bits)
+
+
+def nibble_lut_matmul(xq: torch.Tensor, wq: torch.Tensor,
+                      subs_flat: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Bit-exact signed GEMM over the four nibble sub-tables: int8 xq
+    (M,K), wq (K,N) -> int32 (M,N).
+
+    ``subs_flat`` is core.luts.nibble_sub_luts(spec).ravel() as int32,
+    order [S_hh, S_hl, S_lh, S_ll].  Magnitudes saturate at qmax
+    (|-2^{b-1}| -> qmax), so the result equals ``lut_matmul`` over the
+    spec's full table for every int8 operand."""
+    m, k, n = _shapes(xq, wq)
+    if not on_cuda(xq, wq, subs_flat):
+        return nibble_matmul_ref(xq, wq, subs_flat, bits)
+    require(xq.dtype == torch.int8 and wq.dtype == torch.int8,
+            f"int8 operands expected, got {xq.dtype}, {wq.dtype}")
+    require(xq.is_contiguous() and wq.is_contiguous(),
             "operands must be contiguous")
-    require(sx.dtype == torch.float32 and sx.numel() == 1,
-            "sx must be one f32 element")
-    require(sw.dtype == torch.float32 and sw.numel() == n
-            and sw.is_contiguous(), f"sw must be {n} contiguous f32")
-    _check_table(lut_flat, bits)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    _FUSED(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-           int(w.dtype == torch.bfloat16), lut_flat.data_ptr(), sx.data_ptr(),
-           sw.data_ptr(), out.data_ptr(), m, k, n, bits, stream_of(x))
+    check_subs(subs_flat, bits)
+    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    _NIB_INT(xq.data_ptr(), wq.data_ptr(), subs_flat.data_ptr(),
+             out.data_ptr(), m, k, n, bits, stream_of(xq))
     return out
+
+
+def nibble_lut_matmul_fused(x: torch.Tensor, w: torch.Tensor,
+                            subs_flat: torch.Tensor, sx: torch.Tensor,
+                            sw: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Fused-quantization nibble GEMM: f32/bf16 x (M,K), w (K,N) -> f32
+    (M,N), scales as ``lut_matmul_fused``.  Bit-identical to quantize ->
+    ``nibble_lut_matmul`` -> ``(acc * sx) * sw``."""
+    m, k, n = _shapes(x, w)
+    if not on_cuda(x, w, subs_flat, sx, sw):
+        return nibble_lut_matmul_fused_plain(x, w, subs_flat, sx, sw, bits)
+    _check_fused(x, w, sx, sw, n)
+    check_subs(subs_flat, bits)
+    return _launch_fused(_NIB_FUSED, x, w, subs_flat, sx, sw, m, k, n, bits)

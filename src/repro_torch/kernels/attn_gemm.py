@@ -38,8 +38,10 @@ import math
 
 import torch
 
-from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
-from .ref import k_chunk, log_product, quantize_tile
+from .approx_matmul import check_subs, check_table
+from .build import (INT, PTR, SMEM_BYTES, CudaKernel, on_cuda, require,
+                    stream_of)
+from .ref import k_chunk, log_product, nibble_sum, quantize_tile
 
 NEG_INF = -1e30          # finite stand-in for -inf: exp() underflows to 0
 _EPS_L = 1e-30           # normalizer floor for fully masked rows
@@ -51,8 +53,6 @@ _PATH_ID = {p: i for i, p in enumerate(ATTN_PATHS)}
 # result of a row does not depend on the rows beside it); the launch
 # uses min(ATTN_BQ, Sq)
 ATTN_BQ = 32
-# dynamic shared memory one Hopper block may use
-SMEM_BYTES = 232_448
 
 _ARGS = [PTR] * 12 + [INT] * 14 + [PTR]
 _FUSED = CudaKernel("attn_gemm", "attn_fused", _ARGS)
@@ -115,28 +115,7 @@ def _dot_lut(table, a, b, bits):
 
 def _dot_nibble(table, a, b, bits):
     """Nibble sub-LUT gather: sign-magnitude half-word decomposition."""
-    h = bits // 2
-    hb = 1 << h
-    sz = hb * hb
-    qm = (1 << (bits - 1)) - 1
-    sa, sb = torch.sign(a), torch.sign(b)
-    am = torch.clamp(torch.abs(a), max=qm).to(torch.int64)
-    bm = torch.clamp(torch.abs(b), max=qm).to(torch.int64)
-    a_hi, a_lo = am >> h, am & (hb - 1)
-    b_hi, b_lo = bm >> h, bm & (hb - 1)
-    kk = a.shape[-1]
-    step = _k_step(a, b)
-    acc = None
-    for s in range(0, kk, step):
-        e = s + step
-        ah, al = a_hi[..., :, s:e, None], a_lo[..., :, s:e, None]
-        bh, bl = b_hi[..., None, s:e, :], b_lo[..., None, s:e, :]
-        mag = (table[ah * hb + bh] + table[sz + ah * hb + bl]
-               + table[2 * sz + al * hb + bh] + table[3 * sz + al * hb + bl])
-        prods = sa[..., :, s:e, None] * sb[..., None, s:e, :] * mag
-        part = prods.sum(dim=-2, dtype=torch.int32)
-        acc = part if acc is None else acc + part
-    return acc
+    return nibble_sum(table, a, b, bits)
 
 
 def _dot_log(a, b, bits, compensated):
@@ -442,16 +421,9 @@ def _launch(kern, dims, *, q=None, k=None, v=None, sq_s=None, sk_s=None,
     require(2 <= bits <= max_bits,
             f"the {path} path takes 2..{max_bits}-bit operands, got {bits}")
     if path == "lut":
-        require(table.dtype == torch.int16 and table.is_contiguous()
-                and table.numel() == 1 << (2 * bits)
-                and table.data_ptr() % 16 == 0,
-                f"table must be {1 << (2 * bits)} aligned contiguous int16")
+        check_table(table, bits)
     elif path == "nibble":
-        require(bits % 2 == 0 and table.dtype == torch.int32
-                and table.is_contiguous()
-                and table.numel() == 4 * (1 << bits)
-                and table.data_ptr() % 16 == 0,
-                f"table must be {4 * (1 << bits)} aligned contiguous int32")
+        check_subs(table, bits)
     smem = attn_smem_bytes(path, bits, bq, bk, d)
     require(smem <= SMEM_BYTES,
             f"block ({bq}, {bk}) at head dim {d} needs {smem} bytes of "

@@ -2,10 +2,11 @@
 
 Each source ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
 Hopper (``sm_90a``) into ``build/kernels/lib<name>-<digest>.so`` at the
-repository root, the digest being that of the source and the flags, and
-loaded with `ctypes`.  Nothing here runs at import time, so the CPU
-tests import every module without a toolkit.  No fast-math: the
-kernels' quantization needs IEEE division and round-half-to-even.
+repository root, the digest being that of the source, every header under
+``csrc/`` and the flags, and loaded with `ctypes`.  Nothing here runs at
+import time, so the CPU tests import every module without a toolkit.  No
+fast-math: the kernels' quantization needs IEEE division and
+round-half-to-even.
 
 `build(names)` starts one ``nvcc`` per missing source, all at once, and
 returns each build's seconds and ``-Xptxas -v`` report.  `CudaKernel` is
@@ -24,10 +25,13 @@ from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port (csrc/<name>.cu)
-SOURCES = ("lut_gemm", "log_gemm", "attn_gemm")
+SOURCES = ("lut_gemm", "nibble_gemm", "log_gemm", "conv_gemm", "attn_gemm")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# dynamic shared memory one Hopper block may use
+SMEM_BYTES = 232_448
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -42,8 +46,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """The library of csrc/<name>.cu, named by the digest of the source,
+    of every csrc/*.cuh (a header edit rebuilds every source) and of the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,0 +1,64 @@
+// conv_gemm.cu - implicit-GEMM CiM convolution for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernels of src/repro/kernels/conv_gemm.py:
+//   conv_lut_fused (-> _lut_kernel, nibble=False / True): the full signed
+//     product table or the nibble sub-tables per product
+//   conv_log_fused (-> _log_kernel): the Mitchell / Log-our product
+// f32 x (B,H,W,C) and f32 w3 (kh*kw, C, N) -> f32 (B,OH,OW,N), SAME zero
+// padding kh//2, kw//2 and a stride, quantization on load against a
+// per-tensor sx and per-out-channel sw, and the (acc * sx) * sw epilogue:
+// bit-identical integer core to im2col + the GEMM kernels.
+//
+// What bounds it on an H100: the same products as the GEMM of
+// M = B*OH*OW rows, K = kh*kw*C, N = C_out: M*K*N shared-memory gathers
+// (lut; nibble four a product) at most 132 SMs x 32 words a clock, or
+// about 11 (mitchell) / 28 (log_our) int32 operations a product at 132 x
+// 64 lanes a clock.  The bytes the output depends on (the image and the
+// weights read once, the output written once) bound nothing at the CNN's
+// geometries.
+//
+// Design: not the TPU's.  The TPU kernel held a whole padded input plane
+// in VMEM (gated at 8 MiB by the reference's plan_conv) and sliced each
+// tap's shifted window out of it.  Here the convolution is cim_gemm.cuh's
+// gemm_kernel with ConvSrc as its A operand: a block owns BM output
+// pixels (rows of M, batch-major) x BN output channels and loops over
+// K = (tap, channel) in BK steps, loading each element of the patch
+// matrix from device memory by index arithmetic (out-of-image taps read
+// as 0, which every core annihilates), so no plane and no im2col tensor
+// is held anywhere and any plane size fits.  Shared memory holds the
+// table and one A and one B tile; the launch takes the caller's total
+// (kernels/conv_gemm.py gemm_smem_bytes, which the planner's gate
+// reads) and refuses one that differs.  The K loop stays inside the
+// block, so the int32 result is deterministic.
+
+#include "cim_gemm.cuh"
+
+extern "C" {
+
+// tab: the int16 full table (nibble == 0) or the four int32 sub-tables
+int conv_lut_fused(const void* x, const void* w, const void* tab,
+                   const void* sx, const void* sw, void* out, int B, int H,
+                   int W, int C, int N, int kh, int kw, int stride, int bits,
+                   int nibble, int smem, void* stream) {
+  if (nibble)
+    return cim::conv_fused<cim::NibbleCore>(x, w, tab, sx, sw, out, B, H, W,
+                                            C, N, kh, kw, stride, bits, smem,
+                                            stream);
+  return cim::conv_fused<cim::LutCore>(x, w, tab, sx, sw, out, B, H, W, C, N,
+                                       kh, kw, stride, bits, smem, stream);
+}
+
+int conv_log_fused(const void* x, const void* w, const void* sx,
+                   const void* sw, void* out, int B, int H, int W, int C,
+                   int N, int kh, int kw, int stride, int bits,
+                   int compensated, int smem, void* stream) {
+  if (compensated)
+    return cim::conv_fused<cim::LogCore<true>>(x, w, nullptr, sx, sw, out, B,
+                                               H, W, C, N, kh, kw, stride,
+                                               bits, smem, stream);
+  return cim::conv_fused<cim::LogCore<false>>(x, w, nullptr, sx, sw, out, B,
+                                              H, W, C, N, kh, kw, stride,
+                                              bits, smem, stream);
+}
+
+}  // extern "C"

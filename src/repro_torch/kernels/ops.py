@@ -1,13 +1,14 @@
-"""Public per-kernel entry points of the kernel layer (GEMM and CiM
-attention).
+"""Public per-kernel entry points of the kernel layer (GEMM, implicit-GEMM
+conv and CiM attention).
 
 Routing across kernels lives in the registry (core/approx_gemm.py);
-these wrappers resolve a multiplier spec to its product table, compute
-the quantization scales as plain torch reductions outside the kernel
-(``sx = max|x| / qmax`` per tensor, ``sw = max|w[:, n]| / qmax`` per
-column, as the reference's ``_scales``), and call the kernel wrappers of
-approx_matmul.py / mitchell_gemm.py, which pick the CUDA kernel or the
-plain version by the operands' device.
+these wrappers resolve a multiplier spec to its product table (the int16
+full table or the int32 nibble sub-tables), compute the quantization
+scales as plain torch reductions outside the kernel (``sx = max|x| /
+qmax`` per tensor, ``sw = max|w[:, n]| / qmax`` per column, as the
+reference's ``_scales``), and call the kernel wrappers of
+approx_matmul.py / mitchell_gemm.py / conv_gemm.py / attn_gemm.py, which
+pick the CUDA kernel or the plain version by the operands' device.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from repro_torch.core.luts import nibble_sub_luts, signed_product_lut
 from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.core.quantization import quant_scale
 
-from .approx_matmul import lut_matmul, lut_matmul_fused
+from .approx_matmul import (lut_matmul, lut_matmul_fused, nibble_lut_matmul,
+                            nibble_lut_matmul_fused)
 from .attn_gemm import (attn_fused, attn_materialized, attn_reference,
                         attn_scales)
+from .conv_gemm import conv_log_fused, conv_lut_fused
 from .mitchell_gemm import mitchell_matmul, mitchell_matmul_fused
 
 
@@ -58,6 +61,38 @@ def lut_table(spec: MultiplierSpec, device) -> torch.Tensor:
     return _lut_on(key, torch.device(device))
 
 
+@functools.lru_cache(maxsize=16)
+def _subs_np(family: str, bits: int, compressor: str, n_approx) -> np.ndarray:
+    """The four nibble sub-tables, raveled, as int32: the one storage form
+    of every nibble kernel (GEMM, conv, attention).  Four entries add up
+    to one product, so the largest four must sum below 2^31; a table
+    that does not raises here, on the host."""
+    spec = MultiplierSpec(family, bits, True, compressor, n_approx)
+    subs = nibble_sub_luts(spec)
+    if subs is None:
+        raise ValueError(
+            f"{spec.short_name()} is not nibble-decomposable; route to the "
+            "full-LUT kernel")
+    worst = int(subs.astype(np.int64).reshape(4, -1).max(axis=1).sum())
+    if int(subs.min()) < 0 or worst > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"{spec.short_name()}: nibble sub-tables are negative or sum "
+            f"past int32 ({worst})")
+    return subs.astype(np.int32).ravel()
+
+
+@functools.lru_cache(maxsize=32)
+def _subs_on(key, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_subs_np(*key)).to(device)
+
+
+def nibble_table(spec: MultiplierSpec, device) -> torch.Tensor:
+    """The spec's raveled int32 nibble sub-tables on `device` (cached);
+    raises ValueError for a spec that is not nibble-decomposable."""
+    key = (spec.family, spec.bits, spec.compressor, spec.n_approx_cols)
+    return _subs_on(key, torch.device(device))
+
+
 def _scales(x: torch.Tensor, w: torch.Tensor, bits: int):
     """(sx, sw): per-tensor f32 scalar and per-column f32 (N,) scales of
     the f32-widened operands.  The column max of a bf16 weight is taken
@@ -81,6 +116,20 @@ def approx_matmul_fused(x, w, spec: MultiplierSpec) -> torch.Tensor:
                             bits=spec.bits)
 
 
+def nibble_matmul_bit_exact(xq, wq, spec: MultiplierSpec) -> torch.Tensor:
+    """Bit-exact nibble-decomposed GEMM (int8 in, int32 out); the spec
+    must be decomposable (routing guarantees it)."""
+    return nibble_lut_matmul(xq, wq, nibble_table(spec, xq.device),
+                             bits=spec.bits)
+
+
+def nibble_matmul_fused(x, w, spec: MultiplierSpec) -> torch.Tensor:
+    """Fused-quantization nibble GEMM: float in -> f32 out, one pass."""
+    sx, sw = _scales(x, w, spec.bits)
+    return nibble_lut_matmul_fused(x, w, nibble_table(spec, x.device), sx,
+                                   sw, bits=spec.bits)
+
+
 def log_matmul(xq, wq, bits: int = 8, compensated: bool = True):
     """Arithmetic log-domain GEMM (mitchell / log_our), int8 in."""
     return mitchell_matmul(xq, wq, bits=bits, compensated=compensated)
@@ -94,6 +143,51 @@ def log_matmul_fused(x, w, bits: int = 8, compensated: bool = True):
 
 
 # ---------------------------------------------------------------------------
+# Implicit-GEMM conv (kernels/conv_gemm.py): x (B, H, W, C) float, w2
+# (kh*kw*C, N) float with tap-major rows (the im2col column order) ->
+# f32 (B, OH, OW, N).  Scales as the GEMMs': per tensor over x, per
+# column of w2.
+# ---------------------------------------------------------------------------
+
+
+def _conv_operands(x, w2, bits, kh, kw):
+    c, n = x.shape[-1], w2.shape[-1]
+    xf = x.to(torch.float32).contiguous()
+    wf = w2.to(torch.float32).contiguous()
+    sx, sw = _scales(xf, wf, bits)
+    return xf, wf.reshape(kh * kw, c, n), sx, sw
+
+
+def conv2d_lut_fused(x, w2, spec: MultiplierSpec, kh: int = 3, kw: int = 3,
+                     stride: int = 1) -> torch.Tensor:
+    """Full-LUT fused-quantization implicit-GEMM conv (any LUT family);
+    bit-identical integer core to im2col + ``lut_matmul``."""
+    xf, w3, sx, sw = _conv_operands(x, w2, spec.bits, kh, kw)
+    return conv_lut_fused(xf, w3, lut_table(spec, x.device), sx, sw,
+                          bits=spec.bits, kh=kh, kw=kw, stride=stride)
+
+
+def conv2d_nibble_fused(x, w2, spec: MultiplierSpec, kh: int = 3,
+                        kw: int = 3, stride: int = 1) -> torch.Tensor:
+    """Nibble sub-LUT fused-quantization implicit-GEMM conv (the spec
+    must be decomposable; routing guarantees it)."""
+    xf, w3, sx, sw = _conv_operands(x, w2, spec.bits, kh, kw)
+    return conv_lut_fused(xf, w3, nibble_table(spec, x.device), sx, sw,
+                          bits=spec.bits, kh=kh, kw=kw, stride=stride,
+                          nibble=True)
+
+
+def conv2d_log_fused(x, w2, bits: int = 8, compensated: bool = True,
+                     kh: int = 3, kw: int = 3, stride: int = 1):
+    """Log-domain fused-quantization implicit-GEMM conv (mitchell /
+    log_our); bit-identical integer core to im2col + ``mitchell_matmul``."""
+    xf, w3, sx, sw = _conv_operands(x, w2, bits, kh, kw)
+    return conv_log_fused(xf, w3, sx, sw, bits=bits,
+                          compensated=compensated, kh=kh, kw=kw,
+                          stride=stride)
+
+
+# ---------------------------------------------------------------------------
 # Flash-style CiM attention (kernels/attn_gemm.py).
 #
 # All three wrappers share one signature: q (B, H, Sq, D) and k/v
@@ -104,22 +198,6 @@ def log_matmul_fused(x, w, bits: int = 8, compensated: bool = True):
 # the reference; `block` defaults to the reference's heuristic block.
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
-def _subs_np(family: str, bits: int, compressor: str, n_approx) -> np.ndarray:
-    spec = MultiplierSpec(family, bits, True, compressor, n_approx)
-    subs = nibble_sub_luts(spec)
-    if subs is None:
-        raise ValueError(
-            f"{spec.short_name()} is not nibble-decomposable; route to the "
-            "full-LUT kernel")
-    return subs.ravel()
-
-
-@functools.lru_cache(maxsize=32)
-def _subs_on(key, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_subs_np(*key)).to(device)
-
-
 def _attn_table(path: str, spec: Optional[MultiplierSpec], device):
     """The path's table on `device`: the int16 full table (lut), the
     int32 sub-tables (nibble), or None."""
@@ -129,8 +207,7 @@ def _attn_table(path: str, spec: Optional[MultiplierSpec], device):
                              "MultiplierSpec to build its table")
         if path == "lut":
             return lut_table(spec, device)
-        key = (spec.family, spec.bits, spec.compressor, spec.n_approx_cols)
-        return _subs_on(key, torch.device(device))
+        return nibble_table(spec, device)
     return None
 
 

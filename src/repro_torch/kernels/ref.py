@@ -1,11 +1,12 @@
 """Plain PyTorch oracles for the GEMM kernels.
 
-`lut_matmul_ref` and `mitchell_matmul_ref` are the bit-for-bit semantics
-the CUDA kernels (and their plain versions) must match, and
-`quantize_tile`, `gather_full` and `log_product` are plain twins of the
-reference kernel bodies' arithmetic (`_quantize_tile`, `_gather_full`,
-`_log_product` in the JAX package).  Integer sums wrap at 32 bits, like
-the reference's int32 sums.
+`lut_matmul_ref`, `nibble_matmul_ref` and `mitchell_matmul_ref` are the
+bit-for-bit semantics the CUDA kernels (and their plain versions) must
+match, and `quantize_tile`, `gather_full`, `gather_nibble`,
+`log_product` and `taps` are plain twins of the reference kernel bodies'
+arithmetic (`_quantize_tile`, `_gather_full`, `_gather_nibble`,
+`_log_product` and the conv kernels' `_taps` in the JAX package).
+Integer sums wrap at 32 bits, like the reference's int32 sums.
 """
 
 from __future__ import annotations
@@ -44,6 +45,60 @@ def gather_full(lut: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
         idx = ia[:, s:s + step, None] * n + ib[None, s:s + step, :]
         acc += lut[idx].sum(dim=1, dtype=torch.int32)
     return acc
+
+
+def gather_nibble(subs: torch.Tensor, am: torch.Tensor, bm: torch.Tensor,
+                  sa: torch.Tensor, sb: torch.Tensor, h: int) -> torch.Tensor:
+    """sum_k sa*sb*(S_hh[ah,bh] + S_hl[ah,bl] + S_lh[al,bh] + S_ll[al,bl])
+    as int32 (..., M, N): the nibble-decomposed signed product sum over
+    the raveled sub-tables ``subs`` = [S_hh, S_hl, S_lh, S_ll], on
+    magnitudes am (..., M, K) / bm (..., K, N) split into h-bit halves,
+    with the signs sa / sb restored; sliced along K to bound the live
+    index tensors."""
+    hb = 1 << h
+    sz = hb * hb
+    am, bm = am.to(torch.int64), bm.to(torch.int64)
+    ah, al = am >> h, am & (hb - 1)
+    bh, bl = bm >> h, bm & (hb - 1)
+    k = am.shape[-1]
+    acc = torch.zeros(am.shape[:-1] + bm.shape[-1:], dtype=torch.int32,
+                      device=am.device)
+    step = k_chunk(am.numel() // max(k, 1), k, bm.shape[-1])
+    for s in range(0, k, step):
+        e = s + step
+        a_hi, a_lo = ah[..., :, s:e, None], al[..., :, s:e, None]
+        b_hi, b_lo = bh[..., None, s:e, :], bl[..., None, s:e, :]
+        mag = (subs[a_hi * hb + b_hi] + subs[sz + a_hi * hb + b_lo]
+               + subs[2 * sz + a_lo * hb + b_hi]
+               + subs[3 * sz + a_lo * hb + b_lo])
+        prods = sa[..., :, s:e, None] * sb[..., None, s:e, :] * mag
+        acc += prods.sum(dim=-2, dtype=torch.int32)
+    return acc
+
+
+def nibble_sum(subs: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               bits: int) -> torch.Tensor:
+    """`gather_nibble` of signed integer operands, magnitudes saturated at
+    qmax (|-2^{b-1}| -> qmax, as the signed table's sign-magnitude
+    wrapper and the reference's ``_nibble_int_kernel``)."""
+    qmax = (1 << (bits - 1)) - 1
+    a, b = a.to(torch.int32), b.to(torch.int32)
+    return gather_nibble(subs, torch.clamp(torch.abs(a), max=qmax),
+                         torch.clamp(torch.abs(b), max=qmax), torch.sign(a),
+                         torch.sign(b), bits // 2)
+
+
+def taps(xp: torch.Tensor, kh: int, kw: int, oh: int, ow: int, stride: int):
+    """The implicit-GEMM A operands of a padded plane xp (B, Hp, Wp, C):
+    for each kernel tap (ki, kj), tap-major, its index and the shifted
+    (B*oh*ow, C) window."""
+    c = xp.shape[-1]
+    m = xp.shape[0] * oh * ow
+    for ki in range(kh):
+        for kj in range(kw):
+            a = xp[:, ki:ki + (oh - 1) * stride + 1:stride,
+                   kj:kj + (ow - 1) * stride + 1:stride, :]
+            yield ki * kw + kj, a.reshape(m, c)
 
 
 def leading_one(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -110,6 +165,14 @@ def lut_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, lut_flat: torch.Tensor,
     half = 1 << (bits - 1)
     return gather_full(lut_flat, xq.to(torch.int64) + half,
                        wq.to(torch.int64) + half, 1 << bits)
+
+
+def nibble_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, subs: torch.Tensor,
+                      bits: int = 8) -> torch.Tensor:
+    """Bit-exact signed GEMM over the four nibble sub-tables (raveled
+    core.luts.nibble_sub_luts), equal to `lut_matmul_ref` over the full
+    table for a decomposable spec.  Returns int32 (M, N)."""
+    return nibble_sum(subs, xq, wq, bits)
 
 
 def mitchell_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, bits: int = 8,

@@ -1,1 +1,2 @@
-# Dense LM layers of the port (models/bridge.py carries JAX weights in).
+# Dense LM layers and the Table IV CNN of the port (models/bridge.py carries
+# JAX weights in).

@@ -1,4 +1,5 @@
-"""Carry the JAX package's LM weights into the port's parameter layout.
+"""Carry the JAX package's LM and CNN weights into the port's parameter
+layout.
 
 `params_from_numpy` takes the tree of ``LM(cfg).init(key)`` from the JAX
 package with every leaf already converted to numpy by the caller (the
@@ -61,3 +62,10 @@ def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     if "head" in tree:
         p["head"] = _tensor(tree["head"], device)
     return p
+
+
+def cnn_params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The port's CNN parameter dict (models/cnn.py) from the JAX
+    package's ``init_cnn`` tree with numpy leaves: the same names, each
+    ``Param.value`` carried bit for bit."""
+    return {name: _tensor(leaf, device) for name, leaf in tree.items()}

@@ -64,18 +64,71 @@ def _jspec(spec):
 
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
 def test_nibble_and_surrogate_kernel_routes_raise(backend):
+    """The nibble sub-LUT kernel is ported: a decomposable spec routes to
+    it on either device (the CUDA kernel or its plain version); the fused
+    surrogate kernel is still a later slice and its CUDA route raises."""
+    pre = "cuda" if backend == "cuda" else "torch"
     exact = MultiplierSpec("exact", 8, True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        select_kernel("exact", "hardware", 8, backend, spec=exact)
+    assert select_kernel("exact", "hardware", 8, backend,
+                         spec=exact).name == f"{pre}_lut_nibble"
     a4 = MultiplierSpec("appro42", 8, True, n_approx_cols=4)
-    with pytest.raises(NotImplementedError, match="nibble"):
-        select_kernel("appro42", "hardware", 8, backend, spec=a4)
+    assert select_kernel("appro42", "hardware", 8, backend,
+                         spec=a4).name == f"{pre}_lut_nibble"
     if backend == "cuda":
         with pytest.raises(NotImplementedError, match="surrogate"):
             select_kernel("log_our", "surrogate", 8, "cuda")
     else:
         assert select_kernel("log_our", "surrogate", 8,
                              "cpu").name == "torch_surrogate"
+
+
+# (family, n_approx_cols) -> the reference's route for a hardware GEMM
+NIBBLE_ROUTES = [("exact", None, "pallas_lut_nibble"),
+                 ("appro42", None, "pallas_lut_gather"),
+                 ("appro42", 4, "pallas_lut_nibble"),
+                 ("appro42", 2, "pallas_lut_nibble"),
+                 ("mitchell", None, "pallas_log")]
+
+
+@pytest.mark.parametrize("family,nac,ref_name", NIBBLE_ROUTES)
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+def test_nibble_routing_requires_decomposable_spec(family, nac, ref_name,
+                                                   backend):
+    """The nibble kernel outranks the full-LUT gather exactly when the
+    spec's table factorizes into half-word sub-tables, as in the
+    reference's registry (tests/test_dispatch.py); without a spec the
+    predicate-gated entries are not eligible."""
+    spec = MultiplierSpec(family, 8, True, n_approx_cols=nac)
+    j = j_select(family, "hardware", 8, backend="cpu", spec=_jspec(spec))
+    assert j.name == ref_name
+    got = select_kernel(family, "hardware", 8, backend, spec=spec)
+    pre = "cuda" if backend == "cuda" else "torch"
+    assert got.name == f"{pre}_{ref_name[len('pallas_'):]}"
+    assert got.cuda == (backend == "cuda")
+    if family != "mitchell":
+        assert select_kernel(family, "hardware", 8,
+                             backend).name == f"{pre}_lut_gather"
+
+
+@pytest.mark.parametrize("family,nac", [("exact", None), ("appro42", 4)])
+def test_nibble_runners_bit_match_the_full_table(family, nac):
+    """Both runners of the nibble entry (int and fused) equal the
+    full-LUT gather's on a spec it routes."""
+    rng = np.random.default_rng(3)
+    xq = torch.from_numpy(rng.integers(-128, 128, (17, 40), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-128, 128, (40, 9), dtype=np.int8))
+    gp = GemmParams(family=family, bits=8, mode="hardware",
+                    n_approx_cols=nac)
+    plan = ag.plan_gemm(family, "hardware", 8, 17, 40, 9, "cpu",
+                        spec=gp.spec)
+    assert plan.entry.name == "torch_lut_nibble"
+    full = ag.GemmPlan(entry=ag._REGISTRY["torch_lut_gather"], backend="cpu")
+    assert torch.equal(ag.run_int_kernel(plan, xq, wq, gp),
+                       ag.run_int_kernel(full, xq, wq, gp))
+    x = torch.from_numpy(rng.standard_normal((17, 40)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((40, 9)).astype(np.float32))
+    assert torch.equal(ag.FUSED_RUNNERS["torch_lut_nibble"](x, w, gp),
+                       ag.FUSED_RUNNERS["torch_lut_gather"](x, w, gp))
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -247,3 +247,159 @@ def test_cim_attention_on_the_card_runs_the_kernel():
                          kv_valid=kval.cpu())
     assert float((got.cpu() - want).abs().max()) <= \
         float(v.abs().max()) / 127
+
+
+# ---------------------------------------------------------------------------
+# nibble sub-LUT GEMMs and implicit-GEMM conv kernels (the Table IV CNN)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(256, 64, 10), (33, 70, 17)], ids=str)
+@pytest.mark.parametrize("core", ["lut", "nibble", "mitchell", "log_our"])
+def test_fused_kernels_take_f32_operands_bitwise(core, shape):
+    """The f32 x f32 instantiation the CNN's fc runs (the Table IV fc at
+    the evaluation batch, and a ragged shape) equals its plain version."""
+    dev = _card()
+    m, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(m, k, generator=g, device=dev)
+    w = torch.randn(k, n, generator=g, device=dev) * 0.1
+    sx, sw = ops._scales(x, w, 8)
+    if core == "lut":
+        lut = ops.lut_table(BALANCED, dev)
+        got = approx_matmul.lut_matmul_fused(x, w, lut, sx, sw)
+        want = approx_matmul.lut_matmul_fused_plain(x, w, lut, sx, sw)
+    elif core == "nibble":
+        subs = ops.nibble_table(MultiplierSpec("exact", 8, True), dev)
+        got = approx_matmul.nibble_lut_matmul_fused(x, w, subs, sx, sw)
+        want = approx_matmul.nibble_lut_matmul_fused_plain(x, w, subs, sx,
+                                                           sw)
+    else:
+        comp = core == "log_our"
+        got = mitchell_gemm.mitchell_matmul_fused(x, w, sx, sw,
+                                                  compensated=comp)
+        want = mitchell_gemm.mitchell_matmul_fused_plain(x, w, sx, sw,
+                                                         compensated=comp)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+NIBBLE = [MultiplierSpec("exact", 8, True),
+          MultiplierSpec("appro42", 8, True, n_approx_cols=4)]
+# (B, H, W, C, N, kh, kw, stride): two Table IV CNN convs at the
+# evaluation batch and tests/test_conv.py's ragged shapes
+CONV_GEOMS = [(256, 16, 16, 3, 16, 3, 3, 1), (256, 4, 4, 32, 64, 3, 3, 1),
+              (2, 9, 10, 5, 7, 3, 3, 1), (1, 7, 7, 3, 4, 5, 5, 1),
+              (3, 8, 6, 4, 5, 1, 1, 1), (2, 10, 9, 3, 6, 3, 3, 2)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("spec", NIBBLE, ids=str)
+def test_nibble_kernels_bitwise_equal_plain_versions(shape, spec):
+    dev = _card()
+    x, w, xq, wq = _ops(*shape, dev, seed=5)
+    xq[:, 0] = -128                           # the saturating magnitude
+    subs = ops.nibble_table(spec, dev)
+    sx, sw = ops._scales(x, w, 8)
+    got = approx_matmul.nibble_lut_matmul(xq, wq, subs)
+    fused = approx_matmul.nibble_lut_matmul_fused(x, w, subs, sx, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.nibble_matmul_ref(xq, wq, subs))
+    assert torch.equal(got, ref.lut_matmul_ref(xq, wq,
+                                               ops.lut_table(spec, dev)))
+    assert torch.equal(fused, approx_matmul.nibble_lut_matmul_fused_plain(
+        x, w, subs, sx, sw))
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS, ids=str)
+def test_conv_kernels_bitwise_equal_plain_versions(geom):
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    b, h, w, c, n, kh, kw, s = geom
+    g = torch.Generator(device=dev).manual_seed(sum(geom))
+    x = torch.rand(b, h, w, c, generator=g, device=dev)
+    w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+    sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+    geo = dict(kh=kh, kw=kw, stride=s)
+    cases = [(ops.lut_table(MultiplierSpec("appro42", 8, True), dev), False)]
+    cases += [(ops.nibble_table(sp, dev), True) for sp in NIBBLE]
+    for table, nib in cases:
+        got = conv_gemm.conv_lut_fused(x, w3, table, sx, sw, nibble=nib,
+                                       **geo)
+        want = conv_gemm.conv_lut_fused_plain(x, w3, table, sx, sw,
+                                              nibble=nib, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), nib
+    for comp in (False, True):
+        got = conv_gemm.conv_log_fused(x, w3, sx, sw, compensated=comp, **geo)
+        want = conv_gemm.conv_log_fused_plain(x, w3, sx, sw,
+                                              compensated=comp, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), comp
+
+
+def test_conv_and_nibble_wrappers_raise_on_what_the_kernels_do_not_take(
+        monkeypatch):
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    x = torch.rand(2, 8, 8, 4, device=dev)
+    w3 = torch.randn(9, 4, 6, device=dev)
+    sx, sw = ops._scales(x, w3.reshape(-1, 6), 8)
+    subs = ops.nibble_table(NIBBLE[0], dev)
+    with pytest.raises(ValueError, match="f32"):
+        conv_gemm.conv_log_fused(x.to(torch.bfloat16), w3, sx, sw)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_gemm.conv_log_fused(x.transpose(1, 2), w3, sx, sw)
+    with pytest.raises(ValueError, match="sub-tables"):
+        conv_gemm.conv_lut_fused(x, w3, subs.to(torch.int16), sx, sw,
+                                 nibble=True)
+    with pytest.raises(ValueError, match="even width"):
+        approx_matmul.nibble_lut_matmul(
+            torch.zeros(4, 8, dtype=torch.int8, device=dev),
+            torch.zeros(8, 4, dtype=torch.int8, device=dev), subs, bits=7)
+    with pytest.raises(ValueError, match="devices"):
+        conv_gemm.conv_log_fused(x, w3.cpu(), sx, sw)
+    # the shared-memory total of the planner's model and the kernel's
+    # layout are held together at every launch
+    conv_gemm.conv_log_fused(x, w3, sx, sw)
+    real = conv_gemm.gemm_smem_bytes
+    monkeypatch.setattr(conv_gemm, "gemm_smem_bytes",
+                        lambda *a: real(*a) + 16)
+    before = conv_gemm.KERNELS["conv_log_fused"].launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_gemm.conv_log_fused(x, w3, sx, sw)
+    assert conv_gemm.KERNELS["conv_log_fused"].launches == before
+
+
+@pytest.mark.parametrize("fam", ["exact", "appro42", "mitchell", "log_our"])
+def test_cnn_forward_on_the_card_runs_the_kernels(fam):
+    """A hardware-mode CNN forward launches five conv kernels of its
+    family's entry and one fc GEMM kernel, equals the im2col oracle on
+    the card bit for bit, and matches the CPU's plain versions."""
+    from repro_torch.kernels import conv_gemm
+    from repro_torch.launch.table4_cnn import eval_images, hardware_context
+    from repro_torch.models.cnn import cnn_forward, init_cnn
+
+    dev = _card()
+    params = init_cnn(torch.Generator().manual_seed(0), device=dev)
+    x, _ = eval_images(16, device=dev)
+    ctx = hardware_context(fam)
+    kernels = {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS,
+               **conv_gemm.KERNELS}
+    conv = "conv_log_fused" if fam in ("mitchell", "log_our") \
+        else "conv_lut_fused"
+    fc = {"exact": "nibble_lut_matmul_fused",
+          "appro42": "lut_matmul_fused"}.get(fam, "mitchell_matmul_fused")
+    with torch.no_grad():
+        cnn_forward(params, x, ctx)                  # plans built
+        before = {n: k.launches for n, k in kernels.items()}
+        got = cnn_forward(params, x, ctx)
+        after = {n: k.launches - before[n] for n, k in kernels.items()}
+        base = cnn_forward(params, x, ctx, fused=False)
+        cpu = cnn_forward({k: v.cpu() for k, v in params.items()}, x.cpu(),
+                          ctx)
+    torch.cuda.synchronize()
+    assert after == {n: {conv: 5, fc: 1}.get(n, 0) for n in kernels}
+    assert torch.equal(got, base)
+    assert float((got.cpu() - cpu).abs().max()) <= 5e-2

@@ -11,21 +11,26 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.luts import signed_product_lut
+from repro.core.luts import nibble_sub_luts, signed_product_lut
 from repro.core.multipliers import MultiplierSpec as JSpec
 from repro.kernels import ref as jref
 from repro.kernels.approx_matmul import lut_matmul as j_lut
 from repro.kernels.approx_matmul import lut_matmul_fused as j_lut_fused
+from repro.kernels.approx_matmul import nibble_lut_matmul as j_nib
+from repro.kernels.approx_matmul import nibble_lut_matmul_fused as j_nib_fused
 from repro.kernels.mitchell_gemm import mitchell_matmul as j_log
 from repro.kernels.mitchell_gemm import mitchell_matmul_fused as j_log_fused
 from repro_torch.core.multipliers import MultiplierSpec as TSpec
 from repro_torch.core.quantization import quant_scale
-from repro_torch.kernels import approx_matmul, mitchell_gemm, ops
+from repro_torch.kernels import approx_matmul, build, mitchell_gemm, ops
 from repro_torch.kernels import ref as tref
 
 SHAPES = [(8, 16, 8), (33, 70, 17), (64, 64, 64), (128, 96, 40)]
 # the balanced tier's multiplier and the exact table
 LUT_SPECS = [("appro42", "orplane", 10), ("exact", "yang1", None)]
+# the nibble-decomposable multipliers: the exact table (the Table IV exact
+# family's fc) and appro42 with its approximate columns in the low half
+NIBBLE_SPECS = [("exact", None), ("appro42", 4), ("appro42", 2)]
 
 
 def _int_ops(m, k, n, seed=0, lo=-127):
@@ -228,3 +233,110 @@ def test_wrappers_refuse_other_devices_and_mixes():
     with pytest.raises(ValueError, match="contraction"):
         mitchell_gemm.mitchell_matmul(torch.zeros((4, 8), dtype=torch.int8),
                                       torch.zeros((7, 4), dtype=torch.int8))
+
+
+# ------------------------------------------------- nibble sub-LUT GEMMs ----
+
+
+def _subs(family, nac):
+    spec = TSpec(family, 8, True, n_approx_cols=nac)
+    jspec = JSpec(family, 8, True, n_approx_cols=nac)
+    return (ops.nibble_table(spec, "cpu"), nibble_sub_luts(jspec).ravel(),
+            signed_product_lut(jspec).ravel())
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(5, 9, 6, "int8-min")],
+                         ids=str)
+@pytest.mark.parametrize("spec", NIBBLE_SPECS, ids=str)
+def test_nibble_int_plain_matches_reference(shape, spec):
+    """The int form over the sub-tables: bitwise equal to the JAX
+    kernel (interpret mode) and to the full-table oracle, with |-128|
+    saturating to 127 as the signed table's sign-magnitude wrapper."""
+    m, k, n = shape[:3]
+    lo = -128 if len(shape) == 4 else -127
+    xq, wq = _int_ops(m, k, n, seed=11 + m + n, lo=lo)
+    if lo == -128:
+        xq[:, 0] = -128
+        wq[0, :] = -128
+    tsub, jsub, jfull = _subs(*spec)
+    got = approx_matmul.nibble_lut_matmul(torch.from_numpy(xq),
+                                          torch.from_numpy(wq), tsub).numpy()
+    kern = np.asarray(j_nib(jnp.asarray(xq), jnp.asarray(wq),
+                            jnp.asarray(jsub), interpret=True))
+    full = np.asarray(jref.lut_matmul_ref(jnp.asarray(xq), jnp.asarray(wq),
+                                          jnp.asarray(jfull)))
+    assert got.dtype == np.int32
+    assert np.array_equal(got, kern) and np.array_equal(got, full)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("spec", NIBBLE_SPECS, ids=str)
+def test_nibble_fused_plain_matches_jax_kernel(shape, spec):
+    m, k, n = shape
+    x, w = _float_ops(m, k, n, seed=m * k + 1)
+    sx, sw = _scales(x, w)
+    tsub, jsub, _ = _subs(*spec)
+    got = approx_matmul.nibble_lut_matmul_fused(
+        torch.from_numpy(x), torch.from_numpy(w), tsub, torch.tensor(sx),
+        torch.from_numpy(sw)).numpy()
+    want = np.asarray(j_nib_fused(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(jsub), jnp.asarray(sx),
+                                  jnp.asarray(sw), interpret=True))
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("k_slice", [4, 16, 32])
+def test_nibble_kernel_k_slice_invariance(k_slice):
+    """The reference's k_slice (its live gather temporary) changes no
+    sum: the plain version equals the JAX kernel at every slice."""
+    xq, wq = _int_ops(24, 70, 12, seed=k_slice)
+    tsub, jsub, _ = _subs("appro42", 4)
+    got = approx_matmul.nibble_lut_matmul(torch.from_numpy(xq),
+                                          torch.from_numpy(wq), tsub).numpy()
+    kern = np.asarray(j_nib(jnp.asarray(xq), jnp.asarray(wq),
+                            jnp.asarray(jsub), block=(8, 32, 128),
+                            k_slice=k_slice, interpret=True))
+    assert np.array_equal(got, kern)
+
+
+def test_nibble_fused_equals_quantize_int_dequantize():
+    x, w = _float_ops(17, 40, 9, seed=6)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    sx, sw = ops._scales(tx, tw, 8)
+    xq = torch.clamp(torch.round(tx / sx), -127, 127).to(torch.int8)
+    wq = torch.clamp(torch.round(tw / sw), -127, 127).to(torch.int8)
+    spec = TSpec("exact", 8, True)
+    want = (ops.nibble_matmul_bit_exact(xq, wq, spec).float() * sx) * sw
+    assert torch.equal(ops.nibble_matmul_fused(tx, tw, spec), want)
+    xb, wb = tx.to(torch.bfloat16), tw.to(torch.bfloat16)
+    assert torch.equal(ops.nibble_matmul_fused(xb, wb, spec),
+                       ops.nibble_matmul_fused(xb.float(), wb.float(), spec))
+
+
+def test_nibble_table_is_one_int32_form():
+    """GEMM, conv and attention take one storage form of the sub-tables,
+    and an undecomposable spec has none."""
+    spec = TSpec("appro42", 8, True, n_approx_cols=4)
+    subs = ops.nibble_table(spec, "cpu")
+    assert subs.dtype == torch.int32 and subs.numel() == 4 << 8
+    assert ops._attn_table("nibble", spec, "cpu") is subs
+    assert np.array_equal(subs.numpy(), nibble_sub_luts(
+        JSpec("appro42", 8, True, n_approx_cols=4)).ravel())
+    with pytest.raises(ValueError, match="not nibble-decomposable"):
+        ops.nibble_table(TSpec("appro42", 8, True), "cpu")
+
+
+def test_library_digest_covers_headers(tmp_path, monkeypatch):
+    """A header edit must rebuild every source that may include it: the
+    library path hashes each csrc/*.cuh with the source and the flags."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    header = csrc / "cim_gemm.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
+    assert build.library_path("lut_gemm") == after["lut_gemm"]

@@ -1,0 +1,81 @@
+"""The SASS reader behind chip_smoke.py's log-kernel bounds
+(repro_torch/kernels/sass.py), on text laid out as cuobjdump prints it:
+the product loop is found after the last barrier, its K step read from
+its induction, and its instructions counted per product by pipe."""
+
+import pytest
+
+from repro_torch.kernels import sass
+
+# one gemm_kernel-shaped function: a staging loop between the two
+# barriers, then the product loop (4 K columns a pass), then the K loop's
+# own backward branch; encodings as cuobjdump prints them
+SASS = """
+	code for sm_90a
+		Function : _ZN3cim11gemm_kernelINS_7LogCoreILb0EEEtest
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   IMAD R2, R2, 0x2, R3 ;
+        /*0030*/               @P0 BRA 0x20 ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/                   IMAD.MOV.U32 R34, RZ, RZ, RZ ;
+        /*0060*/                   LDS.128 R8, [R31] ;
+        /*0070*/                   VIADD R34, R34, 0x4 ;
+        /*0080*/                   ISETP.NE.AND P5, PT, R34, 0x20, PT ;
+        /*0090*/                   SHF.L.U32 R16, R16, R13, RZ ;
+        /*00a0*/                   IADD3 R16, R35, R16, R17 ;
+        /*00b0*/                   IMAD R23, R18, R16, R23 ;
+        /*00c0*/                   FLO.U32 R38, R35 ;
+        /*00d0*/               @P5 BRA 0x60 ;
+        /*00e0*/              @!P0 BRA 0x10 ;
+        /*00f0*/                   EXIT ;
+		Function : _ZN3cim11gemm_kernelINS_7LutCoreEEtest
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   EXIT ;
+"""
+
+LOG = "_ZN3cim11gemm_kernelINS_7LogCoreILb0EEEtest"
+
+
+def test_functions_parse_every_instruction_with_its_guard():
+    fns = sass.functions(SASS)
+    assert list(fns) == [LOG, "_ZN3cim11gemm_kernelINS_7LutCoreEEtest"]
+    insns = fns[LOG]
+    assert len(insns) == 16 and insns[0].op == "LDC"
+    assert insns[3] == sass.Insn(0x30, "@P0", "BRA", "0x20")
+    assert insns[14] == sass.Insn(0xe0, "@!P0", "BRA", "0x10")
+
+
+@pytest.mark.parametrize("op,pipe", [
+    ("IMAD.MOV.U32", "fma"), ("IMAD", "fma"), ("IADD3", "alu"),
+    ("SHF.L.U32", "alu"), ("ISETP.EQ.OR", "alu"), ("LOP3.LUT", "alu"),
+    ("FLO.U32", "xu"), ("VIADD", "either"), ("VIMNMX.U32", "either"),
+    ("LDS.128", "other"), ("BRA", "other"), ("UIADD3", "other")])
+def test_pipes(op, pipe):
+    assert sass.pipe(op) == pipe
+
+
+def test_product_loop_is_the_loop_after_the_last_barrier():
+    body, step = sass.product_loop(sass.functions(SASS)[LOG], 32)
+    assert (body[0].pc, body[-1].pc, step) == (0x60, 0xd0, 4)
+
+
+def test_per_product_counts_and_the_pipe_that_bounds_them():
+    # 8 instructions a pass of 4 K columns x 4 rows = 16 products
+    c = sass.per_product(sass.functions(SASS)[LOG], 32, 4)
+    assert c == {"alu": 3 / 16, "fma": 1 / 16, "xu": 1 / 16,
+                 "either": 1 / 16, "other": 2 / 16, "int": 6 / 16}
+    clocks, by = sass.clocks_per_product(c)
+    assert by == "xu" and clocks == pytest.approx(1 / 16 / 16)
+    c["alu"] = 10 / 16
+    assert sass.clocks_per_product(c)[1] == "alu"
+
+
+def test_a_function_without_a_product_loop_is_refused():
+    lut = sass.functions(SASS)["_ZN3cim11gemm_kernelINS_7LutCoreEEtest"]
+    with pytest.raises(ValueError, match="no product loop"):
+        sass.product_loop(lut, 32)
+    with pytest.raises(ValueError, match="induction against 64"):
+        sass.product_loop(sass.functions(SASS)[LOG], 64)

@@ -362,6 +362,10 @@ def test_port_never_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    parsed = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "models/cnn", "kernels/conv_gemm", "kernels/sass", "data/pipeline",
+        "launch/table4_cnn", "launch/kernel_ab")} <= parsed
     bad = []
     for f in files:
         for mod in _imports(f):

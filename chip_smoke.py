@@ -7,7 +7,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
 
   1. device: the card's name and count, and ``nvidia-smi``'s name and
      power limit;
-  2. build: the five CUDA sources (src/repro_torch/kernels/csrc)
+  2. build: the six CUDA sources (src/repro_torch/kernels/csrc)
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
      report; the log kernels' product loop read from their SASS
      (``cuobjdump``), its instructions a product counted by pipe;
@@ -30,17 +30,29 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      geometries and the reference tests' geometry: scores bitwise
      against the plain version, fused bitwise against the oracle, fused
      and the PV stage within 8 eps of |plain| in every output (only the
-     order of the l sum differs).  Each timed with CUDA events (L2
-     flushed before every launch), beside its plain version's time and
-     the least time the card could take (the larger of the bytes the
-     mask admits over 3.35 TB/s and the products' shared-memory gathers,
-     log-product instructions or int8 tensor-core operations over their
+     order of the l sum differs); the surrogate GEMMs at the LM shapes,
+     the CNN's fc and the ragged shape: ``cim_gemm_core`` D bitwise and
+     SQ within (K - 1) 2^-24 relative of the exact value (the f32 sum's
+     bound), ``cim_gemm_fused`` for the appro42 and log_our coefficients
+     bitwise without noise (bf16 and f32 operands) and, given the same
+     eps, within that bound carried through the sqrt plus two output
+     roundings; and the exact-mode conv kernel (``conv_mxu_fused``)
+     bitwise at the conv geometries above and within 1e-5 of
+     ``F.conv2d`` on the dequantized operands (TF32 off).  Each timed
+     with CUDA events (L2 flushed before every launch), beside its plain
+     version's time, a PyTorch call computing the same function where
+     one exists (``torch._int_mm``, ``F.conv2d``), and the least time the
+     card could take (the larger of the bytes the mask admits over 3.35
+     TB/s and the products' shared-memory gathers, log-product
+     instructions, int8 tensor-core operations or f32 FMAs over their
      peak rates at the card's maximum SM clock);
   4. reference: the LM on the card against the same LM on the CPU (the
      kernels' plain versions) on the smoke config, every tier of the
-     ladder with and without CiM attention, and a hardware lane of
-     appro42 with 4 approximate columns (the nibble GEMM), to a stated
-     tolerance with greedy-token agreement;
+     hardware ladder with and without CiM attention, of the surrogate
+     ladder (the card's approximate lanes run the fused surrogate
+     kernel, the CPU's the plain torch_surrogate route), and a hardware
+     lane of appro42 with 4 approximate columns (the nibble GEMM), to a
+     stated tolerance with greedy-token agreement;
   5. serve: ``build_engine`` over the hardware-mode ladder (exact /
      balanced / economy) on full-size qwen3-1.7b with seeded random
      weights, warmup, then a Poisson workload served twice under a
@@ -49,7 +61,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      the real clock (tokens/s and per-token p50 per tier); then one
      decode round and one prefill per lane on the host clock, and one
      decode round per lane under torch.profiler (kernels, device busy
-     time and idle share, device time by kernel class);
+     time and idle share, device time by kernel class; three rounds,
+     the median and the spread printed);
   6. serve with CiM attention: the same over ``build_tiers(mode=
      "hardware", attn=True)`` on all 28 layers, 320-token slots and a
      256-token prompt bucket, prompts of 130-250 tokens (so prefill spans
@@ -57,7 +70,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      after warmup, ``attn_fused`` launched 28 times per forward of the
      balanced and economy lanes and never on the exact lane, no float
      fallback, identical tokens when served again, one real-clock run,
-     and one profiled decode round per lane;
+     and three profiled decode rounds per lane;
   7. Table IV on the card: the CNN trained in float as the benchmark
      trains it (220 SGD steps), evaluated on 256 shifted images under
      the benchmark's reference semantics and in hardware mode for the
@@ -66,7 +79,22 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      GEMM kernel and builds no plan after the first, equals the im2col
      oracle (fused=False) bit for bit, and matches the CPU's plain
      versions on 16 images to a stated tolerance; one forward per family
-     timed and profiled.
+     timed and profiled;
+  8. surrogate, the compiler's default mode: the quickstart's macro
+     (``CiMConfig(family="log_our", bits=8, mode="surrogate")``) warmed
+     at the LM shapes, then ``matmul`` there with and without a noise
+     key (no plan built after warmup, the same key the same output and a
+     new key a new one, (out - det) / sqrt(var) of mean ~0 and variance
+     ~1 within five standard errors, one shape against the CPU's route
+     given the same eps); full-size qwen3-1.7b served on
+     ``build_tiers(mode="surrogate")`` with phase 5's workload
+     (``cim_gemm_fused`` launched 196 times per forward of the balanced
+     and economy lanes and never on the exact lane, no plan misses after
+     warmup, identical tokens when served twice, one real-clock run,
+     three profiled decode rounds per lane); and ``cim_conv2d`` at the
+     CNN's five geometries in exact mode (one ``conv_mxu_fused`` launch
+     each, equal to the CPU's) and in surrogate mode with a key (the
+     im2col route through the noisy fused kernel).
 
 ``--layers`` cuts the depth of phase 5 only (the cut is printed).
 
@@ -114,6 +142,7 @@ ATTN_MIX = (("exact", None, 0.2), ("balanced", None, 0.4),
             ("economy", None, 0.4))
 ATTN_REQUESTS, ATTN_SEED = 8, 3
 INT8_TC_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8
+FP32_FMA_PER_SM_CLOCK = 128        # CUDA cores: 67 TFLOP/s at 132 SMs
 # attention geometries (B, H, KH, Sq, Skv, D, variant): the serving decode
 # round (4 slots, ragged fill levels) and prefill (4 x 256, ragged
 # lengths) of qwen3-1.7b, and the reference tests' geometry
@@ -150,6 +179,12 @@ SOURCES = {
                        "src/repro/kernels/conv_gemm.py:236"),
     "conv_log_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                        "src/repro/kernels/conv_gemm.py:321"),
+    "cim_gemm_core": ("src/repro_torch/kernels/csrc/surrogate_gemm.cu",
+                      "src/repro/kernels/cim_gemm.py:60"),
+    "cim_gemm_fused": ("src/repro_torch/kernels/csrc/surrogate_gemm.cu",
+                       "src/repro/kernels/cim_gemm.py:141"),
+    "conv_mxu_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+                       "src/repro/kernels/conv_gemm.py:174"),
 }
 GEMM_KERNELS = ("lut_matmul", "lut_matmul_fused", "mitchell_matmul",
                 "mitchell_matmul_fused", "nibble_lut_matmul",
@@ -176,6 +211,13 @@ CNN_KERNELS = {"exact": ("conv_lut_fused", "nibble_lut_matmul_fused"),
 # quantized code of the fc input, i.e. a logit by about
 # max|h| / 127 * max|w_fc|: a few 1e-2 for the trained network
 CNN_TOL = 5e-2
+# the surrogate's calibrated (mu, c0, c1) of the balanced tier's
+# multiplier (appro42/orplane/10) and of log_our, filled in phase 3
+SURR_COEFFS = {}
+# phase 8: the quickstart's macro, the noise keys, and the bound on the
+# noise moments (five standard errors of a mean and a variance of
+# M*N >= 2^17 standard normal draws)
+MOMENT_SIGMAS = 5.0
 
 
 def fail(msg: str) -> None:
@@ -349,6 +391,175 @@ def check_kernels(torch, sms: int, clock_hz: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, surrogate: the fused surrogate GEMMs against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _surrogate_bound(name, m, k, n, esize, noisy, need_sq, sms, clock_hz):
+    """(bound_ms, bound_by): the bytes each input read once and each
+    output written once at 3.35 TB/s (the core: int8 operands, D and SQ
+    written; the fused form: `esize`-byte operands, the scales, eps when
+    noisy, the f32 output), against the busier of D's 2 M K N int8
+    tensor-core operations at 1,979 TOP/s and SQ's M K N f32 FMAs at
+    the CUDA cores' 128 a clock per SM."""
+    if name == "cim_gemm_core":
+        nbytes = m * k + k * n + 8 * m * n
+    else:
+        nbytes = ((m * k + k * n) * esize + 4 + 4 * n + 4 * m * n
+                  + (4 * m * n if noisy else 0))
+    ops_s = max(2 * m * k * n / INT8_TC_OPS_PER_S,
+                (m * k * n / (sms * FP32_FMA_PER_SM_CLOCK * clock_hz)
+                 if need_sq else 0.0))
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def _noisy_close(torch, got, want, det, k):
+    """(max |d|, outputs beyond the bound): the noisy output against its
+    plain version given the same eps.  They share D (exact) and differ
+    in SQ by at most (K - 1) 2^-24 relative (the kernel's f32 sum against
+    the exact value), which the sqrt halves: the noise term moves by at
+    most K 2^-24 of itself, and the output's last two roundings by
+    2^-22 of it."""
+    diff = (got - want).abs()
+    tol = k * 2.0 ** -24 * (want - det).abs() + 2.0 ** -22 * want.abs()
+    return float(diff.max()), int((diff > tol).sum())
+
+
+def check_surrogate(torch, sms: int, clock_hz: float):
+    from repro_torch.core.compiler import CiMConfig, compile_macro
+    from repro_torch.kernels import cim_gemm as cg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    for fam, kw in (("appro42", dict(compressor="orplane", n_approx_cols=10)),
+                    ("log_our", {})):
+        sur = compile_macro(CiMConfig(family=fam, bits=8, mode="surrogate",
+                                      **kw)).surrogate
+        SURR_COEFFS[fam] = (sur.mu_rel, sur.c0_abs, sur.c1_rel)
+    print(f"  surrogate coefficients (mu, c0, c1): {SURR_COEFFS}", flush=True)
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    rows = {"cim_gemm_core": [], "cim_gemm_fused": []}
+    print(f"  {'kernel':<15} {'variant':<22} {'M,K,N':>16} {'ms':>9} "
+          f"{'bound_ms':>9} {'by':>10} {'plain_ms':>9} {'library_ms':>10}",
+          flush=True)
+    for shape in MAIN_SHAPES + [CNN_FC, RAGGED]:
+        m, k, n = shape
+        timed = shape != RAGGED
+        g = torch.Generator(device=dev).manual_seed(m * 5 + k + 3 * n)
+        x = torch.randn(m, k, generator=g, device=dev)
+        w = torch.randn(k, n, generator=g, device=dev) * 0.02
+        eps = torch.randn(m, n, generator=g, device=dev)
+        xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        xq[:, 0] = -128
+        # the core: D bitwise, SQ within the f32 sum's bound
+        pd, psq = cg.cim_gemm_core_plain(xq, wq)
+        sq_rel = 0.0
+        for need_sq in (True, False):
+            d, sq = cg.cim_gemm_core(xq, wq, need_sq=need_sq)
+            torch.cuda.synchronize()
+            if not torch.equal(d, pd):
+                fail(f"cim_gemm_core {shape}: D != plain version (max |d| "
+                     f"{float((d - pd).abs().max())})")
+            want_sq = psq if need_sq else torch.zeros_like(psq)
+            sq_err = float((sq - want_sq).abs().max())
+            if need_sq:
+                sq_rel = float(((sq - psq).abs() / psq.clamp_min(1)).max())
+            if bool(((sq - want_sq).abs()
+                     > k * 2.0 ** -24 * want_sq.abs()).any()):
+                fail(f"cim_gemm_core {shape} need_sq={need_sq}: SQ beyond "
+                     f"(K-1) 2^-24 of the exact value (max |d| {sq_err})")
+            if not timed:
+                continue
+            row = {"shape": shape, "variant": f"need_sq={need_sq}",
+                   "max_abs_err": sq_err,
+                   "main": not need_sq and shape in MAIN_SHAPES}
+            row["ms"] = _timed_ms(
+                torch, lambda s_=need_sq: cg.cim_gemm_core(xq, wq, s_), 10,
+                flush)
+            row["plain_ms"] = _timed_ms(
+                torch, lambda s_=need_sq: cg.cim_gemm_core_plain(xq, wq, s_),
+                1, flush)
+            row["bound_ms"], row["bound_by"] = _surrogate_bound(
+                "cim_gemm_core", m, k, n, 1, False, need_sq, sms, clock_hz)
+            if not need_sq and m > 16 and k % 8 == 0 and n % 8 == 0:
+                lib = torch._int_mm(xq, wq)     # the yardstick: D only
+                torch.cuda.synchronize()
+                if not torch.equal(lib, pd):
+                    fail(f"torch._int_mm {shape} != D")
+                row["library_ms"] = _timed_ms(
+                    torch, lambda: torch._int_mm(xq, wq), 10, flush)
+            rows["cim_gemm_core"].append(row)
+        # the fused form: bitwise without noise, within the bound with it
+        dtypes = ((torch.float32,) if shape == CNN_FC
+                  else (torch.bfloat16, torch.float32))
+        for dt in dtypes:
+            xs, ws = x.to(dt), w.to(dt)
+            sx, sw = ops._scales(xs, ws, 8)
+            for fam, (mu, c0, c1) in SURR_COEFFS.items():
+                det = cg.cim_gemm_fused(xs, ws, sx, sw, None, mu, c0, c1)
+                pdet = cg.cim_gemm_fused_plain(xs, ws, sx, sw, None, mu, c0,
+                                               c1)
+                got = cg.cim_gemm_fused(xs, ws, sx, sw, eps, mu, c0, c1)
+                want = cg.cim_gemm_fused_plain(xs, ws, sx, sw, eps, mu, c0,
+                                               c1)
+                torch.cuda.synchronize()
+                if not torch.equal(det, pdet):
+                    fail(f"cim_gemm_fused {shape} {dt} {fam} without noise: "
+                         f"kernel != plain version (max |d| "
+                         f"{float((det - pdet).abs().max())})")
+                err, beyond = _noisy_close(torch, got, want, pdet, k)
+                if beyond or not torch.isfinite(got).all():
+                    fail(f"cim_gemm_fused {shape} {dt} {fam} with noise: "
+                         f"{beyond} outputs beyond the bound (max |d| {err})")
+                # timed: the serving path (bf16, no noise, the balanced
+                # tier's coefficients) and the macro path (f32, log_our's
+                # noise with its SQ)
+                for noisy in (False, True):
+                    serving = dt == torch.bfloat16 and fam == "appro42"
+                    macro = dt == torch.float32 and fam == "log_our"
+                    if not timed or not (serving and not noisy
+                                         or macro and noisy):
+                        continue
+                    e = eps if noisy else None
+                    row = {"shape": shape,
+                           "variant": f"{str(dt)[6:]} {fam}"
+                                      f"{' noise' if noisy else ''}",
+                           "max_abs_err": err if noisy else 0.0,
+                           "main": shape in MAIN_SHAPES}
+                    row["ms"] = _timed_ms(
+                        torch, lambda e_=e: cg.cim_gemm_fused(
+                            xs, ws, sx, sw, e_, mu, c0, c1), 10, flush)
+                    row["plain_ms"] = _timed_ms(
+                        torch, lambda e_=e: cg.cim_gemm_fused_plain(
+                            xs, ws, sx, sw, e_, mu, c0, c1), 1, flush)
+                    row["bound_ms"], row["bound_by"] = _surrogate_bound(
+                        "cim_gemm_fused", m, k, n, xs.element_size(), noisy,
+                        noisy and c1 > 0, sms, clock_hz)
+                    rows["cim_gemm_fused"].append(row)
+        for name, rs in rows.items():
+            for r in rs:
+                if r["shape"] == shape:
+                    lib = r.get("library_ms")
+                    print(f"  {name:<15} {r['variant']:<22} {str(shape):>16} "
+                          f"{r['ms']:9.4f} {r['bound_ms']:9.4f} "
+                          f"{r['bound_by']:>10} {r['plain_ms']:9.3f} "
+                          f"{'-' if lib is None else f'{lib:10.4f}':>10}",
+                          flush=True)
+        print(f"  {shape}: D bitwise, SQ within (K-1) 2^-24 = "
+              f"{(k - 1) * 2.0 ** -24:.2e} (max relative error {sq_rel:.2e}), "
+              f"the fused kernel bitwise without noise and within the bound "
+              f"with it "
+              f"({', '.join(str(d)[6:] for d in dtypes)} operands; appro42 "
+              f"and log_our)", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3, conv: the implicit-GEMM conv kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -357,14 +568,17 @@ def _conv_bound(core, comp, b, h, w, c, n, oh, ow, sms, clock_hz):
     """(bound_ms, bound_by): the image, the weights and the scales read
     once and the output written once at 3.35 TB/s, against the M*K*N
     products of the implicit GEMM as gathers (lut; nibble four a
-    product) at the SMs' peak rate or, for log, at LOG_CLOCKS a
-    product."""
+    product) at the SMs' peak rate, for log at LOG_CLOCKS a product, or
+    for the exact core as 2 M K N int8 tensor-core operations."""
     m, k = b * oh * ow, 9 * c
     nbytes = 4 * (b * h * w * c + k * n + 1 + n + m * n)
-    nbytes += {"lut": LUT_BYTES, "nibble": NIBBLE_BYTES, "log": 0}[core]
+    nbytes += {"lut": LUT_BYTES, "nibble": NIBBLE_BYTES, "log": 0,
+               "mxu": 0}[core]
     products = m * k * n
     if core == "log":
         ops_s = products * LOG_CLOCKS[comp] / (sms * clock_hz)
+    elif core == "mxu":
+        ops_s = 2 * products / INT8_TC_OPS_PER_S
     else:
         ops_s = (products * (4 if core == "nibble" else 1)
                  / (sms * GATHERS_PER_SM_CLOCK * clock_hz))
@@ -373,8 +587,23 @@ def _conv_bound(core, comp, b, h, w, c, n, oh, ow, sms, clock_hz):
                                        else "bytes")
 
 
+def _float_conv_of_dequantized(x, w3, sx, sw, geo):
+    """The yardstick of the exact-mode conv: the float conv (one
+    F.conv2d call on views of its operands) of the dequantized operands,
+    prepared once, outside the timing; run it under `_full_f32_convs`."""
+    from repro_torch.core.approx_gemm import ConvParams, _float_conv
+    from repro_torch.kernels.ref import quantize_tile
+
+    conv = ConvParams(geo["kh"], geo["kw"], geo["stride"])
+    xdq = quantize_tile(x, sx.reshape(()), 127).float() * sx
+    wdq = (quantize_tile(w3, sw.reshape(1, -1), 127).float() * sw).reshape(
+        -1, w3.shape[2])
+    return lambda: _float_conv(xdq, wdq, conv)
+
+
 def check_conv(torch, sms: int, clock_hz: float):
-    from repro_torch.core.approx_gemm import ConvParams, plan_conv
+    from repro_torch.core.approx_gemm import (ConvParams, _full_f32_convs,
+                                              plan_conv)
     from repro_torch.core.multipliers import MultiplierSpec
     from repro_torch.kernels import conv_gemm as cg
     from repro_torch.kernels import ops
@@ -392,12 +621,13 @@ def check_conv(torch, sms: int, clock_hz: float):
                 ("nibble appro42/4", "conv_lut_fused", "nibble", a4, False,
                  False),
                 ("mitchell", "conv_log_fused", "log", None, False, True),
-                ("log_our", "conv_log_fused", "log", None, True, True)]
+                ("log_our", "conv_log_fused", "log", None, True, True),
+                ("mxu exact", "conv_mxu_fused", "mxu", None, False, True)]
     geoms = ([(CNN_BATCH, h, w, c, n, 3, 3, 1) for h, w, c, n in CNN_CONVS]
              + CONV_RAGGED + [RESNET + (3, 3, 1)])
-    rows = {"conv_lut_fused": [], "conv_log_fused": []}
+    rows = {"conv_lut_fused": [], "conv_log_fused": [], "conv_mxu_fused": []}
     print(f"  {'variant':<17} {'B,H,W,C->N':<24} {'ms':>9} {'bound_ms':>9} "
-          f"{'by':>10} {'plain_ms':>9}", flush=True)
+          f"{'by':>10} {'plain_ms':>9} {'library_ms':>10}", flush=True)
     for gi, geom in enumerate(geoms):
         b, h, w, c, n, kh, kw, s = geom
         g = torch.Generator(device=dev).manual_seed(31 * gi + 7)
@@ -407,7 +637,16 @@ def check_conv(torch, sms: int, clock_hz: float):
         geo = dict(kh=kh, kw=kw, stride=s)
         timed = geom not in CONV_RAGGED
         for label, name, core, spec, comp, main in variants:
-            if core == "log":
+            lib = None
+            if core == "mxu":
+                def kern():
+                    return cg.conv_mxu_fused(x, w3, sx, sw, **geo)
+
+                def plain():
+                    return cg.conv_mxu_fused_plain(x, w3, sx, sw, **geo)
+
+                lib = _float_conv_of_dequantized(x, w3, sx, sw, geo)
+            elif core == "log":
                 def kern(c_=comp):
                     return cg.conv_log_fused(x, w3, sx, sw, compensated=c_,
                                              **geo)
@@ -433,6 +672,14 @@ def check_conv(torch, sms: int, clock_hz: float):
             if not torch.equal(got, want):
                 fail(f"{name} ({label}) {geom}: kernel != plain version "
                      f"(max |diff| {err})")
+            if lib is not None:
+                with _full_f32_convs():
+                    ref_out = lib()
+                torch.cuda.synchronize()
+                if not torch.allclose(got, ref_out, rtol=1e-5, atol=1e-5):
+                    fail(f"{name} {geom}: beyond 1e-5 of F.conv2d on the "
+                         f"dequantized operands (max |d| "
+                         f"{float((got - ref_out).abs().max())})")
             row = {"variant": label, "geometry": geom, "max_abs_err": err,
                    "main": main and timed and geom[:5] != RESNET}
             if timed:
@@ -441,9 +688,14 @@ def check_conv(torch, sms: int, clock_hz: float):
                 row["plain_ms"] = _timed_ms(torch, plain, 1, flush)
                 row["bound_ms"], row["bound_by"] = _conv_bound(
                     core, comp, b, h, w, c, n, oh, ow, sms, clock_hz)
+                if lib is not None:
+                    with _full_f32_convs():
+                        row["library_ms"] = _timed_ms(torch, lib, 10, flush)
                 print(f"  {label:<17} {str(geom[:5]):<24} {row['ms']:9.4f} "
                       f"{row['bound_ms']:9.4f} {row['bound_by']:>10} "
-                      f"{row['plain_ms']:9.3f}", flush=True)
+                      f"{row['plain_ms']:9.3f} "
+                      f"{row.get('library_ms', float('nan')):10.4f}",
+                      flush=True)
             rows[name].append(row)
         if not timed:
             print(f"  {str(geom):<42} every variant bitwise equal to its "
@@ -451,6 +703,8 @@ def check_conv(torch, sms: int, clock_hz: float):
     routes = {fam: plan_conv(fam, "hardware", 8, *RESNET, ConvParams(),
                              "cuda", spec=MultiplierSpec(fam, 8, True))
               .entry.name for fam in FAMS}
+    routes["exact mode"] = plan_conv("exact", "exact", 8, *RESNET,
+                                     ConvParams(), "cuda").entry.name
     print(f"  ResNet-18 conv2_x {RESNET} 3x3 routes on the card: {routes} "
           f"(the reference's 8 MiB VMEM model sends this plane to "
           f"conv_im2col)", flush=True)
@@ -662,7 +916,8 @@ def check_reference(torch):
     rng_tokens = torch.Generator().manual_seed(7)
     toks = torch.randint(0, cfg.vocab, (2, 8), generator=rng_tokens)
     tiers = (build_tiers(mode="hardware")
-             + build_tiers(mode="hardware", attn=True))
+             + build_tiers(mode="hardware", attn=True)
+             + build_tiers(mode="surrogate"))
     # the balanced multiplier with 4 approximate columns: nibble-
     # decomposable, so its GEMMs run the nibble kernel
     bal = next(t for t in tiers if t.name == "balanced")
@@ -670,9 +925,11 @@ def check_reference(torch):
         bal, name="balanced/4", cim=dataclasses.replace(bal.cim,
                                                         n_approx_cols=4))
     nibble_kernel = _kernel_modules()["nibble_lut_matmul_fused"]
+    surr_kernel = _kernel_modules()["cim_gemm_fused"]
     for tier in tiers + (nibble_lane,):
-        name = tier.name + (" +attn" if tier.cim.attn else "")
-        nib0 = nibble_kernel.launches
+        name = (tier.name + (" +attn" if tier.cim.attn else "")
+                + (" surrogate" if tier.cim.mode == "surrogate" else ""))
+        nib0, surr0 = nibble_kernel.launches, surr_kernel.launches
         c = dataclasses.replace(cfg, cim=tier.cim)
         cpu, gpu = LM(c, device="cpu"), LM(c, device="cuda")
         tol = REF_TOL[tier.name]
@@ -705,12 +962,17 @@ def check_reference(torch):
                 lg, cg = gpu.decode_step(params_gpu, cg, tok.cuda(),
                                          8 + step)
         nib = nibble_kernel.launches - nib0
+        surr = surr_kernel.launches - surr0
         if (tier is nibble_lane) != (nib > 0):
             fail(f"reference {name}: the nibble GEMM kernel launched {nib} "
                  "times")
-        print(f"  {name:<15} card vs cpu: max |logit diff| {worst:.3e} "
+        if (tier.cim.mode == "surrogate") != (surr > 0):
+            fail(f"reference {name}: the fused surrogate kernel launched "
+                 f"{surr} times")
+        print(f"  {name:<19} card vs cpu: max |logit diff| {worst:.3e} "
               f"<= {tol} ; greedy tokens equal ({close} near-ties under "
-              f"the gap rule); nibble GEMM launches {nib}", flush=True)
+              f"the gap rule); nibble GEMM launches {nib}, fused surrogate "
+              f"launches {surr}", flush=True)
 
 
 def _to(torch, tree, device):
@@ -722,17 +984,21 @@ def _to(torch, tree, device):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: serve full-size qwen3-1.7b on the hardware ladder,
-# without and with CiM attention
+# phases 5, 6 and 8: serve full-size qwen3-1.7b on the hardware ladder
+# without and with CiM attention, and on the surrogate ladder
 # ---------------------------------------------------------------------------
+
+# the cim_linear GEMMs of one qwen3 layer: wq, wk, wv, wo, mlp_wi, mlp_wg,
+# mlp_wo (the LM head is a plain matmul)
+GEMMS_PER_LAYER = 7
 
 
 def _kernel_modules():
-    from repro_torch.kernels import (approx_matmul, attn_gemm, conv_gemm,
-                                     mitchell_gemm)
+    from repro_torch.kernels import (approx_matmul, attn_gemm, cim_gemm,
+                                     conv_gemm, mitchell_gemm)
 
     return {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS,
-            **conv_gemm.KERNELS, **attn_gemm.KERNELS}
+            **conv_gemm.KERNELS, **attn_gemm.KERNELS, **cim_gemm.KERNELS}
 
 
 def _launch_counts():
@@ -757,7 +1023,7 @@ def _count_forwards(eng):
     return counts
 
 
-def serve(torch, layers, power, attn: bool):
+def serve(torch, layers, power, attn: bool, mode: str = "hardware"):
     from repro_torch.configs import get_config
     from repro_torch.models.attention import (cim_attn_fallbacks,
                                               reset_cim_attn_fallbacks)
@@ -777,9 +1043,13 @@ def serve(torch, layers, power, attn: bool):
         n_req, mix, seed = N_REQUESTS, MIX, WORKLOAD_SEED
     print(f"  {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
           f"{cfg.n_kv_heads} x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, {cfg.n_layers} layers; CiM attention {attn}; "
-          f"{max_len}-token slots, prompt bucket {bucket}", flush=True)
-    tiers = build_tiers(mode="hardware", attn=attn)
+          f"{cfg.vocab}, {cfg.n_layers} layers; {mode} ladder; CiM "
+          f"attention {attn}; {max_len}-token slots, prompt bucket {bucket}",
+          flush=True)
+    tiers = build_tiers(mode=mode, attn=attn)
+    # the GEMM kernels each approximate forward must launch, and how often
+    per_fwd = ({"cim_gemm_fused": GEMMS_PER_LAYER * cfg.n_layers}
+               if mode == "surrogate" else {})
     t0 = time.perf_counter()
     eng = build_engine(cfg, tiers=tiers, slots_per_tier=4, max_len=max_len,
                        prompt_buckets=(bucket,), group_buckets=(1, 2, 4),
@@ -829,10 +1099,21 @@ def serve(torch, layers, power, attn: bool):
           f"{secs:.1f}s; forwards per lane {forwards}; kernel launches "
           f"{launches}; float-path attention fallbacks {fallbacks}",
           flush=True)
-    for name in ("lut_matmul_fused", "mitchell_matmul_fused"):
+    approx = forwards["balanced"] + forwards["economy"]
+    fused = (("lut_matmul_fused", "mitchell_matmul_fused")
+             if mode == "hardware" else ("cim_gemm_fused",))
+    for name in fused:
         if launches[name] <= 0:
             fail(f"{name} was not launched while serving")
-    approx = forwards["balanced"] + forwards["economy"]
+    for name, n in per_fwd.items():
+        if launches[name] != n * approx:
+            fail(f"{name} launched {launches[name]} times, expected {n} a "
+                 f"forward of the approximate lanes ({approx} forwards), "
+                 "none on the exact lane")
+    others = {k: v for k, v in launches.items()
+              if v and k not in fused and k != "attn_fused"}
+    if others:
+        fail(f"kernels of another mode launched while serving: {others}")
     want = cfg.n_layers * approx if attn else 0
     if launches["attn_fused"] != want:
         fail(f"attn_fused launched {launches['attn_fused']} times, expected "
@@ -876,11 +1157,17 @@ def serve(torch, layers, power, attn: bool):
             b.decode_round()
         torch.cuda.synchronize()
         dec = (time.perf_counter() - t) / 3
-        n_attn = _launch_counts()["attn_fused"]
+        counts = _launch_counts()
+        n_attn = counts["attn_fused"]
         want = 3 * cfg.n_layers if attn and name != "exact" else 0
         if n_attn != want:
             fail(f"{name}: attn_fused launched {n_attn} times in 3 decode "
                  f"rounds, expected {want}")
+        for kname, n in per_fwd.items():
+            want = 3 * n if name != "exact" else 0
+            if counts[kname] != want:
+                fail(f"{name}: {kname} launched {counts[kname]} times in 3 "
+                     f"decode rounds, expected {want}")
         t = time.perf_counter()
         with torch.inference_mode():
             b.lm.prefill(b.params, {"tokens": toks, "lengths": lens,
@@ -889,8 +1176,9 @@ def serve(torch, layers, power, attn: bool):
         pre = time.perf_counter() - t
         b.reset()
         print(f"    {name:<9} decode round (4 slots) {1e3 * dec:.1f} ms, "
-              f"prefill (4 x {bucket}) {1e3 * pre:.1f} ms; attn_fused "
-              f"{n_attn // 3} launches a decode round", flush=True)
+              f"prefill (4 x {bucket}) {1e3 * pre:.1f} ms; launches a decode "
+              f"round {({k: v // 3 for k, v in counts.items() if v})}",
+              flush=True)
         _profile(torch, name, b.decode_round, dec)
         b.reset()
     return launches
@@ -997,6 +1285,153 @@ def table4(torch):
     return launches, hw
 
 
+# ---------------------------------------------------------------------------
+# phase 8: surrogate, the compiler's default mode
+# ---------------------------------------------------------------------------
+
+
+def _macro_variance(torch, x, w, gp):
+    """var[out] of the fused surrogate kernel, in f64 from the exact
+    pieces: c0 K s^2 + c1 SQ s^2 over the operands as the kernel
+    quantizes them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import quantize_tile
+
+    sx, sw = ops._scales(x, w, gp.bits)
+    qmax = (1 << (gp.bits - 1)) - 1
+    a = quantize_tile(x, sx, qmax).double()
+    b = quantize_tile(w, sw.reshape(1, -1), qmax).double()
+    s2 = (sx.double() * sw.double().reshape(1, -1)) ** 2
+    return gp.c0 * x.shape[-1] * s2 + gp.c1 * ((a * a) @ (b * b)) * s2
+
+
+def surrogate_macro(torch):
+    """The quickstart's macro on the card: warmup at the LM shapes, then
+    matmul with and without a key.  Returns its launch counts."""
+    from repro_torch.core import approx_gemm as ag
+    from repro_torch.core.approx_gemm import NoiseKey, plan_misses
+    from repro_torch.core.compiler import CiMConfig, compile_macro
+    from repro_torch.core.sram_model import SRAMConfig
+
+    dev = torch.device("cuda")
+    macro = compile_macro(CiMConfig(family="log_our", bits=8,
+                                    sram=SRAMConfig(rows=64, cols=32,
+                                                    banks=2),
+                                    mode="surrogate"))
+    gp = macro.gemm_params()
+    print(f"  {macro.summary()}; (mu, c0, c1) = ({gp.mu}, {gp.c0}, "
+          f"{gp.c1}); routes to "
+          f"{macro.kernel_plan(64, 2048, 2048).entry.name} on the card",
+          flush=True)
+    _reset_counts()
+    t = time.perf_counter()
+    n = macro.warmup(MAIN_SHAPES)
+    mark = plan_misses()
+    print(f"  warmup: {n} shapes, deterministic and noisy plans, in "
+          f"{time.perf_counter() - t:.1f}s", flush=True)
+    for i, (m, k, n) in enumerate(MAIN_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn(m, k, generator=g, device=dev)
+        w = torch.randn(k, n, generator=g, device=dev)
+        det = macro.matmul(x, w)
+        a = macro.matmul(x, w, key=NoiseKey(2))
+        b = macro.matmul(x, w, key=NoiseKey(2))
+        c = macro.matmul(x, w, key=NoiseKey(3))
+        torch.cuda.synchronize()
+        if plan_misses() != mark:
+            fail(f"macro {(m, k, n)}: {plan_misses() - mark} plans built "
+                 "after warmup")
+        for t_ in (det, a, c):
+            if t_.shape != (m, n) or not torch.isfinite(t_).all():
+                fail(f"macro {(m, k, n)}: output not finite of shape {(m, n)}")
+        if not torch.equal(a, b):
+            fail(f"macro {(m, k, n)}: the same key gave another output")
+        if torch.equal(a, c) or torch.equal(a, det):
+            fail(f"macro {(m, k, n)}: a new key (or no key) gave the same "
+                 "output")
+        z = (a.double() - det.double()) / torch.sqrt(
+            _macro_variance(torch, x, w, gp))
+        mean, var = float(z.mean()), float(z.var())
+        line = (f"  {str((m, k, n)):<18} same key same output, new key new "
+                f"output; (out - det) / sqrt(var): mean {mean:+.5f}, "
+                f"variance {var:.5f}")
+        if m * n >= 1 << 17:
+            lim_m = MOMENT_SIGMAS / (m * n) ** 0.5
+            lim_v = MOMENT_SIGMAS * (2.0 / (m * n)) ** 0.5
+            if abs(mean) > lim_m or abs(var - 1) > lim_v:
+                fail(f"macro {(m, k, n)}: noise moments ({mean}, {var}) "
+                     f"beyond ({lim_m}, 1 +- {lim_v})")
+            line += f" (bounds |mean| <= {lim_m:.5f}, |var-1| <= {lim_v:.5f})"
+        print(line, flush=True)
+    launches = _launch_counts()
+    # the card against the CPU's route (the dequantized dot and the
+    # variance law over the dequantized operands) given the same eps
+    m, k, n = MAIN_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(100)
+    x = torch.randn(m, k, generator=g, device=dev)
+    w = torch.randn(k, n, generator=g, device=dev)
+    eps = ag.surrogate_noise(NoiseKey(2), (m, n), dev, "normal")
+    card = macro.matmul(x, w, key=NoiseKey(2))
+    cpu_plan = ag.plan_gemm(gp.family, gp.mode, gp.bits, m, k, n, "cpu",
+                            spec=gp.routing_spec)
+    cpu = ag._cim_core(gp, cpu_plan)(x.cpu(), w.cpu(), eps.cpu())
+    diff = float((card.cpu() - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    if diff > 1e-4 * scale:
+        fail(f"macro {(m, k, n)}: card vs the CPU's {cpu_plan.entry.name} "
+             f"given the same eps: max |d| {diff} > 1e-4 of {scale}")
+    print(f"  {(m, k, n)} card vs the CPU's {cpu_plan.entry.name} given the "
+          f"same eps: max |d| {diff:.3e} <= 1e-4 x max |out| {scale:.3e} "
+          f"(f32 sum orders); launches {launches}", flush=True)
+    return launches
+
+
+def surrogate_conv(torch):
+    """cim_conv2d at the CNN's five geometries in exact mode (the exact
+    conv kernel) and in surrogate mode with a key (im2col + the noisy
+    fused GEMM).  Returns its launch counts."""
+    from repro_torch.core.approx_gemm import (GemmParams, NoiseKey,
+                                              cim_conv2d)
+
+    dev = torch.device("cuda")
+    exact = GemmParams(family="exact", bits=8, mode="exact")
+    mu, c0, c1 = SURR_COEFFS["log_our"]
+    surr = GemmParams(family="log_our", bits=8, mode="surrogate", mu=mu,
+                      c0=c0, c1=c1)
+    # the main path's launches: the sum of each conv's own, read before
+    # the comparison with the CPU launches the exact kernel again
+    launches = {k: 0 for k in _launch_counts()}
+    for i, (h, w, c, n) in enumerate(CNN_CONVS):
+        g = torch.Generator(device=dev).manual_seed(200 + i)
+        x = torch.randn(CNN_BATCH, h, w, c, generator=g, device=dev)
+        w2 = torch.randn(9 * c, n, generator=g, device=dev) * 0.1
+        _reset_counts()
+        y = cim_conv2d(x, w2, exact)
+        yn = cim_conv2d(x, w2, surr, NoiseKey(4))
+        torch.cuda.synchronize()
+        delta = {k: v for k, v in _launch_counts().items() if v}
+        if delta != {"conv_mxu_fused": 1, "cim_gemm_fused": 1}:
+            fail(f"cim_conv2d {(h, w, c, n)}: launched {delta}, expected one "
+                 "conv_mxu_fused (exact) and one cim_gemm_fused (surrogate)")
+        for k, v in delta.items():
+            launches[k] += v
+        # the card against the CPU's plain version on 16 of the images
+        y16 = cim_conv2d(x[:16], w2, exact)
+        ycpu = cim_conv2d(x[:16].cpu(), w2.cpu(), exact)
+        if not torch.equal(y16.cpu(), ycpu):
+            fail(f"cim_conv2d exact {(h, w, c, n)}: card != CPU")
+        for t_ in (y, yn):
+            if (t_.shape != (CNN_BATCH, h, w, n)
+                    or not torch.isfinite(t_).all()):
+                fail(f"cim_conv2d {(h, w, c, n)}: output not finite of "
+                     f"shape {(CNN_BATCH, h, w, n)}")
+    print(f"  cim_conv2d at the CNN's five geometries (batch {CNN_BATCH}): "
+          f"exact mode one conv_mxu_fused launch each, equal to the CPU's "
+          f"on 16 images; surrogate mode with a key one noisy "
+          f"cim_gemm_fused each (im2col); launches {launches}", flush=True)
+    return launches
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -1010,6 +1445,8 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM LUT kernel"
     if "nibblecore" in low:
         return "CiM nibble kernel"
+    if "intsqcore" in low or "intcore" in low:
+        return "CiM surrogate kernel"
     if "logcore" in low:
         return "CiM log kernel"
     if "attn_kernel" in low:
@@ -1021,12 +1458,10 @@ def _kernel_class(name: str, matmul_kernels) -> str:
     return "other"
 
 
-def _profile(torch, lane: str, run, unprofiled_s: float) -> None:
-    """One call of `run` (a pool decode round, a CNN forward) under
-    torch.profiler: the Python-level PyTorch ops it dispatched, the
-    kernels it launched, the union of their device intervals against the
-    call's time (the device's idle share), and device time by kernel
-    class and by kernel."""
+def _profile_once(torch, run):
+    """One call of `run` under torch.profiler: (host ms, top-level ops,
+    kernels, device busy ms = the union of the kernels' intervals, device
+    time by kernel class, by kernel), busy None if no kernel was seen."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1041,11 +1476,6 @@ def _profile(torch, lane: str, run, unprofiled_s: float) -> None:
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     n_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
                 and e.cpu_parent is None and e.name.startswith("aten::"))
-    if not kern:
-        print(f"    {lane:<9} profiled run: {wall_ms:.1f} ms, {n_ops} "
-              f"top-level ops; device time not measured (the profiler "
-              f"recorded no kernels)", flush=True)
-        return
     busy_us, end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in kern):
         if e > end:
@@ -1059,14 +1489,46 @@ def _profile(torch, lane: str, run, unprofiled_s: float) -> None:
         c = _kernel_class(e.name, matmul_kernels)
         by_class[c] = by_class.get(c, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy_ms = busy_us / 1e3
-    print(f"    {lane:<9} profiled run: {wall_ms:.1f} ms host clock "
-          f"({1e3 * unprofiled_s:.1f} ms unprofiled), {n_ops} top-level "
-          f"ops, {len(kern)} kernels; device busy {busy_ms:.2f} ms = idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the profiled run, "
+    return (wall_ms, n_ops, len(kern), busy_us / 1e3 if kern else None,
+            by_class, by_name)
+
+
+def _profile(torch, lane: str, run, unprofiled_s: float,
+             reps: int = 3) -> None:
+    """`reps` calls of `run` (a pool decode round, a CNN forward), each
+    under torch.profiler: the Python-level PyTorch ops it dispatched,
+    the kernels it launched, the union of their device intervals against
+    the call's time (the device's idle share), as the median and the
+    spread (min - max) of the calls, and device time by kernel class and
+    by kernel of the median call.  A profile that recorded no kernel
+    (CUPTI drops a cycle now and then) is not a measurement: it is
+    counted, left out, and made again, up to `reps` more times."""
+    runs, empty = [], 0
+    while len(runs) < reps and empty < reps:
+        r = _profile_once(torch, run)
+        if r[3] is None:
+            empty += 1
+        else:
+            runs.append(r)
+    dropped = (f", {empty} profile(s) that recorded no kernel left out"
+               if empty else "")
+    if not runs:
+        print(f"    {lane:<9} {empty} profiled runs: device time not "
+              f"measured (the profiler recorded no kernels)", flush=True)
+        return
+    runs.sort(key=lambda r: r[3])
+    wall_ms, n_ops, n_kern, busy_ms, by_class, by_name = runs[len(runs) // 2]
+    busy = [r[3] for r in runs]
+    idle = sorted(100 * (1 - r[3] / r[0]) for r in runs)
+    print(f"    {lane:<9} {len(runs)} profiled runs: median {wall_ms:.1f} ms "
+          f"host clock ({1e3 * unprofiled_s:.1f} ms unprofiled), {n_ops} "
+          f"top-level ops, {n_kern} kernels; device busy median "
+          f"{busy_ms:.2f} ms (spread {min(busy):.2f} - {max(busy):.2f}), "
+          f"idle median {idle[len(idle) // 2]:.1f}% (spread {idle[0]:.1f} - "
+          f"{idle[-1]:.1f}%) of the profiled runs, "
           f"{100 * max(0.0, 1 - busy_ms / (1e3 * unprofiled_s)):.1f}% of "
-          f"the unprofiled one", flush=True)
-    print("      by class (ms): " + ", ".join(
+          f"the unprofiled one{dropped}", flush=True)
+    print("      by class (ms, median run): " + ", ".join(
         f"{c} {us / 1e3:.2f}" for c, us in
         sorted(by_class.items(), key=lambda kv: -kv[1])), flush=True)
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
@@ -1082,6 +1544,14 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _shape_key(r):
+    """A timed row's shape for the kernels line, led by its path or
+    variant where the kernel has several."""
+    where = r.get("path") or r.get("variant")
+    dims = list(r["shape"] if "shape" in r else r["geometry"])
+    return [where, *dims] if where else dims
 
 
 def main():
@@ -1125,6 +1595,7 @@ def main():
     rows = check_kernels(torch, sms, clock_hz)
     conv_rows = check_conv(torch, sms, clock_hz)
     attn_rows = check_attention(torch, sms, clock_hz)
+    surr_rows = check_surrogate(torch, sms, clock_hz)
 
     print("[4] reference: the LM on the card against the CPU", flush=True)
     check_reference(torch)
@@ -1141,15 +1612,30 @@ def main():
 
     print("[7] Table IV on the card", flush=True)
     cnn_launches, _ = table4(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[8] surrogate: the compiler's default mode", flush=True)
+    surr_launches = surrogate_macro(torch)
+    serve_launches = serve(torch, 0, power, attn=False, mode="surrogate")
+    gc.collect()                      # phase 8's engine is gone
+    torch.cuda.empty_cache()
+    conv_launches = surrogate_conv(torch)
+    for k, v in serve_launches.items():
+        surr_launches[k] += v + conv_launches[k]
 
     kernels = []
     # the GEMM rows sum the eight LM shapes and, for the fused forms (the
     # CNN's fc, f32 operands) and the nibble rows, the CNN's fc shape,
     # with the launches of the main paths that run them (5: the LM
-    # ladder, 7: the CNN); the conv rows the CNN's five geometries on the
-    # families' variants; the attention rows the serving decode and
-    # prefill geometries on the paths the ladder runs (lut for balanced,
-    # log for economy)
+    # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs); the
+    # conv rows the CNN's five geometries on the families' variants; the
+    # attention rows the serving decode and prefill geometries on the
+    # paths the ladder runs (lut for balanced, log for economy); the
+    # surrogate rows the eight LM shapes, cim_gemm_fused both as phase 8
+    # serves them (bf16, no noise) and as its macro runs them (f32, with
+    # noise), cim_gemm_core without SQ (the form torch._int_mm computes,
+    # at the shapes it accepts: library_shapes)
     main = {}
     for name, rs in rows.items():
         fc = name.startswith("nibble") or name.endswith("fused")
@@ -1157,16 +1643,20 @@ def main():
         main[name] = ([r for r in rs if r["shape"] in shapes],
                       launches[name] + cnn_launches[name])
     for name, rs in conv_rows.items():
-        main[name] = ([r for r in rs if r["main"]], cnn_launches[name])
+        main[name] = ([r for r in rs if r["main"]],
+                      cnn_launches[name] + surr_launches[name])
     for name, rs in attn_rows.items():
         main[name] = ([r for r in rs if "ms" in r and r["path"] in
                        ("lut", "log")], attn_launches[name])
-    every = {**rows, **conv_rows, **attn_rows}
+    for name, rs in surr_rows.items():
+        main[name] = ([r for r in rs if r["main"]], surr_launches[name])
+    every = {**rows, **conv_rows, **attn_rows, **surr_rows}
     for name, (timed, n_launch) in main.items():
         ops_ms = sum(r["bound_ms"] for r in timed
                      if r["bound_by"] == "operations")
         bytes_ms = sum(r["bound_ms"] for r in timed
                        if r["bound_by"] == "bytes")
+        lib = [r for r in timed if r.get("library_ms") is not None]
         src, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -1176,11 +1666,13 @@ def main():
             "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "shapes": [list(r["shape"]) if "shape" in r
-                       else [r.get("path") or r["variant"], *r["geometry"]]
-                       for r in timed],
+            "library_ms": (sum(r["library_ms"] for r in lib) if lib
+                           else None),
+            "shapes": [_shape_key(r) for r in timed],
         })
+        if lib and len(lib) != len(timed):
+            kernels[-1]["library_shapes"] = [list(r["shape"]) for r in lib]
+            kernels[-1]["ms_library_shapes"] = sum(r["ms"] for r in lib)
     print(f"  total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(power)
     print(json.dumps({"kernels": kernels}))

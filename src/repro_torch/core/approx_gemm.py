@@ -12,37 +12,51 @@ Execution modes (as in the JAX package):
                           for exact/appro42, the arithmetic log-domain
                           kernel for mitchell/log_our.  On CPU tensors
                           the kernels' plain versions run instead.
-  * ``surrogate``,
-    ``surrogate_fast``  — dot + the calibrated mean shift (1+mu).  The
-                          noise term and the fused surrogate kernel are
-                          a later slice.
+  * ``surrogate``       — the compiler's default: the int8 dot times the
+                          calibrated mean shift (1+mu) plus, when a noise
+                          key is given, the calibrated noise
+                          sqrt(c0*K*s^2 + c1*(A^2 @ B^2)*s^2) * eps.  On a
+                          CUDA tensor the fused surrogate kernel runs it
+                          (kernels/cim_gemm.py); on the CPU the plain
+                          ``torch_surrogate`` route (dequantized dot +
+                          epilogue), as the reference's CPU runs XLA.
+  * ``surrogate_fast``  — the same with a rank-1 estimate of A^2 @ B^2
+                          (``torch_surrogate`` on every device).
+
+Noise is explicit randomness: a `NoiseKey` holds a 64-bit seed,
+`NoiseKey.child(name)` derives another from (seed, crc32(name)), and each
+draw seeds a `torch.Generator` on the operands' device from it (no
+global RNG state), so the same key on the same device gives the same
+eps.  The macro and conv frontends draw normal noise, the model frontend
+rademacher (`NOISE_KIND`), as in the reference.
 
 Every (family, mode, bits, backend) combination is routed by a single
 **kernel registry**: `select_kernel` picks the highest-priority
 `KernelEntry` that supports the request; the backend comes from the
 operands' device ("cuda" or "cpu"), never from a global.  A hardware
 GEMM on a CUDA tensor resolves to a ``cuda_*`` entry or raises — the
-``torch_*`` plain entries are registered for "cpu" only.  Entries that
-exist in the reference but are ported in a later slice (the fused
-surrogate kernel, the exact-mode conv kernel) stay registered with their
-reference priorities, and routing to one raises `NotImplementedError`.
+``torch_*`` plain entries are registered for "cpu" only.  Every route
+of the reference's GEMM, conv and attention universes has its entry
+here, with the reference's priorities.
 
 Two float frontends execute a routed plan:
 
   * `cim_matmul`   — the macro frontend: true int quantization, f32 out.
   * `model_matmul` — the model-zoo frontend (`models.common.cim_linear`):
-                     fake-quant for exact/surrogate, the fused kernels for
-                     hardware, activation dtype preserved.
+                     fake-quant for exact (and surrogate on the CPU), the
+                     fused kernels for hardware and for surrogate on the
+                     card, activation dtype preserved.
 
 Kernel-backed paths carry a straight-through estimator
-(`torch.autograd.Function`, backward ``g @ w.T`` / ``x.T @ g``).
+(`torch.autograd.Function`, backward ``g @ w.T`` / ``x.T @ g``, a zero
+cotangent for the pre-drawn noise).
 
 The conv universe (``op="conv"`` entries) routes `cim_conv2d`: the
 implicit-GEMM conv kernels (kernels/conv_gemm.py) for hardware mode on
-bit-safe geometries, planned by `plan_conv` against a shared-memory
-model, and the materialized ``conv_im2col`` fallback (im2col + the GEMM
-engine) for everything else, with the float conv's gradient as the
-straight-through backward.
+bit-safe geometries and for exact mode, planned by `plan_conv` against a
+shared-memory model, and the materialized ``conv_im2col`` fallback
+(im2col + the GEMM engine, noise included) for everything else, with the
+float conv's gradient as the straight-through backward.
 
 The attention universe (``op="attn"`` entries) routes `cim_attention`:
 QK^T and PV through the flash CiM attention kernels
@@ -52,9 +66,9 @@ accumulator bit-safety gate, with the `attn_float` straight-through
 backward.
 
 **Plan cache.**  Each frontend resolves its work through a cache keyed
-on (frontend, GemmParams, apply, operand dtypes, power-of-two-bucketed
-shape, backend); a miss routes, builds the forward and counts one
-`plan_misses()`.  This is the port's form of the reference's
+on (frontend, GemmParams, apply, noise drawn or not, operand dtypes,
+power-of-two-bucketed shape, backend); a miss routes, builds the forward
+and counts one `plan_misses()`.  This is the port's form of the reference's
 zero-retrace contract: after an engine's warmup the count stays flat.
 """
 
@@ -64,8 +78,10 @@ import contextlib
 import dataclasses
 import functools
 import threading
+import zlib
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -78,6 +94,14 @@ from .quantization import dequantize, fake_quant, quant_scale, quantize
 MODES = ("exact", "bit_exact", "hardware", "surrogate", "surrogate_fast")
 FAMILIES = ("exact", "appro42", "mitchell", "log_our")
 BACKENDS = ("cpu", "cuda")
+SURROGATE_MODES = ("surrogate", "surrogate_fast")
+
+# Surrogate noise of the model frontend.  "normal" is the
+# calibration-faithful choice (the macro and conv frontends' default);
+# "rademacher" (+-1 * sigma) matches the first two moments, and the
+# downstream contractions re-gaussianize the error.
+NOISE_KIND = "rademacher"
+NOISE_KINDS = ("normal", "rademacher")
 
 
 # ---------------------------------------------------------------------------
@@ -97,9 +121,6 @@ class KernelEntry:
     max_bits: int = 32
     cuda: bool = False                 # a hand-written GPU kernel
     description: str = ""
-    # non-empty: the reference routes here but the port has not ported it
-    # yet; selecting the entry raises NotImplementedError naming this
-    later: str = ""
     # optional per-spec routing gate (e.g. nibble decomposability); such
     # entries are eligible only when the caller supplies a spec
     predicate: Optional[Callable[[MultiplierSpec], bool]] = dataclasses.field(
@@ -145,10 +166,7 @@ def _select_kernel_cached(family: str, mode: str, bits: int, backend: str,
             f"no kernel for family={family!r} mode={mode!r} bits={bits} "
             f"backend={backend!r}; registered: "
             f"{sorted(e.name for e in _REGISTRY.values() if e.op == 'gemm')}")
-    best = max(matches, key=lambda e: e.priority)
-    if best.later:
-        raise _later(best, family, mode, bits, backend)
-    return best
+    return max(matches, key=lambda e: e.priority)
 
 
 register_kernel(KernelEntry(
@@ -188,13 +206,13 @@ register_kernel(KernelEntry(
     description="plain version of the log-domain kernel"))
 register_kernel(KernelEntry(
     name="cuda_fused_surrogate", modes=("surrogate",), families=(),
-    backends=("cuda",), priority=10, max_bits=8,
-    description="fused D / A^2@B^2 surrogate kernel",
-    later="the fused surrogate kernel (ROADMAP queue B)"))
+    backends=("cuda",), priority=10, max_bits=8, cuda=True,
+    description="CUDA fused surrogate kernel: quantize on load, the int8 "
+                "dot D and, with noise, A^2@B^2, the whole epilogue"))
 register_kernel(KernelEntry(
-    name="torch_surrogate", modes=("surrogate", "surrogate_fast"),
-    families=(), backends=(),
-    description="dot + calibrated mean shift (noise term: later slice)"))
+    name="torch_surrogate", modes=SURROGATE_MODES, families=(), backends=(),
+    description="dequantized dot + calibrated mean shift and noise "
+                "epilogue (the reference's xla_surrogate)"))
 
 # Attention universe (flash-style CiM attention).  Each kernel path has
 # a CUDA entry for "cuda" and its plain version for "cpu", with the
@@ -398,13 +416,93 @@ def _quantize_operands(x, w, bits):
     return quantize(x, sx, bits), sx, quantize(w, sw, bits), sw
 
 
+# ---------------------------------------------------------------------------
+# Surrogate noise: explicit keys and the variance law
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseKey:
+    """An explicit surrogate-noise key: one 64-bit seed.
+
+    ``child(name)`` derives an independent key from (seed, crc32(name))
+    through numpy's SeedSequence (the reference folds crc32(name) into a
+    JAX key); `generator` seeds a fresh `torch.Generator` on a device, so
+    a draw touches no global RNG state and the same key on the same
+    device always gives the same noise."""
+
+    seed: int
+
+    def __post_init__(self):
+        if not 0 <= int(self.seed) < 1 << 64:
+            raise ValueError(f"seed must be a 64-bit unsigned int, got "
+                             f"{self.seed}")
+
+    def child(self, name: str) -> "NoiseKey":
+        ss = np.random.SeedSequence([int(self.seed),
+                                     zlib.crc32(name.encode())])
+        return NoiseKey(int(ss.generate_state(1, np.uint64)[0]))
+
+    def generator(self, device) -> torch.Generator:
+        return torch.Generator(device=device).manual_seed(int(self.seed))
+
+
+def surrogate_noise(key: NoiseKey, shape, device,
+                    kind: str = "normal") -> torch.Tensor:
+    """f32 noise of `shape` on `device` from `key`: standard normal, or
+    rademacher (+-1 with equal odds)."""
+    if not isinstance(key, NoiseKey):
+        raise TypeError(f"a NoiseKey is expected, got {type(key).__name__}")
+    g = key.generator(device)
+    if kind == "normal":
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.float32)
+    if kind == "rademacher":
+        bits = torch.randint(0, 2, shape, generator=g, device=device,
+                             dtype=torch.int32)
+        return (2 * bits - 1).to(torch.float32)
+    raise ValueError(f"noise kind {kind!r} not in {NOISE_KINDS}")
+
+
+def surrogate_variance(gp: "GemmParams", scale2, k_len: int, xf=None,
+                       wf=None, fast: bool = False):
+    """var[out] = c0 * K * s^2 + c1 * (A^2 @ B^2), the calibrated law.
+
+    `scale2` is the squared product of quantization scales broadcastable
+    to the output; `xf`/`wf` the dequantized operands for the c1 term
+    (``fast``: the rank-1 estimate sum_k a^2 * sum_k b^2 / K of
+    ``surrogate_fast``).  None when the family carries no noise."""
+    if gp.c0 <= 0.0 and gp.c1 <= 0.0:
+        return None
+    var = gp.c0 * k_len * scale2
+    if gp.c1 > 0.0 and xf is not None and wf is not None:
+        if fast:
+            a2 = torch.sum(xf * xf, dim=-1, keepdim=True)        # (M, 1)
+            b2 = torch.sum(wf * wf, dim=0, keepdim=True)         # (1, N)
+            sq = a2 * b2 / k_len
+        else:
+            sq = (xf * xf) @ (wf * wf)
+        var = var + gp.c1 * sq
+    return var
+
+
+def _draws_noise(gp: "GemmParams", key, apply: bool = True) -> bool:
+    """The reference's `stochastic`: a surrogate mode, a key, and a
+    variance law that is not zero."""
+    return (apply and gp.mode in SURROGATE_MODES and key is not None
+            and (gp.c0 > 0.0 or gp.c1 > 0.0))
+
+
 class _STEMatmul(torch.autograd.Function):
-    """A rank-2 (x2, w) -> out forward with the exact-float STE VJP."""
+    """A rank-2 (x2, w, eps) -> out forward with the exact-float STE VJP;
+    the pre-drawn surrogate noise eps (None without noise) rides through
+    with a zero cotangent."""
 
     @staticmethod
-    def forward(ctx, x2, w, forward):
+    def forward(ctx, x2, w, eps, forward):
         ctx.save_for_backward(x2, w)
-        return forward(x2, w)
+        ctx.eps_dtype = None if eps is None else eps.dtype
+        return forward(x2, w, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -412,15 +510,18 @@ class _STEMatmul(torch.autograd.Function):
         dt = torch.promote_types(g.dtype, w.dtype)
         gx = g.to(dt) @ w.to(dt).T
         gw = x2.to(dt).T @ g.to(dt)
-        return gx.to(x2.dtype), gw.to(w.dtype), None
+        geps = (torch.zeros(g.shape, dtype=ctx.eps_dtype, device=g.device)
+                if ctx.needs_input_grad[2] else None)
+        return gx.to(x2.dtype), gw.to(w.dtype), geps, None
 
 
 def _ste(forward: Callable) -> Callable:
-    """Flatten leading dims, run `forward` under the STE, restore."""
+    """Flatten leading dims, run `forward` (x2, w, eps) under the STE,
+    restore."""
 
-    def run(x, w):
+    def run(x, w, eps=None):
         x2 = x.reshape(-1, x.shape[-1])
-        out = _STEMatmul.apply(x2, w, forward)
+        out = _STEMatmul.apply(x2, w, eps, forward)
         return out.reshape(*x.shape[:-1], w.shape[-1])
 
     return run
@@ -432,29 +533,49 @@ def _shift(d: torch.Tensor, mu: float) -> torch.Tensor:
     return d * torch.tensor(1.0 + mu, dtype=d.dtype).item()
 
 
+def _run_fused_surrogate(x, w, eps, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.surrogate_gemm_fused(x, w, eps, gp.mu, gp.c0, gp.c1,
+                                    bits=gp.bits)
+
+
 def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
-    """Macro frontend's rank-2 forward: true quantization, f32 out."""
+    """Macro frontend's rank-2 forward (xf, wf, eps=None): true
+    quantization, f32 out; eps is the pre-drawn surrogate noise (None:
+    the deterministic term, and always for the integer modes)."""
     mode = gp.mode
     if mode == "exact":
-        def forward(xf, wf):
+        def forward(xf, wf, eps=None):
             xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits)
             return dequantize(xq, sx) @ dequantize(wq, sw)
     elif mode in ("bit_exact", "hardware"):
         if plan.entry.name in FUSED_RUNNERS:
             runner = FUSED_RUNNERS[plan.entry.name]
 
-            def forward(xf, wf):
+            def forward(xf, wf, eps=None):
                 return runner(xf, wf, gp)
         else:
-            def forward(xf, wf):
+            def forward(xf, wf, eps=None):
                 xq, sx, wq, sw = _quantize_operands(
                     xf.to(torch.float32), wf.to(torch.float32), gp.bits)
                 acc = run_int_kernel(plan, xq, wq, gp)
                 return (acc.to(torch.float32) * sx) * sw
-    else:  # surrogate / surrogate_fast, deterministic term
-        def forward(xf, wf):
+    elif plan.entry.name == "cuda_fused_surrogate":
+        def forward(xf, wf, eps=None):
+            return _run_fused_surrogate(xf, wf, eps, gp)
+    else:  # torch_surrogate: dequantized dot + the epilogue
+        def forward(xf, wf, eps=None):
             xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits)
-            return _shift(dequantize(xq, sx) @ dequantize(wq, sw), gp.mu)
+            xdq, wdq = dequantize(xq, sx), dequantize(wq, sw)
+            out = _shift(xdq @ wdq, gp.mu)
+            if eps is not None:
+                s = sx * sw                    # (1, N): per-out-channel
+                var = surrogate_variance(gp, s * s, xf.shape[-1], xdq, wdq,
+                                         fast=(mode == "surrogate_fast"))
+                if var is not None:
+                    out = out + torch.sqrt(torch.clamp_min(var, 0.0)) * eps
+            return out
     return forward
 
 
@@ -464,32 +585,55 @@ def _cim_forward(gp: GemmParams, plan: GemmPlan) -> Callable:
 
 
 def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
-    """Model frontend: kernel-backed STE for the integer modes, the
-    fake-quant QAT form otherwise; the activation dtype is preserved."""
+    """Model frontend (x, w, eps=None): kernel-backed STE for the integer
+    modes and for surrogate on the card, the fake-quant QAT form
+    otherwise; the activation dtype is preserved.  eps is the pre-drawn
+    (M, N) f32 surrogate noise, None for the deterministic term."""
     if apply and gp.mode in ("bit_exact", "hardware"):
         if plan.entry.name in FUSED_RUNNERS:
             runner = FUSED_RUNNERS[plan.entry.name]
 
-            def forward(x2, wf):
+            def forward(x2, wf, eps=None):
                 # the kernels widen bf16 operands on load (exact), so no
                 # f32 copy of the weight is made
                 return runner(x2, wf, gp).to(x2.dtype)
         else:
-            def forward(x2, wf):
+            def forward(x2, wf, eps=None):
                 xq, sx, wq, sw = _quantize_operands(
                     x2.to(torch.float32), wf.to(torch.float32), gp.bits)
                 acc = run_int_kernel(plan, xq, wq, gp)
                 return ((acc.to(torch.float32) * sx) * sw).to(x2.dtype)
         return _ste(forward)
 
+    if apply and plan.entry.name == "cuda_fused_surrogate":
+        # the production path on the card: one kernel, bf16 widened on load
+        def forward(x2, wf, eps=None):
+            return _run_fused_surrogate(x2, wf, eps, gp).to(x2.dtype)
+        return _ste(forward)
+
     # exact / surrogate paths: fake-quant QAT form, the weight in ITS dtype
-    def fn(x, w):
+    def fn(x, w, eps=None):
         xq = fake_quant(x, gp.bits)
         wq = fake_quant(w, gp.bits, axis=0).to(x.dtype)
         d = xq @ wq
         if not apply or gp.mode == "exact":
             return d
-        return _shift(d, gp.mu)
+        out = _shift(d, gp.mu)
+        if eps is not None:
+            sx = quant_scale(x.detach(), gp.bits)
+            sw = quant_scale(w.detach(), gp.bits, axis=0)
+            s = (sx * sw).to(torch.float32)
+            xf = wf = None
+            if gp.c1 > 0.0:
+                xf = xq.detach().to(torch.float32)
+                wf = wq.detach().to(torch.float32)
+            var = surrogate_variance(gp, s * s, x.shape[-1], xf, wf,
+                                     fast=(gp.mode == "surrogate_fast"))
+            if var is not None:
+                noise = (torch.sqrt(torch.clamp_min(var, 0.0)).to(d.dtype)
+                         * eps.reshape(d.shape).to(d.dtype))
+                out = out + noise.detach()
+        return out
 
     return fn
 
@@ -525,15 +669,15 @@ def _backend(x: torch.Tensor, w: torch.Tensor) -> str:
     return x.device.type
 
 
-def _forward_for(frontend: str, gp: GemmParams, apply: bool,
+def _forward_for(frontend: str, gp: GemmParams, apply: bool, noisy: bool,
                  x: torch.Tensor, w: torch.Tensor) -> Callable:
     m = 1
     for s in x.shape[:-1]:
         m *= int(s)
     k, n = x.shape[-1], w.shape[-1]
     backend = _backend(x, w)
-    key = (frontend, gp, apply, x.dtype, w.dtype, bucket(m), bucket(k),
-           bucket(n), backend)
+    key = (frontend, gp, apply, noisy, x.dtype, w.dtype, bucket(m),
+           bucket(k), bucket(n), backend)
     fn = _FORWARDS.get(key)
     if fn is None:
         with _LOCK:
@@ -551,32 +695,51 @@ def _forward_for(frontend: str, gp: GemmParams, apply: bool,
     return fn
 
 
-def cim_matmul(x: torch.Tensor, w: torch.Tensor,
-               gp: GemmParams) -> torch.Tensor:
+def _noise(noisy: bool, key, x: torch.Tensor, n: int, kind: str):
+    """The (M, N) f32 noise of one call (None without noise)."""
+    if not noisy:
+        return None
+    return surrogate_noise(key, (x.numel() // x.shape[-1], n), x.device,
+                           kind)
+
+
+def cim_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
+               key: Optional[NoiseKey] = None, *,
+               noise_kind: str = "normal") -> torch.Tensor:
     """Dispatch + execute one approximate GEMM (macro semantics).
 
     x: (..., K) float; w: (K, N) float, on one device.  Returns float32
-    (..., N) with straight-through exact gradients."""
-    return _forward_for("cim", gp, True, x, w)(x, w)
+    (..., N) with straight-through exact gradients.  In a surrogate mode
+    a `key` draws the calibrated noise (`noise_kind`, normal by default)
+    on the operands' device; without one the output is the deterministic
+    term."""
+    noisy = _draws_noise(gp, key)
+    eps = _noise(noisy, key, x, w.shape[-1], noise_kind)
+    return _forward_for("cim", gp, True, noisy, x, w)(x, w, eps)
 
 
-def model_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams, *,
-                 apply: bool = True) -> torch.Tensor:
+def model_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
+                 key: Optional[NoiseKey] = None, *, apply: bool = True,
+                 noise_kind: str = NOISE_KIND) -> torch.Tensor:
     """The model-zoo execution path (cim_linear core), registry-routed.
 
-    Fake-quant STE for exact/surrogate (QAT), the fused hardware kernels
-    for `hardware`, the activation dtype preserved end to end.
-    `apply=False` runs the exact int8 macro (mixed-macro allocation)."""
-    return _forward_for("model", gp, apply, x, w)(x, w)
+    Fake-quant STE for exact (and for surrogate on the CPU), the fused
+    kernels for `hardware` and for `surrogate` on the card, the
+    activation dtype preserved end to end.  A `key` draws the surrogate
+    noise (rademacher by default).  `apply=False` runs the exact int8
+    macro (mixed-macro allocation)."""
+    noisy = _draws_noise(gp, key, apply)
+    eps = _noise(noisy, key, x, w.shape[-1], noise_kind)
+    return _forward_for("model", gp, apply, noisy, x, w)(x, w, eps)
 
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor, spec: MultiplierSpec,
-                  surrogate: SurrogateModel,
-                  mode: str = "surrogate") -> torch.Tensor:
+                  surrogate: SurrogateModel, mode: str = "surrogate",
+                  key: Optional[NoiseKey] = None) -> torch.Tensor:
     """Approximate x @ w with straight-through exact gradients: the
     back-compat wrapper over `cim_matmul` that the Table IV benchmark
     calls."""
-    return cim_matmul(x, w, GemmParams.from_spec(spec, surrogate, mode))
+    return cim_matmul(x, w, GemmParams.from_spec(spec, surrogate, mode), key)
 
 
 # ---------------------------------------------------------------------------
@@ -592,16 +755,15 @@ register_kernel(KernelEntry(
     name="conv_im2col", op="conv", modes=MODES, families=(), backends=(),
     description="materialized-patch fallback: im2col + the GEMM engine "
                 "(every mode)"))
-register_kernel(KernelEntry(
-    name="conv_mxu", op="conv", modes=("exact",), families=(),
-    backends=BACKENDS, priority=10, max_bits=8,
-    description="implicit-GEMM fused-quantization conv, dequantized float "
-                "dot per kernel tap",
-    later="the exact-mode conv kernel (ROADMAP queue B 4)"))
 for _dev, _cuda in (("cuda", True), ("cpu", False)):
     _pre = "cuda" if _cuda else "torch"
     _what = "CUDA implicit-GEMM conv" if _cuda else "plain version of the " \
         "implicit-GEMM conv kernel"
+    register_kernel(KernelEntry(
+        name=f"{_pre}_conv_mxu", op="conv", modes=("exact",), families=(),
+        backends=(_dev,), priority=10, max_bits=8, cuda=_cuda,
+        description=f"{_what}, exact integer products (the reference's "
+                    "pallas_conv_mxu)"))
     register_kernel(KernelEntry(
         name=f"{_pre}_conv_lut", op="conv", modes=("hardware",),
         families=("exact", "appro42"), backends=(_dev,), priority=10,
@@ -618,7 +780,7 @@ for _dev, _cuda in (("cuda", True), ("cpu", False)):
 
 # implicit conv entry -> its core in kernels/conv_gemm.py
 _CONV_CORES = {f"{pre}_conv_{core}": core for pre in ("cuda", "torch")
-               for core in ("lut", "nibble", "log")}
+               for core in ("lut", "nibble", "log", "mxu")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -669,9 +831,10 @@ def _conv_kernel_fits(entry_name: str, bits: int) -> bool:
     the kernel holds no plane, only its core's table and one staged A and
     B tile (kernels/conv_gemm.gemm_smem_bytes), so the image size does
     not enter and the answer depends on the core and the operand width
-    alone.  No width the conv entries accept fails it (the largest
-    block, the 8-bit full table's, is 137,216 bytes): it holds the
-    registry to the kernel's layout should an entry widen, and each
+    alone.  The exact core has no table: its block is the two int32
+    tiles, 10,240 bytes.  No width the conv entries accept fails it (the
+    largest block, the 8-bit full table's, is 137,216 bytes): it holds
+    the registry to the kernel's layout should an entry widen, and each
     launch checks the same total again.  The plain versions are held to
     the same gate, so a geometry routes alike on both devices."""
     from repro_torch.kernels.build import SMEM_BYTES
@@ -732,24 +895,13 @@ def _check_request(family: str, mode: str, backend: str,
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
 
 
-def _later(entry: KernelEntry, family: str, mode: str, bits: int,
-           backend: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"family={family!r} mode={mode!r} bits={bits} on {backend!r} "
-        f"routes to {entry.name!r} ({entry.description}), which is ported "
-        f"in a later slice: {entry.later}")
-
-
 def select_conv_kernel(family: str, mode: str, bits: int = 8,
                        backend: str = "cuda",
                        spec: Optional[MultiplierSpec] = None) -> KernelEntry:
     """Highest-priority conv entry for the request (no footprint or
     bit-safety gate: `plan_conv` applies those against the geometry)."""
     _check_request(family, mode, backend)
-    entry = _entries_cached("conv", family, mode, bits, backend, spec)[0]
-    if entry.later:
-        raise _later(entry, family, mode, bits, backend)
-    return entry
+    return _entries_cached("conv", family, mode, bits, backend, spec)[0]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -758,11 +910,12 @@ def _plan_conv_cached(family: str, mode: str, bits: int, bb: int, hb: int,
                       bit_safe: bool, backend: str,
                       spec: Optional[MultiplierSpec]) -> ConvPlan:
     for entry in _entries_cached("conv", family, mode, bits, backend, spec):
-        if entry.later:
-            raise _later(entry, family, mode, bits, backend)
         if entry.name in _CONV_CORES:
-            if not bit_safe:
-                continue           # the im2col path IS the oracle
+            # the im2col path IS the oracle of the integer cores; the
+            # exact-mode core is bounded by f32 rounding, as the
+            # reference's, so it runs on any geometry
+            if not bit_safe and _CONV_CORES[entry.name] != "mxu":
+                continue
             if not _conv_kernel_fits(entry.name, bits):
                 continue           # tile too large: try lower priority
         return ConvPlan(entry=entry, conv=conv, backend=backend)
@@ -778,16 +931,24 @@ def plan_conv(family: str, mode: str, bits: int, b: int, h: int, w: int,
     Memoized on the conv-bucketed shape (autotune.bucket_conv: powers of
     two on the data dims, taps and stride exact) plus the geometry's
     exact bit-safety flag (`_conv_bit_exact_safe`, which bucketing would
-    mask).  The implicit kernels are skipped when the flag is False (the
-    materialized fallback is the oracle) or when their block does not
-    fit shared memory (`_conv_kernel_fits`); `conv_im2col` always
-    matches."""
+    mask).  The bit-exact implicit kernels are skipped when the flag is
+    False (the materialized fallback is the oracle; the exact-mode
+    kernel, bounded by f32 rounding as in the reference, is not), and
+    every implicit kernel when its block does not fit shared memory
+    (`_conv_kernel_fits`); `conv_im2col` always matches."""
     _check_request(family, mode, backend)
     bb, hb, wb, cb, _, _, _ = bucket_conv(b, h, w, c, conv.kh, conv.kw,
                                           conv.stride)
     return _plan_conv_cached(family, mode, bits, bb, hb, wb, cb, bucket(n),
                              conv, _conv_bit_exact_safe(h, w, conv), backend,
                              spec)
+
+
+def _run_conv_mxu(x4, w2, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_mxu_fused(x4, w2, bits=gp.bits, kh=plan.conv.kh,
+                                kw=plan.conv.kw, stride=plan.conv.stride)
 
 
 def _run_conv_lut(x4, w2, gp: GemmParams, plan: ConvPlan):
@@ -818,7 +979,7 @@ def _run_conv_log(x4, w2, gp: GemmParams, plan: ConvPlan):
 CONV_RUNNERS: Dict[str, Callable] = {
     f"{pre}_conv_{core}": run for pre in ("cuda", "torch")
     for core, run in (("lut", _run_conv_lut), ("nibble", _run_conv_nibble),
-                      ("log", _run_conv_log))}
+                      ("log", _run_conv_log), ("mxu", _run_conv_mxu))}
 
 
 def _float_conv(x4: torch.Tensor, w2: torch.Tensor,
@@ -846,14 +1007,17 @@ def _full_f32_convs():
 
 
 class _STEConv(torch.autograd.Function):
-    """A (x4, w2) -> out4 conv forward with the exact float conv's VJP
-    (the conv analogue of g @ w.T / x.T @ g in `_STEMatmul`)."""
+    """A (x4, w2, eps) -> out4 conv forward with the exact float conv's
+    VJP (the conv analogue of g @ w.T / x.T @ g in `_STEMatmul`); the
+    pre-drawn surrogate noise eps (None without noise) rides through
+    with a zero cotangent."""
 
     @staticmethod
-    def forward(ctx, x4, w2, forward, conv):
+    def forward(ctx, x4, w2, eps, forward, conv):
         ctx.save_for_backward(x4, w2)
         ctx.conv = conv
-        return forward(x4, w2)
+        ctx.eps_shape = None if eps is None else (eps.shape, eps.dtype)
+        return forward(x4, w2, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -863,20 +1027,25 @@ class _STEConv(torch.autograd.Function):
                   for t in (x4, w2)]
             out = _float_conv(*xs, ctx.conv)
             gx, gw = torch.autograd.grad(out, xs, g.to(torch.float32))
-        return gx.to(x4.dtype), gw.to(w2.dtype), None, None
+        geps = None
+        if ctx.needs_input_grad[2]:
+            shape, dtype = ctx.eps_shape
+            geps = torch.zeros(shape, dtype=dtype, device=g.device)
+        return gx.to(x4.dtype), gw.to(w2.dtype), geps, None, None
 
 
 def _conv_forward(gp: GemmParams, plan: ConvPlan,
                   shape: Tuple[int, int, int, int, int]) -> Callable:
-    """The (x4, w2) -> f32 out4 forward of a routed conv: an implicit-GEMM
-    kernel, or the `conv_im2col` fallback, which materializes the patches
-    and reuses the GEMM engine's macro forward (every mode).  Its inner
+    """The (x4, w2, eps=None) -> f32 out4 forward of a routed conv: an
+    implicit-GEMM kernel, or the `conv_im2col` fallback, which
+    materializes the patches and reuses the GEMM engine's macro forward
+    (every mode; eps is its (B*OH*OW, N) surrogate noise).  Its inner
     GEMM plan is resolved once, from the conv-bucketed dims."""
     conv = plan.conv
     if plan.entry.name in CONV_RUNNERS:
         runner = CONV_RUNNERS[plan.entry.name]
 
-        def forward(x4, w2):
+        def forward(x4, w2, eps=None):
             return runner(x4.to(torch.float32), w2.to(torch.float32), gp,
                           plan)
         return forward
@@ -889,30 +1058,37 @@ def _conv_forward(gp: GemmParams, plan: ConvPlan,
                       spec=gp.routing_spec)
     inner = _cim_core(gp, gplan)
 
-    def forward(x4, w2):
+    def forward(x4, w2, eps=None):
         cols = im2col_nhwc(x4.to(torch.float32), conv)
-        out2 = inner(cols.reshape(-1, cols.shape[-1]), w2.to(torch.float32))
+        out2 = inner(cols.reshape(-1, cols.shape[-1]), w2.to(torch.float32),
+                     eps)
         return out2.reshape(cols.shape[:3] + (w2.shape[-1],))
     return forward
 
 
-def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams, *,
-               kh: int = 3, kw: int = 3, stride: int = 1) -> torch.Tensor:
+def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
+               key: Optional[NoiseKey] = None, *, kh: int = 3, kw: int = 3,
+               stride: int = 1, noise_kind: str = "normal") -> torch.Tensor:
     """Dispatch + execute one approximate convolution (macro semantics).
 
     x: (B, H, W, C) float; w: (kh*kw*C, N) float with tap-major rows (the
     `im2col_nhwc` column order), on one device.  Returns float32
     (B, OH, OW, N) with the exact float conv's straight-through gradients.
 
-    Hardware mode runs the implicit-GEMM kernels (kernels/conv_gemm.py):
-    the patch gather happens inside the kernel by index arithmetic, so
-    the (M, kh*kw*C) im2col tensor never exists.  The result is
-    bit-identical to `im2col + cim_matmul` wherever the geometry is
-    bit-safe (`_conv_bit_exact_safe`), and `plan_conv` enforces it:
-    other geometries and the other modes run `conv_im2col`.  Plans are
-    cached on the conv-bucketed shape and the bit-safety flag (a miss
-    counts in `plan_misses()`).  Fault injection (a `GemmParams` with a
-    fault config) is a later slice and raises where that is built."""
+    Hardware and exact mode run the implicit-GEMM kernels
+    (kernels/conv_gemm.py): the patch gather happens inside the kernel by
+    index arithmetic, so the (M, kh*kw*C) im2col tensor never exists.  A
+    hardware result is bit-identical to `im2col + cim_matmul` wherever
+    the geometry is bit-safe (`_conv_bit_exact_safe`), and `plan_conv`
+    enforces it: other geometries and the bit_exact and surrogate modes
+    run `conv_im2col`; the exact-mode kernel differs from `im2col +
+    cim_matmul` by f32 rounding only and runs on any geometry.  In a
+    surrogate mode a `key` draws the (B*OH*OW, N) noise of the
+    materialized GEMM (`noise_kind`, normal by default).  Plans are
+    cached on the conv-bucketed shape, the bit-safety flag and whether
+    noise is drawn (a miss counts in `plan_misses()`).  Fault injection
+    (a `GemmParams` with a fault config) is a later slice and raises
+    where that is built."""
     conv = ConvParams(kh, kw, stride)
     if x.dim() != 4 or w.dim() != 2:
         raise ValueError(f"cim_conv2d wants x (B,H,W,C), w (K,N); got "
@@ -926,22 +1102,27 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams, *,
         raise ValueError(f"mode {gp.mode!r} not in {MODES}")
     backend = _backend(x, w)
     bit_safe = _conv_bit_exact_safe(h, w_, conv)
-    key = (("conv2d", gp, conv, bit_safe, x.dtype, w.dtype, backend)
-           + bucket_conv(b, h, w_, c, kh, kw, stride) + (bucket(n),))
-    fn = _FORWARDS.get(key)
+    noisy = _draws_noise(gp, key)
+    fkey = (("conv2d", gp, conv, bit_safe, noisy, x.dtype, w.dtype, backend)
+            + bucket_conv(b, h, w_, c, kh, kw, stride) + (bucket(n),))
+    fn = _FORWARDS.get(fkey)
     if fn is None:
         with _LOCK:
-            fn = _FORWARDS.get(key)
+            fn = _FORWARDS.get(fkey)
             if fn is None:
                 plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_, c,
                                  n, conv, backend=backend, spec=gp.spec)
                 forward = _conv_forward(gp, plan, (b, h, w_, c, n))
 
-                def fn(x4, w2, _forward=forward):
-                    return _STEConv.apply(x4, w2, _forward, conv)
-                _FORWARDS[key] = fn
+                def fn(x4, w2, eps, _forward=forward):
+                    return _STEConv.apply(x4, w2, eps, _forward, conv)
+                _FORWARDS[fkey] = fn
                 _PLAN_MISSES[0] += 1
-    return fn(x, w)
+    eps = None
+    if noisy:
+        oh, ow = conv_out_hw(h, w_, kh, kw, stride)
+        eps = surrogate_noise(key, (b * oh * ow, n), x.device, noise_kind)
+    return fn(x, w, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,14 @@ the TPU and a shape-clipped heuristic elsewhere.  This module ports the
 attention heuristic and the attention and conv plan caches' bucketing;
 the measured sweep and its disk cache are a later slice (ROADMAP queue
 A 4).  The CUDA GEMM and conv kernels (csrc/cim_gemm.cuh) run one tile
-fixed at compile time, which no plan chooses.
+fixed at compile time, which no plan chooses.  That holds for the fused
+surrogate kernel too: the reference's candidates for it, (64..256,
+128..256, 128..256) blocks, are shaped for the TPU's 128 x 128 matrix
+unit and VMEM.  On Hopper the template's 16 x 64 output block with a
+32-deep K step serves it as it serves the LUT and log GEMMs (256
+threads, four rows each; the integer core keeps the int32 D and, with
+noise, the f32 SQ sums in registers), and no block enters its numerics:
+D is exact and SQ is summed in K order whatever the tile.
 
 For attention the block is a (bq, bk) pair, and ``bk`` is part of the
 numerics: the online softmax is tiled along the kv axis, so the float

@@ -8,7 +8,8 @@ variation-aware yield report.  The macro's product table is built on
 first use by the kernel layer (kernels/ops.py).
 
 Model code consumes a `CiMConfig` through `models.common.CiMParams`; the
-macro-level matmul lives in `core.approx_gemm.cim_matmul`.
+macro-level matmul is `CiMMacro.matmul` (`core.approx_gemm.cim_matmul`),
+on the card unless its operands lie on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import dataclasses
 from typing import Optional
 
 from . import energy_model, sram_model, yield_analysis
-from .approx_gemm import FAMILIES, MODES, GemmParams, GemmPlan, plan_gemm
+from .approx_gemm import (FAMILIES, MODES, SURROGATE_MODES, GemmParams,
+                          GemmPlan, NoiseKey, cim_matmul, plan_gemm)
 from .error_model import ErrorMetrics, SurrogateModel, characterize
 from .multipliers import MultiplierSpec
 
@@ -90,6 +92,40 @@ class CiMMacro:
         """Static dispatch parameters for this macro."""
         return GemmParams.from_spec(self.config.spec, self.surrogate,
                                     mode or self.config.mode)
+
+    def matmul(self, x, w, key: Optional[NoiseKey] = None,
+               mode: Optional[str] = None):
+        """x @ w on this macro (`cim_matmul`): f32 out, straight-through
+        gradients; in a surrogate mode a `key` draws the calibrated
+        noise."""
+        return cim_matmul(x, w, self.gemm_params(mode), key)
+
+    def warmup(self, shapes, mode: Optional[str] = None, dtype=None,
+               device=None) -> int:
+        """Build the plans of `matmul` for a set of (m, k, n) shapes, so
+        the first real call at any of them (or in their buckets) builds
+        nothing (`plan_misses()` stays flat): the deterministic plan and,
+        when the macro carries calibrated noise in a surrogate mode, the
+        noisy one.  Each shape runs once on zeros of `dtype` (f32) on
+        `device` (the card unless "cpu"), which also loads its kernel.
+        Returns the number of shapes."""
+        import torch
+
+        from repro_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        dtype = dtype or torch.float32
+        gp = self.gemm_params(mode)
+        noisy = gp.mode in SURROGATE_MODES and (gp.c0 > 0.0 or gp.c1 > 0.0)
+        for m, k, n in shapes:
+            x = torch.zeros((m, k), dtype=dtype, device=dev)
+            w = torch.zeros((k, n), dtype=dtype, device=dev)
+            cim_matmul(x, w, gp)
+            if noisy:
+                cim_matmul(x, w, gp, NoiseKey(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return len(shapes)
 
     def kernel_plan(self, m: int, k: int, n: int, backend: str = "cuda",
                     mode: Optional[str] = None) -> GemmPlan:

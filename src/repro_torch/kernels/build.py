@@ -25,7 +25,8 @@ from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port (csrc/<name>.cu)
-SOURCES = ("lut_gemm", "nibble_gemm", "log_gemm", "conv_gemm", "attn_gemm")
+SOURCES = ("lut_gemm", "nibble_gemm", "log_gemm", "conv_gemm", "attn_gemm",
+           "surrogate_gemm")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -129,6 +130,7 @@ class CudaKernel:
 # argument kinds for CudaKernel signatures
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+FLT = ctypes.c_float
 
 
 def on_cuda(*tensors) -> bool:

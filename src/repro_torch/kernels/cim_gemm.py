@@ -1,0 +1,135 @@
+"""The fused surrogate CiM GEMM: CUDA kernels for Hopper and their plain
+versions.
+
+The calibrated surrogate (the compiler's default mode) needs two sums
+over the same quantized operands, D = A @ B (exact, int32) and
+SQ = A^2 @ B^2 (f32, only when noise is drawn and c1 > 0), and flushes
+
+    out = (1 + mu) * D * s + sqrt(max(c0 * K * s^2 + c1 * SQ * s^2, 0)) * eps
+
+with s = sx * sw (ref.surrogate_epilogue spells out the order of the
+roundings).  Two entry points, as in the JAX package:
+
+  * ``cim_gemm_core`` — int8 operands -> (D int32, SQ f32), the oracle
+    surface (SQ zeros without ``need_sq``; ops.surrogate_gemm puts the
+    epilogue on it in plain torch);
+  * ``cim_gemm_fused`` — f32 or bf16 operands (bf16 widened on load),
+    the per-tensor ``sx`` / per-column ``sw`` quantization on load and
+    the whole epilogue in one kernel; ``eps`` is None for the
+    deterministic term.
+
+On CUDA tensors each launches csrc/surrogate_gemm.cu or raises; on CPU
+tensors it runs its plain version: D bitwise equal to the kernel's, SQ
+exact and rounded once (the kernel's f32 sum lies within (K - 1) 2^-24
+relative of it), and, without noise, the output bitwise equal.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .approx_matmul import _FLOATS, _shapes
+from .build import FLT, INT, PTR, CudaKernel, on_cuda, require, stream_of
+from .ref import int_dot, quantize_tile, square_dot, surrogate_epilogue
+
+_CORE = CudaKernel("surrogate_gemm", "cim_gemm_core",
+                   [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
+_FUSED = CudaKernel("surrogate_gemm", "cim_gemm_fused",
+                    [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT,
+                     INT, FLT, FLT, FLT, PTR])
+
+KERNELS = {"cim_gemm_core": _CORE, "cim_gemm_fused": _FUSED}
+
+
+def stochastic(eps, c0: float, c1: float) -> bool:
+    """Does the call draw noise?  Only with eps and a nonzero variance
+    law, as the reference's ``stochastic`` flag."""
+    return eps is not None and (c0 > 0.0 or c1 > 0.0)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors; chip_smoke.py also runs them on the card)
+# ---------------------------------------------------------------------------
+
+
+def cim_gemm_core_plain(xq, wq, need_sq: bool = True):
+    d = int_dot(xq, wq)
+    sq = (square_dot(xq, wq) if need_sq
+          else torch.zeros(d.shape, dtype=torch.float32, device=d.device))
+    return d, sq
+
+
+def cim_gemm_fused_plain(x, w, sx, sw, eps, mu: float, c0: float, c1: float,
+                         bits: int = 8) -> torch.Tensor:
+    qmax = (1 << (bits - 1)) - 1
+    sx = sx.reshape(()).to(torch.float32)
+    sw = sw.reshape(1, -1).to(torch.float32)
+    a = quantize_tile(x.to(torch.float32), sx, qmax)
+    b = quantize_tile(w.to(torch.float32), sw, qmax)
+    noisy = stochastic(eps, c0, c1)
+    sq = square_dot(a, b) if noisy and c1 > 0.0 else None
+    return surrogate_epilogue(int_dot(a, b), sq, sx, sw,
+                              eps if noisy else None, mu, c0, c1,
+                              x.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def cim_gemm_core(xq: torch.Tensor, wq: torch.Tensor, need_sq: bool = True):
+    """(D, SQ) over int8 xq (M,K), wq (K,N): D = xq @ wq int32 (exact,
+    wrapping at 32 bits) and SQ = xq^2 @ wq^2 f32 (zeros without
+    `need_sq`)."""
+    m, k, n = _shapes(xq, wq)
+    if not on_cuda(xq, wq):
+        return cim_gemm_core_plain(xq, wq, need_sq)
+    require(xq.dtype == torch.int8 and wq.dtype == torch.int8,
+            f"int8 operands expected, got {xq.dtype}, {wq.dtype}")
+    require(xq.is_contiguous() and wq.is_contiguous(),
+            "operands must be contiguous")
+    d = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    sq = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    _CORE(xq.data_ptr(), wq.data_ptr(), d.data_ptr(), sq.data_ptr(), m, k, n,
+          int(need_sq), stream_of(xq))
+    return d, sq
+
+
+def cim_gemm_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
+                   sw: torch.Tensor, eps, mu: float, c0: float, c1: float,
+                   bits: int = 8) -> torch.Tensor:
+    """Fused-quantization surrogate GEMM: f32/bf16 x (M,K), w (K,N) and
+    an optional f32 eps (M,N) -> f32 (M,N).  ``sx`` one f32 element,
+    ``sw`` N f32, on the operands' device; mu, c0, c1 the calibrated
+    surrogate's coefficients.  Without noise (eps None, or c0 = c1 = 0)
+    the result is bit-identical to quantize -> D -> ``(f32(1+mu) * D) *
+    (sx * sw)``."""
+    m, k, n = _shapes(x, w)
+    noisy = stochastic(eps, c0, c1)
+    if noisy:
+        require(tuple(eps.shape) == (m, n),
+                f"eps must be ({m}, {n}), got {tuple(eps.shape)}")
+    if not on_cuda(x, w, sx, sw, *((eps,) if noisy else ())):
+        return cim_gemm_fused_plain(x, w, sx, sw, eps, mu, c0, c1, bits)
+    require(x.dtype in _FLOATS and w.dtype in _FLOATS,
+            f"f32/bf16 operands expected, got {x.dtype}, {w.dtype}")
+    require(x.is_contiguous() and w.is_contiguous(),
+            "operands must be contiguous")
+    require(sx.dtype == torch.float32 and sx.numel() == 1,
+            "sx must be one f32 element")
+    require(sw.dtype == torch.float32 and sw.numel() == n
+            and sw.is_contiguous(), f"sw must be {n} contiguous f32")
+    require(2 <= bits <= 8, f"the surrogate kernel takes 2..8-bit operands, "
+            f"got {bits}")
+    if noisy:
+        require(eps.dtype == torch.float32 and eps.is_contiguous(),
+                "eps must be contiguous f32")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    _FUSED(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+           int(w.dtype == torch.bfloat16), sx.data_ptr(), sw.data_ptr(),
+           eps.data_ptr() if noisy else None, out.data_ptr(), m, k, n, bits,
+           float(np.float32(1.0 + mu)), float(np.float32(c0 * k)),
+           float(np.float32(c1)), stream_of(x))
+    return out

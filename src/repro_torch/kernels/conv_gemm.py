@@ -8,21 +8,25 @@ stride 1) is a GEMM with
     K = kh*kw*C   (tap-major, then channel: the im2col column order)
     N = C_out
 
-Two fused-quantization entry points, as in the JAX package (f32 x
+Three fused-quantization entry points, as in the JAX package (f32 x
 (B, H, W, C) and f32 w3 (kh*kw, C, N) in, f32 (B, OH, OW, N) out, the
 per-tensor ``sx`` / per-out-channel ``sw`` quantization on load and the
 ``(acc * sx) * sw`` epilogue inside one kernel):
 
   * ``conv_lut_fused`` — the full signed-product table, or the nibble
     sub-tables (``nibble=True``);
-  * ``conv_log_fused`` — the Mitchell / Log-our log-domain product.
+  * ``conv_log_fused`` — the Mitchell / Log-our log-domain product;
+  * ``conv_mxu_fused`` — the exact product (exact mode), summed exactly
+    in int32 where the reference summed the dequantized products in f32
+    per tap: the two differ by f32 rounding only.
 
-Their integer cores are bit-identical to im2col + the GEMM kernels.  On
-CUDA tensors each launches csrc/conv_gemm.cu or raises; the kernel
-gathers the patch matrix from the image by index arithmetic, so neither
-a padded plane nor an im2col tensor is held anywhere.  On CPU tensors
-each runs its plain version below (pad, then per tap: quantize the
-shifted window and the weight tap, and add its gather or log sum).
+The LUT and log integer cores are bit-identical to im2col + the GEMM
+kernels.  On CUDA tensors each launches csrc/conv_gemm.cu or raises; the
+kernel gathers the patch matrix from the image by index arithmetic, so
+neither a padded plane nor an im2col tensor is held anywhere.  On CPU
+tensors each runs its plain version below (pad, then per tap: quantize
+the shifted window and the weight tap, and add its gather, log or exact
+integer sum), bit-identical to the kernel.
 """
 
 from __future__ import annotations
@@ -33,14 +37,18 @@ from repro_torch.core.approx_gemm import conv_out_hw
 
 from .approx_matmul import check_table, check_subs
 from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
-from .ref import gather_full, log_sum, nibble_sum, quantize_tile, taps
+from .ref import (gather_full, int_dot, log_sum, nibble_sum, quantize_tile,
+                  taps)
 
 _LUT = CudaKernel("conv_gemm", "conv_lut_fused",
                   [PTR] * 6 + [INT] * 11 + [PTR])
 _LOG = CudaKernel("conv_gemm", "conv_log_fused",
                   [PTR] * 5 + [INT] * 11 + [PTR])
+_MXU = CudaKernel("conv_gemm", "conv_mxu_fused",
+                  [PTR] * 5 + [INT] * 10 + [PTR])
 
-KERNELS = {"conv_lut_fused": _LUT, "conv_log_fused": _LOG}
+KERNELS = {"conv_lut_fused": _LUT, "conv_log_fused": _LOG,
+           "conv_mxu_fused": _MXU}
 
 # output pixels x channel chunk x out-channels per block: BM, BK, BN of
 # csrc/cim_gemm.cuh, fixed at compile time, and the outputs each thread
@@ -54,9 +62,10 @@ def _al(n: int) -> int:
 
 def gemm_smem_bytes(core: str, bits: int) -> int:
     """Dynamic shared memory of one block of cim_gemm.cuh's kernel for
-    `core` ("lut", "nibble" or "log"): the table, then the staged A
-    (BM x BK) and B (BK x BN) tiles (the full table's int32 row offsets
-    and int16 column indices; int4 nibble offsets or log decompositions)."""
+    `core` ("lut", "nibble", "log" or "mxu"): the table, then the staged
+    A (BM x BK) and B (BK x BN) tiles (the full table's int32 row offsets
+    and int16 column indices; int4 nibble offsets or log decompositions;
+    the exact core's int32 operands, no table)."""
     bm, bk, bn = TILE
     if core == "lut":
         return _al((1 << (2 * bits)) * 2) + _al(4 * bm * bk) + 2 * bk * bn
@@ -64,6 +73,8 @@ def gemm_smem_bytes(core: str, bits: int) -> int:
         return _al(16 << bits) + _al(16 * bm * bk) + 16 * bk * bn
     if core == "log":
         return _al(16 * bm * bk) + 16 * bk * bn
+    if core == "mxu":
+        return _al(4 * bm * bk) + 4 * bk * bn
     raise ValueError(f"unknown core {core!r}")
 
 
@@ -114,6 +125,11 @@ def conv_lut_fused_plain(x, w3, table, sx, sw, bits: int = 8, kh: int = 3,
         def tap_sum(aq, bq):
             return gather_full(table, aq + half, bq + half, 1 << bits)
     return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum)
+
+
+def conv_mxu_fused_plain(x, w3, sx, sw, bits: int = 8, kh: int = 3,
+                         kw: int = 3, stride: int = 1) -> torch.Tensor:
+    return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, int_dot)
 
 
 def conv_log_fused_plain(x, w3, sx, sw, bits: int = 8,
@@ -186,4 +202,24 @@ def conv_log_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
     _LOG(x.data_ptr(), w3.data_ptr(), sx.data_ptr(), sw.data_ptr(),
          out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
          int(compensated), gemm_smem_bytes("log", bits), stream_of(x))
+    return out
+
+
+def conv_mxu_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
+                   sw: torch.Tensor, bits: int = 8, kh: int = 3, kw: int = 3,
+                   stride: int = 1) -> torch.Tensor:
+    """Exact-family implicit-GEMM conv (exact mode): shapes and scales as
+    ``conv_lut_fused``; the exact integer products summed in int32, then
+    ``(acc * sx) * sw``."""
+    b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
+    if not on_cuda(x, w3, sx, sw):
+        return conv_mxu_fused_plain(x, w3, sx, sw, bits, kh, kw, stride)
+    _check_operands(x, w3, sx, sw, n)
+    require(2 <= bits <= 8,
+            f"the exact conv kernel takes 2..8-bit operands, got {bits}")
+    oh, ow = conv_out_hw(h, w, kh, kw, stride)
+    out = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
+    _MXU(x.data_ptr(), w3.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+         out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
+         gemm_smem_bytes("mxu", bits), stream_of(x))
     return out

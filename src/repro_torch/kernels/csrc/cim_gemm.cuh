@@ -1,11 +1,12 @@
 // cim_gemm.cuh - the integer cores and the one tiled GEMM template behind
 // every CiM GEMM and implicit-GEMM convolution kernel of the port, for
 // NVIDIA Hopper (sm_90a).  Included by lut_gemm.cu, nibble_gemm.cu,
-// log_gemm.cu and conv_gemm.cu, each of which instantiates it.
+// log_gemm.cu, conv_gemm.cu and surrogate_gemm.cu, each of which
+// instantiates it.
 //
 // What it computes: out[m,n] = sum_k prod(a[m,k], b[k,n]), summed in 32
 // bits with two's-complement wrap (unsigned accumulation, as the
-// reference's int32 sums), where prod is one of three cores:
+// reference's int32 sums), where prod is one of four cores:
 //   LutCore     the full signed product table, int16 in shared memory:
 //               LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})]
 //   NibbleCore  four 2^{b/2} x 2^{b/2} int32 sub-tables [S_hh, S_hl, S_lh,
@@ -15,11 +16,24 @@
 //               + S_ll[al,bl])
 //   LogCore     the Mitchell / Log-our log-domain product (LoD, shifts
 //               and the paper's OR-merged compensation), no table
-// In the fused forms the operands are quantized on load, round(v /
-// scale) with IEEE division (__fdiv_rn) and round-half-to-even (rintf),
-// clipped to +-qmax (build without fast-math), against a per-tensor sx
-// and per-column sw read from device memory, and the epilogue is
-// (acc * sx) * sw in that order.
+//   IntCore     the exact integer product a * b (the surrogate GEMMs' D
+//               and the exact-mode conv), no table; IntSqCore also
+//               stages a^2 and b^2 as f32 for the surrogate's second sum
+//               SQ = sum_k a^2 b^2, accumulated in f32 with fmaf in K
+//               order (never TF32 or a 16-bit type: a^2 b^2 reaches
+//               127^4 > 2^24)
+// An epilogue (Epi) says what arrives and what leaves: int operands and
+// an int32 result (IntOut; CoreOut also writes SQ), or float operands
+// quantized on load, round(v / scale) with IEEE division (__fdiv_rn) and
+// round-half-to-even (rintf), clipped to +-qmax (build without
+// fast-math), against a per-tensor sx and per-column sw read from device
+// memory, flushed as (acc * sx) * sw in that order (ScaleOut) or through
+// the calibrated surrogate (SurrogateOut):
+//   out = (f32(1 + mu) * f32(D)) * s  [ + sqrt(max(var, 0)) * eps ],
+//   s = sx * sw,  var = f32(c0 * K) * s^2 [ + (c1 * SQ) * s^2 ],
+// every multiply and add rounded on its own (__fmul_rn, __fadd_rn: nvcc
+// contracts nothing into an FMA), the bracketed terms only in the
+// variants that draw noise and, for SQ, have c1 > 0.
 //
 // The A operand comes from a source: Dense (a row-major (M, K) matrix)
 // or ConvSrc (the implicit-GEMM patch matrix of a (B, H, W, C) image:
@@ -41,8 +55,10 @@
 // shared memory once per block.  Ragged M/N/K edges are masked, not
 // padded: out-of-range operands stage as 0, which every core annihilates
 // (the tables map (0, b) and (a, 0) to 0, asserted when they are built;
-// sign 0 zeroes the nibble and log products).  No tensor cores, no
-// asynchronous copies: the simple correct form.
+// sign 0 zeroes the nibble and log products, and 0 the integer product
+// and its square).  No tensor cores, no asynchronous copies: the simple
+// correct form (the int8 dot of the integer core is the first candidate
+// for the tensor cores, in a later change).
 
 #pragma once
 
@@ -50,7 +66,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace cim {
 
@@ -195,6 +210,106 @@ struct LogCore {
   }
 };
 
+// the exact product, one IMAD: |a b| <= 2^14 at 8 bits, so the 32-bit
+// sum is exact for K < 2^17 (wrapping beyond, as the reference's int32)
+struct IntCore {
+  using A = int32_t;
+  using B = int32_t;
+  __host__ __device__ static size_t table_bytes(int) { return 0; }
+  __device__ static A stage_a(int v, int) { return v; }
+  __device__ static B stage_b(int v, int) { return v; }
+  __device__ static uint32_t product(A a, B b, const unsigned char*, int) {
+    return static_cast<uint32_t>(a * b);
+  }
+};
+
+// IntCore with each operand's square staged beside it as f32 (exact:
+// v^2 <= 2^14), so the SQ sum costs one FFMA a product
+struct IntSqCore {
+  using A = int2;      // (v, the bits of f32(v * v))
+  using B = int2;
+  __host__ __device__ static size_t table_bytes(int) { return 0; }
+  __device__ static int2 stage(int v) {
+    return make_int2(v, __float_as_int(static_cast<float>(v * v)));
+  }
+  __device__ static A stage_a(int v, int) { return stage(v); }
+  __device__ static B stage_b(int v, int) { return stage(v); }
+  __device__ static uint32_t product(A a, B b, const unsigned char*, int) {
+    return static_cast<uint32_t>(a.x * b.x);
+  }
+  __device__ static float square(int2 v) { return __int_as_float(v.y); }
+};
+
+// --- epilogues -----------------------------------------------------------
+// QUANT: the operands arrive as floats and are quantized on load; SQ: the
+// block also sums a^2 b^2 (the core must be IntSqCore); store() writes
+// one output element o = m * N + col from its sums.
+
+// int operands in, the int32 sum out (the int forms)
+struct IntOut {
+  static constexpr bool QUANT = false;
+  static constexpr bool SQ = false;
+  using Out = int32_t;
+  __device__ void store(Out* out, size_t o, int, uint32_t acc, float, float,
+                        const float*) const {
+    out[o] = static_cast<int32_t>(acc);
+  }
+};
+
+// quantize on load, flush (acc * sx) * sw (the fused forms)
+struct ScaleOut {
+  static constexpr bool QUANT = true;
+  static constexpr bool SQ = false;
+  using Out = float;
+  __device__ void store(Out* out, size_t o, int col, uint32_t acc, float,
+                        float sx, const float* sw) const {
+    // (acc * sx) * sw, in this order: never fold sx * sw first
+    out[o] = (static_cast<float>(static_cast<int32_t>(acc)) * sx) * sw[col];
+  }
+};
+
+// int operands in, D as int32 and SQ as f32 (zeros without NEED_SQ) out
+template <bool NEED_SQ>
+struct CoreOut {
+  static constexpr bool QUANT = false;
+  static constexpr bool SQ = NEED_SQ;
+  using Out = int32_t;
+  float* sq_out;
+  __device__ void store(Out* out, size_t o, int, uint32_t acc, float sq,
+                        float, const float*) const {
+    out[o] = static_cast<int32_t>(acc);
+    sq_out[o] = NEED_SQ ? sq : 0.f;
+  }
+};
+
+// quantize on load, flush the surrogate: STOCH reads eps (M, N) and adds
+// the noise term, NEED_SQ (only with STOCH) its c1 * SQ part.  one_mu is
+// f32(1 + mu), c0k f32(c0 * K), both rounded once on the host.
+template <bool NEED_SQ, bool STOCH>
+struct SurrogateOut {
+  static_assert(STOCH || !NEED_SQ, "SQ feeds only the noise term");
+  static constexpr bool QUANT = true;
+  static constexpr bool SQ = NEED_SQ;
+  using Out = float;
+  float one_mu, c0k, c1;
+  const float* eps;
+  __device__ void store(Out* out, size_t o, int col, uint32_t acc, float sq,
+                        float sx, const float* sw) const {
+    const float scale = __fmul_rn(sx, sw[col]);
+    const float d = static_cast<float>(static_cast<int32_t>(acc));
+    float v = __fmul_rn(__fmul_rn(one_mu, d), scale);
+    if constexpr (STOCH) {
+      const float s2 = __fmul_rn(scale, scale);
+      float var = __fmul_rn(c0k, s2);
+      if constexpr (NEED_SQ) {
+        var = __fadd_rn(var, __fmul_rn(__fmul_rn(c1, sq), s2));
+      }
+      v = __fadd_rn(v, __fmul_rn(sqrtf(fmaxf(var, 0.f)), eps[o]));
+    }
+    out[o] = v;
+  }
+};
+
 // dynamic shared memory of one block: the table, the A and the B tile
 // (kernels/conv_gemm.py's gemm_smem_bytes computes the same total)
 template <class Core>
@@ -251,16 +366,16 @@ struct MinBlocks<NibbleCore, ConvSrc<T>> {
   static constexpr int value = 0;
 };
 
-template <class Core, class Src, typename TW, bool FUSED>
+template <class Core, class Src, typename TW, class Epi>
 __global__ void __launch_bounds__(THREADS, (MinBlocks<Core, Src>::value))
 gemm_kernel(Src src, const TW* __restrict__ w,
             const unsigned char* __restrict__ tab,
             const float* __restrict__ sx_ptr, const float* __restrict__ sw,
-            typename std::conditional<FUSED, float, int32_t>::type*
-                __restrict__ out,
-            int M, int K, int N, int bits) {
+            typename Epi::Out* __restrict__ out, Epi epi, int M, int K,
+            int N, int bits) {
   using A = typename Core::A;
   using B = typename Core::B;
+  constexpr bool FUSED = Epi::QUANT;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t tbytes = Core::table_bytes(bits);
   unsigned char* s_tab = smem;
@@ -289,8 +404,12 @@ gemm_kernel(Src src, const TW* __restrict__ w,
   const int rows = min(BM, M - m0);   // rows of this tile inside M
 
   uint32_t acc[RPT];
+  float sq[RPT];  // sum_k a^2 b^2, live only when Epi::SQ
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0u;
+  for (int r = 0; r < RPT; ++r) {
+    acc[r] = 0u;
+    sq[r] = 0.f;
+  }
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     __syncthreads();  // the previous step's operands are consumed
@@ -320,7 +439,11 @@ gemm_kernel(Src src, const TW* __restrict__ w,
       for (int r = 0; r < RPT; ++r) {
         const int row = ty + r * TY;  // uniform across a warp
         if (row < rows) {
-          acc[r] += Core::product(s_a[row * BK + kk], bo, s_tab, bits);
+          const A ao = s_a[row * BK + kk];
+          acc[r] += Core::product(ao, bo, s_tab, bits);
+          if constexpr (Epi::SQ) {
+            sq[r] = fmaf(Core::square(ao), Core::square(bo), sq[r]);
+          }
         }
       }
     }
@@ -332,13 +455,7 @@ gemm_kernel(Src src, const TW* __restrict__ w,
       const int row = ty + r * TY;
       if (row < rows) {
         const size_t o = static_cast<size_t>(m0 + row) * N + col;
-        if constexpr (FUSED) {
-          // (acc * sx) * sw, in this order: never fold sx * sw first
-          out[o] = (static_cast<float>(static_cast<int32_t>(acc[r])) * sx) *
-                   sw[col];
-        } else {
-          out[o] = static_cast<int32_t>(acc[r]);
-        }
+        epi.store(out, o, col, acc[r], sq[r], sx, sw);
       }
     }
   }
@@ -347,16 +464,16 @@ gemm_kernel(Src src, const TW* __restrict__ w,
 // Launches one (M, K) x (K, N) product on `stream`; returns the CUDA
 // error code (0 on success).  `expect_smem` >= 0 is the caller's
 // shared-memory total, and a launch whose total differs is refused.
-template <class Core, bool FUSED, class Src, typename TW>
+template <class Core, class Epi, class Src, typename TW>
 int launch(Src src, const TW* w, const void* tab, const void* sx,
-           const void* sw, void* out, int M, int K, int N, int bits,
+           const void* sw, void* out, Epi epi, int M, int K, int N, int bits,
            void* stream, int expect_smem = -1) {
-  using TO = typename std::conditional<FUSED, float, int32_t>::type;
+  using TO = typename Epi::Out;
   const size_t smem = smem_bytes<Core>(bits);
   if (expect_smem >= 0 && static_cast<size_t>(expect_smem) != smem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  auto kern = gemm_kernel<Core, Src, TW, FUSED>;
+  auto kern = gemm_kernel<Core, Src, TW, Epi>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -368,7 +485,7 @@ int launch(Src src, const TW* w, const void* tab, const void* sx,
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       src, w, static_cast<const unsigned char*>(tab),
       static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<TO*>(out), M, K, N, bits);
+      static_cast<TO*>(out), epi, M, K, N, bits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,32 +493,32 @@ int launch(Src src, const TW* w, const void* tab, const void* sx,
 template <class Core>
 int dense_int8(const void* x, const void* w, const void* tab, void* out,
                int M, int K, int N, int bits, void* stream) {
-  return launch<Core, false>(
-      Dense<int8_t>{static_cast<const int8_t*>(x), K},
-      static_cast<const int8_t*>(w), tab, nullptr, nullptr, out, M, K, N,
-      bits, stream);
+  return launch<Core>(Dense<int8_t>{static_cast<const int8_t*>(x), K},
+                      static_cast<const int8_t*>(w), tab, nullptr, nullptr,
+                      out, IntOut{}, M, K, N, bits, stream);
 }
 
-// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N)
-template <class Core>
-int dense_fused(const void* x, int x_bf16, const void* w, int w_bf16,
+// f32 or bf16 (M,K) x f32 or bf16 (K,N), quantized on load -> f32 (M,N)
+// through the epilogue `epi`
+template <class Core, class Epi>
+int dense_quant(const void* x, int x_bf16, const void* w, int w_bf16,
                 const void* tab, const void* sx, const void* sw, void* out,
-                int M, int K, int N, int bits, void* stream) {
+                Epi epi, int M, int K, int N, int bits, void* stream) {
   using bf = __nv_bfloat16;
   const Dense<bf> xb{static_cast<const bf*>(x), K};
   const Dense<float> xf{static_cast<const float*>(x), K};
   const bf* wb = static_cast<const bf*>(w);
   const float* wf = static_cast<const float*>(w);
   if (x_bf16 && w_bf16)
-    return launch<Core, true>(xb, wb, tab, sx, sw, out, M, K, N, bits,
-                              stream);
+    return launch<Core>(xb, wb, tab, sx, sw, out, epi, M, K, N, bits,
+                        stream);
   if (x_bf16)
-    return launch<Core, true>(xb, wf, tab, sx, sw, out, M, K, N, bits,
-                              stream);
+    return launch<Core>(xb, wf, tab, sx, sw, out, epi, M, K, N, bits,
+                        stream);
   if (w_bf16)
-    return launch<Core, true>(xf, wb, tab, sx, sw, out, M, K, N, bits,
-                              stream);
-  return launch<Core, true>(xf, wf, tab, sx, sw, out, M, K, N, bits, stream);
+    return launch<Core>(xf, wb, tab, sx, sw, out, epi, M, K, N, bits,
+                        stream);
+  return launch<Core>(xf, wf, tab, sx, sw, out, epi, M, K, N, bits, stream);
 }
 
 // f32 (B,H,W,C) image x f32 (kh*kw, C, N) tap stack -> f32 (B,OH,OW,N)
@@ -418,9 +535,9 @@ int conv_fused(const void* x, const void* w, const void* tab, const void* sx,
   const int OW = (W + 2 * pw - kw) / stride + 1;
   const ConvSrc<float> src{static_cast<const float*>(x), H, W, C, OH, OW,
                            kw, stride, ph, pw};
-  return launch<Core, true>(src, static_cast<const float*>(w), tab, sx, sw,
-                            out, B * OH * OW, kh * kw * C, N, bits, stream,
-                            smem);
+  return launch<Core>(src, static_cast<const float*>(w), tab, sx, sw, out,
+                      ScaleOut{}, B * OH * OW, kh * kw * C, N, bits, stream,
+                      smem);
 }
 
 }  // namespace cim

@@ -4,16 +4,24 @@
 //   conv_lut_fused (-> _lut_kernel, nibble=False / True): the full signed
 //     product table or the nibble sub-tables per product
 //   conv_log_fused (-> _log_kernel): the Mitchell / Log-our product
+//   conv_mxu_fused (-> _mxu_kernel): the exact product (exact mode)
 // f32 x (B,H,W,C) and f32 w3 (kh*kw, C, N) -> f32 (B,OH,OW,N), SAME zero
 // padding kh//2, kw//2 and a stride, quantization on load against a
 // per-tensor sx and per-out-channel sw, and the (acc * sx) * sw epilogue:
-// bit-identical integer core to im2col + the GEMM kernels.
+// bit-identical integer core to im2col + the GEMM kernels.  The exact
+// form differs from the reference's, which summed the dequantized
+// products (a sx)(b sw) in f32 per tap: here the integer products are
+// summed exactly in int32 and scaled once, so the two differ by f32
+// rounding only (the reference's own test holds that route to a float
+// conv at 1e-5), and the kernel equals its plain version bit for bit.
 //
 // What bounds it on an H100: the same products as the GEMM of
 // M = B*OH*OW rows, K = kh*kw*C, N = C_out: M*K*N shared-memory gathers
 // (lut; nibble four a product) at most 132 SMs x 32 words a clock, or
 // about 11 (mitchell) / 28 (log_our) int32 operations a product at 132 x
-// 64 lanes a clock.  The bytes the output depends on (the image and the
+// 64 lanes a clock; the exact form's M*K*N int8 products could run on
+// the tensor cores (2 M K N operations at 1,979 TOP/s), here one IMAD
+// each on the CUDA cores.  The bytes the output depends on (the image and the
 // weights read once, the output written once) bound nothing at the CNN's
 // geometries.
 //
@@ -46,6 +54,16 @@ int conv_lut_fused(const void* x, const void* w, const void* tab,
                                             stream);
   return cim::conv_fused<cim::LutCore>(x, w, tab, sx, sw, out, B, H, W, C, N,
                                        kh, kw, stride, bits, smem, stream);
+}
+
+// the exact integer product (exact mode; no table)
+int conv_mxu_fused(const void* x, const void* w, const void* sx,
+                   const void* sw, void* out, int B, int H, int W, int C,
+                   int N, int kh, int kw, int stride, int bits, int smem,
+                   void* stream) {
+  return cim::conv_fused<cim::IntCore>(x, w, nullptr, sx, sw, out, B, H, W,
+                                       C, N, kh, kw, stride, bits, smem,
+                                       stream);
 }
 
 int conv_log_fused(const void* x, const void* w, const void* sx,

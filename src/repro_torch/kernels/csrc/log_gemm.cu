@@ -50,12 +50,12 @@ int log_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* sx, const void* sw, void* out, int M, int K,
                    int N, int bits, int compensated, void* stream) {
   if (compensated)
-    return cim::dense_fused<cim::LogCore<true>>(x, x_bf16, w, w_bf16,
-                                                nullptr, sx, sw, out, M, K,
-                                                N, bits, stream);
-  return cim::dense_fused<cim::LogCore<false>>(x, x_bf16, w, w_bf16, nullptr,
-                                               sx, sw, out, M, K, N, bits,
-                                               stream);
+    return cim::dense_quant<cim::LogCore<true>>(
+        x, x_bf16, w, w_bf16, nullptr, sx, sw, out, cim::ScaleOut{}, M, K, N,
+        bits, stream);
+  return cim::dense_quant<cim::LogCore<false>>(
+      x, x_bf16, w, w_bf16, nullptr, sx, sw, out, cim::ScaleOut{}, M, K, N,
+      bits, stream);
 }
 
 }  // extern "C"

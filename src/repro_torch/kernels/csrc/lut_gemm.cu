@@ -39,8 +39,9 @@ int lut_gemm_int8(const void* x, const void* w, const void* lut, void* out,
 int lut_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* lut, const void* sx, const void* sw,
                    void* out, int M, int K, int N, int bits, void* stream) {
-  return cim::dense_fused<cim::LutCore>(x, x_bf16, w, w_bf16, lut, sx, sw,
-                                        out, M, K, N, bits, stream);
+  return cim::dense_quant<cim::LutCore>(x, x_bf16, w, w_bf16, lut, sx, sw,
+                                        out, cim::ScaleOut{}, M, K, N, bits,
+                                        stream);
 }
 
 }  // extern "C"

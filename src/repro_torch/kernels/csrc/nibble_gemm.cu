@@ -40,8 +40,9 @@ int nibble_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                       const void* subs, const void* sx, const void* sw,
                       void* out, int M, int K, int N, int bits,
                       void* stream) {
-  return cim::dense_fused<cim::NibbleCore>(x, x_bf16, w, w_bf16, subs, sx,
-                                           sw, out, M, K, N, bits, stream);
+  return cim::dense_quant<cim::NibbleCore>(x, x_bf16, w, w_bf16, subs, sx,
+                                           sw, out, cim::ScaleOut{}, M, K, N,
+                                           bits, stream);
 }
 
 }  // extern "C"

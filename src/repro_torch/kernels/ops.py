@@ -1,5 +1,5 @@
-"""Public per-kernel entry points of the kernel layer (GEMM, implicit-GEMM
-conv and CiM attention).
+"""Public per-kernel entry points of the kernel layer (GEMM, surrogate
+GEMM, implicit-GEMM conv and CiM attention).
 
 Routing across kernels lives in the registry (core/approx_gemm.py);
 these wrappers resolve a multiplier spec to its product table (the int16
@@ -7,8 +7,9 @@ full table or the int32 nibble sub-tables), compute the quantization
 scales as plain torch reductions outside the kernel (``sx = max|x| /
 qmax`` per tensor, ``sw = max|w[:, n]| / qmax`` per column, as the
 reference's ``_scales``), and call the kernel wrappers of
-approx_matmul.py / mitchell_gemm.py / conv_gemm.py / attn_gemm.py, which
-pick the CUDA kernel or the plain version by the operands' device.
+approx_matmul.py / mitchell_gemm.py / cim_gemm.py / conv_gemm.py /
+attn_gemm.py, which pick the CUDA kernel or the plain version by the
+operands' device.
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ from .approx_matmul import (lut_matmul, lut_matmul_fused, nibble_lut_matmul,
                             nibble_lut_matmul_fused)
 from .attn_gemm import (attn_fused, attn_materialized, attn_reference,
                         attn_scales)
-from .conv_gemm import conv_log_fused, conv_lut_fused
+from .cim_gemm import cim_gemm_core, cim_gemm_fused, stochastic
+from .conv_gemm import conv_log_fused, conv_lut_fused, conv_mxu_fused
 from .mitchell_gemm import mitchell_matmul, mitchell_matmul_fused
+from .ref import surrogate_epilogue
 
 
 @functools.lru_cache(maxsize=16)
@@ -142,6 +145,28 @@ def log_matmul_fused(x, w, bits: int = 8, compensated: bool = True):
                                  compensated=compensated)
 
 
+def surrogate_gemm(xq, wq, sx, sw, eps, mu: float, c0: float,
+                   c1: float) -> torch.Tensor:
+    """The surrogate GEMM in real units over int8 operands (the int-in
+    oracle surface): `cim_gemm_core` (SQ only when noise is drawn and
+    c1 > 0), then the epilogue in plain torch (ref.surrogate_epilogue)."""
+    noisy = stochastic(eps, c0, c1)
+    need_sq = noisy and c1 > 0.0
+    d, sq = cim_gemm_core(xq, wq, need_sq=need_sq)
+    return surrogate_epilogue(d, sq if need_sq else None, sx, sw,
+                              eps if noisy else None, mu, c0, c1,
+                              xq.shape[-1])
+
+
+def surrogate_gemm_fused(x, w, eps, mu: float, c0: float, c1: float,
+                         bits: int = 8) -> torch.Tensor:
+    """The fused surrogate GEMM: float in -> f32 out, quantization and the
+    whole epilogue (bias, and the noise term when `eps` is given) in one
+    kernel.  The production path of surrogate mode on the card."""
+    sx, sw = _scales(x, w, bits)
+    return cim_gemm_fused(x, w, sx, sw, eps, mu, c0, c1, bits=bits)
+
+
 # ---------------------------------------------------------------------------
 # Implicit-GEMM conv (kernels/conv_gemm.py): x (B, H, W, C) float, w2
 # (kh*kw*C, N) float with tap-major rows (the im2col column order) ->
@@ -156,6 +181,15 @@ def _conv_operands(x, w2, bits, kh, kw):
     wf = w2.to(torch.float32).contiguous()
     sx, sw = _scales(xf, wf, bits)
     return xf, wf.reshape(kh * kw, c, n), sx, sw
+
+
+def conv2d_mxu_fused(x, w2, bits: int = 8, kh: int = 3, kw: int = 3,
+                     stride: int = 1) -> torch.Tensor:
+    """Exact-family fused-quantization implicit-GEMM conv (exact mode):
+    the exact integer products, scaled once."""
+    xf, w3, sx, sw = _conv_operands(x, w2, bits, kh, kw)
+    return conv_mxu_fused(xf, w3, sx, sw, bits=bits, kh=kh, kw=kw,
+                          stride=stride)
 
 
 def conv2d_lut_fused(x, w2, spec: MultiplierSpec, kh: int = 3, kw: int = 3,

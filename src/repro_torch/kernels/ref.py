@@ -7,10 +7,16 @@ match, and `quantize_tile`, `gather_full`, `gather_nibble`,
 arithmetic (`_quantize_tile`, `_gather_full`, `_gather_nibble`,
 `_log_product` and the conv kernels' `_taps` in the JAX package).
 Integer sums wrap at 32 bits, like the reference's int32 sums.
+
+The surrogate GEMM's pieces: `int_dot` (D, the exact integer dot),
+`square_dot` (SQ = A^2 @ B^2, computed exactly and rounded once to f32)
+and `surrogate_epilogue` (the fused kernel's flush, op for op);
+`cim_gemm_ref` is the reference's f32 oracle of the whole.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # bound on the live (M, k_chunk, N) index/product temporaries of a
@@ -180,3 +186,80 @@ def mitchell_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, bits: int = 8,
     """Log-domain GEMM oracle (mitchell, or the paper's log_our when
     `compensated`).  Returns int32 (M, N)."""
     return log_sum(xq, wq, bits, compensated)
+
+
+# ---------------------------------------------------------------------------
+# The surrogate GEMM (kernels/cim_gemm.py)
+# ---------------------------------------------------------------------------
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact integer dot of integer-valued tensors (..., M, K) @ (K, N)
+    as int32, wrapping at 32 bits as the kernels' sums do.  Computed in
+    float64, where every partial sum of int8 products is an integer below
+    2^53 (K < 2^38) and so exact in any order, on the CPU and on the card
+    alike."""
+    d = a.to(torch.float64) @ b.to(torch.float64)
+    return d.to(torch.int64).to(torch.int32)
+
+
+def square_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SQ = A^2 @ B^2 of integer-valued tensors, exact in float64 (each
+    term is at most 127^4 < 2^28, so K < 2^25 keeps every sum exact) and
+    rounded once to f32.  The kernel sums in f32, so it lies within
+    (K - 1) 2^-24 relative of this (the error bound of a sum of positive
+    terms, one rounding a step) plus this value's own half ulp."""
+    af = a.to(torch.float64)
+    bf = b.to(torch.float64)
+    return ((af * af) @ (bf * bf)).to(torch.float32)
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """`v` rounded once to f32, as a 0-dim tensor on `like`'s device."""
+    return torch.tensor(np.float32(v), device=like.device)
+
+
+def surrogate_epilogue(d: torch.Tensor, sq, sx: torch.Tensor,
+                       sw: torch.Tensor, eps, mu: float, c0: float, c1: float,
+                       k: int) -> torch.Tensor:
+    """The fused surrogate kernel's flush, in its order of roundings:
+
+        s   = sx * sw
+        out = (f32(1 + mu) * f32(D)) * s
+        var = f32(c0 * K) * (s * s)          c0 * K formed in double first
+        var = var + (f32(c1) * SQ) * (s * s)  only with SQ
+        out = out + sqrt(max(var, 0)) * eps   only with eps
+
+    d: int32 (M, N); sq: f32 (M, N) or None; sx: one f32; sw: (N,) f32;
+    eps: f32 (M, N) or None.  Every step is one f32 operation, so this
+    equals the kernel bit for bit given the same D and SQ."""
+    scale = sx.reshape(()).to(torch.float32) * sw.reshape(1, -1).to(
+        torch.float32)
+    out = (_f32(1.0 + mu, d) * d.to(torch.float32)) * scale
+    if eps is None:
+        return out
+    s2 = scale * scale
+    var = _f32(c0 * k, d) * s2
+    if sq is not None:
+        var = var + (_f32(c1, d) * sq) * s2
+    return out + torch.sqrt(torch.clamp_min(var, 0.0)) * eps
+
+
+def cim_gemm_ref(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                 sw: torch.Tensor, eps: torch.Tensor, mu: float, c0: float,
+                 c1: float) -> torch.Tensor:
+    """The reference's surrogate CiM GEMM oracle (real units), in f32.
+
+    xq (M,K) int8, wq (K,N) int8, sx scalar, sw (N,), eps (M,N) f32:
+    out = (1+mu) * D + sqrt(c0*K*s2 + c1*SQ) * eps, with D and SQ the int
+    dot and squared dot dequantized by s2 = (sx*sw)^2 (D and SQ as f32
+    dots, so within f32 rounding of the kernels)."""
+    xf = xq.to(torch.float32)
+    wf = wq.to(torch.float32)
+    d = xf @ wf
+    sq = (xf * xf) @ (wf * wf)
+    scale = sx * sw.reshape(1, -1)
+    s2 = scale * scale
+    var = c0 * xq.shape[-1] * s2 + c1 * sq * s2
+    return ((1.0 + mu) * d * scale
+            + torch.sqrt(torch.clamp_min(var, 0.0)) * eps)

@@ -4,6 +4,9 @@ Poisson arrival workload, on a CUDA device (or ``--device cpu``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --mode hardware --slots 4 --n-requests 16
 
+`--mode` sets the approximate tiers' execution mode: surrogate_fast (the
+default), surrogate (the compiler's default mode: the fused surrogate
+kernel on the card) or hardware (the bit-true kernels).
 Builds the per-tier slot-pool engine over the DSE accuracy ladder, runs
 every (tier x bucket) shape once (warmup), serves the workload, and
 prints throughput, latency and the plan misses after warmup (0).
@@ -43,6 +46,8 @@ def main():
     ap.add_argument("--max-new", type=int, nargs=2, default=(4, 32),
                     metavar=("LO", "HI"))
     ap.add_argument("--mode", default="surrogate_fast",
+                    choices=("surrogate_fast", "surrogate", "hardware",
+                             "bit_exact"),
                     help="execution mode of the approximate tiers")
     ap.add_argument("--static", action="store_true",
                     help="lockstep (static-batching) admission baseline")

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx_gemm import GemmParams, model_matmul
+from repro_torch.core.approx_gemm import GemmParams, NoiseKey, model_matmul
 from repro_torch.core.compiler import CiMConfig, compile_macro
 
 # ---------------------------------------------------------------------------
@@ -159,10 +159,18 @@ class CiMParams:
 
 @dataclasses.dataclass
 class CiMContext:
-    """Per-call CiM context.  The reference also threads a surrogate
-    noise key here; noise is a later slice of the port."""
+    """Per-call CiM context: the static params and an optional surrogate
+    noise key (None: the deterministic term, as serving runs).
+    `child(name)` derives each named matmul's own key from (key,
+    crc32(name)), as the reference folds the name into its JAX key."""
 
     p: CiMParams
+    key: Optional[NoiseKey] = None
+
+    def child(self, name: str) -> "CiMContext":
+        if self.key is None:
+            return self
+        return CiMContext(self.p, self.key.child(name))
 
 
 def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
@@ -171,14 +179,16 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
 
     x: (..., K); w: (K, N).  Which kernel runs this matmul for the
     context's (family, mode, bits) and the operands' device is the
-    dispatch engine's choice (core/approx_gemm.model_matmul)."""
+    dispatch engine's choice (core/approx_gemm.model_matmul); a context
+    key draws this matmul's surrogate noise from its own child key."""
     assert w.dim() == 2, "cim_linear expects 2-D weights (flatten heads)"
     p = ctx.p
     if p.mode == "off":
         out = x @ w
     else:
+        key = ctx.child(name).key if name else ctx.key
         gp, apply = p.routing(name)
-        out = model_matmul(x, w, gp, apply=apply)
+        out = model_matmul(x, w, gp, key, apply=apply)
     if bias is not None:
         out = out + bias
     return out

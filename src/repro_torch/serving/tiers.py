@@ -45,8 +45,12 @@ def build_tiers(bits: int = 8, mode: str = "surrogate_fast",
     """DSE-characterized default ladder, sorted by ascending NMED.
 
     `mode` is the execution mode of the *approximate* tiers (the exact
-    tier always runs the exact int8 macro); "hardware" runs the
-    bit-true GPU kernels.  ``attn=True`` also routes every tier's
+    tier always runs the exact int8 macro): "surrogate_fast" (fake-quant
+    dot times the calibrated mean shift), "surrogate" (on the card the
+    fused surrogate kernel, on the CPU its plain route) or "hardware"
+    (the bit-true GPU kernels).  Serving threads no noise key, so a
+    surrogate lane is deterministic: the mean shift applies and the
+    variance term stays dormant.  ``attn=True`` also routes every tier's
     self-attention through the fused CiM attention kernels; only the
     integer modes (hardware/bit_exact) take that path, so the exact tier
     keeps the float attention."""

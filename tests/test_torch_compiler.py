@@ -21,7 +21,7 @@ from repro_torch.core import dse as tdse
 from repro_torch.core import error_model as terr
 from repro_torch.core import luts as tluts
 from repro_torch.core import quantization as tq
-from repro_torch.core.compiler import CiMConfig
+from repro_torch.core.compiler import CiMConfig, compile_macro
 from repro_torch.core.multipliers import MultiplierSpec as TSpec
 from repro_torch.kernels import ops
 from repro_torch.serving.tiers import build_tiers as tbuild_tiers
@@ -169,3 +169,21 @@ def test_later_slice_fields_raise(field, value):
         return
     with pytest.raises(NotImplementedError, match="later slice"):
         CiMConfig(family="appro42", mode="hardware", **{field: value})
+
+
+def test_macro_matmul_runs_cim_matmul_for_its_mode():
+    """CiMMacro.matmul is cim_matmul on the macro's params (its mode, or
+    the one asked for), and warmup counts its shapes."""
+    from repro_torch.core.approx_gemm import NoiseKey, cim_matmul
+
+    macro = compile_macro(CiMConfig(family="appro42", bits=8,
+                                    mode="surrogate"))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 20, generator=g)
+    w = torch.randn(20, 12, generator=g)
+    for mode in (None, "exact", "hardware", "surrogate_fast"):
+        assert torch.equal(macro.matmul(x, w, mode=mode),
+                           cim_matmul(x, w, macro.gemm_params(mode)))
+    assert torch.equal(macro.matmul(x, w, NoiseKey(1)),
+                       cim_matmul(x, w, macro.gemm_params(), NoiseKey(1)))
+    assert macro.warmup([(6, 20, 12), (3, 20, 12)], device="cpu") == 2

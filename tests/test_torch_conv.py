@@ -18,7 +18,8 @@ from repro.core.multipliers import MultiplierSpec as JSpec
 from repro.kernels.conv_gemm import conv_log_fused as j_conv_log
 from repro.kernels.conv_gemm import conv_lut_fused as j_conv_lut
 from repro_torch.core import approx_gemm as ag
-from repro_torch.core.approx_gemm import (ConvParams, GemmParams, cim_conv2d,
+from repro_torch.core.approx_gemm import (FAMILIES, ConvParams, GemmParams,
+                                          cim_conv2d,
                                           cim_matmul, conv_out_hw,
                                           im2col_nhwc, plan_conv,
                                           plan_misses, select_conv_kernel)
@@ -94,16 +95,18 @@ def test_conv_routing_other_modes():
                               "cuda").name == "conv_im2col"
     assert select_conv_kernel("appro42", "bit_exact", 8,
                               "cuda").name == "conv_im2col"
-    # the exact-mode kernel (the reference's pallas_conv_mxu) is a later
-    # slice, and routing to it says so
+    # exact mode routes to the exact-product kernel (the reference's
+    # pallas_conv_mxu), for every family, on either device
     assert jag.select_conv_kernel("exact", "exact", 8,
                                   backend="cpu").name == "pallas_conv_mxu"
     for backend in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="queue B 4"):
-            select_conv_kernel("exact", "exact", 8, backend)
-        with pytest.raises(NotImplementedError, match="queue B 4"):
-            plan_conv("exact", "exact", 8, 2, 8, 8, 4, 4, ConvParams(),
-                      backend)
+        pre = "cuda" if backend == "cuda" else "torch"
+        for family in FAMILIES:
+            got = select_conv_kernel(family, "exact", 8, backend)
+            assert got.name == f"{pre}_conv_mxu"
+            assert got.cuda == (backend == "cuda")
+        assert plan_conv("exact", "exact", 8, 2, 8, 8, 4, 4, ConvParams(),
+                         backend).entry.name == f"{pre}_conv_mxu"
 
 
 @pytest.mark.parametrize("family,nac,core", HW_CASES)
@@ -273,13 +276,51 @@ def test_hardware_conv_bit_matches_im2col_oracle(family, nac, core):
 
 def test_surrogate_conv_runs_the_im2col_fallback():
     """Surrogate conv runs the materialized fallback: its deterministic
-    term equals im2col + cim_matmul exactly (noise is a later slice)."""
+    term equals im2col + cim_matmul exactly (the noisy term: the next
+    test)."""
     gp = GemmParams(family="appro42", bits=8, mode="surrogate", mu=-0.01)
     assert plan_conv("appro42", "surrogate", 8, 2, 8, 8, 4, 6, ConvParams(),
                      "cpu").entry.name == "conv_im2col"
     x, wt = _ops(2, 8, 8, 4, 6, 3, 3, seed=20)
     assert torch.equal(cim_conv2d(x, wt, gp),
                        _oracle(x, wt, gp, ConvParams()))
+
+
+@pytest.mark.parametrize("family", ["exact", "appro42", "mitchell"])
+def test_surrogate_conv_matches_oracle_with_same_key(family):
+    """With a key, surrogate conv draws its (B*OH*OW, N) noise as
+    im2col + cim_matmul does with the same key, so the two are equal
+    (tests/test_conv.py's contract); another key moves the output."""
+    from repro_torch.core.approx_gemm import NoiseKey
+
+    gp = GemmParams(family=family, bits=8, mode="surrogate", mu=-0.01,
+                    c0=40.0, c1=3e-4)
+    for i, (b, h, w, c, n, kh, kw, s) in enumerate(SHAPES):
+        cp = ConvParams(kh, kw, s)
+        x, wt = _ops(b, h, w, c, n, kh, kw, seed=40 + i)
+        got = cim_conv2d(x, wt, gp, NoiseKey(i), kh=kh, kw=kw, stride=s)
+        cols = im2col_nhwc(x, cp)
+        want = cim_matmul(cols.reshape(-1, cols.shape[-1]), wt, gp,
+                          NoiseKey(i)).reshape(got.shape)
+        assert torch.equal(got, want)
+        assert not torch.equal(got, cim_conv2d(x, wt, gp, kh=kh, kw=kw,
+                                               stride=s))
+
+
+def test_exact_mode_conv_matches_oracle_fp32():
+    """Exact mode runs the exact conv kernel's plain version on the CPU:
+    within 1e-5 of im2col + cim_matmul (the dequantized dot), the
+    reference test's tolerance for this route."""
+    gp = GemmParams(family="exact", bits=8, mode="exact")
+    for i, (b, h, w, c, n, kh, kw, s) in enumerate(SHAPES):
+        cp = ConvParams(kh, kw, s)
+        assert plan_conv("exact", "exact", 8, b, h, w, c, n, cp,
+                         "cpu").entry.name == "torch_conv_mxu"
+        x, wt = _ops(b, h, w, c, n, kh, kw, seed=10 + i)
+        got = cim_conv2d(x, wt, gp, kh=kh, kw=kw, stride=s)
+        np.testing.assert_allclose(got.numpy(),
+                                   _oracle(x, wt, gp, cp).numpy(),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_im2col_and_float_conv_match_the_reference():

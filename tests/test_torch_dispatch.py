@@ -64,9 +64,12 @@ def _jspec(spec):
 
 @pytest.mark.parametrize("backend", ["cpu", "cuda"])
 def test_nibble_and_surrogate_kernel_routes_raise(backend):
-    """The nibble sub-LUT kernel is ported: a decomposable spec routes to
-    it on either device (the CUDA kernel or its plain version); the fused
-    surrogate kernel is still a later slice and its CUDA route raises."""
+    """The nibble sub-LUT kernel and the fused surrogate kernel are
+    ported, so neither route raises any more: a decomposable spec routes
+    to the nibble kernel on either device (the CUDA kernel or its plain
+    version), and surrogate mode to the fused surrogate kernel on the
+    card and to the plain `torch_surrogate` route on the CPU, as the
+    reference's CPU runs `xla_surrogate`."""
     pre = "cuda" if backend == "cuda" else "torch"
     exact = MultiplierSpec("exact", 8, True)
     assert select_kernel("exact", "hardware", 8, backend,
@@ -74,12 +77,11 @@ def test_nibble_and_surrogate_kernel_routes_raise(backend):
     a4 = MultiplierSpec("appro42", 8, True, n_approx_cols=4)
     assert select_kernel("appro42", "hardware", 8, backend,
                          spec=a4).name == f"{pre}_lut_nibble"
+    got = select_kernel("log_our", "surrogate", 8, backend)
     if backend == "cuda":
-        with pytest.raises(NotImplementedError, match="surrogate"):
-            select_kernel("log_our", "surrogate", 8, "cuda")
+        assert got.name == "cuda_fused_surrogate" and got.cuda
     else:
-        assert select_kernel("log_our", "surrogate", 8,
-                             "cpu").name == "torch_surrogate"
+        assert got.name == "torch_surrogate" and not got.cuda
 
 
 # (family, n_approx_cols) -> the reference's route for a hardware GEMM
@@ -250,3 +252,29 @@ def test_macro_kernel_plan_routes_by_backend():
     assert macro.kernel_plan(4, 2048, 2048, backend="cpu").entry.name \
         == "torch_log"
     assert macro.gemm_params().mode == "hardware"
+
+
+@pytest.mark.parametrize("mode", ["surrogate", "surrogate_fast"])
+def test_surrogate_frontends_route_by_device(mode):
+    """A surrogate GEMM's plan on the card runs the fused surrogate
+    runner through both frontends (its kernel; here on CPU tensors, its
+    plain version), on the CPU the plain torch_surrogate route;
+    surrogate_fast takes the plain route everywhere.  The fused runner
+    and the plain route agree on the deterministic term to f32 rounding
+    (the kernel's D is exact, the plain route's dot a float sum)."""
+    gp = GemmParams(family="log_our", bits=8, mode=mode, mu=0.013,
+                    c0=0.0, c1=3.6e-4)
+    plans = {b: ag.plan_gemm("log_our", mode, 8, 6, 32, 10, b)
+             for b in ("cpu", "cuda")}
+    assert plans["cpu"].entry.name == "torch_surrogate"
+    assert plans["cuda"].entry.name == ("cuda_fused_surrogate"
+                                        if mode == "surrogate"
+                                        else "torch_surrogate")
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((32, 10)).astype(np.float32))
+    card = ag._cim_core(gp, plans["cuda"])(x, w)
+    cpu = ag._cim_core(gp, plans["cpu"])(x, w)
+    assert torch.allclose(card, cpu, rtol=1e-5, atol=1e-5)
+    model = ag._model_forward(gp, plans["cuda"], True)(x, w)
+    assert torch.allclose(model, cpu, rtol=1e-5, atol=1e-5)

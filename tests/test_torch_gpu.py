@@ -403,3 +403,175 @@ def test_cnn_forward_on_the_card_runs_the_kernels(fam):
     assert after == {n: {conv: 5, fc: 1}.get(n, 0) for n in kernels}
     assert torch.equal(got, base)
     assert float((got.cpu() - cpu).abs().max()) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the surrogate GEMM kernels and the exact-mode conv kernel
+# ---------------------------------------------------------------------------
+
+# (mu, c0, c1): the reference tests' coefficients and a c1 = 0 law
+SURROGATE_COEFFS = [(-0.013, 1480.0, 2.1e-4), (0.02, 3.3, 0.0)]
+
+
+def _sq_close(got, want, k):
+    """SQ of the kernel (f32 sum in K order) against the exact value
+    rounded once: within (K - 1) 2^-24 relative, plus its half ulp."""
+    return bool(((got - want).abs() <= k * 2.0 ** -24 * want.abs()).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("coeffs", SURROGATE_COEFFS, ids=str)
+def test_surrogate_kernels_against_plain_versions(shape, coeffs):
+    """cim_gemm_core: D bitwise, SQ within K 2^-24 relative;
+    cim_gemm_fused: without noise bitwise (bf16 and f32 operands), with
+    noise within the SQ bound carried through sqrt (K 2^-24 of the noise
+    term) plus two roundings of the output."""
+    from repro_torch.kernels import cim_gemm
+
+    dev = _card()
+    m, k, n = shape
+    mu, c0, c1 = coeffs
+    x, w, xq, wq = _ops(m, k, n, dev, seed=9)
+    xq[:, 0] = -128
+    d, sq = cim_gemm.cim_gemm_core(xq, wq, need_sq=True)
+    d0, sq0 = cim_gemm.cim_gemm_core(xq, wq, need_sq=False)
+    pd, psq = cim_gemm.cim_gemm_core_plain(xq, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(d, pd) and torch.equal(d0, pd)
+    assert _sq_close(sq, psq, k) and not sq0.any()
+    eps = torch.randn(m, n, generator=torch.Generator(device=dev)
+                      .manual_seed(3), device=dev)
+    for xs, ws in ((x, w), (x.float(), w.float())):
+        sx, sw = ops._scales(xs, ws, 8)
+        det = cim_gemm.cim_gemm_fused(xs, ws, sx, sw, None, mu, c0, c1)
+        pdet = cim_gemm.cim_gemm_fused_plain(xs, ws, sx, sw, None, mu, c0,
+                                             c1)
+        got = cim_gemm.cim_gemm_fused(xs, ws, sx, sw, eps, mu, c0, c1)
+        want = cim_gemm.cim_gemm_fused_plain(xs, ws, sx, sw, eps, mu, c0, c1)
+        torch.cuda.synchronize()
+        assert torch.equal(det, pdet)
+        tol = k * 2.0 ** -24 * (want - pdet).abs() + 2.0 ** -22 * want.abs()
+        assert bool(((got - want).abs() <= tol).all())
+        assert not torch.equal(got, det)
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS, ids=str)
+def test_conv_mxu_kernel_bitwise_equal_plain_version(geom):
+    """The exact-mode conv kernel equals its plain version bit for bit and
+    a float conv of the dequantized operands (TF32 off) within 1e-5."""
+    from repro_torch.core.approx_gemm import (ConvParams, _float_conv,
+                                              _full_f32_convs)
+    from repro_torch.kernels import conv_gemm
+    from repro_torch.kernels.ref import quantize_tile
+
+    dev = _card()
+    b, h, w, c, n, kh, kw, s = geom
+    g = torch.Generator(device=dev).manual_seed(sum(geom) + 1)
+    x = torch.randn(b, h, w, c, generator=g, device=dev)
+    w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+    sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+    got = conv_gemm.conv_mxu_fused(x, w3, sx, sw, kh=kh, kw=kw, stride=s)
+    want = conv_gemm.conv_mxu_fused_plain(x, w3, sx, sw, kh=kh, kw=kw,
+                                          stride=s)
+    xdq = quantize_tile(x, sx, 127).float() * sx
+    wdq = quantize_tile(w3, sw, 127).float() * sw
+    with _full_f32_convs():
+        lib = _float_conv(xdq, wdq.reshape(-1, n), ConvParams(kh, kw, s))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.allclose(got, lib, rtol=1e-5, atol=1e-5)
+
+
+def test_surrogate_wrappers_raise_on_what_the_kernels_do_not_take():
+    from repro_torch.kernels import cim_gemm, conv_gemm
+
+    dev = _card()
+    x, w, xq, wq = _ops(8, 64, 16, dev)
+    sx, sw = ops._scales(x, w, 8)
+    eps = torch.randn(8, 16, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        cim_gemm.cim_gemm_core(xq.int(), wq)
+    with pytest.raises(ValueError, match="eps must be"):
+        cim_gemm.cim_gemm_fused(x, w, sx, sw, eps[:4], -0.01, 1.0, 1e-4)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        cim_gemm.cim_gemm_fused(x, w, sx, sw, eps.double(), -0.01, 1.0,
+                                1e-4)
+    with pytest.raises(ValueError, match="devices"):
+        cim_gemm.cim_gemm_fused(x, w, sx, sw, eps.cpu(), -0.01, 1.0, 1e-4)
+    x4 = torch.rand(2, 8, 8, 4, device=dev)
+    w3 = torch.randn(9, 4, 6, device=dev)
+    s4, s6 = ops._scales(x4, w3.reshape(-1, 6), 8)
+    with pytest.raises(ValueError, match="f32"):
+        conv_gemm.conv_mxu_fused(x4.to(torch.bfloat16), w3, s4, s6)
+
+
+def test_surrogate_frontends_on_the_card_run_the_kernels():
+    """Surrogate model_matmul and cim_matmul on CUDA tensors launch the
+    fused kernel (no fallback to the plain route) and agree with the
+    CPU's torch_surrogate route; the same key gives the same noise and
+    cim_conv2d in exact mode launches the exact conv kernel."""
+    from repro_torch.core.approx_gemm import (NoiseKey,
+                                              _run_fused_surrogate,
+                                              cim_conv2d, cim_matmul)
+    from repro_torch.kernels import cim_gemm, conv_gemm
+
+    dev = _card()
+    gp = GemmParams(family="log_our", bits=8, mode="surrogate", mu=-0.013,
+                    c0=1480.0, c1=2.1e-4)
+    x, w, _, _ = _ops(16, 256, 96, dev, seed=4)
+    kern = cim_gemm.KERNELS["cim_gemm_fused"]
+    before = kern.launches
+    got = model_matmul(x.reshape(2, 8, 256), w, gp)
+    assert kern.launches == before + 1
+    want = model_matmul(x.cpu().reshape(2, 8, 256), w.cpu(), gp)
+    assert got.dtype == torch.bfloat16
+    # the card's output is the plain cim_gemm_fused's on the same bf16
+    # operands, bit for bit
+    plain = _run_fused_surrogate(x.cpu(), w.cpu(), None, gp)
+    assert torch.equal(got.reshape(16, 96).cpu(), plain.to(torch.bfloat16))
+    # the CPU's torch_surrogate route rounds each fake-quantized operand,
+    # the dot and the shifted output to bf16, the kernel only its output
+    # (a bf16 ulp is up to 2^-7 of a value): within four ulps of the
+    # largest output
+    assert float((got.float().cpu() - want.float()).abs().max()) <= \
+        2.0 ** -5 * float(want.float().abs().max())
+    xf, wf = x.float(), w.float()
+    a = cim_matmul(xf, wf, gp, NoiseKey(5))
+    b = cim_matmul(xf, wf, gp, NoiseKey(5))
+    c = cim_matmul(xf, wf, gp, NoiseKey(6))
+    assert kern.launches == before + 4
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    conv = conv_gemm.KERNELS["conv_mxu_fused"]
+    before = conv.launches
+    x4 = torch.randn(2, 8, 8, 4, device=dev)
+    w2 = torch.randn(36, 6, device=dev)
+    y = cim_conv2d(x4, w2, GemmParams(family="exact", bits=8, mode="exact"))
+    assert conv.launches == before + 1
+    ycpu = cim_conv2d(x4.cpu(), w2.cpu(),
+                      GemmParams(family="exact", bits=8, mode="exact"))
+    assert torch.equal(y.cpu(), ycpu)
+
+
+def test_engine_serves_the_surrogate_ladder_on_the_card():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cim_gemm
+    from repro_torch.serving import (SimClock, build_engine, build_tiers,
+                                     poisson_workload)
+
+    _card()
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    eng = build_engine(cfg, tiers=build_tiers(mode="surrogate"),
+                       slots_per_tier=2, max_len=32, prompt_buckets=(8,),
+                       group_buckets=(1, 2))
+    eng.warmup()
+    before = cim_gemm.KERNELS["cim_gemm_fused"].launches
+    wl = poisson_workload(6, 100.0, cfg.vocab, prompt_len=(4, 8),
+                          max_new=(2, 5),
+                          tier_mix=(("exact", None, .3),
+                                    ("balanced", None, .4),
+                                    ("economy", None, .3)), seed=1)
+    res = eng.run(wl, clock=SimClock())
+    for r in wl:
+        assert len(res[r.rid].tokens) == r.max_new
+    assert eng.steady_plan_misses() == 0
+    assert cim_gemm.KERNELS["cim_gemm_fused"].launches > before

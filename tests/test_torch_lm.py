@@ -74,10 +74,10 @@ def test_lm_logits_and_greedy_tokens_match_reference(models, tier,
                     _compare_with_reference(models, tier, attn=False))
 
 
-def _compare_with_reference(models, tier, attn, b=2):
+def _compare_with_reference(models, tier, attn, b=2, mode="hardware"):
     jcfg, tcfg, jp, _, tp = models
-    jt = {t.name: t for t in jbuild_tiers(mode="hardware", attn=attn)}[tier]
-    tt = {t.name: t for t in tbuild_tiers(mode="hardware", attn=attn)}[tier]
+    jt = {t.name: t for t in jbuild_tiers(mode=mode, attn=attn)}[tier]
+    tt = {t.name: t for t in tbuild_tiers(mode=mode, attn=attn)}[tier]
     jlm = JLM(dataclasses.replace(jcfg, cim=jt.cim))
     tlm = TLM(dataclasses.replace(tcfg, cim=tt.cim), device="cpu")
     rng = np.random.default_rng(7)

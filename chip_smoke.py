@@ -38,7 +38,15 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      eps, within that bound carried through the sqrt plus two output
      roundings; and the exact-mode conv kernel (``conv_mxu_fused``)
      bitwise at the conv geometries above and within 1e-5 of
-     ``F.conv2d`` on the dequantized operands (TF32 off).  Each timed
+     ``F.conv2d`` on the dequantized operands (TF32 off); and the mesh
+     path's five partial kernels (``lut_matmul_partial``,
+     ``nibble_lut_matmul_partial``, ``mitchell_matmul_partial`` at the
+     contraction-sharded wo and mlp.wo shapes at model = 2, M = 4 and
+     64, bf16; ``conv_lut_partial`` full LUT and nibble,
+     ``conv_log_partial`` at the CNN's convs with C halved where it
+     splits) bitwise against their plain versions and, through the
+     epilogue, their fused forms (timed beside them), the nibble partial
+     also with an operand quantized past -qmax.  Each timed
      with CUDA events (L2 flushed before every launch), beside its plain
      version's time, a PyTorch call computing the same function where
      one exists (``torch._int_mm``, ``F.conv2d``), and the least time the
@@ -94,7 +102,26 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      three profiled decode rounds per lane); and ``cim_conv2d`` at the
      CNN's five geometries in exact mode (one ``conv_mxu_fused`` launch
      each, equal to the CPU's) and in surrogate mode with a key (the
-     im2col route through the noisy fused kernel).
+     im2col route through the noisy fused kernel);
+  9. mesh: the unsharded engine on the hardware ladder serves six
+     requests (8-token prompts, 3-8 new tokens, all three tiers) and
+     records its tokens and logits; then four gloo ranks on the card
+     (launch.mesh.spawn; the libraries already built, so no rank runs
+     nvcc) form a (data 2, model 2) mesh and each runs (a)
+     ``cim_matmul`` and ``model_matmul`` with the mesh at the eight LM
+     shapes for the exact family's nibble lane, appro42/orplane/10,
+     mitchell, log_our and bit_exact in both layouts, (b) ``cim_conv2d``
+     at the CNN's five convs (batch 256 on "data") for the four
+     families in both layouts where C or N splits (C = 3 must raise),
+     each bitwise equal to the one-device call, and (c) the same
+     workload on ``build_engine(mesh=...)`` over full-size qwen3-1.7b:
+     balanced and economy tokens identical and logits bitwise, the
+     exact lane within 2^-3 of each step's largest |logit| up to its
+     first differing token (tokens equal past that margin), no plan
+     misses after warmup on any rank, 56 partial and 140 fused kernel
+     launches per approximate-lane forward on every rank, the same
+     logits on every rank; per lane one decode round's time and the
+     collectives' share.  Any rank that fails or hangs fails the phase.
 
 ``--layers`` cuts the depth of phase 5 only (the cut is printed).
 
@@ -113,6 +140,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -185,7 +214,25 @@ SOURCES = {
                        "src/repro/kernels/cim_gemm.py:141"),
     "conv_mxu_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                        "src/repro/kernels/conv_gemm.py:174"),
+    "lut_matmul_partial": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+                           "src/repro/kernels/approx_matmul.py:248"),
+    "nibble_lut_matmul_partial": (
+        "src/repro_torch/kernels/csrc/nibble_gemm.cu",
+        "src/repro/kernels/approx_matmul.py:402"),
+    "mitchell_matmul_partial": ("src/repro_torch/kernels/csrc/log_gemm.cu",
+                                "src/repro/kernels/mitchell_gemm.py:189"),
+    "conv_lut_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+                         "src/repro/kernels/conv_gemm.py:259"),
+    "conv_log_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+                         "src/repro/kernels/conv_gemm.py:343"),
 }
+# the mesh path's partial kernels, timed at the shard-local shapes of the
+# contraction-sharded wo and mlp.wo at model = 2
+PARTIAL_KERNELS = ("lut_matmul_partial", "nibble_lut_matmul_partial",
+                   "mitchell_matmul_partial", "conv_lut_partial",
+                   "conv_log_partial")
+PARTIAL_SHAPES = [(m, k, n) for m in (4, 64)
+                  for (k, n) in ((1024, 2048), (3072, 2048))]
 GEMM_KERNELS = ("lut_matmul", "lut_matmul_fused", "mitchell_matmul",
                 "mitchell_matmul_fused", "nibble_lut_matmul",
                 "nibble_lut_matmul_fused")
@@ -708,6 +755,164 @@ def check_conv(torch, sms: int, clock_hz: float):
     print(f"  ResNet-18 conv2_x {RESNET} 3x3 routes on the card: {routes} "
           f"(the reference's 8 MiB VMEM model sends this plane to "
           f"conv_im2col)", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3, mesh: the five partial kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_partials(torch, sms: int, clock_hz: float):
+    """The mesh path's deferred-epilogue kernels at the shard-local shapes
+    phase 9 gives them (the contraction-sharded wo and mlp.wo at model =
+    2; the CNN's convs with the input channels halved where they split),
+    bitwise against their plain versions, each also equal to its fused
+    form before the epilogue; the nibble partial also with scales that
+    quantize an operand past -qmax.  Timed as the fused forms are, with
+    the fused form's bound at the shard shape (an int32 output moves the
+    bytes of an f32 one)."""
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import conv_gemm as cg
+    from repro_torch.kernels import mitchell_gemm as mg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    lut = ops.lut_table(MultiplierSpec("appro42", 8, True, "orplane", 10),
+                        dev)
+    subs = ops.nibble_table(MultiplierSpec("exact", 8, True), dev)
+    rows = {name: [] for name in PARTIAL_KERNELS}
+    print(f"  {'kernel':<26} {'shape':>24} {'ms':>9} {'bound_ms':>9} "
+          f"{'by':>10} {'plain_ms':>9} {'fused_ms':>9}", flush=True)
+    for shape in PARTIAL_SHAPES + [RAGGED]:
+        m, k, n = shape
+        g = torch.Generator(device=dev).manual_seed(m * 11 + k + n)
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        # global scales: the max over the other shard too, here 1.25x
+        sx, sw = ops._scales(x, w, 8)
+        sx, sw = sx * 1.25, sw * 1.25
+        calls = {
+            "lut_matmul_partial": (
+                lambda: am.lut_matmul_partial(x, w, lut, sx, sw),
+                lambda: am.lut_matmul_partial_plain(x, w, lut, sx, sw),
+                lambda: am.lut_matmul_fused(x, w, lut, sx, sw)),
+            "nibble_lut_matmul_partial": (
+                lambda: am.nibble_lut_matmul_partial(x, w, subs, sx, sw),
+                lambda: am.nibble_lut_matmul_partial_plain(x, w, subs, sx,
+                                                           sw),
+                lambda: am.nibble_lut_matmul_fused(x, w, subs, sx, sw))}
+        for comp, sfx in ((False, ""), (True, "[log_our]")):
+            calls["mitchell_matmul_partial" + sfx] = (
+                lambda c=comp: mg.mitchell_matmul_partial(x, w, sx, sw,
+                                                          compensated=c),
+                lambda c=comp: mg.mitchell_matmul_partial_plain(
+                    x, w, sx, sw, compensated=c),
+                lambda c=comp: mg.mitchell_matmul_fused(x, w, sx, sw,
+                                                        compensated=c))
+        for name, (kern, plain, fused) in calls.items():
+            got, want, full = kern(), plain(), fused()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                fail(f"{name} {shape}: kernel != plain version (max |diff| "
+                     f"{err})")
+            if not torch.equal(am.epilogue(got, sx, sw), full):
+                fail(f"{name} {shape}: the epilogue of the partial sum != "
+                     "the fused kernel")
+            if name not in rows or shape == RAGGED:
+                continue
+            row = {"shape": shape, "max_abs_err": err,
+                   "ms": _timed_ms(torch, kern, 10, flush),
+                   "fused_ms": _timed_ms(torch, fused, 10, flush),
+                   "plain_ms": _timed_ms(torch, plain, 1, flush)}
+            row["bound_ms"], row["bound_by"] = _bound(
+                name.replace("_partial", "_fused"), m, k, n, sms, clock_hz,
+                x.element_size())
+            rows[name].append(row)
+            print(f"  {name:<26} {str(shape):>24} {row['ms']:9.4f} "
+                  f"{row['bound_ms']:9.4f} {row['bound_by']:>10} "
+                  f"{row['plain_ms']:9.3f} {row['fused_ms']:9.4f}",
+                  flush=True)
+    # scales that quantize an operand past -qmax: it clips to -127
+    x = torch.randn(8, 64, device=dev)
+    w = torch.randn(64, 16, device=dev) * 0.02
+    sx, sw = ops._scales(x, w, 8)
+    x[:, 0] = -2.0 * float(x.abs().max())
+    got = am.nibble_lut_matmul_partial(x, w, subs, sx, sw)
+    if not torch.equal(got, am.nibble_lut_matmul_partial_plain(x, w, subs,
+                                                               sx, sw)):
+        fail("nibble_lut_matmul_partial: the clipped int8 minimum differs "
+             "from the plain version")
+    print("  GEMM partials bitwise equal to their plain versions and to the "
+          "fused kernels before the epilogue (mitchell and log_our; the "
+          "nibble partial also past -qmax)", flush=True)
+
+    a8 = MultiplierSpec("appro42", 8, True)
+    ex = MultiplierSpec("exact", 8, True)
+    variants = [("lut appro42", "conv_lut_partial", "lut", a8, False),
+                ("nibble exact", "conv_lut_partial", "nibble", ex, False),
+                ("mitchell", "conv_log_partial", "log", None, False),
+                ("log_our", "conv_log_partial", "log", None, True)]
+    for gi, (h, w_, c, n) in enumerate(CNN_CONVS):
+        cl = c // 2 if c % 2 == 0 else c
+        b = CNN_BATCH
+        g = torch.Generator(device=dev).manual_seed(41 * gi + 5)
+        x = torch.randn(b, h, w_, cl, generator=g, device=dev)
+        w3 = torch.randn(9, cl, n, generator=g, device=dev) * 0.1
+        sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+        sx, sw = sx * 1.25, sw * 1.25
+        for label, name, core, spec, comp in variants:
+            if core == "log":
+                def kern(c_=comp):
+                    return cg.conv_log_partial(x, w3, sx, sw, compensated=c_)
+
+                def plain(c_=comp):
+                    return cg.conv_log_partial_plain(x, w3, sx, sw,
+                                                     compensated=c_)
+
+                def fused(c_=comp):
+                    return cg.conv_log_fused(x, w3, sx, sw, compensated=c_)
+            else:
+                tab = (ops.nibble_table(spec, dev) if core == "nibble"
+                       else ops.lut_table(spec, dev))
+                nib = core == "nibble"
+
+                def kern(t=tab, nb=nib):
+                    return cg.conv_lut_partial(x, w3, t, sx, sw, nibble=nb)
+
+                def plain(t=tab, nb=nib):
+                    return cg.conv_lut_partial_plain(x, w3, t, sx, sw,
+                                                     nibble=nb)
+
+                def fused(t=tab, nb=nib):
+                    return cg.conv_lut_fused(x, w3, t, sx, sw, nibble=nb)
+            got, want, full = kern(), plain(), fused()
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                fail(f"{name} ({label}) {(b, h, w_, cl, n)}: kernel != plain "
+                     f"version (max |diff| {err})")
+            if not torch.equal((got.float() * sx) * sw, full):
+                fail(f"{name} ({label}): the epilogue of the partial sum != "
+                     "the fused kernel")
+            row = {"variant": label, "geometry": (b, h, w_, cl, n),
+                   "max_abs_err": err,
+                   "ms": _timed_ms(torch, kern, 10, flush),
+                   "fused_ms": _timed_ms(torch, fused, 10, flush),
+                   "plain_ms": _timed_ms(torch, plain, 1, flush)}
+            row["bound_ms"], row["bound_by"] = _conv_bound(
+                core, comp, b, h, w_, cl, n, h, w_, sms, clock_hz)
+            rows[name].append(row)
+            print(f"  {name:<17} {label:<12} {str((b, h, w_, cl, n)):>24} "
+                  f"{row['ms']:9.4f} {row['bound_ms']:9.4f} "
+                  f"{row['bound_by']:>10} {row['plain_ms']:9.3f} "
+                  f"{row['fused_ms']:9.4f}", flush=True)
+    print("  conv partials bitwise equal to their plain versions and to the "
+          "fused kernels before the epilogue", flush=True)
     return rows
 
 
@@ -1432,6 +1637,366 @@ def surrogate_conv(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: mesh-partitioned execution on a (data 2, model 2) gloo mesh
+# ---------------------------------------------------------------------------
+
+# four ranks on the one card (NCCL refuses two ranks on one GPU)
+MESH_SHAPE = (2, 2)
+MESH_REQUESTS, MESH_SEED = 6, 0     # 2 exact, 2 balanced, 2 economy
+# The exact lane (mode "exact", a float lane) runs its tensor-parallel
+# layers as f32 partial products summed over the model axis and rounded
+# once to bf16, and its column-parallel layers as narrower cuBLAS GEMMs:
+# the same dots in another f32 order.  Now and then a layer output lands
+# one bf16 ulp away; the lane fake-quantizes every activation per tensor
+# to 127 levels, so that ulp can move a code by a whole level, and the 28
+# layers mix such moves: the two runs end as two draws of the lane's
+# quantization noise (measured on an H100: 7.7-10.8% of the step's
+# largest |logit| before the first differing token).  Its logits are held
+# to 2^-MESH_EXACT_LOG2 of the step's largest |logit| (12.5%, as
+# tests/test_torch_lm.py holds the integer tiers to 4e-2 at |logits| ~0.3
+# on the CPU for the same mechanism) up to each request's first differing
+# token, and its tokens to the unsharded engine's wherever the top-2
+# margin exceeds that; after a differing token the sequences differ.
+MESH_EXACT_LOG2 = 3
+# the GEMM cases of phase 9 (a): the exact family's nibble lane, the
+# balanced tier's multiplier, the economy tier's, log_our, and bit_exact
+MESH_GEMMS = [("exact (nibble)", dict(family="exact", mode="hardware")),
+              ("appro42/orplane/10", dict(family="appro42", mode="hardware",
+                                          compressor="orplane",
+                                          n_approx_cols=10)),
+              ("mitchell", dict(family="mitchell", mode="hardware")),
+              ("log_our", dict(family="log_our", mode="hardware")),
+              ("bit_exact", dict(family="appro42", mode="bit_exact",
+                                 compressor="orplane", n_approx_cols=10))]
+# the cim_linear GEMMs of one layer whose weight is contraction-sharded
+# (wo, mlp_wo: the partial kernels) and output-sharded (the fused ones)
+ROW_PARALLEL, COL_PARALLEL = 2, 5
+
+
+def _mesh_engine(cfg, mesh=None):
+    from repro_torch.serving import build_engine, build_tiers
+
+    return build_engine(cfg, tiers=build_tiers(mode="hardware"),
+                        slots_per_tier=4, max_len=32, prompt_buckets=(8,),
+                        group_buckets=(1, 2, 4), record_logits=True, seed=0,
+                        mesh=mesh)
+
+
+def _digest(res) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for rid in sorted(res):
+        for lg in res[rid].logits:
+            h.update(np.asarray(lg, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def _round_times(torch, eng, mesh=None, reps: int = 3):
+    """Per lane: one pool decode round on the host clock (mean of `reps`,
+    ending in a synchronize) and, on a mesh, the collectives' seconds
+    and calls a round."""
+    out = {}
+    for name, lane in eng.lanes.items():
+        b = lane.backend
+        b.reset()
+        torch.cuda.synchronize()
+        c0 = dict(mesh.comm) if mesh is not None else None
+        t = time.perf_counter()
+        for _ in range(reps):
+            b.decode_round()
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t) / reps
+        comm = ((mesh.comm["seconds"] - c0["seconds"]) / reps,
+                (mesh.comm["calls"] - c0["calls"]) / reps) if c0 else None
+        out[name] = (secs, comm)
+        b.reset()
+    return out
+
+
+def _mesh_rank(rank, world, dev, wl):
+    """One rank of phase 9: (a) the GEMM frontends, (b) the conv frontend,
+    (c) the hardware ladder served on the mesh; each part's main-path
+    launches counted from 0, the single-device calls it is compared with
+    made after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import approx_gemm as ag
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import P
+    from repro_torch.serving import SimClock
+
+    t_rank = time.perf_counter()
+    mesh = make_host_mesh(MESH_SHAPE[1])
+    out = {"coords": dict(mesh.coords), "bad": []}
+    layouts = (("K", P("data", "model"), P("model", None)),
+               ("N", P("data", None), P(None, "model")))
+
+    # (a) cim_matmul and model_matmul at the eight LM shapes
+    inputs, got = {}, {}
+    _reset_counts()
+    t = time.perf_counter()
+    for shape in MAIN_SHAPES:
+        m, k, n = shape
+        g = torch.Generator(device=dev).manual_seed(m * 3 + k + n)
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        inputs[shape] = (x, w)
+        for label, kw in MESH_GEMMS:
+            gp = ag.GemmParams(bits=8, **kw)
+            for lname, xs, ws in layouts:
+                for fe, fn in (("cim", ag.cim_matmul),
+                               ("model", ag.model_matmul)):
+                    got[(shape, label, lname, fe)] = fn(
+                        x, w, gp, mesh=mesh, x_spec=xs, w_spec=ws)
+    torch.cuda.synchronize()
+    out["gemm_s"] = time.perf_counter() - t
+    out["gemm_launches"] = _launch_counts()
+    for (shape, label, lname, fe), y in got.items():
+        x, w = inputs[shape]
+        gp = ag.GemmParams(bits=8, **dict(MESH_GEMMS)[label])
+        want = (ag.cim_matmul if fe == "cim" else ag.model_matmul)(x, w, gp)
+        if not torch.equal(y, want):
+            out["bad"].append(f"(a) {fe}_matmul {label} {shape} {lname}: "
+                              f"max |d| {float((y - want).abs().max())}")
+    del got, inputs
+
+    # (b) cim_conv2d at the CNN's five geometries, the batch on "data"
+    got, raised = {}, {}
+    _reset_counts()
+    t = time.perf_counter()
+    for gi, (h, w_, c, n) in enumerate(CNN_CONVS):
+        g = torch.Generator(device=dev).manual_seed(17 * gi + 1)
+        x4 = torch.randn(CNN_BATCH, h, w_, c, generator=g, device=dev)
+        w2 = torch.randn(9 * c, n, generator=g, device=dev) * 0.1
+        for fam in FAMS:
+            gp = ag.GemmParams(family=fam, bits=8, mode="hardware")
+            for lname, ws in (("C", P("model", None)),
+                              ("N", P(None, "model"))):
+                kw = dict(mesh=mesh, x_spec=P("data", None, None, None),
+                          w_spec=ws)
+                if (c if lname == "C" else n) % MESH_SHAPE[1]:
+                    try:
+                        ag.cim_conv2d(x4, w2, gp, **kw)
+                        raised[(gi, fam, lname)] = "no error"
+                    except ValueError as err:
+                        raised[(gi, fam, lname)] = str(err)
+                    continue
+                got[(gi, fam, lname)] = (ag.cim_conv2d(x4, w2, gp, **kw),
+                                         x4, w2)
+    torch.cuda.synchronize()
+    out["conv_s"] = time.perf_counter() - t
+    out["conv_launches"] = _launch_counts()
+    out["conv_raised"] = raised
+    for (gi, fam, lname), (y, x4, w2) in got.items():
+        want = ag.cim_conv2d(x4, w2, ag.GemmParams(family=fam, bits=8,
+                                                   mode="hardware"))
+        if not torch.equal(y, want):
+            out["bad"].append(f"(b) cim_conv2d {fam} conv {gi + 1} {lname}: "
+                              f"max |d| {float((y - want).abs().max())}")
+    del got
+
+    # (c) the hardware ladder on full-size qwen3-1.7b
+    cfg = get_config("qwen3-1.7b")
+    t = time.perf_counter()
+    eng = _mesh_engine(cfg, mesh)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t
+    out["gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    t = time.perf_counter()
+    out["warm_shapes"] = eng.warmup()
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t
+    forwards = _count_forwards(eng)
+    _reset_counts()
+    comm0 = dict(mesh.comm)
+    t = time.perf_counter()
+    res = eng.run(wl, clock=SimClock())
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t
+    out["serve_comm"] = (mesh.comm["seconds"] - comm0["seconds"],
+                         mesh.comm["calls"] - comm0["calls"])
+    out["serve_launches"] = _launch_counts()
+    out["forwards"] = dict(forwards)
+    out["misses"] = eng.steady_plan_misses()
+    out["tokens"] = {rid: r.tokens for rid, r in res.items()}
+    out["tiers"] = {rid: r.tier for rid, r in res.items()}
+    out["digest"] = _digest(res)
+    if rank == 0:
+        out["logits"] = {rid: [np.asarray(lg, np.float32)
+                               for lg in r.logits]
+                         for rid, r in res.items()}
+    out["rounds"] = _round_times(torch, eng, mesh)
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def mesh_phase(torch, power):
+    """Phase 9: the unsharded engine's tokens and logits, then the same
+    workload on a (data 2, model 2) mesh of four gloo ranks on the card
+    (plus the mesh GEMM and conv frontends); every rank checked.  Returns
+    the main-path launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.serving import SimClock, poisson_workload
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    wl = poisson_workload(MESH_REQUESTS, rate=20.0, vocab=cfg.vocab,
+                          prompt_len=(8, 8), max_new=(3, 8), tier_mix=MIX,
+                          seed=MESH_SEED)
+    eng = _mesh_engine(cfg)
+    eng.warmup()
+    base = eng.run(wl, clock=SimClock())
+    torch.cuda.synchronize()
+    base_rounds = _round_times(torch, eng)
+    base_tokens = {rid: r.tokens for rid, r in base.items()}
+    base_logits = {rid: [np.asarray(lg, np.float32) for lg in r.logits]
+                   for rid, r in base.items()}
+    base_tiers = {rid: r.tier for rid, r in base.items()}
+    if sorted(set(base_tiers.values())) != ["balanced", "economy", "exact"]:
+        fail(f"phase 9's workload reached only {set(base_tiers.values())}")
+    del eng, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  unsharded engine: {len(wl)} requests, "
+          f"{sum(map(len, base_tokens.values()))} tokens, tiers "
+          f"{base_tiers}; decode round (4 slots) "
+          + ", ".join(f"{k} {1e3 * v[0]:.1f} ms"
+                      for k, v in base_rounds.items()), flush=True)
+
+    t = time.perf_counter()
+    try:
+        ranked = spawn(_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1],
+                       device="cuda", args=(wl,), timeout=600,
+                       pg_timeout=300, threads=2)
+    except (RuntimeError, TimeoutError) as err:
+        fail(f"phase 9: {err}")
+    print(f"  {len(ranked)} ranks on {torch.cuda.get_device_name(0)}, mesh "
+          f"(data {MESH_SHAPE[0]}, model {MESH_SHAPE[1]}), gloo; spawn to "
+          f"join {time.perf_counter() - t:.1f}s", flush=True)
+
+    totals = {}
+    for r, o in enumerate(ranked):
+        if o["bad"]:
+            fail(f"phase 9 rank {r}: mesh != one device: {o['bad'][:5]}")
+        for key, msg in o["conv_raised"].items():
+            if "not divisible" not in msg:
+                fail(f"phase 9 rank {r}: conv {key} did not split and did "
+                     f"not raise as plan_conv does ({msg})")
+        if o["misses"]:
+            fail(f"phase 9 rank {r}: {o['misses']} plan misses after warmup")
+        if o["tokens"].keys() != base_tokens.keys():
+            fail(f"phase 9 rank {r}: requests {sorted(o['tokens'])} served")
+        if o["digest"] != ranked[0]["digest"]:
+            fail(f"phase 9 rank {r}: its logits differ from rank 0's")
+        fw = o["forwards"]
+        sl = o["serve_launches"]
+        want = {"lut_matmul_partial": ROW_PARALLEL * cfg.n_layers
+                * fw["balanced"],
+                "lut_matmul_fused": COL_PARALLEL * cfg.n_layers
+                * fw["balanced"],
+                "mitchell_matmul_partial": ROW_PARALLEL * cfg.n_layers
+                * fw["economy"],
+                "mitchell_matmul_fused": COL_PARALLEL * cfg.n_layers
+                * fw["economy"]}
+        if {k: v for k, v in sl.items() if v} != want:
+            fail(f"phase 9 rank {r}: serving launched {sl}, expected "
+                 f"{want} (forwards {fw})")
+        for part, names in (("gemm_launches", (
+                "lut_matmul_partial", "nibble_lut_matmul_partial",
+                "mitchell_matmul_partial", "lut_matmul_fused",
+                "nibble_lut_matmul_fused", "mitchell_matmul_fused")),
+                ("conv_launches", ("conv_lut_partial", "conv_log_partial",
+                                   "conv_lut_fused", "conv_log_fused"))):
+            for name in names:
+                if o[part][name] <= 0:
+                    fail(f"phase 9 rank {r}: {name} not launched by the "
+                         f"mesh {part.split('_')[0]} frontend")
+        for part in ("gemm_launches", "conv_launches", "serve_launches"):
+            for name, v in o[part].items():
+                totals[name] = totals.get(name, 0) + v
+        print(f"  rank {r} {o['coords']}: (a) {o['gemm_s']:.1f}s, launches "
+              f"{ {k: v for k, v in o['gemm_launches'].items() if v} }; "
+              f"(b) {o['conv_s']:.1f}s, launches "
+              f"{ {k: v for k, v in o['conv_launches'].items() if v} }; "
+              f"(c) engine {o['build_s']:.1f}s ({o['gib']:.2f} GiB), warmup "
+              f"{o['warm_shapes']} shapes {o['warm_s']:.1f}s, served in "
+              f"{o['serve_s']:.1f}s (collectives {o['serve_comm'][0]:.2f}s, "
+              f"{o['serve_comm'][1]} calls), forwards {fw}, launches "
+              f"{ {k: v for k, v in sl.items() if v} }; rank "
+              f"{o['rank_s']:.1f}s", flush=True)
+        for lane, (secs, (cs, calls)) in o["rounds"].items():
+            print(f"    {lane:<9} decode round (2 of 4 slots) "
+                  f"{1e3 * secs:.1f} ms, collectives {1e3 * cs:.1f} ms "
+                  f"({100 * cs / secs:.1f}%, {calls:.0f} calls); unsharded "
+                  f"{1e3 * base_rounds[lane][0]:.1f} ms", flush=True)
+    print(f"  every rank: the mesh GEMMs (5 cases x 8 LM shapes x 2 layouts "
+          f"x 2 frontends) and convs (4 families x 5 geometries, both "
+          f"layouts where C or N splits; conv 1's C = 3 raised) bitwise "
+          f"equal to one device; no plan misses after warmup; the same "
+          f"logits on all ranks", flush=True)
+
+    mine = ranked[0]
+    first_diff = None
+    worst = {}
+    exact_steps = []        # (request, step, max |d|, tolerance, margin)
+    for rid, tier in base_tiers.items():
+        if mine["tiers"][rid] != tier:
+            fail(f"phase 9: request {rid} served on {mine['tiers'][rid]}, "
+                 f"unsharded on {tier}")
+        for step, (a, b) in enumerate(zip(mine["logits"][rid],
+                                          base_logits[rid])):
+            d = np.abs(a - b)
+            if tier == "exact":
+                top = np.sort(b)[-2:]
+                same = int(a.argmax()) == int(b.argmax())
+                exact_steps.append((
+                    rid, step, float(d.max()),
+                    2.0 ** -MESH_EXACT_LOG2 * float(np.abs(b).max()),
+                    float(top[1] - top[0]), same))
+                worst[tier] = max(worst.get(tier, 0.0), float(d.max()))
+                if not same:
+                    break           # the sequences differ from here on
+                continue
+            worst[tier] = max(worst.get(tier, 0.0), float(d.max()))
+            if d.max() > 0 and first_diff is None:
+                j = int(d.argmax())
+                first_diff = (rid, tier, step, j, float(a[j]), float(b[j]))
+        if tier != "exact" and mine["tokens"][rid] != base_tokens[rid]:
+            fail(f"phase 9: {tier} request {rid} tokens "
+                 f"{mine['tokens'][rid]} != unsharded {base_tokens[rid]}")
+    print("  exact lane up to each request's first differing token "
+          "(request, step): max |d logit|, tolerance, unsharded top-2 "
+          "margin, same token: " + "; ".join(
+              f"({r}, {st}) {d:.3e} {tol:.3e} {mg:.3e} {same}"
+              for r, st, d, tol, mg, same in exact_steps), flush=True)
+    for r, st, d, tol, mg, same in exact_steps:
+        if d > tol:
+            fail(f"phase 9: exact lane request {r} step {st}: logits "
+                 f"{d:.3e} from the unsharded engine's, beyond {tol:.3e}")
+        if mg > tol and not same:
+            fail(f"phase 9: exact lane request {r} step {st}: another token "
+                 f"past the tolerance margin ({mg:.3e} > {tol:.3e})")
+    if first_diff is not None:
+        fail(f"phase 9: integer-lane logits not bitwise equal to the "
+             f"unsharded engine's: first at request {first_diff[0]} "
+             f"({first_diff[1]}) step {first_diff[2]} logit {first_diff[3]}: "
+             f"{first_diff[4]} vs {first_diff[5]}; max |d| by lane {worst}")
+    same = sum(mine["tokens"][r] == base_tokens[r] for r in base_tokens)
+    print(f"  served on the mesh: balanced and economy tokens identical and "
+          f"logits bitwise equal to the unsharded engine's; exact lane "
+          f"(float tensor parallelism) max |d logit| {worst.get('exact')} "
+          f"up to its first differing token (tolerance 2^-{MESH_EXACT_LOG2} "
+          f"of the step's largest), {same} of {len(base_tokens)} requests' "
+          f"tokens identical; on {power}; phase 9 "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return totals
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -1594,6 +2159,7 @@ def main():
     print("[3] kernels against their plain versions", flush=True)
     rows = check_kernels(torch, sms, clock_hz)
     conv_rows = check_conv(torch, sms, clock_hz)
+    partial_rows = check_partials(torch, sms, clock_hz)
     attn_rows = check_attention(torch, sms, clock_hz)
     surr_rows = check_surrogate(torch, sms, clock_hz)
 
@@ -1623,12 +2189,21 @@ def main():
     conv_launches = surrogate_conv(torch)
     for k, v in serve_launches.items():
         surr_launches[k] += v + conv_launches[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[9] mesh: (data 2, model 2) on four gloo ranks", flush=True)
+    t9 = time.perf_counter()
+    mesh_launches = mesh_phase(torch, power)
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f}s", flush=True)
 
     kernels = []
     # the GEMM rows sum the eight LM shapes and, for the fused forms (the
     # CNN's fc, f32 operands) and the nibble rows, the CNN's fc shape,
     # with the launches of the main paths that run them (5: the LM
-    # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs); the
+    # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs, 9: the
+    # mesh frontends and the mesh ladder); the partial rows the shard-local
+    # shapes (phase 9's launches); the
     # conv rows the CNN's five geometries on the families' variants; the
     # attention rows the serving decode and prefill geometries on the
     # paths the ladder runs (lut for balanced, log for economy); the
@@ -1641,16 +2216,21 @@ def main():
         fc = name.startswith("nibble") or name.endswith("fused")
         shapes = MAIN_SHAPES + ([CNN_FC] if fc else [])
         main[name] = ([r for r in rs if r["shape"] in shapes],
-                      launches[name] + cnn_launches[name])
+                      launches[name] + cnn_launches[name]
+                      + mesh_launches[name])
     for name, rs in conv_rows.items():
         main[name] = ([r for r in rs if r["main"]],
-                      cnn_launches[name] + surr_launches[name])
+                      cnn_launches[name] + surr_launches[name]
+                      + mesh_launches[name])
+    # the partials: the shard-local shapes, launched on phase 9's mesh path
+    for name, rs in partial_rows.items():
+        main[name] = (rs, mesh_launches[name])
     for name, rs in attn_rows.items():
         main[name] = ([r for r in rs if "ms" in r and r["path"] in
                        ("lut", "log")], attn_launches[name])
     for name, rs in surr_rows.items():
         main[name] = ([r for r in rs if r["main"]], surr_launches[name])
-    every = {**rows, **conv_rows, **attn_rows, **surr_rows}
+    every = {**rows, **conv_rows, **attn_rows, **surr_rows, **partial_rows}
     for name, (timed, n_launch) in main.items():
         ops_ms = sum(r["bound_ms"] for r in timed
                      if r["bound_by"] == "operations")

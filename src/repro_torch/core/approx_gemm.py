@@ -79,7 +79,7 @@ import dataclasses
 import functools
 import threading
 import zlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,7 +89,9 @@ from .autotune import bucket, bucket_attn, bucket_conv, heuristic_attn_block
 from .error_model import SurrogateModel
 from .luts import MAX_LUT_BITS, nibble_decomposable
 from .multipliers import MultiplierSpec
-from .quantization import dequantize, fake_quant, quant_scale, quantize
+from .quantization import (dequantize, fake_quant, quant_scale, quantize,
+                           scale_from_max)
+from ..parallel.sharding import axes_of, axes_size, shard, spec_entry
 
 MODES = ("exact", "bit_exact", "hardware", "surrogate", "surrogate_fast")
 FAMILIES = ("exact", "appro42", "mitchell", "log_our")
@@ -270,13 +272,156 @@ class GemmPlan:
 
 
 def plan_gemm(family: str, mode: str, bits: int, m: int, k: int, n: int,
-              backend: str,
-              spec: Optional[MultiplierSpec] = None) -> GemmPlan:
+              backend: str, spec: Optional[MultiplierSpec] = None,
+              mesh=None, x_spec=None,
+              w_spec=None) -> Union[GemmPlan, "MeshPlan"]:
     """select_kernel for a concrete (bucketed) shape.  The kernels' tile
-    sizes are fixed in this slice, so the shape only keys the plan."""
-    del m, k, n
-    return GemmPlan(entry=select_kernel(family, mode, bits, backend, spec),
-                    backend=backend)
+    sizes are fixed in this slice, so the shape only keys the plan.
+
+    With `mesh` (and the partition specs `x_spec` over the (M, K) rows,
+    `w_spec` over the (K, N) weight) the result is a `MeshPlan`: the
+    shard-local plan for the per-rank extents of the global (m, k, n)
+    plus the layout (see "Mesh-partitioned planning" below).  Only the
+    integer modes (`MESH_MODES`) qualify."""
+    if mesh is None:
+        return GemmPlan(entry=select_kernel(family, mode, bits, backend,
+                                            spec), backend=backend)
+    _check_request(family, mode, backend)
+    _check_mesh_gemm(mode, m, k, n, mesh, x_spec, w_spec)
+    dp, wk, wn, (ml, kl, nl) = _mesh_gemm_layout(m, k, n, mesh, x_spec,
+                                                 w_spec)
+    return _plan_gemm_mesh_cached(family, mode, bits, bucket(ml),
+                                  bucket(kl), bucket(nl), backend, spec,
+                                  mesh, dp, wk, wn)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-partitioned planning (the JAX package's DESIGN.md §11)
+#
+# A mesh GEMM runs one shard-local kernel per rank, in one of two
+# tensor-parallel layouts picked by which weight dim `w_spec` shards:
+#
+#   * contraction-sharded (w_spec ("model", None): K; a conv's input
+#     channels): each rank quantizes its slice of K against the GLOBAL
+#     scales and runs a partial kernel that returns the raw int32 sum;
+#     the sums are added over the model axis (exact in any order) and the
+#     (acc * sx) * sw epilogue runs after;
+#   * output-sharded (w_spec (None, "model")): each rank owns its output
+#     columns with the whole K; nothing separates quantization from the
+#     epilogue, so the rank runs the fused kernel with the global sx and
+#     its slice of sw.
+#
+# The rows ride along on the data axes (`x_spec`'s first entry) in either
+# layout.  The global scales are max-reductions over the shards (max is
+# exact in any order), so every rank quantizes against the single-device
+# values and the result is bit-identical to it.  Float modes would
+# reassociate float partial sums and are refused here.
+# ---------------------------------------------------------------------------
+
+MESH_MODES = ("bit_exact", "hardware")
+
+
+def _canon_spec(spec) -> Optional[Tuple]:
+    """Hashable canonical form of a partition spec (a cache-key part)."""
+    return None if spec is None else tuple(spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A mesh-partitioned GEMM or conv: the shard-local inner plan and
+    the layout.  `dp` are the axes the rows (a conv's batch) split over,
+    `wk` those the contraction (K, a conv's channels) splits over, which
+    the int32 partial sums are reduced over, `wn` those the output
+    columns split over; `local_shape` the per-rank (m, k, n), or (b, h,
+    w, c, n) for a conv (bucketed)."""
+
+    plan: Union[GemmPlan, "ConvPlan"]
+    mesh: object
+    dp: Tuple[str, ...]
+    wk: Tuple[str, ...]
+    wn: Tuple[str, ...]
+    local_shape: Tuple[int, ...]
+
+    @property
+    def entry(self) -> KernelEntry:
+        return self.plan.entry
+
+    @property
+    def reduce_axes(self) -> Tuple[str, ...]:
+        return self.wk
+
+    @property
+    def x_axes(self) -> Tuple[str, ...]:
+        """Every axis the activation is split over: its global max (sx)
+        is reduced over them."""
+        return self.dp + self.wk
+
+
+def _mesh_axes(mesh, x_spec, w_spec):
+    """(dp, wk, wn) of a request: the axes of x's rows, w's K and w's N,
+    validated against the mesh."""
+    xs = tuple(x_spec) if x_spec is not None else (None, None)
+    ws = tuple(w_spec) if w_spec is not None else (None, None)
+    dp = axes_of(xs[0] if xs else None)
+    wk = axes_of(ws[0] if len(ws) > 0 else None)
+    wn = axes_of(ws[1] if len(ws) > 1 else None)
+    if wk and wn:
+        raise ValueError(
+            f"mesh GEMM: w sharded on both K ({wk}) and N ({wn}); pick "
+            "one tensor-parallel layout")
+    for ax in (*dp, *wk, *wn):
+        if ax not in mesh.shape:
+            raise ValueError(f"axis {ax!r} not in mesh {dict(mesh.shape)}")
+    if set(dp) & (set(wk) | set(wn)):
+        raise ValueError(f"row axes {dp} collide with weight axes")
+    return dp, wk, wn
+
+
+def _mesh_gemm_layout(m: int, k: int, n: int, mesh, x_spec, w_spec):
+    """Validate and canonicalize a GEMM mesh request on the RAW global
+    shape (two shapes of one bucket can differ in divisibility): returns
+    (dp, wk, wn) and the shard-local (m, k, n)."""
+    dp, wk, wn = _mesh_axes(mesh, x_spec, w_spec)
+    for what, dim, axes in (("M", m, dp), ("K", k, wk), ("N", n, wn)):
+        size = axes_size(mesh, axes)
+        if dim % size:
+            raise ValueError(
+                f"mesh GEMM: {what}={dim} not divisible by axes "
+                f"{axes} (size {size})")
+    return dp, wk, wn, (m // axes_size(mesh, dp), k // axes_size(mesh, wk),
+                        n // axes_size(mesh, wn))
+
+
+def _check_mesh_mode(mode: str) -> None:
+    if mode not in MESH_MODES:
+        raise ValueError(
+            f"mesh execution supports the integer modes {MESH_MODES}; "
+            f"mode {mode!r} reassociates float partial sums (the models "
+            "layer runs the float modes' tensor parallelism itself)")
+
+
+def _check_mesh_gemm(mode: str, m: int, k: int, n: int, mesh, x_spec,
+                     w_spec) -> None:
+    """Exact-shape validation of one mesh GEMM request (mode, layout,
+    divisibility).  The frontends run it on every call, before the
+    bucketed plan cache can answer."""
+    _check_mesh_mode(mode)
+    _mesh_gemm_layout(m, k, n, mesh, x_spec, w_spec)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_gemm_mesh_cached(family: str, mode: str, bits: int, mbl: int,
+                           kbl: int, nbl: int, backend: str,
+                           spec: Optional[MultiplierSpec], mesh,
+                           dp: Tuple[str, ...], wk: Tuple[str, ...],
+                           wn: Tuple[str, ...]) -> "MeshPlan":
+    inner = plan_gemm(family, mode, bits, mbl, kbl, nbl, backend, spec)
+    if inner.entry.name not in PARTIAL_RUNNERS:
+        raise ValueError(
+            f"kernel {inner.entry.name!r} has no shard-local (partial) "
+            f"runner; mesh execution supports {sorted(PARTIAL_RUNNERS)}")
+    return MeshPlan(plan=inner, mesh=mesh, dp=dp, wk=wk, wn=wn,
+                    local_shape=(mbl, kbl, nbl))
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +540,85 @@ FUSED_RUNNERS: Dict[str, Callable] = {
     "torch_lut_nibble": _run_fused_nibble,
     "cuda_log": _run_fused_log,
     "torch_log": _run_fused_log,
+}
+
+
+# ---------------------------------------------------------------------------
+# Shard-local runners of the mesh path: float (M, K_shard) x (K_shard, N)
+# shards and the GLOBAL scales (sx one element, sw (N,)) in; the partial
+# runners return the raw int32 sum, the scaled fused runners (the
+# output-sharded layout) f32 through the epilogue.
+# ---------------------------------------------------------------------------
+
+
+def _partial_ref_lut(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops, ref
+
+    xq = quantize(x.to(torch.float32), sx, gp.bits)
+    wq = quantize(w.to(torch.float32), sw.reshape(1, -1), gp.bits)
+    return ref.lut_matmul_ref(xq, wq, ops.lut_table(gp.spec, x.device),
+                              gp.bits)
+
+
+def _partial_lut(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.lut_partial_acc(x, w, gp.spec, sx, sw)
+
+
+def _partial_nibble(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.nibble_partial_acc(x, w, gp.spec, sx, sw)
+
+
+def _partial_log(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.log_partial_acc(x, w, sx, sw, bits=gp.bits,
+                               compensated=(gp.family == "log_our"))
+
+
+# entry name -> shard-local float (M, K_shard) x (K_shard, N) -> int32 (M, N)
+PARTIAL_RUNNERS: Dict[str, Callable] = {
+    "torch_lut": _partial_ref_lut,
+    "cuda_lut_gather": _partial_lut,
+    "torch_lut_gather": _partial_lut,
+    "cuda_lut_nibble": _partial_nibble,
+    "torch_lut_nibble": _partial_nibble,
+    "cuda_log": _partial_log,
+    "torch_log": _partial_log,
+}
+
+
+def _scaled_lut(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.lut_fused_scaled(x, w, gp.spec, sx, sw)
+
+
+def _scaled_nibble(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.nibble_fused_scaled(x, w, gp.spec, sx, sw)
+
+
+def _scaled_log(x, w, sx, sw, gp: GemmParams):
+    from repro_torch.kernels import ops
+
+    return ops.log_fused_scaled(x, w, sx, sw, bits=gp.bits,
+                                compensated=(gp.family == "log_our"))
+
+
+# entry name -> the fused kernel with caller-supplied scales (the
+# output-sharded layout); torch_lut has none and keeps partial + epilogue
+SCALED_FUSED_RUNNERS: Dict[str, Callable] = {
+    "cuda_lut_gather": _scaled_lut,
+    "torch_lut_gather": _scaled_lut,
+    "cuda_lut_nibble": _scaled_nibble,
+    "torch_lut_nibble": _scaled_nibble,
+    "cuda_log": _scaled_log,
+    "torch_log": _scaled_log,
 }
 
 
@@ -661,6 +885,8 @@ def clear_dispatch_caches() -> None:
     _entries_cached.cache_clear()
     _plan_conv_cached.cache_clear()
     _plan_attn_cached.cache_clear()
+    _plan_gemm_mesh_cached.cache_clear()
+    _plan_conv_mesh_cached.cache_clear()
 
 
 def _backend(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -703,16 +929,131 @@ def _noise(noisy: bool, key, x: torch.Tensor, n: int, kind: str):
                            kind)
 
 
+# ---------------------------------------------------------------------------
+# Mesh forwards: one shard-local kernel per rank (see "Mesh-partitioned
+# planning" above)
+# ---------------------------------------------------------------------------
+
+
+def _global_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """max |t| over the shards of `axes` (f32; exact in any order)."""
+    return mesh.all_reduce(t.to(torch.float32).abs().amax(), "max", axes)
+
+
+def _global_colmax(w: torch.Tensor, mesh, axes, dims=0) -> torch.Tensor:
+    """max |w| per output column over `dims` and the shards of `axes`
+    (f32, (N,)); the max of a bf16 weight is taken in bf16 and widened
+    after (exact), so the weight is never copied."""
+    return mesh.all_reduce(w.abs().amax(dim=dims).to(torch.float32), "max",
+                           axes)
+
+
+def _mesh_core(gp: GemmParams, mp: MeshPlan) -> Callable:
+    """The shard-local (x_l (M_l, K_l), w_l (K_l, N_l)) -> f32 (M_l, N_l)
+    forward of a mesh GEMM: the global scales from max-reductions over
+    the shards, then the fused kernel (output-sharded) or the partial
+    kernel, the int32 sum over `wk` and the epilogue (contraction-
+    sharded)."""
+    mesh, red = mp.mesh, mp.reduce_axes
+    fused = None if red else SCALED_FUSED_RUNNERS.get(mp.entry.name)
+    partial = PARTIAL_RUNNERS[mp.entry.name]
+
+    def forward(x_l, w_l):
+        sx = scale_from_max(_global_max(x_l, mesh, mp.x_axes), gp.bits)
+        sw = scale_from_max(_global_colmax(w_l, mesh, red), gp.bits)
+        if fused is not None:
+            return fused(x_l, w_l, sx, sw, gp)
+        acc = partial(x_l, w_l, sx, sw, gp)
+        acc = mesh.all_reduce(acc, "sum", red)
+        return (acc.to(torch.float32) * sx) * sw
+
+    return forward
+
+
+def _check_mesh_gemm_request(gp: GemmParams) -> None:
+    if gp.per_token:
+        raise ValueError(
+            "per-token activation scales are not supported on the mesh "
+            "path (the shards quantize against global per-tensor scales); "
+            "drop the mesh or per_token")
+    if gp.fault is not None:
+        raise ValueError(
+            "fault injection is not supported on the mesh path (the "
+            "shard kernels quantize their words on load); drop the mesh "
+            "or the fault config")
+
+
+def _mesh_matmul(frontend: str, gp: GemmParams, x: torch.Tensor,
+                 w: torch.Tensor, mesh, x_spec, w_spec, local: bool,
+                 preserve_dtype: bool) -> torch.Tensor:
+    """One mesh GEMM.  `local`: x (..., K_l) and w (K_l, N_l) are this
+    rank's shards and so is the result (the models layer); else x and w
+    are the global tensors, the same on every rank, which each rank cuts
+    to its shards, and the result is gathered whole on every rank."""
+    _check_mesh_gemm_request(gp)
+    dp, wk, wn = _mesh_axes(mesh, x_spec, w_spec)
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    m, n = x2.shape[0], w.shape[-1]
+    if local:
+        m, k, n = (m * axes_size(mesh, dp), k * axes_size(mesh, wk),
+                   n * axes_size(mesh, wn))
+    # every call: divisibility is not bucket-stable
+    _check_mesh_gemm(gp.mode, m, k, n, mesh, x_spec, w_spec)
+    backend = _backend(x, w)
+    key = ("mesh", frontend, gp, x.dtype, w.dtype, bucket(m), bucket(k),
+           bucket(n), backend, mesh.key, _canon_spec(x_spec),
+           _canon_spec(w_spec))
+    fn = _FORWARDS.get(key)
+    if fn is None:
+        with _LOCK:
+            fn = _FORWARDS.get(key)
+            if fn is None:
+                plan = plan_gemm(gp.family, gp.mode, gp.bits, m, k, n,
+                                 backend, spec=gp.routing_spec, mesh=mesh,
+                                 x_spec=x_spec, w_spec=w_spec)
+                fn = _mesh_core(gp, plan)
+                _FORWARDS[key] = fn
+                _PLAN_MISSES[0] += 1
+
+    def forward(x2_, w_, eps=None):
+        if not local:
+            x2_ = shard(x2_, (spec_entry(dp), spec_entry(wk)), mesh)
+            w_ = shard(w_, (spec_entry(wk), spec_entry(wn)), mesh)
+        out = fn(x2_, w_)
+        if preserve_dtype:
+            out = out.to(x.dtype)
+        if not local:
+            out = mesh.all_gather(mesh.all_gather(out, wn, 1), dp, 0)
+        return out
+
+    if local:            # the models layer (inference): no STE here
+        out = forward(x2, w)
+    else:
+        out = _STEMatmul.apply(x2, w, None, forward)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def cim_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
                key: Optional[NoiseKey] = None, *,
-               noise_kind: str = "normal") -> torch.Tensor:
+               noise_kind: str = "normal", mesh=None, x_spec=None,
+               w_spec=None) -> torch.Tensor:
     """Dispatch + execute one approximate GEMM (macro semantics).
 
     x: (..., K) float; w: (K, N) float, on one device.  Returns float32
     (..., N) with straight-through exact gradients.  In a surrogate mode
     a `key` draws the calibrated noise (`noise_kind`, normal by default)
     on the operands' device; without one the output is the deterministic
-    term."""
+    term.
+
+    With `mesh` (a launch.mesh.Mesh; `x_spec` over the flattened (M, K)
+    rows, `w_spec` over (K, N), see `plan_gemm`) every rank passes the
+    same global x and w, runs one shard-local kernel on its shards and
+    gets the whole result: bit-identical to the call without a mesh, for
+    the integer modes only (`MESH_MODES`)."""
+    if mesh is not None:
+        return _mesh_matmul("cim", gp, x, w, mesh, x_spec, w_spec,
+                            local=False, preserve_dtype=False)
     noisy = _draws_noise(gp, key)
     eps = _noise(noisy, key, x, w.shape[-1], noise_kind)
     return _forward_for("cim", gp, True, noisy, x, w)(x, w, eps)
@@ -720,14 +1061,28 @@ def cim_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
 
 def model_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
                  key: Optional[NoiseKey] = None, *, apply: bool = True,
-                 noise_kind: str = NOISE_KIND) -> torch.Tensor:
+                 noise_kind: str = NOISE_KIND, mesh=None, x_spec=None,
+                 w_spec=None, local: bool = False) -> torch.Tensor:
     """The model-zoo execution path (cim_linear core), registry-routed.
 
     Fake-quant STE for exact (and for surrogate on the CPU), the fused
     kernels for `hardware` and for `surrogate` on the card, the
     activation dtype preserved end to end.  A `key` draws the surrogate
     noise (rademacher by default).  `apply=False` runs the exact int8
-    macro (mixed-macro allocation)."""
+    macro (mixed-macro allocation).
+
+    With `mesh` (integer modes and `apply=True`), as `cim_matmul`'s mesh
+    path with the activation dtype preserved; `local=True` takes and
+    returns this rank's shards (`models.common.cim_linear` under a mesh,
+    inference only: no gradient is defined there)."""
+    if mesh is not None and not apply:
+        if local:
+            raise ValueError("the exact macro (apply=False) has no "
+                             "shard-local form")
+        mesh = None                    # global operands: run unsharded
+    if mesh is not None:
+        return _mesh_matmul("model", gp, x, w, mesh, x_spec, w_spec,
+                            local=local, preserve_dtype=True)
     noisy = _draws_noise(gp, key, apply)
     eps = _noise(noisy, key, x, w.shape[-1], noise_kind)
     return _forward_for("model", gp, apply, noisy, x, w)(x, w, eps)
@@ -925,7 +1280,8 @@ def _plan_conv_cached(family: str, mode: str, bits: int, bb: int, hb: int,
 
 def plan_conv(family: str, mode: str, bits: int, b: int, h: int, w: int,
               c: int, n: int, conv: ConvParams, backend: str = "cuda",
-              spec: Optional[MultiplierSpec] = None) -> ConvPlan:
+              spec: Optional[MultiplierSpec] = None, mesh=None, x_spec=None,
+              w_spec=None) -> Union[ConvPlan, MeshPlan]:
     """Route one conv to an entry.
 
     Memoized on the conv-bucketed shape (autotune.bucket_conv: powers of
@@ -935,13 +1291,70 @@ def plan_conv(family: str, mode: str, bits: int, b: int, h: int, w: int,
     False (the materialized fallback is the oracle; the exact-mode
     kernel, bounded by f32 rounding as in the reference, is not), and
     every implicit kernel when its block does not fit shared memory
-    (`_conv_kernel_fits`); `conv_im2col` always matches."""
+    (`_conv_kernel_fits`); `conv_im2col` always matches.
+
+    With `mesh`, `x_spec` shards the batch dim of (B, H, W, C) (its other
+    entries must be None) and `w_spec` is a (K, N)-style pair over the
+    (kh*kw*C, N) weight: ("model", None) shards the input channels (the
+    contraction: partial kernels and an int32 sum), (None, "model") the
+    output channels (fused kernels, no sum).  Returns a `MeshPlan` over
+    the shard-local geometry; only the integer modes and bit-safe
+    geometries qualify (elsewhere the oracle's scale needs the whole
+    materialized patch matrix, which no shard holds)."""
     _check_request(family, mode, backend)
+    if mesh is not None:
+        _check_mesh_conv(mode, h, w, conv, b, c, n, mesh, x_spec, w_spec)
+        dp, wk, wn = _mesh_axes(mesh, (_one_spec(x_spec),), w_spec)
+        return _plan_conv_mesh_cached(family, mode, bits, b, h, w, c, n,
+                                      conv, backend, spec, mesh, dp, wk, wn)
     bb, hb, wb, cb, _, _, _ = bucket_conv(b, h, w, c, conv.kh, conv.kw,
                                           conv.stride)
     return _plan_conv_cached(family, mode, bits, bb, hb, wb, cb, bucket(n),
                              conv, _conv_bit_exact_safe(h, w, conv), backend,
                              spec)
+
+
+def _one_spec(x_spec):
+    """The batch entry of a conv x_spec; its other entries must be None
+    (tiling H or W would need a halo exchange)."""
+    if x_spec is None:
+        return None
+    xs = tuple(x_spec)
+    if any(e is not None for e in xs[1:]):
+        raise ValueError(
+            f"mesh conv shards batch (and C via w_spec) only; got {xs}")
+    return xs[0] if xs else None
+
+
+def _check_mesh_conv(mode: str, h: int, w: int, conv: ConvParams, b: int,
+                     c: int, n: int, mesh, x_spec, w_spec) -> None:
+    """Exact-geometry validation of one mesh conv request (mode,
+    bit-safety, which bucketing would mask, layout, divisibility), run
+    on every call."""
+    _check_mesh_mode(mode)
+    if not _conv_bit_exact_safe(h, w, conv):
+        raise ValueError(
+            f"mesh conv: geometry (h={h}, w={w}, {conv.kh}x{conv.kw} "
+            f"s{conv.stride}) is not bit-safe: the oracle's scale needs "
+            "the whole materialized patch matrix; run unsharded")
+    _mesh_gemm_layout(b, c, n, mesh, (_one_spec(x_spec),), w_spec)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_conv_mesh_cached(family: str, mode: str, bits: int, b: int,
+                           h: int, w: int, c: int, n: int, conv: ConvParams,
+                           backend: str, spec: Optional[MultiplierSpec],
+                           mesh, dp: Tuple[str, ...], wk: Tuple[str, ...],
+                           wn: Tuple[str, ...]) -> MeshPlan:
+    bl = b // axes_size(mesh, dp)
+    cl = c // axes_size(mesh, wk)
+    nl = n // axes_size(mesh, wn)
+    bb, hb, wb, cb, _, _, _ = bucket_conv(bl, h, w, cl, conv.kh, conv.kw,
+                                          conv.stride)
+    inner = _plan_conv_cached(family, mode, bits, bb, hb, wb, cb, bucket(nl),
+                              conv, True, backend, spec)
+    return MeshPlan(plan=inner, mesh=mesh, dp=dp, wk=wk, wn=wn,
+                    local_shape=(bl, h, w, cl, nl))
 
 
 def _run_conv_mxu(x4, w2, gp: GemmParams, plan: ConvPlan):
@@ -980,6 +1393,152 @@ CONV_RUNNERS: Dict[str, Callable] = {
     f"{pre}_conv_{core}": run for pre in ("cuda", "torch")
     for core, run in (("lut", _run_conv_lut), ("nibble", _run_conv_nibble),
                       ("log", _run_conv_log), ("mxu", _run_conv_mxu))}
+
+
+# the mesh path's conv runners: f32 x (B, H, W, C_shard), the tap stack
+# w3 (kh*kw, C_shard, N_shard) and the GLOBAL scales in; the partial
+# runners return the raw int32 (B, OH, OW, N_shard) sum over the shard's
+# channels, the scaled runners (the output-sharded layout) f32
+
+
+def _conv_kw(plan: ConvPlan) -> Dict:
+    return dict(kh=plan.conv.kh, kw=plan.conv.kw, stride=plan.conv.stride)
+
+
+def _partial_conv_lut(x, w3, sx, sw, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_lut_partial(x, w3, gp.spec, sx, sw, nibble=False,
+                                  **_conv_kw(plan))
+
+
+def _partial_conv_nibble(x, w3, sx, sw, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_lut_partial(x, w3, gp.spec, sx, sw, nibble=True,
+                                  **_conv_kw(plan))
+
+
+def _partial_conv_log(x, w3, sx, sw, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_log_partial(x, w3, sx, sw, bits=gp.bits,
+                                  compensated=(gp.family == "log_our"),
+                                  **_conv_kw(plan))
+
+
+def _scaled_conv_lut(x, w3, sx, sw, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_lut_fused_scaled(x, w3, gp.spec, sx, sw, nibble=False,
+                                       **_conv_kw(plan))
+
+
+def _scaled_conv_nibble(x, w3, sx, sw, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_lut_fused_scaled(x, w3, gp.spec, sx, sw, nibble=True,
+                                       **_conv_kw(plan))
+
+
+def _scaled_conv_log(x, w3, sx, sw, gp: GemmParams, plan: ConvPlan):
+    from repro_torch.kernels import ops
+
+    return ops.conv2d_log_fused_scaled(x, w3, sx, sw, bits=gp.bits,
+                                       compensated=(gp.family == "log_our"),
+                                       **_conv_kw(plan))
+
+
+CONV_PARTIAL_RUNNERS: Dict[str, Callable] = {
+    f"{pre}_conv_{core}": run for pre in ("cuda", "torch")
+    for core, run in (("lut", _partial_conv_lut),
+                      ("nibble", _partial_conv_nibble),
+                      ("log", _partial_conv_log))}
+SCALED_CONV_RUNNERS: Dict[str, Callable] = {
+    f"{pre}_conv_{core}": run for pre in ("cuda", "torch")
+    for core, run in (("lut", _scaled_conv_lut),
+                      ("nibble", _scaled_conv_nibble),
+                      ("log", _scaled_conv_log))}
+
+
+def _mesh_conv_core(gp: GemmParams, mp: MeshPlan) -> Callable:
+    """The shard-local (x_l (B_l, H, W, C_l), w3_l (kh*kw, C_l, N_l)) ->
+    f32 (B_l, OH, OW, N_l) forward of a mesh conv, as `_mesh_core`.  A
+    plan without an implicit kernel (`conv_im2col`: bit_exact mode)
+    materializes the shard's own patch matrix and runs the routed integer
+    GEMM on it: its columns are the shard's channels in the tap-major
+    order of the shard's tap stack, and the int32 sum over the shards
+    does not depend on the order of K."""
+    plan, conv, mesh = mp.plan, mp.plan.conv, mp.mesh
+    red = mp.reduce_axes
+    fused = None if red else SCALED_CONV_RUNNERS.get(plan.entry.name)
+    partial = CONV_PARTIAL_RUNNERS.get(plan.entry.name)
+    if fused is None and partial is None:
+        bl, h, w_, cl, nl = mp.local_shape
+        oh, ow = conv_out_hw(bucket(h), bucket(w_), conv.kh, conv.kw,
+                             conv.stride)
+        gplan = plan_gemm(gp.family, gp.mode, gp.bits, bucket(bl) * oh * ow,
+                          conv.kh * conv.kw * bucket(cl), bucket(nl),
+                          plan.backend, spec=gp.routing_spec)
+
+        def partial(x, w3, sx, sw, gp_, _plan):
+            cols = im2col_nhwc(x, conv)
+            xq = quantize(cols.reshape(-1, cols.shape[-1]), sx, gp_.bits)
+            wq = quantize(w3.reshape(-1, w3.shape[-1]), sw.reshape(1, -1),
+                          gp_.bits)
+            acc = run_int_kernel(gplan, xq, wq, gp_)
+            return acc.reshape(cols.shape[:3] + (w3.shape[-1],))
+
+    def forward(x_l, w3_l):
+        x32, w32 = x_l.to(torch.float32), w3_l.to(torch.float32)
+        sx = scale_from_max(_global_max(x32, mesh, mp.x_axes), gp.bits)
+        sw = scale_from_max(_global_colmax(w32, mesh, red, dims=(0, 1)),
+                            gp.bits)
+        if fused is not None:
+            return fused(x32, w32, sx, sw, gp, plan)
+        acc = mesh.all_reduce(partial(x32, w32, sx, sw, gp, plan), "sum",
+                              red)
+        return (acc.to(torch.float32) * sx) * sw
+
+    return forward
+
+
+def _mesh_conv2d(gp: GemmParams, x: torch.Tensor, w: torch.Tensor,
+                 conv: ConvParams, mesh, x_spec, w_spec) -> torch.Tensor:
+    """One mesh conv over the global x (B, H, W, C) and w (kh*kw*C, N),
+    the same on every rank: each rank cuts its shards (batch on the row
+    axes, C on the contraction axes, the tap stack's C and N), runs the
+    shard-local forward, and gets the whole (B, OH, OW, N) result."""
+    _check_mesh_gemm_request(gp)
+    b, h, w_, c = x.shape
+    n = w.shape[-1]
+    _check_mesh_conv(gp.mode, h, w_, conv, b, c, n, mesh, x_spec, w_spec)
+    dp, wk, wn = _mesh_axes(mesh, (_one_spec(x_spec),), w_spec)
+    backend = _backend(x, w)
+    key = (("mesh-conv2d", gp, conv, x.dtype, w.dtype, backend, mesh.key,
+            _canon_spec(x_spec), _canon_spec(w_spec))
+           + bucket_conv(b, h, w_, c, conv.kh, conv.kw, conv.stride)
+           + (bucket(n),))
+    fn = _FORWARDS.get(key)
+    if fn is None:
+        with _LOCK:
+            fn = _FORWARDS.get(key)
+            if fn is None:
+                plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_, c, n,
+                                 conv, backend=backend, spec=gp.spec,
+                                 mesh=mesh, x_spec=x_spec, w_spec=w_spec)
+                fn = _mesh_conv_core(gp, plan)
+                _FORWARDS[key] = fn
+                _PLAN_MISSES[0] += 1
+
+    def forward(x4, w2, eps=None):
+        x_l = shard(x4, (spec_entry(dp), None, None, spec_entry(wk)), mesh)
+        w3 = w2.reshape(conv.kh * conv.kw, c, n)
+        w3_l = shard(w3, (None, spec_entry(wk), spec_entry(wn)), mesh)
+        out = fn(x_l, w3_l)
+        return mesh.all_gather(mesh.all_gather(out, wn, 3), dp, 0)
+
+    return _STEConv.apply(x, w, None, forward, conv)
 
 
 def _float_conv(x4: torch.Tensor, w2: torch.Tensor,
@@ -1068,7 +1627,8 @@ def _conv_forward(gp: GemmParams, plan: ConvPlan,
 
 def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
                key: Optional[NoiseKey] = None, *, kh: int = 3, kw: int = 3,
-               stride: int = 1, noise_kind: str = "normal") -> torch.Tensor:
+               stride: int = 1, noise_kind: str = "normal", mesh=None,
+               x_spec=None, w_spec=None) -> torch.Tensor:
     """Dispatch + execute one approximate convolution (macro semantics).
 
     x: (B, H, W, C) float; w: (kh*kw*C, N) float with tap-major rows (the
@@ -1088,7 +1648,12 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
     cached on the conv-bucketed shape, the bit-safety flag and whether
     noise is drawn (a miss counts in `plan_misses()`).  Fault injection
     (a `GemmParams` with a fault config) is a later slice and raises
-    where that is built."""
+    where that is built.
+
+    With `mesh` (`x_spec` over the batch, `w_spec` over the (kh*kw*C, N)
+    weight, see `plan_conv`) every rank passes the same global x and w
+    and gets the whole result, bit-identical to the call without a mesh
+    for the integer modes on bit-safe geometries."""
     conv = ConvParams(kh, kw, stride)
     if x.dim() != 4 or w.dim() != 2:
         raise ValueError(f"cim_conv2d wants x (B,H,W,C), w (K,N); got "
@@ -1100,6 +1665,8 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
             f"weight rows {w.shape[0]} != kh*kw*C = {kh}*{kw}*{c}")
     if gp.mode not in MODES:
         raise ValueError(f"mode {gp.mode!r} not in {MODES}")
+    if mesh is not None:
+        return _mesh_conv2d(gp, x, w, conv, mesh, x_spec, w_spec)
     backend = _backend(x, w)
     bit_safe = _conv_bit_exact_safe(h, w_, conv)
     noisy = _draws_noise(gp, key)

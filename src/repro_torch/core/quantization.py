@@ -28,6 +28,13 @@ def quant_scale(x: torch.Tensor, bits: int, axis=None,
         m = x.abs().amax()
     else:
         m = x.abs().amax(dim=axis, keepdim=True)
+    return scale_from_max(m, bits, eps)
+
+
+def scale_from_max(m: torch.Tensor, bits: int,
+                   eps: float = 1e-8) -> torch.Tensor:
+    """The scale of `quant_scale` from the max |x| `m` already taken (the
+    mesh path takes it over the shards, then scales as one device)."""
     # divide by a tensor, not a Python number: on CUDA, PyTorch turns a
     # division by a host scalar into a multiply by its reciprocal, which
     # is not the IEEE quotient the reference (and the CPU) computes

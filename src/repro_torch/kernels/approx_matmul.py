@@ -12,7 +12,13 @@ functions execute it, in the JAX package's two table layouts:
   * the **nibble sub-tables** — ``nibble_lut_matmul`` and
     ``nibble_lut_matmul_fused``, the same two forms over four
     2^{b/2} x 2^{b/2} int32 sub-tables on saturated magnitudes, for the
-    half-word-decomposable multipliers (core/luts.nibble_sub_luts).
+    half-word-decomposable multipliers (core/luts.nibble_sub_luts);
+  * the **partial** forms ``lut_matmul_partial`` and
+    ``nibble_lut_matmul_partial`` — the fused forms with the epilogue
+    off: f32 or bf16 operands quantized on load against caller-supplied
+    (global) scales, the raw int32 (M, N) sum out.  The mesh path runs
+    them on a shard's slice of K and sums the shards' partials, exactly,
+    before the ``(acc * sx) * sw`` epilogue.
 
 On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
 csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
@@ -33,14 +39,18 @@ _FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                PTR]
 _INT = CudaKernel("lut_gemm", "lut_gemm_int8", _INT_ARGS)
 _FUSED = CudaKernel("lut_gemm", "lut_gemm_fused", _FUSED_ARGS)
+_PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial", _FUSED_ARGS)
 _NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8", _INT_ARGS)
 _NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused", _FUSED_ARGS)
+_NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial", _FUSED_ARGS)
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
 # resets their launch counts)
 KERNELS = {"lut_matmul": _INT, "lut_matmul_fused": _FUSED,
+           "lut_matmul_partial": _PARTIAL,
            "nibble_lut_matmul": _NIB_INT,
-           "nibble_lut_matmul_fused": _NIB_FUSED}
+           "nibble_lut_matmul_fused": _NIB_FUSED,
+           "nibble_lut_matmul_partial": _NIB_PARTIAL}
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -85,32 +95,47 @@ def _check_range(t: torch.Tensor, bits: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# plain versions of the fused forms (the int forms' are ref.lut_matmul_ref
-# and ref.nibble_matmul_ref); CPU tensors, and chip_smoke.py also runs
-# them on the card
+# plain versions of the fused and partial forms (the int forms' are
+# ref.lut_matmul_ref and ref.nibble_matmul_ref); CPU tensors, and
+# chip_smoke.py also runs them on the card.  A partial form is its fused
+# form without the epilogue.
 # ---------------------------------------------------------------------------
+
+
+def epilogue(acc, sx, sw) -> torch.Tensor:
+    """(acc * sx) * sw in that order: the int32 sum in real units."""
+    return ((acc.to(torch.float32) * sx.reshape(()).to(torch.float32))
+            * sw.reshape(1, -1).to(torch.float32))
+
+
+def lut_matmul_partial_plain(x, w, lut_flat, sx, sw,
+                             bits: int = 8) -> torch.Tensor:
+    half = 1 << (bits - 1)
+    ia = quantize_tile(x.to(torch.float32), sx.reshape(()).float(),
+                       half - 1) + half
+    ib = quantize_tile(w.to(torch.float32), sw.reshape(1, -1).float(),
+                       half - 1) + half
+    return gather_full(lut_flat, ia, ib, 1 << bits)
 
 
 def lut_matmul_fused_plain(x, w, lut_flat, sx, sw,
                            bits: int = 8) -> torch.Tensor:
-    half = 1 << (bits - 1)
-    sx = sx.reshape(()).to(torch.float32)
-    sw = sw.reshape(1, -1).to(torch.float32)
-    ia = quantize_tile(x.to(torch.float32), sx, half - 1) + half
-    ib = quantize_tile(w.to(torch.float32), sw, half - 1) + half
-    acc = gather_full(lut_flat, ia, ib, 1 << bits)
-    return (acc.to(torch.float32) * sx) * sw
+    return epilogue(lut_matmul_partial_plain(x, w, lut_flat, sx, sw, bits),
+                    sx, sw)
+
+
+def nibble_lut_matmul_partial_plain(x, w, subs_flat, sx, sw,
+                                    bits: int = 8) -> torch.Tensor:
+    qmax = (1 << (bits - 1)) - 1
+    a = quantize_tile(x.to(torch.float32), sx.reshape(()).float(), qmax)
+    b = quantize_tile(w.to(torch.float32), sw.reshape(1, -1).float(), qmax)
+    return nibble_sum(subs_flat, a, b, bits)
 
 
 def nibble_lut_matmul_fused_plain(x, w, subs_flat, sx, sw,
                                   bits: int = 8) -> torch.Tensor:
-    qmax = (1 << (bits - 1)) - 1
-    sx = sx.reshape(()).to(torch.float32)
-    sw = sw.reshape(1, -1).to(torch.float32)
-    a = quantize_tile(x.to(torch.float32), sx, qmax)
-    b = quantize_tile(w.to(torch.float32), sw, qmax)
-    acc = nibble_sum(subs_flat, a, b, bits)
-    return (acc.to(torch.float32) * sx) * sw
+    return epilogue(nibble_lut_matmul_partial_plain(x, w, subs_flat, sx, sw,
+                                                    bits), sx, sw)
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +178,9 @@ def _check_fused(x, w, sx, sw, n: int) -> None:
             and sw.is_contiguous(), f"sw must be {n} contiguous f32")
 
 
-def _launch_fused(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits):
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+def _launch_fused(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,
+                  out_dtype=torch.float32):
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
          int(w.dtype == torch.bfloat16), table.data_ptr(), sx.data_ptr(),
          sw.data_ptr(), out.data_ptr(), m, k, n, bits, stream_of(x))
@@ -212,3 +238,35 @@ def nibble_lut_matmul_fused(x: torch.Tensor, w: torch.Tensor,
     _check_fused(x, w, sx, sw, n)
     check_subs(subs_flat, bits)
     return _launch_fused(_NIB_FUSED, x, w, subs_flat, sx, sw, m, k, n, bits)
+
+
+def lut_matmul_partial(x: torch.Tensor, w: torch.Tensor,
+                       lut_flat: torch.Tensor, sx: torch.Tensor,
+                       sw: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Shard-local LUT GEMM over a slice of K: f32/bf16 x (M, K_shard), w
+    (K_shard, N) -> the raw int32 (M, N) sum, quantized on load against
+    the supplied global scales (``sx`` one element, ``sw`` N); the
+    caller sums the shards' partials and applies the epilogue.
+    Bit-identical to quantize -> ``lut_matmul``."""
+    m, k, n = _shapes(x, w)
+    if not on_cuda(x, w, lut_flat, sx, sw):
+        return lut_matmul_partial_plain(x, w, lut_flat, sx, sw, bits)
+    _check_fused(x, w, sx, sw, n)
+    check_table(lut_flat, bits)
+    return _launch_fused(_PARTIAL, x, w, lut_flat, sx, sw, m, k, n, bits,
+                         torch.int32)
+
+
+def nibble_lut_matmul_partial(x: torch.Tensor, w: torch.Tensor,
+                              subs_flat: torch.Tensor, sx: torch.Tensor,
+                              sw: torch.Tensor,
+                              bits: int = 8) -> torch.Tensor:
+    """Shard-local nibble GEMM: as ``lut_matmul_partial`` over the four
+    sub-tables.  Bit-identical to quantize -> ``nibble_lut_matmul``."""
+    m, k, n = _shapes(x, w)
+    if not on_cuda(x, w, subs_flat, sx, sw):
+        return nibble_lut_matmul_partial_plain(x, w, subs_flat, sx, sw, bits)
+    _check_fused(x, w, sx, sw, n)
+    check_subs(subs_flat, bits)
+    return _launch_fused(_NIB_PARTIAL, x, w, subs_flat, sx, sw, m, k, n,
+                         bits, torch.int32)

@@ -20,6 +20,12 @@ per-tensor ``sx`` / per-out-channel ``sw`` quantization on load and the
     in int32 where the reference summed the dequantized products in f32
     per tap: the two differ by f32 rounding only.
 
+and the mesh path's two partial forms, the LUT and log forms with the
+epilogue off (``conv_lut_partial`` with ``nibble=``, ``conv_log_partial``):
+an image and tap stack over a slice of the input channels, quantized
+against caller-supplied (global) scales, the raw int32 (B, OH, OW, N)
+sum out; the caller sums the shards' partials and applies the epilogue.
+
 The LUT and log integer cores are bit-identical to im2col + the GEMM
 kernels.  On CUDA tensors each launches csrc/conv_gemm.cu or raises; the
 kernel gathers the patch matrix from the image by index arithmetic, so
@@ -46,9 +52,14 @@ _LOG = CudaKernel("conv_gemm", "conv_log_fused",
                   [PTR] * 5 + [INT] * 11 + [PTR])
 _MXU = CudaKernel("conv_gemm", "conv_mxu_fused",
                   [PTR] * 5 + [INT] * 10 + [PTR])
+_LUT_PARTIAL = CudaKernel("conv_gemm", "conv_lut_partial",
+                          [PTR] * 6 + [INT] * 11 + [PTR])
+_LOG_PARTIAL = CudaKernel("conv_gemm", "conv_log_partial",
+                          [PTR] * 5 + [INT] * 11 + [PTR])
 
 KERNELS = {"conv_lut_fused": _LUT, "conv_log_fused": _LOG,
-           "conv_mxu_fused": _MXU}
+           "conv_mxu_fused": _MXU, "conv_lut_partial": _LUT_PARTIAL,
+           "conv_log_partial": _LOG_PARTIAL}
 
 # output pixels x channel chunk x out-channels per block: BM, BK, BN of
 # csrc/cim_gemm.cuh, fixed at compile time, and the outputs each thread
@@ -98,7 +109,8 @@ def _geometry(x, w3, kh: int, kw: int, stride: int):
 # ---------------------------------------------------------------------------
 
 
-def _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum):
+def _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum,
+                epilogue: bool = True):
     b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
     oh, ow = conv_out_hw(h, w, kh, kw, stride)
     qmax = (1 << (bits - 1)) - 1
@@ -111,12 +123,12 @@ def _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum):
         aq = quantize_tile(a2, sx, qmax)
         bq = quantize_tile(w3[t].to(torch.float32), sw, qmax)
         acc += tap_sum(aq, bq)
+    if not epilogue:
+        return acc.reshape(b, oh, ow, n)
     return ((acc.to(torch.float32) * sx) * sw).reshape(b, oh, ow, n)
 
 
-def conv_lut_fused_plain(x, w3, table, sx, sw, bits: int = 8, kh: int = 3,
-                         kw: int = 3, stride: int = 1,
-                         nibble: bool = False) -> torch.Tensor:
+def _lut_tap_sum(table, bits: int, nibble: bool):
     half = 1 << (bits - 1)
     if nibble:
         def tap_sum(aq, bq):
@@ -124,7 +136,21 @@ def conv_lut_fused_plain(x, w3, table, sx, sw, bits: int = 8, kh: int = 3,
     else:
         def tap_sum(aq, bq):
             return gather_full(table, aq + half, bq + half, 1 << bits)
-    return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum)
+    return tap_sum
+
+
+def conv_lut_fused_plain(x, w3, table, sx, sw, bits: int = 8, kh: int = 3,
+                         kw: int = 3, stride: int = 1,
+                         nibble: bool = False) -> torch.Tensor:
+    return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride,
+                       _lut_tap_sum(table, bits, nibble))
+
+
+def conv_lut_partial_plain(x, w3, table, sx, sw, bits: int = 8, kh: int = 3,
+                           kw: int = 3, stride: int = 1,
+                           nibble: bool = False) -> torch.Tensor:
+    return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride,
+                       _lut_tap_sum(table, bits, nibble), epilogue=False)
 
 
 def conv_mxu_fused_plain(x, w3, sx, sw, bits: int = 8, kh: int = 3,
@@ -138,6 +164,15 @@ def conv_log_fused_plain(x, w3, sx, sw, bits: int = 8,
     def tap_sum(aq, bq):
         return log_sum(aq, bq, bits, compensated)
     return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum)
+
+
+def conv_log_partial_plain(x, w3, sx, sw, bits: int = 8,
+                           compensated: bool = True, kh: int = 3,
+                           kw: int = 3, stride: int = 1) -> torch.Tensor:
+    def tap_sum(aq, bq):
+        return log_sum(aq, bq, bits, compensated)
+    return _conv_plain(x, w3, sx, sw, bits, kh, kw, stride, tap_sum,
+                       epilogue=False)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +191,23 @@ def _check_operands(x, w3, sx, sw, n: int) -> None:
             and sw.is_contiguous(), f"sw must be {n} contiguous f32")
 
 
+def _launch_lut(kern: CudaKernel, x, w3, table, sx, sw, bits, kh, kw,
+                stride, nibble, out_dtype):
+    b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
+    _check_operands(x, w3, sx, sw, n)
+    if nibble:
+        check_subs(table, bits)
+    else:
+        check_table(table, bits)
+    oh, ow = conv_out_hw(h, w, kh, kw, stride)
+    out = torch.empty((b, oh, ow, n), dtype=out_dtype, device=x.device)
+    kern(x.data_ptr(), w3.data_ptr(), table.data_ptr(), sx.data_ptr(),
+         sw.data_ptr(), out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
+         int(nibble), gemm_smem_bytes("nibble" if nibble else "lut", bits),
+         stream_of(x))
+    return out
+
+
 def conv_lut_fused(x: torch.Tensor, w3: torch.Tensor, table: torch.Tensor,
                    sx: torch.Tensor, sw: torch.Tensor, bits: int = 8,
                    kh: int = 3, kw: int = 3, stride: int = 1,
@@ -166,21 +218,42 @@ def conv_lut_fused(x: torch.Tensor, w3: torch.Tensor, table: torch.Tensor,
     (``nibble=True``); ``sx`` one f32 element, ``sw`` N f32.
     Bit-identical integer core to im2col + ``lut_matmul`` /
     ``nibble_lut_matmul``."""
-    b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
+    _geometry(x, w3, kh, kw, stride)
     if not on_cuda(x, w3, table, sx, sw):
         return conv_lut_fused_plain(x, w3, table, sx, sw, bits, kh, kw,
                                     stride, nibble)
+    return _launch_lut(_LUT, x, w3, table, sx, sw, bits, kh, kw, stride,
+                       nibble, torch.float32)
+
+
+def conv_lut_partial(x: torch.Tensor, w3: torch.Tensor, table: torch.Tensor,
+                     sx: torch.Tensor, sw: torch.Tensor, bits: int = 8,
+                     kh: int = 3, kw: int = 3, stride: int = 1,
+                     nibble: bool = False) -> torch.Tensor:
+    """Shard-local LUT-family conv over a slice of the input channels:
+    f32 x (B,H,W,C_shard), w3 (kh*kw,C_shard,N) -> the raw int32
+    (B,OH,OW,N) sum, quantized on load against the supplied global
+    scales; tables as ``conv_lut_fused``.  The caller sums the shards'
+    partials and applies the epilogue."""
+    _geometry(x, w3, kh, kw, stride)
+    if not on_cuda(x, w3, table, sx, sw):
+        return conv_lut_partial_plain(x, w3, table, sx, sw, bits, kh, kw,
+                                      stride, nibble)
+    return _launch_lut(_LUT_PARTIAL, x, w3, table, sx, sw, bits, kh, kw,
+                       stride, nibble, torch.int32)
+
+
+def _launch_log(kern: CudaKernel, x, w3, sx, sw, bits, compensated, kh, kw,
+                stride, out_dtype):
+    b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
     _check_operands(x, w3, sx, sw, n)
-    if nibble:
-        check_subs(table, bits)
-    else:
-        check_table(table, bits)
+    require(2 <= bits <= 16,
+            f"the log kernel takes 2..16-bit operands, got {bits}")
     oh, ow = conv_out_hw(h, w, kh, kw, stride)
-    out = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
-    _LUT(x.data_ptr(), w3.data_ptr(), table.data_ptr(), sx.data_ptr(),
-         sw.data_ptr(), out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
-         int(nibble), gemm_smem_bytes("nibble" if nibble else "lut", bits),
-         stream_of(x))
+    out = torch.empty((b, oh, ow, n), dtype=out_dtype, device=x.device)
+    kern(x.data_ptr(), w3.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+         out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
+         int(compensated), gemm_smem_bytes("log", bits), stream_of(x))
     return out
 
 
@@ -190,19 +263,26 @@ def conv_log_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
     """Log-family implicit-GEMM conv (mitchell, or log_our when
     `compensated`): shapes and scales as ``conv_lut_fused``.
     Bit-identical integer core to im2col + ``mitchell_matmul``."""
-    b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
+    _geometry(x, w3, kh, kw, stride)
     if not on_cuda(x, w3, sx, sw):
         return conv_log_fused_plain(x, w3, sx, sw, bits, compensated, kh, kw,
                                     stride)
-    _check_operands(x, w3, sx, sw, n)
-    require(2 <= bits <= 16,
-            f"the log kernel takes 2..16-bit operands, got {bits}")
-    oh, ow = conv_out_hw(h, w, kh, kw, stride)
-    out = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
-    _LOG(x.data_ptr(), w3.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-         out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
-         int(compensated), gemm_smem_bytes("log", bits), stream_of(x))
-    return out
+    return _launch_log(_LOG, x, w3, sx, sw, bits, compensated, kh, kw,
+                       stride, torch.float32)
+
+
+def conv_log_partial(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
+                     sw: torch.Tensor, bits: int = 8,
+                     compensated: bool = True, kh: int = 3, kw: int = 3,
+                     stride: int = 1) -> torch.Tensor:
+    """Shard-local log-family conv over a slice of the input channels:
+    shapes as ``conv_lut_partial``, the raw int32 sum out."""
+    _geometry(x, w3, kh, kw, stride)
+    if not on_cuda(x, w3, sx, sw):
+        return conv_log_partial_plain(x, w3, sx, sw, bits, compensated, kh,
+                                      kw, stride)
+    return _launch_log(_LOG_PARTIAL, x, w3, sx, sw, bits, compensated, kh,
+                       kw, stride, torch.int32)
 
 
 def conv_mxu_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,

@@ -27,8 +27,10 @@
 // quantized on load, round(v / scale) with IEEE division (__fdiv_rn) and
 // round-half-to-even (rintf), clipped to +-qmax (build without
 // fast-math), against a per-tensor sx and per-column sw read from device
-// memory, flushed as (acc * sx) * sw in that order (ScaleOut) or through
-// the calibrated surrogate (SurrogateOut):
+// memory, flushed as (acc * sx) * sw in that order (ScaleOut), left as
+// the raw int32 sum (QuantIntOut: a shard's partial sum over its slice of
+// K, scaled by the caller after the sum over the shards) or through the
+// calibrated surrogate (SurrogateOut):
 //   out = (f32(1 + mu) * f32(D)) * s  [ + sqrt(max(var, 0)) * eps ],
 //   s = sx * sw,  var = f32(c0 * K) * s^2 [ + (c1 * SQ) * s^2 ],
 // every multiply and add rounded on its own (__fmul_rn, __fadd_rn: nvcc
@@ -265,6 +267,19 @@ struct ScaleOut {
                         float sx, const float* sw) const {
     // (acc * sx) * sw, in this order: never fold sx * sw first
     out[o] = (static_cast<float>(static_cast<int32_t>(acc)) * sx) * sw[col];
+  }
+};
+
+// quantize on load, write the raw int32 sum (the shard-local partial
+// forms of the mesh path: the caller sums the partials over the shards,
+// exactly, and applies the (acc * sx) * sw epilogue after)
+struct QuantIntOut {
+  static constexpr bool QUANT = true;
+  static constexpr bool SQ = false;
+  using Out = int32_t;
+  __device__ void store(Out* out, size_t o, int, uint32_t acc, float, float,
+                        const float*) const {
+    out[o] = static_cast<int32_t>(acc);
   }
 };
 
@@ -521,12 +536,14 @@ int dense_quant(const void* x, int x_bf16, const void* w, int w_bf16,
   return launch<Core>(xf, wf, tab, sx, sw, out, epi, M, K, N, bits, stream);
 }
 
-// f32 (B,H,W,C) image x f32 (kh*kw, C, N) tap stack -> f32 (B,OH,OW,N)
-// under kh//2, kw//2 zero padding (SAME at stride 1)
-template <class Core>
-int conv_fused(const void* x, const void* w, const void* tab, const void* sx,
-               const void* sw, void* out, int B, int H, int W, int C, int N,
-               int kh, int kw, int stride, int bits, int smem,
+// f32 (B,H,W,C) image x f32 (kh*kw, C, N) tap stack, quantized on load,
+// -> (B,OH,OW,N) through the epilogue `epi` (f32 for ScaleOut, the raw
+// int32 sum for QuantIntOut) under kh//2, kw//2 zero padding (SAME at
+// stride 1)
+template <class Core, class Epi>
+int conv_quant(const void* x, const void* w, const void* tab, const void* sx,
+               const void* sw, void* out, Epi epi, int B, int H, int W, int C,
+               int N, int kh, int kw, int stride, int bits, int smem,
                void* stream) {
   if (kh % 2 != 1 || kw % 2 != 1 || stride < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -536,8 +553,7 @@ int conv_fused(const void* x, const void* w, const void* tab, const void* sx,
   const ConvSrc<float> src{static_cast<const float*>(x), H, W, C, OH, OW,
                            kw, stride, ph, pw};
   return launch<Core>(src, static_cast<const float*>(w), tab, sx, sw, out,
-                      ScaleOut{}, B * OH * OW, kh * kw * C, N, bits, stream,
-                      smem);
+                      epi, B * OH * OW, kh * kw * C, N, bits, stream, smem);
 }
 
 }  // namespace cim

@@ -5,6 +5,12 @@
 //     product table or the nibble sub-tables per product
 //   conv_log_fused (-> _log_kernel): the Mitchell / Log-our product
 //   conv_mxu_fused (-> _mxu_kernel): the exact product (exact mode)
+//   conv_lut_partial, conv_log_partial (-> _lut_kernel, _log_kernel with
+//     the epilogue off): the mesh path's shard-local forms over a slice
+//     of the input channels, quantized against the caller's global
+//     scales, writing the raw int32 sum (B,OH,OW,N) (QuantIntOut); the
+//     caller sums the shards' partials and applies (acc * sx) * sw.
+//
 // f32 x (B,H,W,C) and f32 w3 (kh*kw, C, N) -> f32 (B,OH,OW,N), SAME zero
 // padding kh//2, kw//2 and a stride, quantization on load against a
 // per-tensor sx and per-out-channel sw, and the (acc * sx) * sw epilogue:
@@ -41,18 +47,50 @@
 
 #include "cim_gemm.cuh"
 
+template <class Epi>
+static int conv_log(const void* x, const void* w, const void* sx,
+                    const void* sw, void* out, Epi epi, int B, int H, int W,
+                    int C, int N, int kh, int kw, int stride, int bits,
+                    int compensated, int smem, void* stream) {
+  if (compensated)
+    return cim::conv_quant<cim::LogCore<true>>(x, w, nullptr, sx, sw, out,
+                                               epi, B, H, W, C, N, kh, kw,
+                                               stride, bits, smem, stream);
+  return cim::conv_quant<cim::LogCore<false>>(x, w, nullptr, sx, sw, out,
+                                              epi, B, H, W, C, N, kh, kw,
+                                              stride, bits, smem, stream);
+}
+
 extern "C" {
 
-// tab: the int16 full table (nibble == 0) or the four int32 sub-tables
+// tab: the int16 full table (nibble == 0) or the four int32 sub-tables;
+// out: f32 (B,OH,OW,N)
 int conv_lut_fused(const void* x, const void* w, const void* tab,
                    const void* sx, const void* sw, void* out, int B, int H,
                    int W, int C, int N, int kh, int kw, int stride, int bits,
                    int nibble, int smem, void* stream) {
   if (nibble)
-    return cim::conv_fused<cim::NibbleCore>(x, w, tab, sx, sw, out, B, H, W,
-                                            C, N, kh, kw, stride, bits, smem,
+    return cim::conv_quant<cim::NibbleCore>(x, w, tab, sx, sw, out,
+                                            cim::ScaleOut{}, B, H, W, C, N,
+                                            kh, kw, stride, bits, smem,
                                             stream);
-  return cim::conv_fused<cim::LutCore>(x, w, tab, sx, sw, out, B, H, W, C, N,
+  return cim::conv_quant<cim::LutCore>(x, w, tab, sx, sw, out,
+                                       cim::ScaleOut{}, B, H, W, C, N, kh,
+                                       kw, stride, bits, smem, stream);
+}
+
+// as conv_lut_fused, out: the raw int32 sum (B,OH,OW,N)
+int conv_lut_partial(const void* x, const void* w, const void* tab,
+                     const void* sx, const void* sw, void* out, int B, int H,
+                     int W, int C, int N, int kh, int kw, int stride,
+                     int bits, int nibble, int smem, void* stream) {
+  if (nibble)
+    return cim::conv_quant<cim::NibbleCore>(x, w, tab, sx, sw, out,
+                                            cim::QuantIntOut{}, B, H, W, C,
+                                            N, kh, kw, stride, bits, smem,
+                                            stream);
+  return cim::conv_quant<cim::LutCore>(x, w, tab, sx, sw, out,
+                                       cim::QuantIntOut{}, B, H, W, C, N,
                                        kh, kw, stride, bits, smem, stream);
 }
 
@@ -61,22 +99,26 @@ int conv_mxu_fused(const void* x, const void* w, const void* sx,
                    const void* sw, void* out, int B, int H, int W, int C,
                    int N, int kh, int kw, int stride, int bits, int smem,
                    void* stream) {
-  return cim::conv_fused<cim::IntCore>(x, w, nullptr, sx, sw, out, B, H, W,
-                                       C, N, kh, kw, stride, bits, smem,
-                                       stream);
+  return cim::conv_quant<cim::IntCore>(x, w, nullptr, sx, sw, out,
+                                       cim::ScaleOut{}, B, H, W, C, N, kh,
+                                       kw, stride, bits, smem, stream);
 }
 
 int conv_log_fused(const void* x, const void* w, const void* sx,
                    const void* sw, void* out, int B, int H, int W, int C,
                    int N, int kh, int kw, int stride, int bits,
                    int compensated, int smem, void* stream) {
-  if (compensated)
-    return cim::conv_fused<cim::LogCore<true>>(x, w, nullptr, sx, sw, out, B,
-                                               H, W, C, N, kh, kw, stride,
-                                               bits, smem, stream);
-  return cim::conv_fused<cim::LogCore<false>>(x, w, nullptr, sx, sw, out, B,
-                                              H, W, C, N, kh, kw, stride,
-                                              bits, smem, stream);
+  return conv_log(x, w, sx, sw, out, cim::ScaleOut{}, B, H, W, C, N, kh, kw,
+                  stride, bits, compensated, smem, stream);
+}
+
+// as conv_log_fused, out: the raw int32 sum (B,OH,OW,N)
+int conv_log_partial(const void* x, const void* w, const void* sx,
+                     const void* sw, void* out, int B, int H, int W, int C,
+                     int N, int kh, int kw, int stride, int bits,
+                     int compensated, int smem, void* stream) {
+  return conv_log(x, w, sx, sw, out, cim::QuantIntOut{}, B, H, W, C, N, kh,
+                  kw, stride, bits, compensated, smem, stream);
 }
 
 }  // extern "C"

@@ -5,6 +5,9 @@
 //   mitchell_matmul       (-> _kernel):       int8 x, w -> int32
 //   mitchell_matmul_fused (-> _fused_kernel): f32/bf16 x, w -> f32, with
 //     quantization on load and the (acc * sx) * sw epilogue.
+//   mitchell_matmul_partial (-> _fused_kernel, epilogue off): the mesh
+//     path's shard-local form, global scales in, the raw int32 sum out
+//     (QuantIntOut).
 // Both are cim_gemm.cuh's gemm_kernel with LogCore<compensated>.
 //
 // What it computes, per scalar pair (a, b), following _log_product of
@@ -32,6 +35,20 @@
 
 #include "cim_gemm.cuh"
 
+template <class Epi>
+static int log_quant(const void* x, int x_bf16, const void* w, int w_bf16,
+                     const void* sx, const void* sw, void* out, Epi epi,
+                     int M, int K, int N, int bits, int compensated,
+                     void* stream) {
+  if (compensated)
+    return cim::dense_quant<cim::LogCore<true>>(x, x_bf16, w, w_bf16,
+                                                nullptr, sx, sw, out, epi, M,
+                                                K, N, bits, stream);
+  return cim::dense_quant<cim::LogCore<false>>(x, x_bf16, w, w_bf16, nullptr,
+                                               sx, sw, out, epi, M, K, N,
+                                               bits, stream);
+}
+
 extern "C" {
 
 // int8 (M,K) x int8 (K,N) -> int32 (M,N)
@@ -49,13 +66,16 @@ int log_gemm_int8(const void* x, const void* w, void* out, int M, int K,
 int log_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* sx, const void* sw, void* out, int M, int K,
                    int N, int bits, int compensated, void* stream) {
-  if (compensated)
-    return cim::dense_quant<cim::LogCore<true>>(
-        x, x_bf16, w, w_bf16, nullptr, sx, sw, out, cim::ScaleOut{}, M, K, N,
-        bits, stream);
-  return cim::dense_quant<cim::LogCore<false>>(
-      x, x_bf16, w, w_bf16, nullptr, sx, sw, out, cim::ScaleOut{}, M, K, N,
-      bits, stream);
+  return log_quant(x, x_bf16, w, w_bf16, sx, sw, out, cim::ScaleOut{}, M, K,
+                   N, bits, compensated, stream);
+}
+
+// as log_gemm_fused, out: the raw int32 sum (M,N)
+int log_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
+                     const void* sx, const void* sw, void* out, int M, int K,
+                     int N, int bits, int compensated, void* stream) {
+  return log_quant(x, x_bf16, w, w_bf16, sx, sw, out, cim::QuantIntOut{}, M,
+                   K, N, bits, compensated, stream);
 }
 
 }  // extern "C"

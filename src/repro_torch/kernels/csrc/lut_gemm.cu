@@ -5,6 +5,9 @@
 //   lut_matmul_fused (-> _fused_kernel): f32/bf16 x, w -> f32, with the
 //     per-tensor / per-column quantization on load and the
 //     (acc * sx) * sw epilogue inside the kernel.
+//   lut_matmul_partial (-> _fused_kernel, epilogue off): the mesh path's
+//     shard-local form over a slice of K: quantization on load against
+//     the caller's global scales, the raw int32 sum out (QuantIntOut).
 // Both are cim_gemm.cuh's gemm_kernel with the LutCore: out[m,n] =
 // sum_k LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})], LUT the signed product
 // table of core/luts.signed_product_lut.
@@ -42,6 +45,16 @@ int lut_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
   return cim::dense_quant<cim::LutCore>(x, x_bf16, w, w_bf16, lut, sx, sw,
                                         out, cim::ScaleOut{}, M, K, N, bits,
                                         stream);
+}
+
+// as lut_gemm_fused, out: the raw int32 sum (M,N)
+int lut_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
+                     const void* lut, const void* sx, const void* sw,
+                     void* out, int M, int K, int N, int bits,
+                     void* stream) {
+  return cim::dense_quant<cim::LutCore>(x, x_bf16, w, w_bf16, lut, sx, sw,
+                                        out, cim::QuantIntOut{}, M, K, N,
+                                        bits, stream);
 }
 
 }  // extern "C"

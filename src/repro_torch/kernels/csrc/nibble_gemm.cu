@@ -4,6 +4,9 @@
 //   nibble_lut_matmul       (-> _nibble_int_kernel):   int8 x, w -> int32
 //   nibble_lut_matmul_fused (-> _nibble_fused_kernel): f32/bf16 x, w ->
 //     f32, quantization on load and the (acc * sx) * sw epilogue.
+//   nibble_lut_matmul_partial (-> _nibble_fused_kernel, epilogue off):
+//     the mesh path's shard-local form, global scales in, the raw int32
+//     sum out (QuantIntOut).
 // Both are cim_gemm.cuh's gemm_kernel with the NibbleCore: for a
 // multiplier whose table is half-word decomposable (core/luts.py
 // nibble_sub_luts: the exact family always, appro42 when its approximate
@@ -43,6 +46,16 @@ int nibble_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
   return cim::dense_quant<cim::NibbleCore>(x, x_bf16, w, w_bf16, subs, sx,
                                            sw, out, cim::ScaleOut{}, M, K, N,
                                            bits, stream);
+}
+
+// as nibble_gemm_fused, out: the raw int32 sum (M,N)
+int nibble_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
+                        const void* subs, const void* sx, const void* sw,
+                        void* out, int M, int K, int N, int bits,
+                        void* stream) {
+  return cim::dense_quant<cim::NibbleCore>(x, x_bf16, w, w_bf16, subs, sx,
+                                           sw, out, cim::QuantIntOut{}, M, K,
+                                           N, bits, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,10 @@ the JAX package:
 
   * ``mitchell_matmul``       — int8 operands -> int32 (oracle surface);
   * ``mitchell_matmul_fused`` — f32/bf16 operands -> f32, quantization on
-    load and the ``(acc * sx) * sw`` epilogue inside one kernel.
+    load and the ``(acc * sx) * sw`` epilogue inside one kernel;
+  * ``mitchell_matmul_partial`` — the fused form with the epilogue off:
+    quantization against caller-supplied (global) scales, the raw int32
+    sum out (the mesh path's shard-local form over a slice of K).
 
 On CUDA tensors each launches its kernel (csrc/log_gemm.cu) or raises;
 on CPU tensors it runs the plain version (kernels/ref.py).  Sums
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .approx_matmul import _FLOATS, _shapes
+from .approx_matmul import _FLOATS, _shapes, epilogue
 from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
 from .ref import log_sum, mitchell_matmul_ref, quantize_tile
 
@@ -30,22 +33,30 @@ _FUSED = CudaKernel("log_gemm", "log_gemm_fused",
                     [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT, INT,
                      INT, PTR])
 
-KERNELS = {"mitchell_matmul": _INT, "mitchell_matmul_fused": _FUSED}
+_PARTIAL = CudaKernel("log_gemm", "log_gemm_partial",
+                      [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT, INT,
+                       INT, PTR])
+
+KERNELS = {"mitchell_matmul": _INT, "mitchell_matmul_fused": _FUSED,
+           "mitchell_matmul_partial": _PARTIAL}
 
 
 def _check_bits(bits: int) -> None:
     require(2 <= bits <= 16, f"the log kernel takes 2..16-bit operands, got {bits}")
 
 
+def mitchell_matmul_partial_plain(x, w, sx, sw, bits: int = 8,
+                                  compensated: bool = True) -> torch.Tensor:
+    qmax = (1 << (bits - 1)) - 1
+    a = quantize_tile(x.to(torch.float32), sx.reshape(()).float(), qmax)
+    b = quantize_tile(w.to(torch.float32), sw.reshape(1, -1).float(), qmax)
+    return log_sum(a, b, bits, compensated)
+
+
 def mitchell_matmul_fused_plain(x, w, sx, sw, bits: int = 8,
                                 compensated: bool = True) -> torch.Tensor:
-    qmax = (1 << (bits - 1)) - 1
-    sx = sx.reshape(()).to(torch.float32)
-    sw = sw.reshape(1, -1).to(torch.float32)
-    a = quantize_tile(x.to(torch.float32), sx, qmax)
-    b = quantize_tile(w.to(torch.float32), sw, qmax)
-    acc = log_sum(a, b, bits, compensated)
-    return (acc.to(torch.float32) * sx) * sw
+    return epilogue(mitchell_matmul_partial_plain(x, w, sx, sw, bits,
+                                                  compensated), sx, sw)
 
 
 def mitchell_matmul(xq: torch.Tensor, wq: torch.Tensor, bits: int = 8,
@@ -75,6 +86,28 @@ def mitchell_matmul_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     m, k, n = _shapes(x, w)
     if not on_cuda(x, w, sx, sw):
         return mitchell_matmul_fused_plain(x, w, sx, sw, bits, compensated)
+    return _launch(_FUSED, x, w, sx, sw, m, k, n, bits, compensated,
+                   torch.float32)
+
+
+def mitchell_matmul_partial(x: torch.Tensor, w: torch.Tensor,
+                            sx: torch.Tensor, sw: torch.Tensor,
+                            bits: int = 8,
+                            compensated: bool = True) -> torch.Tensor:
+    """Shard-local log-domain GEMM over a slice of K: f32/bf16 x
+    (M, K_shard), w (K_shard, N) -> the raw int32 (M, N) sum, quantized on
+    load against the supplied global scales; the caller sums the shards'
+    partials and applies the epilogue.  Bit-identical to quantize ->
+    ``mitchell_matmul``."""
+    m, k, n = _shapes(x, w)
+    if not on_cuda(x, w, sx, sw):
+        return mitchell_matmul_partial_plain(x, w, sx, sw, bits, compensated)
+    return _launch(_PARTIAL, x, w, sx, sw, m, k, n, bits, compensated,
+                   torch.int32)
+
+
+def _launch(kern: CudaKernel, x, w, sx, sw, m, k, n, bits, compensated,
+            out_dtype):
     require(x.dtype in _FLOATS and w.dtype in _FLOATS,
             f"f32/bf16 operands expected, got {x.dtype}, {w.dtype}")
     require(x.is_contiguous() and w.is_contiguous(),
@@ -84,8 +117,8 @@ def mitchell_matmul_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     require(sw.dtype == torch.float32 and sw.numel() == n
             and sw.is_contiguous(), f"sw must be {n} contiguous f32")
     _check_bits(bits)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    _FUSED(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-           int(w.dtype == torch.bfloat16), sx.data_ptr(), sw.data_ptr(),
-           out.data_ptr(), m, k, n, bits, int(compensated), stream_of(x))
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+         int(w.dtype == torch.bfloat16), sx.data_ptr(), sw.data_ptr(),
+         out.data_ptr(), m, k, n, bits, int(compensated), stream_of(x))
     return out

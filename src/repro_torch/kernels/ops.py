@@ -25,13 +25,16 @@ from repro_torch.core.luts import nibble_sub_luts, signed_product_lut
 from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.core.quantization import quant_scale
 
-from .approx_matmul import (lut_matmul, lut_matmul_fused, nibble_lut_matmul,
-                            nibble_lut_matmul_fused)
+from .approx_matmul import (lut_matmul, lut_matmul_fused, lut_matmul_partial,
+                            nibble_lut_matmul, nibble_lut_matmul_fused,
+                            nibble_lut_matmul_partial)
 from .attn_gemm import (attn_fused, attn_materialized, attn_reference,
                         attn_scales)
 from .cim_gemm import cim_gemm_core, cim_gemm_fused, stochastic
-from .conv_gemm import conv_log_fused, conv_lut_fused, conv_mxu_fused
-from .mitchell_gemm import mitchell_matmul, mitchell_matmul_fused
+from .conv_gemm import (conv_log_fused, conv_log_partial, conv_lut_fused,
+                        conv_lut_partial, conv_mxu_fused)
+from .mitchell_gemm import (mitchell_matmul, mitchell_matmul_fused,
+                            mitchell_matmul_partial)
 from .ref import surrogate_epilogue
 
 
@@ -145,6 +148,59 @@ def log_matmul_fused(x, w, bits: int = 8, compensated: bool = True):
                                  compensated=compensated)
 
 
+# ---------------------------------------------------------------------------
+# Shard-local (deferred-epilogue) wrappers: the tensor-parallel entry
+# points of the mesh path (core/approx_gemm.py's MeshPlan).  All take the
+# *global* quantization scales explicitly (a shard sees only a slice of K
+# or N, so scales taken locally would diverge from the single-device
+# oracle) and return the raw int32 accumulator.
+# ---------------------------------------------------------------------------
+
+
+def lut_partial_acc(x, w, spec: MultiplierSpec, sx, sw) -> torch.Tensor:
+    """Shard-local full-LUT GEMM: float in + global scales -> int32."""
+    return lut_matmul_partial(x, w, lut_table(spec, x.device), sx, sw,
+                              bits=spec.bits)
+
+
+def nibble_partial_acc(x, w, spec: MultiplierSpec, sx, sw) -> torch.Tensor:
+    """Shard-local nibble GEMM: float in + global scales -> int32."""
+    return nibble_lut_matmul_partial(x, w, nibble_table(spec, x.device), sx,
+                                     sw, bits=spec.bits)
+
+
+def log_partial_acc(x, w, sx, sw, bits: int = 8,
+                    compensated: bool = True) -> torch.Tensor:
+    """Shard-local log-domain GEMM: float in + global scales -> int32."""
+    return mitchell_matmul_partial(x, w, sx, sw, bits=bits,
+                                   compensated=compensated)
+
+
+# The output-sharded layout's fused forms with caller-supplied global
+# scales: no collective separates quantization from the epilogue, so the
+# (acc * sx) * sw flush stays inside the kernel (a shard sees only its
+# columns, so `sw` arrives as the shard's slice).
+
+
+def lut_fused_scaled(x, w, spec: MultiplierSpec, sx, sw) -> torch.Tensor:
+    """Fused full-LUT GEMM with caller-supplied global scales."""
+    return lut_matmul_fused(x, w, lut_table(spec, x.device), sx, sw,
+                            bits=spec.bits)
+
+
+def nibble_fused_scaled(x, w, spec: MultiplierSpec, sx, sw) -> torch.Tensor:
+    """Fused nibble GEMM with caller-supplied global scales."""
+    return nibble_lut_matmul_fused(x, w, nibble_table(spec, x.device), sx,
+                                   sw, bits=spec.bits)
+
+
+def log_fused_scaled(x, w, sx, sw, bits: int = 8,
+                     compensated: bool = True) -> torch.Tensor:
+    """Fused log-domain GEMM with caller-supplied global scales."""
+    return mitchell_matmul_fused(x, w, sx, sw, bits=bits,
+                                 compensated=compensated)
+
+
 def surrogate_gemm(xq, wq, sx, sw, eps, mu: float, c0: float,
                    c1: float) -> torch.Tensor:
     """The surrogate GEMM in real units over int8 operands (the int-in
@@ -219,6 +275,51 @@ def conv2d_log_fused(x, w2, bits: int = 8, compensated: bool = True,
     return conv_log_fused(xf, w3, sx, sw, bits=bits,
                           compensated=compensated, kh=kh, kw=kw,
                           stride=stride)
+
+
+# The mesh path's conv forms: f32 x (B, H, W, C_shard) and the tap stack
+# w3 (kh*kw, C_shard, N_shard) with the caller's global scales; the
+# partials return the raw int32 (B, OH, OW, N) sum over their channels,
+# the scaled forms (the output-sharded layout) f32 through the epilogue.
+
+
+def _conv_table(spec: MultiplierSpec, nibble: bool, device):
+    return nibble_table(spec, device) if nibble else lut_table(spec, device)
+
+
+def conv2d_lut_partial(x, w3, spec: MultiplierSpec, sx, sw, kh: int = 3,
+                       kw: int = 3, stride: int = 1,
+                       nibble: bool = False) -> torch.Tensor:
+    """Shard-local LUT/nibble conv over a slice of C -> int32."""
+    return conv_lut_partial(x, w3, _conv_table(spec, nibble, x.device), sx,
+                            sw, bits=spec.bits, kh=kh, kw=kw, stride=stride,
+                            nibble=nibble)
+
+
+def conv2d_log_partial(x, w3, sx, sw, bits: int = 8,
+                       compensated: bool = True, kh: int = 3, kw: int = 3,
+                       stride: int = 1) -> torch.Tensor:
+    """Shard-local log-family conv over a slice of C -> int32."""
+    return conv_log_partial(x, w3, sx, sw, bits=bits,
+                            compensated=compensated, kh=kh, kw=kw,
+                            stride=stride)
+
+
+def conv2d_lut_fused_scaled(x, w3, spec: MultiplierSpec, sx, sw,
+                            kh: int = 3, kw: int = 3, stride: int = 1,
+                            nibble: bool = False) -> torch.Tensor:
+    """Fused LUT/nibble conv with caller-supplied global scales."""
+    return conv_lut_fused(x, w3, _conv_table(spec, nibble, x.device), sx,
+                          sw, bits=spec.bits, kh=kh, kw=kw, stride=stride,
+                          nibble=nibble)
+
+
+def conv2d_log_fused_scaled(x, w3, sx, sw, bits: int = 8,
+                            compensated: bool = True, kh: int = 3,
+                            kw: int = 3, stride: int = 1) -> torch.Tensor:
+    """Fused log-family conv with caller-supplied global scales."""
+    return conv_log_fused(x, w3, sx, sw, bits=bits, compensated=compensated,
+                          kh=kh, kw=kw, stride=stride)
 
 
 # ---------------------------------------------------------------------------

@@ -12,21 +12,33 @@ every (tier x bucket) shape once (warmup), serves the workload, and
 prints throughput, latency and the plan misses after warmup (0).
 `--static` degrades admission to lockstep batching.  The smoke config
 serves by default; `--full` serves the published widths and depth.
-Speculative decoding, faults, sentinels, telemetry and mesh serving are
-later slices of the port.
+
+`--mesh MP` serves data-parallel + MP-way tensor-parallel over a
+("data", "model") mesh of processes (launch/mesh.py): under ``torchrun``
+over its world, else over `--ranks N` processes it starts itself, every
+rank on ``cuda:{rank % device_count}`` (or the CPU), for example
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --ranks 4 \\
+        --device cpu --mode hardware --n-requests 6 --max-new 2 6
+
+The mesh path runs the integer modes (hardware, bit_exact) on shards;
+the surrogate modes do not compose with it and are refused.  Rank 0
+prints the report.  Speculative decoding, faults, sentinels and
+telemetry are later slices of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.configs import get_config
-from repro_torch.serving import (EngineStats, RealClock, build_engine,
-                                 build_tiers, poisson_workload,
+from repro_torch.serving import (EngineStats, RealClock, SharedClock,
+                                 build_engine, build_tiers, poisson_workload,
                                  servable_archs)
 
 
-def main():
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b",
                     choices=servable_archs())
@@ -51,9 +63,19 @@ def main():
                     help="execution mode of the approximate tiers")
     ap.add_argument("--static", action="store_true",
                     help="lockstep (static-batching) admission baseline")
+    ap.add_argument("--mesh", type=int, default=0, metavar="MP",
+                    help="serve data-parallel + MP-way tensor-parallel "
+                         "over a mesh of processes (torchrun's world, or "
+                         "--ranks); 0 = one device")
+    ap.add_argument("--ranks", type=int, default=0, metavar="N",
+                    help="with --mesh outside torchrun: start N ranks")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    return ap
 
+
+def serve(args, mesh=None, device=None) -> bool:
+    """Build, warm and serve; print the report on rank 0 (or without a
+    mesh).  Returns whether no plan was built after warmup."""
     cfg = get_config(args.arch, smoke=not args.full)
     tiers = build_tiers(mode=args.mode)
     pmax = max(args.prompt_len)
@@ -62,13 +84,17 @@ def main():
         cfg, tiers=tiers, slots_per_tier=args.slots, max_len=args.max_len,
         prompt_buckets=pbkts,
         group_buckets=(1, 2, args.slots) if args.slots > 2 else (1, 2),
-        continuous=not args.static, seed=args.seed, device=args.device)
+        continuous=not args.static, seed=args.seed,
+        device=args.device if device is None else device, mesh=mesh)
+    say = print if mesh is None or mesh.index(mesh.axis_names) == 0 \
+        else (lambda *a: None)
 
-    clock = RealClock()
+    clock = RealClock() if mesh is None else SharedClock(RealClock(), mesh)
     t0 = clock.now()
     n_shapes = engine.warmup()
-    print(f"[{cfg.name}] warmed {n_shapes} shapes over {len(tiers)} tiers "
-          f"in {clock.now() - t0:.1f}s")
+    where = "" if mesh is None else f" on mesh {mesh.shape}"
+    say(f"[{cfg.name}] warmed {n_shapes} shapes over {len(tiers)} tiers"
+        f"{where} in {clock.now() - t0:.1f}s")
 
     mix = (("exact", None, 0.3), ("balanced", None, 0.4),
            ("economy", None, 0.3))
@@ -83,19 +109,72 @@ def main():
     stats = EngineStats.from_results(results, engine.last_run_s)
 
     policy = "static" if args.static else "continuous"
-    print(f"[{cfg.name}] {policy}: {stats.n_requests} requests, "
-          f"{stats.total_tokens} tokens in {stats.duration_s:.2f}s "
-          f"-> {stats.tokens_per_s:.1f} tok/s")
-    print(f"  per-token latency p50 {stats.p50_ms_per_token:.1f}ms "
-          f"p95 {stats.p95_ms_per_token:.1f}ms; "
-          f"ttft p50 {stats.p50_ttft_ms:.1f}ms")
+    say(f"[{cfg.name}] {policy}: {stats.n_requests} requests, "
+        f"{stats.total_tokens} tokens in {stats.duration_s:.2f}s "
+        f"-> {stats.tokens_per_s:.1f} tok/s")
+    say(f"  per-token latency p50 {stats.p50_ms_per_token:.1f}ms "
+        f"p95 {stats.p95_ms_per_token:.1f}ms; "
+        f"ttft p50 {stats.p50_ttft_ms:.1f}ms")
     m = engine.metrics()
-    print(f"  peak concurrency {m['peak_concurrency']}; plan misses after "
-          f"warmup {m['steady_plan_misses']}")
+    say(f"  peak concurrency {m['peak_concurrency']}; plan misses after "
+        f"warmup {m['steady_plan_misses']}")
     for name, d in m["lanes"].items():
         tps = f"{d['tokens_per_s']:.1f}" if d["tokens_per_s"] else "-"
-        print(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s")
-    if engine.steady_plan_misses() != 0:
+        say(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s")
+    if mesh is not None:
+        say(f"  rank 0 collectives: {mesh.comm['calls']} calls, "
+            f"{mesh.comm['seconds']:.2f}s (host-staged gloo)")
+    return engine.steady_plan_misses() == 0
+
+
+def _rank_serve(rank, world, device, args, mp):
+    from .mesh import make_host_mesh
+
+    return serve(args, make_host_mesh(mp), device)
+
+
+def main():
+    ap = _parser()
+    args = ap.parse_args()
+    if args.mesh and args.mode not in ("hardware", "bit_exact"):
+        ap.error(f"--mode {args.mode} does not compose with --mesh: the "
+                 "mesh path runs the integer modes (hardware, bit_exact); "
+                 "the surrogate modes' noise and float sums are not "
+                 "ported to shards")
+    if args.ranks and not args.mesh:
+        ap.error("--ranks needs --mesh")
+    if not args.mesh:
+        ok = serve(args)
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        from .mesh import make_host_mesh
+
+        dev = torch.device(args.device or "cuda")
+        if dev.type == "cuda":
+            idx = int(os.environ.get("LOCAL_RANK", os.environ["RANK"])) \
+                % torch.cuda.device_count()
+            torch.cuda.set_device(idx)
+            dev = torch.device("cuda", idx)
+        dist.init_process_group("gloo",
+                                timeout=datetime.timedelta(seconds=300))
+        ok = serve(args, make_host_mesh(args.mesh), dev)
+        dist.destroy_process_group()
+    else:
+        if args.ranks < 1:
+            ap.error("--mesh outside torchrun needs --ranks N")
+        from .mesh import spawn
+
+        device = args.device or "cuda"
+        threads = (max(1, (os.cpu_count() or 1) // args.ranks)
+                   if device == "cpu" else None)
+        oks = spawn(_rank_serve, args.ranks, device=device,
+                    args=(args, args.mesh), threads=threads)
+        ok = all(oks)
+    if not ok:
         raise SystemExit("serving built new GEMM plans after warmup")
 
 

@@ -9,6 +9,10 @@ and are carried as a uint16 view, reinterpreted as ``torch.bfloat16``
 (bit for bit).  The stacked ``body`` leaves' leading layer axis becomes
 the per-layer list, and head-shaped attention weights are flattened to
 the 2-D (K, N) form cim_linear takes.
+
+`shard_params` cuts a full parameter dict (carried, or seeded by
+``LM.init``) to one rank's shards on a mesh, per
+models.transformer.param_layout (DECODE_RULES).
 """
 
 from __future__ import annotations
@@ -69,3 +73,24 @@ def cnn_params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
     package's ``init_cnn`` tree with numpy leaves: the same names, each
     ``Param.value`` carried bit for bit."""
     return {name: _tensor(leaf, device) for name, leaf in tree.items()}
+
+
+def shard_params(params: Dict[str, Any], cfg, mesh) -> Dict[str, Any]:
+    """This rank's parameters of a tensor-parallel LM on `mesh`: each
+    layer's attention and MLP weights cut to the contiguous block of its
+    coordinates (`param_layout`; whole heads, so local head i keeps the
+    GQA map onto local kv head i // (H/KV)), everything else whole.  The
+    full tensors are not kept."""
+    from repro_torch.parallel.sharding import shard
+
+    from .transformer import param_layout
+
+    layout = param_layout(cfg, mesh)
+    layers = []
+    for lp in params["layers"]:
+        out = {g: dict(v) for g, v in lp.items()}
+        for (g, name), spec in layout.items():
+            out[g][name] = shard(lp[g][name], spec, mesh)
+        layers.append(out)
+    return {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": layers}

@@ -5,18 +5,30 @@ every matmul in the model).
 Parameters are plain nested dicts of tensors.  Weights are 2-D (K, N):
 the JAX package's head-shaped attention weights arrive flattened
 (models/bridge.py).
+
+Under an ambient mesh (launch.mesh: ``with mesh:``) every rank holds its
+shards of the weights and of the activation rows, and `cim_linear` runs
+each matmul tensor-parallel: the integer modes through the dispatch
+engine's mesh path (one shard-local kernel, global scales, an exact
+int32 sum for a contraction-sharded weight), the float modes by hand
+(global fake-quant scales, a local float product, an f32 sum for a
+contraction-sharded weight: allclose to one device, not bitwise).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx_gemm import GemmParams, NoiseKey, model_matmul
+from repro_torch.core.approx_gemm import (MESH_MODES, GemmParams, NoiseKey,
+                                          model_matmul)
 from repro_torch.core.compiler import CiMConfig, compile_macro
+from repro_torch.core.quantization import qmax, scale_from_max
+from repro_torch.launch.mesh import ambient_mesh
+from repro_torch.parallel.sharding import P, axes_of, spec_entry
 
 # ---------------------------------------------------------------------------
 # Params
@@ -159,18 +171,89 @@ class CiMParams:
 
 @dataclasses.dataclass
 class CiMContext:
-    """Per-call CiM context: the static params and an optional surrogate
-    noise key (None: the deterministic term, as serving runs).
+    """Per-call CiM context: the static params, an optional surrogate
+    noise key (None: the deterministic term, as serving runs) and, under
+    a mesh, the partition specs of the named matmuls' (K, N) weights as
+    their shards were cut (`specs`, models.transformer.param_layout) and
+    the mesh axes the activation rows are split over (`row_axes`: the
+    data axes for a data-parallel slot pool, () for replicated rows).
     `child(name)` derives each named matmul's own key from (key,
     crc32(name)), as the reference folds the name into its JAX key."""
 
     p: CiMParams
     key: Optional[NoiseKey] = None
+    specs: Optional[Dict[str, P]] = None
+    row_axes: Tuple[str, ...] = ()
 
     def child(self, name: str) -> "CiMContext":
         if self.key is None:
             return self
-        return CiMContext(self.p, self.key.child(name))
+        return dataclasses.replace(self, key=self.key.child(name))
+
+
+def _tp_mesh_args(ctx: CiMContext, name: str):
+    """(mesh, x_spec, w_spec) of one matmul under the ambient mesh, or
+    None where nothing is split (no mesh; a whole weight and replicated
+    rows: every rank computes the same product).  The specs are stated,
+    not inferred: the rows on `ctx.row_axes`, the weight as it was cut,
+    x's K on the weight's K axes (a row-parallel layer's input is this
+    rank's slice of the heads or ff)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    w_spec = (ctx.specs or {}).get(name, P(None, None))
+    if w_spec == (None, None) and not ctx.row_axes:
+        return None
+    return mesh, P(spec_entry(ctx.row_axes), w_spec[0]), w_spec
+
+
+def _mesh_max(m: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """An elementwise max over the shards of `axes`, in m's dtype (the
+    exchange in f32, exact for bf16)."""
+    return mesh.all_reduce(m.to(torch.float32), "max", axes).to(m.dtype)
+
+
+def _fake_quant_at(x: torch.Tensor, m: torch.Tensor, bits: int):
+    """`fake_quant` with the max |x| `m` given (forward only)."""
+    scale = scale_from_max(m, bits).to(x.dtype)
+    return torch.clamp(torch.round(x / scale), -qmax(bits),
+                       qmax(bits)) * scale
+
+
+def _float_tp(x, w, quantized: bool, bits: int, mesh, x_spec, w_spec):
+    """A float-mode matmul on shards (the fake-quant QAT form of mode
+    "exact", or the plain product of mode "off"): the global scales as
+    max-reductions over the shards and the local product; for a
+    contraction-sharded weight the partial products are taken in f32,
+    summed in f32 over the weight's K axes and rounded to the activation
+    dtype once, as one device's dot rounds once.  The sum reassociates
+    the dot, so this is allclose to one device, not bitwise."""
+    wk = axes_of(w_spec[0])
+    if quantized:
+        x_axes = axes_of(x_spec[0]) + axes_of(x_spec[1])
+        x = _fake_quant_at(x, _mesh_max(x.abs().amax(), mesh, x_axes),
+                           bits)
+        cm = _mesh_max(w.abs().amax(dim=0, keepdim=True), mesh, wk)
+        w = _fake_quant_at(w, cm, bits).to(x.dtype)
+    if not wk:
+        return x @ w
+    d = x.to(torch.float32) @ w.to(torch.float32)
+    return mesh.all_reduce(d, "sum", wk).to(x.dtype)
+
+
+def _mesh_linear(x, w, ctx: CiMContext, name: str, mesh, x_spec, w_spec):
+    p = ctx.p
+    if p.mode == "off":
+        return _float_tp(x, w, False, p.bits, mesh, x_spec, w_spec)
+    gp, apply = p.routing(name)
+    if apply and p.mode in MESH_MODES:
+        return model_matmul(x, w, gp, apply=True, mesh=mesh, x_spec=x_spec,
+                            w_spec=w_spec, local=True)
+    if apply and p.mode != "exact":
+        raise NotImplementedError(
+            f"mode {p.mode!r} under a mesh is not ported: the integer modes "
+            f"{MESH_MODES} and the float modes exact and off run on shards")
+    return _float_tp(x, w, True, p.bits, mesh, x_spec, w_spec)
 
 
 def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
@@ -180,10 +263,15 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
     x: (..., K); w: (K, N).  Which kernel runs this matmul for the
     context's (family, mode, bits) and the operands' device is the
     dispatch engine's choice (core/approx_gemm.model_matmul); a context
-    key draws this matmul's surrogate noise from its own child key."""
+    key draws this matmul's surrogate noise from its own child key.
+    Under an ambient mesh x and w are this rank's shards and so is the
+    result (see the module docstring)."""
     assert w.dim() == 2, "cim_linear expects 2-D weights (flatten heads)"
     p = ctx.p
-    if p.mode == "off":
+    margs = _tp_mesh_args(ctx, name)
+    if margs is not None:
+        out = _mesh_linear(x, w, ctx, name, *margs)
+    elif p.mode == "off":
         out = x @ w
     else:
         key = ctx.child(name).key if name else ctx.key

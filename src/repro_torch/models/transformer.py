@@ -10,15 +10,30 @@ The CiM context (the paper's approximate execution) threads through
 every block.  The reference scans a stacked layer body; here the layers
 are a Python list and the stack is a loop.  MoE, MLA, recurrent and
 encoder layers and ``decode_multi`` are later slices.
+
+Under a mesh (``LM(cfg, mesh=...)``, launch.mesh) the model is
+tensor-parallel over the "model" axis: each rank holds its shards of the
+layer weights (`param_layout`, the JAX init's logical specs resolved
+under DECODE_RULES; models/bridge.shard_params cuts them), its heads'
+slice of attention and of the KV caches, and every matmul runs through
+`cim_linear`'s mesh path.  The embedding and the LM head stay whole on
+every rank (the reference shards them on the vocabulary; whole, they
+change no number, only memory).  `decode_step(data_parallel=True)` runs
+this rank's rows of a pool split over the data axes and returns the
+logits of the whole pool.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import (DECODE_RULES, P, axes_of,
+                                           axes_size, batch_axes,
+                                           logical_to_spec)
 
 from . import config as C
 from .attention import attention_block, init_attention, init_cache
@@ -50,12 +65,58 @@ def _init_layer(gen, cfg: ModelConfig, device) -> Dict[str, Any]:
     }
 
 
+def layer_specs(cfg: ModelConfig) -> Dict[Tuple[str, str], Tuple]:
+    """The logical specs of one layer's sharded parameters and the shapes
+    they are given over, as the JAX package's init gives them (its
+    attention weights head-shaped: a "heads" dim is cut by whole heads);
+    norms, q/k norms, the embedding and the LM head stay whole."""
+    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim_, cfg.d_ff)
+    specs = {("attn", "wq"): (("embed", "heads", None), (d, h, hd)),
+             ("attn", "wk"): (("embed", "heads", None), (d, kv, hd)),
+             ("attn", "wv"): (("embed", "heads", None), (d, kv, hd)),
+             ("attn", "wo"): (("heads", None, "embed"), (h, hd, d))}
+    if cfg.qkv_bias:
+        specs[("attn", "bq")] = (("heads", None), (h, hd))
+        specs[("attn", "bk")] = (("heads", None), (kv, hd))
+        specs[("attn", "bv")] = (("heads", None), (kv, hd))
+    specs[("mlp", "wi")] = (("embed", "ff"), (d, ff))
+    if cfg.act == "swiglu":
+        specs[("mlp", "wg")] = (("embed", "ff"), (d, ff))
+    specs[("mlp", "wo")] = (("ff", "embed"), (ff, d))
+    return specs
+
+
+def param_layout(cfg: ModelConfig, mesh,
+                 rules=DECODE_RULES) -> Dict[Tuple[str, str], P]:
+    """Each sharded layer parameter's partition spec over the port's
+    tensor (the head-shaped (D, H, hd) / (H, hd, D) specs merged onto the
+    flattened (D, H*hd) / (H*hd, D) weights: contiguous blocks of whole
+    heads)."""
+    out = {}
+    for key, (logical, shape) in layer_specs(cfg).items():
+        r = logical_to_spec(logical, shape, mesh, rules)
+        if key in (("attn", "wq"), ("attn", "wk"), ("attn", "wv")):
+            r = P(r[0], r[1])
+        elif key == ("attn", "wo"):
+            r = P(r[0], r[2])
+        out[key] = r
+    return out
+
+
+# the cim_linear names of one layer's weights
+_LINEARS = {("attn", "wq"): "wq", ("attn", "wk"): "wk", ("attn", "wv"): "wv",
+            ("attn", "wo"): "wo", ("mlp", "wi"): "mlp_wi",
+            ("mlp", "wg"): "mlp_wg", ("mlp", "wo"): "mlp_wo"}
+
+
 def _apply_layer(params, x, cfg: ModelConfig, ctx: CiMContext, positions,
-                 cache, valid=None):
-    """Returns (x, new_cache)."""
+                 cache, valid=None, heads=None):
+    """Returns (x, new_cache); `heads` = this rank's (query, kv) heads."""
+    n_heads, n_kv = heads or (cfg.n_heads, cfg.n_kv_heads)
     h = apply_norm(params["norm1"], x, cfg.norm)
     a, new_cache = attention_block(
-        params["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        params["attn"], h, n_heads=n_heads, n_kv_heads=n_kv,
         head_dim=cfg.head_dim_, rope_fraction=cfg.rope_fraction,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, ctx=ctx,
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
@@ -66,13 +127,40 @@ def _apply_layer(params, x, cfg: ModelConfig, ctx: CiMContext, positions,
 
 
 class LM:
-    """Dense LM on one device (CUDA unless ``device="cpu"``)."""
+    """Dense LM on one device (CUDA unless ``device="cpu"``), or one
+    rank's part of a tensor-parallel LM on a mesh."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, mesh=None):
         check_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cim = CiMParams.from_config(cfg.cim)
+        self.mesh = mesh
+        self.specs = None                 # cim_linear name -> (K, N) spec
+        self.heads = (cfg.n_heads, cfg.n_kv_heads)
+        self.row_axes: Tuple[str, ...] = ()
+        if mesh is not None:
+            if self.cim.attn:
+                raise ValueError(
+                    "CiM attention under a mesh is not supported (the "
+                    "reference keeps it off there): build the mesh lanes "
+                    "without attn=True")
+            layout = param_layout(cfg, mesh)
+            self.specs = {_LINEARS[k]: v for k, v in layout.items()
+                          if k in _LINEARS}
+            nq = axes_size(mesh, axes_of(self.specs["wq"][1]))
+            nkv = axes_size(mesh, axes_of(self.specs["wk"][1]))
+            if nq != nkv:
+                raise ValueError(
+                    f"{cfg.name}: {cfg.n_heads} query heads and "
+                    f"{cfg.n_kv_heads} kv heads split unevenly over the "
+                    f"model axis ({dict(mesh.shape)}); the GQA map needs "
+                    "both split alike")
+            self.heads = (cfg.n_heads // nq, cfg.n_kv_heads // nkv)
+            self.row_axes = batch_axes(mesh)
+
+    def _mesh(self):
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
 
     # ---- init -----------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -94,19 +182,25 @@ class LM:
     def _embed(self, params, tokens):
         return params["embed"][tokens]
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, data_parallel: bool = False):
+        if data_parallel:               # the whole pool's rows, in order
+            x = self.mesh.all_gather(x, self.row_axes, 0)
         x = apply_norm(params["final_norm"], x, self.cfg.norm)
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["head"])
         return x @ w
 
-    def _run_stack(self, params, x, positions, caches, valid=None):
-        ctx = CiMContext(self.cim)
+    def _run_stack(self, params, x, positions, caches, valid=None,
+                   data_parallel: bool = False):
+        ctx = CiMContext(self.cim, specs=self.specs,
+                         row_axes=self.row_axes if data_parallel else ())
         new = []
-        for i, lp in enumerate(params["layers"]):
-            c = None if caches is None else caches["layers"][i]
-            x, c2 = _apply_layer(lp, x, self.cfg, ctx, positions, c, valid)
-            new.append(c2)
+        with self._mesh():
+            for i, lp in enumerate(params["layers"]):
+                c = None if caches is None else caches["layers"][i]
+                x, c2 = _apply_layer(lp, x, self.cfg, ctx, positions, c,
+                                     valid, self.heads)
+                new.append(c2)
         return x, (None if caches is None else {"layers": new})
 
     # ---- scoring --------------------------------------------------------
@@ -120,8 +214,9 @@ class LM:
 
     # ---- serving --------------------------------------------------------
     def init_caches(self, batch: int, max_len: int, per_slot: bool = False):
+        """Caches of `batch` rows for this rank's kv heads."""
         cfg = self.cfg
-        return {"layers": [init_cache(batch, max_len, cfg.n_kv_heads,
+        return {"layers": [init_cache(batch, max_len, self.heads[1],
                                       cfg.head_dim_, self.device,
                                       per_slot=per_slot)
                            for _ in range(cfg.n_layers)]}
@@ -156,17 +251,25 @@ class LM:
             logits = self._logits(params, x[rows, last][:, None])
         return logits, caches
 
-    def decode_step(self, params, caches, tokens, pos):
+    def decode_step(self, params, caches, tokens, pos,
+                    data_parallel: bool = False):
         """tokens: (B, 1); pos: scalar (lockstep: one position shared by
         the batch) or (B,) (slot pool: each row at its own position).
-        The caches are updated in place and returned."""
+        The caches are updated in place and returned.
+
+        `data_parallel` (a mesh LM): the B rows are this rank's block of
+        a pool split over the data axes (its caches' rows); the logits
+        returned are the whole pool's, the same on every rank."""
+        if data_parallel and self.mesh is None:
+            raise ValueError("data_parallel decoding needs a mesh LM")
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         positions = pos[:, None] if pos.dim() else pos.reshape(1, 1).expand(
             b, 1)
         x, caches = self._run_stack(params, self._embed(params, tokens),
-                                    positions, caches)
-        return self._logits(params, x), caches
+                                    positions, caches,
+                                    data_parallel=data_parallel)
+        return self._logits(params, x, data_parallel), caches
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -5,4 +5,5 @@ from .engine import (AdmissionRejected, EngineStats, LaneHealthError,  # noqa: F
                      LMLaneBackend, Request, RequestResult, ServingEngine,
                      build_engine, servable_archs)
 from .tiers import AccuracyTier, TierRouter, build_tiers  # noqa: F401
-from .workload import Clock, RealClock, SimClock, poisson_workload  # noqa: F401
+from .workload import (Clock, RealClock, SharedClock, SimClock,  # noqa: F401
+                       poisson_workload)

@@ -22,8 +22,19 @@ Three cooperating pieces:
     `steady_plan_misses()` (the dispatch engine's plan-cache misses
     since warmup) must stay 0 afterwards.
 
-Speculative decoding, sentinels, fault injection, telemetry and mesh
-execution are later slices of the port.
+With a mesh (``build_engine(mesh=...)``, launch.mesh) every rank of a
+("data", "model") process mesh runs the same engine: the weights are
+tensor-parallel over "model", each lane's slot pool is data-parallel
+(each data rank owns a contiguous block of ``n_slots / data`` slots and
+their caches), prefill groups run replicated on every data rank (each
+inserts only the rows of the slots it owns), and a decode round runs the
+local slots and hands every rank the whole pool's logits, so the
+replicated scheduler makes the same decisions everywhere.  With an
+integer-mode ladder the pool's logits equal the unsharded engine's bit
+for bit.
+
+Speculative decoding, sentinels, fault injection and telemetry are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -165,13 +176,20 @@ def servable_archs(smoke: bool = True) -> List[str]:
 
 class LMLaneBackend:
     """Slot-pool execution for one (LM, CiM tier): ragged group prefill,
-    cache insert, and full-pool decode, on the LM's device."""
+    cache insert, and full-pool decode, on the LM's device.
+
+    With `mesh` (the LM's, which must be built on it, with `params` this
+    rank's shards) the pool is data-parallel: this rank owns the slots
+    ``[slot0, slot0 + n_local)`` and holds only their caches."""
 
     def __init__(self, lm, params, *, n_slots: int, max_len: int,
                  prompt_buckets: Sequence[int] = (16, 32),
-                 group_buckets: Sequence[int] = (1, 2, 4)):
+                 group_buckets: Sequence[int] = (1, 2, 4), mesh=None):
         check_engine_arch(lm.cfg)
+        if mesh is not lm.mesh:
+            raise ValueError("the lane's mesh must be its LM's")
         self.lm, self.params = lm, params
+        self.mesh = mesh
         self.device = lm.device
         self.n_slots, self.max_len = int(n_slots), int(max_len)
         self.prompt_buckets = tuple(sorted(set(int(p) for p in
@@ -180,7 +198,15 @@ class LMLaneBackend:
                                               group_buckets)))
         if max(self.prompt_buckets) > self.max_len:
             raise ValueError("prompt bucket exceeds max_len")
-        self.caches = lm.init_caches(self.n_slots, self.max_len,
+        self.n_local, self.slot0 = self.n_slots, 0
+        if mesh is not None:
+            n_data = mesh.axes_size(lm.row_axes)
+            if self.n_slots % n_data:
+                raise ValueError(f"{self.n_slots} slots do not split over "
+                                 f"the {n_data} data ranks")
+            self.n_local = self.n_slots // n_data
+            self.slot0 = mesh.index(lm.row_axes) * self.n_local
+        self.caches = lm.init_caches(self.n_local, self.max_len,
                                      per_slot=True)
         self.slot_tokens = np.zeros(self.n_slots, np.int64)
         self.slot_pos = np.zeros(self.n_slots, np.int64)
@@ -229,12 +255,16 @@ class LMLaneBackend:
         for i, pr in enumerate(prompts):
             toks[i, :len(pr)] = pr
             lens[i] = len(pr)
+        # this rank's slots (all of them without a mesh): the group runs
+        # whole on every data rank, each keeping the rows it owns
+        own = [(i, sl - self.slot0) for i, sl in enumerate(slots)
+               if self.slot0 <= sl < self.slot0 + self.n_local]
         with torch.inference_mode():
             logits, grp = self.lm.prefill(self.params, {
                 "tokens": torch.as_tensor(toks, device=self.device),
                 "lengths": torch.as_tensor(lens, device=self.device),
                 "max_len": self.max_len})
-            self._insert(grp, list(range(g)), list(slots))
+            self._insert(grp, [i for i, _ in own], [j for _, j in own])
         first, lg = self._greedy(logits)
         self.last_prefill_logits = lg[:g]
         for i, sl in enumerate(slots):
@@ -244,13 +274,18 @@ class LMLaneBackend:
 
     def decode_round(self) -> np.ndarray:
         """One greedy decode step for the whole pool (idle slots ride
-        along masked by their own fill level; their output is ignored)."""
-        tok = torch.as_tensor(self.slot_tokens[:, None], device=self.device)
-        pos = torch.as_tensor(self.slot_pos.astype(np.int32),
+        along masked by their own fill level; their output is ignored).
+        On a mesh this rank runs its own slots and gets every slot's
+        logits back."""
+        mine = slice(self.slot0, self.slot0 + self.n_local)
+        tok = torch.as_tensor(self.slot_tokens[mine, None],
+                              device=self.device)
+        pos = torch.as_tensor(self.slot_pos[mine].astype(np.int32),
                               device=self.device)
         with torch.inference_mode():
-            logits, self.caches = self.lm.decode_step(self.params,
-                                                      self.caches, tok, pos)
+            logits, self.caches = self.lm.decode_step(
+                self.params, self.caches, tok, pos,
+                data_parallel=self.mesh is not None)
         nxt, lg = self._greedy(logits)
         self.slot_tokens = nxt.astype(np.int64)
         self.slot_pos += 1
@@ -582,15 +617,21 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
                  token_budget: Optional[int] = None,
                  record_logits: bool = False,
                  max_queued: Optional[int] = None,
-                 seed: int = 0, device=None) -> ServingEngine:
+                 seed: int = 0, device=None, mesh=None) -> ServingEngine:
     """One lane per accuracy tier over shared weights, on `device` (CUDA
     unless ``device="cpu"``).
 
     `cfg` is a ModelConfig (its own `cim` field is ignored — each lane
     replaces it with its tier's CiMConfig); `params` defaults to a
     seeded random init on the device (weights are tier-independent, so
-    every lane shares them).  `tiers` defaults to the DSE ladder."""
+    every lane shares them).  `tiers` defaults to the DSE ladder.
+
+    With `mesh` (every rank of it calls this alike, with the same full
+    `params` or seed) the weights are cut to this rank's shards and each
+    lane's pool is data-parallel (see the module docstring); every rank
+    then drives the engine with the same workload."""
     from repro_torch.device import resolve_device
+    from repro_torch.models.bridge import shard_params
     from repro_torch.models.transformer import LM
 
     from .tiers import TierRouter, build_tiers
@@ -601,12 +642,15 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
         tiers = build_tiers()
     if params is None:
         params = LM(cfg, dev).init(seed)
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
     lanes = {}
     for tier in tiers:
-        lm = LM(dataclasses.replace(cfg, cim=tier.cim), dev)
+        lm = LM(dataclasses.replace(cfg, cim=tier.cim), dev, mesh=mesh)
         lanes[tier.name] = LMLaneBackend(
             lm, params, n_slots=slots_per_tier, max_len=max_len,
-            prompt_buckets=prompt_buckets, group_buckets=group_buckets)
+            prompt_buckets=prompt_buckets, group_buckets=group_buckets,
+            mesh=mesh)
     return ServingEngine(lanes, TierRouter(tiers), continuous=continuous,
                          token_budget=token_budget,
                          record_logits=record_logits, max_queued=max_queued)

@@ -67,6 +67,25 @@ class SimClock(Clock):
         self.t = max(self.t, t)
 
 
+class SharedClock(Clock):
+    """One time for every rank of a mesh: `now` is the latest of the
+    ranks' own clocks (a max over the mesh), so that each rank's
+    replicated scheduler admits the same requests at the same step of a
+    real-clock run.  Waiting waits on the rank's own clock."""
+
+    def __init__(self, clock: Clock, mesh):
+        self.clock, self.mesh = clock, mesh
+
+    def now(self) -> float:
+        import torch
+
+        t = torch.tensor(self.clock.now(), dtype=torch.float64)
+        return float(self.mesh.all_reduce(t, "max", self.mesh.axis_names))
+
+    def wait_until(self, t: float) -> None:
+        self.clock.wait_until(t)
+
+
 def poisson_workload(n_requests: int, rate: float, vocab: int,
                      prompt_len: Tuple[int, int] = (8, 16),
                      max_new: Tuple[int, int] = (4, 32),

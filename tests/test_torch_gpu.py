@@ -575,3 +575,162 @@ def test_engine_serves_the_surrogate_ladder_on_the_card():
         assert len(res[r.rid].tokens) == r.max_new
     assert eng.steady_plan_misses() == 0
     assert cim_gemm.KERNELS["cim_gemm_fused"].launches > before
+
+
+# ---------------------------------------------------------------------------
+# the mesh path's partial kernels (deferred epilogue, raw int32 out)
+# ---------------------------------------------------------------------------
+
+# the contraction-sharded wo and mlp.wo of qwen3-1.7b at model = 2, and a
+# ragged shape
+PARTIAL_SHAPES = [(4, 1024, 2048), (64, 3072, 2048), (33, 70, 17)]
+
+
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES, ids=str)
+def test_partial_kernels_bitwise_equal_plain_versions(shape):
+    dev = _card()
+    x, w, _, _ = _ops(*shape, dev, seed=11)
+    lut = ops.lut_table(BALANCED, dev)
+    subs = ops.nibble_table(MultiplierSpec("exact", 8, True), dev)
+    sx, sw = ops._scales(x, w, 8)
+    pairs = [
+        (approx_matmul.lut_matmul_partial(x, w, lut, sx, sw),
+         approx_matmul.lut_matmul_partial_plain(x, w, lut, sx, sw),
+         approx_matmul.lut_matmul_fused(x, w, lut, sx, sw)),
+        (approx_matmul.nibble_lut_matmul_partial(x, w, subs, sx, sw),
+         approx_matmul.nibble_lut_matmul_partial_plain(x, w, subs, sx, sw),
+         approx_matmul.nibble_lut_matmul_fused(x, w, subs, sx, sw))]
+    for comp in (False, True):
+        pairs.append((
+            mitchell_gemm.mitchell_matmul_partial(x, w, sx, sw,
+                                                  compensated=comp),
+            mitchell_gemm.mitchell_matmul_partial_plain(x, w, sx, sw,
+                                                        compensated=comp),
+            mitchell_gemm.mitchell_matmul_fused(x, w, sx, sw,
+                                                compensated=comp)))
+    torch.cuda.synchronize()
+    for got, want, fused in pairs:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        # the fused kernel is the partial one and the epilogue
+        assert torch.equal(approx_matmul.epilogue(got, sx, sw), fused)
+
+
+def test_nibble_partial_clips_below_the_int8_minimum():
+    """Scales supplied by the caller may quantize an operand past -qmax
+    (-255 here): it clips to -127, and the nibble core's saturation of
+    |-128| is never reached, on the card as in the plain version."""
+    dev = _card()
+    x, w, _, _ = _ops(8, 64, 16, dev, seed=12)
+    sx, sw = ops._scales(x, w, 8)
+    x[:, 0] = -2.0 * float(x.abs().max())
+    subs = ops.nibble_table(MultiplierSpec("exact", 8, True), dev)
+    got = approx_matmul.nibble_lut_matmul_partial(x, w, subs, sx, sw)
+    want = approx_matmul.nibble_lut_matmul_partial_plain(x, w, subs, sx, sw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS, ids=str)
+def test_conv_partial_kernels_bitwise_equal_plain_versions(geom):
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    b, h, w, c, n, kh, kw, s = geom
+    g = torch.Generator(device=dev).manual_seed(sum(geom) + 1)
+    x = torch.rand(b, h, w, c, generator=g, device=dev)
+    w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+    sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+    geo = dict(kh=kh, kw=kw, stride=s)
+    cases = [(ops.lut_table(MultiplierSpec("appro42", 8, True), dev), False)]
+    cases += [(ops.nibble_table(sp, dev), True) for sp in NIBBLE]
+    for table, nib in cases:
+        got = conv_gemm.conv_lut_partial(x, w3, table, sx, sw, nibble=nib,
+                                         **geo)
+        want = conv_gemm.conv_lut_partial_plain(x, w3, table, sx, sw,
+                                                nibble=nib, **geo)
+        fused = conv_gemm.conv_lut_fused(x, w3, table, sx, sw, nibble=nib,
+                                         **geo)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), nib
+        assert torch.equal((got.float() * sx) * sw, fused), nib
+    for comp in (False, True):
+        got = conv_gemm.conv_log_partial(x, w3, sx, sw, compensated=comp,
+                                         **geo)
+        want = conv_gemm.conv_log_partial_plain(x, w3, sx, sw,
+                                                compensated=comp, **geo)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), comp
+
+
+def test_partial_wrappers_raise_on_what_the_kernels_do_not_take():
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    x, w, _, _ = _ops(8, 64, 16, dev)
+    sx, sw = ops._scales(x, w, 8)
+    lut = ops.lut_table(BALANCED, dev)
+    with pytest.raises(ValueError, match="f32/bf16"):
+        approx_matmul.lut_matmul_partial(x.int(), w, lut, sx, sw)
+    with pytest.raises(ValueError, match="sw must be"):
+        mitchell_gemm.mitchell_matmul_partial(x, w, sx, sw[:3])
+    with pytest.raises(ValueError, match="devices"):
+        approx_matmul.nibble_lut_matmul_partial(
+            x, w.cpu(), ops.nibble_table(MultiplierSpec("exact", 8, True),
+                                         dev), sx, sw)
+    x4 = torch.rand(2, 6, 6, 4, device=dev)
+    w3 = torch.randn(9, 4, 5, device=dev)
+    s4, s5 = ops._scales(x4, w3.reshape(-1, 5), 8)
+    with pytest.raises(ValueError, match="f32 operands"):
+        conv_gemm.conv_log_partial(x4.to(torch.bfloat16), w3, s4, s5)
+
+
+def _mesh_rank(rank, world, dev):
+    """One rank of a (2, 2) mesh on the card: the mesh GEMM and conv
+    against the single-device call, and which kernels each layout ran."""
+    from repro_torch.core import approx_gemm as ag
+    from repro_torch.kernels import conv_gemm as cg
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import P
+
+    mesh = make_host_mesh(2)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(8, 256, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(256, 128, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    out = {}
+    kernels = {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS,
+               **cg.KERNELS}
+    for fam, extra in (("appro42", dict(compressor="orplane",
+                                         n_approx_cols=10)),
+                       ("mitchell", {})):
+        gp = GemmParams(family=fam, bits=8, mode="hardware", **extra)
+        base = model_matmul(x, w, gp)
+        for lname, xs, ws in (("K", P("data", "model"), P("model", None)),
+                              ("N", P("data", None), P(None, "model"))):
+            before = {k: v.launches for k, v in kernels.items()}
+            got = model_matmul(x, w, gp, mesh=mesh, x_spec=xs, w_spec=ws)
+            ran = sorted(k for k, v in kernels.items()
+                         if v.launches > before[k])
+            out[f"{fam}/{lname}"] = (bool(torch.equal(got, base)), ran)
+    x4 = torch.rand(4, 8, 8, 16, generator=g, device=dev)
+    w2 = torch.randn(9 * 16, 8, generator=g, device=dev)
+    gp = GemmParams(family="log_our", bits=8, mode="hardware")
+    base = ag.cim_conv2d(x4, w2, gp)
+    for lname, ws in (("C", P("model", None)), ("N", P(None, "model"))):
+        got = ag.cim_conv2d(x4, w2, gp, mesh=mesh,
+                            x_spec=P("data", None, None, None), w_spec=ws)
+        out[f"conv/{lname}"] = (bool(torch.equal(got, base)), [])
+    return out
+
+
+def test_mesh_on_the_card_runs_the_partial_kernels():
+    from repro_torch.launch.mesh import spawn
+
+    _card()
+    res = spawn(_mesh_rank, 4, device="cuda", timeout=300)
+    for r in res:
+        assert all(ok for ok, _ in r.values()), r
+        assert r["appro42/K"][1] == ["lut_matmul_partial"]
+        assert r["appro42/N"][1] == ["lut_matmul_fused"]
+        assert r["mitchell/K"][1] == ["mitchell_matmul_partial"]
+        assert r["mitchell/N"][1] == ["mitchell_matmul_fused"]

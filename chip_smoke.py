@@ -7,7 +7,7 @@ Phases, each of which must pass (the script exits nonzero otherwise):
 
   1. device: the card's name and count, and ``nvidia-smi``'s name and
      power limit;
-  2. build: the six CUDA sources (src/repro_torch/kernels/csrc)
+  2. build: the seven CUDA sources (src/repro_torch/kernels/csrc)
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
      report; the log kernels' product loop read from their SASS
      (``cuobjdump``), its instructions a product counted by pipe;
@@ -46,21 +46,29 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      ``conv_log_partial`` at the CNN's convs with C halved where it
      splits) bitwise against their plain versions and, through the
      epilogue, their fused forms (timed beside them), the nibble partial
-     also with an operand quantized past -qmax.  Each timed
+     also with an operand quantized past -qmax; and the fused sLSTM
+     recurrence (``slstm_scan``) at xlstm-125m's width (batch 4, 4 heads
+     of 192, T = 1, 37 and 512) and the smoke width (dh 16), from a zero
+     and from a nonzero state, h and the final state within the
+     tolerance kernels/slstm_scan.py states.  Each timed
      with CUDA events (L2 flushed before every launch), beside its plain
      version's time, a PyTorch call computing the same function where
      one exists (``torch._int_mm``, ``F.conv2d``), and the least time the
      card could take (the larger of the bytes the mask admits over 3.35
      TB/s and the products' shared-memory gathers, log-product
      instructions, int8 tensor-core operations or f32 FMAs over their
-     peak rates at the card's maximum SM clock);
+     peak rates at the card's maximum SM clock; the sLSTM bound leaves
+     out the serial dependency across T);
   4. reference: the LM on the card against the same LM on the CPU (the
      kernels' plain versions) on the smoke config, every tier of the
      hardware ladder with and without CiM attention, of the surrogate
      ladder (the card's approximate lanes run the fused surrogate
      kernel, the CPU's the plain torch_surrogate route), and a hardware
-     lane of appro42 with 4 approximate columns (the nibble GEMM), to a
-     stated tolerance with greedy-token agreement;
+     lane of appro42 with 4 approximate columns (the nibble GEMM), and
+     xlstm-125m-smoke on the hardware ladder (prefill + 4 decode steps,
+     every sLSTM call through ``slstm_scan``), to a stated tolerance with
+     greedy-token agreement; then the norm's row-count invariance (rows
+     0-1 of 4 normed alone, bitwise, at d = 2048 and 768);
   5. serve: ``build_engine`` over the hardware-mode ladder (exact /
      balanced / economy) on full-size qwen3-1.7b with seeded random
      weights, warmup, then a Poisson workload served twice under a
@@ -70,7 +78,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      decode round and one prefill per lane on the host clock, and one
      decode round per lane under torch.profiler (kernels, device busy
      time and idle share, device time by kernel class; three rounds,
-     the median and the spread printed);
+     the median and the spread printed, each beside its CUDA-event span;
+     a profile that saw fewer of the port's kernels than the launch
+     counters say the call launched is printed, left out and made again,
+     at most twice more; so in phases 6-8 and 10);
   6. serve with CiM attention: the same over ``build_tiers(mode=
      "hardware", attn=True)`` on all 28 layers, 320-token slots and a
      256-token prompt bucket, prompts of 130-250 tokens (so prefill spans
@@ -121,7 +132,22 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      misses after warmup on any rank, 56 partial and 140 fused kernel
      launches per approximate-lane forward on every rank, the same
      logits on every rank; per lane one decode round's time and the
-     collectives' share.  Any rank that fails or hangs fails the phase.
+     collectives' share.  The exact lane's first decode step is walked
+     GEMM by GEMM (every rank's shards reassembled against the unsharded
+     engine): the first GEMM whose fake-quantized input codes move is
+     printed, and every GEMM before it must agree within the f32
+     reassociation bound of the float tensor-parallel product.  Any rank
+     that fails or hangs fails the phase;
+ 10. xLSTM: full-size xlstm-125m (12 layers, d 768, vocab 50304, seeded
+     weights) on each lane of ``build_tiers(mode="hardware")``: batch 4,
+     a 512-token prefill and 32 lockstep greedy decode steps; finite
+     logits, tokens identical when the lane runs again, per forward 4
+     ``slstm_scan`` launches on every lane and 48 ``lut_matmul_fused``
+     (balanced) or ``mitchell_matmul_fused`` (economy) launches and
+     nothing else; prefill and decode-step time, tokens/s, peak memory
+     and one profiled decode step per lane; then with ``cim=None``
+     prefill + decode against the teacher-forced prefill of each prefix
+     (the reference's 0.12).
 
 ``--layers`` cuts the depth of phase 5 only (the cut is printed).
 
@@ -225,6 +251,8 @@ SOURCES = {
                          "src/repro/kernels/conv_gemm.py:259"),
     "conv_log_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                          "src/repro/kernels/conv_gemm.py:343"),
+    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
+                   "src/repro/kernels/slstm_scan.py:71"),
 }
 # the mesh path's partial kernels, timed at the shard-local shapes of the
 # contraction-sharded wo and mlp.wo at model = 2
@@ -1106,8 +1134,134 @@ def check_attention(torch, sms: int, clock_hz: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, sLSTM: the fused recurrence against its plain version
+# ---------------------------------------------------------------------------
+
+# (B, nh, dh, T): xlstm-125m's width (4 heads of 192, phase 10's batch of
+# 4) at a decode step, a ragged length and phase 10's 512-token prefill,
+# all timed; the smoke width (dh 16) and a ragged row tile, checked only
+SLSTM_FULL = [(4, 4, 192, t) for t in (1, 37, 512)]
+SLSTM_SMOKE = [(2, 4, 16, 24), (5, 4, 16, 9)]
+
+
+def _slstm_bound(b, nh, dh, t, sms, clock_hz):
+    """(bound_ms, bound_by): u, r, the bias and the initial state read
+    once and h and the final state written once (f32) at 3.35 TB/s,
+    against the recurrent matvec's B T nh dh 4dh f32 FMAs at 128 a clock
+    per SM.  The serial dependency across T is not in it: step t + 1
+    needs every h of step t."""
+    d = nh * dh
+    nbytes = 4 * (b * t * 4 * d + nh * dh * 4 * dh + 4 * d + 4 * b * d
+                  + b * t * d + 4 * b * d)
+    ops_s = b * t * nh * dh * 4 * dh / (sms * FP32_FMA_PER_SM_CLOCK
+                                        * clock_hz)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def check_slstm(torch, sms: int, clock_hz: float):
+    """`slstm_scan` against its plain version from a zero and from a
+    nonzero state, h and the final (c, n, h, m) within the tolerance
+    kernels/slstm_scan.py states; the full-width cases timed."""
+    from repro_torch.kernels import ref, slstm_scan
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    rows = {"slstm_scan": []}
+    print(f"  tolerance: h, m within {slstm_scan.ATOL:g}; c, n within "
+          f"{slstm_scan.ATOL:g} + {slstm_scan.STATE_RTOL:g} |plain|",
+          flush=True)
+    print(f"  {'B,nh,dh,T':>16} {'start':<6} {'max|dh|':>9} "
+          f"{'max|dstate|':>11} {'ms':>9} {'bound_ms':>9} {'by':>10} "
+          f"{'plain_ms':>9}", flush=True)
+    for shape in SLSTM_FULL + SLSTM_SMOKE:
+        b, nh, dh, t = shape
+        for start in ("zero", "state"):
+            g = torch.Generator(device=dev).manual_seed(b * t + dh)
+            u = torch.randn(b, t, 4 * nh * dh, generator=g, device=dev)
+            r = torch.randn(nh, dh, 4 * dh, generator=g, device=dev) * 0.05
+            bias = torch.randn(nh, 4 * dh, generator=g, device=dev) * 0.1
+            state = None
+            if start == "state":            # as a run leaves it
+                sh = (b, nh, dh)
+                state = (torch.rand(sh, generator=g, device=dev) * 2 - 1,
+                         torch.rand(sh, generator=g, device=dev) * 1.5 + 0.5,
+                         torch.rand(sh, generator=g, device=dev) - 0.5,
+                         torch.rand(sh, generator=g, device=dev) * 2 - 1)
+            got = slstm_scan.slstm_scan(u, r, bias, nh, state)
+            want = ref.slstm_scan_ref(u, r, bias, nh, state)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max())
+            serr = max(float((a - w).abs().max())
+                       for a, w in zip(got[1], want[1]))
+            if not slstm_scan.close(got, want) or not torch.isfinite(
+                    got[0]).all():
+                fail(f"slstm_scan {shape} from {start}: kernel != plain "
+                     f"version (max |dh| {err}, max |dstate| {serr})")
+            row = {"shape": shape, "variant": start,
+                   "max_abs_err": max(err, serr)}
+            if shape in SLSTM_FULL:
+                row["ms"] = _timed_ms(torch, lambda: slstm_scan.slstm_scan(
+                    u, r, bias, nh, state), 10, flush)
+                row["plain_ms"] = _timed_ms(
+                    torch, lambda: ref.slstm_scan_ref(u, r, bias, nh, state),
+                    1, flush)
+                row["bound_ms"], row["bound_by"] = _slstm_bound(
+                    b, nh, dh, t, sms, clock_hz)
+            rows["slstm_scan"].append(row)
+            timed = (f"{row['ms']:9.4f} {row['bound_ms']:9.4f} "
+                     f"{row['bound_by']:>10} {row['plain_ms']:9.3f}"
+                     if "ms" in row else "")
+            print(f"  {str(shape):>16} {start:<6} {err:9.2e} {serr:11.2e} "
+                  f"{timed}", flush=True)
+    print("  slstm_scan: every case within the tolerance; library call: "
+          "none (no PyTorch call computes this recurrence: torch.nn.LSTM's "
+          "cell has no exponential gating or normaliser); the bound leaves "
+          "out the serial dependency across T", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the LM on the card against the LM on the CPU (small input)
 # ---------------------------------------------------------------------------
+
+
+def _card_vs_cpu(torch, name, cpu, gpu, params_cpu, params_gpu, toks, tol,
+                 steps):
+    """Prefill + `steps` greedy decode steps (the CPU's token fed to
+    both) on the card and on the CPU: (max |logit diff|, near-ties),
+    failing beyond `tol`, on a non-finite logit, or on another greedy
+    token where the CPU's top-2 gap exceeds `tol`."""
+    s = toks.shape[1]
+    with torch.inference_mode():
+        lc, cc = cpu.prefill(params_cpu, {"tokens": toks, "max_len": 16})
+        lg, cg = gpu.prefill(params_gpu, {"tokens": toks.cuda(),
+                                          "max_len": 16})
+        worst, close = 0.0, 0
+        for step in range(steps + 1):
+            a = lc[:, -1].float()
+            b = lg[:, -1].float().cpu()
+            if not torch.isfinite(b).all():
+                fail(f"reference {name}: non-finite logits")
+            worst = max(worst, float((a - b).abs().max()))
+            if worst > tol:
+                fail(f"reference {name} step {step}: max |card - cpu| "
+                     f"{worst} > {tol}")
+            top2 = a.topk(2, dim=-1).values
+            for i in range(a.shape[0]):
+                if top2[i, 0] - top2[i, 1] > tol:
+                    if int(b[i].argmax()) != int(a[i].argmax()):
+                        fail(f"reference {name}: greedy token differs at "
+                             f"step {step} row {i}")
+                else:
+                    close += 1
+            if step == steps:
+                break
+            tok = a.argmax(-1, keepdim=True)
+            lc, cc = cpu.decode_step(params_cpu, cc, tok, s + step)
+            lg, cg = gpu.decode_step(params_gpu, cg, tok.cuda(), s + step)
+    return worst, close
 
 
 def check_reference(torch):
@@ -1136,36 +1290,9 @@ def check_reference(torch):
                 + (" surrogate" if tier.cim.mode == "surrogate" else ""))
         nib0, surr0 = nibble_kernel.launches, surr_kernel.launches
         c = dataclasses.replace(cfg, cim=tier.cim)
-        cpu, gpu = LM(c, device="cpu"), LM(c, device="cuda")
-        tol = REF_TOL[tier.name]
-        with torch.inference_mode():
-            lc, cc = cpu.prefill(params_cpu, {"tokens": toks, "max_len": 16})
-            lg, cg = gpu.prefill(params_gpu, {"tokens": toks.cuda(),
-                                              "max_len": 16})
-            worst, close = 0.0, 0
-            for step in range(4):
-                a = lc[:, -1].float()
-                b = lg[:, -1].float().cpu()
-                if not torch.isfinite(b).all():
-                    fail(f"reference {name}: non-finite logits")
-                worst = max(worst, float((a - b).abs().max()))
-                if worst > tol:
-                    fail(f"reference {name} step {step}: max |card - "
-                         f"cpu| {worst} > {tol}")
-                top2 = a.topk(2, dim=-1).values
-                for i in range(a.shape[0]):
-                    if top2[i, 0] - top2[i, 1] > tol:
-                        if int(b[i].argmax()) != int(a[i].argmax()):
-                            fail(f"reference {name}: greedy token "
-                                 f"differs at step {step} row {i}")
-                    else:
-                        close += 1
-                if step == 3:
-                    break
-                tok = a.argmax(-1, keepdim=True)
-                lc, cc = cpu.decode_step(params_cpu, cc, tok, 8 + step)
-                lg, cg = gpu.decode_step(params_gpu, cg, tok.cuda(),
-                                         8 + step)
+        worst, close = _card_vs_cpu(
+            torch, name, LM(c, device="cpu"), LM(c, device="cuda"),
+            params_cpu, params_gpu, toks, REF_TOL[tier.name], 3)
         nib = nibble_kernel.launches - nib0
         surr = surr_kernel.launches - surr0
         if (tier is nibble_lane) != (nib > 0):
@@ -1175,9 +1302,67 @@ def check_reference(torch):
             fail(f"reference {name}: the fused surrogate kernel launched "
                  f"{surr} times")
         print(f"  {name:<19} card vs cpu: max |logit diff| {worst:.3e} "
-              f"<= {tol} ; greedy tokens equal ({close} near-ties under "
-              f"the gap rule); nibble GEMM launches {nib}, fused surrogate "
-              f"launches {surr}", flush=True)
+              f"<= {REF_TOL[tier.name]} ; greedy tokens equal ({close} "
+              f"near-ties under the gap rule); nibble GEMM launches {nib}, "
+              f"fused surrogate launches {surr}", flush=True)
+
+    # xlstm-125m-smoke on the hardware ladder: prefill + 4 decode steps,
+    # the sLSTM layer through the fused recurrence on every forward
+    cfg = get_config("xlstm-125m", smoke=True)
+    params_cpu = LM(cfg, device="cpu").init(0)
+    params_gpu = _to(torch, params_cpu, "cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 8), generator=rng_tokens)
+    scan = _kernel_modules()["slstm_scan"]
+    n_slstm = cfg.layer_pattern.count("slstm")
+    for tier in build_tiers(mode="hardware"):
+        c = dataclasses.replace(cfg, cim=tier.cim)
+        n0 = scan.launches
+        worst, close = _card_vs_cpu(
+            torch, f"{cfg.name} {tier.name}", LM(c, device="cpu"),
+            LM(c, device="cuda"), params_cpu, params_gpu, toks,
+            REF_TOL[tier.name], 4)
+        if scan.launches - n0 != 5 * n_slstm:
+            fail(f"reference {cfg.name} {tier.name}: slstm_scan launched "
+                 f"{scan.launches - n0} times in 5 forwards, expected "
+                 f"{5 * n_slstm}")
+        print(f"  {cfg.name} {tier.name:<9} card vs cpu: max |logit diff| "
+              f"{worst:.3e} <= {REF_TOL[tier.name]} ; greedy tokens equal "
+              f"({close} near-ties under the gap rule); slstm_scan "
+              f"launches {scan.launches - n0}", flush=True)
+
+
+def check_norm_rows(torch):
+    """The norm's row-count invariance on the card: over 64 bf16 inputs
+    of 4 rows at d = 2048, 768, 1536 and 128 (qwen3's width, xlstm's,
+    the mLSTM's inner width, qwen3's head width), the mean square of
+    rows 0-1 alone (a data rank's share of the pool) against the 4-row
+    one, for the port's `row_mean_square` (must be bitwise) and, for
+    the record, one wide torch.mean (what the norm used before)."""
+    from repro_torch.models.common import rms_norm, row_mean_square
+
+    dev = torch.device("cuda")
+    for d in (2048, 768, 1536, 128):
+        g = torch.Generator(device=dev).manual_seed(d)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
+            torch.bfloat16)
+        moved = {"row_mean_square": 0, "rms_norm": 0, "torch.mean": 0}
+        for _ in range(64):
+            x = (torch.randn(4, d, generator=g, device=dev) * 3).to(
+                torch.bfloat16).float()
+            two = x[:2].clone()
+            moved["row_mean_square"] += not torch.equal(
+                row_mean_square(two), row_mean_square(x)[:2])
+            moved["rms_norm"] += not torch.equal(
+                rms_norm(two.bfloat16(), w), rms_norm(x.bfloat16(), w)[:2])
+            moved["torch.mean"] += not torch.equal(
+                torch.mean(two * two, -1), torch.mean(x * x, -1)[:2])
+        if moved["row_mean_square"] or moved["rms_norm"]:
+            fail(f"rms_norm at d = {d}: rows 0-1 alone differ from the "
+                 f"4-row call ({moved})")
+        print(f"  norm rows, d = {d}: of 64 inputs, rows 0-1 alone differ "
+              f"from the 4-row call in {moved['row_mean_square']} mean "
+              f"squares and {moved['rms_norm']} norms (the port); one wide "
+              f"torch.mean differs in {moved['torch.mean']}", flush=True)
 
 
 def _to(torch, tree, device):
@@ -1200,10 +1385,11 @@ GEMMS_PER_LAYER = 7
 
 def _kernel_modules():
     from repro_torch.kernels import (approx_matmul, attn_gemm, cim_gemm,
-                                     conv_gemm, mitchell_gemm)
+                                     conv_gemm, mitchell_gemm, slstm_scan)
 
     return {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS,
-            **conv_gemm.KERNELS, **attn_gemm.KERNELS, **cim_gemm.KERNELS}
+            **conv_gemm.KERNELS, **attn_gemm.KERNELS, **cim_gemm.KERNELS,
+            **slstm_scan.KERNELS}
 
 
 def _launch_counts():
@@ -1652,7 +1838,12 @@ MESH_REQUESTS, MESH_SEED = 6, 0     # 2 exact, 2 balanced, 2 economy
 # to 127 levels, so that ulp can move a code by a whole level, and the 28
 # layers mix such moves: the two runs end as two draws of the lane's
 # quantization noise (measured on an H100: 7.7-10.8% of the step's
-# largest |logit| before the first differing token).  Its logits are held
+# largest |logit| before the first differing token).  `_exact_lane_codes`
+# checks that mechanism on every run: every GEMM before the first moved
+# code must stay within the f32 reassociation bound (on an H100 layer 0's
+# outputs reach 0.17 of it and the first codes move at layer 1's wo, so
+# the gap is that mechanism, and the measured gap leaves no room to
+# tighten the bound below 2^-3).  Its logits are held
 # to 2^-MESH_EXACT_LOG2 of the step's largest |logit| (12.5%, as
 # tests/test_torch_lm.py holds the integer tiers to 4e-2 at |logits| ~0.3
 # on the CPU for the same mechanism) up to each request's first differing
@@ -1672,6 +1863,143 @@ MESH_GEMMS = [("exact (nibble)", dict(family="exact", mode="hardware")),
 # the cim_linear GEMMs of one layer whose weight is contraction-sharded
 # (wo, mlp_wo: the partial kernels) and output-sharded (the fused ones)
 ROW_PARALLEL, COL_PARALLEL = 2, 5
+
+
+def _probe_exact_step(torch, eng, bound: bool):
+    """Record every cim_linear call of the exact lane's first decode step
+    on `eng` (installed after warmup): (name, x, out) as f32 numpy of
+    this rank's shards and, with `bound` (the unsharded engine: whole
+    operands), S = |fq(x)| @ |fq(w)|, the summed magnitudes of the
+    fake-quantized product.  The step's cim_linear is wrapped where the
+    qwen3 layers bind it (attention's wq/wk/wv/wo, the MLP's in
+    models/common).  Returns the list it fills."""
+    from repro_torch.core.quantization import fake_quant
+    from repro_torch.models import attention, common
+
+    rec = []
+    lm = eng.lanes["exact"].backend.lm
+    real, linear = lm.decode_step, common.cim_linear
+
+    def probed(x, w, ctx, name="", bias=None):
+        out = linear(x, w, ctx, name)
+        s_ = None
+        if bound:
+            s_ = (fake_quant(x, 8).abs().float()
+                  @ fake_quant(w, 8, axis=0).abs().float()).cpu().numpy()
+        rec.append((name, x.float().cpu().numpy(),
+                    out.float().cpu().numpy(), s_))
+        return out if bias is None else out + bias
+
+    def first_step(*a, **kw):
+        lm.decode_step = real
+        attention.cim_linear = common.cim_linear = probed
+        res = real(*a, **kw)
+        attention.cim_linear = common.cim_linear = linear
+        return res
+
+    lm.decode_step = first_step
+    return rec
+
+
+def _codes(torch, x):
+    """The int8 codes and the scale the exact lane's fake quantization
+    rounds a bf16 activation to (core.quantization.fake_quant, per
+    tensor; the mesh's global max gives the same scale)."""
+    from repro_torch.core.quantization import qmax, quant_scale
+
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    scale = quant_scale(t, 8).to(t.dtype)
+    return torch.clamp(torch.round(t / scale), -qmax(8), qmax(8)), scale
+
+
+def _gather_probe(ranked, i):
+    """Call i of the ranks' exact-step records, reassembled into the whole
+    operands: rows over "data" (a rank's block of the pool), a
+    row-parallel layer's input over "model" on K and a column-parallel
+    layer's output over "model" on N."""
+    by = {(o["coords"]["data"], o["coords"]["model"]): o["probe"][i]
+          for o in ranked}
+    name = by[(0, 0)][0]
+    row_par = name in ("wo", "mlp_wo")
+    xs, outs = [], []
+    for dd in range(MESH_SHAPE[0]):
+        parts = [by[(dd, m)] for m in range(MESH_SHAPE[1])]
+        xs.append(np.concatenate([p[1] for p in parts], axis=-1)
+                  if row_par else parts[0][1])
+        outs.append(parts[0][2] if row_par
+                    else np.concatenate([p[2] for p in parts], axis=-1))
+    return name, np.concatenate(xs, axis=0), np.concatenate(outs, axis=0)
+
+
+def _exact_lane_codes(torch, base_probe, ranked, n_layers):
+    """C1's check: walk the exact lane's first decode step GEMM by GEMM,
+    the mesh (reassembled) against the unsharded engine.  Before the
+    first GEMM whose fake-quantized input codes (or scale) differ, both
+    multiply the same codes, so their outputs may differ only by the
+    f32 reassociation of the dot and the final bf16 rounding: per output
+    |d| <= 2 K 2^-24 S + ulp_bf16(|out|), S the summed magnitudes of the
+    dequantized products (each side's f32 sum is within K 2^-24 S of the
+    exact one).  A GEMM beyond that bound with no code moved before it
+    is a fault of `_float_tp`.  Prints the first moved code and, per
+    layer before it, the largest |d| of the pre-quantization inputs and
+    of the outputs against the bound."""
+    n = len(base_probe)
+    if n != len(ranked[0]["probe"]) or n != GEMMS_PER_LAYER * n_layers:
+        fail(f"phase 9: the exact step's records hold {n} and "
+             f"{len(ranked[0]['probe'])} GEMMs, expected "
+             f"{GEMMS_PER_LAYER * n_layers}")
+    per_layer, first, worst_ratio = {}, None, 0.0
+    for i, (name, xs_, out_s, S) in enumerate(base_probe):
+        name_m, xm, out_m = _gather_probe(ranked, i)
+        if name_m != name or xm.shape != xs_.shape or \
+                out_m.shape != out_s.shape:
+            fail(f"phase 9: exact-step GEMM {i}: {name_m} {xm.shape} on the "
+                 f"mesh, {name} {xs_.shape} unsharded")
+        layer = i // GEMMS_PER_LAYER
+        dx = float(np.abs(xs_ - xm).max())
+        qs, ss = _codes(torch, xs_)
+        qm, sm = _codes(torch, xm)
+        moved = int((qs != qm).sum())
+        if moved or not torch.equal(ss, sm):
+            rows = sorted({int(r) for r in
+                           torch.nonzero(qs != qm)[:, 0].tolist()})
+            first = (layer, name, moved, qs.numel(), float(ss), float(sm),
+                     dx, float(np.abs(xs_).max()), rows)
+            break
+        k = xs_.shape[-1]
+        mag = np.maximum(np.abs(out_s), np.abs(out_m))
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - 7)
+        bound = 2 * k * 2.0 ** -24 * S.reshape(out_s.shape) + ulp
+        dout = np.abs(out_s - out_m)
+        ratio = float((dout / bound).max())
+        worst_ratio = max(worst_ratio, ratio)
+        lx, lo, lr = per_layer.get(layer, (0.0, 0.0, 0.0))
+        per_layer[layer] = (max(lx, dx), max(lo, float(dout.max())),
+                            max(lr, ratio))
+        if ratio > 1.0:
+            fail(f"phase 9: exact lane decode step 0, layer {layer} {name}: "
+                 f"the same codes on both sides, yet the outputs differ by "
+                 f"{float(dout.max()):.3e}, {ratio:.2f}x the f32 "
+                 "reassociation bound (a fault of _float_tp)")
+    print("  exact lane, decode step 0, mesh (rank-reassembled) against "
+          "unsharded, per layer before the first moved code: max |d "
+          "pre-quantization input|, max |d output|, largest |d output| / "
+          "reassociation bound: " + "; ".join(
+              f"L{l} {dx:.2e} {do:.2e} {r:.2f}"
+              for l, (dx, do, r) in sorted(per_layer.items())), flush=True)
+    if first is None:
+        print("  exact lane, decode step 0: no quantization code moved in "
+              f"its {n} GEMMs; every output within the bound (largest "
+              f"ratio {worst_ratio:.2f})", flush=True)
+    else:
+        (layer, name, moved, total, ss, sm, dx, xmax, rows) = first
+        print(f"  exact lane, decode step 0: the first moved code is at "
+              f"layer {layer} GEMM {name}: {moved} of {total} codes (pool "
+              f"rows {rows}), scale {sm!r} on the mesh, {ss!r} unsharded; "
+              f"its input differs by up to {dx:.3e} (|x| up to "
+              f"{xmax:.3f}); every GEMM before it within the reassociation "
+              f"bound (largest ratio {worst_ratio:.2f})", flush=True)
+    return first
 
 
 def _mesh_engine(cfg, mesh=None):
@@ -1811,6 +2139,7 @@ def _mesh_rank(rank, world, dev, wl):
     torch.cuda.synchronize()
     out["warm_s"] = time.perf_counter() - t
     forwards = _count_forwards(eng)
+    out["probe"] = _probe_exact_step(torch, eng, bound=False)
     _reset_counts()
     comm0 = dict(mesh.comm)
     t = time.perf_counter()
@@ -1850,6 +2179,7 @@ def mesh_phase(torch, power):
                           seed=MESH_SEED)
     eng = _mesh_engine(cfg)
     eng.warmup()
+    base_probe = _probe_exact_step(torch, eng, bound=True)
     base = eng.run(wl, clock=SimClock())
     torch.cuda.synchronize()
     base_rounds = _round_times(torch, eng)
@@ -1940,6 +2270,7 @@ def mesh_phase(torch, power):
           f"equal to one device; no plan misses after warmup; the same "
           f"logits on all ranks", flush=True)
 
+    _exact_lane_codes(torch, base_probe, ranked, cfg.n_layers)
     mine = ranked[0]
     first_diff = None
     worst = {}
@@ -1997,6 +2328,133 @@ def mesh_phase(torch, power):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: xlstm-125m on the card, prefill and lockstep decode per lane
+# ---------------------------------------------------------------------------
+
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS = 4, 512, 32
+# the cim_linear GEMMs of one xLSTM layer: mLSTM w_up, wq, wk, wv, w_down;
+# sLSTM w_in, w_out (wi and wf are f32 matmuls; the LM head is a plain
+# matmul)
+XLSTM_GEMMS = {"mlstm": 5, "slstm": 2}
+# the approximate lanes' GEMM kernel (build_tiers(mode="hardware"))
+XLSTM_FUSED = {"balanced": "lut_matmul_fused",
+               "economy": "mitchell_matmul_fused"}
+# cim=None: prefill + decode against the teacher-forced prefill of each
+# prefix, the reference's tolerance (tests/test_serve_consistency.py)
+XLSTM_CONSISTENCY_TOL = 0.12
+
+
+def xlstm_phase(torch, power):
+    """Phase 10: full-size xlstm-125m (seeded weights from LM.init) on each
+    lane of build_tiers(mode="hardware"), through the lockstep launcher's
+    `generate`: batch 4, a 512-token prefill and 32 lockstep greedy decode
+    steps, with its launches per forward,
+    identical tokens when run again, timings and one profiled decode step;
+    then with cim=None, prefill + decode against the teacher-forced
+    prefill of each prefix.  Returns the main path's launches (the lanes'
+    first counted runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.lockstep import generate
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import build_tiers
+
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-125m")
+    kinds = cfg.layer_pattern
+    gemms = sum(XLSTM_GEMMS[k] for k in kinds)
+    n_slstm = kinds.count("slstm")
+    print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers "
+          f"{kinds[:len(cfg.period)]} x {cfg.n_periods}, mLSTM heads "
+          f"{cfg.n_heads}, sLSTM heads {cfg.rnn.slstm_heads}, vocab "
+          f"{cfg.vocab} (tied); batch {XLSTM_BATCH}, {XLSTM_PROMPT}-token "
+          f"prefill, {XLSTM_STEPS} decode steps; {gemms} cim_linear GEMMs "
+          f"and {n_slstm} sLSTM layers a forward", flush=True)
+    base = LM(cfg)
+    params = base.init(0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(10)
+    prompts = torch.randint(0, cfg.vocab, (XLSTM_BATCH, XLSTM_PROMPT),
+                            generator=g, device="cuda")
+    print(f"  {n_params} parameters (seeded), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    forwards = 1 + XLSTM_STEPS
+    main = {}
+    for tier in build_tiers(mode="hardware"):
+        lm = LM(dataclasses.replace(cfg, cim=tier.cim))
+        generate(lm, params, prompts, 1 + XLSTM_STEPS)  # warm: tables, plans
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        toks, finite, pre_s, dec_s, caches = generate(lm, params, prompts,
+                                                      1 + XLSTM_STEPS)
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in counts.items():
+            main[k] = main.get(k, 0) + v
+        if not finite:
+            fail(f"phase 10 {tier.name}: non-finite logits")
+        want = {"slstm_scan": n_slstm * forwards}
+        if tier.name in XLSTM_FUSED:
+            want[XLSTM_FUSED[tier.name]] = gemms * forwards
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            fail(f"phase 10 {tier.name}: {forwards} forwards launched {got}, "
+                 f"expected {want} ({n_slstm} slstm_scan and, on an "
+                 f"approximate lane, {gemms} fused GEMMs a forward; nothing "
+                 "else, no float fallback)")
+        again = generate(lm, params, prompts, 1 + XLSTM_STEPS)[0]
+        if not torch.equal(again, toks):
+            fail(f"phase 10 {tier.name}: the lane run again gave other "
+                 "tokens")
+        per_fwd = {k: v // forwards for k, v in got.items()}
+        print(f"    {tier.name:<9} launches a forward {per_fwd} (prefill "
+              f"and each decode step); tokens identical when run again; "
+              f"prefill ({XLSTM_BATCH} x {XLSTM_PROMPT}) {1e3 * pre_s:.1f} "
+              f"ms, decode step {1e3 * dec_s:.2f} ms = "
+              f"{XLSTM_BATCH / dec_s:.1f} tokens/s; peak "
+              f"{peak:.2f} GiB; on {power}", flush=True)
+        last, pos = toks[:, -1:].cuda(), XLSTM_PROMPT + XLSTM_STEPS
+
+        def step():
+            with torch.inference_mode():
+                lm.decode_step(params, caches, last, pos)
+
+        _profile(torch, tier.name, step, dec_s)
+        del lm, caches
+
+    # cim=None: the kernel's initial-state path (decode, T = 1) against
+    # its zero-state path (the teacher-forced prefill of each prefix)
+    n_dec = 4
+    g = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (XLSTM_BATCH, XLSTM_PROMPT + n_dec),
+                         generator=g, device="cuda")
+    worst, scale = 0.0, 0.0
+    with torch.inference_mode():
+        lp, caches = base.prefill(params, {"tokens": toks[:, :XLSTM_PROMPT]})
+        for i in range(n_dec):
+            full, _ = base.prefill(params,
+                                   {"tokens": toks[:, :XLSTM_PROMPT + i]})
+            d = float((lp[:, -1].float() - full[:, -1].float()).abs().max())
+            worst = max(worst, d)
+            scale = max(scale, float(full.float().abs().max()))
+            if d > XLSTM_CONSISTENCY_TOL:
+                fail(f"phase 10 cim=None: decode step {i} {d} from the "
+                     f"teacher-forced prefill, beyond {XLSTM_CONSISTENCY_TOL}")
+            if i < n_dec - 1:
+                lp, caches = base.decode_step(
+                    params, caches, toks[:, XLSTM_PROMPT + i:
+                                         XLSTM_PROMPT + i + 1],
+                    XLSTM_PROMPT + i)
+    print(f"  cim=None: prefill + {n_dec - 1} decode steps against the "
+          f"teacher-forced prefill of each prefix: max |d logit| "
+          f"{worst:.3e} (largest |logit| {scale:.3f}) <= "
+          f"{XLSTM_CONSISTENCY_TOL}", flush=True)
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return main
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -2016,6 +2474,8 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM log kernel"
     if "attn_kernel" in low:
         return "CiM attention kernel"
+    if "slstm_kernel" in low:
+        return "sLSTM scan"
     if name in matmul_kernels:
         return "torch.matmul"
     if "memcpy" in low or "memset" in low:
@@ -2023,20 +2483,36 @@ def _kernel_class(name: str, matmul_kernels) -> str:
     return "other"
 
 
+# the kernel classes of the port's own CUDA kernels (each launch counted
+# by its wrapper's CudaKernel.launches)
+PORT_CLASSES = ("CiM conv kernel", "CiM LUT kernel", "CiM nibble kernel",
+                "CiM surrogate kernel", "CiM log kernel",
+                "CiM attention kernel", "sLSTM scan")
+
+
 def _profile_once(torch, run):
-    """One call of `run` under torch.profiler: (host ms, top-level ops,
-    kernels, device busy ms = the union of the kernels' intervals, device
-    time by kernel class, by kernel), busy None if no kernel was seen."""
+    """One call of `run` under torch.profiler, with CUDA events around it:
+    a dict of the host ms, the top-level ops, the kernels, the device
+    busy ms (the union of the kernels' intervals; None if no kernel was
+    seen), the event span ms (first to last event on the stream), device
+    time by kernel class and by kernel, and the port's kernels the call
+    launched (its launch counters) against those the profiler saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = sum(_launch_counts().values())
+    start = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
+        start.record()
         run()
+        end_ev.record()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
+    launched = sum(_launch_counts().values()) - before
     events = prof.events()
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     n_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
@@ -2048,56 +2524,72 @@ def _profile_once(torch, run):
             end = e
     matmul_kernels = {k.name for e in events if e.name in MATMUL_OPS
                       for k in e.kernels}
-    by_class, by_name = {}, {}
+    by_class, by_name, seen = {}, {}, 0
     for e in kern:
         us = e.time_range.elapsed_us()
         c = _kernel_class(e.name, matmul_kernels)
         by_class[c] = by_class.get(c, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    return (wall_ms, n_ops, len(kern), busy_us / 1e3 if kern else None,
-            by_class, by_name)
+        seen += c in PORT_CLASSES
+    return {"wall_ms": wall_ms, "n_ops": n_ops, "n_kern": len(kern),
+            "busy_ms": busy_us / 1e3 if kern else None,
+            "span_ms": start.elapsed_time(end_ev), "by_class": by_class,
+            "by_name": by_name, "launched": launched, "seen": seen}
 
 
-def _profile(torch, lane: str, run, unprofiled_s: float,
-             reps: int = 3) -> None:
-    """`reps` calls of `run` (a pool decode round, a CNN forward), each
-    under torch.profiler: the Python-level PyTorch ops it dispatched,
-    the kernels it launched, the union of their device intervals against
-    the call's time (the device's idle share), as the median and the
-    spread (min - max) of the calls, and device time by kernel class and
-    by kernel of the median call.  A profile that recorded no kernel
-    (CUPTI drops a cycle now and then) is not a measurement: it is
-    counted, left out, and made again, up to `reps` more times."""
-    runs, empty = [], 0
-    while len(runs) < reps and empty < reps:
+def _profile(torch, lane: str, run, unprofiled_s: float, reps: int = 3):
+    """`reps` calls of `run` (a pool decode round, a CNN forward, a decode
+    step), each under torch.profiler: the Python-level PyTorch ops it
+    dispatched, the kernels it launched, the union of their device
+    intervals against the call's time (the device's idle share) and
+    against the CUDA events' span, as the median and the spread (min -
+    max) of the calls, and device time by kernel class and by kernel of
+    the median call.  A profile that lost kernels (no kernel at all, or
+    fewer of the port's kernels than its launch counters say the call
+    launched: CUPTI drops some now and then) is not a measurement: it is
+    printed, left out of the median, and made again, at most twice more.
+    Returns the median call's record, None if every profile lost
+    kernels."""
+    runs, attempts = [], 0
+    while len(runs) < reps and attempts < reps + 2:
+        attempts += 1
         r = _profile_once(torch, run)
-        if r[3] is None:
-            empty += 1
-        else:
-            runs.append(r)
-    dropped = (f", {empty} profile(s) that recorded no kernel left out"
-               if empty else "")
+        if r["busy_ms"] is None or r["seen"] < r["launched"]:
+            print(f"    {lane:<9} profile {attempts} lost kernels: it saw "
+                  f"{r['seen']} of the {r['launched']} port kernels the call "
+                  f"launched ({r['n_kern']} kernels in all, busy "
+                  f"{r['busy_ms']} ms, event span {r['span_ms']:.2f} ms); "
+                  "left out", flush=True)
+            continue
+        runs.append(r)
+    dropped = attempts - len(runs)
     if not runs:
-        print(f"    {lane:<9} {empty} profiled runs: device time not "
-              f"measured (the profiler recorded no kernels)", flush=True)
-        return
-    runs.sort(key=lambda r: r[3])
-    wall_ms, n_ops, n_kern, busy_ms, by_class, by_name = runs[len(runs) // 2]
-    busy = [r[3] for r in runs]
-    idle = sorted(100 * (1 - r[3] / r[0]) for r in runs)
-    print(f"    {lane:<9} {len(runs)} profiled runs: median {wall_ms:.1f} ms "
-          f"host clock ({1e3 * unprofiled_s:.1f} ms unprofiled), {n_ops} "
-          f"top-level ops, {n_kern} kernels; device busy median "
-          f"{busy_ms:.2f} ms (spread {min(busy):.2f} - {max(busy):.2f}), "
-          f"idle median {idle[len(idle) // 2]:.1f}% (spread {idle[0]:.1f} - "
-          f"{idle[-1]:.1f}%) of the profiled runs, "
-          f"{100 * max(0.0, 1 - busy_ms / (1e3 * unprofiled_s)):.1f}% of "
-          f"the unprofiled one{dropped}", flush=True)
+        print(f"    {lane:<9} {attempts} profiled runs: device time not "
+              f"measured (every profile lost kernels)", flush=True)
+        return None
+    runs.sort(key=lambda r: r["busy_ms"])
+    med = runs[len(runs) // 2]
+    busy = [r["busy_ms"] for r in runs]
+    span = sorted(r["span_ms"] for r in runs)
+    idle = sorted(100 * (1 - r["busy_ms"] / r["wall_ms"]) for r in runs)
+    print(f"    {lane:<9} {len(runs)} profiled runs: median "
+          f"{med['wall_ms']:.1f} ms host clock ({1e3 * unprofiled_s:.1f} ms "
+          f"unprofiled), {med['n_ops']} top-level ops, {med['n_kern']} "
+          f"kernels ({med['seen']} of the port's, its counters "
+          f"{med['launched']}); device busy median {med['busy_ms']:.2f} ms "
+          f"(spread {min(busy):.2f} - {max(busy):.2f}), CUDA-event span "
+          f"median {span[len(span) // 2]:.2f} ms (spread {span[0]:.2f} - "
+          f"{span[-1]:.2f}), idle median {idle[len(idle) // 2]:.1f}% "
+          f"(spread {idle[0]:.1f} - {idle[-1]:.1f}%) of the profiled runs, "
+          f"{100 * max(0.0, 1 - med['busy_ms'] / (1e3 * unprofiled_s)):.1f}"
+          f"% of the unprofiled one; {dropped} profile(s) left out",
+          flush=True)
     print("      by class (ms, median run): " + ", ".join(
         f"{c} {us / 1e3:.2f}" for c, us in
-        sorted(by_class.items(), key=lambda kv: -kv[1])), flush=True)
-    for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        sorted(med["by_class"].items(), key=lambda kv: -kv[1])), flush=True)
+    for n, us in sorted(med["by_name"].items(), key=lambda kv: -kv[1])[:5]:
         print(f"      {us / 1e3:8.3f} ms  {n[:110]}", flush=True)
+    return med
 
 
 def _leaves(tree):
@@ -2162,9 +2654,11 @@ def main():
     partial_rows = check_partials(torch, sms, clock_hz)
     attn_rows = check_attention(torch, sms, clock_hz)
     surr_rows = check_surrogate(torch, sms, clock_hz)
+    slstm_rows = check_slstm(torch, sms, clock_hz)
 
     print("[4] reference: the LM on the card against the CPU", flush=True)
     check_reference(torch)
+    check_norm_rows(torch)
 
     print("[5] serve", flush=True)
     launches = serve(torch, args.layers, power, attn=False)
@@ -2196,13 +2690,20 @@ def main():
     t9 = time.perf_counter()
     mesh_launches = mesh_phase(torch, power)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[10] xlstm-125m: prefill and lockstep decode on the hardware "
+          "ladder", flush=True)
+    xlstm_launches = xlstm_phase(torch, power)
 
     kernels = []
     # the GEMM rows sum the eight LM shapes and, for the fused forms (the
     # CNN's fc, f32 operands) and the nibble rows, the CNN's fc shape,
     # with the launches of the main paths that run them (5: the LM
     # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs, 9: the
-    # mesh frontends and the mesh ladder); the partial rows the shard-local
+    # mesh frontends and the mesh ladder, 10: the xLSTM ladder); the
+    # partial rows the shard-local
     # shapes (phase 9's launches); the
     # conv rows the CNN's five geometries on the families' variants; the
     # attention rows the serving decode and prefill geometries on the
@@ -2217,7 +2718,7 @@ def main():
         shapes = MAIN_SHAPES + ([CNN_FC] if fc else [])
         main[name] = ([r for r in rs if r["shape"] in shapes],
                       launches[name] + cnn_launches[name]
-                      + mesh_launches[name])
+                      + mesh_launches[name] + xlstm_launches[name])
     for name, rs in conv_rows.items():
         main[name] = ([r for r in rs if r["main"]],
                       cnn_launches[name] + surr_launches[name]
@@ -2230,7 +2731,13 @@ def main():
                        ("lut", "log")], attn_launches[name])
     for name, rs in surr_rows.items():
         main[name] = ([r for r in rs if r["main"]], surr_launches[name])
-    every = {**rows, **conv_rows, **attn_rows, **surr_rows, **partial_rows}
+    # the sLSTM recurrence: the full-width cases (xlstm-125m's 4 heads of
+    # 192 at batch 4, T = 1, 37, 512, from zero and from a state), launched
+    # on phase 10's path
+    main["slstm_scan"] = ([r for r in slstm_rows["slstm_scan"] if "ms" in r],
+                          xlstm_launches["slstm_scan"])
+    every = {**rows, **conv_rows, **attn_rows, **surr_rows, **partial_rows,
+             **slstm_rows}
     for name, (timed, n_launch) in main.items():
         ops_ms = sum(r["bound_ms"] for r in timed
                      if r["bound_by"] == "operations")

@@ -1,4 +1,4 @@
-"""Config registry of the port (the dense architectures of this slice)."""
+"""Config registry of the port (the dense archs and xlstm-125m)."""
 
 from __future__ import annotations
 

@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port (csrc/<name>.cu)
 SOURCES = ("lut_gemm", "nibble_gemm", "log_gemm", "conv_gemm", "attn_gemm",
-           "surrogate_gemm")
+           "surrogate_gemm", "slstm_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

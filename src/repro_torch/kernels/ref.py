@@ -12,6 +12,11 @@ The surrogate GEMM's pieces: `int_dot` (D, the exact integer dot),
 `square_dot` (SQ = A^2 @ B^2, computed exactly and rounded once to f32)
 and `surrogate_epilogue` (the fused kernel's flush, op for op);
 `cim_gemm_ref` is the reference's f32 oracle of the whole.
+
+The sLSTM recurrence: `slstm_gates` is one step's stabilized
+exponential gating on the pre-activations (the reference's
+``_slstm_cell`` after its recurrent matvec, op for op), and
+`slstm_scan_ref` the whole scan from a given state.
 """
 
 from __future__ import annotations
@@ -263,3 +268,51 @@ def cim_gemm_ref(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     var = c0 * xq.shape[-1] * s2 + c1 * sq * s2
     return ((1.0 + mu) * d * scale
             + torch.sqrt(torch.clamp_min(var, 0.0)) * eps)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``log_sigmoid``: ``-softplus(-x)``, with softplus written as
+    ``max(-x, 0) + log1p(exp(-|x|))`` (its ``logaddexp(-x, 0)``)."""
+    return -(torch.clamp_min(-x, 0.0) + torch.log1p(torch.exp(-x.abs())))
+
+
+def slstm_gates(pre: torch.Tensor, c, n, m, dh: int):
+    """One sLSTM step from the pre-activations ``pre`` (..., 4*dh), gate
+    blocks [z | i | f | o] each dh wide, and the state (c, n, m) (...,
+    dh): returns the new (c, n, h, m)."""
+    z = torch.tanh(pre[..., :dh])
+    li = pre[..., dh:2 * dh]
+    lf = log_sigmoid(pre[..., 2 * dh:3 * dh])
+    o = torch.sigmoid(pre[..., 3 * dh:])
+    m_new = torch.maximum(lf + m, li)
+    iw = torch.exp(li - m_new)
+    fw = torch.exp(lf + m - m_new)
+    c = fw * c + iw * z
+    n = fw * n + iw
+    h = o * c / torch.clamp_min(n, 1e-6)
+    return c, n, h, m_new
+
+
+def slstm_scan_ref(u: torch.Tensor, r: torch.Tensor, bias: torch.Tensor,
+                   n_heads: int, state=None):
+    """The sLSTM recurrence, step by step (the plain version of the
+    fused kernel, and the reference's ``slstm_scan_ref`` with a state).
+
+    u (B, T, 4d) f32 input pre-activations, head-major and gate-major
+    within a head; r (nh, dh, 4dh) f32; bias (nh, 4dh) f32; state
+    (c, n, h, m), each (B, nh, dh) f32, zeros by default.  Returns h
+    (B, T, nh, dh) and the final state."""
+    b, t, d4 = u.shape
+    dh = d4 // 4 // n_heads
+    ut = u.reshape(b, t, n_heads, 4 * dh)
+    if state is None:
+        state = tuple(torch.zeros((b, n_heads, dh), dtype=torch.float32,
+                                  device=u.device) for _ in range(4))
+    c, n, h, m = state
+    hs = []
+    for i in range(t):
+        rec = torch.einsum("bkd,kdf->bkf", h, r)
+        pre = ut[:, i] + rec + bias[None]
+        c, n, h, m = slstm_gates(pre, c, n, m, dh)
+        hs.append(h)
+    return torch.stack(hs, dim=1), (c, n, h, m)

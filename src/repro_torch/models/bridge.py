@@ -6,9 +6,11 @@ package with every leaf already converted to numpy by the caller (the
 port never imports JAX): nested dicts whose leaves are arrays or objects
 with a ``.value`` array.  bf16 leaves arrive as ``ml_dtypes.bfloat16``
 and are carried as a uint16 view, reinterpreted as ``torch.bfloat16``
-(bit for bit).  The stacked ``body`` leaves' leading layer axis becomes
-the per-layer list, and head-shaped attention weights are flattened to
-the 2-D (K, N) form cim_linear takes.
+(bit for bit).  The stacked ``body`` holds one entry per position j of
+the period, each stacked over the periods p: layer ``p * len(period) +
+j`` of the per-layer list is ``body[str(j)]`` at index p.  Head-shaped
+attention weights are flattened to the 2-D (K, N) form cim_linear takes;
+the xLSTM blocks' leaves (``rnn``) are carried as they are.
 
 `shard_params` cuts a full parameter dict (carried, or seeded by
 ``LM.init``) to one rank's shards on a mesh, per
@@ -36,6 +38,9 @@ def _layer(body: Dict[str, Any], i: int, device) -> Dict[str, Any]:
     def at(leaf):
         return _tensor(np.asarray(getattr(leaf, "value", leaf))[i], device)
 
+    if "rnn" in body:                           # mLSTM / sLSTM
+        return {"norm1": {k: at(v) for k, v in body["norm1"].items()},
+                "rnn": {k: at(v) for k, v in body["rnn"].items()}}
     attn = body["attn"]
     out_attn = {}
     for name, leaf in attn.items():
@@ -52,17 +57,19 @@ def _layer(body: Dict[str, Any], i: int, device) -> Dict[str, Any]:
 
 
 def params_from_numpy(tree: Dict[str, Any], device) -> Dict[str, Any]:
-    """The port's parameter dict from a numpy-leaved JAX LM tree (dense
-    ATTN stacks: ``body`` holds the one-layer period "0")."""
+    """The port's parameter dict from a numpy-leaved JAX LM tree (a body
+    of periods of attention or xLSTM layers, no prefix)."""
     if tree.get("prefix"):
         raise NotImplementedError("prefix layers are a later slice")
-    body = tree["body"]["0"]
-    n_layers = np.asarray(getattr(body["norm1"]["scale"], "value",
-                                  body["norm1"]["scale"])).shape[0]
+    body = tree["body"]
+    period = [body[str(j)] for j in range(len(body))]
+    scale = period[0]["norm1"]["scale"]
+    n_periods = np.asarray(getattr(scale, "value", scale)).shape[0]
     p = {"embed": _tensor(tree["embed"], device),
          "final_norm": {k: _tensor(v, device)
                         for k, v in tree["final_norm"].items()},
-         "layers": [_layer(body, i, device) for i in range(n_layers)]}
+         "layers": [_layer(lp, i, device) for i in range(n_periods)
+                    for lp in period]}
     if "head" in tree:
         p["head"] = _tensor(tree["head"], device)
     return p

@@ -56,9 +56,36 @@ def param(gen: torch.Generator, shape, device, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 
+# `row_mean_square` sums each row's squares as 16 contiguous groups of
+# d/16, then the 16 partial sums.  PyTorch's CUDA reduction gives each
+# output as many threads as its block has room for beside the outputs it
+# holds, so one wide sum over 2 rows splits each row over other threads
+# than over 4.  With at least 16 outputs (every row has 16 groups) the
+# first sum gets min(d/16, 32) threads an output (to a power of two),
+# and the second 16, at any row count: neither order depends on the
+# number of rows.
+_GROUPS = 16
+
+
+def row_mean_square(x32: torch.Tensor) -> torch.Tensor:
+    """mean(x^2) over the last dim (keepdim), summed in an order that
+    depends on the width only, not on the number of rows: a data rank of
+    the mesh norms 2 of the pool's 4 rows, and one wide torch.mean picks
+    its CUDA block shape by the row count, so its f32 sum (and now and
+    then the bf16 norm) would differ from the unsharded pool's.  Two
+    sums, where torch.mean is one."""
+    v = x32 * x32
+    d = v.shape[-1]
+    pad = -d % _GROUPS
+    if pad:
+        v = F.pad(v, (0, pad))
+    s = v.unflatten(-1, (_GROUPS, -1)).sum(dim=-1)
+    return s.sum(dim=-1, keepdim=True) / d
+
+
 def rms_norm(x, w, eps: float = 1e-6):
     x32 = x.to(torch.float32)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    var = row_mean_square(x32)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 

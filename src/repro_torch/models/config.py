@@ -3,8 +3,9 @@
 A `ModelConfig` fully determines parameters, layer pattern and the CiM
 execution mode.  Layer stacking is ``prefix_layers`` followed by
 ``n_periods`` repetitions of ``period``; the port runs the dense
-``period=(ATTN,)`` stacks, and the other sub-configs are kept as fields
-so the configs read the same as the reference's.
+``period=(ATTN,)`` stacks and the xLSTM (MLSTM, SLSTM) stacks, and
+the other sub-configs are kept as fields so the configs read the same
+as the reference's.
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
-"""The dense LM of the port: stacks of global causal self-attention +
-MLP layers (the ``qwen3-1.7b`` family and the other dense archs).
+"""The LM of the port: stacks of global causal self-attention + MLP
+layers (the ``qwen3-1.7b`` family and the other dense archs), or of
+xLSTM blocks (``xlstm-125m``: mLSTM and sLSTM layers, no MLP, the
+residual ``x + block(norm1(x))``).
 
 Entry points:
   * ``prefill``      — fills pre-allocated caches, returns last logits
@@ -8,8 +10,9 @@ Entry points:
 
 The CiM context (the paper's approximate execution) threads through
 every block.  The reference scans a stacked layer body; here the layers
-are a Python list and the stack is a loop.  MoE, MLA, recurrent and
-encoder layers and ``decode_multi`` are later slices.
+are a Python list (in ``cfg.layer_pattern`` order) and the stack is a
+loop.  MoE, MLA, RG-LRU, local and encoder layers, mixed attention and
+recurrent stacks, and ``decode_multi`` are later slices.
 
 Under a mesh (``LM(cfg, mesh=...)``, launch.mesh) the model is
 tensor-parallel over the "model" axis: each rank holds its shards of the
@@ -20,7 +23,8 @@ slice of attention and of the KV caches, and every matmul runs through
 every rank (the reference shards them on the vocabulary; whole, they
 change no number, only memory).  `decode_step(data_parallel=True)` runs
 this rank's rows of a pool split over the data axes and returns the
-logits of the whole pool.
+logits of the whole pool.  Recurrent stacks run on one device only (the
+reference's recurrent cache specs are a later slice).
 """
 
 from __future__ import annotations
@@ -40,29 +44,39 @@ from .attention import attention_block, init_attention, init_cache
 from .common import (CiMContext, CiMParams, apply_mlp, apply_norm, init_mlp,
                      init_norm, param)
 from .config import ModelConfig
+from .xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
+                    init_slstm_cache, mlstm_block, slstm_block)
+
+RECURRENT = (C.MLSTM, C.SLSTM)
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """This slice runs dense full-attention stacks only."""
+def check_arch(cfg: ModelConfig) -> None:
+    """The port runs stacks of global attention layers, or of xLSTM
+    layers (mLSTM and sLSTM); the rest are later slices."""
     kinds = set(cfg.prefix_layers) | set(cfg.period)
     if (cfg.mla is not None or cfg.moe is not None or cfg.vision is not None
-            or cfg.encoder is not None or not kinds <= {C.ATTN}
-            or cfg.mtp_depth):
+            or cfg.encoder is not None or cfg.mtp_depth
+            or not (kinds <= {C.ATTN} or kinds <= set(RECURRENT))):
         raise NotImplementedError(
             f"arch {cfg.name!r} (layer kinds {sorted(kinds)}) needs layers "
-            "of a later slice of the port; dense attention stacks only")
+            "of a later slice of the port; stacks of global attention or "
+            "of xLSTM layers only")
 
 
-def _init_layer(gen, cfg: ModelConfig, device) -> Dict[str, Any]:
+def _init_layer(gen, kind: str, cfg: ModelConfig, device) -> Dict[str, Any]:
     d = cfg.d_model
-    return {
-        "norm1": init_norm(d, cfg.norm, device),
-        "attn": init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.head_dim_, cfg.qkv_bias, cfg.qk_norm,
-                               device),
-        "norm2": init_norm(d, cfg.norm, device),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, device),
-    }
+    p: Dict[str, Any] = {"norm1": init_norm(d, cfg.norm, device)}
+    if kind == C.MLSTM:
+        p["rnn"] = init_mlstm(gen, d, cfg.n_heads, device)
+    elif kind == C.SLSTM:
+        p["rnn"] = init_slstm(gen, d, cfg.rnn.slstm_heads, device)
+    else:
+        p["attn"] = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim_, cfg.qkv_bias, cfg.qk_norm,
+                                   device)
+        p["norm2"] = init_norm(d, cfg.norm, device)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, device)
+    return p
 
 
 def layer_specs(cfg: ModelConfig) -> Dict[Tuple[str, str], Tuple]:
@@ -110,11 +124,21 @@ _LINEARS = {("attn", "wq"): "wq", ("attn", "wk"): "wk", ("attn", "wv"): "wv",
             ("mlp", "wg"): "mlp_wg", ("mlp", "wo"): "mlp_wo"}
 
 
-def _apply_layer(params, x, cfg: ModelConfig, ctx: CiMContext, positions,
-                 cache, valid=None, heads=None):
+def _apply_layer(params, x, kind: str, cfg: ModelConfig, ctx: CiMContext,
+                 positions, cache, valid=None, heads=None):
     """Returns (x, new_cache); `heads` = this rank's (query, kv) heads."""
     n_heads, n_kv = heads or (cfg.n_heads, cfg.n_kv_heads)
     h = apply_norm(params["norm1"], x, cfg.norm)
+    if kind == C.MLSTM:
+        a, new_cache = mlstm_block(params["rnn"], h, n_heads=cfg.n_heads,
+                                   chunk=cfg.rnn.mlstm_chunk, ctx=ctx,
+                                   cache=cache)
+        return x + a, new_cache
+    if kind == C.SLSTM:
+        a, new_cache = slstm_block(params["rnn"], h,
+                                   n_heads=cfg.rnn.slstm_heads, ctx=ctx,
+                                   cache=cache)
+        return x + a, new_cache
     a, new_cache = attention_block(
         params["attn"], h, n_heads=n_heads, n_kv_heads=n_kv,
         head_dim=cfg.head_dim_, rope_fraction=cfg.rope_fraction,
@@ -131,7 +155,12 @@ class LM:
     rank's part of a tensor-parallel LM on a mesh."""
 
     def __init__(self, cfg: ModelConfig, device=None, mesh=None):
-        check_dense(cfg)
+        check_arch(cfg)
+        if mesh is not None and set(cfg.layer_pattern) & set(RECURRENT):
+            raise NotImplementedError(
+                f"arch {cfg.name!r}: recurrent layers under a mesh need the "
+                "reference's recurrent cache specs, a later slice of the "
+                "port")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cim = CiMParams.from_config(cfg.cim)
@@ -174,8 +203,8 @@ class LM:
         }
         if not cfg.tie_embeddings:
             p["head"] = param(gen, (cfg.d_model, cfg.vocab), dev, scale=0.01)
-        p["layers"] = [_init_layer(gen, cfg, dev)
-                       for _ in range(cfg.n_layers)]
+        p["layers"] = [_init_layer(gen, kind, cfg, dev)
+                       for kind in cfg.layer_pattern]
         return p
 
     # ---- helpers --------------------------------------------------------
@@ -196,10 +225,11 @@ class LM:
                          row_axes=self.row_axes if data_parallel else ())
         new = []
         with self._mesh():
-            for i, lp in enumerate(params["layers"]):
+            for i, (lp, kind) in enumerate(zip(params["layers"],
+                                               self.cfg.layer_pattern)):
                 c = None if caches is None else caches["layers"][i]
-                x, c2 = _apply_layer(lp, x, self.cfg, ctx, positions, c,
-                                     valid, self.heads)
+                x, c2 = _apply_layer(lp, x, kind, self.cfg, ctx, positions,
+                                     c, valid, self.heads)
                 new.append(c2)
         return x, (None if caches is None else {"layers": new})
 
@@ -214,12 +244,30 @@ class LM:
 
     # ---- serving --------------------------------------------------------
     def init_caches(self, batch: int, max_len: int, per_slot: bool = False):
-        """Caches of `batch` rows for this rank's kv heads."""
+        """Caches of `batch` rows: per attention layer its KV cache for
+        this rank's kv heads, per xLSTM layer its state.  Per-slot caches
+        (ragged prefill, the slot pool) need every layer's state to carry
+        an explicit position, which recurrent state does not: they raise,
+        as the reference's ``_init_kind_cache``."""
         cfg = self.cfg
-        return {"layers": [init_cache(batch, max_len, self.heads[1],
+        out = []
+        for kind in cfg.layer_pattern:
+            if per_slot and kind != C.ATTN:
+                raise ValueError(
+                    "per-slot caches (ragged prefill / continuous batching) "
+                    "need every layer's state to carry an explicit, non-ring "
+                    f"position; kind {kind!r} does not")
+            if kind == C.MLSTM:
+                out.append(init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                            self.device))
+            elif kind == C.SLSTM:
+                out.append(init_slstm_cache(batch, cfg.d_model,
+                                            cfg.rnn.slstm_heads, self.device))
+            else:
+                out.append(init_cache(batch, max_len, self.heads[1],
                                       cfg.head_dim_, self.device,
-                                      per_slot=per_slot)
-                           for _ in range(cfg.n_layers)]}
+                                      per_slot=per_slot))
+        return {"layers": out}
 
     def prefill(self, params, batch):
         """Fill pre-allocated caches; return (last-token logits, caches).
@@ -272,12 +320,22 @@ class LM:
         return self._logits(params, x, data_parallel), caches
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Analytic parameter count of a dense stack (embedding + head +
-    layers, norms excluded as in the reference)."""
+def _layer_params(kind: str, cfg: ModelConfig) -> int:
     d, ff = cfg.d_model, cfg.d_ff
+    if kind == C.MLSTM:
+        di = 2 * d
+        return d * 2 * di + 3 * di * di + di * d
+    if kind == C.SLSTM:
+        nh = cfg.rnn.slstm_heads
+        dh = d // nh
+        return d * 4 * d + nh * dh * 4 * dh + d * d
     hd, h, kh = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     mlp = 3 * d * ff if cfg.act == "swiglu" else 2 * d * ff
-    attn = d * hd * (h + 2 * kh) + h * hd * d
-    return (cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-            + cfg.n_layers * (attn + mlp))
+    return d * hd * (h + 2 * kh) + h * hd * d + mlp
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Analytic parameter count (embedding + head + layers; norms, gate
+    projections and biases excluded, as in the reference)."""
+    return (cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+            + sum(_layer_params(k, cfg) for k in cfg.layer_pattern))

@@ -734,3 +734,128 @@ def test_mesh_on_the_card_runs_the_partial_kernels():
         assert r["appro42/N"][1] == ["lut_matmul_fused"]
         assert r["mitchell/K"][1] == ["mitchell_matmul_partial"]
         assert r["mitchell/N"][1] == ["mitchell_matmul_fused"]
+
+
+# the sLSTM kernel against its plain version, within the tolerance
+# kernels/slstm_scan.py states (ATOL, STATE_RTOL; its mechanism there)
+SLSTM_CASES = [(4, 4, 192, 1), (4, 4, 192, 37), (4, 4, 192, 512),
+               (2, 4, 16, 24), (5, 4, 16, 9)]
+
+
+def _slstm_inputs(b, t, nh, dh, dev, seed, nonzero):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn(b, t, 4 * nh * dh, generator=g, device=dev)
+    r = torch.randn(nh, dh, 4 * dh, generator=g, device=dev) * 0.05
+    bias = torch.randn(nh, 4 * dh, generator=g, device=dev) * 0.1
+    state = None
+    if nonzero:
+        shape = (b, nh, dh)
+        state = (torch.rand(shape, generator=g, device=dev) * 2 - 1,
+                 torch.rand(shape, generator=g, device=dev) * 1.5 + 0.5,
+                 torch.rand(shape, generator=g, device=dev) - 0.5,
+                 torch.rand(shape, generator=g, device=dev) * 2 - 1)
+    return u, r, bias, state
+
+
+@pytest.mark.parametrize("nonzero", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("case", SLSTM_CASES, ids=str)
+def test_slstm_kernel_against_plain_version(case, nonzero):
+    """xlstm-125m's width (4 heads of 192) at T = 1, 37 and 512 and the
+    smoke width (dh 16, a ragged row tile at B = 5), from zeros and from
+    a cached state."""
+    from repro_torch.kernels import ref, slstm_scan
+
+    dev = _card()
+    b, nh, dh, t = case
+    u, r, bias, state = _slstm_inputs(b, t, nh, dh, dev, t + dh, nonzero)
+    n0 = slstm_scan.KERNELS["slstm_scan"].launches
+    got = slstm_scan.slstm_scan(u, r, bias, nh, state)
+    torch.cuda.synchronize()
+    assert slstm_scan.KERNELS["slstm_scan"].launches == n0 + 1
+    want = ref.slstm_scan_ref(u, r, bias, nh, state)
+    assert got[0].shape == (b, t, nh, dh)
+    assert slstm_scan.close(got, want), float((got[0] - want[0]).abs().max())
+
+
+def test_slstm_wrapper_raises_on_what_the_kernel_does_not_take():
+    from repro_torch.kernels import slstm_scan
+
+    dev = _card()
+    u, r, bias, _ = _slstm_inputs(1, 3, 2, 8, dev, 0, False)
+    with pytest.raises(ValueError, match="f32"):
+        slstm_scan.slstm_scan(u.to(torch.bfloat16), r, bias, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm_scan.slstm_scan(u, r.transpose(1, 2).contiguous().transpose(
+            1, 2), bias, 2)
+    with pytest.raises(ValueError, match="different devices"):
+        slstm_scan.slstm_scan(u, r.cpu(), bias, 2)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_xlstm_lm_on_the_card_runs_the_kernel():
+    """xlstm-125m-smoke on the balanced tier: every sLSTM call (prefill
+    and each decode step) launches the kernel, and the card's logits
+    agree with the CPU's (4e-2, tests/test_torch_lm_xlstm.py's tier
+    tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import slstm_scan
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import build_tiers
+
+    dev = _card()
+    tier = {t.name: t for t in build_tiers(mode="hardware")}["balanced"]
+    cfg = dataclasses.replace(get_config("xlstm-125m", smoke=True),
+                              cim=tier.cim)
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device=dev)
+    p_cpu = cpu.init(0)
+    p_gpu = _tree_to(p_cpu, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 8),
+                         generator=torch.Generator().manual_seed(3))
+    n0 = slstm_scan.KERNELS["slstm_scan"].launches
+    with torch.inference_mode():
+        lc, cc = cpu.prefill(p_cpu, {"tokens": toks})
+        lg, cg = gpu.prefill(p_gpu, {"tokens": toks.to(dev)})
+        for step in range(2):
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            lc, cc = cpu.decode_step(p_cpu, cc, tok, 8 + step)
+            lg, cg = gpu.decode_step(p_gpu, cg, tok.to(dev), 8 + step)
+    torch.cuda.synchronize()
+    assert slstm_scan.KERNELS["slstm_scan"].launches == n0 + 3
+    assert torch.allclose(lg.float().cpu(), lc.float(), rtol=0, atol=4e-2)
+
+
+@pytest.mark.parametrize("d", [2048, 768, 1536, 128])
+def test_rms_norm_rows_do_not_depend_on_the_row_count(d):
+    """The norm of rows 0-1 of a 4-row bf16 input equals the same rows
+    normed alone, bit for bit (a data rank of the mesh holds 2 of the
+    pool's 4 rows), at qwen3-1.7b's width and xlstm-125m's, the mLSTM's
+    inner width and qwen3's head width (its q and k norms): over 64
+    inputs, both the bf16 norm and its f32 mean square (a one-ulp
+    difference there moves the norm only now and then), and at 1, 2, 4,
+    8 and 2048 rows."""
+    from repro_torch.models.common import rms_norm, row_mean_square
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(
+        torch.bfloat16)
+    for _ in range(64):
+        x = (torch.randn(4, d, generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+        for rows in (x, x[:, None, :]):          # (B, D) and (B, 1, D)
+            four = rms_norm(rows, w)
+            assert torch.equal(rms_norm(rows[:2].clone(), w), four[:2])
+            assert torch.equal(rms_norm(rows[1:2].clone(), w), four[1:2])
+            ms = row_mean_square(rows.float())
+            assert torch.equal(row_mean_square(rows[:2].float()), ms[:2])
+    big = torch.randn(2048, d, generator=g, device=dev)
+    ms = row_mean_square(big)
+    for n in (1, 2, 4, 8):
+        assert torch.equal(row_mean_square(big[-n:].clone()), ms[-n:])

@@ -366,7 +366,8 @@ def test_port_never_imports_jax_or_the_reference():
     assert {f"src/repro_torch/{m}.py" for m in (
         "models/cnn", "kernels/conv_gemm", "kernels/sass", "data/pipeline",
         "launch/table4_cnn", "launch/kernel_ab", "kernels/cim_gemm",
-        "launch/mesh", "parallel/sharding")} <= parsed
+        "launch/mesh", "parallel/sharding", "models/xlstm",
+        "kernels/slstm_scan", "configs/hybrid_archs")} <= parsed
     bad = []
     for f in files:
         for mod in _imports(f):

@@ -10,7 +10,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
   2. build: the seven CUDA sources (src/repro_torch/kernels/csrc)
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
      report; the log kernels' product loop read from their SASS
-     (``cuobjdump``), its instructions a product counted by pipe;
+     (``cuobjdump``), its instructions a product counted by pipe; the
+     tensor-core instructions (IMMA, IGMMA) of every int8_mma.cuh kernel
+     counted, none failing;
   3. kernels: each of the six GEMM kernels (full-LUT gather, nibble
      sub-LUT gather and log-domain, int and fused forms) against its
      plain PyTorch version on the card, bitwise, at the shapes the
@@ -36,10 +38,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      bound), ``cim_gemm_fused`` for the appro42 and log_our coefficients
      bitwise without noise (bf16 and f32 operands) and, given the same
      eps, within that bound carried through the sqrt plus two output
-     roundings; and the exact-mode conv kernel (``conv_mxu_fused``)
-     bitwise at the conv geometries above and within 1e-5 of
-     ``F.conv2d`` on the dequantized operands (TF32 off); and the mesh
-     path's five partial kernels (``lut_matmul_partial``,
+     roundings, and ``cim_gemm_core`` without SQ (the int8 tensor cores)
+     also at ragged and split-K edge shapes with operands all -128 and
+     all 127 (CORE_EDGES); and the exact-mode conv kernel
+     (``conv_mxu_fused``, the int8 tensor cores) bitwise at the conv
+     geometries above and its edge geometries (MXU_EDGES) and within
+     1e-5 of ``F.conv2d`` on the dequantized operands (TF32 off); and the
+     mesh path's five partial kernels (``lut_matmul_partial``,
      ``nibble_lut_matmul_partial``, ``mitchell_matmul_partial`` at the
      contraction-sharded wo and mlp.wo shapes at model = 2, M = 4 and
      64, bf16; ``conv_lut_partial`` full LUT and nibble,
@@ -51,14 +56,17 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      of 192, T = 1, 37 and 512) and the smoke width (dh 16), from a zero
      and from a nonzero state, h and the final state within the
      tolerance kernels/slstm_scan.py states.  Each timed
-     with CUDA events (L2 flushed before every launch), beside its plain
+     with CUDA events (L2 flushed before every launch, then the card
+     spun for about 0.25 ms so that the launch's host work is queued
+     before the start event), beside its plain
      version's time, a PyTorch call computing the same function where
      one exists (``torch._int_mm``, ``F.conv2d``), and the least time the
      card could take (the larger of the bytes the mask admits over 3.35
      TB/s and the products' shared-memory gathers, log-product
      instructions, int8 tensor-core operations or f32 FMAs over their
      peak rates at the card's maximum SM clock; the sLSTM bound leaves
-     out the serial dependency across T);
+     out the serial dependency across T) and the share of it the kernel
+     reaches;
   4. reference: the LM on the card against the same LM on the CPU (the
      kernels' plain versions) on the smoke config, every tier of the
      hardware ladder with and without CiM attention, of the surrogate
@@ -98,7 +106,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      GEMM kernel and builds no plan after the first, equals the im2col
      oracle (fused=False) bit for bit, and matches the CPU's plain
      versions on 16 images to a stated tolerance; one forward per family
-     timed and profiled;
+     timed and profiled; then one exact-mode forward (the reference
+     semantics: im2col and fake-quant, no port kernel launched; the
+     reference row's top-1/top-5);
   8. surrogate, the compiler's default mode: the quickstart's macro
      (``CiMConfig(family="log_our", bits=8, mode="surrogate")``) warmed
      at the LM shapes, then ``matmul`` there with and without a noise
@@ -113,7 +123,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      three profiled decode rounds per lane); and ``cim_conv2d`` at the
      CNN's five geometries in exact mode (one ``conv_mxu_fused`` launch
      each, equal to the CPU's) and in surrogate mode with a key (the
-     im2col route through the noisy fused kernel);
+     im2col route through the noisy fused kernel), then the five
+     exact-mode convs as one run, timed and profiled;
   9. mesh: the unsharded engine on the hardware ladder serves six
      requests (8-token prompts, 3-8 new tokens, all three tiers) and
      records its tokens and logits; then four gloo ranks on the card
@@ -274,6 +285,17 @@ CNN_CONVS = [(16, 16, 3, 16), (16, 16, 16, 16), (8, 8, 16, 32),
 CONV_RAGGED = [(2, 9, 10, 5, 7, 3, 3, 1), (1, 7, 7, 3, 4, 5, 5, 1),
                (3, 8, 6, 4, 5, 1, 1, 1), (2, 10, 9, 3, 6, 3, 3, 2)]
 RESNET = (4, 56, 56, 64, 64)
+# the tensor-core kernels' edge cases (checked bitwise, not timed):
+# cim_gemm_core without SQ at ragged M, K, N (the byte-staged path), a
+# split-K shape at N = 8 and at M = 130, with operands random, all -128
+# and all 127; conv_mxu_fused at C = 17, N = 80 and 130 (several N
+# tiles), stride 2 with 5x5 and 7x7 taps, a ragged image group, and
+# channels in chunks with taps in two groups (C = 96 on a 60-wide plane)
+CORE_EDGES = [(1, 31, 7), (17, 33, 17), (130, 6144, 2048), (4, 1, 1),
+              (64, 2048, 8), (130, 2048, 17)]
+MXU_EDGES = [(8, 12, 12, 17, 80, 3, 3, 1), (4, 9, 11, 5, 130, 3, 3, 2),
+             (2, 13, 13, 3, 16, 5, 5, 2), (2, 30, 30, 3, 64, 7, 7, 2),
+             (5, 4, 4, 8, 10, 3, 3, 1), (1, 20, 60, 96, 24, 3, 3, 1)]
 FAMS = ("exact", "appro42", "log_our", "mitchell")
 # the kernels a hardware forward of the CNN runs, per family: (conv, fc)
 CNN_KERNELS = {"exact": ("conv_lut_fused", "nibble_lut_matmul_fused"),
@@ -312,12 +334,21 @@ def nvidia_smi(query: str) -> str:
 # ---------------------------------------------------------------------------
 
 
+# SM cycles the card spins between the L2 flush and a timed launch's
+# start event (about 0.25 ms): long enough for the host to queue the
+# launch, so its Python and driver work is not counted as kernel time
+TIMER_SPIN_CYCLES = 500_000
+
+
 def _timed_ms(torch, fn, reps: int, flush) -> float:
     """Mean device time of `fn` over `reps` launches, each after an L2
-    flush, from CUDA events."""
+    flush (none with `flush` None: the L2 warm from the call before) and
+    a spin of the card (TIMER_SPIN_CYCLES), from CUDA events."""
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(TIMER_SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -376,6 +407,28 @@ def log_clocks(build) -> None:
     print(f"  LOG_CLOCKS (fewest of any instantiation): mitchell "
           f"{LOG_CLOCKS[False]:.4f}, log_our {LOG_CLOCKS[True]:.4f}",
           flush=True)
+
+
+def tensor_core_check(build) -> None:
+    """Count the tensor-core instructions (IMMA, IGMMA) in the SASS of
+    every function csrc/int8_mma.cuh instantiates in the built libraries;
+    fail if one has none, or if none is found."""
+    from repro_torch.kernels import sass
+
+    found = 0
+    for lib in ("surrogate_gemm", "conv_gemm"):
+        fns = sass.functions(sass.disassemble(build.library_path(lib)))
+        for name, insns in sorted(fns.items()):
+            if "int8_mma" not in name:
+                continue
+            found += 1
+            c = sass.tensor_core_counts(insns)
+            print(f"  {lib:<14} {name[:56]:<56} IMMA {c['IMMA']}, IGMMA "
+                  f"{c['IGMMA']} (of {len(insns)} instructions)", flush=True)
+            if not c["IMMA"] + c["IGMMA"]:
+                fail(f"{name} in lib{lib}: no tensor-core instruction")
+    if not found:
+        fail("no int8_mma kernel found in the surrogate and conv libraries")
 
 
 def check_kernels(torch, sms: int, clock_hz: float):
@@ -517,8 +570,8 @@ def check_surrogate(torch, sms: int, clock_hz: float):
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     rows = {"cim_gemm_core": [], "cim_gemm_fused": []}
     print(f"  {'kernel':<15} {'variant':<22} {'M,K,N':>16} {'ms':>9} "
-          f"{'bound_ms':>9} {'by':>10} {'plain_ms':>9} {'library_ms':>10}",
-          flush=True)
+          f"{'bound_ms':>9} {'by':>10} {'share':>6} {'plain_ms':>9} "
+          f"{'library_ms':>10}", flush=True)
     for shape in MAIN_SHAPES + [CNN_FC, RAGGED]:
         m, k, n = shape
         timed = shape != RAGGED
@@ -556,6 +609,9 @@ def check_surrogate(torch, sms: int, clock_hz: float):
             row["ms"] = _timed_ms(
                 torch, lambda s_=need_sq: cg.cim_gemm_core(xq, wq, s_), 10,
                 flush)
+            if not need_sq:     # the tensor-core route with the L2 warm
+                row["warm_ms"] = _timed_ms(
+                    torch, lambda: cg.cim_gemm_core(xq, wq, False), 10, None)
             row["plain_ms"] = _timed_ms(
                 torch, lambda s_=need_sq: cg.cim_gemm_core_plain(xq, wq, s_),
                 1, flush)
@@ -620,10 +676,14 @@ def check_surrogate(torch, sms: int, clock_hz: float):
             for r in rs:
                 if r["shape"] == shape:
                     lib = r.get("library_ms")
+                    warm = r.get("warm_ms")
                     print(f"  {name:<15} {r['variant']:<22} {str(shape):>16} "
                           f"{r['ms']:9.4f} {r['bound_ms']:9.4f} "
-                          f"{r['bound_by']:>10} {r['plain_ms']:9.3f} "
-                          f"{'-' if lib is None else f'{lib:10.4f}':>10}",
+                          f"{r['bound_by']:>10} "
+                          f"{r['bound_ms'] / r['ms']:6.1%} "
+                          f"{r['plain_ms']:9.3f} "
+                          f"{'-' if lib is None else f'{lib:10.4f}':>10}"
+                          f"{'' if warm is None else f'  warm {warm:.4f}'}",
                           flush=True)
         print(f"  {shape}: D bitwise, SQ within (K-1) 2^-24 = "
               f"{(k - 1) * 2.0 ** -24:.2e} (max relative error {sq_rel:.2e}), "
@@ -631,6 +691,28 @@ def check_surrogate(torch, sms: int, clock_hz: float):
               f"with it "
               f"({', '.join(str(d)[6:] for d in dtypes)} operands; appro42 "
               f"and log_our)", flush=True)
+    # the tensor-core route's edges: D bitwise, SQ zeros
+    for i, (m, k, n) in enumerate(CORE_EDGES):
+        g = torch.Generator(device=dev).manual_seed(300 + i)
+        xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        for v in (None, -128, 127):
+            a, b = ((xq, wq) if v is None
+                    else (torch.full_like(xq, v), torch.full_like(wq, v)))
+            d, sq = cg.cim_gemm_core(a, b, need_sq=False)
+            want, _ = cg.cim_gemm_core_plain(a, b, need_sq=False)
+            torch.cuda.synchronize()
+            if not torch.equal(d, want) or sq.any():
+                fail(f"cim_gemm_core {(m, k, n)} operands "
+                     f"{'random' if v is None else v} need_sq=False: D != "
+                     f"plain version or SQ not zero")
+            if (m > 16 and k % 8 == 0 and n % 8 == 0
+                    and not torch.equal(torch._int_mm(a, b), d)):
+                fail(f"torch._int_mm {(m, k, n)} != D")
+    print(f"  cim_gemm_core need_sq=False at {CORE_EDGES}: D bitwise for "
+          f"random operands, all -128 and all 127, SQ zeros", flush=True)
     return rows
 
 
@@ -702,7 +784,8 @@ def check_conv(torch, sms: int, clock_hz: float):
              + CONV_RAGGED + [RESNET + (3, 3, 1)])
     rows = {"conv_lut_fused": [], "conv_log_fused": [], "conv_mxu_fused": []}
     print(f"  {'variant':<17} {'B,H,W,C->N':<24} {'ms':>9} {'bound_ms':>9} "
-          f"{'by':>10} {'plain_ms':>9} {'library_ms':>10}", flush=True)
+          f"{'by':>10} {'share':>6} {'plain_ms':>9} {'library_ms':>10}",
+          flush=True)
     for gi, geom in enumerate(geoms):
         b, h, w, c, n, kh, kw, s = geom
         g = torch.Generator(device=dev).manual_seed(31 * gi + 7)
@@ -760,21 +843,47 @@ def check_conv(torch, sms: int, clock_hz: float):
             if timed:
                 oh, ow = got.shape[1], got.shape[2]
                 row["ms"] = _timed_ms(torch, kern, 10, flush)
+                if core == "mxu":   # the tensor-core kernel, L2 warm
+                    row["warm_ms"] = _timed_ms(torch, kern, 10, None)
                 row["plain_ms"] = _timed_ms(torch, plain, 1, flush)
                 row["bound_ms"], row["bound_by"] = _conv_bound(
                     core, comp, b, h, w, c, n, oh, ow, sms, clock_hz)
                 if lib is not None:
                     with _full_f32_convs():
                         row["library_ms"] = _timed_ms(torch, lib, 10, flush)
+                warm = row.get("warm_ms")
                 print(f"  {label:<17} {str(geom[:5]):<24} {row['ms']:9.4f} "
                       f"{row['bound_ms']:9.4f} {row['bound_by']:>10} "
+                      f"{row['bound_ms'] / row['ms']:6.1%} "
                       f"{row['plain_ms']:9.3f} "
-                      f"{row.get('library_ms', float('nan')):10.4f}",
+                      f"{row.get('library_ms', float('nan')):10.4f}"
+                      f"{'' if warm is None else f'  warm {warm:.4f}'}",
                       flush=True)
             rows[name].append(row)
         if not timed:
             print(f"  {str(geom):<42} every variant bitwise equal to its "
                   f"plain version", flush=True)
+    for gi, geom in enumerate(MXU_EDGES):
+        b, h, w, c, n, kh, kw, s = geom
+        g = torch.Generator(device=dev).manual_seed(400 + gi)
+        x = torch.randn(b, h, w, c, generator=g, device=dev)
+        w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+        sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+        geo = dict(kh=kh, kw=kw, stride=s)
+        got = cg.conv_mxu_fused(x, w3, sx, sw, **geo)
+        want = cg.conv_mxu_fused_plain(x, w3, sx, sw, **geo)
+        lib = _float_conv_of_dequantized(x, w3, sx, sw, geo)
+        with _full_f32_convs():
+            ref_out = lib()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"conv_mxu_fused {geom}: kernel != plain version (max "
+                 f"|diff| {float((got - want).abs().max())})")
+        if not torch.allclose(got, ref_out, rtol=1e-5, atol=1e-5):
+            fail(f"conv_mxu_fused {geom}: beyond 1e-5 of F.conv2d on the "
+                 f"dequantized operands")
+    print(f"  conv_mxu_fused at {MXU_EDGES}: bitwise equal to its plain "
+          f"version and within 1e-5 of F.conv2d", flush=True)
     routes = {fam: plan_conv(fam, "hardware", 8, *RESNET, ConvParams(),
                              "cuda", spec=MultiplierSpec(fam, 8, True))
               .entry.name for fam in FAMS}
@@ -1588,6 +1697,7 @@ def table4(torch):
     from repro_torch.core.approx_gemm import plan_misses
     from repro_torch.launch import table4_cnn as t4
     from repro_torch.models.cnn import cnn_forward
+    from repro_torch.models.common import CiMContext, CiMParams
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1672,6 +1782,29 @@ def table4(torch):
                   f"rows; forward ({CNN_BATCH} images) {1e3 * fwd:.2f} ms",
                   flush=True)
             _profile(torch, fam, lambda: cnn_forward(params, x, ctx), fwd)
+
+    # exact mode as the Table IV reference runs it (the exact family's
+    # row): models/cnn.py sends only bit_exact and hardware convs to
+    # cim_conv2d, as the reference does, so this forward is im2col +
+    # cim_linear's fake-quant and a float matmul, no port kernel;
+    # conv_mxu_fused's path is cim_conv2d in exact mode (phase 8)
+    ctx = CiMContext(CiMParams(mode="exact", bits=8))
+    with torch.no_grad():
+        before = _launch_counts()
+        ex = cnn_forward(params, x, ctx)
+        delta = {n: c - before[n] for n, c in _launch_counts().items()
+                 if c != before[n]}
+        if delta:
+            fail(f"table4 exact mode: one forward launched {delta}, "
+                 "expected no port kernel (im2col + cim_linear)")
+        if (ex.shape != (CNN_BATCH, 10) or not torch.isfinite(ex).all()
+                or t4.top1_top5(ex, ys) != ref["exact"]):
+            fail(f"table4 exact mode: logits not finite or top-1/top-5 "
+                 f"{t4.top1_top5(ex, ys)} != the reference row "
+                 f"{ref['exact']}")
+        print(f"  exact mode, n={CNN_BATCH}: im2col + fake-quant + float "
+              f"matmul, no port kernel; top-1/top-5 "
+              f"{t4.top1_top5(ex, ys)} as the reference row", flush=True)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f}s", flush=True)
     return launches, hw
 
@@ -1792,10 +1925,12 @@ def surrogate_conv(torch):
     # the main path's launches: the sum of each conv's own, read before
     # the comparison with the CPU launches the exact kernel again
     launches = {k: 0 for k in _launch_counts()}
+    convs = []
     for i, (h, w, c, n) in enumerate(CNN_CONVS):
         g = torch.Generator(device=dev).manual_seed(200 + i)
         x = torch.randn(CNN_BATCH, h, w, c, generator=g, device=dev)
         w2 = torch.randn(9 * c, n, generator=g, device=dev) * 0.1
+        convs.append((x, w2))
         _reset_counts()
         y = cim_conv2d(x, w2, exact)
         yn = cim_conv2d(x, w2, surr, NoiseKey(4))
@@ -1820,6 +1955,26 @@ def surrogate_conv(torch):
           f"exact mode one conv_mxu_fused launch each, equal to the CPU's "
           f"on 16 images; surrogate mode with a key one noisy "
           f"cim_gemm_fused each (im2col); launches {launches}", flush=True)
+
+    # conv_mxu_fused's path end to end: the five exact-mode convs as one
+    # run, on the host clock and under the profiler
+    def five():
+        for x_, w_ in convs:
+            cim_conv2d(x_, w_, exact)
+
+    five()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    five()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    print(f"  the five exact-mode convs (batch {CNN_BATCH}) as one run: "
+          f"{1e3 * host_s:.3f} ms host clock", flush=True)
+    med = _profile(torch, "exact", five, host_s)
+    if med is not None:
+        print(f"    conv_mxu_fused "
+              f"{med['by_class'].get('CiM conv kernel', 0.0) / 1e3:.4f} ms "
+              f"of {med['busy_ms']:.4f} ms busy", flush=True)
     return launches
 
 
@@ -2462,6 +2617,10 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 def _kernel_class(name: str, matmul_kernels) -> str:
     low = name.lower()
+    if "int8_mma_conv" in low:
+        return "CiM conv kernel"
+    if "int8_mma_dense" in low:
+        return "CiM surrogate kernel"
     if "convsrc" in low:
         return "CiM conv kernel"
     if "lutcore" in low:
@@ -2647,6 +2806,7 @@ def main():
     print(f"  {len(built)} sources built in {time.perf_counter() - t0:.1f}s",
           flush=True)
     log_clocks(build)
+    tensor_core_check(build)
 
     print("[3] kernels against their plain versions", flush=True)
     rows = check_kernels(torch, sms, clock_hz)
@@ -2755,8 +2915,12 @@ def main():
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": (sum(r["library_ms"] for r in lib) if lib
                            else None),
+            "bound_share": (sum(r["bound_ms"] for r in timed)
+                            / sum(r["ms"] for r in timed)),
             "shapes": [_shape_key(r) for r in timed],
         })
+        if timed and all("warm_ms" in r for r in timed):
+            kernels[-1]["warm_ms"] = sum(r["warm_ms"] for r in timed)
         if lib and len(lib) != len(timed):
             kernels[-1]["library_shapes"] = [list(r["shape"]) for r in lib]
             kernels[-1]["ms_library_shapes"] = sum(r["ms"] for r in lib)

@@ -1186,9 +1186,14 @@ def _conv_kernel_fits(entry_name: str, bits: int) -> bool:
     the kernel holds no plane, only its core's table and one staged A and
     B tile (kernels/conv_gemm.gemm_smem_bytes), so the image size does
     not enter and the answer depends on the core and the operand width
-    alone.  The exact core has no table: its block is the two int32
-    tiles, 10,240 bytes.  No width the conv entries accept fails it (the
-    largest block, the 8-bit full table's, is 137,216 bytes): it holds
+    alone.  The exact core (the int8 tensor-core kernel) holds an int8
+    input halo, an int8 weight tile and its k-word offsets, 54,848
+    bytes, whatever the geometry: it takes the channels in chunks and
+    the taps in groups.  One output pixel's halo must still fit, so it
+    takes at most conv_gemm.MXU_MAX_TAPS (4,096) taps; `plan_conv` sends
+    a larger kernel to `conv_im2col`.  No width the conv entries accept
+    fails it (the largest block, the 8-bit full table's, is 137,216
+    bytes): it holds
     the registry to the kernel's layout should an entry widen, and each
     launch checks the same total again.  The plain versions are held to
     the same gate, so a geometry routes alike on both devices."""
@@ -1264,6 +1269,8 @@ def _plan_conv_cached(family: str, mode: str, bits: int, bb: int, hb: int,
                       wb: int, cb: int, nb: int, conv: ConvParams,
                       bit_safe: bool, backend: str,
                       spec: Optional[MultiplierSpec]) -> ConvPlan:
+    from repro_torch.kernels.conv_gemm import MXU_MAX_TAPS
+
     for entry in _entries_cached("conv", family, mode, bits, backend, spec):
         if entry.name in _CONV_CORES:
             # the im2col path IS the oracle of the integer cores; the
@@ -1273,6 +1280,9 @@ def _plan_conv_cached(family: str, mode: str, bits: int, bb: int, hb: int,
                 continue
             if not _conv_kernel_fits(entry.name, bits):
                 continue           # tile too large: try lower priority
+            if (_CONV_CORES[entry.name] == "mxu"
+                    and conv.kh * conv.kw > MXU_MAX_TAPS):
+                continue           # one pixel's halo does not fit
         return ConvPlan(entry=entry, conv=conv, backend=backend)
     raise ValueError(                  # conv_im2col always matches
         f"no eligible conv kernel for family={family!r} mode={mode!r}")
@@ -1291,7 +1301,8 @@ def plan_conv(family: str, mode: str, bits: int, b: int, h: int, w: int,
     False (the materialized fallback is the oracle; the exact-mode
     kernel, bounded by f32 rounding as in the reference, is not), and
     every implicit kernel when its block does not fit shared memory
-    (`_conv_kernel_fits`); `conv_im2col` always matches.
+    (`_conv_kernel_fits`), the exact-mode kernel also beyond
+    conv_gemm.MXU_MAX_TAPS taps; `conv_im2col` always matches.
 
     With `mesh`, `x_spec` shards the batch dim of (B, H, W, C) (its other
     entries must be None) and `w_spec` is a (K, N)-style pair over the
@@ -1642,7 +1653,8 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
     the geometry is bit-safe (`_conv_bit_exact_safe`), and `plan_conv`
     enforces it: other geometries and the bit_exact and surrogate modes
     run `conv_im2col`; the exact-mode kernel differs from `im2col +
-    cim_matmul` by f32 rounding only and runs on any geometry.  In a
+    cim_matmul` by f32 rounding only and runs on any geometry of at most
+    conv_gemm.MXU_MAX_TAPS taps (larger ones run `conv_im2col`).  In a
     surrogate mode a `key` draws the (B*OH*OW, N) noise of the
     materialized GEMM (`noise_kind`, normal by default).  Plans are
     cached on the conv-bucketed shape, the bit-safety flag and whether

@@ -6,7 +6,9 @@ the TPU and a shape-clipped heuristic elsewhere.  This module ports the
 attention heuristic and the attention and conv plan caches' bucketing;
 the measured sweep and its disk cache are a later slice (ROADMAP queue
 A 4).  The CUDA GEMM and conv kernels (csrc/cim_gemm.cuh) run one tile
-fixed at compile time, which no plan chooses.  That holds for the fused
+fixed at compile time, which no plan chooses; the int8 tensor-core
+kernels (csrc/int8_mma.cuh) choose their K split or pixel tile at launch
+from the shape alone, and D is exact whatever they choose.  That holds for the fused
 surrogate kernel too: the reference's candidates for it, (64..256,
 128..256, 128..256) blocks, are shaped for the TPU's 128 x 128 matrix
 unit and VMEM.  On Hopper the template's 16 x 64 output block with a

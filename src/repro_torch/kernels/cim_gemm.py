@@ -22,6 +22,9 @@ On CUDA tensors each launches csrc/surrogate_gemm.cu or raises; on CPU
 tensors it runs its plain version: D bitwise equal to the kernel's, SQ
 exact and rounded once (the kernel's f32 sum lies within (K - 1) 2^-24
 relative of it), and, without noise, the output bitwise equal.
+``cim_gemm_core`` without SQ runs on the int8 tensor cores
+(csrc/int8_mma.cuh), which split K across the blocks of a cluster as the
+shape and the card's SM count ask.
 """
 
 from __future__ import annotations

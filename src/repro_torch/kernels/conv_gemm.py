@@ -16,9 +16,10 @@ per-tensor ``sx`` / per-out-channel ``sw`` quantization on load and the
   * ``conv_lut_fused`` — the full signed-product table, or the nibble
     sub-tables (``nibble=True``);
   * ``conv_log_fused`` — the Mitchell / Log-our log-domain product;
-  * ``conv_mxu_fused`` — the exact product (exact mode), summed exactly
-    in int32 where the reference summed the dequantized products in f32
-    per tap: the two differ by f32 rounding only.
+  * ``conv_mxu_fused`` — the exact product (exact mode) on the int8
+    tensor cores, summed exactly in int32 where the reference summed the
+    dequantized products in f32 per tap: the two differ by f32 rounding
+    only.
 
 and the mesh path's two partial forms, the LUT and log forms with the
 epilogue off (``conv_lut_partial`` with ``nibble=``, ``conv_log_partial``):
@@ -66,17 +67,31 @@ KERNELS = {"conv_lut_fused": _LUT, "conv_log_fused": _LOG,
 # accumulates per K step (its RPT)
 TILE = (16, 32, 64)
 ROWS_PER_THREAD = 4
+# the exact core's tensor-core block (csrc/int8_mma.cuh): the int8 halo
+# bytes, the weight tile's K bytes a group and its output channels
+MXU_HALO, MXU_KCAP, MXU_BN = 16384, 576, 64
+# the most taps it takes: one output pixel's halo, a 4-channel word a
+# tap, must fit the int8 halo (plan_conv sends larger kernels to
+# conv_im2col)
+MXU_MAX_TAPS = MXU_HALO // 4
+
 
 def _al(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
 def gemm_smem_bytes(core: str, bits: int) -> int:
-    """Dynamic shared memory of one block of cim_gemm.cuh's kernel for
-    `core` ("lut", "nibble", "log" or "mxu"): the table, then the staged
-    A (BM x BK) and B (BK x BN) tiles (the full table's int32 row offsets
-    and int16 column indices; int4 nibble offsets or log decompositions;
-    the exact core's int32 operands, no table)."""
+    """Dynamic shared memory of one block of a conv kernel for `core`
+    ("lut", "nibble", "log" or "mxu").  For cim_gemm.cuh's kernel: the
+    table, then the staged A (BM x BK) and B (BK x BN) tiles (the full
+    table's int32 row offsets and int16 column indices; int4 nibble
+    offsets or log decompositions).  For the exact core, int8_mma.cuh's
+    tensor-core kernel: the int8 input halo, the int8 K-major weight tile
+    (MXU_BN rows of MXU_KCAP bytes, each padded by 16) and one int offset
+    a k word, 54,848 bytes whatever the geometry and the width (the
+    kernel takes channels in chunks and taps in groups to fit it)."""
+    if core == "mxu":
+        return MXU_HALO + MXU_BN * (MXU_KCAP + 16) + MXU_KCAP
     bm, bk, bn = TILE
     if core == "lut":
         return _al((1 << (2 * bits)) * 2) + _al(4 * bm * bk) + 2 * bk * bn
@@ -84,8 +99,6 @@ def gemm_smem_bytes(core: str, bits: int) -> int:
         return _al(16 << bits) + _al(16 * bm * bk) + 16 * bk * bn
     if core == "log":
         return _al(16 * bm * bk) + 16 * bk * bn
-    if core == "mxu":
-        return _al(4 * bm * bk) + 4 * bk * bn
     raise ValueError(f"unknown core {core!r}")
 
 
@@ -297,6 +310,9 @@ def conv_mxu_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
     _check_operands(x, w3, sx, sw, n)
     require(2 <= bits <= 8,
             f"the exact conv kernel takes 2..8-bit operands, got {bits}")
+    require(kh * kw <= MXU_MAX_TAPS,
+            f"the exact conv kernel takes at most {MXU_MAX_TAPS} taps (one "
+            f"pixel's halo), got {kh}x{kw}")
     oh, ow = conv_out_hw(h, w, kh, kw, stride)
     out = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
     _MXU(x.data_ptr(), w3.data_ptr(), sx.data_ptr(), sw.data_ptr(),

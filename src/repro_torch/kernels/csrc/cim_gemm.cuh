@@ -16,8 +16,8 @@
 //               + S_ll[al,bl])
 //   LogCore     the Mitchell / Log-our log-domain product (LoD, shifts
 //               and the paper's OR-merged compensation), no table
-//   IntCore     the exact integer product a * b (the surrogate GEMMs' D
-//               and the exact-mode conv), no table; IntSqCore also
+//   IntCore     the exact integer product a * b (the fused surrogate
+//               GEMM's D), no table; IntSqCore also
 //               stages a^2 and b^2 as f32 for the surrogate's second sum
 //               SQ = sum_k a^2 b^2, accumulated in f32 with fmaf in K
 //               order (never TF32 or a 16-bit type: a^2 b^2 reaches
@@ -58,9 +58,11 @@
 // padded: out-of-range operands stage as 0, which every core annihilates
 // (the tables map (0, b) and (a, 0) to 0, asserted when they are built;
 // sign 0 zeroes the nibble and log products, and 0 the integer product
-// and its square).  No tensor cores, no asynchronous copies: the simple
-// correct form (the int8 dot of the integer core is the first candidate
-// for the tensor cores, in a later change).
+// and its square).  No tensor cores, no asynchronous copies: a table or
+// log product has no tensor-core form, and the fused surrogate GEMM keeps
+// this form until its split-K redesign.  The exact int8 dot of
+// cim_gemm_core (without SQ) and of the exact-mode conv runs on the
+// tensor cores instead: int8_mma.cuh.
 
 #pragma once
 
@@ -283,17 +285,17 @@ struct QuantIntOut {
   }
 };
 
-// int operands in, D as int32 and SQ as f32 (zeros without NEED_SQ) out
-template <bool NEED_SQ>
+// int operands in, D as int32 and SQ as f32 out (cim_gemm_core with SQ;
+// without it the core runs on the tensor cores, int8_mma.cuh)
 struct CoreOut {
   static constexpr bool QUANT = false;
-  static constexpr bool SQ = NEED_SQ;
+  static constexpr bool SQ = true;
   using Out = int32_t;
   float* sq_out;
   __device__ void store(Out* out, size_t o, int, uint32_t acc, float sq,
                         float, const float*) const {
     out[o] = static_cast<int32_t>(acc);
-    sq_out[o] = NEED_SQ ? sq : 0.f;
+    sq_out[o] = sq;
   }
 };
 

@@ -4,7 +4,8 @@
 //   conv_lut_fused (-> _lut_kernel, nibble=False / True): the full signed
 //     product table or the nibble sub-tables per product
 //   conv_log_fused (-> _log_kernel): the Mitchell / Log-our product
-//   conv_mxu_fused (-> _mxu_kernel): the exact product (exact mode)
+//   conv_mxu_fused (:174 -> _mxu_kernel :148): the exact product (exact
+//     mode), on the tensor cores
 //   conv_lut_partial, conv_log_partial (-> _lut_kernel, _log_kernel with
 //     the epilogue off): the mesh path's shard-local forms over a slice
 //     of the input channels, quantized against the caller's global
@@ -25,27 +26,33 @@
 // M = B*OH*OW rows, K = kh*kw*C, N = C_out: M*K*N shared-memory gathers
 // (lut; nibble four a product) at most 132 SMs x 32 words a clock, or
 // about 11 (mitchell) / 28 (log_our) int32 operations a product at 132 x
-// 64 lanes a clock; the exact form's M*K*N int8 products could run on
-// the tensor cores (2 M K N operations at 1,979 TOP/s), here one IMAD
-// each on the CUDA cores.  The bytes the output depends on (the image and the
-// weights read once, the output written once) bound nothing at the CNN's
-// geometries.
+// 64 lanes a clock.  The exact form's 2 M K N int8 operations run on the
+// tensor cores at 1,979 TOP/s, far below the bytes (the image and the
+// weights read once, the output written once, 3.35 TB/s), so at the
+// CNN's geometries the exact form is bound by bytes and the others by
+// their products.
 //
 // Design: not the TPU's.  The TPU kernel held a whole padded input plane
 // in VMEM (gated at 8 MiB by the reference's plan_conv) and sliced each
-// tap's shifted window out of it.  Here the convolution is cim_gemm.cuh's
-// gemm_kernel with ConvSrc as its A operand: a block owns BM output
-// pixels (rows of M, batch-major) x BN output channels and loops over
-// K = (tap, channel) in BK steps, loading each element of the patch
-// matrix from device memory by index arithmetic (out-of-image taps read
-// as 0, which every core annihilates), so no plane and no im2col tensor
-// is held anywhere and any plane size fits.  Shared memory holds the
-// table and one A and one B tile; the launch takes the caller's total
+// tap's shifted window out of it.  The exact form is int8_mma.cuh's conv
+// kernel: a block owns a spatial tile of output pixels and all N, holds
+// its tile's input halo quantized once into int8 shared memory and the
+// quantized weights K-major, and forms the tensor cores' A fragments
+// from the halo by index arithmetic; its shared memory is one fixed
+// total, the channels taken in chunks and the taps in groups.  The other
+// forms are cim_gemm.cuh's gemm_kernel with ConvSrc as its A operand: a
+// block owns BM output pixels (rows of M, batch-major) x BN output
+// channels and loops over K = (tap, channel) in BK steps, loading each
+// element of the patch matrix from device memory by index arithmetic
+// (out-of-image taps read as 0, which every core annihilates), so no
+// plane and no im2col tensor is held anywhere and any plane size fits.  Shared memory holds the
+// table and one A and one B tile.  Every launch takes the caller's total
 // (kernels/conv_gemm.py gemm_smem_bytes, which the planner's gate
 // reads) and refuses one that differs.  The K loop stays inside the
-// block, so the int32 result is deterministic.
+// block in both designs, so the int32 result is deterministic.
 
 #include "cim_gemm.cuh"
+#include "int8_mma.cuh"
 
 template <class Epi>
 static int conv_log(const void* x, const void* w, const void* sx,
@@ -94,14 +101,13 @@ int conv_lut_partial(const void* x, const void* w, const void* tab,
                                        kh, kw, stride, bits, smem, stream);
 }
 
-// the exact integer product (exact mode; no table)
+// the exact integer product (exact mode; no table) on the tensor cores
 int conv_mxu_fused(const void* x, const void* w, const void* sx,
                    const void* sw, void* out, int B, int H, int W, int C,
                    int N, int kh, int kw, int stride, int bits, int smem,
                    void* stream) {
-  return cim::conv_quant<cim::IntCore>(x, w, nullptr, sx, sw, out,
-                                       cim::ScaleOut{}, B, H, W, C, N, kh,
-                                       kw, stride, bits, smem, stream);
+  return cim::conv_int8_mma(x, w, sx, sw, out, B, H, W, C, N, kh, kw,
+                            stride, bits, smem, stream);
 }
 
 int conv_log_fused(const void* x, const void* w, const void* sx,

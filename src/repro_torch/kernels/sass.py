@@ -15,6 +15,11 @@ instruction that runs on either integer pipe (VIADD, VIMNMX, MOV) counts
 only toward the issue limit, so the bound stays a lower one; loads,
 branches and uniform-datapath instructions are not counted at all.
 
+It also counts the tensor-core instructions (``IMMA``, from
+``mma.sync``; ``IGMMA``, from ``wgmma``) of each function, so that
+``chip_smoke.py`` can show that the int8 kernels of ``csrc/int8_mma.cuh``
+run on the tensor cores.
+
 Only text is parsed here; `disassemble` needs the CUDA toolkit's
 ``cuobjdump`` and runs on the machine with the card.
 """
@@ -70,6 +75,20 @@ def functions(sass: str) -> Dict[str, List[Insn]]:
         if m and cur is not None:
             cur.append(Insn(int(m.group(1), 16), (m.group(2) or "").strip(),
                             m.group(3), m.group(4).strip()))
+    return out
+
+
+# the tensor-core matrix instructions of integer operands
+TENSOR_CORE_OPS = ("IMMA", "IGMMA")
+
+
+def tensor_core_counts(insns: List[Insn]) -> Dict[str, int]:
+    """{opcode: instructions} of one function, for IMMA and IGMMA."""
+    out = {op: 0 for op in TENSOR_CORE_OPS}
+    for x in insns:
+        base = x.op.split(".")[0]
+        if base in out:
+            out[base] += 1
     return out
 
 

@@ -3,14 +3,21 @@
 Each root is a checkout of this repository (a ``git archive`` unpacked
 anywhere).  For each root, in the order given, one process imports that
 root's ``chip_smoke.py``, builds its kernels into its own ``build/`` and
-runs its phase-3 checks (``check_kernels`` and, where the root has it,
-``check_conv``): every kernel bitwise against its plain version, then
-timed per shape (mean of 10 launches, each after an L2 flush).  Give
-the roots in a balanced order, e.g. parent, change, change, parent, so
-that drift over the call cancels; runs of one root are averaged.
+runs its phase-3 checks (``check_kernels`` and, where the root has
+them, ``check_conv``, ``check_partials``, ``check_attention``,
+``check_surrogate``, ``check_slstm``): every kernel against its plain
+version, then timed per shape with the root's own timer (``_timed_ms``:
+a mean of launches, each after an L2 flush).  ``--spin CYCLES`` times
+every root with one timer instead: the L2 flush, then the card spun for
+CYCLES SM clocks (``torch.cuda._sleep``; 0 spins not at all) so that a
+launch's host work is queued before the start event, then the launch
+between two CUDA events.  Give the roots in a balanced order, e.g.
+parent, change, change, parent, so that drift over the call cancels;
+runs of one root are averaged.
 
     python3 src/repro_torch/launch/kernel_ab.py --out build/ab/out \
-        parent=build/ab/parent change=. change=. parent=build/ab/parent
+        --spin 500000 parent=build/ab/parent change=. change=. \
+        parent=build/ab/parent
 
 It writes ``<out>/ab.json`` ({label: {kernel: {shape: [ms, ...]}}}) and
 prints, per kernel and shape, each label's mean ms and its ratio to the
@@ -35,6 +42,28 @@ sys.path[:0] = [root, os.path.join(root, "src")]
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
+spin = None if sys.argv[2] == "-" else int(sys.argv[2])
+
+
+def timed_ms(torch, fn, reps, flush):
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        if spin:
+            torch.cuda._sleep(spin)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+if spin is not None:
+    cs._timed_ms = timed_ms
 log = open(sys.argv[1], "w")
 with contextlib.redirect_stdout(log):
     build.build(build.SOURCES)
@@ -43,17 +72,21 @@ with contextlib.redirect_stdout(log):
     clock = float(cs.nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name, rs in cs.check_kernels(torch, sms, clock).items():
-        for r in rs:
-            if "ms" in r:
-                out.setdefault(name, {})[str(tuple(r["shape"]))] = r["ms"]
-    if hasattr(cs, "check_conv"):
-        for name, rs in cs.check_conv(torch, sms, clock).items():
+    for check in ("check_kernels", "check_conv", "check_partials",
+                  "check_attention", "check_surrogate", "check_slstm"):
+        if not hasattr(cs, check):
+            continue
+        for name, rs in getattr(cs, check)(torch, sms, clock).items():
             for r in rs:
-                if "ms" in r:
-                    key = f"{name}[{r['variant']}]"
-                    out.setdefault(key, {})[str(tuple(r["geometry"][:5]))] \
-                        = r["ms"]
+                if "ms" not in r:
+                    continue
+                where = r.get("path") or r.get("variant")
+                key = f"{name}[{where}]" if where else name
+                dims = r["shape"] if "shape" in r else r["geometry"]
+                shape = str(tuple(dims))
+                while shape in out.setdefault(key, {}):
+                    shape += "'"
+                out[key][shape] = r["ms"]
 print(json.dumps(out))
 """
 
@@ -64,6 +97,10 @@ def main() -> None:
                     help="a label and a checkout, run in the order given")
     ap.add_argument("--out", default="build/ab/out",
                     help="directory for ab.json and the runs' logs")
+    ap.add_argument("--spin", type=int, default=None, metavar="CYCLES",
+                    help="time every root with one timer that spins the "
+                    "card CYCLES SM clocks before each start event "
+                    "(default: each root's own chip_smoke timer)")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
     times = defaultdict(lambda: defaultdict(lambda: defaultdict(list)))
@@ -73,7 +110,8 @@ def main() -> None:
         if label not in labels:
             labels.append(label)
         log = os.path.abspath(os.path.join(args.out, f"run{i}-{label}.log"))
-        proc = subprocess.run([sys.executable, "-c", _CHILD, log],
+        spin = "-" if args.spin is None else str(args.spin)
+        proc = subprocess.run([sys.executable, "-c", _CHILD, log, spin],
                               cwd=os.path.abspath(root), capture_output=True,
                               text=True)
         if proc.returncode != 0:
@@ -110,7 +148,10 @@ def main() -> None:
         if len(shapes) > 1:
             cells = " ".join(f"{sums[lab]:12.4f}" if lab in sums
                              else f"{'-':>12}" for lab in labels)
-            print(f"{name:<34} {'sum':<26} {cells}")
+            ratios = " ".join(f"{sums[lab] / sums[base]:.3f}"
+                              for lab in labels[1:]
+                              if sums[lab] and sums[base])
+            print(f"{name:<34} {'sum':<26} {cells}  {ratios}")
 
 
 if __name__ == "__main__":

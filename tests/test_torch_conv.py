@@ -189,8 +189,41 @@ def test_conv_plan_routes_a_large_plane_to_the_kernel():
     assert conv_gemm.gemm_smem_bytes("lut", 8) == 137_216
     assert conv_gemm.gemm_smem_bytes("nibble", 8) == 45_056
     assert conv_gemm.gemm_smem_bytes("log", 16) == 40_960
+    assert conv_gemm.gemm_smem_bytes("mxu", 8) == 54_848
     for name in ag._CONV_CORES:
         assert ag._conv_kernel_fits(name, 8)
+
+
+# kernel taps around the exact-mode tensor-core kernel's limit: one
+# output pixel's halo, a 4-channel word a tap, fills its 16 KiB int8 halo
+# at 4,096 taps
+MXU_TAPS = [(3, 3), (63, 65), (1, 4095), (65, 65), (1, 4097), (4097, 1)]
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cpu"])
+@pytest.mark.parametrize("taps", MXU_TAPS, ids=str)
+def test_exact_conv_beyond_the_kernel_halo_routes_to_im2col(taps, backend):
+    """The exact-mode conv kernel takes up to conv_gemm.MXU_MAX_TAPS taps
+    whatever the channels and the plane; a larger kernel goes to
+    conv_im2col, on both devices alike, so every geometry still runs."""
+    kh, kw = taps
+    plan = plan_conv("exact", "exact", 8, 1, 8, 8, 4, 4,
+                     ConvParams(kh, kw), backend)
+    kernel = "cuda_conv_mxu" if backend == "cuda" else "torch_conv_mxu"
+    fits = kh * kw <= conv_gemm.MXU_MAX_TAPS
+    assert conv_gemm.MXU_MAX_TAPS == 4096
+    assert plan.entry.name == (kernel if fits else "conv_im2col")
+
+
+def test_exact_conv_with_more_taps_than_the_kernel_runs_im2col():
+    """A 1 x 4097 exact-mode conv runs conv_im2col: finite, of its
+    shape, and equal to im2col + cim_matmul."""
+    gp = GemmParams(family="exact", bits=8, mode="exact")
+    cp = ConvParams(1, 4097)
+    x, wt = _ops(2, 3, 5, 2, 3, 1, 4097, seed=23)
+    got = cim_conv2d(x, wt, gp, kh=1, kw=4097)
+    assert got.shape == (2, 3, 5, 3) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, _oracle(x, wt, gp, cp))
 
 
 def test_conv_params_reject_even_kernels_and_bad_stride():

@@ -455,7 +455,60 @@ def test_surrogate_kernels_against_plain_versions(shape, coeffs):
         assert not torch.equal(got, det)
 
 
-@pytest.mark.parametrize("geom", CONV_GEOMS, ids=str)
+# cim_gemm_core's tensor-core route: ragged M, K (below one 32-deep
+# fragment, between, above one 64-byte stage) and N (below one n8 tile,
+# one, ragged, many 64-column tiles); K = 2048, 6144 at N = 2048 split K
+# (at most 96 tiles of 64 x 64 there, fewer than two blocks an SM of an
+# H100, so the launch splits K over a cluster)
+CORE_M = [1, 4, 17, 64, 130]
+CORE_K = [1, 31, 33, 2048, 6144]
+CORE_N = [1, 7, 8, 17, 2048]
+
+
+@pytest.mark.parametrize("k", CORE_K)
+@pytest.mark.parametrize("m", CORE_M)
+def test_core_tensor_core_route_bitwise_equal_plain_version(m, k):
+    """cim_gemm_core without SQ (the int8 tensor cores, K split over a
+    cluster's blocks and summed through its distributed shared memory):
+    D bitwise equal to the plain version
+    and, where its shape rules allow, to torch._int_mm; SQ all zeros; for
+    random operands and for operands all -128 and all 127."""
+    from repro_torch.kernels import cim_gemm
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(13 * m + k)
+    for n in CORE_N:
+        xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        for v in (None, -128, 127):
+            a, b = ((xq, wq) if v is None
+                    else (torch.full_like(xq, v), torch.full_like(wq, v)))
+            d, sq = cim_gemm.cim_gemm_core(a, b, need_sq=False)
+            want, _ = cim_gemm.cim_gemm_core_plain(a, b, need_sq=False)
+            torch.cuda.synchronize()
+            assert torch.equal(d, want), (n, v)
+            assert sq.shape == (m, n) and not sq.any(), (n, v)
+            if m > 16 and k % 8 == 0 and n % 8 == 0:
+                assert torch.equal(d, torch._int_mm(a, b)), (n, v)
+
+
+# conv_mxu_fused: the shared geometries plus C = 17 (a chunk padded to
+# 20), N = 80 and 130 (two and three N tiles), stride 2 with 5x5 and 7x7
+# taps, images in groups with a ragged last group, channels in several
+# chunks and taps in two groups (C = 96 on a 60-wide plane), and one
+# ResNet-18 conv2_x layer
+MXU_GEOMS = CONV_GEOMS + [(8, 12, 12, 17, 80, 3, 3, 1),
+                          (4, 9, 11, 5, 130, 3, 3, 2),
+                          (2, 13, 13, 3, 16, 5, 5, 2),
+                          (2, 30, 30, 3, 64, 7, 7, 2),
+                          (5, 4, 4, 8, 10, 3, 3, 1),
+                          (1, 20, 60, 96, 24, 3, 3, 1),
+                          (4, 56, 56, 64, 64, 3, 3, 1)]
+
+
+@pytest.mark.parametrize("geom", MXU_GEOMS, ids=str)
 def test_conv_mxu_kernel_bitwise_equal_plain_version(geom):
     """The exact-mode conv kernel equals its plain version bit for bit and
     a float conv of the dequantized operands (TF32 off) within 1e-5."""
@@ -503,6 +556,27 @@ def test_surrogate_wrappers_raise_on_what_the_kernels_do_not_take():
     s4, s6 = ops._scales(x4, w3.reshape(-1, 6), 8)
     with pytest.raises(ValueError, match="f32"):
         conv_gemm.conv_mxu_fused(x4.to(torch.bfloat16), w3, s4, s6)
+
+
+def test_conv_mxu_kernel_refuses_a_shared_memory_total_not_its_own(
+        monkeypatch):
+    """The planner's shared-memory model (gemm_smem_bytes("mxu")) and the
+    tensor-core conv kernel's layout are held together at every launch:
+    a total other than the kernel's own is refused, and not counted."""
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    x = torch.rand(2, 8, 8, 4, device=dev)
+    w3 = torch.randn(9, 4, 6, device=dev)
+    sx, sw = ops._scales(x, w3.reshape(-1, 6), 8)
+    conv_gemm.conv_mxu_fused(x, w3, sx, sw)
+    real = conv_gemm.gemm_smem_bytes
+    monkeypatch.setattr(conv_gemm, "gemm_smem_bytes",
+                        lambda *a: real(*a) + 16)
+    before = conv_gemm.KERNELS["conv_mxu_fused"].launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_gemm.conv_mxu_fused(x, w3, sx, sw)
+    assert conv_gemm.KERNELS["conv_mxu_fused"].launches == before
 
 
 def test_surrogate_frontends_on_the_card_run_the_kernels():

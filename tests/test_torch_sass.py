@@ -79,3 +79,30 @@ def test_a_function_without_a_product_loop_is_refused():
         sass.product_loop(lut, 32)
     with pytest.raises(ValueError, match="induction against 64"):
         sass.product_loop(sass.functions(SASS)[LOG], 64)
+
+
+# a tensor-core function as cuobjdump prints it: mma.sync m16n8k32 s8
+# becomes IMMA.16832, wgmma IGMMA; a predicated one counts too
+TC_SASS = """
+		Function : _ZN3cim21int8_mma_dense_kernelILb1EEEvPKaS2_PiPfiiii
+        /*0000*/                   LDSM.16.MT88.4 R8, [R2] ;
+        /*0010*/                   PRMT R12, R8, 0x6420, R9 ;
+        /*0020*/                   IMMA.16832.S8.S8 R24, R36.ROW, R12.COL, R24 ;
+        /*0030*/                   IMMA.16832.S8.S8 R28, R36.ROW, R14.COL, R28 ;
+        /*0040*/               @P1 IMMA.16832.S8.S8 R32, R40.ROW, R12.COL, R32 ;
+        /*0050*/                   IGMMA.64x64x32.S8.S8 R24, gdesc[UR4], R24 ;
+        /*0060*/                   EXIT ;
+		Function : _ZN3cim11gemm_kernelINS_7IntCoreEEtest
+        /*0000*/                   IMAD R2, R2, R3, R4 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_tensor_core_instructions_are_counted_per_function():
+    fns = sass.functions(TC_SASS)
+    got = {name: sass.tensor_core_counts(insns)
+           for name, insns in fns.items()}
+    assert got == {
+        "_ZN3cim21int8_mma_dense_kernelILb1EEEvPKaS2_PiPfiiii":
+            {"IMMA": 3, "IGMMA": 1},
+        "_ZN3cim11gemm_kernelINS_7IntCoreEEtest": {"IMMA": 0, "IGMMA": 0}}

@@ -195,7 +195,8 @@ def test_conv_mxu_routes_every_geometry_and_fits_shared_memory():
     """The exact-mode kernel is bounded by f32 rounding, not bitwise
     against im2col: like the reference's pallas_conv_mxu it also takes
     the geometries the bit-safety gate sends to conv_im2col in hardware
-    mode, and its block (two int32 tiles, no table) fits easily."""
+    mode, and its block (the tensor-core kernel's int8 halo and weight
+    tiles, one fixed total for every geometry, no table) fits easily."""
     cp = ag.ConvParams(1, 1, 2)                     # stride > kernel
     assert not ag._conv_bit_exact_safe(8, 8, cp)
     assert ag.plan_conv("exact", "exact", 8, 2, 8, 8, 4, 4, cp,
@@ -205,7 +206,7 @@ def test_conv_mxu_routes_every_geometry_and_fits_shared_memory():
     assert jag.plan_conv("exact", "exact", 8, 2, 8, 8, 4, 4,
                          jag.ConvParams(1, 1, 2),
                          backend="cpu").entry.name == "pallas_conv_mxu"
-    assert conv_gemm.gemm_smem_bytes("mxu", 8) == 10_240
+    assert conv_gemm.gemm_smem_bytes("mxu", 8) == 54_848
     assert ag._conv_kernel_fits("cuda_conv_mxu", 8)
 
 

@@ -10,7 +10,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
   2. build: the seven CUDA sources (src/repro_torch/kernels/csrc)
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
      report; the log kernels' product loop read from their SASS
-     (``cuobjdump``), its instructions a product counted by pipe; the
+     (``cuobjdump``; for the split-K cluster kernel, its K step's product
+     section), its instructions a product counted by pipe; the
      tensor-core instructions (IMMA, IGMMA) of every int8_mma.cuh kernel
      counted, none failing;
   3. kernels: each of the six GEMM kernels (full-LUT gather, nibble
@@ -22,7 +23,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      operands, as the CNN feeds them) and one ragged shape
      (the nibble kernels for the exact table and appro42 with 4
      approximate columns, the int form also at the saturating int8
-     minimum); the two implicit-GEMM conv kernels (full LUT, nibble for
+     minimum); the fused LUT and log GEMMs (the split-K cluster kernel,
+     csrc/cluster_gemm.cuh) also bitwise at CLUSTER_EDGES (every M, K
+     and N corner of its plan, bf16 and f32, the LUT at 4 and 8 bits, the
+     log kernel at 8 and, through the tiled side of its bits gate, 16),
+     its launch plans printed and the LUT's table fill timed (a K = 32
+     call with the 8-bit table against a 4-bit one); the two
+     implicit-GEMM conv kernels (full LUT, nibble for
      both specs, Mitchell, Log-our) bitwise at the CNN's five conv
      geometries at the evaluation batch of 256, the reference tests'
      ragged shapes and one ResNet-18 conv2_x layer (4 x 56 x 56 x 64 ->
@@ -224,12 +231,13 @@ LSUM_EPS = 8
 SOURCES = {
     "lut_matmul": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
                    "src/repro/kernels/approx_matmul.py:137"),
-    "lut_matmul_fused": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+    "lut_matmul_fused": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                          "src/repro/kernels/approx_matmul.py:230"),
     "mitchell_matmul": ("src/repro_torch/kernels/csrc/log_gemm.cu",
                         "src/repro/kernels/mitchell_gemm.py:88"),
-    "mitchell_matmul_fused": ("src/repro_torch/kernels/csrc/log_gemm.cu",
-                              "src/repro/kernels/mitchell_gemm.py:173"),
+    "mitchell_matmul_fused": (
+        "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
+        "src/repro/kernels/mitchell_gemm.py:173"),
     "attn_fused": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
                    "src/repro/kernels/attn_gemm.py:381"),
     "attn_scores": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
@@ -296,6 +304,20 @@ CORE_EDGES = [(1, 31, 7), (17, 33, 17), (130, 6144, 2048), (4, 1, 1),
 MXU_EDGES = [(8, 12, 12, 17, 80, 3, 3, 1), (4, 9, 11, 5, 130, 3, 3, 2),
              (2, 13, 13, 3, 16, 5, 5, 2), (2, 30, 30, 3, 64, 7, 7, 2),
              (5, 4, 4, 8, 10, 3, 3, 1), (1, 20, 60, 96, 24, 3, 3, 1)]
+# the split-K cluster kernel's edge cases (lut_matmul_fused and
+# mitchell_matmul_fused; checked bitwise, not timed): every M in {1, 4, 17,
+# 64, 65, 130, 2048} (one row tile of 4, 16 or 64 rows, or several), K in
+# {1, 31, 33, 2048, 6144} (one step, ragged steps, up to 8 slices) and N
+# in {1, 7, 8, 17, 2048} (ragged tiles, rows not 16-byte multiples: the
+# element loads), bf16 and f32 operands by turns, the LUT at 4 and 8
+# bits, the log kernel at 8 bits (mitchell, log_our) and, on the first
+# CLUSTER_WIDE_EDGES shapes, at 16 (fused_route's tiled side); one shape
+# also with both operands 2 bytes off 16-byte alignment
+CLUSTER_EDGES = [(1, 31, 7), (4, 1, 1), (17, 33, 17), (64, 2048, 8),
+                 (65, 6144, 17), (130, 33, 2048), (2048, 31, 1),
+                 (4, 6144, 2048), (2048, 2048, 7), (1, 2048, 2048),
+                 (130, 6144, 8)]
+CLUSTER_WIDE_EDGES = 6
 FAMS = ("exact", "appro42", "log_our", "mitchell")
 # the kernels a hardware forward of the CNN runs, per family: (conv, fc)
 CNN_KERNELS = {"exact": ("conv_lut_fused", "nibble_lut_matmul_fused"),
@@ -383,27 +405,44 @@ def _bound(name: str, m: int, k: int, n: int, sms: int, clock_hz: float,
 def log_clocks(build) -> None:
     """Fill LOG_CLOCKS from the SASS of the built log GEMM and conv
     libraries: per instantiation of the template's LogCore, the product
-    loop's instructions a product by pipe, and the SM clocks they need."""
+    loop's instructions a product by pipe, and the SM clocks they need;
+    per log instantiation of the cluster kernel (csrc/cluster_gemm.cuh,
+    RB rows a block, BK k a stage), the same over its K step's product
+    section (RB rows x BK / 4 k a thread)."""
+    import re
+
     from repro_torch.kernels import sass
     from repro_torch.kernels.conv_gemm import ROWS_PER_THREAD, TILE
 
     print(f"  log product loop, instructions a product (alu / fma / xu / "
           f"either / all arithmetic) -> SM clocks a product, bound by:")
+    cluster = set()
     for lib in ("log_gemm", "conv_gemm"):
         fns = sass.functions(sass.disassemble(build.library_path(lib)))
         for name, insns in sorted(fns.items()):
             for comp, tag in ((False, "LogCoreILb0E"), (True, "LogCoreILb1E")):
                 if tag not in name:
                     continue
-                c = sass.per_product(insns, TILE[1], ROWS_PER_THREAD)
+                if "cluster_gemm_kernel" in name:
+                    rb, bk = map(int, re.search(r"Li(\d+)ELi(\d+)EE",
+                                                name).groups())
+                    c = sass.section_per_product(sass.step_products(insns),
+                                                 rb * bk // 4)
+                    inst = (f"cluster {'log_our' if comp else 'mitchell'} "
+                            f"RB {rb} BK {bk}")
+                    cluster.add(comp)
+                else:
+                    c = sass.per_product(insns, TILE[1], ROWS_PER_THREAD)
+                    inst = name[name.index(tag):][:48]
                 clk, by = sass.clocks_per_product(c)
                 LOG_CLOCKS[comp] = min(LOG_CLOCKS.get(comp, clk), clk)
-                inst = name[name.index(tag):][:48]
                 print(f"    {lib:<9} {inst:<48} {c['alu']:.3f} / "
                       f"{c['fma']:.3f} / {c['xu']:.3f} / {c['either']:.3f} "
                       f"/ {c['int']:.3f} -> {clk:.4f} ({by})")
     if set(LOG_CLOCKS) != {False, True}:
         fail("no LogCore instantiation found in the log libraries' SASS")
+    if cluster != {False, True}:
+        fail("no cluster log kernel found in liblog_gemm's SASS")
     print(f"  LOG_CLOCKS (fewest of any instantiation): mitchell "
           f"{LOG_CLOCKS[False]:.4f}, log_our {LOG_CLOCKS[True]:.4f}",
           flush=True)
@@ -507,6 +546,7 @@ def check_kernels(torch, sms: int, clock_hz: float):
         print(f"  {shape} ({x.dtype} fused operands): all kernels bitwise "
               f"equal to their plain versions (mitchell and log_our; "
               f"nibble for exact and appro42/4)", flush=True)
+    check_cluster_edges(torch, lut, flush)
     print(f"  {'kernel':<22} {'M,K,N':>16} {'ms':>9} {'bound_ms':>9} "
           f"{'by':>10} {'plain_ms':>9}")
     for name, rs in rows.items():
@@ -516,6 +556,92 @@ def check_kernels(torch, sms: int, clock_hz: float):
                       f"{r['bound_ms']:9.4f} {r['bound_by']:>10} "
                       f"{r['plain_ms']:9.3f}")
     return rows
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of `t` whose storage starts one element past a
+    16-byte boundary (the cluster kernel loads such rows by elements)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_cluster_edges(torch, lut8, flush):
+    """The cluster kernel (csrc/cluster_gemm.cuh) at CLUSTER_EDGES, bitwise
+    against the plain versions, with the split each shape was given; then
+    what the LUT's table fill costs a call: lut_matmul_fused at K = 32
+    (one step) with the 8-bit table (128 KiB a block) against the 4-bit
+    one (512 bytes), the same shapes and operands otherwise."""
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import mitchell_gemm as mg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    lut4 = ops.lut_table(MultiplierSpec("appro42", 4, True, "orplane"), dev)
+    for i, (m, k, n) in enumerate(CLUSTER_EDGES):
+        g = torch.Generator(device=dev).manual_seed(1000 + i)
+        dt = torch.bfloat16 if i % 2 == 0 else torch.float32
+        x = torch.randn(m, k, generator=g, device=dev).to(dt)
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(dt)
+        if (m, k, n) == (1, 2048, 2048):
+            x, w = _misaligned(torch, x), _misaligned(torch, w)
+        calls = []
+        for bits, table in ((8, lut8), (4, lut4)):
+            sx, sw = ops._scales(x, w, bits)
+            calls.append((f"lut{bits}",
+                          lambda t=table, b=bits, a=sx, c=sw:
+                          am.lut_matmul_fused(x, w, t, a, c, b),
+                          lambda t=table, b=bits, a=sx, c=sw:
+                          am.lut_matmul_fused_plain(x, w, t, a, c, b)))
+        for bits in (8, 16) if i < CLUSTER_WIDE_EDGES else (8,):
+            sx, sw = ops._scales(x, w, bits)
+            for comp in (False, True):
+                calls.append((
+                    f"{'log_our' if comp else 'mitchell'}{bits}",
+                    lambda b=bits, c=comp, a=sx, s=sw:
+                    mg.mitchell_matmul_fused(x, w, a, s, b, c),
+                    lambda b=bits, c=comp, a=sx, s=sw:
+                    mg.mitchell_matmul_fused_plain(x, w, a, s, b, c)))
+        for tag, kern, plain in calls:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = float((got.double() - want.double()).abs().max())
+                fail(f"cluster edge {(m, k, n)} {dt} {tag}: kernel != plain "
+                     f"version (max |diff| {err})")
+        lp = am.fused_plan(am.KERNELS["lut_matmul_fused"], x, w, 8)
+        gp = am.fused_plan(mg.KERNELS["mitchell_matmul_fused"], x, w, 8, 0)
+        print(f"  cluster edge {(m, k, n)} {dt}: bitwise ({len(calls)} "
+              f"calls); plan rows {lp.rows}, splits lut {lp.splits} / log "
+              f"{gp.splits}", flush=True)
+    plans = []
+    for m, k, n in MAIN_SHAPES:
+        x = torch.empty(m, k, device=dev, dtype=torch.bfloat16)
+        w = torch.empty(k, n, device=dev, dtype=torch.bfloat16)
+        lp = am.fused_plan(am.KERNELS["lut_matmul_fused"], x, w, 8)
+        gp = am.fused_plan(mg.KERNELS["mitchell_matmul_fused"], x, w, 8, 0)
+        plans.append(f"{(m, k, n)} lut {lp.tiles}x{lp.splits} log "
+                     f"{gp.tiles}x{gp.splits}")
+    print(f"  cluster plans (tiles x splits): {'; '.join(plans)}",
+          flush=True)
+    for n in (2048, 6144):
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn(4, 32, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(32, n, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        times = {}
+        for bits, table in ((8, lut8), (4, lut4)):
+            sx, sw = ops._scales(x, w, bits)
+            times[bits] = _timed_ms(
+                torch, lambda t=table, b=bits, a=sx, c=sw:
+                am.lut_matmul_fused(x, w, t, a, c, b), 20, flush)
+        plan = am.fused_plan(am.KERNELS["lut_matmul_fused"], x, w, 8)
+        print(f"  LUT table fill, lut_matmul_fused (4, 32, {n}), "
+              f"{plan.tiles * plan.splits} blocks: 8-bit table "
+              f"{times[8]:.4f} ms, 4-bit {times[4]:.4f} ms, fill "
+              f"{times[8] - times[4]:.4f} ms a call", flush=True)
 
 
 # ---------------------------------------------------------------------------

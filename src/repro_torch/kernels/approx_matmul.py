@@ -23,22 +23,31 @@ functions execute it, in the JAX package's two table layouts:
 On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
 csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
 version beside it, which repeats the kernel's arithmetic
-(kernels/ref.py).
+(kernels/ref.py).  ``lut_matmul_fused`` (and ``mitchell_matmul_fused`` up
+to 8 bits) launch the split-K cluster kernel of csrc/cluster_gemm.cuh,
+cut by ``cluster_plan``; the other forms the tiled template
+(csrc/cim_gemm.cuh).
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, NamedTuple
+
 import torch
 
-from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
+from .build import INT, PTR, CudaKernel, on_cuda, query, require, stream_of
 from .ref import (gather_full, lut_matmul_ref, nibble_matmul_ref,
                   nibble_sum, quantize_tile)
 
 _INT_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
 _FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                PTR]
+# the fused form also takes its launch plan: rows, splits, k_split
+_PLAN_ARGS = [INT, INT, INT]
 _INT = CudaKernel("lut_gemm", "lut_gemm_int8", _INT_ARGS)
-_FUSED = CudaKernel("lut_gemm", "lut_gemm_fused", _FUSED_ARGS)
+_FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
+                    _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
 _PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial", _FUSED_ARGS)
 _NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8", _INT_ARGS)
 _NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused", _FUSED_ARGS)
@@ -53,6 +62,94 @@ KERNELS = {"lut_matmul": _INT, "lut_matmul_fused": _FUSED,
            "nibble_lut_matmul_partial": _NIB_PARTIAL}
 
 _FLOATS = (torch.float32, torch.bfloat16)
+
+# the split-K cluster kernel (csrc/cluster_gemm.cuh): a block owns
+# CLUSTER_ROWS[i] rows and CLUSTER_BN columns and walks one slice of K, a
+# multiple of CLUSTER_BK (its stages: 64 k for bf16 operands, 32 where
+# either is f32); the slices of a tile, at most CLUSTER_MAX_SPLITS, form
+# one thread-block cluster
+CLUSTER_ROWS = (4, 16, 64)
+CLUSTER_BN, CLUSTER_BK, CLUSTER_MAX_SPLITS = 64, 64, 8
+# a block's fixed cost (prologue, table, partial sums) in K steps, in the
+# plan's cost
+_BLOCK_STEPS = 2
+
+
+class ClusterPlan(NamedTuple):
+    rows: int       # output rows a block (4, 16 or 64)
+    tiles: int      # output tiles: ceil(M / rows) x ceil(N / CLUSTER_BN)
+    splits: int     # K slices a tile, one cluster (1..CLUSTER_MAX_SPLITS)
+    k_split: int    # K a slice, a multiple of CLUSTER_BK
+
+
+def cluster_plan(m: int, k: int, n: int,
+                 capacity: Callable[[int, int], int]) -> ClusterPlan:
+    """How one (M, K) x (K, N) call of the cluster kernel is cut.
+
+    The rows a block are the fewest of CLUSTER_ROWS that hold M (64 past
+    64 rows, the tiles then repeat over M).  ``capacity(rows, splits)``
+    is the number of clusters of `splits` blocks the card holds at once
+    (a cluster's blocks share one GPC, so it is not the SM count over the
+    cluster size; 0: none fits).  K is split into the slices that
+    minimize waves x (steps a slice + _BLOCK_STEPS), a wave being
+    ``capacity`` clusters; ties go to fewer slices.  Every slice holds at
+    least one step: ``splits * k_split >= K > (splits - 1) * k_split``
+    (one slice for K = 0)."""
+    rows = next((r for r in CLUSTER_ROWS if m <= r), CLUSTER_ROWS[-1])
+    tiles = -(-m // rows) * -(-n // CLUSTER_BN)
+    steps = -(-k // CLUSTER_BK)
+    best = None
+    for want in range(1, min(CLUSTER_MAX_SPLITS, steps) + 1):
+        per = -(-steps // want)
+        splits = -(-steps // per)
+        held = capacity(rows, splits)
+        if held <= 0:
+            continue
+        cost = -(-tiles // held) * (per + _BLOCK_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    if best is None and steps:
+        raise ValueError(f"no cluster of the kernel for {rows} rows fits "
+                         "the device")
+    _, splits, per = best or (0, 1, 1)
+    return ClusterPlan(rows, tiles, splits, per * CLUSTER_BK)
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(library: str, symbol: str, device: int, args: tuple,
+              rows: int, splits: int) -> int:
+    """The C capacity query `symbol` (csrc/cluster_gemm.cuh
+    cluster_capacity) of `rows` and `splits` on CUDA device `device`,
+    `args` the operands' (bits, flags..., x_bf16, w_bf16); cached."""
+    with torch.cuda.device(device):
+        return query(library, symbol, rows, *args, splits)
+
+
+def fused_plan(kern: CudaKernel, x, w, bits: int, *flags) -> ClusterPlan:
+    """The plan of one call of the cluster kernel `kern` (lut_gemm_fused
+    or log_gemm_fused; `flags`: log_gemm_fused's compensated) on x's
+    device, cut by the device's cluster capacity."""
+    m, k = x.shape
+    args = (bits, *flags, int(x.dtype == torch.bfloat16),
+            int(w.dtype == torch.bfloat16))
+    dev = x.device.index if x.device.index is not None else 0
+    return cluster_plan(m, k, w.shape[1], functools.partial(
+        _capacity, kern.library, kern.symbol + "_capacity", dev, args))
+
+
+def launch_cluster(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,
+                   *flags) -> torch.Tensor:
+    """One planned launch of the cluster kernel: f32/bf16 x (M,K), w (K,N)
+    -> f32 (M,N); `table` None for the log kernel, `flags` its trailing
+    int arguments before the plan (compensated)."""
+    plan = fused_plan(kern, x, w, bits, *flags)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    tab = () if table is None else (table.data_ptr(),)
+    kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+         int(w.dtype == torch.bfloat16), *tab, sx.data_ptr(), sw.data_ptr(),
+         out.data_ptr(), m, k, n, bits, *flags, plan.rows, plan.splits,
+         plan.k_split, stream_of(x))
+    return out
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor):
@@ -200,7 +297,7 @@ def lut_matmul_fused(x: torch.Tensor, w: torch.Tensor, lut_flat: torch.Tensor,
         return lut_matmul_fused_plain(x, w, lut_flat, sx, sw, bits)
     _check_fused(x, w, sx, sw, n)
     check_table(lut_flat, bits)
-    return _launch_fused(_FUSED, x, w, lut_flat, sx, sw, m, k, n, bits)
+    return launch_cluster(_FUSED, x, w, lut_flat, sx, sw, m, k, n, bits)
 
 
 def nibble_lut_matmul(xq: torch.Tensor, wq: torch.Tensor,

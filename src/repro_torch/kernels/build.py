@@ -127,6 +127,20 @@ class CudaKernel:
         self.launches += 1
 
 
+def query(library: str, symbol: str, *args: int) -> int:
+    """Call a C query of a built library that takes `args` (ints) and an
+    int out-pointer, returning the int it wrote (no launch, nothing
+    counted); raises on a nonzero CUDA error code."""
+    fn = getattr(load(library), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    rc = fn(*args, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc}")
+    return out.value
+
+
 # argument kinds for CudaKernel signatures
 PTR = ctypes.c_void_p
 INT = ctypes.c_int

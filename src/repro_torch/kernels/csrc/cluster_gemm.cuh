@@ -1,0 +1,606 @@
+// cluster_gemm.cuh - the split-K CiM GEMM for NVIDIA Hopper (sm_90a):
+// the fused LUT and log-domain GEMMs, operands quantized on load and
+// (acc * sx) * sw flushed in the kernel.  Included by lut_gemm.cu
+// (lut_gemm_fused) and log_gemm.cu (log_gemm_fused).
+//
+// Replaces, for operands of at most 8 bits, the TPU kernels
+//   src/repro/kernels/approx_matmul.py:230 lut_matmul_fused -> :208 ->
+//     _fused_kernel :171 (the full product table)
+//   src/repro/kernels/mitchell_gemm.py:173 mitchell_matmul_fused -> :151
+//     -> _fused_kernel :115 (_log_product :44, mitchell and log_our)
+// Log operands of 9..16 bits go to cim_gemm.cuh's tiled template, by the
+// gate kernels/mitchell_gemm.py fused_route (a function of the bits,
+// tested on the CPU); the int oracles and the *_partial forms stay there
+// too.
+//
+// What it computes: out[m,n] = (f32(acc) * sx) * sw[n], acc = sum_k
+// prod(qa, qb) in 32 bits with two's-complement wrap, qa = round(x / sx),
+// qb = round(w / sw[n]) by __fdiv_rn and rintf, clipped to +-qmax (build
+// without fast-math): bit for bit the plain versions
+// lut_matmul_fused_plain and mitchell_matmul_fused_plain.
+//
+// What bounds it on an H100: at a decode round (M = 4) the weight: each
+// element is read once (3.35 TB/s) and quantized once (an IEEE division),
+// for four products; at M = 64 the products: a shared-memory gather each
+// (LUT, 132 SMs x 32 words a clock), or the log product's instructions
+// (phase 2 of chip_smoke.py reads them from this kernel's SASS).
+//
+// Design (the template before it left a decode GEMM latency-bound: 16-96
+// blocks of 16 rows for 132 SMs, synchronous loads, every weight element
+// quantized into a 16-byte operand once per 16-row tile):
+//  * Fill the card: a block owns up to RB = 4, 16 or 64 rows (every row
+//    of a served GEMM, M <= 64) and 64 columns, and one slice of K.  The
+//    K slices of a tile are one thread-block cluster of at most 8 blocks.
+//    kernels/approx_matmul.py cluster_plan chooses the split from the
+//    shape and from how many clusters of each size the device holds at
+//    once (cluster_capacity: a cluster's blocks share one GPC, so on an
+//    H100 32 clusters of 4 single-SM blocks do not fit where 32 of 3 do),
+//    minimizing waves x steps.  Each block leaves its uint32 partial tile
+//    in its shared memory; after a cluster barrier every block sums a
+//    share of the tile over the cluster's partials through distributed
+//    shared memory, in rank order, and flushes the epilogue.  Wrapping
+//    32-bit addition is associative, so the sum is the reference's
+//    exactly, with no memset and no atomics.
+//  * Keep copies in flight: the raw bf16 / f32 tiles of x and w arrive
+//    through a ring of CL_STAGES stages of BK k (64 for bf16 operands, 32
+//    where either is f32) filled by cp.async (16 bytes a copy; operands
+//    whose rows are not 16-byte multiples are loaded by elements into the
+//    same layout), and each stage is quantized from shared memory while
+//    the next ones land.
+//  * Quantize each weight element once a call (once an RB-row tile for M
+//    > 64): a block is 64 columns x k groups of threads (4 for the log
+//    kernel, two blocks an SM; 8 for the LUT kernel, whose table leaves
+//    room for one block an SM); a thread quantizes its column's BK / k
+//    groups k of a stage straight into registers and reuses each staged
+//    weight operand for every row of the tile.  The x tile is quantized
+//    once a stage into shared memory.  The k groups' sums meet in shared
+//    memory before the cluster sum.
+//  * Compact staged forms, each a 32-bit word or less (plain-torch model
+//    and exhaustive check: tests/test_torch_cluster_gemm.py):
+//      LUT       a: byte offset of a's table row, ((a + h) << bits) * 2;
+//                b: byte offset (b + h) * 2, h = 2^(bits-1); a product is
+//                one int16 gather at table + a + b.
+//      mitchell  2^(k1+k2) + q1 2^k2 + q2 2^k1 = mag1 2^k2 + q2 2^k1, so
+//                with A = (s1 mag1, s1 2^k1) and B = (s2 2^k2, s2 q2) as
+//                signed bytes the signed product is A.B, a dot product of
+//                two bytes: two k of a row pack into one word and one
+//                dp4a (IDP.4A) makes two products.  |mag| <= 127, 2^k <=
+//                64, q <= 63: every byte fits at <= 8 bits.  A zero
+//                operand is (0, 0): the product vanishes unguarded.
+//      log_our   the OR in (2^(k1+k2) | comp) never meets a carry (comp <
+//                2^(k1+k2)), and comp = min(q1, q2) << max(c1, c2) with
+//                c(q) = LoD(q) + round_up(q) a function of one operand,
+//                monotone in q.  A = (s1 mag1, s1 2^k1, q1, c1) bytes, one
+//                word a k; B = (s2 2^k2, s2 q2, 0, 0) for the dp4a, (0, 0,
+//                q2, c2) to compare, and the sign mask of b.  As unsigned
+//                words (c, q) order like q, so min(A, B) holds q_small in
+//                byte 2 and max(A, B) c_big in byte 3.
+//  * The int16 table (LUT) is copied into each block's shared memory by
+//    cp.async with the first stage (chip_smoke.py phase 3 times its cost
+//    a call: a K = 32 call with the 8-bit table against a 4-bit one).
+// Ragged M, N and K edges are masked: operands outside the matrix stage
+// as 0, which every product form annihilates.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "async_copy.cuh"
+#include "cim_gemm.cuh"
+
+namespace cim {
+
+constexpr int CL_BN = 64;                    // output columns a block
+constexpr int CL_STAGES = 4;
+constexpr int CL_MAX_SPLITS = 8;             // the portable cluster size
+constexpr int CL_SPLIT_K = 64;               // a K slice is a multiple
+constexpr int CL_MAX_BITS = 8;
+
+// K a stage: 64 for bf16 operands, 32 where either is f32 (so that the
+// ring and the 8-bit table fit one block's shared memory at 64 rows)
+__host__ __device__ constexpr int cl_bk(int x_bytes, int w_bytes) {
+  return x_bytes == 2 && w_bytes == 2 ? 64 : 32;
+}
+
+// a ring slot: the raw x tile (RB x BK) and w tile (BK x CL_BN)
+__host__ __device__ inline size_t cl_slot(int rb, int bk, int x_bytes,
+                                          int w_bytes) {
+  return static_cast<size_t>(rb) * bk * x_bytes +
+         static_cast<size_t>(bk) * CL_BN * w_bytes;
+}
+
+// The product forms.  K_PER_WORD: k a staged x word holds; THREADS: a
+// block's, CL_BN columns x THREADS / CL_BN k groups (the LUT kernel holds
+// one block an SM, its table filling the shared memory, so it runs 16
+// warps in one block where the log kernel runs two blocks of 8).
+struct ClusterLutCore {
+  static constexpr int KIND = 0;
+  static constexpr int K_PER_WORD = 1;
+  static constexpr int THREADS = 512;
+  static constexpr int MIN_BLOCKS = 1;
+};
+template <bool COMP>
+struct ClusterLogCore {
+  static constexpr int KIND = COMP ? 2 : 1;
+  static constexpr int K_PER_WORD = COMP ? 1 : 2;
+  static constexpr int THREADS = 256;
+  static constexpr int MIN_BLOCKS = COMP ? 1 : 2;
+};
+
+// dynamic shared memory of one block: the table, the ring, the staged x
+template <class Core>
+__host__ __device__ inline size_t cl_smem_bytes(int rb, int bits,
+                                                int x_bytes, int w_bytes) {
+  const int bk = cl_bk(x_bytes, w_bytes);
+  const size_t tab = Core::KIND == 0 ? al16(LutCore::table_bytes(bits)) : 0;
+  return tab + CL_STAGES * cl_slot(rb, bk, x_bytes, w_bytes) +
+         static_cast<size_t>(rb) * (bk / Core::K_PER_WORD) * 4;
+}
+
+struct ClArgs {
+  const unsigned char* x;
+  const unsigned char* w;
+  const unsigned char* tab;
+  const float* sx;
+  const float* sw;
+  float* out;
+  int M, K, N, bits;
+  int k_split;          // K a slice (blockIdx.z), a multiple of CL_SPLIT_K
+  int n_tiles;          // column tiles; blockIdx.x = m tile * n_tiles + n
+  int x_bytes, w_bytes; // 2: bf16, 4: f32
+  int x_async, w_async; // rows start 16-byte aligned: cp.async
+};
+
+// --- staged forms --------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+// (s mag, s 2^k) as two signed bytes, the first low: a log operand's
+// x half of the dot product; (s 2^k, s q): its w half.  (0, 0) for 0.
+__device__ __forceinline__ uint32_t log_x_bytes(int v, int bits) {
+  const int4 d = decompose(v, bits);   // (q, k, sign, mag)
+  return (static_cast<uint32_t>(d.z * d.w) & 0xffu) |
+         ((static_cast<uint32_t>(d.z * (1 << d.y)) & 0xffu) << 8);
+}
+__device__ __forceinline__ uint32_t log_w_bytes(int v, int bits) {
+  const int4 d = decompose(v, bits);
+  return (static_cast<uint32_t>(d.z * (1 << d.y)) & 0xffu) |
+         ((static_cast<uint32_t>(d.z * d.x) & 0xffu) << 8);
+}
+
+// log_our's compare word of an operand: c(q) in byte 3, q in byte 2, with
+// c(q) = LoD(q) + round_up, round_up = 2q >= 3 * 2^LoD(q) (0 for q = 0)
+__device__ __forceinline__ uint32_t comp_word(int v, int bits) {
+  const uint32_t q = static_cast<uint32_t>(decompose(v, bits).x);
+  uint32_t c = 0u;
+  if (q != 0u) {
+    const uint32_t m = lod(q, bits);
+    c = m + ((q << 1) >= (3u << m) ? 1u : 0u);
+  }
+  return (c << 24) | (q << 16);
+}
+
+// raw element i of a tile in shared memory, widened to f32 (exact)
+__device__ __forceinline__ float raw_at(const unsigned char* base, int i,
+                                        int bytes) {
+  if (bytes == 2)
+    return __uint_as_float(
+        static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(base)[i])
+        << 16);
+  return reinterpret_cast<const float*>(base)[i];
+}
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+
+// --- one ring stage ----------------------------------------------------------
+
+// An R x C tile (C a power of two) of a row-major matrix (leading
+// dimension ld, elements of `bytes`, 2 or 4), rows r0.. below r_end and
+// columns c0.. below c_end, into shared memory as R x C row-major;
+// outside the matrix 0.  `async`: by cp.async 16 bytes at a time (rows
+// 16-byte aligned), else by elements; `T` threads share the copy.
+template <int R, int C, int T>
+__device__ __forceinline__ void cl_copy_tile(unsigned char* dst,
+                                             const unsigned char* src,
+                                             int ld, int bytes, bool async,
+                                             int r0, int r_end, int c0,
+                                             int c_end, int tid) {
+  if (async) {
+    const int es = bytes == 2 ? 3 : 2;     // log2 of the elements a chunk
+    const int rs = ilog2(C) - es;          // log2 of the chunks a row
+    for (int i = tid; i < (R << rs); i += T) {
+      const int r = i >> rs, c = (i & ((1 << rs) - 1)) << es;
+      const int gr = r0 + r, gc = c0 + c;
+      int n = 0;
+      if (gr < r_end && gc < c_end) n = min(1 << es, c_end - gc) * bytes;
+      const unsigned char* s =
+          n ? src + (static_cast<size_t>(gr) * ld + gc) * bytes : src;
+      cp_async16_n(dst + (r * C + c) * bytes, s, n);
+    }
+  } else {
+    for (int i = tid; i < R * C; i += T) {
+      const int r = i / C, c = i - r * C;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < r_end && gc < c_end;
+      const size_t e = static_cast<size_t>(gr) * ld + gc;
+      if (bytes == 2) {
+        reinterpret_cast<uint16_t*>(dst)[i] =
+            ok ? reinterpret_cast<const uint16_t*>(src)[e] : uint16_t{0};
+      } else {
+        reinterpret_cast<uint32_t*>(dst)[i] =
+            ok ? reinterpret_cast<const uint32_t*>(src)[e] : 0u;
+      }
+    }
+  }
+}
+
+template <int RB, int BK, int T>
+__device__ __forceinline__ void cl_load_stage(unsigned char* slot,
+                                              const ClArgs& a, int m0,
+                                              int n0, int k0, int kend,
+                                              int tid) {
+  cl_copy_tile<RB, BK, T>(slot, a.x, a.K, a.x_bytes, a.x_async != 0, m0,
+                          a.M, k0, kend, tid);
+  cl_copy_tile<BK, CL_BN, T>(slot + RB * BK * a.x_bytes, a.w, a.N,
+                             a.w_bytes, a.w_async != 0, k0, kend, n0, a.N,
+                             tid);
+}
+
+// the stage's x tile quantized into its staged words
+template <class Core, int RB, int BK>
+__device__ __forceinline__ void cl_stage_x(uint32_t* sA,
+                                           const unsigned char* raw,
+                                           const ClArgs& a, float sx,
+                                           int qmax, int m0, int k0,
+                                           int kend, int tid) {
+  constexpr int WORDS = BK / Core::K_PER_WORD;   // a row
+  auto q = [&](int r, int kk) {
+    return (m0 + r < a.M && k0 + kk < kend)
+               ? quantize(raw_at(raw, r * BK + kk, a.x_bytes), sx, qmax)
+               : 0;
+  };
+  for (int i = tid; i < RB * WORDS; i += Core::THREADS) {
+    const int r = i / WORDS, j = i - r * WORDS;
+    uint32_t word;
+    if constexpr (Core::KIND == 0) {
+      word = static_cast<uint32_t>((q(r, j) + (1 << (a.bits - 1)))
+                                   << a.bits) * 2u;
+    } else if constexpr (Core::KIND == 1) {
+      word = log_x_bytes(q(r, 2 * j), a.bits) |
+             (log_x_bytes(q(r, 2 * j + 1), a.bits) << 16);
+    } else {
+      const int v = q(r, j);
+      word = log_x_bytes(v, a.bits) | comp_word(v, a.bits);
+    }
+    sA[i] = word;
+  }
+}
+
+// --- the kernel ----------------------------------------------------------------
+
+// grid (m tiles x n tiles, 1, K slices), clusters of (1, 1, gridDim.z):
+// the K slices of one tile are one cluster
+template <class Core, int RB, int BK>
+__global__ void __launch_bounds__((Core::THREADS), (Core::MIN_BLOCKS))
+cluster_gemm_kernel(const ClArgs a) {
+  static_assert(RB % 4 == 0, "rows come in groups of 4");
+  constexpr int KIND = Core::KIND;
+  constexpr int T = Core::THREADS;
+  constexpr int KG = T / CL_BN;                  // k groups
+  constexpr int KPT = BK / KG;                   // k a thread a stage
+  constexpr int WORDS = BK / Core::K_PER_WORD;   // staged x words a row
+  constexpr int TW = KPT / Core::K_PER_WORD;     // ... of a thread
+  static_assert(TW % 4 == 0, "a thread reads its x words as uint4");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int tn = tid % CL_BN, tg = tid / CL_BN;
+  const size_t tbytes =
+      KIND == 0 ? al16(LutCore::table_bytes(a.bits)) : size_t{0};
+  const size_t slot = cl_slot(RB, BK, a.x_bytes, a.w_bytes);
+  const unsigned char* s_tab = smem;
+  unsigned char* ring = smem + tbytes;
+  uint32_t* sA = reinterpret_cast<uint32_t*>(ring + CL_STAGES * slot);
+
+  const int mt = blockIdx.x / a.n_tiles;
+  const int m0 = mt * RB, n0 = (blockIdx.x - mt * a.n_tiles) * CL_BN;
+  const int kbeg = blockIdx.z * a.k_split;
+  const int kend = min(a.K, kbeg + a.k_split);
+  const int nk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int qmax = (1 << (a.bits - 1)) - 1;
+  const float sx = *a.sx;
+  const int col = n0 + tn;
+  const float swc = col < a.N ? a.sw[col] : 1.f;
+  const int rows = min(RB, a.M - m0);
+
+  if constexpr (KIND == 0) {  // the table rides with the first stage
+    const int n16 = static_cast<int>(tbytes / 16);
+    for (int i = tid; i < n16; i += T)
+      cp_async16(smem + 16 * i, a.tab + 16 * i, true);
+  }
+#pragma unroll
+  for (int s = 0; s < CL_STAGES - 1; ++s) {
+    if (s < nk)
+      cl_load_stage<RB, BK, T>(ring + s * slot, a, m0, n0, kbeg + s * BK,
+                               kend, tid);
+    cp_async_commit();
+  }
+
+  uint32_t acc[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) acc[r] = 0u;
+
+#pragma unroll 1
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<CL_STAGES - 2>();
+    __syncthreads();  // stage t has landed; stage t-1 is consumed
+    {
+      const int tl = t + CL_STAGES - 1;
+      if (tl < nk)
+        cl_load_stage<RB, BK, T>(ring + (tl % CL_STAGES) * slot, a, m0, n0,
+                                 kbeg + tl * BK, kend, tid);
+      cp_async_commit();
+    }
+    const unsigned char* cur = ring + (t % CL_STAGES) * slot;
+    const int k0 = kbeg + t * BK;
+    cl_stage_x<Core, RB, BK>(sA, cur, a, sx, qmax, m0, k0, kend, tid);
+
+    // this thread's column, k = tg * KPT + j, quantized into registers
+    const unsigned char* raw_w = cur + RB * BK * a.x_bytes;
+    int qb[KPT];
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      const int kk = tg * KPT + j;
+      qb[j] = (k0 + kk < kend && col < a.N)
+                  ? quantize(raw_at(raw_w, kk * CL_BN + tn, a.w_bytes), swc,
+                             qmax)
+                  : 0;
+    }
+    // ... staged in the product form's registers
+    uint32_t b0[TW], b1[KIND == 2 ? TW : 1], b2[KIND == 2 ? TW : 1];
+#pragma unroll
+    for (int j = 0; j < TW; ++j) {
+      if constexpr (KIND == 0) {
+        b0[j] = static_cast<uint32_t>(qb[j] + qmax + 1) * 2u;
+      } else if constexpr (KIND == 1) {
+        b0[j] = log_w_bytes(qb[2 * j], a.bits) |
+                (log_w_bytes(qb[2 * j + 1], a.bits) << 16);
+      } else {
+        b0[j] = log_w_bytes(qb[j], a.bits);
+        b1[j] = comp_word(qb[j], a.bits);
+        b2[j] = qb[j] < 0 ? ~0u : 0u;
+      }
+    }
+    __syncthreads();  // the staged x is visible
+
+#pragma unroll
+    for (int r0 = 0; r0 < RB; r0 += 4) {
+      if (RB == 4 || r0 < rows) {  // uniform across the block
+#pragma unroll
+        for (int r = r0; r < r0 + 4; ++r) {
+          const uint4* ap =
+              reinterpret_cast<const uint4*>(sA + r * WORDS + tg * TW);
+          uint32_t aw[TW];
+#pragma unroll
+          for (int c = 0; c < TW / 4; ++c) {
+            const uint4 u = ap[c];
+            aw[4 * c] = u.x;
+            aw[4 * c + 1] = u.y;
+            aw[4 * c + 2] = u.z;
+            aw[4 * c + 3] = u.w;
+          }
+          uint32_t s = acc[r];
+#pragma unroll
+          for (int j = 0; j < TW; ++j) {
+            if constexpr (KIND == 0) {
+              // one int16 gather at table + row offset + column offset
+              s += static_cast<uint32_t>(static_cast<int32_t>(
+                  *reinterpret_cast<const int16_t*>(s_tab + aw[j] + b0[j])));
+            } else if constexpr (KIND == 1) {
+              // two k: the signed bytes' dot product
+              s = static_cast<uint32_t>(__dp4a(static_cast<int>(aw[j]),
+                                               static_cast<int>(b0[j]),
+                                               static_cast<int>(s)));
+            } else {
+              // the mitchell part, signed
+              s = static_cast<uint32_t>(__dp4a(static_cast<int>(aw[j]),
+                                               static_cast<int>(b0[j]),
+                                               static_cast<int>(s)));
+              // comp = q_small << c_big, signed by sign(a) sign(b)
+              const uint32_t mx = max(aw[j], b1[j]), mn = min(aw[j], b1[j]);
+              const uint32_t comp = prmt(mn, 0u, 0x4442u) << (mx >> 24);
+              const uint32_t sg = (prmt(aw[j], 0u, 0x8888u) ^ b2[j]) | 1u;
+              s += comp * sg;
+            }
+          }
+          acc[r] = s;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+
+  // the k groups' sums into one partial tile (RB x CL_BN, in the ring)
+  uint32_t* part = reinterpret_cast<uint32_t*>(ring);
+#pragma unroll 1
+  for (int g = 0; g < KG; ++g) {
+    if (tg == g) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        uint32_t* p = part + r * CL_BN + tn;
+        *p = g == 0 ? acc[r] : *p + acc[r];
+      }
+    }
+    __syncthreads();
+  }
+
+  // the cluster's partials summed in rank order, each block a share of
+  // the tile's rows inside M, then the epilogue (acc * sx) * sw
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  const int splits = static_cast<int>(gridDim.z);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int elems = rows * CL_BN;
+  const int per = (elems + splits - 1) / splits;
+  const int e1 = min(elems, (rank + 1) * per);
+  const uint32_t* peer[CL_MAX_SPLITS];
+#pragma unroll
+  for (int q = 0; q < CL_MAX_SPLITS; ++q)
+    peer[q] = cluster.map_shared_rank(part, q < splits ? q : 0);
+  for (int e = rank * per + tid; e < e1; e += T) {
+    uint32_t s = 0u;
+#pragma unroll
+    for (int q = 0; q < CL_MAX_SPLITS; ++q)
+      if (q < splits) s += peer[q][e];
+    const int r = e / CL_BN, c = n0 + (e - r * CL_BN);
+    if (c < a.N)
+      // (acc * sx) * sw, in this order: never fold sx * sw first
+      a.out[static_cast<size_t>(m0 + r) * a.N + c] =
+          (static_cast<float>(static_cast<int32_t>(s)) * sx) * a.sw[c];
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+}
+
+template <class Core, int RB, int BK>
+inline int cl_launch(const ClArgs& a, int tiles, int splits,
+                     cudaStream_t stream) {
+  const size_t smem = cl_smem_bytes<Core>(RB, a.bits, a.x_bytes, a.w_bytes);
+  auto kern = cluster_gemm_kernel<Core, RB, BK>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles), 1,
+                     static_cast<unsigned>(splits));
+  cfg.blockDim = dim3(Core::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(splits);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+template <class Core, int BK>
+inline int cl_launch_rows(const ClArgs& a, int rb, int tiles, int splits,
+                          cudaStream_t stream) {
+  switch (rb) {
+    case 4:
+      return cl_launch<Core, 4, BK>(a, tiles, splits, stream);
+    case 16:
+      return cl_launch<Core, 16, BK>(a, tiles, splits, stream);
+    default:
+      return cl_launch<Core, 64, BK>(a, tiles, splits, stream);
+  }
+}
+
+// The clusters of `splits` blocks of the instantiation for `rb` rows and
+// these operand types that the current device holds at once
+// (cudaOccupancyMaxActiveClusters: a cluster's blocks share one GPC, so
+// this is not the SM count over the cluster size), into *out; returns the
+// CUDA error code.  cluster_plan reads it to count a launch's waves.
+template <class Core>
+int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
+                     int* out) {
+  if (bits < 2 || bits > CL_MAX_BITS || splits < 1 ||
+      splits > CL_MAX_SPLITS || (rb != 4 && rb != 16 && rb != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int xb = x_bf16 ? 2 : 4, wb = w_bf16 ? 2 : 4;
+  const size_t smem = cl_smem_bytes<Core>(rb, bits, xb, wb);
+  const void* kern = nullptr;
+  const bool b64 = cl_bk(xb, wb) == 64;
+  if (rb == 4)
+    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 64>)
+               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 32>);
+  else if (rb == 16)
+    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 64>)
+               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 32>);
+  else
+    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 64>)
+               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 32>);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, static_cast<unsigned>(splits));
+  cfg.blockDim = dim3(Core::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(splits);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kern, &cfg));
+}
+
+// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N), the launch that
+// kernels/approx_matmul.py cluster_plan chose: `rb` rows a block (4, 16
+// or 64), K in `splits` slices (1..8) of `k_split` (a multiple of
+// CL_SPLIT_K; the slices cover K and none is empty).  Returns the CUDA
+// error code; a plan the kernel does not take is refused
+// (cudaErrorInvalidValue).
+template <class Core>
+int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
+                 const void* tab, const void* sx, const void* sw, void* out,
+                 int M, int K, int N, int bits, int rb, int splits,
+                 int k_split, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 0 || K < 0 || N < 0 || bits < 2 || bits > CL_MAX_BITS) return bad;
+  if (rb != 4 && rb != 16 && rb != 64) return bad;
+  if (splits < 1 || splits > CL_MAX_SPLITS || k_split <= 0 ||
+      k_split % CL_SPLIT_K != 0)
+    return bad;
+  if (static_cast<int64_t>(splits) * k_split < K ||
+      (splits > 1 && static_cast<int64_t>(splits - 1) * k_split >= K))
+    return bad;
+  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  const int64_t n_tiles = (N + CL_BN - 1) / CL_BN;
+  const int64_t tiles = (M + static_cast<int64_t>(rb) - 1) / rb * n_tiles;
+  if (tiles > INT32_MAX) return bad;
+  ClArgs a;
+  a.x = static_cast<const unsigned char*>(x);
+  a.w = static_cast<const unsigned char*>(w);
+  a.tab = static_cast<const unsigned char*>(tab);
+  a.sx = static_cast<const float*>(sx);
+  a.sw = static_cast<const float*>(sw);
+  a.out = static_cast<float*>(out);
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.bits = bits;
+  a.k_split = k_split;
+  a.n_tiles = static_cast<int>(n_tiles);
+  a.x_bytes = x_bf16 ? 2 : 4;
+  a.w_bytes = w_bf16 ? 2 : 4;
+  a.x_async = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+              static_cast<int64_t>(K) * a.x_bytes % 16 == 0;
+  a.w_async = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+              static_cast<int64_t>(N) * a.w_bytes % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(tiles);
+  if (cl_bk(a.x_bytes, a.w_bytes) == 64)
+    return cl_launch_rows<Core, 64>(a, rb, t, splits, st);
+  return cl_launch_rows<Core, 32>(a, rb, t, splits, st);
+}
+
+}  // namespace cim

@@ -8,7 +8,13 @@
 //   mitchell_matmul_partial (-> _fused_kernel, epilogue off): the mesh
 //     path's shard-local form, global scales in, the raw int32 sum out
 //     (QuantIntOut).
-// Both are cim_gemm.cuh's gemm_kernel with LogCore<compensated>.
+// The int and partial forms, and the fused form of 9..16-bit operands
+// (log_gemm_fused_wide), are cim_gemm.cuh's gemm_kernel with
+// LogCore<compensated>; the fused form of 2..8-bit operands
+// (log_gemm_fused) is cluster_gemm.cuh's split-K cluster kernel with
+// ClusterLogCore<compensated>, its operands staged as signed byte pairs
+// whose dot product is the Mitchell product.  kernels/mitchell_gemm.py
+// fused_route chooses between the two by the bits.
 //
 // What it computes, per scalar pair (a, b), following _log_product of
 // the reference line for line: x = |a|, y = |b|, k = leading-one
@@ -31,9 +37,11 @@
 //
 // Design: each operand's (q, k, sign, magnitude) is worked out once when
 // it is staged in shared memory, so the inner loop does only the
-// pairwise part (cim_gemm.cuh).
+// pairwise part (cim_gemm.cuh); cluster_gemm.cuh stages it in a byte
+// pair (mitchell) or one word (log_our) and splits K over a cluster.
 
 #include "cim_gemm.cuh"
+#include "cluster_gemm.cuh"
 
 template <class Epi>
 static int log_quant(const void* x, int x_bf16, const void* w, int w_bf16,
@@ -61,11 +69,39 @@ int log_gemm_int8(const void* x, const void* w, void* out, int M, int K,
                                               bits, stream);
 }
 
-// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N); sx: one f32 on the
-// device, sw: N f32 on the device
+// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N), 2..8-bit operands;
+// sx: one f32 on the device, sw: N f32 on the device; rb, splits,
+// k_split: the launch plan (kernels/approx_matmul.py cluster_plan)
 int log_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* sx, const void* sw, void* out, int M, int K,
-                   int N, int bits, int compensated, void* stream) {
+                   int N, int bits, int compensated, int rb, int splits,
+                   int k_split, void* stream) {
+  if (compensated)
+    return cim::cluster_gemm<cim::ClusterLogCore<true>>(
+        x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K, N, bits, rb,
+        splits, k_split, stream);
+  return cim::cluster_gemm<cim::ClusterLogCore<false>>(
+      x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K, N, bits, rb, splits,
+      k_split, stream);
+}
+
+// the clusters of `splits` blocks of log_gemm_fused's kernel for `rb`
+// rows that the device holds at once, into *out (the launch plan's waves)
+int log_gemm_fused_capacity(int rb, int bits, int compensated, int x_bf16,
+                            int w_bf16, int splits, int* out) {
+  if (compensated)
+    return cim::cluster_capacity<cim::ClusterLogCore<true>>(
+        rb, bits, x_bf16, w_bf16, splits, out);
+  return cim::cluster_capacity<cim::ClusterLogCore<false>>(
+      rb, bits, x_bf16, w_bf16, splits, out);
+}
+
+// as log_gemm_fused for 2..16-bit operands on the tiled template (the
+// fused form of 9..16-bit operands)
+int log_gemm_fused_wide(const void* x, int x_bf16, const void* w,
+                        int w_bf16, const void* sx, const void* sw, void* out,
+                        int M, int K, int N, int bits, int compensated,
+                        void* stream) {
   return log_quant(x, x_bf16, w, w_bf16, sx, sw, out, cim::ScaleOut{}, M, K,
                    N, bits, compensated, stream);
 }

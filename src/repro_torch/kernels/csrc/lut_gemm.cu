@@ -8,9 +8,11 @@
 //   lut_matmul_partial (-> _fused_kernel, epilogue off): the mesh path's
 //     shard-local form over a slice of K: quantization on load against
 //     the caller's global scales, the raw int32 sum out (QuantIntOut).
-// Both are cim_gemm.cuh's gemm_kernel with the LutCore: out[m,n] =
-// sum_k LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})], LUT the signed product
-// table of core/luts.signed_product_lut.
+// The int and partial forms are cim_gemm.cuh's gemm_kernel with the
+// LutCore; the fused form is cluster_gemm.cuh's split-K cluster kernel
+// with the ClusterLutCore.  Each computes out[m,n] = sum_k
+// LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})], LUT the signed product table of
+// core/luts.signed_product_lut.
 //
 // What bounds it on an H100: every scalar product is one gather from
 // the table in shared memory, so the floor is the shared-memory gather
@@ -24,9 +26,11 @@
 // it to int16 after checking that every entry fits (kernels/ops.py), and
 // each block copies the 128 KiB table into dynamic shared memory once
 // (one block per SM), then gathers row offset + column index staged per
-// K step (cim_gemm.cuh).
+// K step (cim_gemm.cuh); the fused form splits K over a cluster so that
+// a decode GEMM (M = 4) fills the card (cluster_gemm.cuh).
 
 #include "cim_gemm.cuh"
+#include "cluster_gemm.cuh"
 
 extern "C" {
 
@@ -38,13 +42,23 @@ int lut_gemm_int8(const void* x, const void* w, const void* lut, void* out,
 }
 
 // f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N); sx: one f32 on the
-// device, sw: N f32 on the device
+// device, sw: N f32 on the device; rb, splits, k_split: the launch plan
+// (kernels/approx_matmul.py cluster_plan)
 int lut_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* lut, const void* sx, const void* sw,
-                   void* out, int M, int K, int N, int bits, void* stream) {
-  return cim::dense_quant<cim::LutCore>(x, x_bf16, w, w_bf16, lut, sx, sw,
-                                        out, cim::ScaleOut{}, M, K, N, bits,
-                                        stream);
+                   void* out, int M, int K, int N, int bits, int rb,
+                   int splits, int k_split, void* stream) {
+  return cim::cluster_gemm<cim::ClusterLutCore>(x, x_bf16, w, w_bf16, lut,
+                                                sx, sw, out, M, K, N, bits,
+                                                rb, splits, k_split, stream);
+}
+
+// the clusters of `splits` blocks of lut_gemm_fused's kernel for `rb`
+// rows that the device holds at once, into *out (the launch plan's waves)
+int lut_gemm_fused_capacity(int rb, int bits, int x_bf16, int w_bf16,
+                            int splits, int* out) {
+  return cim::cluster_capacity<cim::ClusterLutCore>(rb, bits, x_bf16, w_bf16,
+                                                    splits, out);
 }
 
 // as lut_gemm_fused, out: the raw int32 sum (M,N)

@@ -16,33 +16,51 @@ the JAX package:
 On CUDA tensors each launches its kernel (csrc/log_gemm.cu) or raises;
 on CPU tensors it runs the plain version (kernels/ref.py).  Sums
 wrap at 32 bits (16-bit operands can overflow int32, as in the
-reference).
+reference).  The fused form of operands of at most 8 bits runs the
+split-K cluster kernel (csrc/cluster_gemm.cuh), wider ones the tiled
+template (csrc/cim_gemm.cuh): ``fused_route`` says which.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .approx_matmul import _FLOATS, _shapes, epilogue
+from .approx_matmul import _check_fused, _shapes, epilogue, launch_cluster
 from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
 from .ref import log_sum, mitchell_matmul_ref, quantize_tile
 
 _INT = CudaKernel("log_gemm", "log_gemm_int8",
                   [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR])
+_QUANT_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT, INT, INT]
+# the cluster kernel also takes its launch plan: rows, splits, k_split
 _FUSED = CudaKernel("log_gemm", "log_gemm_fused",
-                    [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT, INT,
-                     INT, PTR])
+                    _QUANT_ARGS + [INT, INT, INT, PTR])
+_FUSED_WIDE = CudaKernel("log_gemm", "log_gemm_fused_wide",
+                         _QUANT_ARGS + [PTR])
+_PARTIAL = CudaKernel("log_gemm", "log_gemm_partial", _QUANT_ARGS + [PTR])
 
-_PARTIAL = CudaKernel("log_gemm", "log_gemm_partial",
-                      [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT, INT,
-                       INT, PTR])
-
+# mitchell_matmul_fused_wide: the fused form's other side of fused_route
+# (9..16-bit operands), on no served path
 KERNELS = {"mitchell_matmul": _INT, "mitchell_matmul_fused": _FUSED,
+           "mitchell_matmul_fused_wide": _FUSED_WIDE,
            "mitchell_matmul_partial": _PARTIAL}
+
+# the widest operands the cluster kernel stages (a log operand as signed
+# bytes: |q| <= 127, 2^k <= 64)
+CLUSTER_MAX_BITS = 8
 
 
 def _check_bits(bits: int) -> None:
     require(2 <= bits <= 16, f"the log kernel takes 2..16-bit operands, got {bits}")
+
+
+def fused_route(bits: int) -> str:
+    """The kernel a fused log GEMM of `bits`-bit operands launches on the
+    card: "cluster" (csrc/cluster_gemm.cuh) up to CLUSTER_MAX_BITS,
+    "tiled" (csrc/cim_gemm.cuh) for wider operands, up to 16 bits.  Every
+    shape takes its bits' route."""
+    _check_bits(bits)
+    return "cluster" if bits <= CLUSTER_MAX_BITS else "tiled"
 
 
 def mitchell_matmul_partial_plain(x, w, sx, sw, bits: int = 8,
@@ -86,8 +104,12 @@ def mitchell_matmul_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     m, k, n = _shapes(x, w)
     if not on_cuda(x, w, sx, sw):
         return mitchell_matmul_fused_plain(x, w, sx, sw, bits, compensated)
-    return _launch(_FUSED, x, w, sx, sw, m, k, n, bits, compensated,
-                   torch.float32)
+    if fused_route(bits) == "tiled":
+        return _launch(_FUSED_WIDE, x, w, sx, sw, m, k, n, bits, compensated,
+                       torch.float32)
+    _check_fused(x, w, sx, sw, n)
+    return launch_cluster(_FUSED, x, w, None, sx, sw, m, k, n, bits,
+                          int(compensated))
 
 
 def mitchell_matmul_partial(x: torch.Tensor, w: torch.Tensor,
@@ -108,14 +130,7 @@ def mitchell_matmul_partial(x: torch.Tensor, w: torch.Tensor,
 
 def _launch(kern: CudaKernel, x, w, sx, sw, m, k, n, bits, compensated,
             out_dtype):
-    require(x.dtype in _FLOATS and w.dtype in _FLOATS,
-            f"f32/bf16 operands expected, got {x.dtype}, {w.dtype}")
-    require(x.is_contiguous() and w.is_contiguous(),
-            "operands must be contiguous")
-    require(sx.dtype == torch.float32 and sx.numel() == 1,
-            "sx must be one f32 element")
-    require(sw.dtype == torch.float32 and sw.numel() == n
-            and sw.is_contiguous(), f"sw must be {n} contiguous f32")
+    _check_fused(x, w, sx, sw, n)
     _check_bits(bits)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),

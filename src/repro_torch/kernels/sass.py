@@ -6,9 +6,13 @@ issue, not by the reference's expression: for every instantiation of
 ``csrc/cim_gemm.cuh``'s ``gemm_kernel`` in a built library it finds the
 product loop (the innermost loop after the block's second barrier), counts
 its instructions by the pipe that runs them and divides by the products
-one pass of the loop makes.  Rates per SM and clock on Hopper (CUDA C++
+one pass of the loop makes.  ``csrc/cluster_gemm.cuh``'s
+``cluster_gemm_kernel`` unrolls its products: there the section that
+counts is the K-step loop's tail, from its second barrier to its
+backward branch (``step_products``).  Rates per SM and clock on Hopper (CUDA C++
 Programming Guide, compute capability 9.0): 64 integer ALU lanes (IADD3,
-LOP3, SHF, ISETP, SEL, ...), 64 lanes of the FMA pipe that runs IMAD, 16
+LOP3, SHF, ISETP, SEL, ...), 64 lanes of the FMA pipe that runs IMAD and
+the byte dot product IDP (dp4a), 16
 for FLO and the other quarter-rate operations, and four schedulers that
 issue one warp instruction (32 lanes) a clock each, 128 in all.  An
 instruction that runs on either integer pipe (VIADD, VIMNMX, MOV) counts
@@ -34,7 +38,7 @@ from typing import Dict, List, NamedTuple, Tuple
 # lanes a clock on one SM, by pipe; "int" is every arithmetic
 # instruction together, against the four schedulers' issue
 RATES = {"alu": 64, "fma": 64, "xu": 16, "int": 128}
-_FMA = {"IMAD", "FFMA", "FADD", "FMUL", "HFMA2", "HADD2", "HMUL2"}
+_FMA = {"IMAD", "IDP", "FFMA", "FADD", "FMUL", "HFMA2", "HADD2", "HMUL2"}
 _ALU = {"IADD3", "LOP3", "SHF", "ISETP", "FSETP", "SEL", "FSEL", "LEA",
         "IABS", "PRMT", "PLOP3", "IMNMX", "FMNMX", "BMSK", "SGXT", "P2R",
         "R2P"}
@@ -104,9 +108,12 @@ def pipe(op: str) -> str:
     return "other"
 
 
-def _target(insn: Insn):
+def _target(insn: Insn, variants: bool = False):
+    """The branch target of a BRA (with `variants`, of any BRA.*), else
+    None."""
     m = re.search(r"0x([0-9a-f]+)\s*$", insn.args)
-    return int(m.group(1), 16) if insn.op == "BRA" and m else None
+    op = insn.op.split(".")[0] if variants else insn.op
+    return int(m.group(1), 16) if op == "BRA" and m else None
 
 
 def product_loop(insns: List[Insn], bk: int) -> Tuple[List[Insn], int]:
@@ -150,19 +157,52 @@ def product_loop(insns: List[Insn], bk: int) -> Tuple[List[Insn], int]:
                      "found")
 
 
-def per_product(insns: List[Insn], bk: int, rows: int) -> Dict[str, float]:
-    """Instructions per product of the product loop, by pipe, and "int",
-    the arithmetic ones of every pipe together (loads, branches and
-    uniform-datapath instructions are left out); `rows` is the outputs
-    each thread accumulates per K step (BM / TY of the template)."""
-    body, step = product_loop(insns, bk)
-    products = step * rows
+def step_products(insns: List[Insn]) -> List[Insn]:
+    """The product section of one ``cluster_gemm_kernel`` instantiation.
+
+    Its K-step loop is the backward branch whose body holds exactly two
+    BAR.SYNC (a stage has landed; the staged x is visible); the products
+    run from the second barrier to that branch, unrolled.  Raises if no
+    loop has that shape or if the section holds a loop of its own."""
+    at = {ins.pc: i for i, ins in enumerate(insns)}
+    for j, ins in enumerate(insns):
+        t = _target(ins, variants=True)
+        if t is None or t > ins.pc or t not in at:
+            continue
+        body = insns[at[t]:j + 1]
+        bars = [i for i, x in enumerate(body) if x.op.startswith("BAR.SYNC")]
+        if len(bars) != 2:
+            continue
+        section = body[bars[1] + 1:]
+        back = [_target(x, variants=True) for x in section[:-1]]
+        if any(b is not None and b <= x.pc
+               for b, x in zip(back, section[:-1])):
+            raise ValueError("the K-step loop's product section holds a loop")
+        return section
+    raise ValueError("no K-step loop (a backward branch over two BAR.SYNC) "
+                     "in this function")
+
+
+def section_per_product(body: List[Insn],
+                        products: int) -> Dict[str, float]:
+    """Instructions per product of a section that makes `products`
+    products, by pipe, and "int", the arithmetic ones of every pipe
+    together (loads, branches and uniform-datapath instructions are left
+    out)."""
     counts = {k: 0.0 for k in ("alu", "fma", "xu", "either", "other")}
     for x in body:
         counts[pipe(x.op)] += 1
     out = {k: v / products for k, v in counts.items()}
     out["int"] = out["alu"] + out["fma"] + out["xu"] + out["either"]
     return out
+
+
+def per_product(insns: List[Insn], bk: int, rows: int) -> Dict[str, float]:
+    """`section_per_product` of the template's product loop; `rows` is the
+    outputs each thread accumulates per K step (BM / TY of the
+    template)."""
+    body, step = product_loop(insns, bk)
+    return section_per_product(body, step * rows)
 
 
 def clocks_per_product(counts: Dict[str, float]) -> Tuple[float, str]:

@@ -1,0 +1,240 @@
+"""The split-K cluster GEMM (csrc/cluster_gemm.cuh) on the CPU: a plain
+torch model of its staged operands and product forms held against the
+reference's ``_log_product`` (src/repro/kernels/mitchell_gemm.py), the
+product rewrites it rests on at 8, 12 and 16 bits, the LUT's byte
+offsets, its launch plan (``approx_matmul.cluster_plan``) and the gate
+between it and the tiled template (``mitchell_gemm.fused_route``).  The
+kernel itself runs only on the card (tests/test_torch_gpu.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mitchell_gemm import _log_product
+from repro_torch.kernels import approx_matmul, mitchell_gemm
+from repro_torch.kernels import ref as tref
+
+
+def _reference(a, b, bits, compensated):
+    """_log_product of the JAX package on int32 vectors, as int64."""
+    p = _log_product(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), bits,
+                     compensated)
+    return torch.from_numpy(np.asarray(p).astype(np.int64))
+
+
+def _parts(v, bits):
+    """(sign, mag, k, q) of int64 operands, k = the reference's capped
+    leading-one position (0 for 0), q = mag - 2^k (0 for 0)."""
+    s = torch.sign(v)
+    mag = v.abs()
+    k = tref.leading_one(mag, bits)
+    q = torch.where(mag == 0, torch.zeros_like(mag), mag - (1 << k))
+    return s, mag, k, q
+
+
+def _comp_shift(q, bits):
+    """c(q) = LoD(q) + round_up(q), 0 for q = 0."""
+    m = tref.leading_one(q, bits)
+    up = ((q << 1) >= 3 * (1 << m)).to(q.dtype)
+    return torch.where(q == 0, torch.zeros_like(q), m + up)
+
+
+# --- the staged forms, byte for byte as the kernel packs them -------------
+
+def _byte(v):
+    return v & 0xFF
+
+
+def _signed_byte(word, i):
+    b = (word >> (8 * i)) & 0xFF
+    return (b ^ 0x80) - 0x80
+
+
+def _x_bytes(v, bits):
+    """log_x_bytes: (s mag, s 2^k) as two signed bytes, the first low."""
+    s, mag, k, _ = _parts(v, bits)
+    return _byte(s * mag) | (_byte(s * (1 << k)) << 8)
+
+
+def _w_bytes(v, bits):
+    """log_w_bytes: (s 2^k, s q)."""
+    s, _, k, q = _parts(v, bits)
+    return _byte(s * (1 << k)) | (_byte(s * q) << 8)
+
+
+def _comp_word(v, bits):
+    """comp_word: c(q) in byte 3, q in byte 2."""
+    q = _parts(v, bits)[3]
+    return (_comp_shift(q, bits) << 24) | (q << 16)
+
+
+def _dp4a(a, b, acc):
+    """__dp4a: acc + the dot product of the four signed bytes."""
+    return acc + sum(_signed_byte(a, i) * _signed_byte(b, i)
+                     for i in range(4))
+
+
+def _wrap32(v):
+    return ((v + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def _mitchell_pair(a0, a1, b0, b1, bits):
+    """One dp4a over a staged pair of k: the kernel's mitchell form."""
+    aw = _x_bytes(a0, bits) | (_x_bytes(a1, bits) << 16)
+    bw = _w_bytes(b0, bits) | (_w_bytes(b1, bits) << 16)
+    return _dp4a(aw, bw, torch.zeros_like(a0))
+
+
+def _log_our_word(a, b, bits):
+    """The kernel's log_our form for one k: a dp4a on (A, B's dot word),
+    then q_small << c_big from the unsigned min and max of A and B's
+    compare word, signed by the two sign masks."""
+    aw = _x_bytes(a, bits) | _comp_word(a, bits)
+    bd, bc = _w_bytes(b, bits), _comp_word(b, bits)
+    acc = _dp4a(aw, bd, torch.zeros_like(a))
+    mx, mn = torch.maximum(aw, bc), torch.minimum(aw, bc)
+    comp = ((mn >> 16) & 0xFF) << (mx >> 24)
+    ma = torch.where(_signed_byte(aw, 0) < 0, -1, 0)
+    mb = torch.where(b < 0, -1, 0)
+    sg = torch.where((ma ^ mb) != 0, -1, 1)
+    return _wrap32(acc + comp * sg)
+
+
+def _all_pairs(lo, hi):
+    v = torch.arange(lo, hi + 1, dtype=torch.int64)
+    return v.repeat_interleave(v.numel()), v.repeat(v.numel())
+
+
+def test_mitchell_byte_pairs_equal_the_reference_on_every_staged_pair():
+    a, b = _all_pairs(-127, 127)       # the fused path clips to +-qmax
+    want = _reference(a, b, 8, False)
+    zero = torch.zeros_like(a)
+    assert torch.equal(_mitchell_pair(a, zero, b, zero, 8), want)
+    assert torch.equal(_mitchell_pair(zero, a, zero, b, 8), want)
+    # two k a word: the dot product sums both
+    perm = torch.randperm(a.numel(), generator=torch.Generator().manual_seed(0))
+    got = _mitchell_pair(a, a[perm], b, b[perm], 8)
+    assert torch.equal(got, want + want[perm])
+
+
+def test_log_our_word_equals_the_reference_on_every_staged_pair():
+    a, b = _all_pairs(-127, 127)
+    assert torch.equal(_log_our_word(a, b, 8), _reference(a, b, 8, True))
+
+
+@pytest.mark.parametrize("bits", [2, 3, 5, 7])
+def test_staged_forms_hold_below_8_bits(bits):
+    qmax = (1 << (bits - 1)) - 1
+    a, b = _all_pairs(-qmax, qmax)
+    zero = torch.zeros_like(a)
+    assert torch.equal(_mitchell_pair(a, zero, b, zero, bits),
+                       _reference(a, b, bits, False))
+    assert torch.equal(_log_our_word(a, b, bits),
+                       _reference(a, b, bits, True))
+
+
+def _rewrites(a, b, bits, compensated):
+    """The product rewrites, unpacked: mag1 2^k2 + q2 2^k1 for mitchell,
+    plus min(q1, q2) << max(c1, c2) for log_our, signed."""
+    s1, mag1, k1, q1 = _parts(a, bits)
+    s2, mag2, k2, q2 = _parts(b, bits)
+    p = (mag1 << k2) + (q2 << k1)
+    if compensated:
+        c = torch.maximum(_comp_shift(q1, bits), _comp_shift(q2, bits))
+        p = p + (torch.minimum(q1, q2) << c)
+    p = torch.where((mag1 == 0) | (mag2 == 0), torch.zeros_like(p), p)
+    return _wrap32(s1 * s2 * p)
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+def test_rewrites_hold_on_all_65536_8bit_pairs(compensated):
+    a, b = _all_pairs(-128, 127)
+    assert torch.equal(_rewrites(a, b, 8, compensated),
+                       _reference(a, b, 8, compensated))
+
+
+@pytest.mark.parametrize("bits", [12, 16])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_rewrites_hold_on_a_sample_of_wide_pairs(bits, compensated):
+    qmax = (1 << (bits - 1)) - 1
+    rng = np.random.default_rng(bits * 2 + compensated)
+    v = rng.integers(-qmax, qmax + 1, size=(2, 200_000))
+    v[:, :64] = rng.choice([0, 1, -1, qmax, -qmax], size=(2, 64))
+    a, b = torch.from_numpy(v[0]), torch.from_numpy(v[1])
+    assert torch.equal(_rewrites(a, b, bits, compensated),
+                       _reference(a, b, bits, compensated))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_lut_byte_offsets_address_the_gathered_entry(bits):
+    h = 1 << (bits - 1)
+    a, b = _all_pairs(-(h - 1), h - 1)
+    row = ((a + h) << bits) * 2             # the staged x word
+    colb = (b + h) * 2                      # the staged w register
+    assert torch.equal((row + colb) // 2, (a + h) * (1 << bits) + (b + h))
+    assert int((row + colb).max()) < (1 << (2 * bits)) * 2
+
+
+SHAPES = [(1, 0, 5), (1, 1, 1), (4, 2048, 2048), (4, 2048, 6144),
+          (4, 6144, 2048), (17, 33, 17), (64, 2048, 1024), (65, 6144, 7),
+          (256, 64, 10), (2048, 768, 3072), (5, 31, 8), (130, 32, 2048),
+          (3, 257, 1), (4, 10_000, 129)]
+
+
+def _gpcs(sizes, per_sm):
+    """A capacity model: clusters of s blocks a GPC of g SMs holds,
+    per_sm blocks an SM, summed over the GPCs."""
+    return lambda rows, s: sum(g * per_sm // s for g in sizes)
+
+
+H100_GPCS = (18,) * 6 + (12,) * 2      # 132 SMs
+
+
+@pytest.mark.parametrize("capacity", [
+    _gpcs(H100_GPCS, 1), _gpcs(H100_GPCS, 2), _gpcs((1,), 1),
+    lambda rows, s: 78 // s], ids=["lut", "log", "one_sm", "flat78"])
+def test_cluster_plan_invariants(capacity):
+    for m, k, n in SHAPES:
+        p = approx_matmul.cluster_plan(m, k, n, capacity)
+        assert p.rows in approx_matmul.CLUSTER_ROWS
+        assert p.rows >= min(m, 64)
+        assert p.tiles == -(-m // p.rows) * -(-n // 64)
+        assert 1 <= p.splits <= approx_matmul.CLUSTER_MAX_SPLITS
+        assert capacity(p.rows, p.splits) > 0 or k == 0
+        assert p.k_split > 0 and p.k_split % approx_matmul.CLUSTER_BK == 0
+        assert p.splits * p.k_split >= k                 # covers K
+        if k > 0:
+            assert (p.splits - 1) * p.k_split < k        # no empty slice
+        else:
+            assert p.splits == 1
+
+
+def test_cluster_plan_counts_waves_by_the_clusters_a_gpc_holds():
+    # 32 tiles at M = 4: four slices need 32 clusters of 4, one more than
+    # six GPCs of 18 and two of 12 SMs hold (30): two waves; three slices
+    # fit in one
+    lut = _gpcs(H100_GPCS, 1)
+    assert lut(4, 4) == 30 and lut(4, 3) == 44
+    assert approx_matmul.cluster_plan(4, 2048, 2048, lut).splits == 3
+    # the log kernel holds two blocks an SM: 32 clusters of 7 fit
+    log = _gpcs(H100_GPCS, 2)
+    assert approx_matmul.cluster_plan(4, 2048, 2048, log).splits == 7
+    assert approx_matmul.cluster_plan(4, 2048, 1024, log).splits == 8
+    # 96 tiles fill the LUT kernel's card at once: no split
+    assert approx_matmul.cluster_plan(4, 2048, 6144, lut).splits == 1
+    # a cluster size the device cannot hold is never chosen
+    assert approx_matmul.cluster_plan(
+        4, 2048, 1024, lambda r, s: 0 if s > 2 else 50).splits == 2
+    with pytest.raises(ValueError, match="no cluster"):
+        approx_matmul.cluster_plan(4, 64, 64, lambda r, s: 0)
+
+
+def test_fused_route_is_the_bits_gate():
+    for bits in range(2, 9):
+        assert mitchell_gemm.fused_route(bits) == "cluster"
+    for bits in range(9, 17):
+        assert mitchell_gemm.fused_route(bits) == "tiled"
+    for bits in (1, 17):
+        with pytest.raises(ValueError, match="2..16-bit"):
+            mitchell_gemm.fused_route(bits)

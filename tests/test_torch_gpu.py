@@ -933,3 +933,170 @@ def test_rms_norm_rows_do_not_depend_on_the_row_count(d):
     ms = row_mean_square(big)
     for n in (1, 2, 4, 8):
         assert torch.equal(row_mean_square(big[-n:].clone()), ms[-n:])
+
+
+# ---------------------------------------------------------------------------
+# the split-K cluster kernel (csrc/cluster_gemm.cuh): lut_matmul_fused and
+# mitchell_matmul_fused up to 8 bits
+# ---------------------------------------------------------------------------
+
+# every M in {1, 4, 17, 64, 65, 130, 2048}, K in {1, 31, 33, 2048, 6144}
+# and N in {1, 7, 8, 17, 2048}: one row tile of 4, 16 or 64 rows or
+# several, one K step or up to 8 slices, ragged tiles and rows that are
+# not 16-byte multiples (element loads)
+CLUSTER_EDGES = [(1, 31, 7), (4, 1, 1), (17, 33, 17), (64, 2048, 8),
+                 (65, 6144, 17), (130, 33, 2048), (2048, 31, 1),
+                 (4, 6144, 2048), (2048, 2048, 7), (1, 2048, 2048),
+                 (130, 6144, 8)]
+LUT4 = MultiplierSpec("appro42", 4, True, "orplane")
+
+
+def _float_ops(m, k, n, dev, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", CLUSTER_EDGES, ids=str)
+def test_cluster_kernels_bitwise_equal_plain_versions(shape, dtype):
+    """LUT at 4 and 8 bits, mitchell and log_our at 8 bits (the cluster
+    kernel) and at 16 (the tiled template) against the plain versions."""
+    dev = _card()
+    x, w = _float_ops(*shape, dev, dtype, seed=sum(shape))
+    pairs = []
+    for spec in (BALANCED, LUT4):
+        lut = ops.lut_table(spec, dev)
+        sx, sw = ops._scales(x, w, spec.bits)
+        pairs.append((approx_matmul.lut_matmul_fused(x, w, lut, sx, sw,
+                                                     spec.bits),
+                      approx_matmul.lut_matmul_fused_plain(x, w, lut, sx, sw,
+                                                           spec.bits)))
+    for bits in (8, 16):
+        sx, sw = ops._scales(x, w, bits)
+        for comp in (False, True):
+            pairs.append((
+                mitchell_gemm.mitchell_matmul_fused(x, w, sx, sw, bits, comp),
+                mitchell_gemm.mitchell_matmul_fused_plain(x, w, sx, sw, bits,
+                                                          comp)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+
+
+def test_cluster_kernels_take_mixed_and_misaligned_operands():
+    """x bf16 with w f32 and the reverse; operands whose storage starts 2
+    or 4 bytes past a 16-byte boundary (loaded by elements)."""
+    dev = _card()
+    lut = ops.lut_table(BALANCED, dev)
+    for xt, wt in ((torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16)):
+        x, _ = _float_ops(4, 2048, 1024, dev, xt)
+        _, w = _float_ops(4, 2048, 1024, dev, wt, seed=1)
+        for shift in (0, 1):
+            if shift:
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+                w = torch.cat([w.new_zeros(1), w.flatten()])[1:].view(w.shape)
+                assert x.data_ptr() % 16 and w.data_ptr() % 16
+            sx, sw = ops._scales(x, w, 8)
+            assert torch.equal(
+                approx_matmul.lut_matmul_fused(x, w, lut, sx, sw),
+                approx_matmul.lut_matmul_fused_plain(x, w, lut, sx, sw))
+            for comp in (False, True):
+                assert torch.equal(
+                    mitchell_gemm.mitchell_matmul_fused(x, w, sx, sw, 8, comp),
+                    mitchell_gemm.mitchell_matmul_fused_plain(x, w, sx, sw, 8,
+                                                              comp))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_fused_route_picks_the_kernel_on_the_card(bits):
+    """Both sides of fused_route: 8 bits launches the cluster kernel, 16
+    the tiled template, each bitwise equal to the plain version."""
+    dev = _card()
+    x, w = _float_ops(4, 2048, 1024, dev, torch.bfloat16)
+    sx, sw = ops._scales(x, w, bits)
+    kern = mitchell_gemm.KERNELS
+    before = {n: kern[n].launches for n in
+              ("mitchell_matmul_fused", "mitchell_matmul_fused_wide")}
+    got = mitchell_gemm.mitchell_matmul_fused(x, w, sx, sw, bits, False)
+    want = mitchell_gemm.mitchell_matmul_fused_plain(x, w, sx, sw, bits,
+                                                     False)
+    assert torch.equal(got, want)
+    name = ("mitchell_matmul_fused" if mitchell_gemm.fused_route(bits)
+            == "cluster" else "mitchell_matmul_fused_wide")
+    assert {n: kern[n].launches - c for n, c in before.items()} == \
+        {n: int(n == name) for n in before}
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_fused_scaled_with_a_sliced_column_scale(m):
+    """The mesh's output-sharded form: global scales over the whole
+    weight, the shard's columns and its slice of sw (storage offset)."""
+    dev = _card()
+    x, w = _float_ops(m, 2048, 2048, dev, torch.bfloat16, seed=5)
+    sx, sw = ops._scales(x, w, 8)
+    shard, sws = w[:, 1024:].contiguous(), sw[1024:]
+    assert sws.data_ptr() != sw.data_ptr()
+    lut = ops.lut_table(BALANCED, dev)
+    assert torch.equal(
+        ops.lut_fused_scaled(x, shard, BALANCED, sx, sws),
+        approx_matmul.lut_matmul_fused_plain(x, shard, lut, sx, sws))
+    for comp in (False, True):
+        assert torch.equal(
+            ops.log_fused_scaled(x, shard, sx, sws, compensated=comp),
+            mitchell_gemm.mitchell_matmul_fused_plain(x, shard, sx, sws, 8,
+                                                      comp))
+
+
+def test_cluster_kernel_refuses_a_plan_it_does_not_take():
+    """The C entry checks the plan: a slice that is empty, a split past 8,
+    a K slice not a multiple of the step, or rows it has no tile for
+    raise at launch."""
+    dev = _card()
+    x, w = _float_ops(4, 256, 64, dev, torch.bfloat16)
+    sx, sw = ops._scales(x, w, 8)
+    out = torch.empty(4, 64, device=dev)
+    kern = mitchell_gemm.KERNELS["mitchell_matmul_fused"]
+    from repro_torch.kernels.build import stream_of
+
+    def launch(rows, splits, k_split):
+        kern(x.data_ptr(), 1, w.data_ptr(), 1, sx.data_ptr(), sw.data_ptr(),
+             out.data_ptr(), 4, 256, 64, 8, 0, rows, splits, k_split,
+             stream_of(x))
+
+    launch(4, 2, 128)                       # the plan's own cut runs
+    for bad in ((4, 3, 128), (4, 9, 32), (4, 2, 100), (8, 1, 256),
+                (4, 1, 128)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(*bad)
+
+
+def test_cluster_capacity_query_bounds_the_plan():
+    """The device's cluster capacity (cudaOccupancyMaxActiveClusters) for
+    every row count, split and operand type: positive, never more threads
+    than the SMs hold (2048 an SM), and no larger for a larger cluster;
+    the plan on the card picks a split that fits."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kern, flags, threads in ((approx_matmul.KERNELS["lut_matmul_fused"],
+                                  (), 512),
+                                 (mitchell_gemm.KERNELS[
+                                     "mitchell_matmul_fused"], (0,), 256)):
+        for xb, wb in ((1, 1), (0, 0), (1, 0)):
+            for rows in approx_matmul.CLUSTER_ROWS:
+                caps = [approx_matmul._capacity(
+                    kern.library, kern.symbol + "_capacity", 0,
+                    (8, *flags, xb, wb), rows, s) for s in range(1, 9)]
+                assert all(c > 0 for c in caps), (kern.symbol, rows, caps)
+                assert all(c * s * threads <= sms * 2048
+                           for s, c in enumerate(caps, 1)), caps
+                assert caps == sorted(caps, reverse=True)
+        x, w = _float_ops(4, 2048, 2048, dev, torch.bfloat16)
+        plan = approx_matmul.fused_plan(kern, x, w, 8, *flags)
+        assert plan.rows == 4 and plan.tiles == 32
+        assert approx_matmul._capacity(
+            kern.library, kern.symbol + "_capacity", 0, (8, *flags, 1, 1),
+            4, plan.splits) > 0

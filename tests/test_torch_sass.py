@@ -106,3 +106,55 @@ def test_tensor_core_instructions_are_counted_per_function():
         "_ZN3cim21int8_mma_dense_kernelILb1EEEvPKaS2_PiPfiiii":
             {"IMMA": 3, "IGMMA": 1},
         "_ZN3cim11gemm_kernelINS_7IntCoreEEtest": {"IMMA": 0, "IGMMA": 0}}
+
+
+# a cluster_gemm_kernel-shaped function: a prologue loop (no barrier), the
+# K-step loop (a stage landed, an inner staging loop, the staged x
+# visible, then the unrolled products: IDP is dp4a), then the k groups'
+# reduction loop with one barrier
+CLUSTER_SASS = """
+		Function : _ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb0EEELi4ELi32EEEvNS_6ClArgsE
+        /*0000*/                   IADD3 R4, R4, 0x100, RZ ;
+        /*0010*/               @P1 BRA 0x0 ;
+        /*0020*/                   DEPBAR.LE SB0, 0x2 ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0040*/                   MUFU.RCP R6, R5 ;
+        /*0050*/               @P2 BRA 0x40 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   LDS.128 R8, [R3] ;
+        /*0080*/                   IDP.4A.S8.S8 R20, R8, R12, R20 ;
+        /*0090*/                   IDP.4A.S8.S8 R20, R9, R13, R20 ;
+        /*00a0*/                   IDP.4A.S8.S8 R21, R8, R14, R21 ;
+        /*00b0*/                   IDP.4A.S8.S8 R21, R9, R15, R21 ;
+        /*00c0*/                   VIADD R2, R2, 0x1 ;
+        /*00d0*/                   ISETP.GE.AND P0, PT, R2, R7, PT ;
+        /*00e0*/              @!P0 BRA.U 0x20 ;
+        /*00f0*/                   STS [R3], R20 ;
+        /*0100*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0110*/               @P3 BRA 0xf0 ;
+        /*0120*/                   EXIT ;
+"""
+CLUSTER = "_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb0EEELi4ELi32EEEvNS_6ClArgsE"
+
+
+def test_step_products_is_the_k_step_loop_tail():
+    insns = sass.functions(CLUSTER_SASS)[CLUSTER]
+    section = sass.step_products(insns)
+    assert (section[0].pc, section[-1].pc) == (0x70, 0xe0)
+    # 4 IDP (FMA pipe), VIADD, ISETP over 8 products (2 rows x 4 k)
+    c = sass.section_per_product(section, 8)
+    assert c == {"alu": 1 / 8, "fma": 4 / 8, "xu": 0.0, "either": 1 / 8,
+                 "other": 2 / 8, "int": 6 / 8}
+    clocks, by = sass.clocks_per_product(c)
+    assert by == "fma" and clocks == pytest.approx(4 / 8 / 64)
+
+
+def test_step_products_refuses_other_shapes():
+    insns = sass.functions(CLUSTER_SASS)[CLUSTER]
+    # no loop over two barriers: the template's function
+    with pytest.raises(ValueError, match="no K-step loop"):
+        sass.step_products(sass.functions(SASS)[LOG][:4])
+    # a loop inside the product section
+    looped = insns[:9] + [sass.Insn(0x85, "@P4", "BRA", "0x70")] + insns[9:]
+    with pytest.raises(ValueError, match="holds a loop"):
+        sass.step_products(looped)

@@ -13,7 +13,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      (``cuobjdump``; for the split-K cluster kernel, its K step's product
      section), its instructions a product counted by pipe; the
      tensor-core instructions (IMMA, IGMMA) of every int8_mma.cuh kernel
-     counted, none failing;
+     and of every instantiation of the fused surrogate kernel
+     (surrogate_cluster.cuh) counted, none failing;
   3. kernels: each of the six GEMM kernels (full-LUT gather, nibble
      sub-LUT gather and log-domain, int and fused forms) against its
      plain PyTorch version on the card, bitwise, at the shapes the
@@ -42,10 +43,14 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      order of the l sum differs); the surrogate GEMMs at the LM shapes,
      the CNN's fc and the ragged shape: ``cim_gemm_core`` D bitwise and
      SQ within (K - 1) 2^-24 relative of the exact value (the f32 sum's
-     bound), ``cim_gemm_fused`` for the appro42 and log_our coefficients
-     bitwise without noise (bf16 and f32 operands) and, given the same
-     eps, within that bound carried through the sqrt plus two output
-     roundings, and ``cim_gemm_core`` without SQ (the int8 tensor cores)
+     bound), ``cim_gemm_fused`` (the split-K cluster kernel,
+     csrc/surrogate_cluster.cuh, its launch plans printed) for the
+     appro42 and log_our coefficients bitwise without noise and, given
+     the same eps, with it (bf16 and f32 operands; SQ exact on the
+     tensor cores), also at SURROGATE_EDGES (every row tile, K split, N
+     edge, the CNN's fc and a noisy conv's im2col GEMM; bf16, f32 and
+     mixed operands; 2, 4 and 8 bits; each variant; operands random and
+     at +-max), and ``cim_gemm_core`` without SQ (the int8 tensor cores)
      also at ragged and split-K edge shapes with operands all -128 and
      all 127 (CORE_EDGES); and the exact-mode conv kernel
      (``conv_mxu_fused``, the int8 tensor cores) bitwise at the conv
@@ -70,10 +75,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      one exists (``torch._int_mm``, ``F.conv2d``), and the least time the
      card could take (the larger of the bytes the mask admits over 3.35
      TB/s and the products' shared-memory gathers, log-product
-     instructions, int8 tensor-core operations or f32 FMAs over their
-     peak rates at the card's maximum SM clock; the sLSTM bound leaves
-     out the serial dependency across T) and the share of it the kernel
-     reaches;
+     instructions, int8 tensor-core operations (the surrogate's SQ as
+     four more int8 products) or, for the sLSTM recurrence, f32 FMAs
+     over their peak rates at the card's maximum SM clock; the sLSTM
+     bound leaves out the serial dependency across T) and the share of
+     it the kernel reaches;
   4. reference: the LM on the card against the same LM on the CPU (the
      kernels' plain versions) on the smoke config, every tier of the
      hardware ladder with and without CiM attention, of the surrogate
@@ -216,6 +222,9 @@ ATTN_MIX = (("exact", None, 0.2), ("balanced", None, 0.4),
 ATTN_REQUESTS, ATTN_SEED = 8, 3
 INT8_TC_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8
 FP32_FMA_PER_SM_CLOCK = 128        # CUDA cores: 67 TFLOP/s at 132 SMs
+# SQ = sum a^2 b^2 on the int8 tensor cores: four more products of
+# squares' halves (csrc/surrogate_cluster.cuh)
+SQ_INT8_PRODUCTS = 4
 # attention geometries (B, H, KH, Sq, Skv, D, variant): the serving decode
 # round (4 slots, ragged fill levels) and prefill (4 x 256, ragged
 # lengths) of qwen3-1.7b, and the reference tests' geometry
@@ -255,7 +264,7 @@ SOURCES = {
                        "src/repro/kernels/conv_gemm.py:321"),
     "cim_gemm_core": ("src/repro_torch/kernels/csrc/surrogate_gemm.cu",
                       "src/repro/kernels/cim_gemm.py:60"),
-    "cim_gemm_fused": ("src/repro_torch/kernels/csrc/surrogate_gemm.cu",
+    "cim_gemm_fused": ("src/repro_torch/kernels/csrc/surrogate_cluster.cuh",
                        "src/repro/kernels/cim_gemm.py:141"),
     "conv_mxu_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                        "src/repro/kernels/conv_gemm.py:174"),
@@ -318,6 +327,14 @@ CLUSTER_EDGES = [(1, 31, 7), (4, 1, 1), (17, 33, 17), (64, 2048, 8),
                  (4, 6144, 2048), (2048, 2048, 7), (1, 2048, 2048),
                  (130, 6144, 8)]
 CLUSTER_WIDE_EDGES = 6
+# the fused surrogate kernel's edge cases (cim_gemm_fused on
+# csrc/surrogate_cluster.cuh; checked bitwise, not timed): one row tile of
+# 16 rows (M = 1, 4 masked) or 64, several, K one step, ragged or split
+# up to 8 slices, N ragged or many tiles, the CNN's fc and a noisy
+# surrogate-mode conv's im2col GEMM (65,536 rows, K = 27, N = 16)
+SURROGATE_EDGES = [(1, 31, 7), (4, 1, 1), (17, 33, 17), RAGGED,
+                   (64, 2048, 8), (130, 2048, 17), (130, 6144, 2048),
+                   CNN_FC, (65536, 27, 16)]
 FAMS = ("exact", "appro42", "log_our", "mitchell")
 # the kernels a hardware forward of the CNN runs, per family: (conv, fc)
 CNN_KERNELS = {"exact": ("conv_lut_fused", "nibble_lut_matmul_fused"),
@@ -448,26 +465,37 @@ def log_clocks(build) -> None:
           flush=True)
 
 
+# the fused surrogate kernel's instantiations: 2 row tiles x 2 stage
+# depths x 3 variants
+SURROGATE_KERNELS = 12
+
+
 def tensor_core_check(build) -> None:
     """Count the tensor-core instructions (IMMA, IGMMA) in the SASS of
-    every function csrc/int8_mma.cuh instantiates in the built libraries;
-    fail if one has none, or if none is found."""
+    every function csrc/int8_mma.cuh instantiates in the built libraries
+    and of every instantiation of the fused surrogate kernel
+    (csrc/surrogate_cluster.cuh); fail if one has none, or if any is
+    missing."""
     from repro_torch.kernels import sass
 
-    found = 0
+    found = surrogate = 0
     for lib in ("surrogate_gemm", "conv_gemm"):
         fns = sass.functions(sass.disassemble(build.library_path(lib)))
         for name, insns in sorted(fns.items()):
-            if "int8_mma" not in name:
+            if "int8_mma" not in name and "surrogate_cluster" not in name:
                 continue
             found += 1
+            surrogate += "surrogate_cluster" in name
             c = sass.tensor_core_counts(insns)
             print(f"  {lib:<14} {name[:56]:<56} IMMA {c['IMMA']}, IGMMA "
                   f"{c['IGMMA']} (of {len(insns)} instructions)", flush=True)
             if not c["IMMA"] + c["IGMMA"]:
                 fail(f"{name} in lib{lib}: no tensor-core instruction")
-    if not found:
+    if found == surrogate:
         fail("no int8_mma kernel found in the surrogate and conv libraries")
+    if surrogate != SURROGATE_KERNELS:
+        fail(f"{surrogate} instantiations of the fused surrogate kernel in "
+             f"libsurrogate_gemm, expected {SURROGATE_KERNELS}")
 
 
 def check_kernels(torch, sms: int, clock_hz: float):
@@ -649,39 +677,31 @@ def check_cluster_edges(torch, lut8, flush):
 # ---------------------------------------------------------------------------
 
 
-def _surrogate_bound(name, m, k, n, esize, noisy, need_sq, sms, clock_hz):
+def _surrogate_bound(name, m, k, n, esize, noisy, need_sq):
     """(bound_ms, bound_by): the bytes each input read once and each
     output written once at 3.35 TB/s (the core: int8 operands, D and SQ
     written; the fused form: `esize`-byte operands, the scales, eps when
-    noisy, the f32 output), against the busier of D's 2 M K N int8
-    tensor-core operations at 1,979 TOP/s and SQ's M K N f32 FMAs at
-    the CUDA cores' 128 a clock per SM."""
+    noisy, the f32 output), against the int8 tensor-core operations at
+    1,979 TOP/s, the least expensive form of the work on the card: D's
+    2 M K N and, with SQ, SQ_INT8_PRODUCTS x 2 M K N more (the squares'
+    s8 halves, HH, HL, LH, LL)."""
     if name == "cim_gemm_core":
         nbytes = m * k + k * n + 8 * m * n
     else:
         nbytes = ((m * k + k * n) * esize + 4 + 4 * n + 4 * m * n
                   + (4 * m * n if noisy else 0))
-    ops_s = max(2 * m * k * n / INT8_TC_OPS_PER_S,
-                (m * k * n / (sms * FP32_FMA_PER_SM_CLOCK * clock_hz)
-                 if need_sq else 0.0))
+    ops_s = ((1 + (SQ_INT8_PRODUCTS if need_sq else 0)) * 2 * m * k * n
+             / INT8_TC_OPS_PER_S)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
                                        else "bytes")
 
 
-def _noisy_close(torch, got, want, det, k):
-    """(max |d|, outputs beyond the bound): the noisy output against its
-    plain version given the same eps.  They share D (exact) and differ
-    in SQ by at most (K - 1) 2^-24 relative (the kernel's f32 sum against
-    the exact value), which the sqrt halves: the noise term moves by at
-    most K 2^-24 of itself, and the output's last two roundings by
-    2^-22 of it."""
-    diff = (got - want).abs()
-    tol = k * 2.0 ** -24 * (want - det).abs() + 2.0 ** -22 * want.abs()
-    return float(diff.max()), int((diff > tol).sum())
-
-
 def check_surrogate(torch, sms: int, clock_hz: float):
+    """The surrogate GEMMs at the LM shapes, the CNN's fc and the ragged
+    shape, then their edges.  (`sms` and `clock_hz` go unused: the
+    surrogate's bounds are the bytes and the int8 tensor cores' rate;
+    every phase-3 check takes them, as launch/kernel_ab.py calls it.)"""
     from repro_torch.core.compiler import CiMConfig, compile_macro
     from repro_torch.kernels import cim_gemm as cg
     from repro_torch.kernels import ops
@@ -742,7 +762,7 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                 torch, lambda s_=need_sq: cg.cim_gemm_core_plain(xq, wq, s_),
                 1, flush)
             row["bound_ms"], row["bound_by"] = _surrogate_bound(
-                "cim_gemm_core", m, k, n, 1, False, need_sq, sms, clock_hz)
+                "cim_gemm_core", m, k, n, 1, False, need_sq)
             if not need_sq and m > 16 and k % 8 == 0 and n % 8 == 0:
                 lib = torch._int_mm(xq, wq)     # the yardstick: D only
                 torch.cuda.synchronize()
@@ -751,9 +771,10 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                 row["library_ms"] = _timed_ms(
                     torch, lambda: torch._int_mm(xq, wq), 10, flush)
             rows["cim_gemm_core"].append(row)
-        # the fused form: bitwise without noise, within the bound with it
+        # the fused form: bitwise with and without noise
         dtypes = ((torch.float32,) if shape == CNN_FC
                   else (torch.bfloat16, torch.float32))
+        plans = []
         for dt in dtypes:
             xs, ws = x.to(dt), w.to(dt)
             sx, sw = ops._scales(xs, ws, 8)
@@ -765,14 +786,12 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                 want = cg.cim_gemm_fused_plain(xs, ws, sx, sw, eps, mu, c0,
                                                c1)
                 torch.cuda.synchronize()
-                if not torch.equal(det, pdet):
-                    fail(f"cim_gemm_fused {shape} {dt} {fam} without noise: "
-                         f"kernel != plain version (max |d| "
-                         f"{float((det - pdet).abs().max())})")
-                err, beyond = _noisy_close(torch, got, want, pdet, k)
-                if beyond or not torch.isfinite(got).all():
-                    fail(f"cim_gemm_fused {shape} {dt} {fam} with noise: "
-                         f"{beyond} outputs beyond the bound (max |d| {err})")
+                for tag, a_, b_ in (("without", det, pdet),
+                                    ("with", got, want)):
+                    if not torch.equal(a_, b_) or not torch.isfinite(a_).all():
+                        fail(f"cim_gemm_fused {shape} {dt} {fam} {tag} "
+                             f"noise: kernel != plain version (max |d| "
+                             f"{float((a_ - b_).abs().max())})")
                 # timed: the serving path (bf16, no noise, the balanced
                 # tier's coefficients) and the macro path (f32, log_our's
                 # noise with its SQ)
@@ -786,7 +805,7 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                     row = {"shape": shape,
                            "variant": f"{str(dt)[6:]} {fam}"
                                       f"{' noise' if noisy else ''}",
-                           "max_abs_err": err if noisy else 0.0,
+                           "max_abs_err": 0.0,
                            "main": shape in MAIN_SHAPES}
                     row["ms"] = _timed_ms(
                         torch, lambda e_=e: cg.cim_gemm_fused(
@@ -796,8 +815,12 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                             xs, ws, sx, sw, e_, mu, c0, c1), 1, flush)
                     row["bound_ms"], row["bound_by"] = _surrogate_bound(
                         "cim_gemm_fused", m, k, n, xs.element_size(), noisy,
-                        noisy and c1 > 0, sms, clock_hz)
+                        noisy and c1 > 0)
                     rows["cim_gemm_fused"].append(row)
+                    plan = cg.fused_launch_plan(xs, ws, cg.variant(
+                        e, c0, c1))
+                    plans.append(f"{row['variant']}: rows {plan.rows}, "
+                                 f"tiles {plan.tiles}, splits {plan.splits}")
         for name, rs in rows.items():
             for r in rs:
                 if r["shape"] == shape:
@@ -811,10 +834,12 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                           f"{'-' if lib is None else f'{lib:10.4f}':>10}"
                           f"{'' if warm is None else f'  warm {warm:.4f}'}",
                           flush=True)
+        if plans:
+            print(f"  cim_gemm_fused {shape} plan: {'; '.join(plans)}",
+                  flush=True)
         print(f"  {shape}: D bitwise, SQ within (K-1) 2^-24 = "
               f"{(k - 1) * 2.0 ** -24:.2e} (max relative error {sq_rel:.2e}), "
-              f"the fused kernel bitwise without noise and within the bound "
-              f"with it "
+              f"the fused kernel bitwise with and without noise "
               f"({', '.join(str(d)[6:] for d in dtypes)} operands; appro42 "
               f"and log_our)", flush=True)
     # the tensor-core route's edges: D bitwise, SQ zeros
@@ -839,7 +864,56 @@ def check_surrogate(torch, sms: int, clock_hz: float):
                 fail(f"torch._int_mm {(m, k, n)} != D")
     print(f"  cim_gemm_core need_sq=False at {CORE_EDGES}: D bitwise for "
           f"random operands, all -128 and all 127, SQ zeros", flush=True)
+    check_surrogate_edges(torch)
     return rows
+
+
+def check_surrogate_edges(torch):
+    """cim_gemm_fused (csrc/surrogate_cluster.cuh) at SURROGATE_EDGES,
+    bitwise against the plain version: bf16, f32 and mixed operands by
+    turns, bits 8, 4 and 2, each variant (no noise; noise with c1 = 0;
+    noise with SQ), operands random and at +-max (every code +-qmax:
+    SQ's largest sums), with the plan each shape was given."""
+    from repro_torch.kernels import cim_gemm as cg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    mu, c0, c1 = SURR_COEFFS["log_our"]
+    variants = (("served", False, c1), ("noise c1=0", True, 0.0),
+                ("noise", True, c1))
+    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+    for i, (m, k, n) in enumerate(SURROGATE_EDGES):
+        g = torch.Generator(device=dev).manual_seed(500 + i)
+        xt, wt = pairs[i % len(pairs)]
+        x = torch.randn(m, k, generator=g, device=dev).to(xt)
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(wt)
+        eps = torch.randn(m, n, generator=g, device=dev)
+        sign = torch.where(torch.rand(k, n, generator=g, device=dev) < 0.5,
+                           -1.0, 1.0)
+        at_max = (torch.full_like(x, -3.0), (sign * 0.5).to(wt))
+        calls = 0
+        for a, b in ((x, w), at_max):
+            for bits in (8, 4, 2):
+                sx, sw = ops._scales(a, b, bits)
+                for tag, noisy, c1_ in variants:
+                    e = eps if noisy else None
+                    got = cg.cim_gemm_fused(a, b, sx, sw, e, mu, c0, c1_,
+                                            bits)
+                    want = cg.cim_gemm_fused_plain(a, b, sx, sw, e, mu, c0,
+                                                   c1_, bits)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    if not torch.equal(got, want):
+                        err = float((got.double() - want.double()).abs()
+                                    .max())
+                        fail(f"surrogate edge {(m, k, n)} {xt} x {wt} "
+                             f"{bits} bits {tag}: kernel != plain version "
+                             f"(max |diff| {err})")
+        plan = cg.fused_launch_plan(x, w, cg.NOISE_SQ)
+        print(f"  surrogate edge {(m, k, n)} {str(xt)[6:]} x {str(wt)[6:]}: "
+              f"bitwise ({calls} calls); plan rows {plan.rows}, tiles "
+              f"{plan.tiles}, splits {plan.splits}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2745,7 +2819,7 @@ def _kernel_class(name: str, matmul_kernels) -> str:
     low = name.lower()
     if "int8_mma_conv" in low:
         return "CiM conv kernel"
-    if "int8_mma_dense" in low:
+    if "int8_mma_dense" in low or "surrogate_cluster" in low:
         return "CiM surrogate kernel"
     if "convsrc" in low:
         return "CiM conv kernel"
@@ -2753,7 +2827,7 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM LUT kernel"
     if "nibblecore" in low:
         return "CiM nibble kernel"
-    if "intsqcore" in low or "intcore" in low:
+    if "intsqcore" in low:
         return "CiM surrogate kernel"
     if "logcore" in low:
         return "CiM log kernel"

@@ -32,7 +32,7 @@ cut by ``cluster_plan``; the other forms the tiled template
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -76,26 +76,29 @@ _BLOCK_STEPS = 2
 
 
 class ClusterPlan(NamedTuple):
-    rows: int       # output rows a block (4, 16 or 64)
+    rows: int       # output rows a block (one of the kernel's row tiles)
     tiles: int      # output tiles: ceil(M / rows) x ceil(N / CLUSTER_BN)
     splits: int     # K slices a tile, one cluster (1..CLUSTER_MAX_SPLITS)
     k_split: int    # K a slice, a multiple of CLUSTER_BK
 
 
 def cluster_plan(m: int, k: int, n: int,
-                 capacity: Callable[[int, int], int]) -> ClusterPlan:
-    """How one (M, K) x (K, N) call of the cluster kernel is cut.
+                 capacity: Callable[[int, int], int],
+                 row_tiles: Sequence[int] = CLUSTER_ROWS) -> ClusterPlan:
+    """How one (M, K) x (K, N) call of a split-K cluster kernel is cut.
 
-    The rows a block are the fewest of CLUSTER_ROWS that hold M (64 past
-    64 rows, the tiles then repeat over M).  ``capacity(rows, splits)``
-    is the number of clusters of `splits` blocks the card holds at once
-    (a cluster's blocks share one GPC, so it is not the SM count over the
-    cluster size; 0: none fits).  K is split into the slices that
-    minimize waves x (steps a slice + _BLOCK_STEPS), a wave being
-    ``capacity`` clusters; ties go to fewer slices.  Every slice holds at
+    The rows a block are the fewest of `row_tiles` (the kernel's row
+    tiles, ascending: CLUSTER_ROWS for csrc/cluster_gemm.cuh) that hold M
+    (the largest past it, the tiles then repeat over M).
+    ``capacity(rows, splits)`` is the number of clusters of `splits`
+    blocks the card holds at once (a cluster's blocks share one GPC, so
+    it is not the SM count over the cluster size; 0: none fits).  K is
+    split into the slices that minimize waves x (steps a slice +
+    _BLOCK_STEPS), a wave being ``capacity`` clusters; ties go to fewer
+    slices.  Every slice holds at
     least one step: ``splits * k_split >= K > (splits - 1) * k_split``
     (one slice for K = 0)."""
-    rows = next((r for r in CLUSTER_ROWS if m <= r), CLUSTER_ROWS[-1])
+    rows = next((r for r in row_tiles if m <= r), row_tiles[-1])
     tiles = -(-m // rows) * -(-n // CLUSTER_BN)
     steps = -(-k // CLUSTER_BK)
     best = None
@@ -119,22 +122,27 @@ def cluster_plan(m: int, k: int, n: int,
 def _capacity(library: str, symbol: str, device: int, args: tuple,
               rows: int, splits: int) -> int:
     """The C capacity query `symbol` (csrc/cluster_gemm.cuh
-    cluster_capacity) of `rows` and `splits` on CUDA device `device`,
-    `args` the operands' (bits, flags..., x_bf16, w_bf16); cached."""
+    cluster_capacity, csrc/surrogate_cluster.cuh sg_capacity) of `rows`
+    and `splits` on CUDA device `device`, `args` the query's arguments
+    between them; cached."""
     with torch.cuda.device(device):
         return query(library, symbol, rows, *args, splits)
 
 
-def fused_plan(kern: CudaKernel, x, w, bits: int, *flags) -> ClusterPlan:
-    """The plan of one call of the cluster kernel `kern` (lut_gemm_fused
-    or log_gemm_fused; `flags`: log_gemm_fused's compensated) on x's
-    device, cut by the device's cluster capacity."""
+def fused_plan(kern: CudaKernel, x, w, *lead,
+               row_tiles: Sequence[int] = CLUSTER_ROWS) -> ClusterPlan:
+    """The plan of one call of the split-K cluster kernel `kern` on x's
+    device, cut by the device's cluster capacity (its C query
+    ``<symbol>_capacity``, whose arguments after the rows are `lead`,
+    then x_bf16, w_bf16: lut_gemm_fused's bits, log_gemm_fused's bits and
+    compensated, cim_gemm_fused's variant)."""
     m, k = x.shape
-    args = (bits, *flags, int(x.dtype == torch.bfloat16),
+    args = (*lead, int(x.dtype == torch.bfloat16),
             int(w.dtype == torch.bfloat16))
     dev = x.device.index if x.device.index is not None else 0
     return cluster_plan(m, k, w.shape[1], functools.partial(
-        _capacity, kern.library, kern.symbol + "_capacity", dev, args))
+        _capacity, kern.library, kern.symbol + "_capacity", dev, args),
+        row_tiles)
 
 
 def launch_cluster(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,

@@ -19,12 +19,18 @@ roundings).  Two entry points, as in the JAX package:
     deterministic term.
 
 On CUDA tensors each launches csrc/surrogate_gemm.cu or raises; on CPU
-tensors it runs its plain version: D bitwise equal to the kernel's, SQ
-exact and rounded once (the kernel's f32 sum lies within (K - 1) 2^-24
-relative of it), and, without noise, the output bitwise equal.
+tensors it runs its plain version.  ``cim_gemm_fused`` is the split-K
+cluster kernel of csrc/surrogate_cluster.cuh, cut by
+``approx_matmul.cluster_plan`` (row tiles FUSED_ROWS): D and SQ on the
+int8 tensor cores, SQ exact (each square split into two s8 halves,
+h = q^2 >> 7 and l = q^2 & 127, four sums combined in 64 bits and
+rounded once), so its output equals the plain version bit for bit with
+and without noise; SQ needs K < SQ_MAX_K (``check_sq_k``).
 ``cim_gemm_core`` without SQ runs on the int8 tensor cores
 (csrc/int8_mma.cuh), which split K across the blocks of a cluster as the
-shape and the card's SM count ask.
+shape and the card's SM count ask; with SQ it is the oracle on the tiled
+template, D bitwise and SQ (an f32 sum in K order) within (K - 1) 2^-24
+relative of the exact value.
 """
 
 from __future__ import annotations
@@ -32,23 +38,56 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .approx_matmul import _FLOATS, _shapes
+from .approx_matmul import _FLOATS, ClusterPlan, _shapes, fused_plan
 from .build import FLT, INT, PTR, CudaKernel, on_cuda, require, stream_of
 from .ref import int_dot, quantize_tile, square_dot, surrogate_epilogue
 
 _CORE = CudaKernel("surrogate_gemm", "cim_gemm_core",
                    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
+# the fused form takes its variant and launch plan (rows, splits,
+# k_split) before the stream
 _FUSED = CudaKernel("surrogate_gemm", "cim_gemm_fused",
                     [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT,
-                     INT, FLT, FLT, FLT, PTR])
+                     INT, FLT, FLT, FLT, INT, INT, INT, INT, PTR])
 
 KERNELS = {"cim_gemm_core": _CORE, "cim_gemm_fused": _FUSED}
+
+# the fused kernel's row tiles: one or four m16 groups of the int8 tensor
+# cores (M <= 16 runs one group with masked rows)
+FUSED_ROWS = (16, 64)
+# SQ's four int32 sums of squared halves are each at most 127^2 K, so
+# they stay below 2^31 for K < SQ_MAX_K
+SQ_MAX_K = (1 << 31) // (127 * 127)
+# the fused kernel's variants (csrc/surrogate_cluster.cuh SG_*)
+SERVED, NOISE, NOISE_SQ = 0, 1, 2
 
 
 def stochastic(eps, c0: float, c1: float) -> bool:
     """Does the call draw noise?  Only with eps and a nonzero variance
     law, as the reference's ``stochastic`` flag."""
     return eps is not None and (c0 > 0.0 or c1 > 0.0)
+
+
+def variant(eps, c0: float, c1: float) -> int:
+    """The fused kernel's variant: SERVED without noise, NOISE with noise
+    and c1 = 0 (no SQ), NOISE_SQ with noise and c1 > 0, as the plain
+    version decides whether to form SQ."""
+    if not stochastic(eps, c0, c1):
+        return SERVED
+    return NOISE_SQ if c1 > 0.0 else NOISE
+
+
+def check_sq_k(k: int) -> None:
+    """SQ's int32 sums hold K < SQ_MAX_K contraction terms; refuse more."""
+    require(k < SQ_MAX_K, f"the surrogate kernel sums SQ exactly only for "
+            f"K < {SQ_MAX_K}, got K = {k}")
+
+
+def fused_launch_plan(x, w, var: int) -> ClusterPlan:
+    """The launch plan of one cim_gemm_fused call of variant `var` on x's
+    device (cluster_plan over FUSED_ROWS, cut by the device's cluster
+    capacity for this variant and these operand types)."""
+    return fused_plan(_FUSED, x, w, var, row_tiles=FUSED_ROWS)
 
 
 # ---------------------------------------------------------------------------
@@ -70,10 +109,10 @@ def cim_gemm_fused_plain(x, w, sx, sw, eps, mu: float, c0: float, c1: float,
     sw = sw.reshape(1, -1).to(torch.float32)
     a = quantize_tile(x.to(torch.float32), sx, qmax)
     b = quantize_tile(w.to(torch.float32), sw, qmax)
-    noisy = stochastic(eps, c0, c1)
-    sq = square_dot(a, b) if noisy and c1 > 0.0 else None
+    var = variant(eps, c0, c1)
+    sq = square_dot(a, b) if var == NOISE_SQ else None
     return surrogate_epilogue(int_dot(a, b), sq, sx, sw,
-                              eps if noisy else None, mu, c0, c1,
+                              None if var == SERVED else eps, mu, c0, c1,
                               x.shape[-1])
 
 
@@ -106,9 +145,10 @@ def cim_gemm_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     """Fused-quantization surrogate GEMM: f32/bf16 x (M,K), w (K,N) and
     an optional f32 eps (M,N) -> f32 (M,N).  ``sx`` one f32 element,
     ``sw`` N f32, on the operands' device; mu, c0, c1 the calibrated
-    surrogate's coefficients.  Without noise (eps None, or c0 = c1 = 0)
-    the result is bit-identical to quantize -> D -> ``(f32(1+mu) * D) *
-    (sx * sw)``."""
+    surrogate's coefficients.  Bit-identical to
+    ``cim_gemm_fused_plain``: without noise (eps None, or c0 = c1 = 0)
+    quantize -> D -> ``(f32(1+mu) * D) * (sx * sw)``, with it the noise
+    term over the exact SQ."""
     m, k, n = _shapes(x, w)
     noisy = stochastic(eps, c0, c1)
     if noisy:
@@ -129,10 +169,15 @@ def cim_gemm_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
     if noisy:
         require(eps.dtype == torch.float32 and eps.is_contiguous(),
                 "eps must be contiguous f32")
+    var = variant(eps, c0, c1)
+    if var == NOISE_SQ:
+        check_sq_k(k)
+    plan = fused_launch_plan(x, w, var)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     _FUSED(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
            int(w.dtype == torch.bfloat16), sx.data_ptr(), sw.data_ptr(),
            eps.data_ptr() if noisy else None, out.data_ptr(), m, k, n, bits,
            float(np.float32(1.0 + mu)), float(np.float32(c0 * k)),
-           float(np.float32(c1)), stream_of(x))
+           float(np.float32(c1)), var, plan.rows, plan.splits, plan.k_split,
+           stream_of(x))
     return out

@@ -2,7 +2,8 @@
 // every CiM GEMM and implicit-GEMM convolution kernel of the port, for
 // NVIDIA Hopper (sm_90a).  Included by lut_gemm.cu, nibble_gemm.cu,
 // log_gemm.cu, conv_gemm.cu and surrogate_gemm.cu, each of which
-// instantiates it.
+// instantiates it (the split-K kernels of cluster_gemm.cuh and
+// surrogate_cluster.cuh take its quantize()).
 //
 // What it computes: out[m,n] = sum_k prod(a[m,k], b[k,n]), summed in 32
 // bits with two's-complement wrap (unsigned accumulation, as the
@@ -16,26 +17,19 @@
 //               + S_ll[al,bl])
 //   LogCore     the Mitchell / Log-our log-domain product (LoD, shifts
 //               and the paper's OR-merged compensation), no table
-//   IntCore     the exact integer product a * b (the fused surrogate
-//               GEMM's D), no table; IntSqCore also
-//               stages a^2 and b^2 as f32 for the surrogate's second sum
-//               SQ = sum_k a^2 b^2, accumulated in f32 with fmaf in K
-//               order (never TF32 or a 16-bit type: a^2 b^2 reaches
-//               127^4 > 2^24)
+//   IntSqCore   the exact integer product a * b, with a^2 and b^2 staged
+//               as f32 for the surrogate's second sum SQ = sum_k a^2 b^2,
+//               accumulated in f32 with fmaf in K order (never TF32 or a
+//               16-bit type: a^2 b^2 reaches 127^4 > 2^24): the oracle
+//               cim_gemm_core with SQ
 // An epilogue (Epi) says what arrives and what leaves: int operands and
 // an int32 result (IntOut; CoreOut also writes SQ), or float operands
 // quantized on load, round(v / scale) with IEEE division (__fdiv_rn) and
 // round-half-to-even (rintf), clipped to +-qmax (build without
 // fast-math), against a per-tensor sx and per-column sw read from device
-// memory, flushed as (acc * sx) * sw in that order (ScaleOut), left as
+// memory, flushed as (acc * sx) * sw in that order (ScaleOut) or left as
 // the raw int32 sum (QuantIntOut: a shard's partial sum over its slice of
-// K, scaled by the caller after the sum over the shards) or through the
-// calibrated surrogate (SurrogateOut):
-//   out = (f32(1 + mu) * f32(D)) * s  [ + sqrt(max(var, 0)) * eps ],
-//   s = sx * sw,  var = f32(c0 * K) * s^2 [ + (c1 * SQ) * s^2 ],
-// every multiply and add rounded on its own (__fmul_rn, __fadd_rn: nvcc
-// contracts nothing into an FMA), the bracketed terms only in the
-// variants that draw noise and, for SQ, have c1 > 0.
+// K, scaled by the caller after the sum over the shards).
 //
 // The A operand comes from a source: Dense (a row-major (M, K) matrix)
 // or ConvSrc (the implicit-GEMM patch matrix of a (B, H, W, C) image:
@@ -59,10 +53,11 @@
 // (the tables map (0, b) and (a, 0) to 0, asserted when they are built;
 // sign 0 zeroes the nibble and log products, and 0 the integer product
 // and its square).  No tensor cores, no asynchronous copies: a table or
-// log product has no tensor-core form, and the fused surrogate GEMM keeps
-// this form until its split-K redesign.  The exact int8 dot of
-// cim_gemm_core (without SQ) and of the exact-mode conv runs on the
-// tensor cores instead: int8_mma.cuh.
+// log product has no tensor-core form.  The exact int8 dots run on the
+// tensor cores instead: cim_gemm_core without SQ and the exact-mode conv
+// in int8_mma.cuh, the fused surrogate GEMM (D and SQ) in
+// surrogate_cluster.cuh; the served fused LUT and log GEMMs run the
+// split-K cluster kernel of cluster_gemm.cuh.
 
 #pragma once
 
@@ -214,21 +209,10 @@ struct LogCore {
   }
 };
 
-// the exact product, one IMAD: |a b| <= 2^14 at 8 bits, so the 32-bit
-// sum is exact for K < 2^17 (wrapping beyond, as the reference's int32)
-struct IntCore {
-  using A = int32_t;
-  using B = int32_t;
-  __host__ __device__ static size_t table_bytes(int) { return 0; }
-  __device__ static A stage_a(int v, int) { return v; }
-  __device__ static B stage_b(int v, int) { return v; }
-  __device__ static uint32_t product(A a, B b, const unsigned char*, int) {
-    return static_cast<uint32_t>(a * b);
-  }
-};
-
-// IntCore with each operand's square staged beside it as f32 (exact:
-// v^2 <= 2^14), so the SQ sum costs one FFMA a product
+// the exact product, one IMAD (|a b| <= 2^14 at 8 bits, so the 32-bit
+// sum is exact for K < 2^17, wrapping beyond as the reference's int32),
+// with each operand's square staged beside it as f32 (exact: v^2 <=
+// 2^14), so the SQ sum costs one FFMA a product
 struct IntSqCore {
   using A = int2;      // (v, the bits of f32(v * v))
   using B = int2;
@@ -296,34 +280,6 @@ struct CoreOut {
                         float, const float*) const {
     out[o] = static_cast<int32_t>(acc);
     sq_out[o] = sq;
-  }
-};
-
-// quantize on load, flush the surrogate: STOCH reads eps (M, N) and adds
-// the noise term, NEED_SQ (only with STOCH) its c1 * SQ part.  one_mu is
-// f32(1 + mu), c0k f32(c0 * K), both rounded once on the host.
-template <bool NEED_SQ, bool STOCH>
-struct SurrogateOut {
-  static_assert(STOCH || !NEED_SQ, "SQ feeds only the noise term");
-  static constexpr bool QUANT = true;
-  static constexpr bool SQ = NEED_SQ;
-  using Out = float;
-  float one_mu, c0k, c1;
-  const float* eps;
-  __device__ void store(Out* out, size_t o, int col, uint32_t acc, float sq,
-                        float sx, const float* sw) const {
-    const float scale = __fmul_rn(sx, sw[col]);
-    const float d = static_cast<float>(static_cast<int32_t>(acc));
-    float v = __fmul_rn(__fmul_rn(one_mu, d), scale);
-    if constexpr (STOCH) {
-      const float s2 = __fmul_rn(scale, scale);
-      float var = __fmul_rn(c0k, s2);
-      if constexpr (NEED_SQ) {
-        var = __fadd_rn(var, __fmul_rn(__fmul_rn(c1, sq), s2));
-      }
-      v = __fadd_rn(v, __fmul_rn(sqrtf(fmaxf(var, 0.f)), eps[o]));
-    }
-    out[o] = v;
   }
 };
 

@@ -1,7 +1,9 @@
 // cluster_gemm.cuh - the split-K CiM GEMM for NVIDIA Hopper (sm_90a):
 // the fused LUT and log-domain GEMMs, operands quantized on load and
 // (acc * sx) * sw flushed in the kernel.  Included by lut_gemm.cu
-// (lut_gemm_fused) and log_gemm.cu (log_gemm_fused).
+// (lut_gemm_fused) and log_gemm.cu (log_gemm_fused); its frame (the
+// operand ring and tile copies, cl_launch_ex, cl_capacity_ex, the plan's
+// checks) also carries surrogate_cluster.cuh's fused surrogate GEMM.
 //
 // Replaces, for operands of at most 8 bits, the TPU kernels
 //   src/repro/kernels/approx_matmul.py:230 lut_matmul_fused -> :208 ->
@@ -471,11 +473,14 @@ cluster_gemm_kernel(const ClArgs a) {
   cluster.sync();  // no block leaves while a peer reads its partials
 }
 
-template <class Core, int RB, int BK>
-inline int cl_launch(const ClArgs& a, int tiles, int splits,
-                     cudaStream_t stream) {
-  const size_t smem = cl_smem_bytes<Core>(RB, a.bits, a.x_bytes, a.w_bytes);
-  auto kern = cluster_gemm_kernel<Core, RB, BK>;
+// Launches `kern` over `tiles` x `splits` blocks of `threads`, the K
+// slices of a tile one cluster of (1, 1, splits), with `smem` bytes of
+// dynamic shared memory; returns the CUDA error code.  Shared by every
+// split-K cluster kernel (this one and surrogate_cluster.cuh's).
+template <typename Arg>
+inline int cl_launch_ex(void (*kern)(Arg), const Arg& a, size_t smem,
+                        int threads, int tiles, int splits,
+                        cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -483,7 +488,7 @@ inline int cl_launch(const ClArgs& a, int tiles, int splits,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tiles), 1,
                      static_cast<unsigned>(splits));
-  cfg.blockDim = dim3(Core::THREADS);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -496,6 +501,14 @@ inline int cl_launch(const ClArgs& a, int tiles, int splits,
   e = cudaLaunchKernelEx(&cfg, kern, a);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+template <class Core, int RB, int BK>
+inline int cl_launch(const ClArgs& a, int tiles, int splits,
+                     cudaStream_t stream) {
+  return cl_launch_ex(cluster_gemm_kernel<Core, RB, BK>, a,
+                      cl_smem_bytes<Core>(RB, a.bits, a.x_bytes, a.w_bytes),
+                      Core::THREADS, tiles, splits, stream);
 }
 
 template <class Core, int BK>
@@ -511,37 +524,20 @@ inline int cl_launch_rows(const ClArgs& a, int rb, int tiles, int splits,
   }
 }
 
-// The clusters of `splits` blocks of the instantiation for `rb` rows and
-// these operand types that the current device holds at once
-// (cudaOccupancyMaxActiveClusters: a cluster's blocks share one GPC, so
-// this is not the SM count over the cluster size), into *out; returns the
-// CUDA error code.  cluster_plan reads it to count a launch's waves.
-template <class Core>
-int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
-                     int* out) {
-  if (bits < 2 || bits > CL_MAX_BITS || splits < 1 ||
-      splits > CL_MAX_SPLITS || (rb != 4 && rb != 16 && rb != 64))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int xb = x_bf16 ? 2 : 4, wb = w_bf16 ? 2 : 4;
-  const size_t smem = cl_smem_bytes<Core>(rb, bits, xb, wb);
-  const void* kern = nullptr;
-  const bool b64 = cl_bk(xb, wb) == 64;
-  if (rb == 4)
-    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 64>)
-               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 32>);
-  else if (rb == 16)
-    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 64>)
-               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 32>);
-  else
-    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 64>)
-               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 32>);
+// The clusters of `splits` blocks of `threads` and `smem` bytes of
+// dynamic shared memory of the kernel `kern` that the current device holds
+// at once (cudaOccupancyMaxActiveClusters: a cluster's blocks share one
+// GPC, so this is not the SM count over the cluster size), into *out;
+// returns the CUDA error code.
+inline int cl_capacity_ex(const void* kern, size_t smem, int threads,
+                          int splits, int* out) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(1, 1, static_cast<unsigned>(splits));
-  cfg.blockDim = dim3(Core::THREADS);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -553,31 +549,55 @@ int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kern, &cfg));
 }
 
-// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N), the launch that
-// kernels/approx_matmul.py cluster_plan chose: `rb` rows a block (4, 16
-// or 64), K in `splits` slices (1..8) of `k_split` (a multiple of
-// CL_SPLIT_K; the slices cover K and none is empty).  Returns the CUDA
-// error code; a plan the kernel does not take is refused
-// (cudaErrorInvalidValue).
+// The clusters of `splits` blocks of the instantiation for `rb` rows and
+// these operand types that the current device holds at once, into *out;
+// returns the CUDA error code.  cluster_plan reads it to count a launch's
+// waves.
 template <class Core>
-int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
-                 const void* tab, const void* sx, const void* sw, void* out,
-                 int M, int K, int N, int bits, int rb, int splits,
-                 int k_split, void* stream) {
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (M < 0 || K < 0 || N < 0 || bits < 2 || bits > CL_MAX_BITS) return bad;
-  if (rb != 4 && rb != 16 && rb != 64) return bad;
+int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
+                     int* out) {
+  if (bits < 2 || bits > CL_MAX_BITS || splits < 1 ||
+      splits > CL_MAX_SPLITS || (rb != 4 && rb != 16 && rb != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int xb = x_bf16 ? 2 : 4, wb = w_bf16 ? 2 : 4;
+  const void* kern = nullptr;
+  const bool b64 = cl_bk(xb, wb) == 64;
+  if (rb == 4)
+    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 64>)
+               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 32>);
+  else if (rb == 16)
+    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 64>)
+               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 32>);
+  else
+    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 64>)
+               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 32>);
+  return cl_capacity_ex(kern, cl_smem_bytes<Core>(rb, bits, xb, wb),
+                        Core::THREADS, splits, out);
+}
+
+// A launch plan's K split as every split-K cluster kernel takes it:
+// `splits` (1..CL_MAX_SPLITS) slices of `k_split` (a multiple of
+// CL_SPLIT_K) that cover K, none empty
+inline bool cl_split_ok(int K, int splits, int k_split) {
   if (splits < 1 || splits > CL_MAX_SPLITS || k_split <= 0 ||
       k_split % CL_SPLIT_K != 0)
-    return bad;
-  if (static_cast<int64_t>(splits) * k_split < K ||
-      (splits > 1 && static_cast<int64_t>(splits - 1) * k_split >= K))
-    return bad;
-  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
+    return false;
+  return static_cast<int64_t>(splits) * k_split >= K &&
+         (splits == 1 || static_cast<int64_t>(splits - 1) * k_split < K);
+}
+
+// The arguments of a split-K cluster kernel over f32 or bf16 x (M,K) and
+// w (K,N): `rb` rows and CL_BN columns a tile, K slices of `k_split`;
+// false where the tiles overflow the grid
+inline bool cl_make_args(ClArgs& a, const void* x, int x_bf16,
+                         const void* w, int w_bf16, const void* tab,
+                         const void* sx, const void* sw, void* out, int M,
+                         int K, int N, int bits, int rb, int k_split,
+                         int* tiles) {
   const int64_t n_tiles = (N + CL_BN - 1) / CL_BN;
-  const int64_t tiles = (M + static_cast<int64_t>(rb) - 1) / rb * n_tiles;
-  if (tiles > INT32_MAX) return bad;
-  ClArgs a;
+  const int64_t t = (M + static_cast<int64_t>(rb) - 1) / rb * n_tiles;
+  if (t > INT32_MAX) return false;
+  *tiles = static_cast<int>(t);
   a.x = static_cast<const unsigned char*>(x);
   a.w = static_cast<const unsigned char*>(w);
   a.tab = static_cast<const unsigned char*>(tab);
@@ -596,8 +616,31 @@ int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
               static_cast<int64_t>(K) * a.x_bytes % 16 == 0;
   a.w_async = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
               static_cast<int64_t>(N) * a.w_bytes % 16 == 0;
+  return true;
+}
+
+// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N), the launch that
+// kernels/approx_matmul.py cluster_plan chose: `rb` rows a block (4, 16
+// or 64), K in `splits` slices (1..8) of `k_split` (a multiple of
+// CL_SPLIT_K; the slices cover K and none is empty).  Returns the CUDA
+// error code; a plan the kernel does not take is refused
+// (cudaErrorInvalidValue).
+template <class Core>
+int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
+                 const void* tab, const void* sx, const void* sw, void* out,
+                 int M, int K, int N, int bits, int rb, int splits,
+                 int k_split, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 0 || K < 0 || N < 0 || bits < 2 || bits > CL_MAX_BITS) return bad;
+  if (rb != 4 && rb != 16 && rb != 64) return bad;
+  if (!cl_split_ok(K, splits, k_split)) return bad;
+  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  ClArgs a;
+  int t = 0;
+  if (!cl_make_args(a, x, x_bf16, w, w_bf16, tab, sx, sw, out, M, K, N,
+                    bits, rb, k_split, &t))
+    return bad;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(tiles);
   if (cl_bk(a.x_bytes, a.w_bytes) == 64)
     return cl_launch_rows<Core, 64>(a, rb, t, splits, st);
   return cl_launch_rows<Core, 32>(a, rb, t, splits, st);

@@ -1,15 +1,17 @@
-"""Time the split-K cluster GEMM at every K split, beside its plan's.
+"""Time the split-K cluster GEMMs at every K split, beside their plan's.
 
 ``kernels/csrc/cluster_gemm.cuh`` (``lut_matmul_fused``,
-``mitchell_matmul_fused``) splits K over a thread-block cluster;
+``mitchell_matmul_fused``) and ``kernels/csrc/surrogate_cluster.cuh``
+(``cim_gemm_fused``) split K over a thread-block cluster;
 ``approx_matmul.cluster_plan`` picks the split from the clusters of each
 size that the device holds at once (``cudaOccupancyMaxActiveClusters``).
-This times both kernels (the balanced tier's LUT, mitchell) at
-chip_smoke.py's eight qwen3-1.7b shapes (M = 4 and 64, bf16) at every
-split from 1 to 8 that leaves no slice empty, with chip_smoke.py's timer
-(L2 flushed, the card spun before each start event), and prints each
-split's ms, the device's cluster capacity and the plan's choice against
-the fastest.
+This times the kernels (the balanced tier's LUT, mitchell, and the
+surrogate served on bf16 and with noise and SQ on f32, as chip_smoke.py
+times them) at chip_smoke.py's eight qwen3-1.7b shapes (M = 4 and 64) at
+every split from 1 to 8 that leaves no slice empty, with chip_smoke.py's
+timer (L2 flushed, the card spun before each start event), and prints
+each split's ms, the device's cluster capacity and the plan's choice
+against the fastest.
 
     PYTHONPATH=src python -m repro_torch.launch.cluster_sweep \\
         --out build/cluster_sweep
@@ -24,10 +26,12 @@ import json
 import os
 import sys
 
+import numpy as np
 import torch
 
 from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.kernels import approx_matmul as am
+from repro_torch.kernels import cim_gemm as cg
 from repro_torch.kernels import mitchell_gemm as mg
 from repro_torch.kernels import ops
 from repro_torch.kernels.build import stream_of
@@ -51,11 +55,42 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)}; "
           f"{cs.nvidia_smi('name,power.limit')}", flush=True)
     res = {}
+
+    def sweep(name, shape, kern, cap_args, plan, launch, steps):
+        """Time `launch(splits, k_split)` at every split; record and print
+        it beside the capacity (`cap_args` after the rows) and `plan`."""
+        caps = [am._capacity(kern.library, kern.symbol + "_capacity", 0,
+                             cap_args, plan.rows, s)
+                for s in range(1, am.CLUSTER_MAX_SPLITS + 1)]
+        times = {}
+        for want in range(1, am.CLUSTER_MAX_SPLITS + 1):
+            per = -(-steps // want)
+            splits = -(-steps // per)
+            if splits in times:
+                continue
+
+            def call(s=splits, p=per):
+                launch(s, p * am.CLUSTER_BK)
+
+            call()
+            times[splits] = cs._timed_ms(torch, call, 20, flush)
+        best = min(times, key=times.get)
+        res[f"{name} {shape}"] = {"capacity": caps, "plan": plan.splits,
+                                  "ms": times}
+        print(f"{name:16} {str(shape):17} tiles {plan.tiles:3} capacity "
+              f"{caps}; plan {plan.splits} {times[plan.splits]:.4f} ms, "
+              f"fastest {best} {times[best]:.4f} ms; "
+              + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
+              flush=True)
+
+    mu, c0, c1 = -0.013, 1480.0, 2.1e-4     # a surrogate law with SQ
+    sur = cg.KERNELS["cim_gemm_fused"]
     for m, k, n in cs.MAIN_SHAPES:
         g = torch.Generator(device=dev).manual_seed(m + k + n)
         x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
             torch.bfloat16)
+        eps = torch.randn(m, n, generator=g, device=dev)
         sx, sw = ops._scales(x, w, 8)
         out = torch.empty(m, n, device=dev)
         steps = -(-k // am.CLUSTER_BK)
@@ -64,33 +99,29 @@ def main() -> None:
                  ()),
                 ("mitchell", mg.KERNELS["mitchell_matmul_fused"], (), (0,))):
             plan = am.fused_plan(kern, x, w, 8, *flags)
-            caps = [am._capacity(kern.library, kern.symbol + "_capacity",
-                                 0, (8, *flags, 1, 1), plan.rows, s)
-                    for s in range(1, am.CLUSTER_MAX_SPLITS + 1)]
-            times = {}
-            for want in range(1, am.CLUSTER_MAX_SPLITS + 1):
-                per = -(-steps // want)
-                splits = -(-steps // per)
-                if splits in times:
-                    continue
 
-                def call(s=splits, p=per):
-                    kern(x.data_ptr(), 1, w.data_ptr(), 1, *tab,
-                         sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, k,
-                         n, 8, *flags, plan.rows, s, p * am.CLUSTER_BK,
-                         stream_of(x))
+            def launch(s, ks, kern=kern, tab=tab, flags=flags, plan=plan):
+                kern(x.data_ptr(), 1, w.data_ptr(), 1, *tab, sx.data_ptr(),
+                     sw.data_ptr(), out.data_ptr(), m, k, n, 8, *flags,
+                     plan.rows, s, ks, stream_of(x))
 
-                call()
-                times[splits] = cs._timed_ms(torch, call, 20, flush)
-            best = min(times, key=times.get)
-            res[f"{name} {(m, k, n)}"] = {"capacity": caps, "plan":
-                                          plan.splits, "ms": times}
-            print(f"{name:8} {str((m, k, n)):17} tiles {plan.tiles:3} "
-                  f"capacity {caps}; plan {plan.splits} "
-                  f"{times[plan.splits]:.4f} ms, fastest {best} "
-                  f"{times[best]:.4f} ms; "
-                  + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
-                  flush=True)
+            sweep(name, (m, k, n), kern, (8, *flags, 1, 1), plan, launch,
+                  steps)
+        for name, var, xs, ws in (
+                ("surrogate", cg.SERVED, x, w),
+                ("surrogate noise", cg.NOISE_SQ, x.float(), w.float())):
+            plan = cg.fused_launch_plan(xs, ws, var)
+            bf = int(xs.dtype == torch.bfloat16)
+            e = None if var == cg.SERVED else eps.data_ptr()
+
+            def launch(s, ks, var=var, xs=xs, ws=ws, plan=plan, bf=bf, e=e):
+                sur(xs.data_ptr(), bf, ws.data_ptr(), bf, sx.data_ptr(),
+                    sw.data_ptr(), e, out.data_ptr(), m, k, n, 8,
+                    float(np.float32(1.0 + mu)), float(np.float32(c0 * k)),
+                    float(np.float32(c1)), var, plan.rows, s, ks,
+                    stream_of(x))
+
+            sweep(name, (m, k, n), sur, (var, bf, bf), plan, launch, steps)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "sweep.json"), "w") as f:
         json.dump(res, f, indent=1)

@@ -13,15 +13,18 @@ CYCLES SM clocks (``torch.cuda._sleep``; 0 spins not at all) so that a
 launch's host work is queued before the start event, then the launch
 between two CUDA events.  Give the roots in a balanced order, e.g.
 parent, change, change, parent, so that drift over the call cancels;
-runs of one root are averaged.
+runs of one root are summarized by their median (the mean of two runs;
+with more, one run's spike, a launch whose host work outlasted the spin,
+moves nothing).
 
     python3 src/repro_torch/launch/kernel_ab.py --out build/ab/out \
         --spin 500000 parent=build/ab/parent change=. change=. \
         parent=build/ab/parent
 
 It writes ``<out>/ab.json`` ({label: {kernel: {shape: [ms, ...]}}}) and
-prints, per kernel and shape, each label's mean ms and its ratio to the
-first label's.  Needs a CUDA device.
+prints, per kernel and shape, each label's median ms and its ratio to
+the first label's.  Needs a CUDA device; ``--report AB_JSON`` prints the
+table of a saved ab.json again, anywhere.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 from collections import defaultdict
@@ -93,7 +97,7 @@ print(json.dumps(out))
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("runs", nargs="+", metavar="LABEL=ROOT",
+    ap.add_argument("runs", nargs="*", metavar="LABEL=ROOT",
                     help="a label and a checkout, run in the order given")
     ap.add_argument("--out", default="build/ab/out",
                     help="directory for ab.json and the runs' logs")
@@ -101,7 +105,17 @@ def main() -> None:
                     help="time every root with one timer that spins the "
                     "card CYCLES SM clocks before each start event "
                     "(default: each root's own chip_smoke timer)")
+    ap.add_argument("--report", metavar="AB_JSON", default=None,
+                    help="print the table of a saved ab.json and run "
+                    "nothing")
     args = ap.parse_args()
+    if args.report:
+        with open(args.report) as f:
+            saved = json.load(f)
+        report(saved, list(saved))
+        return
+    if not args.runs:
+        ap.error("give LABEL=ROOT runs, or --report AB_JSON")
     os.makedirs(args.out, exist_ok=True)
     times = defaultdict(lambda: defaultdict(lambda: defaultdict(list)))
     labels = []
@@ -124,26 +138,33 @@ def main() -> None:
         print(f"run {i}: {label} ({root}) done", flush=True)
     with open(os.path.join(args.out, "ab.json"), "w") as f:
         json.dump(times, f, indent=1)
+    report(times, labels)
+
+
+def report(times, labels) -> None:
+    """Print each kernel's median ms a shape per label, the ratio to the
+    first label, and the sums over a kernel's shapes."""
     base = labels[0]
     names = sorted({n for lab in labels for n in times[lab]})
     print(f"{'kernel':<34} {'shape':<26} "
           + " ".join(f"{lab:>12}" for lab in labels)
           + "  ratio to " + base)
     for name in names:
-        shapes = sorted({s for lab in labels for s in times[lab][name]})
+        shapes = sorted({s for lab in labels for s in times[lab].get(name,
+                                                                     {})})
         sums = defaultdict(float)
         for shape in shapes:
-            means = {}
+            meds = {}
             for lab in labels:
-                ms = times[lab][name].get(shape)
+                ms = times[lab].get(name, {}).get(shape)
                 if ms:
-                    means[lab] = sum(ms) / len(ms)
-                    sums[lab] += means[lab]
-            cells = " ".join(f"{means[lab]:12.4f}" if lab in means
+                    meds[lab] = statistics.median(ms)
+                    sums[lab] += meds[lab]
+            cells = " ".join(f"{meds[lab]:12.4f}" if lab in meds
                              else f"{'-':>12}" for lab in labels)
-            ratios = " ".join(f"{means[lab] / means[base]:.3f}"
+            ratios = " ".join(f"{meds[lab] / meds[base]:.3f}"
                               for lab in labels[1:]
-                              if lab in means and base in means)
+                              if lab in meds and base in meds)
             print(f"{name:<34} {shape:<26} {cells}  {ratios}")
         if len(shapes) > 1:
             cells = " ".join(f"{sums[lab]:12.4f}" if lab in sums

@@ -1,10 +1,13 @@
-"""The split-K cluster GEMM (csrc/cluster_gemm.cuh) on the CPU: a plain
+"""The split-K cluster GEMMs on the CPU.  csrc/cluster_gemm.cuh: a plain
 torch model of its staged operands and product forms held against the
 reference's ``_log_product`` (src/repro/kernels/mitchell_gemm.py), the
 product rewrites it rests on at 8, 12 and 16 bits, the LUT's byte
 offsets, its launch plan (``approx_matmul.cluster_plan``) and the gate
-between it and the tiled template (``mitchell_gemm.fused_route``).  The
-kernel itself runs only on the card (tests/test_torch_gpu.py)."""
+between it and the tiled template (``mitchell_gemm.fused_route``).
+csrc/surrogate_cluster.cuh (``cim_gemm_fused``): the split of each square
+into two s8 halves, a plain torch model of its split-K SQ held against
+``ref.square_dot``, SQ's K limit, its variants and its plan.  The kernels
+themselves run only on the card (tests/test_torch_gpu.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +15,7 @@ import pytest
 import torch
 
 from repro.kernels.mitchell_gemm import _log_product
-from repro_torch.kernels import approx_matmul, mitchell_gemm
+from repro_torch.kernels import approx_matmul, cim_gemm, mitchell_gemm
 from repro_torch.kernels import ref as tref
 
 
@@ -238,3 +241,114 @@ def test_fused_route_is_the_bits_gate():
     for bits in (1, 17):
         with pytest.raises(ValueError, match="2..16-bit"):
             mitchell_gemm.fused_route(bits)
+
+
+
+# --- the fused surrogate GEMM (csrc/surrogate_cluster.cuh) ------------------
+
+def _halves(q):
+    """sg_put's split of q^2 into h = q^2 >> 7 and l = q^2 & 127."""
+    sq = q * q
+    return sq >> 7, sq & 127
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+def test_square_halves_are_valid_s8_and_recombine_exactly(bits):
+    qmax = (1 << (bits - 1)) - 1
+    a, b = _all_pairs(-qmax, qmax)
+    ha, la = _halves(a)
+    hb, lb = _halves(b)
+    for v in (ha, la, hb, lb):
+        assert int(v.min()) >= 0 and int(v.max()) <= 127
+        # packed as a byte and read back as a signed one, unchanged
+        assert torch.equal(_signed_byte(_byte(v), 0), v)
+    got = (ha * hb << 14) + ((ha * lb + la * hb) << 7) + la * lb
+    assert torch.equal(got, a * a * b * b)
+
+
+def _split_k_sq(a, b, k_split):
+    """The kernel's SQ: per K slice the four int32 sums HH, HL, LH, LL of
+    the squares' halves (each checked below 2^31), summed over the slices
+    with 32-bit wrap, combined in 64 bits as 2^14 HH + 2^7 (HL + LH) + LL
+    and rounded once to f32."""
+    ha, la = _halves(a.to(torch.int64))
+    hb, lb = _halves(b.to(torch.int64))
+    k = a.shape[1]
+    sums = [torch.zeros(a.shape[0], b.shape[1], dtype=torch.int64)
+            for _ in range(4)]
+    for k0 in range(0, max(k, 1), k_split):
+        sl = slice(k0, k0 + k_split)
+        for i, (x, y) in enumerate(((ha, hb), (ha, lb), (la, hb), (la, lb))):
+            part = x[:, sl] @ y[sl]
+            assert part.numel() == 0 or int(part.max()) < 1 << 31
+            sums[i] = (sums[i] + part) % (1 << 32)
+    hh, hl, lh, ll = sums
+    return ((hh << 14) + ((hl + lh) << 7) + ll).to(torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 31, 7), (5, 70, 17),
+                                   (17, 257, 33), (4, 2048, 8)], ids=str)
+@pytest.mark.parametrize("k_split", [64, 128, 1024])
+def test_split_k_sq_model_equals_square_dot(shape, k_split):
+    m, k, n = shape
+    rng = np.random.default_rng(m * 1000 + k + n)
+    # (a's range, b's range): random, every operand +-127 (the largest
+    # squares), small magnitudes
+    for (alo, ahi), (blo, bhi) in ((((-127, 127),) * 2),
+                                   ((127, 127), (127, 127)),
+                                   ((-127, -127), (127, 127)),
+                                   (((-7, 7),) * 2)):
+        a = torch.from_numpy(rng.integers(alo, ahi + 1, size=(m, k)))
+        b = torch.from_numpy(rng.integers(blo, bhi + 1, size=(k, n)))
+        assert torch.equal(_split_k_sq(a, b, k_split),
+                           tref.square_dot(a, b))
+
+
+def test_split_k_sq_model_holds_at_the_largest_sums():
+    # every operand 127 at K just below the limit: LL = 127^2 K < 2^31,
+    # and SQ (about 2^44) rounds once
+    k = cim_gemm.SQ_MAX_K - 1
+    a = torch.full((1, k), 127, dtype=torch.int64)
+    b = torch.full((k, 1), -127, dtype=torch.int64)
+    assert 127 * 127 * k < 1 << 31 < 127 * 127 * (cim_gemm.SQ_MAX_K + 1)
+    assert torch.equal(_split_k_sq(a, b, 16_704), tref.square_dot(a, b))
+
+
+def test_sq_k_limit_refuses_at_133144():
+    assert cim_gemm.SQ_MAX_K == 133_144
+    cim_gemm.check_sq_k(133_143)
+    for k in (133_144, 200_000):
+        with pytest.raises(ValueError, match="SQ exactly"):
+            cim_gemm.check_sq_k(k)
+
+
+def test_surrogate_variants_follow_the_plain_version():
+    eps = torch.zeros(1, 1)
+    assert cim_gemm.variant(None, 1.0, 1e-4) == cim_gemm.SERVED
+    assert cim_gemm.variant(eps, 0.0, 0.0) == cim_gemm.SERVED
+    assert cim_gemm.variant(eps, 3.3, 0.0) == cim_gemm.NOISE
+    assert cim_gemm.variant(eps, 0.0, 2e-4) == cim_gemm.NOISE_SQ
+    assert cim_gemm.variant(eps, 1480.0, 2.1e-4) == cim_gemm.NOISE_SQ
+
+
+@pytest.mark.parametrize("capacity", [
+    _gpcs(H100_GPCS, 1), _gpcs(H100_GPCS, 2), _gpcs((1,), 1),
+    lambda rows, s: 78 // s], ids=["one_an_sm", "two_an_sm", "one_sm",
+                                   "flat78"])
+def test_surrogate_plan_invariants(capacity):
+    shapes = SHAPES + [(65536, 27, 16), (65536, 288, 64), (16, 64, 64),
+                       (130, 6144, 2048)]
+    for m, k, n in shapes:
+        p = approx_matmul.cluster_plan(m, k, n, capacity,
+                                       cim_gemm.FUSED_ROWS)
+        assert p.rows in cim_gemm.FUSED_ROWS
+        assert p.rows == (16 if m <= 16 else 64)
+        assert p.tiles == -(-m // p.rows) * -(-n // 64)
+        assert 1 <= p.splits <= approx_matmul.CLUSTER_MAX_SPLITS
+        assert capacity(p.rows, p.splits) > 0 or k == 0
+        assert p.k_split > 0 and p.k_split % approx_matmul.CLUSTER_BK == 0
+        assert p.splits * p.k_split >= k                 # covers K
+        if k > 0:
+            assert (p.splits - 1) * p.k_split < k        # no empty slice
+        else:
+            assert p.splits == 1

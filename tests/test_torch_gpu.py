@@ -423,9 +423,8 @@ def _sq_close(got, want, k):
 @pytest.mark.parametrize("coeffs", SURROGATE_COEFFS, ids=str)
 def test_surrogate_kernels_against_plain_versions(shape, coeffs):
     """cim_gemm_core: D bitwise, SQ within K 2^-24 relative;
-    cim_gemm_fused: without noise bitwise (bf16 and f32 operands), with
-    noise within the SQ bound carried through sqrt (K 2^-24 of the noise
-    term) plus two roundings of the output."""
+    cim_gemm_fused: bitwise with and without noise (bf16 and f32
+    operands; SQ exact on the tensor cores)."""
     from repro_torch.kernels import cim_gemm
 
     dev = _card()
@@ -450,8 +449,7 @@ def test_surrogate_kernels_against_plain_versions(shape, coeffs):
         want = cim_gemm.cim_gemm_fused_plain(xs, ws, sx, sw, eps, mu, c0, c1)
         torch.cuda.synchronize()
         assert torch.equal(det, pdet)
-        tol = k * 2.0 ** -24 * (want - pdet).abs() + 2.0 ** -22 * want.abs()
-        assert bool(((got - want).abs() <= tol).all())
+        assert torch.equal(got, want)
         assert not torch.equal(got, det)
 
 
@@ -1100,3 +1098,155 @@ def test_cluster_capacity_query_bounds_the_plan():
         assert approx_matmul._capacity(
             kern.library, kern.symbol + "_capacity", 0, (8, *flags, 1, 1),
             4, plan.splits) > 0
+
+
+# ---------------------------------------------------------------------------
+# the fused surrogate GEMM on the split-K cluster kernel
+# (csrc/surrogate_cluster.cuh): bitwise against the plain version
+# ---------------------------------------------------------------------------
+
+# every row tile (16 with masked rows, 64, several), one K step or up to 8
+# slices, ragged N and rows that are not 16-byte multiples (element
+# loads), the CNN's fc and a noisy surrogate-mode conv's im2col GEMM
+SURROGATE_EDGES = [(1, 31, 7), (4, 1, 1), (17, 33, 17), (33, 70, 17),
+                   (64, 2048, 8), (130, 2048, 17), (130, 6144, 2048),
+                   (256, 64, 10), (65536, 27, 16)]
+# (mu, c0, c1) -> the three variants: served (no eps), noise without SQ
+# (c1 = 0), noise with SQ
+SURROGATE_VARIANTS = [("served", (-0.013, 1480.0, 2.1e-4), False),
+                      ("noise", (0.02, 3.3, 0.0), True),
+                      ("noise_sq", (-0.013, 1480.0, 2.1e-4), True)]
+
+
+def _surrogate_pairs(x, w, eps, bits):
+    """(kernel, plain) outputs of cim_gemm_fused in its three variants."""
+    from repro_torch.kernels import cim_gemm
+
+    sx, sw = ops._scales(x, w, bits)
+    out = []
+    for _, (mu, c0, c1), noisy in SURROGATE_VARIANTS:
+        e = eps if noisy else None
+        out.append((cim_gemm.cim_gemm_fused(x, w, sx, sw, e, mu, c0, c1,
+                                            bits),
+                    cim_gemm.cim_gemm_fused_plain(x, w, sx, sw, e, mu, c0,
+                                                  c1, bits)))
+    return out
+
+
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["bf16", "f32", "mixed"])
+@pytest.mark.parametrize("shape", SURROGATE_EDGES, ids=str)
+def test_fused_surrogate_bitwise_at_the_edges(shape, dtypes):
+    """Each variant at 8 bits (and 2 and 4 on the smaller shapes) bitwise
+    equal to the plain version, random operands and operands at +-max
+    (every code +-qmax: SQ's largest sums)."""
+    from repro_torch.kernels import cim_gemm
+
+    dev = _card()
+    m, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(m, k, generator=g, device=dev).to(dtypes[0])
+    w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(dtypes[1])
+    eps = torch.randn(m, n, generator=g, device=dev)
+    sign = torch.where(torch.rand(k, n, generator=g, device=dev) < 0.5,
+                       -1.0, 1.0)
+    xmax = torch.full_like(x, 3.0)
+    wmax = (sign * 0.5).to(dtypes[1])
+    kern = cim_gemm.KERNELS["cim_gemm_fused"]
+    for a, b in ((x, w), (xmax, wmax)):
+        for bits in (8, 4, 2) if m * k * n <= 1 << 22 else (8,):
+            before = kern.launches
+            pairs = _surrogate_pairs(a, b, eps, bits)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 3
+            for (tag, _, _), (got, want) in zip(SURROGATE_VARIANTS, pairs):
+                assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+                assert torch.equal(got, want), (tag, bits, float(
+                    (got - want).abs().max()))
+
+
+def test_fused_surrogate_takes_misaligned_operands():
+    """Operands whose storage starts 2 or 4 bytes past a 16-byte boundary
+    (loaded by elements) give the aligned result."""
+    dev = _card()
+    for dt in (torch.bfloat16, torch.float32):
+        x, w = _float_ops(4, 2048, 1024, dev, dt, seed=7)
+        eps = torch.randn(4, 1024, device=dev)
+        xs = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+        ws = torch.cat([w.new_zeros(1), w.flatten()])[1:].view(w.shape)
+        assert xs.data_ptr() % 16 and ws.data_ptr() % 16
+        for (got, want), (again, _) in zip(_surrogate_pairs(xs, ws, eps, 8),
+                                           _surrogate_pairs(x, w, eps, 8)):
+            assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def test_fused_surrogate_refuses_a_launch_it_does_not_take():
+    """The C entry checks the plan, the variant against eps, and SQ's K
+    limit: each bad launch raises and is not counted."""
+    from repro_torch.kernels import cim_gemm
+    from repro_torch.kernels.build import stream_of
+
+    dev = _card()
+    x, w = _float_ops(4, 256, 64, dev, torch.bfloat16)
+    sx, sw = ops._scales(x, w, 8)
+    eps = torch.randn(4, 64, device=dev)
+    out = torch.empty(4, 64, device=dev)
+    kern = cim_gemm.KERNELS["cim_gemm_fused"]
+
+    def launch(var, rows, splits, k_split, k=256, e=eps):
+        kern(x.data_ptr(), 1, w.data_ptr(), 1, sx.data_ptr(), sw.data_ptr(),
+             None if e is None else e.data_ptr(), out.data_ptr(), 4, k, 64,
+             8, 1.0, 1.0, 1e-4, var, rows, splits, k_split, stream_of(x))
+
+    launch(cim_gemm.NOISE_SQ, 16, 2, 128)      # a plan of its own kind runs
+    before = kern.launches
+    for bad in ((cim_gemm.NOISE_SQ, 16, 3, 128), (cim_gemm.NOISE_SQ, 4, 1,
+                                                  256),
+                (cim_gemm.NOISE_SQ, 16, 2, 100), (3, 16, 1, 256),
+                (cim_gemm.NOISE_SQ, 64, 9, 32)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(*bad)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(cim_gemm.SERVED, 16, 1, 256)          # eps with SERVED
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(cim_gemm.NOISE, 16, 1, 256, e=None)   # noise without eps
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(cim_gemm.NOISE_SQ, 16, 8, 16_704, k=cim_gemm.SQ_MAX_K)
+    assert kern.launches == before
+    # the wrapper refuses SQ past the limit before it launches
+    xl = torch.zeros(1, cim_gemm.SQ_MAX_K, device=dev)
+    wl = torch.zeros(cim_gemm.SQ_MAX_K, 1, device=dev)
+    s1, s2 = ops._scales(xl, wl, 8)
+    with pytest.raises(ValueError, match="SQ exactly"):
+        cim_gemm.cim_gemm_fused(xl, wl, s1, s2, torch.zeros(1, 1, device=dev),
+                                0.0, 1.0, 1e-4)
+    assert kern.launches == before
+
+
+def test_fused_surrogate_capacity_bounds_the_plan():
+    """The device's cluster capacity for every variant, row tile, split
+    and operand type: positive, never more threads than the SMs hold, no
+    larger for a larger cluster; the plan picks a split that fits."""
+    from repro_torch.kernels import cim_gemm
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kern = cim_gemm.KERNELS["cim_gemm_fused"]
+    for var in (cim_gemm.SERVED, cim_gemm.NOISE, cim_gemm.NOISE_SQ):
+        for xb, wb in ((1, 1), (0, 0), (1, 0)):
+            for rows in cim_gemm.FUSED_ROWS:
+                caps = [approx_matmul._capacity(
+                    kern.library, kern.symbol + "_capacity", 0,
+                    (var, xb, wb), rows, s) for s in range(1, 9)]
+                assert all(c > 0 for c in caps), (var, rows, caps)
+                assert all(c * s * 256 <= sms * 2048
+                           for s, c in enumerate(caps, 1)), caps
+                assert caps == sorted(caps, reverse=True)
+        x, w = _float_ops(4, 2048, 2048, dev, torch.bfloat16)
+        plan = cim_gemm.fused_launch_plan(x, w, var)
+        assert plan.rows == 16 and plan.tiles == 32
+        assert approx_matmul._capacity(
+            kern.library, kern.symbol + "_capacity", 0, (var, 1, 1), 16,
+            plan.splits) > 0

@@ -76,3 +76,21 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
     assert len(calls) == 5
     assert "device time not measured" in out
     assert "median" not in out
+
+
+@pytest.mark.parametrize("name, cls", [
+    ("_ZN3cim24surrogate_cluster_kernelILi16ELi64ELb1ELb1EEEvNS_6SgArgsE",
+     "CiM surrogate kernel"),
+    ("_ZN3cim21int8_mma_dense_kernelILb1EEEvPKaS2_PiPfiiii",
+     "CiM surrogate kernel"),
+    ("_ZN3cim11gemm_kernelINS_9IntSqCoreENS_5DenseIaEEaNS_7CoreOutEEEvT0_",
+     "CiM surrogate kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi4ELi64EEEvNS_"
+     "6ClArgsE", "CiM log kernel"),
+    ("_ZN3cim20int8_mma_conv_kernelEPKfS1_S1_S1_PfNS_8ConvGeomEii",
+     "CiM conv kernel")], ids=lambda v: v[-30:])
+def test_port_kernels_are_told_by_name(smoke, name, cls):
+    """The profile counts a port kernel by its class (PORT_CLASSES), read
+    from its mangled name: every kernel of the port's wrappers has one."""
+    assert smoke._kernel_class(name, set()) == cls
+    assert cls in smoke.PORT_CLASSES

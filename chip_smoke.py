@@ -65,21 +65,25 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      epilogue, their fused forms (timed beside them), the nibble partial
      also with an operand quantized past -qmax; and the fused sLSTM
      recurrence (``slstm_scan``) at xlstm-125m's width (batch 4, 4 heads
-     of 192, T = 1, 37 and 512) and the smoke width (dh 16), from a zero
-     and from a nonzero state, h and the final state within the
-     tolerance kernels/slstm_scan.py states.  Each timed
-     with CUDA events (L2 flushed before every launch, then the card
-     spun for about 0.25 ms so that the launch's host work is queued
-     before the start event), beside its plain
-     version's time, a PyTorch call computing the same function where
-     one exists (``torch._int_mm``, ``F.conv2d``), and the least time the
-     card could take (the larger of the bytes the mask admits over 3.35
-     TB/s and the products' shared-memory gathers, log-product
-     instructions, int8 tensor-core operations (the surrogate's SQ as
-     four more int8 products) or, for the sLSTM recurrence, f32 FMAs
-     over their peak rates at the card's maximum SM clock; the sLSTM
-     bound leaves out the serial dependency across T) and the share of
-     it the kernel reaches;
+     of 192, T = 1, 37 and 512; batch 8, two row tiles a head, at T =
+     37) and the smoke width (dh 16), from a zero and from a nonzero
+     state, h and the final state within the tolerance
+     kernels/slstm_scan.py states, each on the route its plan takes (the
+     cluster kernel, csrc/slstm_cluster.cuh, with the plan's cluster
+     size: printed with the time a step), also at every cluster size
+     that fits at dh = 192, and the streamed kernel at one head too wide
+     for any cluster (dh 512).  Each timed with CUDA events (L2 flushed
+     before every launch, then the card spun for about 0.25 ms so that
+     the launch's host work is queued before the start event), beside
+     its plain version's time, a PyTorch call computing the same
+     function where one exists (``torch._int_mm``, ``F.conv2d``), and
+     the least time the card could take (the larger of the bytes the
+     mask admits over 3.35 TB/s and the products' shared-memory gathers,
+     log-product instructions, int8 tensor-core operations (the
+     surrogate's SQ as four more int8 products) or, for the sLSTM
+     recurrence, f32 FMAs over their peak rates at the card's maximum
+     SM clock; the sLSTM bound leaves out the serial dependency across
+     T) and the share of it the kernel reaches;
   4. reference: the LM on the card against the same LM on the CPU (the
      kernels' plain versions) on the smoke config, every tier of the
      hardware ladder with and without CiM attention, of the surrogate
@@ -87,9 +91,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      kernel, the CPU's the plain torch_surrogate route), and a hardware
      lane of appro42 with 4 approximate columns (the nibble GEMM), and
      xlstm-125m-smoke on the hardware ladder (prefill + 4 decode steps,
-     every sLSTM call through ``slstm_scan``), to a stated tolerance with
-     greedy-token agreement; then the norm's row-count invariance (rows
-     0-1 of 4 normed alone, bitwise, at d = 2048 and 768);
+     every sLSTM call through ``slstm_scan`` on the cluster route), to a
+     stated tolerance with greedy-token agreement; then the norm's
+     row-count invariance (rows 0-1 of 4 normed alone, bitwise, at d =
+     2048 and 768);
   5. serve: ``build_engine`` over the hardware-mode ladder (exact /
      balanced / economy) on full-size qwen3-1.7b with seeded random
      weights, warmup, then a Poisson workload served twice under a
@@ -166,10 +171,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      weights) on each lane of ``build_tiers(mode="hardware")``: batch 4,
      a 512-token prefill and 32 lockstep greedy decode steps; finite
      logits, tokens identical when the lane runs again, per forward 4
-     ``slstm_scan`` launches on every lane and 48 ``lut_matmul_fused``
-     (balanced) or ``mitchell_matmul_fused`` (economy) launches and
-     nothing else; prefill and decode-step time, tokens/s, peak memory
-     and one profiled decode step per lane; then with ``cim=None``
+     ``slstm_scan`` launches on every lane (every one on the cluster
+     route) and 48 ``lut_matmul_fused`` (balanced) or
+     ``mitchell_matmul_fused`` (economy) launches and nothing else;
+     prefill and decode-step time, tokens/s, peak memory and one
+     profiled decode step and prefill per lane; then with ``cim=None``
      prefill + decode against the teacher-forced prefill of each prefix
      (the reference's 0.12).
 
@@ -279,7 +285,7 @@ SOURCES = {
                          "src/repro/kernels/conv_gemm.py:259"),
     "conv_log_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                          "src/repro/kernels/conv_gemm.py:343"),
-    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
+    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_cluster.cuh",
                    "src/repro/kernels/slstm_scan.py:71"),
 }
 # the mesh path's partial kernels, timed at the shard-local shapes of the
@@ -1448,9 +1454,14 @@ def check_attention(torch, sms: int, clock_hz: float):
 
 # (B, nh, dh, T): xlstm-125m's width (4 heads of 192, phase 10's batch of
 # 4) at a decode step, a ragged length and phase 10's 512-token prefill,
-# all timed; the smoke width (dh 16) and a ragged row tile, checked only
+# all timed; batch 8 (two row tiles a head), the smoke width (dh 16) and
+# a ragged row tile, checked only; every cluster size that fits at dh =
+# 192 forced at SLSTM_SIZES_AT (launch/cluster_sweep.py times them); the
+# streamed route at one head too wide for any cluster, checked and timed
 SLSTM_FULL = [(4, 4, 192, t) for t in (1, 37, 512)]
-SLSTM_SMOKE = [(2, 4, 16, 24), (5, 4, 16, 9)]
+SLSTM_CHECKED = [(8, 4, 192, 37), (2, 4, 16, 24), (5, 4, 16, 9)]
+SLSTM_SIZES_AT = (4, 4, 192, 37)
+SLSTM_WIDE = (2, 1, 512, 9)
 
 
 def _slstm_bound(b, nh, dh, t, sms, clock_hz):
@@ -1469,10 +1480,29 @@ def _slstm_bound(b, nh, dh, t, sms, clock_hz):
                                        else "bytes")
 
 
+def _slstm_inputs(torch, dev, shape, start):
+    b, nh, dh, t = shape
+    g = torch.Generator(device=dev).manual_seed(b * t + dh)
+    u = torch.randn(b, t, 4 * nh * dh, generator=g, device=dev)
+    r = torch.randn(nh, dh, 4 * dh, generator=g, device=dev) * 0.05
+    bias = torch.randn(nh, 4 * dh, generator=g, device=dev) * 0.1
+    state = None
+    if start == "state":            # as a run leaves it
+        sh = (b, nh, dh)
+        state = (torch.rand(sh, generator=g, device=dev) * 2 - 1,
+                 torch.rand(sh, generator=g, device=dev) * 1.5 + 0.5,
+                 torch.rand(sh, generator=g, device=dev) - 0.5,
+                 torch.rand(sh, generator=g, device=dev) * 2 - 1)
+    return u, r, bias, state
+
+
 def check_slstm(torch, sms: int, clock_hz: float):
     """`slstm_scan` against its plain version from a zero and from a
     nonzero state, h and the final (c, n, h, m) within the tolerance
-    kernels/slstm_scan.py states; the full-width cases timed."""
+    kernels/slstm_scan.py states, each call on its plan's route (the
+    cluster route at every dh = 192 and dh = 16 shape, the streamed one
+    at SLSTM_WIDE); every cluster size that fits forced once at
+    SLSTM_SIZES_AT; the full-width cases and the wide one timed."""
     from repro_torch.kernels import ref, slstm_scan
 
     dev = torch.device("cuda")
@@ -1481,36 +1511,51 @@ def check_slstm(torch, sms: int, clock_hz: float):
     print(f"  tolerance: h, m within {slstm_scan.ATOL:g}; c, n within "
           f"{slstm_scan.ATOL:g} + {slstm_scan.STATE_RTOL:g} |plain|",
           flush=True)
-    print(f"  {'B,nh,dh,T':>16} {'start':<6} {'max|dh|':>9} "
-          f"{'max|dstate|':>11} {'ms':>9} {'bound_ms':>9} {'by':>10} "
-          f"{'plain_ms':>9}", flush=True)
-    for shape in SLSTM_FULL + SLSTM_SMOKE:
+    print(f"  {'B,nh,dh,T':>16} {'start':<6} {'route':>8} {'cs':>3} "
+          f"{'max|err|':>9} {'ms':>9} {'us/step':>8} "
+          f"{'bound_ms':>9} {'by':>10} {'plain_ms':>9}", flush=True)
+
+    def check(shape, start, variant, run, want_route):
+        u, r, bias, state = _slstm_inputs(torch, dev, shape, start)
+        nh = shape[1]
+        routes = dict(slstm_scan.ROUTES)
+        got = run(u, r, bias, nh, state)
+        torch.cuda.synchronize()
+        took = [k for k in routes if slstm_scan.ROUTES[k] != routes[k]]
+        if took != [want_route]:
+            fail(f"slstm_scan {shape} from {start}: took the routes {took}, "
+                 f"expected {want_route}")
+        want = ref.slstm_scan_ref(u, r, bias, nh, state)
+        err = float((got[0] - want[0]).abs().max())
+        serr = max(float((a - w).abs().max())
+                   for a, w in zip(got[1], want[1]))
+        if not slstm_scan.close(got, want) or not torch.isfinite(
+                got[0]).all():
+            fail(f"slstm_scan {shape} from {start} ({variant}): kernel != "
+                 f"plain version (max |dh| {err}, max |dstate| {serr})")
+        return {"shape": shape, "variant": variant,
+                "max_abs_err": max(err, serr)}, (u, r, bias, state)
+
+    def show(row, start, route, cs):
+        b, nh, dh, t = row["shape"]
+        timed = (f"{row['ms']:9.4f} {1e3 * row['ms'] / t:8.2f} "
+                 f"{row['bound_ms']:9.4f} {row['bound_by']:>10} "
+                 f"{row['plain_ms']:9.3f}" if "ms" in row else "")
+        print(f"  {str(row['shape']):>16} {start:<6} {route:>8} {cs:>3} "
+              f"{row['max_abs_err']:9.2e} {timed}", flush=True)
+
+    for shape in SLSTM_FULL + SLSTM_CHECKED + [SLSTM_WIDE]:
         b, nh, dh, t = shape
+        plan = slstm_scan.device_plan(b, nh, dh, dev)
+        wide = shape == SLSTM_WIDE
+        if plan.route != ("streamed" if wide else "cluster"):
+            fail(f"slstm_scan {shape}: the plan took the {plan.route} route")
         for start in ("zero", "state"):
-            g = torch.Generator(device=dev).manual_seed(b * t + dh)
-            u = torch.randn(b, t, 4 * nh * dh, generator=g, device=dev)
-            r = torch.randn(nh, dh, 4 * dh, generator=g, device=dev) * 0.05
-            bias = torch.randn(nh, 4 * dh, generator=g, device=dev) * 0.1
-            state = None
-            if start == "state":            # as a run leaves it
-                sh = (b, nh, dh)
-                state = (torch.rand(sh, generator=g, device=dev) * 2 - 1,
-                         torch.rand(sh, generator=g, device=dev) * 1.5 + 0.5,
-                         torch.rand(sh, generator=g, device=dev) - 0.5,
-                         torch.rand(sh, generator=g, device=dev) * 2 - 1)
-            got = slstm_scan.slstm_scan(u, r, bias, nh, state)
-            want = ref.slstm_scan_ref(u, r, bias, nh, state)
-            torch.cuda.synchronize()
-            err = float((got[0] - want[0]).abs().max())
-            serr = max(float((a - w).abs().max())
-                       for a, w in zip(got[1], want[1]))
-            if not slstm_scan.close(got, want) or not torch.isfinite(
-                    got[0]).all():
-                fail(f"slstm_scan {shape} from {start}: kernel != plain "
-                     f"version (max |dh| {err}, max |dstate| {serr})")
-            row = {"shape": shape, "variant": start,
-                   "max_abs_err": max(err, serr)}
-            if shape in SLSTM_FULL:
+            variant = f"streamed {start}" if wide else start
+            row, (u, r, bias, state) = check(
+                shape, start, variant, slstm_scan.slstm_scan, plan.route)
+            row.update(route=plan.route, cs=plan.cs)
+            if shape in SLSTM_FULL or wide:
                 row["ms"] = _timed_ms(torch, lambda: slstm_scan.slstm_scan(
                     u, r, bias, nh, state), 10, flush)
                 row["plain_ms"] = _timed_ms(
@@ -1519,15 +1564,20 @@ def check_slstm(torch, sms: int, clock_hz: float):
                 row["bound_ms"], row["bound_by"] = _slstm_bound(
                     b, nh, dh, t, sms, clock_hz)
             rows["slstm_scan"].append(row)
-            timed = (f"{row['ms']:9.4f} {row['bound_ms']:9.4f} "
-                     f"{row['bound_by']:>10} {row['plain_ms']:9.3f}"
-                     if "ms" in row else "")
-            print(f"  {str(shape):>16} {start:<6} {err:9.2e} {serr:11.2e} "
-                  f"{timed}", flush=True)
-    print("  slstm_scan: every case within the tolerance; library call: "
-          "none (no PyTorch call computes this recurrence: torch.nn.LSTM's "
-          "cell has no exponential gating or normaliser); the bound leaves "
-          "out the serial dependency across T", flush=True)
+            show(row, start, plan.route, plan.cs)
+    dh = SLSTM_SIZES_AT[2]
+    sizes = slstm_scan.fitting_sizes(dh, dev)
+    for cs in sizes:
+        row, _ = check(SLSTM_SIZES_AT, "state", f"cs{cs}",
+                       lambda *a, cs=cs: slstm_scan._launch(*a, cs),
+                       "cluster")
+        rows["slstm_scan"].append(row)
+        show(row, "state", "cluster", cs)
+    print(f"  slstm_scan: every case within the tolerance, on its plan's "
+          f"route; cluster sizes {sizes} at {SLSTM_SIZES_AT} too; library "
+          "call: none (no PyTorch call computes this recurrence: "
+          "torch.nn.LSTM's cell has no exponential gating or normaliser); "
+          "the bound leaves out the serial dependency across T", flush=True)
     return rows
 
 
@@ -1621,23 +1671,29 @@ def check_reference(torch):
     params_cpu = LM(cfg, device="cpu").init(0)
     params_gpu = _to(torch, params_cpu, "cuda")
     toks = torch.randint(0, cfg.vocab, (4, 8), generator=rng_tokens)
+    from repro_torch.kernels.slstm_scan import ROUTES
+
     scan = _kernel_modules()["slstm_scan"]
     n_slstm = cfg.layer_pattern.count("slstm")
     for tier in build_tiers(mode="hardware"):
         c = dataclasses.replace(cfg, cim=tier.cim)
-        n0 = scan.launches
+        n0, routes = scan.launches, dict(ROUTES)
         worst, close = _card_vs_cpu(
             torch, f"{cfg.name} {tier.name}", LM(c, device="cpu"),
             LM(c, device="cuda"), params_cpu, params_gpu, toks,
             REF_TOL[tier.name], 4)
-        if scan.launches - n0 != 5 * n_slstm:
+        took = {k: ROUTES[k] - routes[k] for k in ROUTES}
+        if scan.launches - n0 != 5 * n_slstm or took != {
+                "cluster": 5 * n_slstm, "streamed": 0}:
             fail(f"reference {cfg.name} {tier.name}: slstm_scan launched "
-                 f"{scan.launches - n0} times in 5 forwards, expected "
-                 f"{5 * n_slstm}")
+                 f"{scan.launches - n0} times in 5 forwards (routes "
+                 f"{took}), expected {5 * n_slstm}, all on the cluster "
+                 "route")
         print(f"  {cfg.name} {tier.name:<9} card vs cpu: max |logit diff| "
               f"{worst:.3e} <= {REF_TOL[tier.name]} ; greedy tokens equal "
               f"({close} near-ties under the gap rule); slstm_scan "
-              f"launches {scan.launches - n0}", flush=True)
+              f"launches {scan.launches - n0}, all on the cluster route",
+              flush=True)
 
 
 def check_norm_rows(torch):
@@ -2705,11 +2761,13 @@ def xlstm_phase(torch, power):
     lane of build_tiers(mode="hardware"), through the lockstep launcher's
     `generate`: batch 4, a 512-token prefill and 32 lockstep greedy decode
     steps, with its launches per forward,
-    identical tokens when run again, timings and one profiled decode step;
+    identical tokens when run again, timings, one profiled decode step and
+    one profiled prefill;
     then with cim=None, prefill + decode against the teacher-forced
     prefill of each prefix.  Returns the main path's launches (the lanes'
     first counted runs)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.slstm_scan import ROUTES, device_plan
     from repro_torch.launch.lockstep import generate
     from repro_torch.models.transformer import LM
     from repro_torch.serving import build_tiers
@@ -2735,15 +2793,23 @@ def xlstm_phase(torch, power):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
     forwards = 1 + XLSTM_STEPS
+    dh = cfg.d_model // cfg.rnn.slstm_heads
+    plan = device_plan(XLSTM_BATCH, cfg.rnn.slstm_heads, dh,
+                       torch.device("cuda"))
+    print(f"  slstm_scan plan at batch {XLSTM_BATCH}, "
+          f"{cfg.rnn.slstm_heads} heads of {dh}: {plan.route} route, "
+          f"clusters of {plan.cs} ({plan.waves} wave)", flush=True)
     main = {}
     for tier in build_tiers(mode="hardware"):
         lm = LM(dataclasses.replace(cfg, cim=tier.cim))
         generate(lm, params, prompts, 1 + XLSTM_STEPS)  # warm: tables, plans
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
+        routes = dict(ROUTES)
         toks, finite, pre_s, dec_s, caches = generate(lm, params, prompts,
                                                       1 + XLSTM_STEPS)
         counts = _launch_counts()
+        took = {k: ROUTES[k] - routes[k] for k in ROUTES}
         peak = torch.cuda.max_memory_allocated() / 2**30
         for k, v in counts.items():
             main[k] = main.get(k, 0) + v
@@ -2753,6 +2819,9 @@ def xlstm_phase(torch, power):
         if tier.name in XLSTM_FUSED:
             want[XLSTM_FUSED[tier.name]] = gemms * forwards
         got = {k: v for k, v in counts.items() if v}
+        if took != {"cluster": n_slstm * forwards, "streamed": 0}:
+            fail(f"phase 10 {tier.name}: the sLSTM routes {took}, expected "
+                 f"all {n_slstm * forwards} calls on the cluster route")
         if got != want:
             fail(f"phase 10 {tier.name}: {forwards} forwards launched {got}, "
                  f"expected {want} ({n_slstm} slstm_scan and, on an "
@@ -2764,7 +2833,8 @@ def xlstm_phase(torch, power):
                  "tokens")
         per_fwd = {k: v // forwards for k, v in got.items()}
         print(f"    {tier.name:<9} launches a forward {per_fwd} (prefill "
-              f"and each decode step); tokens identical when run again; "
+              f"and each decode step; every slstm_scan on the cluster "
+              f"route); tokens identical when run again; "
               f"prefill ({XLSTM_BATCH} x {XLSTM_PROMPT}) {1e3 * pre_s:.1f} "
               f"ms, decode step {1e3 * dec_s:.2f} ms = "
               f"{XLSTM_BATCH / dec_s:.1f} tokens/s; peak "
@@ -2775,7 +2845,12 @@ def xlstm_phase(torch, power):
             with torch.inference_mode():
                 lm.decode_step(params, caches, last, pos)
 
+        def prefill():
+            with torch.inference_mode():
+                lm.prefill(params, {"tokens": prompts})
+
         _profile(torch, tier.name, step, dec_s)
+        _profile(torch, f"{tier.name} prefill", prefill, pre_s)
         del lm, caches
 
     # cim=None: the kernel's initial-state path (decode, T = 1) against
@@ -2833,7 +2908,7 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM log kernel"
     if "attn_kernel" in low:
         return "CiM attention kernel"
-    if "slstm_kernel" in low:
+    if "slstm_kernel" in low or "slstm_cluster" in low:
         return "sLSTM scan"
     if name in matmul_kernels:
         return "torch.matmul"
@@ -3094,7 +3169,8 @@ def main():
     # the sLSTM recurrence: the full-width cases (xlstm-125m's 4 heads of
     # 192 at batch 4, T = 1, 37, 512, from zero and from a state), launched
     # on phase 10's path
-    main["slstm_scan"] = ([r for r in slstm_rows["slstm_scan"] if "ms" in r],
+    main["slstm_scan"] = ([r for r in slstm_rows["slstm_scan"]
+                           if r["shape"] in SLSTM_FULL and "ms" in r],
                           xlstm_launches["slstm_scan"])
     every = {**rows, **conv_rows, **attn_rows, **surr_rows, **partial_rows,
              **slstm_rows}

@@ -8,6 +8,12 @@
 // (B, nh, dh) f32, and writes the final one: a decode step is T = 1 from
 // the cached state (models/xlstm.py).
 //
+// Two routes, chosen by shape before the launch (kernels/slstm_scan.py
+// cluster_plan): the cluster kernel of slstm_cluster.cuh, each head's r
+// resident in a thread-block cluster's shared memory (cs >= 1 blocks a
+// head), wherever a head's slice fits; and, for heads too wide for any
+// cluster (dh up to 1024), the streamed kernel below (cs = 0).
+//
 // What it computes, per time step t and (batch row, head), following the
 // reference's _kernel and models/xlstm._slstm_cell:
 //   pre = (u_t + h . r) + bias            (gate blocks [z | i | f | o])
@@ -25,20 +31,21 @@
 // t + 1 needs every h of step t, so a step is a latency chain (one
 // matvec over dh, the gates, one barrier) that no width hides.
 //
-// Design: one block per (head, tile of ROWS batch rows), one thread per
-// hidden unit j.  Thread j computes its four gate columns g*dh + j for
-// the tile's rows: the dot runs over k with h in shared memory (double
-// buffered, so one __syncthreads() a step) and r[k, g*dh + j] read
-// through L2 (coalesced across j), each r element read once a step for
-// all the tile's rows.  The states c, n, m stay in registers, the step's
-// u is loaded before the dot so its latency hides behind it, h is
-// written every step and the final (c, n, h, m) once.  A head's r is
-// dh x 4dh f32 (576 KiB at xlstm-125m's dh = 192), more than a block's
-// shared memory: keeping it on chip across a thread-block cluster is the
-// redesign for speed.
+// The streamed kernel: one block per (head, tile of ROWS batch rows), one
+// thread per hidden unit j.  Thread j computes its four gate columns
+// g*dh + j for the tile's rows: the dot runs over k with h in shared
+// memory (double buffered, so one __syncthreads() a step) and
+// r[k, g*dh + j] read through L2 (coalesced across j), each r element
+// read once a step for all the tile's rows.  The states c, n, m stay in
+// registers, the step's u is loaded before the dot so its latency hides
+// behind it, h is written every step and the final (c, n, h, m) once.  A
+// head's r (dh x 4dh f32) is streamed from L2 every step: about 35 us a
+// step at dh = 192, which is why narrower heads take the cluster kernel.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "slstm_cluster.cuh"
 
 namespace {
 
@@ -172,17 +179,51 @@ extern "C" {
 
 // u (B,T,4*nh*dh), r (nh,dh,4dh), bias (nh,4dh), the initial state
 // c0/n0/h0/m0 (B,nh,dh): all f32, contiguous, on the device.  Writes hs
-// (B,T,nh,dh) and the final state cT/nT/hT/mT (B,nh,dh).
+// (B,T,nh,dh) and the final state cT/nT/hT/mT (B,nh,dh).  cs >= 1: the
+// cluster kernel with clusters of cs blocks (kernels/slstm_scan.py
+// cluster_plan; a cs that does not divide dh or whose slice does not fit
+// a block is refused, cudaErrorInvalidValue); cs = 0: the streamed
+// kernel.  Returns the CUDA error code.
 int slstm_scan_f32(const void* u, const void* r, const void* bias,
                    const void* c0, const void* n0, const void* h0,
                    const void* m0, void* hs, void* cT, void* nT, void* hT,
-                   void* mT, int B, int T, int nh, int dh, void* stream) {
-  if (B < 1 || T < 1 || nh < 1 || dh < 1 || dh > MAX_DH)
+                   void* mT, int B, int T, int nh, int dh, int cs,
+                   void* stream) {
+  if (B < 1 || T < 1 || nh < 1 || dh < 1 || dh > MAX_DH || cs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cs > 0) {
+    slstm::SlGeom g;
+    if (!slstm::sl_geometry(dh, cs, &g))
+      return static_cast<int>(cudaErrorInvalidValue);
+    slstm::SlArgs a;
+    a.u = static_cast<const float*>(u);
+    a.r = static_cast<const float*>(r);
+    a.bias = static_cast<const float*>(bias);
+    a.c0 = static_cast<const float*>(c0);
+    a.n0 = static_cast<const float*>(n0);
+    a.h0 = static_cast<const float*>(h0);
+    a.m0 = static_cast<const float*>(m0);
+    a.hs = static_cast<float*>(hs);
+    a.cT = static_cast<float*>(cT);
+    a.nT = static_cast<float*>(nT);
+    a.hT = static_cast<float*>(hT);
+    a.mT = static_cast<float*>(mT);
+    a.B = B;
+    a.T = T;
+    a.nh = nh;
+    a.dh = dh;
+    a.u_per = g.u;
+    a.cols = g.cols;
+    a.ks = g.ks;
+    a.kpad = g.kpad;
+    a.stride = g.stride;
+    return slstm::sl_launch(a, g, st);
+  }
   const dim3 grid(nh, (B + ROWS - 1) / ROWS);
   const int threads = (dh + 31) / 32 * 32;
   const size_t smem = 2 * ROWS * (size_t)dh * sizeof(float);
-  slstm_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  slstm_kernel<<<grid, threads, smem, st>>>(
       static_cast<const float*>(u), static_cast<const float*>(r),
       static_cast<const float*>(bias), static_cast<const float*>(c0),
       static_cast<const float*>(n0), static_cast<const float*>(h0),
@@ -190,6 +231,13 @@ int slstm_scan_f32(const void* u, const void* r, const void* bias,
       static_cast<float*>(cT), static_cast<float*>(nT),
       static_cast<float*>(hT), static_cast<float*>(mT), B, T, nh, dh);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the clusters of cs blocks of the cluster kernel at head dim dh that the
+// device holds at once, into *out (cluster_plan's waves); 0 where cs does
+// not divide dh or its block does not fit
+int slstm_scan_capacity(int dh, int cs, int* out) {
+  return slstm::sl_capacity(dh, cs, out);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Time the split-K cluster GEMMs at every K split, beside their plan's.
+"""Time the cluster kernels at every cluster size, beside their plan's.
 
 ``kernels/csrc/cluster_gemm.cuh`` (``lut_matmul_fused``,
 ``mitchell_matmul_fused``) and ``kernels/csrc/surrogate_cluster.cuh``
@@ -12,6 +12,16 @@ every split from 1 to 8 that leaves no slice empty, with chip_smoke.py's
 timer (L2 flushed, the card spun before each start event), and prints
 each split's ms, the device's cluster capacity and the plan's choice
 against the fastest.
+
+``kernels/csrc/slstm_cluster.cuh`` (``slstm_scan``) keeps each sLSTM
+head's recurrent weights in a cluster of cs blocks;
+``slstm_scan.cluster_plan`` picks cs.  This times it at xlstm-125m's
+width (batch 4, 4 heads of 192) at T = 1, 37 and 512 at every cluster
+size that fits and on the streamed route (cs 0), beside the plan's
+choice and the device's cluster capacity, and prints each size's time a
+step, (ms(512) - ms(37)) / 475; at the smoke width (dh 16), where the
+dot is small, that slope is the step's floor: the gates, the exchange
+of h and the cluster barrier.
 
     PYTHONPATH=src python -m repro_torch.launch.cluster_sweep \\
         --out build/cluster_sweep
@@ -34,7 +44,13 @@ from repro_torch.kernels import approx_matmul as am
 from repro_torch.kernels import cim_gemm as cg
 from repro_torch.kernels import mitchell_gemm as mg
 from repro_torch.kernels import ops
+from repro_torch.kernels import slstm_scan as ss
 from repro_torch.kernels.build import stream_of
+
+# (B, nh, dh) of the sLSTM sweep and its lengths: xlstm-125m's width, and
+# the smoke width for the step's floor
+SLSTM_WIDTHS = [(4, 4, 192), (4, 4, 16)]
+SLSTM_LENGTHS = (1, 37, 512)
 
 
 def main() -> None:
@@ -83,6 +99,7 @@ def main() -> None:
               + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
               flush=True)
 
+    slstm_sweep(cs, dev, flush, res)
     mu, c0, c1 = -0.013, 1480.0, 2.1e-4     # a surrogate law with SQ
     sur = cg.KERNELS["cim_gemm_fused"]
     for m, k, n in cs.MAIN_SHAPES:
@@ -125,6 +142,41 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "sweep.json"), "w") as f:
         json.dump(res, f, indent=1)
+
+
+def slstm_sweep(cs, dev, flush, res) -> None:
+    """Time `slstm_scan` at SLSTM_WIDTHS x SLSTM_LENGTHS at every cluster
+    size that fits and streamed, from a nonzero state (chip_smoke.py's
+    inputs and timer); record and print each beside the plan's choice
+    and the capacity, and each size's time a step."""
+    for b, nh, dh in SLSTM_WIDTHS:
+        sizes = ss.fitting_sizes(dh, dev)
+        caps = {c: ss._capacity(ss._index(dev), dh, c) for c in sizes}
+        plan = ss.device_plan(b, nh, dh, dev)
+        times = {}
+        for t in SLSTM_LENGTHS:
+            u, r, bias, state = cs._slstm_inputs(torch, dev, (b, nh, dh, t),
+                                                 "state")
+            for c in sizes + [0]:
+                def call(c=c):
+                    ss._launch(u, r, bias, nh, state, c)
+
+                call()
+                times.setdefault(c, {})[t] = cs._timed_ms(torch, call, 10,
+                                                          flush)
+            best = min(times, key=lambda c: times[c][t])
+            print(f"slstm ({b}, {nh}, {dh}) T {t:3}: capacity {caps}; plan "
+                  f"{plan.cs} {times[plan.cs][t]:.4f} ms, fastest {best} "
+                  f"{times[best][t]:.4f} ms; "
+                  + " ".join(f"{c}:{times[c][t]:.4f}" for c in times),
+                  flush=True)
+        lo, hi = SLSTM_LENGTHS[1], SLSTM_LENGTHS[-1]
+        step = {c: 1e3 * (v[hi] - v[lo]) / (hi - lo) for c, v in times.items()}
+        print(f"slstm ({b}, {nh}, {dh}) us a step, (ms({hi}) - ms({lo})) / "
+              f"{hi - lo}: " + " ".join(f"{c}:{v:.3f}" for c, v in
+                                         step.items()), flush=True)
+        res[f"slstm {(b, nh, dh)}"] = {
+            "capacity": caps, "plan": plan.cs, "ms": times, "us_step": step}
 
 
 if __name__ == "__main__":

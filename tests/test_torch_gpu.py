@@ -809,9 +809,15 @@ def test_mesh_on_the_card_runs_the_partial_kernels():
 
 
 # the sLSTM kernel against its plain version, within the tolerance
-# kernels/slstm_scan.py states (ATOL, STATE_RTOL; its mechanism there)
+# kernels/slstm_scan.py states (ATOL, STATE_RTOL; its mechanism there):
+# xlstm-125m's width at T = 1, 37, 512 and at batch 8 (two row tiles a
+# head), the smoke width (dh 16, a ragged row tile at B = 5)
 SLSTM_CASES = [(4, 4, 192, 1), (4, 4, 192, 37), (4, 4, 192, 512),
-               (2, 4, 16, 24), (5, 4, 16, 9)]
+               (2, 4, 16, 24), (5, 4, 16, 9), (8, 4, 192, 37)]
+# the cluster sizes whose block fits at dh = 192, each forced at the
+# full-width cases; a head too wide for any cluster (the streamed route)
+SLSTM_SIZES = (3, 4, 6, 8, 12, 16)
+SLSTM_WIDE = (2, 1, 512, 9)
 
 
 def _slstm_inputs(b, t, nh, dh, dev, seed, nonzero):
@@ -841,12 +847,132 @@ def test_slstm_kernel_against_plain_version(case, nonzero):
     b, nh, dh, t = case
     u, r, bias, state = _slstm_inputs(b, t, nh, dh, dev, t + dh, nonzero)
     n0 = slstm_scan.KERNELS["slstm_scan"].launches
+    routes = dict(slstm_scan.ROUTES)
     got = slstm_scan.slstm_scan(u, r, bias, nh, state)
     torch.cuda.synchronize()
     assert slstm_scan.KERNELS["slstm_scan"].launches == n0 + 1
+    assert slstm_scan.ROUTES == {"cluster": routes["cluster"] + 1,
+                                 "streamed": routes["streamed"]}
     want = ref.slstm_scan_ref(u, r, bias, nh, state)
     assert got[0].shape == (b, t, nh, dh)
     assert slstm_scan.close(got, want), float((got[0] - want[0]).abs().max())
+
+
+@pytest.mark.parametrize("case", SLSTM_CASES[:3], ids=str)
+@pytest.mark.parametrize("cs", SLSTM_SIZES, ids=lambda v: f"cs{v}")
+def test_slstm_every_cluster_size_against_plain_version(cs, case):
+    """Every cluster size the plan may pick at dh = 192, forced, from a
+    cached state."""
+    from repro_torch.kernels import ref, slstm_scan
+
+    dev = _card()
+    b, nh, dh, t = case
+    assert cs in slstm_scan.fitting_sizes(dh, dev)
+    u, r, bias, state = _slstm_inputs(b, t, nh, dh, dev, t + cs, True)
+    routes = dict(slstm_scan.ROUTES)
+    got = slstm_scan._launch(u, r, bias, nh, state, cs)
+    torch.cuda.synchronize()
+    assert slstm_scan.ROUTES["cluster"] == routes["cluster"] + 1
+    want = ref.slstm_scan_ref(u, r, bias, nh, state)
+    assert slstm_scan.close(got, want), float((got[0] - want[0]).abs().max())
+
+
+@pytest.mark.parametrize("nonzero", [False, True], ids=["zero", "state"])
+def test_slstm_streamed_route_at_a_wide_head(nonzero):
+    """A head of 512 fits no cluster: the plan streams it, by shape."""
+    from repro_torch.kernels import ref, slstm_scan
+
+    dev = _card()
+    b, nh, dh, t = SLSTM_WIDE
+    assert slstm_scan.device_plan(b, nh, dh, dev).route == "streamed"
+    u, r, bias, state = _slstm_inputs(b, t, nh, dh, dev, 5, nonzero)
+    n0 = slstm_scan.KERNELS["slstm_scan"].launches
+    routes = dict(slstm_scan.ROUTES)
+    got = slstm_scan.slstm_scan(u, r, bias, nh, state)
+    torch.cuda.synchronize()
+    assert slstm_scan.KERNELS["slstm_scan"].launches == n0 + 1
+    assert slstm_scan.ROUTES == {"cluster": routes["cluster"],
+                                 "streamed": routes["streamed"] + 1}
+    want = ref.slstm_scan_ref(u, r, bias, nh, state)
+    assert slstm_scan.close(got, want), float((got[0] - want[0]).abs().max())
+
+
+def test_slstm_refused_cluster_launch_raises():
+    """A cluster size that does not divide dh, or whose slice does not fit
+    a block, is refused by the C entry and raises; nothing is counted and
+    nothing runs on the other route."""
+    from repro_torch.kernels import slstm_scan
+
+    dev = _card()
+    u, r, bias, _ = _slstm_inputs(4, 3, 4, 192, dev, 0, False)
+    n0 = slstm_scan.KERNELS["slstm_scan"].launches
+    routes = dict(slstm_scan.ROUTES)
+    for cs in (5, 2, 1, 17):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            slstm_scan._launch(u, r, bias, 4, None, cs)
+    assert slstm_scan.KERNELS["slstm_scan"].launches == n0
+    assert slstm_scan.ROUTES == routes
+
+
+def test_slstm_capacity_bounds_the_plan():
+    """The C query gives 0 for a cluster size that does not divide dh or
+    lies beyond 16, and holds no more blocks than the SMs do (32 an SM);
+    at xlstm-125m's dh = 192 exactly the sizes 3, 4, 6, 8, 12 and 16 fit
+    (1 and 2 need more threads or shared memory than a block has), at dh
+    = 512 and 1024 none, so the plan streams those heads; the plan takes
+    the cluster route at xlstm-125m's width, its waves from the
+    capacity."""
+    from repro_torch.kernels import slstm_scan
+    from repro_torch.kernels.build import query
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dh in (8, 13, 16, 64, 192, 256, 384, 512, 1024):
+        for cs in range(1, 18):
+            cap = query("slstm_scan", "slstm_scan_capacity", dh, cs)
+            if dh % cs or cs > slstm_scan.MAX_CLUSTER:
+                assert cap == 0, (dh, cs, cap)
+            assert 0 <= cap and cap * cs <= sms * 32, (dh, cs, cap)
+    assert slstm_scan.fitting_sizes(192, dev) == list(SLSTM_SIZES)
+    assert slstm_scan.fitting_sizes(16, dev) == [1, 2, 4, 8, 16]
+    for dh in (512, 1024):
+        assert slstm_scan.fitting_sizes(dh, dev) == []
+        assert slstm_scan.device_plan(2, 1, dh, dev).route == "streamed"
+    for b in (4, 8):
+        plan = slstm_scan.device_plan(b, 4, 192, dev)
+        cap = slstm_scan._capacity(0, 192, plan.cs)
+        assert plan.route == "cluster" and plan.cs in SLSTM_SIZES
+        assert plan.waves == -(-4 * -(-b // slstm_scan.ROWS) // cap)
+
+
+def test_slstm_profiler_classes_the_cluster_kernel():
+    """chip_smoke.py's profile classes the cluster kernel as "sLSTM
+    scan", by the name the profiler records."""
+    import importlib.util
+    import os
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import slstm_scan
+
+    dev = _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    u, r, bias, state = _slstm_inputs(4, 5, 4, 192, dev, 1, True)
+    slstm_scan.slstm_scan(u, r, bias, 4, state)        # built, planned
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        slstm_scan.slstm_scan(u, r, bias, 4, state)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "slstm" in e.name.lower()}
+    assert names and all("slstm_cluster" in n for n in names), names
+    assert {smoke._kernel_class(n, set()) for n in names} == {"sLSTM scan"}
 
 
 def test_slstm_wrapper_raises_on_what_the_kernel_does_not_take():
@@ -873,9 +999,9 @@ def _tree_to(tree, dev):
 
 def test_xlstm_lm_on_the_card_runs_the_kernel():
     """xlstm-125m-smoke on the balanced tier: every sLSTM call (prefill
-    and each decode step) launches the kernel, and the card's logits
-    agree with the CPU's (4e-2, tests/test_torch_lm_xlstm.py's tier
-    tolerance)."""
+    and each decode step) launches the kernel on the cluster route, and
+    the card's logits agree with the CPU's (4e-2,
+    tests/test_torch_lm_xlstm.py's tier tolerance)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import slstm_scan
     from repro_torch.models.transformer import LM
@@ -891,6 +1017,7 @@ def test_xlstm_lm_on_the_card_runs_the_kernel():
     toks = torch.randint(0, cfg.vocab, (2, 8),
                          generator=torch.Generator().manual_seed(3))
     n0 = slstm_scan.KERNELS["slstm_scan"].launches
+    routes = dict(slstm_scan.ROUTES)
     with torch.inference_mode():
         lc, cc = cpu.prefill(p_cpu, {"tokens": toks})
         lg, cg = gpu.prefill(p_gpu, {"tokens": toks.to(dev)})
@@ -900,6 +1027,8 @@ def test_xlstm_lm_on_the_card_runs_the_kernel():
             lg, cg = gpu.decode_step(p_gpu, cg, tok.to(dev), 8 + step)
     torch.cuda.synchronize()
     assert slstm_scan.KERNELS["slstm_scan"].launches == n0 + 3
+    assert slstm_scan.ROUTES == {"cluster": routes["cluster"] + 3,
+                                 "streamed": routes["streamed"]}
     assert torch.allclose(lg.float().cpu(), lc.float(), rtol=0, atol=4e-2)
 
 

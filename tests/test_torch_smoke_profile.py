@@ -88,7 +88,12 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi4ELi64EEEvNS_"
      "6ClArgsE", "CiM log kernel"),
     ("_ZN3cim20int8_mma_conv_kernelEPKfS1_S1_S1_PfNS_8ConvGeomEii",
-     "CiM conv kernel")], ids=lambda v: v[-30:])
+     "CiM conv kernel"),
+    ("_ZN5slstm20slstm_cluster_kernelENS_6SlArgsE", "sLSTM scan"),
+    ("slstm::slstm_cluster_kernel(slstm::SlArgs)", "sLSTM scan"),
+    ("_ZN46_GLOBAL__N__53a415f7_13_slstm_scan_cu_8df9e1a012slstm_kernelEPKf"
+     "S1_S1_S1_S1_S1_S1_PfS2_S2_S2_S2_iiii", "sLSTM scan")],
+    ids=lambda v: v[-30:])
 def test_port_kernels_are_told_by_name(smoke, name, cls):
     """The profile counts a port kernel by its class (PORT_CLASSES), read
     from its mangled name: every kernel of the port's wrappers has one."""

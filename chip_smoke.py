@@ -24,11 +24,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      operands, as the CNN feeds them) and one ragged shape
      (the nibble kernels for the exact table and appro42 with 4
      approximate columns, the int form also at the saturating int8
-     minimum); the fused LUT and log GEMMs (the split-K cluster kernel,
-     csrc/cluster_gemm.cuh) also bitwise at CLUSTER_EDGES (every M, K
-     and N corner of its plan, bf16 and f32, the LUT at 4 and 8 bits, the
-     log kernel at 8 and, through the tiled side of its bits gate, 16),
-     its launch plans printed and the LUT's table fill timed (a K = 32
+     minimum); the fused LUT and log GEMMs and their partial forms (the
+     split-K cluster kernel, csrc/cluster_gemm.cuh, epilogue on and off)
+     also bitwise at CLUSTER_EDGES (every M, K and N corner of its plan,
+     bf16 and f32, the LUT at 4 and 8 bits, the log kernel at 8 and,
+     through the tiled side of its bits gate, 16; each partial also
+     through the epilogue against its fused form), its launch plans
+     printed and the LUT's table fill timed (a K = 32
      call with the 8-bit table against a 4-bit one); the two
      implicit-GEMM conv kernels (full LUT, nibble for
      both specs, Mitchell, Log-our) bitwise at the CNN's five conv
@@ -161,7 +163,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      misses after warmup on any rank, 56 partial and 140 fused kernel
      launches per approximate-lane forward on every rank, the same
      logits on every rank; per lane one decode round's time and the
-     collectives' share.  The exact lane's first decode step is walked
+     collectives' share, and rank 0's pool decode round under
+     torch.profiler as in phase 5 (every rank decoding; the partials a
+     class of their own).  The exact lane's first decode step is walked
      GEMM by GEMM (every rank's shards reassembled against the unsharded
      engine): the first GEMM whose fake-quantized input codes move is
      printed, and every GEMM before it must agree within the f32
@@ -274,13 +278,14 @@ SOURCES = {
                        "src/repro/kernels/cim_gemm.py:141"),
     "conv_mxu_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                        "src/repro/kernels/conv_gemm.py:174"),
-    "lut_matmul_partial": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+    "lut_matmul_partial": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                            "src/repro/kernels/approx_matmul.py:248"),
     "nibble_lut_matmul_partial": (
         "src/repro_torch/kernels/csrc/nibble_gemm.cu",
         "src/repro/kernels/approx_matmul.py:402"),
-    "mitchell_matmul_partial": ("src/repro_torch/kernels/csrc/log_gemm.cu",
-                                "src/repro/kernels/mitchell_gemm.py:189"),
+    "mitchell_matmul_partial": (
+        "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
+        "src/repro/kernels/mitchell_gemm.py:189"),
     "conv_lut_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
                          "src/repro/kernels/conv_gemm.py:259"),
     "conv_log_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
@@ -319,8 +324,9 @@ CORE_EDGES = [(1, 31, 7), (17, 33, 17), (130, 6144, 2048), (4, 1, 1),
 MXU_EDGES = [(8, 12, 12, 17, 80, 3, 3, 1), (4, 9, 11, 5, 130, 3, 3, 2),
              (2, 13, 13, 3, 16, 5, 5, 2), (2, 30, 30, 3, 64, 7, 7, 2),
              (5, 4, 4, 8, 10, 3, 3, 1), (1, 20, 60, 96, 24, 3, 3, 1)]
-# the split-K cluster kernel's edge cases (lut_matmul_fused and
-# mitchell_matmul_fused; checked bitwise, not timed): every M in {1, 4, 17,
+# the split-K cluster kernel's edge cases (lut_matmul_fused,
+# mitchell_matmul_fused and their partial forms, the kernel with its
+# epilogue off; checked bitwise, not timed): every M in {1, 4, 17,
 # 64, 65, 130, 2048} (one row tile of 4, 16 or 64 rows, or several), K in
 # {1, 31, 33, 2048, 6144} (one step, ragged steps, up to 8 slices) and N
 # in {1, 7, 8, 17, 2048} (ragged tiles, rows not 16-byte multiples: the
@@ -430,8 +436,8 @@ def log_clocks(build) -> None:
     libraries: per instantiation of the template's LogCore, the product
     loop's instructions a product by pipe, and the SM clocks they need;
     per log instantiation of the cluster kernel (csrc/cluster_gemm.cuh,
-    RB rows a block, BK k a stage), the same over its K step's product
-    section (RB rows x BK / 4 k a thread)."""
+    RB rows a block, BK k a stage, fused and partial), the same over its
+    K step's product section (RB rows x BK / 4 k a thread)."""
     import re
 
     from repro_torch.kernels import sass
@@ -447,12 +453,13 @@ def log_clocks(build) -> None:
                 if tag not in name:
                     continue
                 if "cluster_gemm_kernel" in name:
-                    rb, bk = map(int, re.search(r"Li(\d+)ELi(\d+)EE",
+                    rb, bk = map(int, re.search(r"Li(\d+)ELi(\d+)E",
                                                 name).groups())
                     c = sass.section_per_product(sass.step_products(insns),
                                                  rb * bk // 4)
                     inst = (f"cluster {'log_our' if comp else 'mitchell'} "
-                            f"RB {rb} BK {bk}")
+                            f"RB {rb} BK {bk}"
+                            + (" partial" if "QuantIntOut" in name else ""))
                     cluster.add(comp)
                 else:
                     c = sass.per_product(insns, TILE[1], ROWS_PER_THREAD)
@@ -602,8 +609,10 @@ def _misaligned(torch, t):
 
 
 def check_cluster_edges(torch, lut8, flush):
-    """The cluster kernel (csrc/cluster_gemm.cuh) at CLUSTER_EDGES, bitwise
-    against the plain versions, with the split each shape was given; then
+    """The cluster kernel (csrc/cluster_gemm.cuh) at CLUSTER_EDGES, fused
+    and partial (the raw int32 sum, also through the epilogue against the
+    fused kernel), bitwise against the plain versions, with the split each
+    shape was given (the partials' plans at the shard shapes too); then
     what the LUT's table fill costs a call: lut_matmul_fused at K = 32
     (one step) with the 8-bit table (128 KiB a block) against the 4-bit
     one (512 bytes), the same shapes and operands otherwise."""
@@ -621,35 +630,58 @@ def check_cluster_edges(torch, lut8, flush):
         w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(dt)
         if (m, k, n) == (1, 2048, 2048):
             x, w = _misaligned(torch, x), _misaligned(torch, w)
-        calls = []
+        calls = []      # (tag, kernel, plain version, scales, fused)
         for bits, table in ((8, lut8), (4, lut4)):
             sx, sw = ops._scales(x, w, bits)
-            calls.append((f"lut{bits}",
+            fused = (lambda t=table, b=bits, a=sx, c=sw:
+                     am.lut_matmul_fused(x, w, t, a, c, b))
+            calls.append((f"lut{bits}", fused,
                           lambda t=table, b=bits, a=sx, c=sw:
-                          am.lut_matmul_fused(x, w, t, a, c, b),
+                          am.lut_matmul_fused_plain(x, w, t, a, c, b),
+                          None, None))
+            calls.append((f"lut{bits} partial",
                           lambda t=table, b=bits, a=sx, c=sw:
-                          am.lut_matmul_fused_plain(x, w, t, a, c, b)))
+                          am.lut_matmul_partial(x, w, t, a, c, b),
+                          lambda t=table, b=bits, a=sx, c=sw:
+                          am.lut_matmul_partial_plain(x, w, t, a, c, b),
+                          (sx, sw), fused))
         for bits in (8, 16) if i < CLUSTER_WIDE_EDGES else (8,):
             sx, sw = ops._scales(x, w, bits)
             for comp in (False, True):
+                tag = f"{'log_our' if comp else 'mitchell'}{bits}"
+                fused = (lambda b=bits, c=comp, a=sx, s=sw:
+                         mg.mitchell_matmul_fused(x, w, a, s, b, c))
                 calls.append((
-                    f"{'log_our' if comp else 'mitchell'}{bits}",
+                    tag, fused,
                     lambda b=bits, c=comp, a=sx, s=sw:
-                    mg.mitchell_matmul_fused(x, w, a, s, b, c),
+                    mg.mitchell_matmul_fused_plain(x, w, a, s, b, c),
+                    None, None))
+                calls.append((
+                    tag + " partial",
                     lambda b=bits, c=comp, a=sx, s=sw:
-                    mg.mitchell_matmul_fused_plain(x, w, a, s, b, c)))
-        for tag, kern, plain in calls:
+                    mg.mitchell_matmul_partial(x, w, a, s, b, c),
+                    lambda b=bits, c=comp, a=sx, s=sw:
+                    mg.mitchell_matmul_partial_plain(x, w, a, s, b, c),
+                    (sx, sw), fused))
+        for tag, kern, plain, scales, fused in calls:
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if got.dtype != want.dtype or not torch.equal(got, want):
                 err = float((got.double() - want.double()).abs().max())
                 fail(f"cluster edge {(m, k, n)} {dt} {tag}: kernel != plain "
-                     f"version (max |diff| {err})")
+                     f"version ({got.dtype}, max |diff| {err})")
+            if scales is not None and not torch.equal(
+                    am.epilogue(got, *scales), fused()):
+                fail(f"cluster edge {(m, k, n)} {dt} {tag}: the epilogue of "
+                     "the partial sum != the fused kernel")
         lp = am.fused_plan(am.KERNELS["lut_matmul_fused"], x, w, 8)
         gp = am.fused_plan(mg.KERNELS["mitchell_matmul_fused"], x, w, 8, 0)
+        lpp = am.fused_plan(am.KERNELS["lut_matmul_partial"], x, w, 8)
+        gpp = am.fused_plan(mg.KERNELS["mitchell_matmul_partial"], x, w, 8, 0)
         print(f"  cluster edge {(m, k, n)} {dt}: bitwise ({len(calls)} "
               f"calls); plan rows {lp.rows}, splits lut {lp.splits} / log "
-              f"{gp.splits}", flush=True)
+              f"{gp.splits}, partial lut {lpp.splits} / log {gpp.splits}",
+              flush=True)
     plans = []
     for m, k, n in MAIN_SHAPES:
         x = torch.empty(m, k, device=dev, dtype=torch.bfloat16)
@@ -660,6 +692,16 @@ def check_cluster_edges(torch, lut8, flush):
                      f"{gp.tiles}x{gp.splits}")
     print(f"  cluster plans (tiles x splits): {'; '.join(plans)}",
           flush=True)
+    plans = []
+    for m, k, n in PARTIAL_SHAPES:
+        x = torch.empty(m, k, device=dev, dtype=torch.bfloat16)
+        w = torch.empty(k, n, device=dev, dtype=torch.bfloat16)
+        lp = am.fused_plan(am.KERNELS["lut_matmul_partial"], x, w, 8)
+        gp = am.fused_plan(mg.KERNELS["mitchell_matmul_partial"], x, w, 8, 0)
+        plans.append(f"{(m, k, n)} lut {lp.tiles}x{lp.splits} log "
+                     f"{gp.tiles}x{gp.splits}")
+    print(f"  partial plans at the shard shapes (tiles x splits): "
+          f"{'; '.join(plans)}", flush=True)
     for n in (2048, 6144):
         g = torch.Generator(device=dev).manual_seed(n)
         x = torch.randn(4, 32, generator=g, device=dev).to(torch.bfloat16)
@@ -2274,6 +2316,11 @@ MESH_GEMMS = [("exact (nibble)", dict(family="exact", mode="hardware")),
 # the cim_linear GEMMs of one layer whose weight is contraction-sharded
 # (wo, mlp_wo: the partial kernels) and output-sharded (the fused ones)
 ROW_PARALLEL, COL_PARALLEL = 2, 5
+# pool decode rounds a lane that every rank runs for rank 0's profiles:
+# as many as `_profile` may make (3, and at most two made again), so
+# that every rank issues the same collectives whichever profiles lose
+# kernels
+MESH_PROFILE_ROUNDS = 5
 
 
 def _probe_exact_step(torch, eng, bound: bool):
@@ -2454,11 +2501,31 @@ def _round_times(torch, eng, mesh=None, reps: int = 3):
     return out
 
 
+def _mesh_profiles(torch, eng, rank):
+    """Per lane MESH_PROFILE_ROUNDS pool decode rounds on every rank (the
+    collectives need all four), rank 0's each under torch.profiler
+    (`_profile_once`); returns rank 0's records by lane (empty lists on
+    the other ranks)."""
+    out = {}
+    for name, lane in eng.lanes.items():
+        b = lane.backend
+        b.reset()
+        out[name] = []
+        for _ in range(MESH_PROFILE_ROUNDS):
+            if rank == 0:
+                out[name].append(_profile_once(torch, b.decode_round))
+            else:
+                b.decode_round()
+        torch.cuda.synchronize()
+        b.reset()
+    return out
+
+
 def _mesh_rank(rank, world, dev, wl):
     """One rank of phase 9: (a) the GEMM frontends, (b) the conv frontend,
-    (c) the hardware ladder served on the mesh; each part's main-path
-    launches counted from 0, the single-device calls it is compared with
-    made after."""
+    (c) the hardware ladder served on the mesh, then its decode rounds
+    timed and profiled (rank 0); each part's main-path launches counted
+    from 0, the single-device calls it is compared with made after."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2570,6 +2637,7 @@ def _mesh_rank(rank, world, dev, wl):
                                for lg in r.logits]
                          for rid, r in res.items()}
     out["rounds"] = _round_times(torch, eng, mesh)
+    out["profiles"] = _mesh_profiles(torch, eng, rank)
     out["rank_s"] = time.perf_counter() - t_rank
     return out
 
@@ -2675,6 +2743,10 @@ def mesh_phase(torch, power):
                   f"{1e3 * secs:.1f} ms, collectives {1e3 * cs:.1f} ms "
                   f"({100 * cs / secs:.1f}%, {calls:.0f} calls); unsharded "
                   f"{1e3 * base_rounds[lane][0]:.1f} ms", flush=True)
+    print("  rank 0, one pool decode round a lane under torch.profiler "
+          "(every rank decoding):", flush=True)
+    for lane, recs in ranked[0]["profiles"].items():
+        _profile(torch, lane, None, ranked[0]["rounds"][lane][0], made=recs)
     print(f"  every rank: the mesh GEMMs (5 cases x 8 LM shapes x 2 layouts "
           f"x 2 frontends) and convs (4 families x 5 geometries, both "
           f"layouts where C or N splits; conv 1's C = 3 raised) bitwise "
@@ -2892,6 +2964,8 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 def _kernel_class(name: str, matmul_kernels) -> str:
     low = name.lower()
+    if "quantintout" in low:        # the mesh path's partials, every core
+        return "CiM partial kernel"
     if "int8_mma_conv" in low:
         return "CiM conv kernel"
     if "int8_mma_dense" in low or "surrogate_cluster" in low:
@@ -2921,7 +2995,7 @@ def _kernel_class(name: str, matmul_kernels) -> str:
 # by its wrapper's CudaKernel.launches)
 PORT_CLASSES = ("CiM conv kernel", "CiM LUT kernel", "CiM nibble kernel",
                 "CiM surrogate kernel", "CiM log kernel",
-                "CiM attention kernel", "sLSTM scan")
+                "CiM attention kernel", "sLSTM scan", "CiM partial kernel")
 
 
 def _profile_once(torch, run):
@@ -2971,9 +3045,12 @@ def _profile_once(torch, run):
             "by_name": by_name, "launched": launched, "seen": seen}
 
 
-def _profile(torch, lane: str, run, unprofiled_s: float, reps: int = 3):
+def _profile(torch, lane: str, run, unprofiled_s: float, reps: int = 3,
+             made=None):
     """`reps` calls of `run` (a pool decode round, a CNN forward, a decode
-    step), each under torch.profiler: the Python-level PyTorch ops it
+    step), each under torch.profiler (or, with `made`, the records of
+    `_profile_once` another process made, taken in order; phase 9's rank
+    0): the Python-level PyTorch ops it
     dispatched, the kernels it launched, the union of their device
     intervals against the call's time (the device's idle share) and
     against the CUDA events' span, as the median and the spread (min -
@@ -2986,8 +3063,11 @@ def _profile(torch, lane: str, run, unprofiled_s: float, reps: int = 3):
     kernels."""
     runs, attempts = [], 0
     while len(runs) < reps and attempts < reps + 2:
+        if made is not None and attempts == len(made):
+            break
         attempts += 1
-        r = _profile_once(torch, run)
+        r = (_profile_once(torch, run) if made is None
+             else made[attempts - 1])
         if r["busy_ms"] is None or r["seen"] < r["launched"]:
             print(f"    {lane:<9} profile {attempts} lost kernels: it saw "
                   f"{r['seen']} of the {r['launched']} port kernels the call "

@@ -23,10 +23,11 @@ functions execute it, in the JAX package's two table layouts:
 On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
 csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
 version beside it, which repeats the kernel's arithmetic
-(kernels/ref.py).  ``lut_matmul_fused`` (and ``mitchell_matmul_fused`` up
+(kernels/ref.py).  ``lut_matmul_fused`` and ``lut_matmul_partial`` (and
+the log forms ``mitchell_matmul_fused`` and ``mitchell_matmul_partial`` up
 to 8 bits) launch the split-K cluster kernel of csrc/cluster_gemm.cuh,
-cut by ``cluster_plan``; the other forms the tiled template
-(csrc/cim_gemm.cuh).
+cut by ``cluster_plan``, the partial forms with its epilogue off; the
+other forms the tiled template (csrc/cim_gemm.cuh).
 """
 
 from __future__ import annotations
@@ -43,12 +44,14 @@ from .ref import (gather_full, lut_matmul_ref, nibble_matmul_ref,
 _INT_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
 _FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                PTR]
-# the fused form also takes its launch plan: rows, splits, k_split
+# the cluster kernel's forms also take their launch plan: rows, splits,
+# k_split
 _PLAN_ARGS = [INT, INT, INT]
 _INT = CudaKernel("lut_gemm", "lut_gemm_int8", _INT_ARGS)
 _FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
                     _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
-_PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial", _FUSED_ARGS)
+_PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial",
+                      _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
 _NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8", _INT_ARGS)
 _NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused", _FUSED_ARGS)
 _NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial", _FUSED_ARGS)
@@ -133,9 +136,11 @@ def fused_plan(kern: CudaKernel, x, w, *lead,
                row_tiles: Sequence[int] = CLUSTER_ROWS) -> ClusterPlan:
     """The plan of one call of the split-K cluster kernel `kern` on x's
     device, cut by the device's cluster capacity (its C query
-    ``<symbol>_capacity``, whose arguments after the rows are `lead`,
-    then x_bf16, w_bf16: lut_gemm_fused's bits, log_gemm_fused's bits and
-    compensated, cim_gemm_fused's variant)."""
+    ``<symbol>_capacity``, of the instantiation `kern` launches, whose
+    arguments after the rows are `lead`, then x_bf16, w_bf16:
+    lut_gemm_fused's and lut_gemm_partial's bits, log_gemm_fused's and
+    log_gemm_partial's bits and compensated, cim_gemm_fused's
+    variant)."""
     m, k = x.shape
     args = (*lead, int(x.dtype == torch.bfloat16),
             int(w.dtype == torch.bfloat16))
@@ -146,12 +151,13 @@ def fused_plan(kern: CudaKernel, x, w, *lead,
 
 
 def launch_cluster(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,
-                   *flags) -> torch.Tensor:
+                   *flags, out_dtype=torch.float32) -> torch.Tensor:
     """One planned launch of the cluster kernel: f32/bf16 x (M,K), w (K,N)
-    -> f32 (M,N); `table` None for the log kernel, `flags` its trailing
-    int arguments before the plan (compensated)."""
+    -> (M,N) of `out_dtype`, f32 for a fused form, int32 for a partial
+    one (its epilogue off); `table` None for the log kernel, `flags` its
+    trailing int arguments before the plan (compensated)."""
     plan = fused_plan(kern, x, w, bits, *flags)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     tab = () if table is None else (table.data_ptr(),)
     kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
          int(w.dtype == torch.bfloat16), *tab, sx.data_ptr(), sw.data_ptr(),
@@ -358,8 +364,8 @@ def lut_matmul_partial(x: torch.Tensor, w: torch.Tensor,
         return lut_matmul_partial_plain(x, w, lut_flat, sx, sw, bits)
     _check_fused(x, w, sx, sw, n)
     check_table(lut_flat, bits)
-    return _launch_fused(_PARTIAL, x, w, lut_flat, sx, sw, m, k, n, bits,
-                         torch.int32)
+    return launch_cluster(_PARTIAL, x, w, lut_flat, sx, sw, m, k, n, bits,
+                          out_dtype=torch.int32)
 
 
 def nibble_lut_matmul_partial(x: torch.Tensor, w: torch.Tensor,

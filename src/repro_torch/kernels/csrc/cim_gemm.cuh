@@ -29,7 +29,8 @@
 // fast-math), against a per-tensor sx and per-column sw read from device
 // memory, flushed as (acc * sx) * sw in that order (ScaleOut) or left as
 // the raw int32 sum (QuantIntOut: a shard's partial sum over its slice of
-// K, scaled by the caller after the sum over the shards).
+// K, scaled by the caller after the sum over the shards).  The split-K
+// cluster kernel of cluster_gemm.cuh flushes through the same two.
 //
 // The A operand comes from a source: Dense (a row-major (M, K) matrix)
 // or ConvSrc (the implicit-GEMM patch matrix of a (B, H, W, C) image:
@@ -56,8 +57,9 @@
 // log product has no tensor-core form.  The exact int8 dots run on the
 // tensor cores instead: cim_gemm_core without SQ and the exact-mode conv
 // in int8_mma.cuh, the fused surrogate GEMM (D and SQ) in
-// surrogate_cluster.cuh; the served fused LUT and log GEMMs run the
-// split-K cluster kernel of cluster_gemm.cuh.
+// surrogate_cluster.cuh; the served fused LUT and log GEMMs and their
+// partial forms (up to 8 bits) run the split-K cluster kernel of
+// cluster_gemm.cuh.
 
 #pragma once
 

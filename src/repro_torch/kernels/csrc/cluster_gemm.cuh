@@ -1,25 +1,34 @@
 // cluster_gemm.cuh - the split-K CiM GEMM for NVIDIA Hopper (sm_90a):
 // the fused LUT and log-domain GEMMs, operands quantized on load and
-// (acc * sx) * sw flushed in the kernel.  Included by lut_gemm.cu
-// (lut_gemm_fused) and log_gemm.cu (log_gemm_fused); its frame (the
-// operand ring and tile copies, cl_launch_ex, cl_capacity_ex, the plan's
-// checks) also carries surrogate_cluster.cuh's fused surrogate GEMM.
+// (acc * sx) * sw flushed in the kernel, and their partial forms, the
+// same kernel with the epilogue off.  Included by lut_gemm.cu
+// (lut_gemm_fused, lut_gemm_partial) and log_gemm.cu (log_gemm_fused,
+// log_gemm_partial); its frame (the operand ring and tile copies,
+// cl_launch_ex, cl_capacity_ex, the plan's checks) also carries
+// surrogate_cluster.cuh's fused surrogate GEMM.
 //
 // Replaces, for operands of at most 8 bits, the TPU kernels
 //   src/repro/kernels/approx_matmul.py:230 lut_matmul_fused -> :208 ->
 //     _fused_kernel :171 (the full product table)
+//   src/repro/kernels/approx_matmul.py:248 lut_matmul_partial -> :208
+//     (_fused_kernel, epilogue off)
 //   src/repro/kernels/mitchell_gemm.py:173 mitchell_matmul_fused -> :151
 //     -> _fused_kernel :115 (_log_product :44, mitchell and log_our)
+//   src/repro/kernels/mitchell_gemm.py:189 mitchell_matmul_partial ->
+//     :151 (_fused_kernel, epilogue off)
 // Log operands of 9..16 bits go to cim_gemm.cuh's tiled template, by the
 // gate kernels/mitchell_gemm.py fused_route (a function of the bits,
-// tested on the CPU); the int oracles and the *_partial forms stay there
-// too.
+// tested on the CPU), fused and partial alike; the int oracles stay
+// there too.
 //
-// What it computes: out[m,n] = (f32(acc) * sx) * sw[n], acc = sum_k
-// prod(qa, qb) in 32 bits with two's-complement wrap, qa = round(x / sx),
-// qb = round(w / sw[n]) by __fdiv_rn and rintf, clipped to +-qmax (build
-// without fast-math): bit for bit the plain versions
-// lut_matmul_fused_plain and mitchell_matmul_fused_plain.
+// What it computes: acc = sum_k prod(qa, qb) in 32 bits with
+// two's-complement wrap, qa = round(x / sx), qb = round(w / sw[n]) by
+// __fdiv_rn and rintf, clipped to +-qmax (build without fast-math), and
+// out[m,n] = (f32(acc) * sx) * sw[n] (Epi = ScaleOut, the fused forms)
+// or the raw int32 acc (Epi = QuantIntOut, the partial forms: the mesh
+// path sums a shard's partials over the model axis before the epilogue):
+// bit for bit the plain versions lut_matmul_fused_plain,
+// mitchell_matmul_fused_plain and their *_partial_plain.
 //
 // What bounds it on an H100: at a decode round (M = 4) the weight: each
 // element is read once (3.35 TB/s) and quantized once (an IEEE division),
@@ -40,7 +49,7 @@
 //    minimizing waves x steps.  Each block leaves its uint32 partial tile
 //    in its shared memory; after a cluster barrier every block sums a
 //    share of the tile over the cluster's partials through distributed
-//    shared memory, in rank order, and flushes the epilogue.  Wrapping
+//    shared memory, in rank order, and flushes it through Epi.  Wrapping
 //    32-bit addition is associative, so the sum is the reference's
 //    exactly, with no memset and no atomics.
 //  * Keep copies in flight: the raw bf16 / f32 tiles of x and w arrive
@@ -147,7 +156,7 @@ struct ClArgs {
   const unsigned char* tab;
   const float* sx;
   const float* sw;
-  float* out;
+  void* out;            // Epi::Out: f32 (ScaleOut) or int32 (QuantIntOut)
   int M, K, N, bits;
   int k_split;          // K a slice (blockIdx.z), a multiple of CL_SPLIT_K
   int n_tiles;          // column tiles; blockIdx.x = m tile * n_tiles + n
@@ -290,10 +299,12 @@ __device__ __forceinline__ void cl_stage_x(uint32_t* sA,
 // --- the kernel ----------------------------------------------------------------
 
 // grid (m tiles x n tiles, 1, K slices), clusters of (1, 1, gridDim.z):
-// the K slices of one tile are one cluster
-template <class Core, int RB, int BK>
+// the K slices of one tile are one cluster; Epi (cim_gemm.cuh: ScaleOut
+// or QuantIntOut) writes each summed element
+template <class Core, int RB, int BK, class Epi>
 __global__ void __launch_bounds__((Core::THREADS), (Core::MIN_BLOCKS))
 cluster_gemm_kernel(const ClArgs a) {
+  static_assert(Epi::QUANT && !Epi::SQ, "float operands, one sum");
   static_assert(RB % 4 == 0, "rows come in groups of 4");
   constexpr int KIND = Core::KIND;
   constexpr int T = Core::THREADS;
@@ -446,7 +457,7 @@ cluster_gemm_kernel(const ClArgs a) {
   }
 
   // the cluster's partials summed in rank order, each block a share of
-  // the tile's rows inside M, then the epilogue (acc * sx) * sw
+  // the tile's rows inside M, then the epilogue
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   cluster.sync();
@@ -466,9 +477,9 @@ cluster_gemm_kernel(const ClArgs a) {
       if (q < splits) s += peer[q][e];
     const int r = e / CL_BN, c = n0 + (e - r * CL_BN);
     if (c < a.N)
-      // (acc * sx) * sw, in this order: never fold sx * sw first
-      a.out[static_cast<size_t>(m0 + r) * a.N + c] =
-          (static_cast<float>(static_cast<int32_t>(s)) * sx) * a.sw[c];
+      Epi{}.store(static_cast<typename Epi::Out*>(a.out),
+                  static_cast<size_t>(m0 + r) * a.N + c, c, s, 0.f, sx,
+                  a.sw);
   }
   cluster.sync();  // no block leaves while a peer reads its partials
 }
@@ -503,24 +514,24 @@ inline int cl_launch_ex(void (*kern)(Arg), const Arg& a, size_t smem,
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
-template <class Core, int RB, int BK>
+template <class Core, class Epi, int RB, int BK>
 inline int cl_launch(const ClArgs& a, int tiles, int splits,
                      cudaStream_t stream) {
-  return cl_launch_ex(cluster_gemm_kernel<Core, RB, BK>, a,
+  return cl_launch_ex(cluster_gemm_kernel<Core, RB, BK, Epi>, a,
                       cl_smem_bytes<Core>(RB, a.bits, a.x_bytes, a.w_bytes),
                       Core::THREADS, tiles, splits, stream);
 }
 
-template <class Core, int BK>
+template <class Core, class Epi, int BK>
 inline int cl_launch_rows(const ClArgs& a, int rb, int tiles, int splits,
                           cudaStream_t stream) {
   switch (rb) {
     case 4:
-      return cl_launch<Core, 4, BK>(a, tiles, splits, stream);
+      return cl_launch<Core, Epi, 4, BK>(a, tiles, splits, stream);
     case 16:
-      return cl_launch<Core, 16, BK>(a, tiles, splits, stream);
+      return cl_launch<Core, Epi, 16, BK>(a, tiles, splits, stream);
     default:
-      return cl_launch<Core, 64, BK>(a, tiles, splits, stream);
+      return cl_launch<Core, Epi, 64, BK>(a, tiles, splits, stream);
   }
 }
 
@@ -549,11 +560,11 @@ inline int cl_capacity_ex(const void* kern, size_t smem, int threads,
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kern, &cfg));
 }
 
-// The clusters of `splits` blocks of the instantiation for `rb` rows and
-// these operand types that the current device holds at once, into *out;
-// returns the CUDA error code.  cluster_plan reads it to count a launch's
-// waves.
-template <class Core>
+// The clusters of `splits` blocks of the instantiation for `rb` rows,
+// these operand types and the epilogue Epi that the current device holds
+// at once, into *out; returns the CUDA error code.  cluster_plan reads it
+// to count a launch's waves.
+template <class Core, class Epi>
 int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
                      int* out) {
   if (bits < 2 || bits > CL_MAX_BITS || splits < 1 ||
@@ -563,14 +574,20 @@ int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
   const void* kern = nullptr;
   const bool b64 = cl_bk(xb, wb) == 64;
   if (rb == 4)
-    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 64>)
-               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 4, 32>);
+    kern = b64 ? reinterpret_cast<const void*>(
+                     cluster_gemm_kernel<Core, 4, 64, Epi>)
+               : reinterpret_cast<const void*>(
+                     cluster_gemm_kernel<Core, 4, 32, Epi>);
   else if (rb == 16)
-    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 64>)
-               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 16, 32>);
+    kern = b64 ? reinterpret_cast<const void*>(
+                     cluster_gemm_kernel<Core, 16, 64, Epi>)
+               : reinterpret_cast<const void*>(
+                     cluster_gemm_kernel<Core, 16, 32, Epi>);
   else
-    kern = b64 ? reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 64>)
-               : reinterpret_cast<const void*>(cluster_gemm_kernel<Core, 64, 32>);
+    kern = b64 ? reinterpret_cast<const void*>(
+                     cluster_gemm_kernel<Core, 64, 64, Epi>)
+               : reinterpret_cast<const void*>(
+                     cluster_gemm_kernel<Core, 64, 32, Epi>);
   return cl_capacity_ex(kern, cl_smem_bytes<Core>(rb, bits, xb, wb),
                         Core::THREADS, splits, out);
 }
@@ -603,7 +620,7 @@ inline bool cl_make_args(ClArgs& a, const void* x, int x_bf16,
   a.tab = static_cast<const unsigned char*>(tab);
   a.sx = static_cast<const float*>(sx);
   a.sw = static_cast<const float*>(sw);
-  a.out = static_cast<float*>(out);
+  a.out = out;
   a.M = M;
   a.K = K;
   a.N = N;
@@ -619,13 +636,14 @@ inline bool cl_make_args(ClArgs& a, const void* x, int x_bf16,
   return true;
 }
 
-// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N), the launch that
+// f32 or bf16 (M,K) x f32 or bf16 (K,N) -> (M,N) through Epi (f32 for
+// ScaleOut, the raw int32 sum for QuantIntOut), the launch that
 // kernels/approx_matmul.py cluster_plan chose: `rb` rows a block (4, 16
 // or 64), K in `splits` slices (1..8) of `k_split` (a multiple of
 // CL_SPLIT_K; the slices cover K and none is empty).  Returns the CUDA
 // error code; a plan the kernel does not take is refused
 // (cudaErrorInvalidValue).
-template <class Core>
+template <class Core, class Epi>
 int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
                  const void* tab, const void* sx, const void* sw, void* out,
                  int M, int K, int N, int bits, int rb, int splits,
@@ -642,8 +660,8 @@ int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
     return bad;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cl_bk(a.x_bytes, a.w_bytes) == 64)
-    return cl_launch_rows<Core, 64>(a, rb, t, splits, st);
-  return cl_launch_rows<Core, 32>(a, rb, t, splits, st);
+    return cl_launch_rows<Core, Epi, 64>(a, rb, t, splits, st);
+  return cl_launch_rows<Core, Epi, 32>(a, rb, t, splits, st);
 }
 
 }  // namespace cim

@@ -8,10 +8,11 @@
 //   mitchell_matmul_partial (-> _fused_kernel, epilogue off): the mesh
 //     path's shard-local form, global scales in, the raw int32 sum out
 //     (QuantIntOut).
-// The int and partial forms, and the fused form of 9..16-bit operands
-// (log_gemm_fused_wide), are cim_gemm.cuh's gemm_kernel with
-// LogCore<compensated>; the fused form of 2..8-bit operands
-// (log_gemm_fused) is cluster_gemm.cuh's split-K cluster kernel with
+// The int form, and the fused and partial forms of 9..16-bit operands
+// (log_gemm_fused_wide, log_gemm_partial_wide), are cim_gemm.cuh's
+// gemm_kernel with LogCore<compensated>; the fused and partial forms of
+// 2..8-bit operands (log_gemm_fused, log_gemm_partial) are
+// cluster_gemm.cuh's split-K cluster kernel with
 // ClusterLogCore<compensated>, its operands staged as signed byte pairs
 // whose dot product is the Mitchell product.  kernels/mitchell_gemm.py
 // fused_route chooses between the two by the bits.
@@ -57,6 +58,31 @@ static int log_quant(const void* x, int x_bf16, const void* w, int w_bf16,
                                                bits, stream);
 }
 
+// log_gemm_fused and log_gemm_partial: the cluster kernel through Epi
+template <class Epi>
+static int log_cluster(const void* x, int x_bf16, const void* w, int w_bf16,
+                       const void* sx, const void* sw, void* out, int M,
+                       int K, int N, int bits, int compensated, int rb,
+                       int splits, int k_split, void* stream) {
+  if (compensated)
+    return cim::cluster_gemm<cim::ClusterLogCore<true>, Epi>(
+        x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K, N, bits, rb,
+        splits, k_split, stream);
+  return cim::cluster_gemm<cim::ClusterLogCore<false>, Epi>(
+      x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K, N, bits, rb, splits,
+      k_split, stream);
+}
+
+template <class Epi>
+static int log_capacity(int rb, int bits, int compensated, int x_bf16,
+                        int w_bf16, int splits, int* out) {
+  if (compensated)
+    return cim::cluster_capacity<cim::ClusterLogCore<true>, Epi>(
+        rb, bits, x_bf16, w_bf16, splits, out);
+  return cim::cluster_capacity<cim::ClusterLogCore<false>, Epi>(
+      rb, bits, x_bf16, w_bf16, splits, out);
+}
+
 extern "C" {
 
 // int8 (M,K) x int8 (K,N) -> int32 (M,N)
@@ -76,24 +102,17 @@ int log_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* sx, const void* sw, void* out, int M, int K,
                    int N, int bits, int compensated, int rb, int splits,
                    int k_split, void* stream) {
-  if (compensated)
-    return cim::cluster_gemm<cim::ClusterLogCore<true>>(
-        x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K, N, bits, rb,
-        splits, k_split, stream);
-  return cim::cluster_gemm<cim::ClusterLogCore<false>>(
-      x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K, N, bits, rb, splits,
-      k_split, stream);
+  return log_cluster<cim::ScaleOut>(x, x_bf16, w, w_bf16, sx, sw, out, M, K,
+                                    N, bits, compensated, rb, splits,
+                                    k_split, stream);
 }
 
 // the clusters of `splits` blocks of log_gemm_fused's kernel for `rb`
 // rows that the device holds at once, into *out (the launch plan's waves)
 int log_gemm_fused_capacity(int rb, int bits, int compensated, int x_bf16,
                             int w_bf16, int splits, int* out) {
-  if (compensated)
-    return cim::cluster_capacity<cim::ClusterLogCore<true>>(
-        rb, bits, x_bf16, w_bf16, splits, out);
-  return cim::cluster_capacity<cim::ClusterLogCore<false>>(
-      rb, bits, x_bf16, w_bf16, splits, out);
+  return log_capacity<cim::ScaleOut>(rb, bits, compensated, x_bf16, w_bf16,
+                                     splits, out);
 }
 
 // as log_gemm_fused for 2..16-bit operands on the tiled template (the
@@ -109,7 +128,26 @@ int log_gemm_fused_wide(const void* x, int x_bf16, const void* w,
 // as log_gemm_fused, out: the raw int32 sum (M,N)
 int log_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
                      const void* sx, const void* sw, void* out, int M, int K,
-                     int N, int bits, int compensated, void* stream) {
+                     int N, int bits, int compensated, int rb, int splits,
+                     int k_split, void* stream) {
+  return log_cluster<cim::QuantIntOut>(x, x_bf16, w, w_bf16, sx, sw, out, M,
+                                       K, N, bits, compensated, rb, splits,
+                                       k_split, stream);
+}
+
+// as log_gemm_fused_capacity, of log_gemm_partial's kernel
+int log_gemm_partial_capacity(int rb, int bits, int compensated, int x_bf16,
+                              int w_bf16, int splits, int* out) {
+  return log_capacity<cim::QuantIntOut>(rb, bits, compensated, x_bf16,
+                                        w_bf16, splits, out);
+}
+
+// as log_gemm_partial for 2..16-bit operands on the tiled template (the
+// partial form of 9..16-bit operands)
+int log_gemm_partial_wide(const void* x, int x_bf16, const void* w,
+                          int w_bf16, const void* sx, const void* sw,
+                          void* out, int M, int K, int N, int bits,
+                          int compensated, void* stream) {
   return log_quant(x, x_bf16, w, w_bf16, sx, sw, out, cim::QuantIntOut{}, M,
                    K, N, bits, compensated, stream);
 }

@@ -8,9 +8,10 @@
 //   lut_matmul_partial (-> _fused_kernel, epilogue off): the mesh path's
 //     shard-local form over a slice of K: quantization on load against
 //     the caller's global scales, the raw int32 sum out (QuantIntOut).
-// The int and partial forms are cim_gemm.cuh's gemm_kernel with the
-// LutCore; the fused form is cluster_gemm.cuh's split-K cluster kernel
-// with the ClusterLutCore.  Each computes out[m,n] = sum_k
+// The int form is cim_gemm.cuh's gemm_kernel with the LutCore; the fused
+// and partial forms are cluster_gemm.cuh's split-K cluster kernel with
+// the ClusterLutCore, epilogue on (ScaleOut) and off (QuantIntOut).  Each
+// computes out[m,n] = sum_k
 // LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})], LUT the signed product table of
 // core/luts.signed_product_lut.
 //
@@ -26,8 +27,9 @@
 // it to int16 after checking that every entry fits (kernels/ops.py), and
 // each block copies the 128 KiB table into dynamic shared memory once
 // (one block per SM), then gathers row offset + column index staged per
-// K step (cim_gemm.cuh); the fused form splits K over a cluster so that
-// a decode GEMM (M = 4) fills the card (cluster_gemm.cuh).
+// K step (cim_gemm.cuh); the fused and partial forms split K over a
+// cluster so that a decode GEMM (M = 4) fills the card
+// (cluster_gemm.cuh).
 
 #include "cim_gemm.cuh"
 #include "cluster_gemm.cuh"
@@ -48,27 +50,34 @@ int lut_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                    const void* lut, const void* sx, const void* sw,
                    void* out, int M, int K, int N, int bits, int rb,
                    int splits, int k_split, void* stream) {
-  return cim::cluster_gemm<cim::ClusterLutCore>(x, x_bf16, w, w_bf16, lut,
-                                                sx, sw, out, M, K, N, bits,
-                                                rb, splits, k_split, stream);
+  return cim::cluster_gemm<cim::ClusterLutCore, cim::ScaleOut>(
+      x, x_bf16, w, w_bf16, lut, sx, sw, out, M, K, N, bits, rb, splits,
+      k_split, stream);
 }
 
 // the clusters of `splits` blocks of lut_gemm_fused's kernel for `rb`
 // rows that the device holds at once, into *out (the launch plan's waves)
 int lut_gemm_fused_capacity(int rb, int bits, int x_bf16, int w_bf16,
                             int splits, int* out) {
-  return cim::cluster_capacity<cim::ClusterLutCore>(rb, bits, x_bf16, w_bf16,
-                                                    splits, out);
+  return cim::cluster_capacity<cim::ClusterLutCore, cim::ScaleOut>(
+      rb, bits, x_bf16, w_bf16, splits, out);
 }
 
 // as lut_gemm_fused, out: the raw int32 sum (M,N)
 int lut_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
                      const void* lut, const void* sx, const void* sw,
-                     void* out, int M, int K, int N, int bits,
-                     void* stream) {
-  return cim::dense_quant<cim::LutCore>(x, x_bf16, w, w_bf16, lut, sx, sw,
-                                        out, cim::QuantIntOut{}, M, K, N,
-                                        bits, stream);
+                     void* out, int M, int K, int N, int bits, int rb,
+                     int splits, int k_split, void* stream) {
+  return cim::cluster_gemm<cim::ClusterLutCore, cim::QuantIntOut>(
+      x, x_bf16, w, w_bf16, lut, sx, sw, out, M, K, N, bits, rb, splits,
+      k_split, stream);
+}
+
+// as lut_gemm_fused_capacity, of lut_gemm_partial's kernel
+int lut_gemm_partial_capacity(int rb, int bits, int x_bf16, int w_bf16,
+                              int splits, int* out) {
+  return cim::cluster_capacity<cim::ClusterLutCore, cim::QuantIntOut>(
+      rb, bits, x_bf16, w_bf16, splits, out);
 }
 
 }  // extern "C"

@@ -144,7 +144,7 @@ __device__ __forceinline__ void sg_flush(const SgArgs& s, size_t o, int col,
     }
     v = __fadd_rn(v, __fmul_rn(sqrtf(fmaxf(var, 0.f)), s.eps[o]));
   }
-  s.c.out[o] = v;
+  static_cast<float*>(s.c.out)[o] = v;
 }
 
 // four consecutive raw elements (2: bf16, 4: f32 bytes each) at element i

@@ -16,9 +16,9 @@ the JAX package:
 On CUDA tensors each launches its kernel (csrc/log_gemm.cu) or raises;
 on CPU tensors it runs the plain version (kernels/ref.py).  Sums
 wrap at 32 bits (16-bit operands can overflow int32, as in the
-reference).  The fused form of operands of at most 8 bits runs the
-split-K cluster kernel (csrc/cluster_gemm.cuh), wider ones the tiled
-template (csrc/cim_gemm.cuh): ``fused_route`` says which.
+reference).  The fused and partial forms of operands of at most 8 bits
+run the split-K cluster kernel (csrc/cluster_gemm.cuh), wider ones the
+tiled template (csrc/cim_gemm.cuh): ``fused_route`` says which.
 """
 
 from __future__ import annotations
@@ -37,13 +37,17 @@ _FUSED = CudaKernel("log_gemm", "log_gemm_fused",
                     _QUANT_ARGS + [INT, INT, INT, PTR])
 _FUSED_WIDE = CudaKernel("log_gemm", "log_gemm_fused_wide",
                          _QUANT_ARGS + [PTR])
-_PARTIAL = CudaKernel("log_gemm", "log_gemm_partial", _QUANT_ARGS + [PTR])
+_PARTIAL = CudaKernel("log_gemm", "log_gemm_partial",
+                      _QUANT_ARGS + [INT, INT, INT, PTR])
+_PARTIAL_WIDE = CudaKernel("log_gemm", "log_gemm_partial_wide",
+                           _QUANT_ARGS + [PTR])
 
-# mitchell_matmul_fused_wide: the fused form's other side of fused_route
-# (9..16-bit operands), on no served path
+# the *_wide kernels: the other side of fused_route (9..16-bit operands),
+# on no served path
 KERNELS = {"mitchell_matmul": _INT, "mitchell_matmul_fused": _FUSED,
            "mitchell_matmul_fused_wide": _FUSED_WIDE,
-           "mitchell_matmul_partial": _PARTIAL}
+           "mitchell_matmul_partial": _PARTIAL,
+           "mitchell_matmul_partial_wide": _PARTIAL_WIDE}
 
 # the widest operands the cluster kernel stages (a log operand as signed
 # bytes: |q| <= 127, 2^k <= 64)
@@ -55,10 +59,10 @@ def _check_bits(bits: int) -> None:
 
 
 def fused_route(bits: int) -> str:
-    """The kernel a fused log GEMM of `bits`-bit operands launches on the
-    card: "cluster" (csrc/cluster_gemm.cuh) up to CLUSTER_MAX_BITS,
-    "tiled" (csrc/cim_gemm.cuh) for wider operands, up to 16 bits.  Every
-    shape takes its bits' route."""
+    """The kernel a fused or partial log GEMM of `bits`-bit operands
+    launches on the card: "cluster" (csrc/cluster_gemm.cuh) up to
+    CLUSTER_MAX_BITS, "tiled" (csrc/cim_gemm.cuh) for wider operands, up
+    to 16 bits.  Every shape takes its bits' route."""
     _check_bits(bits)
     return "cluster" if bits <= CLUSTER_MAX_BITS else "tiled"
 
@@ -124,8 +128,12 @@ def mitchell_matmul_partial(x: torch.Tensor, w: torch.Tensor,
     m, k, n = _shapes(x, w)
     if not on_cuda(x, w, sx, sw):
         return mitchell_matmul_partial_plain(x, w, sx, sw, bits, compensated)
-    return _launch(_PARTIAL, x, w, sx, sw, m, k, n, bits, compensated,
-                   torch.int32)
+    if fused_route(bits) == "tiled":
+        return _launch(_PARTIAL_WIDE, x, w, sx, sw, m, k, n, bits,
+                       compensated, torch.int32)
+    _check_fused(x, w, sx, sw, n)
+    return launch_cluster(_PARTIAL, x, w, None, sx, sw, m, k, n, bits,
+                          int(compensated), out_dtype=torch.int32)
 
 
 def _launch(kern: CudaKernel, x, w, sx, sw, m, k, n, bits, compensated,

@@ -11,7 +11,9 @@ times them) at chip_smoke.py's eight qwen3-1.7b shapes (M = 4 and 64) at
 every split from 1 to 8 that leaves no slice empty, with chip_smoke.py's
 timer (L2 flushed, the card spun before each start event), and prints
 each split's ms, the device's cluster capacity and the plan's choice
-against the fastest.
+against the fastest; and so the mesh path's partial forms
+(``lut_matmul_partial``, ``mitchell_matmul_partial``: the same kernel,
+its epilogue off) at chip_smoke.py's shard shapes (PARTIAL_SHAPES).
 
 ``kernels/csrc/slstm_cluster.cuh`` (``slstm_scan``) keeps each sLSTM
 head's recurrent weights in a cluster of cs blocks;
@@ -100,6 +102,7 @@ def main() -> None:
               flush=True)
 
     slstm_sweep(cs, dev, flush, res)
+    partial_sweep(cs, dev, flush, lut, sweep)
     mu, c0, c1 = -0.013, 1480.0, 2.1e-4     # a surrogate law with SQ
     sur = cg.KERNELS["cim_gemm_fused"]
     for m, k, n in cs.MAIN_SHAPES:
@@ -142,6 +145,35 @@ def main() -> None:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "sweep.json"), "w") as f:
         json.dump(res, f, indent=1)
+
+
+def partial_sweep(cs, dev, flush, lut, sweep) -> None:
+    """The partial LUT and mitchell GEMMs (int32 out) at chip_smoke.py's
+    shard shapes, with its operands (bf16, global scales 1.25x the
+    shard's own), at every split through `sweep`."""
+    for m, k, n in cs.PARTIAL_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m * 11 + k + n)
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        sx, sw = ops._scales(x, w, 8)
+        sx, sw = sx * 1.25, sw * 1.25
+        out = torch.empty(m, n, dtype=torch.int32, device=dev)
+        steps = -(-k // am.CLUSTER_BK)
+        for name, kern, tab, flags in (
+                ("lut partial", am.KERNELS["lut_matmul_partial"],
+                 (lut.data_ptr(),), ()),
+                ("mitchell partial", mg.KERNELS["mitchell_matmul_partial"],
+                 (), (0,))):
+            plan = am.fused_plan(kern, x, w, 8, *flags)
+
+            def launch(s, ks, kern=kern, tab=tab, flags=flags, plan=plan):
+                kern(x.data_ptr(), 1, w.data_ptr(), 1, *tab, sx.data_ptr(),
+                     sw.data_ptr(), out.data_ptr(), m, k, n, 8, *flags,
+                     plan.rows, s, ks, stream_of(x))
+
+            sweep(name, (m, k, n), kern, (8, *flags, 1, 1), plan, launch,
+                  steps)
 
 
 def slstm_sweep(cs, dev, flush, res) -> None:

@@ -2,8 +2,12 @@
 torch model of its staged operands and product forms held against the
 reference's ``_log_product`` (src/repro/kernels/mitchell_gemm.py), the
 product rewrites it rests on at 8, 12 and 16 bits, the LUT's byte
-offsets, its launch plan (``approx_matmul.cluster_plan``) and the gate
-between it and the tiled template (``mitchell_gemm.fused_route``).
+offsets, its launch plan (``approx_matmul.cluster_plan``), the gate
+between it and the tiled template (``mitchell_gemm.fused_route``), and
+its partial forms (the mesh path's ``lut_matmul_partial`` and
+``mitchell_matmul_partial``: the epilogue off, the rank-order uint32 sum
+written as int32): their route and launch arguments, and a plain model
+of their sum against the plain versions.
 csrc/surrogate_cluster.cuh (``cim_gemm_fused``): the split of each square
 into two s8 halves, a plain torch model of its split-K SQ held against
 ``ref.square_dot``, SQ's K limit, its variants and its plan.  The kernels
@@ -15,7 +19,8 @@ import pytest
 import torch
 
 from repro.kernels.mitchell_gemm import _log_product
-from repro_torch.kernels import approx_matmul, cim_gemm, mitchell_gemm
+from repro_torch.core.multipliers import MultiplierSpec
+from repro_torch.kernels import approx_matmul, cim_gemm, mitchell_gemm, ops
 from repro_torch.kernels import ref as tref
 
 
@@ -241,6 +246,176 @@ def test_fused_route_is_the_bits_gate():
     for bits in (1, 17):
         with pytest.raises(ValueError, match="2..16-bit"):
             mitchell_gemm.fused_route(bits)
+
+
+# --- the partial forms (the mesh path's shard-local GEMMs) ------------------
+
+# the contraction-sharded wo and mlp.wo of qwen3-1.7b at model = 2, at a
+# decode round (M = 4) and a prefill (M = 64): chip_smoke.py PARTIAL_SHAPES
+SHARD_SHAPES = [(4, 1024, 2048), (4, 3072, 2048), (64, 1024, 2048),
+                (64, 3072, 2048)]
+
+
+@pytest.mark.parametrize("shape", SHARD_SHAPES, ids=str)
+def test_cluster_plan_at_the_shard_shapes(shape):
+    """Under the LUT kernel's and the log kernel's H100 capacities: one
+    row tile, a split the device holds, K covered with no slice empty,
+    and at M = 4 more than one slice (32 tiles leave most of the card
+    idle unsplit)."""
+    m, k, n = shape
+    for per_sm in (1, 2):
+        cap = _gpcs(H100_GPCS, per_sm)
+        p = approx_matmul.cluster_plan(m, k, n, cap)
+        assert p.rows == m and p.tiles == n // 64
+        assert cap(p.rows, p.splits) > 0
+        assert p.k_split % approx_matmul.CLUSTER_BK == 0
+        assert (p.splits - 1) * p.k_split < k <= p.splits * p.k_split
+        assert m != 4 or p.splits > 1
+
+
+class _Recorder:
+    """Stands in for a CudaKernel on the CPU: records each call's
+    arguments, checked against the C entry's signature; `refuse` makes
+    it raise as a launch the device refuses does."""
+
+    def __init__(self, kern, refuse=False):
+        self.library, self.symbol = kern.library, kern.symbol
+        self.argtypes, self.refuse, self.calls = kern.argtypes, refuse, []
+
+    def __call__(self, *args):
+        assert len(args) == len(self.argtypes), self.symbol
+        if self.refuse:
+            raise RuntimeError(f"{self.symbol}: CUDA error 1 at launch")
+        self.calls.append(args)
+
+
+def _card_side(monkeypatch, module, names, refuse=False):
+    """Run `module`'s wrappers' card side on CPU tensors: on_cuda says
+    yes, the kernels `names` (module attributes) record instead of
+    launching, and the plan reads an H100-like capacity (asked of the
+    kernel's own query).  Returns the recorders and the queries asked."""
+    monkeypatch.setattr(module, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(approx_matmul, "stream_of", lambda t: 0)
+    monkeypatch.setattr(mitchell_gemm, "stream_of", lambda t: 0)
+    asked = set()
+
+    def capacity(library, symbol, device, args, rows, splits):
+        asked.add(symbol)
+        return _gpcs(H100_GPCS, 1)(rows, splits)
+
+    monkeypatch.setattr(approx_matmul, "_capacity", capacity)
+    rec = {}
+    for name in names:
+        rec[name] = _Recorder(getattr(module, name), refuse)
+        monkeypatch.setattr(module, name, rec[name])
+    return rec, asked
+
+
+def _shard_operands(m=4, k=1024, n=2048):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n), np.float32) * 0.02)
+    return (x.to(torch.bfloat16), w.to(torch.bfloat16),
+            torch.ones(1), torch.ones(n))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_lut_partial_launches_the_cluster_kernel(monkeypatch, bits):
+    """The card side of lut_matmul_partial: the cluster kernel's partial
+    entry with the plan from its own capacity query, an int32 output; a
+    refused launch raises (no fallback to the template or the plain
+    version)."""
+    x, w, sx, sw = _shard_operands()
+    lut = torch.zeros(1 << (2 * bits), dtype=torch.int16)
+    rec, asked = _card_side(monkeypatch, approx_matmul,
+                            ["_PARTIAL", "_FUSED"])
+    out = approx_matmul.lut_matmul_partial(x, w, lut, sx, sw, bits)
+    assert out.dtype == torch.int32 and out.shape == (4, 2048)
+    (args,) = rec["_PARTIAL"].calls
+    assert not rec["_FUSED"].calls
+    assert rec["_PARTIAL"].symbol == "lut_gemm_partial"
+    assert asked == {"lut_gemm_partial_capacity"}
+    plan = approx_matmul.cluster_plan(4, 1024, 2048, _gpcs(H100_GPCS, 1))
+    assert args[-4:-1] == (plan.rows, plan.splits, plan.k_split)
+    assert args[7:12] == (out.data_ptr(), 4, 1024, 2048, bits)
+    _card_side(monkeypatch, approx_matmul, ["_PARTIAL"], refuse=True)
+    with pytest.raises(RuntimeError, match="lut_gemm_partial"):
+        approx_matmul.lut_matmul_partial(x, w, lut, sx, sw, bits)
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("bits", [2, 8, 9, 16])
+def test_log_partial_takes_the_route_of_its_bits(monkeypatch, bits,
+                                                 compensated):
+    """The card side of mitchell_matmul_partial follows fused_route: up to
+    8 bits the cluster kernel's partial entry (planned, compensated
+    before the plan), above it the tiled template's; int32 out either
+    way; a refused cluster launch raises."""
+    x, w, sx, sw = _shard_operands()
+    rec, asked = _card_side(monkeypatch, mitchell_gemm,
+                            ["_PARTIAL", "_PARTIAL_WIDE"])
+    out = mitchell_gemm.mitchell_matmul_partial(x, w, sx, sw, bits,
+                                                compensated)
+    assert out.dtype == torch.int32 and out.shape == (4, 2048)
+    cluster = mitchell_gemm.fused_route(bits) == "cluster"
+    assert cluster == (bits <= 8)
+    used, idle = ("_PARTIAL", "_PARTIAL_WIDE")[::1 if cluster else -1]
+    (args,) = rec[used].calls
+    assert not rec[idle].calls
+    assert args[6:11] == (out.data_ptr(), 4, 1024, 2048, bits)
+    assert args[11] == int(compensated)
+    if cluster:
+        plan = approx_matmul.cluster_plan(4, 1024, 2048,
+                                          _gpcs(H100_GPCS, 1))
+        assert args[12:15] == (plan.rows, plan.splits, plan.k_split)
+        assert asked == {"log_gemm_partial_capacity"}
+        _card_side(monkeypatch, mitchell_gemm, ["_PARTIAL"], refuse=True)
+        with pytest.raises(RuntimeError, match="log_gemm_partial"):
+            mitchell_gemm.mitchell_matmul_partial(x, w, sx, sw, bits,
+                                                  compensated)
+    else:
+        assert len(args) == 13 and not asked
+
+
+def _rank_order_sum(prods, k_split):
+    """The cluster kernel's partial form on int64 products (M, K, N): each
+    K slice of `k_split` (one block of the cluster) summed in uint32, the
+    slices' sums added in rank order in uint32 (the flush through
+    distributed shared memory), the result written as int32."""
+    total = torch.zeros(prods.shape[0], prods.shape[2], dtype=torch.int64)
+    for k0 in range(0, prods.shape[1], k_split):
+        total = (total + prods[:, k0:k0 + k_split].sum(1)) % (1 << 32)
+    return _wrap32(total).to(torch.int32)
+
+
+@pytest.mark.parametrize("core", ["lut", "mitchell", "log_our"])
+def test_rank_order_partial_sum_equals_the_plain_partial(core):
+    """At K = 250,000 with operands of 110..127 (one k in 64 with b
+    negated) every sum passes 2^31 and wraps; the kernel's split-K uint32 sum, in the plan's slices, written
+    as int32, equals the plain partial versions bit for bit."""
+    m, k, n = 2, 250_000, 3
+    rng = np.random.default_rng(7)
+    qa = torch.from_numpy(rng.integers(110, 128, (m, k)))
+    qb = torch.from_numpy(rng.integers(110, 128, (k, n)))
+    qb[::64] *= -1                    # some negative products
+    sx, sw = torch.tensor(0.5), torch.full((n,), 0.25)
+    x, w = qa.float() * sx, qb.float() * sw     # quantize back to qa, qb
+    plan = approx_matmul.cluster_plan(m, k, n, _gpcs(H100_GPCS, 1))
+    assert plan.splits == approx_matmul.CLUSTER_MAX_SPLITS
+    if core == "lut":
+        lut = ops.lut_table(MultiplierSpec("appro42", 8, True, "orplane",
+                                           10), "cpu")
+        prods = lut.long()[((qa + 128) << 8)[:, :, None]
+                           + (qb + 128)[None]]
+        want = approx_matmul.lut_matmul_partial_plain(x, w, lut, sx, sw)
+    else:
+        comp = core == "log_our"
+        prods = tref.log_product(qa[:, :, None], qb[None], 8, comp)
+        want = mitchell_gemm.mitchell_matmul_partial_plain(x, w, sx, sw, 8,
+                                                           comp)
+    assert int(prods.sum(1).min()) >= 1 << 31      # every sum wraps
+    got = _rank_order_sum(prods, plan.k_split)
+    assert want.dtype == torch.int32 and torch.equal(got, want)
 
 
 

@@ -25,6 +25,18 @@ from repro_torch.models.common import CiMContext, CiMParams
 FAMS = ["exact", "appro42", "log_our", "mitchell"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's torch ops, restored after it.
+    Its ops are small; next to the other test workers on the same cores,
+    torch's default pool (a thread a core) spends its time waiting for
+    cores those workers hold, not computing."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _numpy_tree(tree):
     return {k: np.asarray(getattr(v, "value", v)) for k, v in tree.items()}
 

@@ -1113,6 +1113,69 @@ def test_cluster_kernels_bitwise_equal_plain_versions(shape, dtype):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", CLUSTER_EDGES, ids=str)
+def test_cluster_partials_bitwise_equal_plain_versions(shape, dtype):
+    """The partial forms at the cluster kernel's edges: the LUT at 4 and 8
+    bits and mitchell and log_our at 8 on the cluster kernel, the log
+    forms at 16 on the tiled template (fused_route); int32, bitwise the
+    plain versions, through the epilogue bitwise the fused kernels, and
+    each launched on its bits' route."""
+    dev = _card()
+    x, w = _float_ops(*shape, dev, dtype, seed=sum(shape) + 1)
+    kerns = {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS}
+    names = ("lut_matmul_partial", "mitchell_matmul_partial",
+             "mitchell_matmul_partial_wide")
+    before = {n: kerns[n].launches for n in names}
+    cases = []
+    for spec in (BALANCED, LUT4):
+        lut = ops.lut_table(spec, dev)
+        sx, sw = ops._scales(x, w, spec.bits)
+        cases.append((approx_matmul.lut_matmul_partial(x, w, lut, sx, sw,
+                                                       spec.bits),
+                      approx_matmul.lut_matmul_partial_plain(
+                          x, w, lut, sx, sw, spec.bits),
+                      approx_matmul.lut_matmul_fused(x, w, lut, sx, sw,
+                                                     spec.bits), sx, sw))
+    for bits in (8, 16):
+        sx, sw = ops._scales(x, w, bits)
+        for comp in (False, True):
+            cases.append((
+                mitchell_gemm.mitchell_matmul_partial(x, w, sx, sw, bits,
+                                                      comp),
+                mitchell_gemm.mitchell_matmul_partial_plain(x, w, sx, sw,
+                                                            bits, comp),
+                mitchell_gemm.mitchell_matmul_fused(x, w, sx, sw, bits,
+                                                    comp), sx, sw))
+    torch.cuda.synchronize()
+    for got, want, fused, sx, sw in cases:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert torch.equal(approx_matmul.epilogue(got, sx, sw), fused)
+    assert {n: kerns[n].launches - c for n, c in before.items()} == \
+        {"lut_matmul_partial": 2, "mitchell_matmul_partial": 2,
+         "mitchell_matmul_partial_wide": 2}
+
+
+def test_cluster_partial_capacity_query_bounds_the_plan():
+    """The partial instantiations' own capacity queries: positive for
+    every row tile and split, no larger for a larger cluster, and the
+    plan at a shard shape (M = 4) a split they hold."""
+    dev = _card()
+    x, w = _float_ops(4, 1024, 2048, dev, torch.bfloat16)
+    for kern, flags in ((approx_matmul.KERNELS["lut_matmul_partial"], ()),
+                        (mitchell_gemm.KERNELS["mitchell_matmul_partial"],
+                         (1,))):
+        for rows in approx_matmul.CLUSTER_ROWS:
+            caps = [approx_matmul._capacity(
+                kern.library, kern.symbol + "_capacity", 0,
+                (8, *flags, 1, 1), rows, s) for s in range(1, 9)]
+            assert all(c > 0 for c in caps), (kern.symbol, rows, caps)
+            assert caps == sorted(caps, reverse=True)
+        plan = approx_matmul.fused_plan(kern, x, w, 8, *flags)
+        assert plan.rows == 4 and plan.tiles == 32 and plan.splits > 1
+
+
 def test_cluster_kernels_take_mixed_and_misaligned_operands():
     """x bf16 with w f32 and the reverse; operands whose storage starts 2
     or 4 bytes past a 16-byte boundary (loaded by elements)."""

@@ -18,6 +18,18 @@ XLSTM = (4, 192)                 # xlstm-125m: 4 sLSTM heads of 192
 FIT_192 = (3, 4, 6, 8, 12, 16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's torch ops, restored after it.
+    Its ops are small; next to the other test workers on the same cores,
+    torch's default pool (a thread a core) spends its time waiting for
+    cores those workers hold, not computing."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _k_split(dh, cs):
     """The kernel's k split of a column (sl_geometry): `ks` groups of
     threads, doubled from 4 while a block keeps two columns' worth of

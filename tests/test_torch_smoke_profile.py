@@ -87,6 +87,16 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "CiM surrogate kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi4ELi64EEEvNS_"
      "6ClArgsE", "CiM log kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb0EEELi64ELi32ENS_"
+     "8ScaleOutEEEvNS_6ClArgsE", "CiM log kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi4ELi64ENS_"
+     "8ScaleOutEEEvNS_6ClArgsE", "CiM LUT kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi4ELi64ENS_"
+     "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi16ELi64ENS_"
+     "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
+    ("_ZN3cim11gemm_kernelINS_7LutCoreENS_7ConvSrcIfEEfNS_11QuantIntOutEEEv"
+     "T0_PKT1_PKhPKfSB_PNT2_3OutES8_iiii", "CiM partial kernel"),
     ("_ZN3cim20int8_mma_conv_kernelEPKfS1_S1_S1_PfNS_8ConvGeomEii",
      "CiM conv kernel"),
     ("_ZN5slstm20slstm_cluster_kernelENS_6SlArgsE", "sLSTM scan"),
@@ -99,3 +109,25 @@ def test_port_kernels_are_told_by_name(smoke, name, cls):
     from its mangled name: every kernel of the port's wrappers has one."""
     assert smoke._kernel_class(name, set()) == cls
     assert cls in smoke.PORT_CLASSES
+
+
+@pytest.mark.parametrize("busy,kept,left_out", [
+    ([4.0, 2.0, 3.0, 5.0, 6.0], 3, 0),
+    ([None, ("lost", 1.0), 4.0, 2.0, 3.0], 3, 2),
+    ([None, None, None, 2.0, None], 1, 4)])
+def test_profile_reads_records_made_elsewhere(smoke, monkeypatch, capsys,
+                                              busy, kept, left_out):
+    """Phase 9: rank 0 makes MESH_PROFILE_ROUNDS records while every rank
+    decodes; `_profile(made=...)` takes them in order under the same
+    rule, never profiles a call itself, and never reads past them."""
+    records = []
+    _feed(smoke, monkeypatch, busy)
+    for _ in busy:
+        records.append(smoke._profile_once(None, None))
+    calls = _feed(smoke, monkeypatch, [])       # any call would fail
+    assert len(busy) == smoke.MESH_PROFILE_ROUNDS
+    smoke._profile(None, "balanced", None, 0.02, made=records)
+    out = capsys.readouterr().out
+    assert not calls
+    assert f"{kept} profiled runs: median" in out
+    assert out.count("lost kernels") == left_out

@@ -39,13 +39,19 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      64, timed, its routing printed); then
      the three attention kernels (fused, and the oracle's scores and PV
      stages) on every datapath at the serving decode and prefill
-     geometries and the reference tests' geometry: scores bitwise
-     against the plain version, fused bitwise against the oracle, fused
-     and the PV stage within 8 eps of |plain| in every output (only the
-     order of the l sum differs); the surrogate GEMMs at the LM shapes,
-     the CNN's fc and the ragged shape: ``cim_gemm_core`` D bitwise and
-     SQ within (K - 1) 2^-24 relative of the exact value (the f32 sum's
-     bound), ``cim_gemm_fused`` (the split-K cluster kernel,
+     geometries, the reference tests' geometry and a long ragged decode
+     (Skv 2048): scores bitwise against the plain version, fused bitwise
+     against the oracle, fused and the PV stage within 8 eps of |plain|
+     in every output (only the order of the l sum differs), and the
+     fused cluster kernel (csrc/attn_cluster.cuh) forced to every split
+     of the kv blocks, each bitwise the oracle, also at a head dim of 10
+     and with K/V one float off 16-byte alignment (its element-wise
+     ring); the log path's 10- and 12-bit operands on the template's
+     fused kernel (``attn_fused_wide``, fused_route's other side), fused
+     bitwise the oracle and within 8 eps of plain; the surrogate GEMMs at
+     the LM shapes, the CNN's fc and the ragged shape: ``cim_gemm_core``
+     D bitwise and SQ within (K - 1) 2^-24 relative of the exact value
+     (the f32 sum's bound), ``cim_gemm_fused`` (the split-K cluster kernel,
      csrc/surrogate_cluster.cuh, its launch plans printed) for the
      appro42 and log_our coefficients bitwise without noise and, given
      the same eps, with it (bf16 and f32 operands; SQ exact on the
@@ -243,6 +249,17 @@ ATTN_MAIN = [(4, 16, 8, 1, 320, 128, "decode"),
 ATTN_SMALL = [(2, 4, 2, 21, 29, 12, v) for v in ("causal", "window",
                                                   "ragged")] \
     + [(2, 4, 2, 1, 29, 12, "decode")]
+# a long ragged decode (a 2,048-token cache, slots filled to 2047, 1500,
+# 700, 130): checked, with every split of its 16 kv blocks, not timed
+ATTN_LONG = [(4, 16, 8, 1, 2048, 128, "decode")]
+# the cluster kernel's element-wise K/V ring (no cp.async): a head dim of
+# 10 (D % 4 != 0), and K/V one float past 16-byte alignment ("offset",
+# else causal); checked as ATTN_SMALL is, not timed
+ATTN_ODD = [(2, 4, 2, 21, 29, 10, "causal"), (2, 4, 2, 21, 29, 12, "offset")]
+# the log path's operand widths past the cluster kernel's 8 bits, which
+# fused_route sends to the template's fused kernel (attn_fused_wide):
+# checked at ATTN_SMALL and the serving decode, not timed
+ATTN_WIDE_BITS = (10, 12)
 # an attention kernel against its plain version: |d| <= LSUM_EPS eps |plain|
 # for every output (the l sum's rounding; see _lsum_check)
 LSUM_EPS = 8
@@ -257,7 +274,7 @@ SOURCES = {
     "mitchell_matmul_fused": (
         "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
         "src/repro/kernels/mitchell_gemm.py:173"),
-    "attn_fused": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
+    "attn_fused": ("src/repro_torch/kernels/csrc/attn_cluster.cuh",
                    "src/repro/kernels/attn_gemm.py:381"),
     "attn_scores": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
                     "src/repro/kernels/attn_gemm.py:447"),
@@ -432,12 +449,15 @@ def _bound(name: str, m: int, k: int, n: int, sms: int, clock_hz: float,
 
 
 def log_clocks(build) -> None:
-    """Fill LOG_CLOCKS from the SASS of the built log GEMM and conv
-    libraries: per instantiation of the template's LogCore, the product
-    loop's instructions a product by pipe, and the SM clocks they need;
-    per log instantiation of the cluster kernel (csrc/cluster_gemm.cuh,
-    RB rows a block, BK k a stage, fused and partial), the same over its
-    K step's product section (RB rows x BK / 4 k a thread)."""
+    """Fill LOG_CLOCKS from the SASS of the built log GEMM, conv and
+    attention libraries: per instantiation of the template's LogCore, the
+    product loop's instructions a product by pipe, and the SM clocks they
+    need; per log instantiation of the cluster kernel
+    (csrc/cluster_gemm.cuh, RB rows a block, BK k a stage, fused and
+    partial), the same over its K step's product section (RB rows x BK /
+    4 k a thread); per log instantiation of the attention cluster kernel
+    (csrc/attn_cluster.cuh), over each of its row loops.  The fewest of
+    all bound every log kernel, so no row's share passes 100%."""
     import re
 
     from repro_torch.kernels import sass
@@ -469,10 +489,32 @@ def log_clocks(build) -> None:
                 print(f"    {lib:<9} {inst:<48} {c['alu']:.3f} / "
                       f"{c['fma']:.3f} / {c['xu']:.3f} / {c['either']:.3f} "
                       f"/ {c['int']:.3f} -> {clk:.4f} ({by})")
+    # the attention cluster kernel's log instantiations: its tile GEMM's
+    # row loops (QK^T and PV), each pass 16 products a lane, counted from
+    # the loop's dp4a (IDP): mitchell two products each, log_our one
+    attn = set()
+    fns = sass.functions(sass.disassemble(build.library_path("attn_gemm")))
+    for name, insns in sorted(fns.items()):
+        for comp, tag in ((False, "ILi3ELb0E"), (True, "ILi3ELb1E")):
+            if "attn_cluster_kernel" not in name or tag not in name:
+                continue
+            for li, (body, idp) in enumerate(sass.idp_loops(insns)):
+                c = sass.section_per_product(body, idp * (1 if comp else 2))
+                clk, by = sass.clocks_per_product(c)
+                LOG_CLOCKS[comp] = min(LOG_CLOCKS.get(comp, clk), clk)
+                attn.add(comp)
+                inst = (f"attn cluster {'log_our' if comp else 'mitchell'} "
+                        f"loop {li}")
+                print(f"    {'attn_gemm':<9} {inst:<48} {c['alu']:.3f} / "
+                      f"{c['fma']:.3f} / {c['xu']:.3f} / {c['either']:.3f} "
+                      f"/ {c['int']:.3f} -> {clk:.4f} ({by})")
     if set(LOG_CLOCKS) != {False, True}:
         fail("no LogCore instantiation found in the log libraries' SASS")
     if cluster != {False, True}:
         fail("no cluster log kernel found in liblog_gemm's SASS")
+    if attn != {False, True}:
+        fail("no log product loop of the attention cluster kernel found in "
+             "libattn_gemm's SASS")
     print(f"  LOG_CLOCKS (fewest of any instantiation): mitchell "
           f"{LOG_CLOCKS[False]:.4f}, log_our {LOG_CLOCKS[True]:.4f}",
           flush=True)
@@ -1320,8 +1362,9 @@ def _attn_inputs(torch, dev, b, h, kh, sq, skv, d, variant, seed):
     kpos = torch.arange(skv, dtype=torch.int32, device=dev).expand(b, skv)
     window = 5 if variant == "window" else None
     if variant == "decode" and sq == 1 and skv > 64:
-        fill = torch.tensor([skv - 1, 249, 130, 199], dtype=torch.int32,
-                            device=dev)[:b, None]
+        fills = ([skv - 1, 1500, 700, 130] if skv > 1500
+                 else [skv - 1, 249, 130, 199])
+        fill = torch.tensor(fills, dtype=torch.int32, device=dev)[:b, None]
         qpos, kval = fill, kpos <= fill
     elif variant == "prefill":
         lens = torch.tensor([256, 200, 131, 250], dtype=torch.int32,
@@ -1334,6 +1377,8 @@ def _attn_inputs(torch, dev, b, h, kh, sq, skv, d, variant, seed):
                                                               [skv, skv])
         kval = kpos < torch.tensor(cut, device=dev)[:, None]
     qpos, kval = qpos.contiguous(), kval.to(torch.int32).contiguous()
+    if variant == "offset":
+        k, v = _misaligned(torch, k), _misaligned(torch, v)
     sc = attn_gemm.attn_scales(q, k, v, 8)
     return (q, k, v), sc, (qpos, kpos.contiguous(), kval), window
 
@@ -1417,13 +1462,14 @@ def check_attention(torch, sms: int, clock_hz: float):
           f"|d|, outputs differing, beyond l-sum rounding", flush=True)
     for label, path, spec, comp in paths:
         table = ops._attn_table(path, spec, dev)
-        geoms = ATTN_MAIN + (ATTN_SMALL if label != "log_our" else [])
+        geoms = (ATTN_MAIN + (ATTN_SMALL if label != "log_our" else [])
+                 + ATTN_LONG + ATTN_ODD)
         for gi, geom in enumerate(geoms):
             b, h, kh, sq, skv, d, variant = geom
             (q, k, v), sc, pos, window = _attn_inputs(
                 torch, dev, *geom, seed=17 * gi + len(label))
-            bk = (16 if geom in ATTN_SMALL else heuristic_attn_block(
-                f"pallas_attn_{path}", sq, skv)[1])
+            bk = (16 if geom in ATTN_SMALL + ATTN_ODD else
+                  heuristic_attn_block(f"pallas_attn_{path}", sq, skv)[1])
             kw = dict(path=path, bits=8, causal=True, window=window,
                       compensated=comp, block=(8, bk))
             calls = {
@@ -1464,6 +1510,25 @@ def check_attention(torch, sms: int, clock_hz: float):
                 fail(f"{where}: PV stage vs plain: {pv_level} outputs differ "
                      f"by more than {LSUM_EPS} eps of |plain| (max |d| "
                      f"{pv_err})")
+            # the cluster kernel forced to every split of the kv blocks
+            # that leaves no range empty: bitwise the oracle (so within
+            # the l sum's rounding of the plain version, as above)
+            plan = ag.device_plan(q, k, path, 8, bk, comp, causal=True)
+            nk = -(-skv // bk)
+            for splits in range(1, min(ag.MAX_SPLITS, nk) + 1):
+                forced = ag._attn_fused_forced(q, k, v, *sc, *pos, table,
+                                               {"splits": splits}, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(forced, mat):
+                    fail(f"{where}: the cluster kernel at {splits} splits "
+                         f"!= materialized (max |d| "
+                         f"{float((forced - mat).abs().max())})")
+            print(f"  {label:<8} {str(geom[:6]):<28} plan: bq {plan.bq}, "
+                  f"{plan.splits} splits of {plan.per} kv blocks ("
+                  f"{plan.chunks} chunks), ring {plan.rk} keys, "
+                  f"{plan.smem} B, {plan.tiles} tiles in {plan.waves} "
+                  f"waves; splits 1..{min(ag.MAX_SPLITS, nk)} forced, each "
+                  f"== oracle", flush=True)
             timed = geom in ATTN_MAIN
             for name in rows:
                 row = {"path": label, "geometry": geom,
@@ -1487,7 +1552,55 @@ def check_attention(torch, sms: int, clock_hz: float):
                 print(f"  {label:<8} {str(geom):<40} scores bitwise, fused "
                       f"== oracle, fused-plain {err:.3e} ({n_diff} differ, "
                       f"none beyond l-sum rounding)", flush=True)
+    check_attention_wide(torch, dev)
     return rows
+
+
+def check_attention_wide(torch, dev):
+    """The log path's ATTN_WIDE_BITS operands (mitchell and log_our) at
+    ATTN_SMALL and the serving decode: each call launches the template's
+    fused kernel (attn_fused_wide) once and the cluster kernel no time,
+    fused bitwise the oracle and within LSUM_EPS eps of the plain
+    version."""
+    from repro_torch.core.autotune import heuristic_attn_block
+    from repro_torch.kernels import attn_gemm as ag
+
+    wide, cluster = ag.KERNELS["attn_fused_wide"], ag.KERNELS["attn_fused"]
+    for comp in (False, True):
+        label = "log_our" if comp else "log"
+        for bits in ATTN_WIDE_BITS:
+            worst = 0.0
+            for gi, geom in enumerate(ATTN_SMALL + ATTN_MAIN[:1]):
+                sq, skv = geom[3], geom[4]
+                (q, k, v), _, pos, window = _attn_inputs(
+                    torch, dev, *geom, seed=31 * gi + bits)
+                sc = ag.attn_scales(q, k, v, bits)
+                bk = (16 if geom in ATTN_SMALL else heuristic_attn_block(
+                    "pallas_attn_log", sq, skv)[1])
+                kw = dict(path="log", bits=bits, causal=True, window=window,
+                          compensated=comp, block=(8, bk))
+                n_wide, n_cluster = wide.launches, cluster.launches
+                fused = ag.attn_fused(q, k, v, *sc, *pos, **kw)
+                moved = (wide.launches - n_wide, cluster.launches - n_cluster)
+                mat = ag.attn_materialized(q, k, v, *sc, *pos, **kw)
+                plain = ag.attn_reference(q, k, v, *sc, *pos, **kw)
+                torch.cuda.synchronize()
+                where = f"attention {label} {bits} bits {geom}"
+                if moved != (1, 0):
+                    fail(f"{where}: launched attn_fused_wide {moved[0]} and "
+                         f"the cluster kernel {moved[1]} times, not 1 and 0")
+                if not torch.equal(fused, mat):
+                    fail(f"{where}: fused (template) != materialized (max "
+                         f"|d| {float((fused - mat).abs().max())})")
+                err, _, n_level = _lsum_check(torch, fused, plain)
+                if n_level:
+                    fail(f"{where}: fused (template) vs plain: {n_level} "
+                         f"outputs differ by more than {LSUM_EPS} eps of "
+                         f"|plain| (max |d| {err})")
+                worst = max(worst, err)
+            print(f"  {label:<8} {bits} bits, the template's fused kernel at "
+                  f"{len(ATTN_SMALL) + 1} geometries: == oracle, fused-plain "
+                  f"{worst:.3e} (none beyond l-sum rounding)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2980,7 +3093,7 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM surrogate kernel"
     if "logcore" in low:
         return "CiM log kernel"
-    if "attn_kernel" in low:
+    if "attn_kernel" in low or "attn_cluster_kernel" in low:
         return "CiM attention kernel"
     if "slstm_kernel" in low or "slstm_cluster" in low:
         return "sLSTM scan"

@@ -22,7 +22,8 @@ numerics: the online softmax is tiled along the kv axis, so the float
 result depends on it.  The port therefore resolves the reference's
 ``bk`` for every entry, on both devices.  ``bq`` is free on Hopper (a
 query row's result does not depend on which rows share its block); the
-CUDA kernels pick their own (kernels/attn_gemm.ATTN_BQ).
+CUDA kernels pick their own (the template kernels.attn_gemm.ATTN_BQ, the
+cluster kernel attn_gemm.attn_cluster_plan).
 """
 
 from __future__ import annotations

@@ -26,7 +26,11 @@ masked row gives 0, not a resurrected exp(0).
 On CUDA tensors each entry point launches its kernels
 (csrc/attn_gemm.cu) or raises; on CPU tensors it runs the plain version
 below, which repeats the kernels' arithmetic with torch ops (the twin of
-the reference's ``attn_reference`` and its two-stage oracle).  The
+the reference's ``attn_reference`` and its two-stage oracle).  The fused
+form of operands of at most 8 bits runs the cluster kernel of
+csrc/attn_cluster.cuh (``fused_route``), cut by ``attn_cluster_plan``:
+a block holds every q head of one kv head over a tile of query rows, and
+a thread-block cluster splits the tile's kv blocks.  The
 scales are per-(batch, q-head) for Q and per-(batch, kv-head) for K/V
 (``attn_scales``), so GQA head expansion and per-head tier composition
 are exact.
@@ -34,13 +38,15 @@ are exact.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from .approx_matmul import check_subs, check_table
-from .build import (INT, PTR, SMEM_BYTES, CudaKernel, on_cuda, require,
-                    stream_of)
+from .build import (INT, PTR, SMEM_BYTES, CudaKernel, on_cuda, query,
+                    require, stream_of)
 from .ref import k_chunk, log_product, nibble_sum, quantize_tile
 
 NEG_INF = -1e30          # finite stand-in for -inf: exp() underflows to 0
@@ -49,19 +55,29 @@ _EPS_L = 1e-30           # normalizer floor for fully masked rows
 ATTN_PATHS = ("mxu", "lut", "nibble", "log")
 _PATH_ID = {p: i for i, p in enumerate(ATTN_PATHS)}
 
-# query rows per block of the CUDA kernels (bq is free on Hopper: the
+# query rows per block of the template kernels (bq is free on Hopper: the
 # result of a row does not depend on the rows beside it); the launch
 # uses min(ATTN_BQ, Sq)
 ATTN_BQ = 32
 
 _ARGS = [PTR] * 12 + [INT] * 14 + [PTR]
-_FUSED = CudaKernel("attn_gemm", "attn_fused", _ARGS)
+# the cluster kernel: no score tensor, then its plan (bq, splits, per, rk)
+_FUSED = CudaKernel("attn_gemm", "attn_fused", [PTR] * 11 + [INT] * 17
+                    + [PTR])
+_FUSED_WIDE = CudaKernel("attn_gemm", "attn_fused_wide", _ARGS)
 _SCORES = CudaKernel("attn_gemm", "attn_scores", _ARGS)
 _PV = CudaKernel("attn_gemm", "attn_pv", _ARGS)
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
-# resets their launch counts); the oracle `attn_materialized` is two
-KERNELS = {"attn_fused": _FUSED, "attn_scores": _SCORES, "attn_pv": _PV}
+# resets their launch counts); the oracle `attn_materialized` is two;
+# attn_fused_wide is the other side of fused_route (9..12-bit log
+# operands), on no served path
+KERNELS = {"attn_fused": _FUSED, "attn_fused_wide": _FUSED_WIDE,
+           "attn_scores": _SCORES, "attn_pv": _PV}
+
+# the widest operands the cluster kernel stages (csrc/attn_cluster.cuh
+# AC_MAX_BITS: a log operand as signed bytes)
+CLUSTER_MAX_BITS = 8
 
 
 def _sm_scale(head_dim: int) -> float:
@@ -367,6 +383,230 @@ def attn_smem_bytes(path: str, bits: int, bq: int, bk: int, d: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the cluster kernel (csrc/attn_cluster.cuh): its route, its shared-memory
+# model (ac_geometry's total) and its launch plan
+# ---------------------------------------------------------------------------
+
+_AC_STAGES = 4                 # the K/V ring's stages (AC_STAGES)
+MAX_SPLITS = 8                 # the portable cluster size (AC_MAX_SPLITS)
+RING_KEYS = (64, 32, 16, 8, 4)  # keys a ring tile (the K/V ring's tiles)
+QUERY_ROWS = (1, 2, 4, 8, 16, 32, 64)   # bq candidates
+# The quantization of a kv block's K and V (2 bk D IEEE divisions) in
+# rows' worth of its products (2 bk D a row): the plan's cost of a kv
+# block is R + this, R = group bq.  About 20 instructions a division
+# against a product's: a LUT gather and two adds, a log_our dp4a and
+# compare, half a mitchell dp4a, a quarter of an mxu one, nibble's four
+# gathers and split.
+_QUANT_ROWS = {"lut": 6, "log_our": 6, "log": 24, "mxu": 48, "nibble": 2}
+# A ring tile's wait (rk keys of K or V in flight from L2; about 2,000 SM
+# clocks whatever rk, measured in the kernel at qwen3's prefill on an
+# H100) in rows' worth of a kv block's products (about 2,200 clocks a LUT
+# row, 800 a mitchell row)
+_TILE_ROWS = {"lut": 1, "log_our": 1, "log": 2, "mxu": 4, "nibble": 0.5}
+
+
+def fused_route(path: str, bits: int) -> str:
+    """The kernel a fused attention of `bits`-bit operands launches on the
+    card: "cluster" (csrc/attn_cluster.cuh) up to CLUSTER_MAX_BITS,
+    "template" (csrc/attn_gemm.cu, entry attn_fused_wide) for the log
+    path's 9..12-bit operands.  Every shape takes its bits' route."""
+    max_bits = 12 if path == "log" else 8
+    require(path in ATTN_PATHS and 2 <= bits <= max_bits,
+            f"the {path} path takes 2..{max_bits}-bit operands, got {bits}")
+    return "cluster" if bits <= CLUSTER_MAX_BITS else "template"
+
+
+def _apw(path: str, compensated: bool) -> int:
+    """Operands a staged A word holds (csrc ac_apw)."""
+    if path == "lut":
+        return 1
+    if path == "log":
+        return 1 if compensated else 2
+    return 4
+
+
+def _bpw(path: str, compensated: bool) -> int:
+    """Operands a staged B word holds (csrc ac_bpw)."""
+    if path == "log":
+        return 1 if compensated else 2
+    return 4
+
+
+def padded_block(bk: int) -> int:
+    """The kv block as the cluster kernel stages it: bk padded to 16
+    (keys past bk are masked, their operands zero)."""
+    return -(-bk // 16) * 16
+
+
+@functools.lru_cache(maxsize=4096)
+def attn_cluster_smem(path: str, bits: int, group: int, bq: int, per: int,
+                      bk: int, d: int, rk: int,
+                      compensated: bool = False) -> int:
+    """Dynamic shared memory of one block of the cluster kernel (the total
+    of csrc/attn_cluster.cuh's ac_geometry, which refuses any other):
+    the table, the K/V ring, the staged K / V^T tile, the staged q rows
+    (then pq's), per kv block of the range its score tile (then its
+    pvf), row maxima, corr, sum p and prefix maxima, the accumulator,
+    the row state, the liveness and the positions."""
+    r, c = group * bq, per
+    kpq, bkp = -(-d // 16) * 16, padded_block(bk)
+    apw, bpw = _apw(path, compensated), _bpw(path, compensated)
+    rsq, rsp = (kpq // bpw // 4) | 1, (bkp // bpw // 4) | 1
+    drs = -(-d // 4) * 4 + 4
+    return (_al(_table_bytes(path, bits))
+            + _al(_AC_STAGES * rk * drs * 4)
+            + _al(max(bkp * rsq, d * rsp) * 16)
+            + _al(r * max(kpq, bkp) // apw * 4)
+            + _al(c * r * max(bkp, d) * 4) + _al(r * d * 4)
+            + 5 * _al(c * r * 4) + 3 * _al(r * 4)
+            + 2 * _al(c * 4) + _al((c + 1) * 4)
+            + 2 * _al(c * bkp * 4) + _al(bq * 4))
+
+
+class AttnClusterPlan(NamedTuple):
+    """One launch of the cluster kernel: `bq` query rows a tile, the kv
+    blocks in `splits` ranges of `per` blocks (as `chunks` of splits x
+    per where one range does not fit), `rk` keys a ring tile, `smem`
+    bytes a block; `tiles` clusters in `waves` of the device's
+    capacity."""
+    bq: int
+    splits: int
+    per: int
+    rk: int
+    smem: int
+    tiles: int
+    waves: int
+    chunks: int
+
+
+def _blocks_a_tile(nk: int, bk: int, sq: int, skv: int, bq: int,
+                   n_split: int, per: int, causal: bool) -> float:
+    """The kv blocks a query tile's slowest rank computes, summed over the
+    chunks and averaged over the tiles: a causal mask with the queries at
+    the end of the keys leaves a tile the blocks up to its last query's,
+    a prefix, of which rank 0 of each chunk holds the most."""
+    span, n_qt = n_split * per, -(-sq // bq)
+
+    def blocks(live):            # over the chunks, rank 0's share of live
+        full, rest = divmod(live, span)
+        return full * per + min(per, rest)
+
+    if not causal:
+        return float(blocks(nk))
+    return sum(blocks(min(nk, (skv - sq + min(sq, (t + 1) * bq) - 1) // bk
+                          + 1)) for t in range(n_qt)) / n_qt
+
+
+def attn_cluster_plan(b: int, h: int, kh: int, sq: int, skv: int, d: int,
+                      path: str, bits: int,
+                      capacity: Callable[[int, int], int], *, bk: int,
+                      compensated: bool = False, causal: bool = False,
+                      splits: Optional[int] = None, bq: Optional[int] = None,
+                      rk: Optional[int] = None) -> AttnClusterPlan:
+    """How one call of the cluster kernel is cut.
+
+    ``capacity(smem, splits)`` is the number of clusters of `splits`
+    blocks of `smem` bytes the device holds at once (0: none fits).  For
+    each query tile bq of QUERY_ROWS (up to sq) and each split of the
+    nk = ceil(skv / bk) kv blocks into `splits` <= MAX_SPLITS contiguous
+    ranges of `per` blocks with no range empty, the range runs in one
+    chunk where its blocks fit a block's shared memory (else in the most
+    that fit), with any ring tile of RING_KEYS that fits; ``splits``,
+    ``bq`` and ``rk``, where given, force theirs.  The plan minimizes waves x the kv
+    blocks of a tile's slowest rank (`_blocks_a_tile`: a causal mask
+    kills the blocks past a tile's queries) x (R + _QUANT_ROWS + 2 bk /
+    rk _TILE_ROWS), R = group bq the rows of a block: a kv block's
+    products, its quantization and the waits of its K and V ring tiles;
+    ties go to fewer splits, then to the larger query tile, then to the
+    larger ring tile."""
+    group = h // kh
+    nk = -(-skv // bk)
+    bkp = padded_block(bk)
+    label = "log_our" if path == "log" and compensated else path
+    quant = _QUANT_ROWS[label]
+    if splits is not None:
+        require(1 <= splits <= MAX_SPLITS and splits <= nk,
+                f"{splits} splits of {nk} kv blocks leave a range empty")
+        per = -(-nk // splits)
+        if (splits - 1) * per >= nk:     # chunks of fewer blocks a range
+            per = (nk - 1) // (splits - 1)
+        cuts = [(splits, per)]
+    else:
+        cuts = sorted({(-(-nk // -(-nk // w)), -(-nk // w))
+                       for w in range(1, min(MAX_SPLITS, nk) + 1)})
+    best = None
+    query_rows = [bq] if bq else sorted({min(c, sq) for c in QUERY_ROWS})
+    ring_keys = (rk,) if rk else RING_KEYS
+    for bq in query_rows:
+        rows = group * bq
+        tiles = b * kh * -(-sq // bq)
+
+        def smem(per, rk, bq=bq):
+            return attn_cluster_smem(path, bits, group, bq, per, bk, d, rk,
+                                     compensated)
+
+        if smem(1, 4) > SMEM_BYTES:
+            continue
+        for n_split, per in cuts:
+            lo, hi = 1, per              # the most blocks a chunk that fit
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                lo, hi = (mid, hi) if smem(mid, 4) <= SMEM_BYTES else (
+                    lo, mid - 1)
+            chunks = -(-nk // (n_split * lo))
+            blocks = _blocks_a_tile(nk, bk, sq, skv, bq, n_split, lo, causal)
+            for rk in ring_keys:
+                nbytes = smem(lo, rk)
+                if bkp % rk or nbytes > SMEM_BYTES:
+                    continue
+                held = capacity(nbytes, n_split)
+                if held <= 0:
+                    continue
+                waves = -(-tiles // held)
+                cost = waves * blocks * (
+                    rows + quant + 2 * (bkp // rk) * _TILE_ROWS[label])
+                key = (cost, n_split, -bq, -rk)
+                if best is None or key < best[0]:
+                    best = (key, AttnClusterPlan(bq, n_split, lo, rk, nbytes,
+                                                 tiles, waves, chunks))
+    if best is None:
+        raise ValueError(f"no block of the attention cluster kernel fits "
+                         f"({path}, {bits} bits, bk {bk}, head dim {d})")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(device: int, path: str, compensated: bool, smem: int,
+              splits: int) -> int:
+    """csrc attn_fused_capacity on CUDA device `device`; cached."""
+    with torch.cuda.device(device):
+        return query("attn_gemm", "attn_fused_capacity", _PATH_ID[path],
+                     int(compensated), smem, splits)
+
+
+@functools.lru_cache(maxsize=1024)
+def _device_plan(device: int, dims: tuple, path: str, bits: int, bk: int,
+                 compensated: bool, causal: bool, force: tuple):
+    return attn_cluster_plan(*dims, path, bits, functools.partial(
+        _capacity, device, path, compensated), bk=bk,
+        compensated=compensated, causal=causal, **dict(force))
+
+
+def device_plan(q, k, path: str, bits: int, bk: int,
+                compensated: bool = False, causal: bool = False,
+                force: Optional[dict] = None) -> AttnClusterPlan:
+    """The cluster kernel's plan for q (B, H, Sq, D), k (B, KH, Skv, D) on
+    their CUDA device (cached by shape); `force` holds attn_cluster_plan's
+    forced splits / bq / rk, if any."""
+    b, h, sq, d = q.shape
+    dev = q.device.index if q.device.index is not None else 0
+    comp = bool(compensated) and path == "log"
+    return _device_plan(dev, (b, h, k.shape[1], sq, k.shape[2], d), path,
+                        bits, int(bk), comp, bool(causal),
+                        tuple(sorted((force or {}).items())))
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -436,6 +676,32 @@ def _launch(kern, dims, *, q=None, k=None, v=None, sq_s=None, sk_s=None,
          0 if window is None else int(window), smem, stream_of(kpos))
 
 
+def _launch_cluster(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table,
+                    out, *, path, bits, causal, window, compensated, block,
+                    force=None):
+    """One planned launch of the cluster kernel on the current stream; the
+    shared-memory total goes with it, and the kernel refuses (CUDA error
+    1, invalid value) a plan or a total that is not its own."""
+    if path == "lut":
+        check_table(table, bits)
+    elif path == "nibble":
+        check_subs(table, bits)
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    bk = int(block[1])
+    comp = bool(compensated) and path == "log"
+    plan = device_plan(q, k, path, bits, bk, comp, causal, force)
+    smem = attn_cluster_smem(path, bits, h // kh, plan.bq, plan.per, bk, d,
+                             plan.rk, comp)
+    tab = table.data_ptr() if path in ("lut", "nibble") else None
+    _FUSED(q.data_ptr(), k.data_ptr(), v.data_ptr(), sq_s.data_ptr(),
+           sk_s.data_ptr(), sv_s.data_ptr(), qpos.data_ptr(),
+           kpos.data_ptr(), kval.data_ptr(), tab, out.data_ptr(), b, h, kh,
+           sq, skv, d, bk, bits, _PATH_ID[path], int(comp), int(causal),
+           0 if window is None else int(window), plan.bq, plan.splits,
+           plan.per, plan.rk, smem, stream_of(kpos))
+
+
 def attn_fused(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table=None, *,
                path, bits=8, causal=True, window=None, compensated=True,
                block=(32, 128)):
@@ -445,19 +711,36 @@ def attn_fused(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table=None, *,
     sk_s/sv_s (B, KH) scales (``attn_scales``); qpos (B, Sq), kpos/kval
     (B, Skv).  Returns f32 (B, H, Sq, D).  ``block[1]`` is the kv tile of
     the online softmax (part of the numerics); the table is the int16
-    full table (lut) or the int32 sub-tables (nibble)."""
-    _check(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, path, block)
-    kw = dict(path=path, bits=bits, causal=causal, window=window,
-              compensated=compensated, block=block)
+    full table (lut) or the int32 sub-tables (nibble).  On the card the
+    operands' bits pick the kernel (``fused_route``)."""
+    return _attn_fused_forced(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval,
+                              table, None, path=path, bits=bits,
+                              causal=causal, window=window,
+                              compensated=compensated, block=block)
+
+
+def _attn_fused_forced(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table,
+                       force, **kw):
+    """``attn_fused`` with the cluster kernel's plan forced where `force`
+    (a dict of attn_cluster_plan's splits / bq / rk) gives it: the tests,
+    chip_smoke.py and launch/cluster_sweep.py; the result is the same
+    bit for bit."""
+    _check(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, kw["path"],
+           kw["block"])
     if not _dev(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table):
         return attn_reference(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval,
                               table, **kw)
     b, h, sq, d = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch(_FUSED, (b, h, k.shape[1], sq, k.shape[2], d), q=_f32c(q),
-            k=_f32c(k), v=_f32c(v), sq_s=_f32c(sq_s), sk_s=_f32c(sk_s),
-            sv_s=_f32c(sv_s), qpos=_i32c(qpos), kpos=_i32c(kpos),
-            kval=_i32c(kval), table=table, out=out, **kw)
+    ts = dict(q=_f32c(q), k=_f32c(k), v=_f32c(v), sq_s=_f32c(sq_s),
+              sk_s=_f32c(sk_s), sv_s=_f32c(sv_s), qpos=_i32c(qpos),
+              kpos=_i32c(kpos), kval=_i32c(kval), table=table, out=out)
+    if fused_route(kw["path"], kw["bits"]) == "cluster":
+        _launch_cluster(**ts, **kw, force=force)
+    else:
+        require(not force, "only the cluster kernel takes a forced plan")
+        _launch(_FUSED_WIDE, (b, h, k.shape[1], sq, k.shape[2], d), **ts,
+                **kw)
     return out
 
 
@@ -524,7 +807,10 @@ def attn_materialized(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval,
 
 __all__ = [
     "ATTN_PATHS",
+    "AttnClusterPlan",
     "NEG_INF",
+    "attn_cluster_plan",
+    "attn_cluster_smem",
     "attn_float",
     "attn_fused",
     "attn_materialized",
@@ -532,4 +818,5 @@ __all__ = [
     "attn_reference",
     "attn_scales",
     "attn_scores",
+    "fused_route",
 ]

@@ -2,12 +2,17 @@
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels of src/repro/kernels/attn_gemm.py:
-//   attn_fused        (-> _attn_kernel):   one pass, all four datapaths
+//   attn_fused        (-> _attn_kernel):   one pass, all four datapaths;
+//     up to 8 bits the cluster kernel of attn_cluster.cuh (entry
+//     attn_fused), log operands of 9..12 bits this file's template (entry
+//     attn_fused_wide), by kernels/attn_gemm.py fused_route
 //   attn_materialized (-> _scores_kernel, _pv_kernel): the two-kernel
 //     oracle with the masked score tensor in device memory between them.
-// All three are one template, attn_kernel<PATH, COMP, QT, MODE>, whose
-// stages are the same __device__ functions (score_tile, online_step,
-// flush), so fused == materialized bit for bit on one card.
+// The template's three kernels are attn_kernel<PATH, COMP, QT, MODE>,
+// whose stages are the same __device__ functions (score_tile,
+// online_step, flush), so its fused form == materialized bit for bit on
+// one card; attn_cluster.cuh computes the same values in the same float
+// order, so it equals the oracle bit for bit too.
 //
 // What it computes, per (batch b, head h), with hk = h / (H / KH):
 //   qi = q(b,h) quantized at sq_s[b,h], ki/vi at sk_s/sv_s[b,hk]
@@ -36,9 +41,11 @@
 // once, the output written once, at 3.35 TB/s) bound only the shortest
 // sequences.
 //
-// Design: one block per (q block of bq rows, h, b) loops over the kv
-// blocks; GQA reads k/v at hk with no repeat.  q/k/v are quantized on
-// load (__fdiv_rn + rintf, clipped to +-qmax; build without fast-math)
+// The template's design (the oracle's, and the wide log operands' fused
+// form; attn_cluster.cuh says what the served kernel does instead): one
+// block per (q block of bq rows, h, b) loops over the kv blocks; GQA
+// reads k/v at hk with no repeat.  q/k/v are quantized on load
+// (__fdiv_rn + rintf, clipped to +-qmax; build without fast-math)
 // into int8 tiles (int16 on the log path, which admits 12-bit operands),
 // k transposed so that neighbouring threads read neighbouring keys.  The
 // f32 (bq, bk) score tile, the int16 probability tile, the f32 (bq, D)
@@ -53,7 +60,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_cluster.cuh"
+
 namespace {
+
+using cim::al16;
+using cim::decompose;
+using cim::log_mag;
+using cim::lod;
+using cim::quantize;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -72,8 +87,6 @@ struct Args {
   int B, H, KH, Sq, Skv, D, bq, bk, bits, compensated, causal, window;
   int smem;  // the caller's shared-memory total, held against layout()
 };
-
-__host__ __device__ inline size_t al16(size_t n) { return (n + 15) / 16 * 16; }
 
 __host__ __device__ inline size_t table_bytes(int path, int bits) {
   if (path == LUT) return (static_cast<size_t>(1) << (2 * bits)) * 2;
@@ -110,54 +123,12 @@ __host__ __device__ inline Layout layout(int path, int bits, int bq, int bk,
   return L;
 }
 
-// round(v / scale), half to even, clipped to [-qmax, qmax]
-__device__ __forceinline__ int quantize(float v, float scale, int qmax) {
-  float q = rintf(__fdiv_rn(v, scale));
-  q = fminf(fmaxf(q, -static_cast<float>(qmax)), static_cast<float>(qmax));
-  return static_cast<int>(q);
-}
-
 __device__ __forceinline__ bool valid(int qp, int kp, int kv, int causal,
                                       int window) {
   bool m = kv != 0;
   if (causal) m = m && kp <= qp;
   if (window > 0) m = m && kp > qp - window;
   return m;
-}
-
-// --- log-domain product (log_gemm.cu, line for line) ---------------------
-
-__device__ __forceinline__ uint32_t lod(uint32_t v, int bits) {
-  return v == 0u ? 0u
-                 : min(31u - static_cast<uint32_t>(__clz(v)),
-                       static_cast<uint32_t>(bits - 1));
-}
-
-__device__ __forceinline__ int4 decompose(int v, int bits) {
-  const int s = (v > 0) - (v < 0);
-  const uint32_t mag = static_cast<uint32_t>(v < 0 ? -v : v);
-  const uint32_t k = lod(mag, bits);
-  const uint32_t q = mag == 0u ? 0u : mag - (1u << k);
-  return make_int4(static_cast<int>(q), static_cast<int>(k), s,
-                   static_cast<int>(mag));
-}
-
-template <bool COMP>
-__device__ __forceinline__ uint32_t log_mag(int4 a, int4 b, int bits) {
-  const uint32_t q1 = a.x, k1 = a.y, q2 = b.x, k2 = b.y;
-  const uint32_t lead = 1u << (k1 + k2);
-  const uint32_t cross = (q1 << k2) + (q2 << k1);
-  uint32_t p;
-  if constexpr (COMP) {
-    const uint32_t q_big = max(q1, q2), q_small = min(q1, q2);
-    const uint32_t m = lod(q_big, bits);
-    const uint32_t round_up = (q_big << 1) >= (1u << m) * 3u ? 1u : 0u;
-    const uint32_t comp = q_big > 0u ? q_small << (m + round_up) : 0u;
-    p = (lead | comp) + cross;
-  } else {
-    p = lead + cross;
-  }
-  return (a.w == 0 || b.w == 0) ? 0u : p;
 }
 
 // --- the path's signed integer product, as a uint32 summand -------------
@@ -444,13 +415,13 @@ Args make_args(const void* q, const void* k, const void* v, const void* sq_s,
 
 }  // namespace
 
-// All three entry points take the same arguments: q (B,H,Sq,D), k/v
-// (B,KH,Skv,D) f32; sq_s (B,H), sk_s/sv_s (B,KH) f32; qpos (B,Sq),
-// kpos/kval (B,Skv) int32; tab (int16 full table, int32 sub-tables, or
-// null); out (B,H,Sq,D) f32; scores (B,H,Sq,Skvp) f32, Skvp = Skv rounded
-// up to bk; path 0..3 = mxu, lut, nibble, log; window 0 = none; smem the
-// caller's shared-memory total (cudaErrorInvalidValue if it is not this
-// file's layout).
+// The template's three entry points take the same arguments: q
+// (B,H,Sq,D), k/v (B,KH,Skv,D) f32; sq_s (B,H), sk_s/sv_s (B,KH) f32;
+// qpos (B,Sq), kpos/kval (B,Skv) int32; tab (int16 full table, int32
+// sub-tables, or null); out (B,H,Sq,D) f32; scores (B,H,Sq,Skvp) f32,
+// Skvp = Skv rounded up to bk; path 0..3 = mxu, lut, nibble, log; window
+// 0 = none; smem the caller's shared-memory total (cudaErrorInvalidValue
+// if it is not this file's layout).
 #define ATTN_ENTRY(NAME, MODE)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* sq_s, const void* sk_s, const void* sv_s,  \
@@ -466,6 +437,49 @@ Args make_args(const void* q, const void* k, const void* v, const void* sq_s,
         path, stream);                                                       \
   }
 
-ATTN_ENTRY(attn_fused, FUSED)
+ATTN_ENTRY(attn_fused_wide, FUSED)
 ATTN_ENTRY(attn_scores, SCORES)
 ATTN_ENTRY(attn_pv, PV)
+
+// The cluster kernel (attn_cluster.cuh), operands of 2..8 bits: the same
+// tensors as above (no score tensor), then the plan of
+// kernels/attn_gemm.py attn_cluster_plan: bq query rows a tile, the kv
+// blocks in `splits` ranges of `per` blocks, rk keys a ring tile, and smem
+// its shared-memory total (cudaErrorInvalidValue for a plan or a total
+// the kernel does not take).
+extern "C" int attn_fused(const void* q, const void* k, const void* v,
+                          const void* sq_s, const void* sk_s,
+                          const void* sv_s, const void* qpos,
+                          const void* kpos, const void* kval,
+                          const void* tab, void* out, int B, int H, int KH,
+                          int Sq, int Skv, int D, int bk, int bits, int path,
+                          int compensated, int causal, int window, int bq,
+                          int splits, int per, int rk, int smem,
+                          void* stream) {
+  attn::AcArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.sq_s = static_cast<const float*>(sq_s);
+  a.sk_s = static_cast<const float*>(sk_s);
+  a.sv_s = static_cast<const float*>(sv_s);
+  a.qpos = static_cast<const int*>(qpos);
+  a.kpos = static_cast<const int*>(kpos);
+  a.kval = static_cast<const int*>(kval);
+  a.tab = static_cast<const unsigned char*>(tab);
+  a.out = static_cast<float*>(out);
+  a.B = B; a.H = H; a.KH = KH; a.Sq = Sq; a.Skv = Skv; a.D = D; a.bk = bk;
+  a.bits = bits; a.causal = causal; a.window = window;
+  a.bq = bq; a.splits = splits; a.per = per; a.rk = rk;
+  a.n_qt = 0; a.kv_async = 0;
+  return attn::ac_launch(a, path, compensated, smem,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of `splits` blocks of the cluster kernel for `path` and
+// `compensated` at `smem` bytes of shared memory that the current device
+// holds at once, into *out (attn_cluster_plan's waves)
+extern "C" int attn_fused_capacity(int path, int compensated, int smem,
+                                   int splits, int* out) {
+  return attn::ac_capacity(path, compensated, smem, splits, out);
+}

@@ -9,7 +9,9 @@ its instructions by the pipe that runs them and divides by the products
 one pass of the loop makes.  ``csrc/cluster_gemm.cuh``'s
 ``cluster_gemm_kernel`` unrolls its products: there the section that
 counts is the K-step loop's tail, from its second barrier to its
-backward branch (``step_products``).  Rates per SM and clock on Hopper (CUDA C++
+backward branch (``step_products``); ``csrc/attn_cluster.cuh``'s
+attention kernel runs its products in row loops, found by the dp4a they
+issue (``idp_loops``).  Rates per SM and clock on Hopper (CUDA C++
 Programming Guide, compute capability 9.0): 64 integer ALU lanes (IADD3,
 LOP3, SHF, ISETP, SEL, ...), 64 lanes of the FMA pipe that runs IMAD and
 the byte dot product IDP (dp4a), 16
@@ -181,6 +183,28 @@ def step_products(insns: List[Insn]) -> List[Insn]:
         return section
     raise ValueError("no K-step loop (a backward branch over two BAR.SYNC) "
                      "in this function")
+
+
+def idp_loops(insns: List[Insn]) -> List[Tuple[List[Insn], int]]:
+    """The innermost loops of a function (a backward branch whose body
+    holds no loop of its own) that issue IDP (dp4a), each with the IDP
+    instructions of one pass: ``csrc/attn_cluster.cuh``'s tile GEMM row
+    loops, whose products a pass follow from them (mitchell two a dp4a,
+    log_our one)."""
+    at = {ins.pc: i for i, ins in enumerate(insns)}
+    out = []
+    for j, ins in enumerate(insns):
+        t = _target(ins, variants=True)
+        if t is None or t > ins.pc or t not in at:
+            continue
+        body = insns[at[t]:j + 1]
+        back = [_target(x, variants=True) for x in body[:-1]]
+        if any(b is not None and b <= x.pc for b, x in zip(back, body[:-1])):
+            continue
+        idp = sum(x.op.split(".")[0] == "IDP" for x in body)
+        if idp:
+            out.append((body, idp))
+    return out
 
 
 def section_per_product(body: List[Insn],

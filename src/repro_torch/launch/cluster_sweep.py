@@ -15,6 +15,15 @@ against the fastest; and so the mesh path's partial forms
 (``lut_matmul_partial``, ``mitchell_matmul_partial``: the same kernel,
 its epilogue off) at chip_smoke.py's shard shapes (PARTIAL_SHAPES).
 
+``kernels/csrc/attn_cluster.cuh`` (``attn_fused``) splits a query
+tile's kv blocks over a cluster; ``attn_gemm.attn_cluster_plan`` picks
+the query tile bq, the split and the ring tile rk (and the blocks a
+chunk).  This times it at chip_smoke.py's ATTN_MAIN (qwen3-1.7b's
+decode round and prefill) on each path at every (bq, split, rk) that
+fits, beside the plan's choice, the choice of the bare rule (fewest
+waves x kv blocks of a tile's slowest rank; ties to fewer splits, the
+larger bq, the larger rk) and the fastest.
+
 ``kernels/csrc/slstm_cluster.cuh`` (``slstm_scan``) keeps each sLSTM
 head's recurrent weights in a cluster of cs blocks;
 ``slstm_scan.cluster_plan`` picks cs.  This times it at xlstm-125m's
@@ -43,6 +52,7 @@ import torch
 
 from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.kernels import approx_matmul as am
+from repro_torch.kernels import attn_gemm as ag
 from repro_torch.kernels import cim_gemm as cg
 from repro_torch.kernels import mitchell_gemm as mg
 from repro_torch.kernels import ops
@@ -101,6 +111,7 @@ def main() -> None:
               + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
               flush=True)
 
+    attn_sweep(cs, dev, flush, res)
     slstm_sweep(cs, dev, flush, res)
     partial_sweep(cs, dev, flush, lut, sweep)
     mu, c0, c1 = -0.013, 1480.0, 2.1e-4     # a surrogate law with SQ
@@ -174,6 +185,64 @@ def partial_sweep(cs, dev, flush, lut, sweep) -> None:
 
             sweep(name, (m, k, n), kern, (8, *flags, 1, 1), plan, launch,
                   steps)
+
+
+def attn_sweep(cs, dev, flush, res) -> None:
+    """Time `attn_fused` at chip_smoke.py's ATTN_MAIN on each of its
+    paths (its inputs, tables and timer) at every (bq, splits, rk) the
+    plan can take; record each, and print the plan's choice, the bare
+    rule's and the fastest."""
+    from repro_torch.core.autotune import heuristic_attn_block
+
+    paths = [("lut", "lut", MultiplierSpec("appro42", 8, True, "orplane",
+                                           10), False),
+             ("log", "log", None, False), ("log_our", "log", None, True),
+             ("nibble", "nibble", MultiplierSpec("exact", 8, True), False),
+             ("mxu", "mxu", None, False)]
+    for label, path, spec, comp in paths:
+        table = ops._attn_table(path, spec, dev)
+        for geom in cs.ATTN_MAIN:
+            (q, k, v), sc, pos, window = cs._attn_inputs(
+                torch, dev, *geom, seed=5)
+            sq, skv = geom[3], geom[4]
+            bk = heuristic_attn_block(f"pallas_attn_{path}", sq, skv)[1]
+            kw = dict(path=path, bits=8, causal=True, window=window,
+                      compensated=comp, block=(8, bk))
+            plan = ag.device_plan(q, k, path, 8, bk, comp, causal=True)
+            nk = -(-skv // bk)
+            grid = {}
+            for bq in sorted({min(c, sq) for c in ag.QUERY_ROWS}):
+                for splits in range(1, min(ag.MAX_SPLITS, nk) + 1):
+                    for rk in ag.RING_KEYS:
+                        force = dict(bq=bq, splits=splits, rk=rk)
+                        try:
+                            p = ag.device_plan(q, k, path, 8, bk, comp,
+                                               causal=True, force=force)
+                        except ValueError:       # no block of it fits
+                            continue
+
+                        def call(f=force):
+                            ag._attn_fused_forced(q, k, v, *sc, *pos, table,
+                                                  f, **kw)
+
+                        call()
+                        blocks = ag._blocks_a_tile(nk, bk, sq, skv, bq,
+                                                   splits, p.per, True)
+                        grid[(bq, splits, rk)] = (
+                            cs._timed_ms(torch, call, 10, flush),
+                            p.waves * blocks)
+            mine = (plan.bq, plan.splits, plan.rk)
+            fast = min(grid, key=lambda c: grid[c][0])
+            bare = min(grid, key=lambda c: (grid[c][1], c[1], -c[0], -c[2]))
+            res[f"attn {label} {geom[:6]}"] = {
+                "plan": plan._asdict(), "plan_ms": grid[mine][0],
+                "fastest": fast, "fastest_ms": grid[fast][0],
+                "bare_rule": bare, "bare_rule_ms": grid[bare][0],
+                "grid": [[*c, t, w] for c, (t, w) in grid.items()]}
+            print(f"attn {label:8} {str(geom[:6]):26} (bq, splits, rk): "
+                  f"plan {mine} {grid[mine][0]:.4f} ms, bare rule {bare} "
+                  f"{grid[bare][0]:.4f} ms, fastest {fast} "
+                  f"{grid[fast][0]:.4f} ms of {len(grid)}", flush=True)
 
 
 def slstm_sweep(cs, dev, flush, res) -> None:

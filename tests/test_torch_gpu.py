@@ -156,9 +156,15 @@ def _attn_case(dev, b, h, kh, sq, skv, d, variant, seed=0):
     qpos = torch.arange(skv - sq, skv, dtype=torch.int32).expand(b, sq)
     kpos = torch.arange(skv, dtype=torch.int32).expand(b, skv)
     fill = torch.tensor([skv - 3 * i for i in range(b)])[:, None]
-    kval = ((kpos < fill) if variant == "ragged"
+    if variant == "long":            # a long cache, every slot below it
+        fill = torch.tensor([skv - 1, 1500, 700, 130][:b])[:, None]
+    kval = ((kpos < fill) if variant in ("ragged", "long")
             else torch.ones(b, skv, dtype=torch.bool)).to(torch.int32)
     ts = [t.contiguous().to(dev) for t in (q, k, v)]
+    if variant == "offset":          # K/V one float past 16-byte alignment
+        for i in (1, 2):
+            buf = torch.empty(ts[i].numel() + 1, device=dev)
+            ts[i] = buf[1:].view(ts[i].shape).copy_(ts[i])
     sc = attn_gemm.attn_scales(*ts, 8)
     return ts, sc, [t.contiguous().to(dev) for t in (qpos, kpos, kval)], \
         (5 if variant == "window" else None)
@@ -198,24 +204,96 @@ def test_attn_kernels_against_plain_versions(path, spec, comp, geom):
     assert _beyond_lsum_rounding(fused, plain) == 0
 
 
-def test_attn_kernel_refuses_a_shared_memory_total_not_its_own(monkeypatch):
-    """The planner's shared-memory model (attn_smem_bytes) and the
-    kernel's layout are held together at every launch: a total that
-    drifts from the kernel's is refused, not launched."""
+# the cluster kernel at every split it takes: ATTN_GEOMS' reference
+# geometry (2 kv blocks of 16), a long ragged decode (16 kv blocks of
+# 128, fills 2047, 1500, 700, 130), and the two cases of its element-wise
+# K/V ring: a head dim of 10 and K/V one float off 16-byte alignment
+ATTN_SPLIT_GEOMS = ATTN_GEOMS[:3] + [(2, 4, 2, 1, 29, 12, "decode"),
+                                     (4, 16, 8, 1, 2048, 128, "long"),
+                                     (2, 4, 2, 21, 29, 10, "causal"),
+                                     (2, 4, 2, 21, 29, 12, "offset")]
+
+
+@pytest.mark.parametrize("geom", ATTN_SPLIT_GEOMS, ids=str)
+@pytest.mark.parametrize("path,spec,comp", ATTN_PATHS, ids=str)
+def test_attn_cluster_kernel_at_every_split(path, spec, comp, geom):
+    """The cluster kernel forced to every split of the kv blocks that
+    leaves no range empty: bitwise equal to the materialized oracle, and
+    within the l sum's rounding of its plain version in every output."""
     from repro_torch.kernels import attn_gemm
 
     dev = _card()
-    (q, k, v), sc, pos, _ = _attn_case(dev, 2, 4, 2, 21, 29, 12, "causal")
-    table = ops._attn_table("lut", BALANCED, dev)
-    kw = dict(path="lut", bits=8, block=(8, 16))
-    attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)
-    real = attn_gemm.attn_smem_bytes
-    monkeypatch.setattr(attn_gemm, "attn_smem_bytes",
-                        lambda *a: real(*a) + 16)
-    before = attn_gemm.KERNELS["attn_fused"].launches
+    (q, k, v), sc, pos, window = _attn_case(dev, *geom)
+    table = ops._attn_table(path, spec, dev)
+    bk = 128 if geom[4] > 64 else 16
+    kw = dict(path=path, bits=8, causal=True, window=window,
+              compensated=comp, block=(8, bk))
+    mat = attn_gemm.attn_materialized(q, k, v, *sc, *pos, table, **kw)
+    plain = attn_gemm.attn_reference(q, k, v, *sc, *pos, table, **kw)
+    nk = -(-geom[4] // bk)
+    for splits in range(1, min(attn_gemm.MAX_SPLITS, nk) + 1):
+        before = attn_gemm.KERNELS["attn_fused"].launches
+        fused = attn_gemm._attn_fused_forced(q, k, v, *sc, *pos, table,
+                                             {"splits": splits}, **kw)
+        torch.cuda.synchronize()
+        assert attn_gemm.KERNELS["attn_fused"].launches == before + 1
+        assert torch.equal(fused, mat), splits
+        assert _beyond_lsum_rounding(fused, plain) == 0, splits
+
+
+def test_attn_wide_log_operands_take_the_template():
+    """9..12-bit log operands run the template (fused_route), fused ==
+    materialized bit for bit, within the l sum's rounding of the plain
+    version."""
+    from repro_torch.kernels import attn_gemm
+
+    dev = _card()
+    (q, k, v), _, pos, _ = _attn_case(dev, 2, 4, 2, 21, 29, 12, "causal")
+    sc = attn_gemm.attn_scales(q, k, v, 12)
+    kw = dict(path="log", bits=12, compensated=True, block=(8, 16))
+    before = attn_gemm.KERNELS["attn_fused_wide"].launches
+    fused = attn_gemm.attn_fused(q, k, v, *sc, *pos, **kw)
+    mat = attn_gemm.attn_materialized(q, k, v, *sc, *pos, **kw)
+    plain = attn_gemm.attn_reference(q, k, v, *sc, *pos, **kw)
+    torch.cuda.synchronize()
+    assert attn_gemm.KERNELS["attn_fused_wide"].launches == before + 1
+    assert torch.equal(fused, mat)
+    assert _beyond_lsum_rounding(fused, plain) == 0
+
+
+# (the shared-memory model the launch sends, its operands' bits, the
+# kernel the call launches): the template's fused kernel (9..12-bit log
+# operands; its scores stage holds the same model) and the cluster kernel
+REFUSING = [("attn_smem_bytes", "log", 12, "attn_fused_wide"),
+            ("attn_smem_bytes", "lut", 8, "attn_scores"),
+            ("attn_cluster_smem", "lut", 8, "attn_fused")]
+
+
+@pytest.mark.parametrize("model,path,bits,kernel", REFUSING, ids=str)
+def test_attn_kernel_refuses_a_shared_memory_total_not_its_own(
+        monkeypatch, model, path, bits, kernel):
+    """The planner's shared-memory model (attn_smem_bytes for the
+    template, attn_cluster_smem for the cluster kernel) and the kernel's
+    layout are held together at every launch: a total that drifts from
+    the kernel's is refused, not launched."""
+    from repro_torch.kernels import attn_gemm
+
+    dev = _card()
+    (q, k, v), _, pos, _ = _attn_case(dev, 2, 4, 2, 21, 29, 12, "causal")
+    sc = attn_gemm.attn_scales(q, k, v, bits)
+    table = ops._attn_table(path, BALANCED, dev) if path == "lut" else None
+    kw = dict(path=path, bits=bits, block=(8, 16))
+    call = ((lambda: attn_gemm.attn_scores(q, k, sc[0], sc[1], *pos, table,
+                                           **kw))
+            if kernel == "attn_scores" else
+            (lambda: attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)))
+    call()
+    real = getattr(attn_gemm, model)
+    monkeypatch.setattr(attn_gemm, model, lambda *a: real(*a) + 16)
+    before = attn_gemm.KERNELS[kernel].launches
     with pytest.raises(RuntimeError, match="CUDA error"):
-        attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)
-    assert attn_gemm.KERNELS["attn_fused"].launches == before
+        call()
+    assert attn_gemm.KERNELS[kernel].launches == before
 
 
 def test_cim_attention_on_the_card_runs_the_kernel():

@@ -158,3 +158,42 @@ def test_step_products_refuses_other_shapes():
     looped = insns[:9] + [sass.Insn(0x85, "@P4", "BRA", "0x70")] + insns[9:]
     with pytest.raises(ValueError, match="holds a loop"):
         sass.step_products(looped)
+
+
+# an attention-cluster-shaped function: a staging loop without products,
+# an outer loop holding one row loop of 4 dp4a (and a shuffle), and a
+# second row loop of 2 dp4a after it
+ATTN_SASS = """
+		Function : _ZN4attn19attn_cluster_kernelILi3ELb0EEEvNS_6AcArgsE
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0010*/                   IMAD R2, R2, 0x2, R3 ;
+        /*0020*/               @P0 BRA 0x10 ;
+        /*0030*/                   LDS.128 R4, [R9] ;
+        /*0040*/                   LDS.128 R12, [R10] ;
+        /*0050*/                   IDP.4A.S8.S8 R20, R4, R12, RZ ;
+        /*0060*/                   IDP.4A.S8.S8 R20, R5, R13, R20 ;
+        /*0070*/                   IDP.4A.S8.S8 R20, R6, R14, R20 ;
+        /*0080*/                   IDP.4A.S8.S8 R20, R7, R15, R20 ;
+        /*0090*/                   SHFL.BFLY PT, R21, R20, 0x1, 0x1f ;
+        /*00a0*/                   IADD3 R20, R20, R21, RZ ;
+        /*00b0*/                   VIADD R9, R9, 0x50 ;
+        /*00c0*/               @P1 BRA 0x40 ;
+        /*00d0*/               @P2 BRA 0x30 ;
+        /*00e0*/                   IDP.4A.S8.S8 R20, R4, R12, RZ ;
+        /*00f0*/                   IDP.4A.S8.S8 R20, R5, R13, R20 ;
+        /*0100*/                   ISETP.NE.AND P3, PT, R9, R8, PT ;
+        /*0110*/               @P3 BRA 0xe0 ;
+        /*0120*/                   EXIT ;
+"""
+
+
+def test_idp_loops_are_the_innermost_loops_with_dp4a():
+    insns = sass.functions(ATTN_SASS)[
+        "_ZN4attn19attn_cluster_kernelILi3ELb0EEEvNS_6AcArgsE"]
+    loops = sass.idp_loops(insns)
+    assert [(body[0].pc, body[-1].pc, n) for body, n in loops] == [
+        (0x40, 0xc0, 4), (0xe0, 0x110, 2)]
+    c = sass.section_per_product(loops[0][0], 2 * loops[0][1])
+    # 4 IDP on the FMA pipe, the IADD3 on the ALU, the VIADD either way,
+    # the loads, the shuffle and the branch issue only: over 8 products
+    assert (c["fma"], c["alu"], c["either"]) == (0.5, 0.125, 0.125)

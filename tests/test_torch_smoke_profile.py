@@ -99,6 +99,12 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "T0_PKT1_PKhPKfSB_PNT2_3OutES8_iiii", "CiM partial kernel"),
     ("_ZN3cim20int8_mma_conv_kernelEPKfS1_S1_S1_PfNS_8ConvGeomEii",
      "CiM conv kernel"),
+    ("_ZN4attn19attn_cluster_kernelILi1ELb0EEEvNS_6AcArgsE",
+     "CiM attention kernel"),
+    ("void attn::attn_cluster_kernel<3, true>(attn::AcArgs)",
+     "CiM attention kernel"),
+    ("_ZN45_GLOBAL__N__a1670d44_12_attn_gemm_cu_b6a0606011attn_kernelILi3ELb1E"
+     "sLi0EEEvNS_4ArgsE", "CiM attention kernel"),
     ("_ZN5slstm20slstm_cluster_kernelENS_6SlArgsE", "sLSTM scan"),
     ("slstm::slstm_cluster_kernel(slstm::SlArgs)", "sLSTM scan"),
     ("_ZN46_GLOBAL__N__53a415f7_13_slstm_scan_cu_8df9e1a012slstm_kernelEPKf"

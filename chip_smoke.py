@@ -11,7 +11,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
      report; the log kernels' product loop read from their SASS
      (``cuobjdump``; for the split-K cluster kernel, its K step's product
-     section), its instructions a product counted by pipe; the
+     section; for the fused convs' tile kernel, its channel loops), its
+     instructions a product counted by pipe; the
      tensor-core instructions (IMMA, IGMMA) of every int8_mma.cuh kernel
      and of every instantiation of the fused surrogate kernel
      (surrogate_cluster.cuh) counted, none failing;
@@ -33,10 +34,15 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      printed and the LUT's table fill timed (a K = 32
      call with the 8-bit table against a 4-bit one); the two
      implicit-GEMM conv kernels (full LUT, nibble for
-     both specs, Mitchell, Log-our) bitwise at the CNN's five conv
-     geometries at the evaluation batch of 256, the reference tests'
-     ragged shapes and one ResNet-18 conv2_x layer (4 x 56 x 56 x 64 ->
-     64, timed, its routing printed); then
+     both specs, Mitchell, Log-our; up to 8 bits the tile kernel,
+     csrc/conv_tile.cuh, its launch plans printed) bitwise at the CNN's
+     five conv geometries at the evaluation batch of 256, the reference
+     tests' ragged shapes and one ResNet-18 conv2_x layer (4 x 56 x 56 x
+     64 -> 64, timed, its routing printed), each variant's row sum
+     printed apart, and at CONV_TILE_EDGES (several N tiles, ragged N,
+     one pixel tile and many, stride 2 with 5x5 and 7x7 taps, C = 3 and
+     96 on a 60-wide plane; the LUT also at 4 bits, log at 16 bits on the
+     template's entry), every launch counted on the route it takes; then
      the three attention kernels (fused, and the oracle's scores and PV
      stages) on every datapath at the serving decode and prefill
      geometries, the reference tests' geometry and a long ragged decode
@@ -285,9 +291,9 @@ SOURCES = {
     "nibble_lut_matmul_fused": (
         "src/repro_torch/kernels/csrc/nibble_gemm.cu",
         "src/repro/kernels/approx_matmul.py:389"),
-    "conv_lut_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+    "conv_lut_fused": ("src/repro_torch/kernels/csrc/conv_tile.cuh",
                        "src/repro/kernels/conv_gemm.py:236"),
-    "conv_log_fused": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+    "conv_log_fused": ("src/repro_torch/kernels/csrc/conv_tile.cuh",
                        "src/repro/kernels/conv_gemm.py:321"),
     "cim_gemm_core": ("src/repro_torch/kernels/csrc/surrogate_gemm.cu",
                       "src/repro/kernels/cim_gemm.py:60"),
@@ -330,6 +336,16 @@ CNN_CONVS = [(16, 16, 3, 16), (16, 16, 16, 16), (8, 8, 16, 32),
 CONV_RAGGED = [(2, 9, 10, 5, 7, 3, 3, 1), (1, 7, 7, 3, 4, 5, 5, 1),
                (3, 8, 6, 4, 5, 1, 1, 1), (2, 10, 9, 3, 6, 3, 3, 2)]
 RESNET = (4, 56, 56, 64, 64)
+# the fused convs' tile kernel (csrc/conv_tile.cuh) at its edges, checked
+# bitwise on every variant, not timed: several N tiles with ragged
+# channels, ragged N, N = 1, one pixel tile, a plane wider than one tile
+# in both dimensions, stride 2 with 5x5 and 7x7 taps, C = 3 and C = 96 on
+# a 60-wide plane
+CONV_TILE_EDGES = [(3, 12, 12, 17, 80, 3, 3, 1), (2, 9, 9, 3, 7, 3, 3, 1),
+                   (2, 11, 7, 17, 1, 3, 3, 1), (1, 5, 5, 4, 16, 3, 3, 1),
+                   (1, 20, 700, 8, 16, 3, 3, 1), (2, 13, 13, 3, 16, 5, 5, 2),
+                   (2, 30, 30, 3, 64, 7, 7, 2), (1, 20, 60, 96, 24, 3, 3, 1),
+                   (1, 20, 60, 3, 24, 3, 3, 1)]
 # the tensor-core kernels' edge cases (checked bitwise, not timed):
 # cim_gemm_core without SQ at ragged M, K, N (the byte-staged path), a
 # split-K shape at N = 8 and at M = 130, with operands random, all -128
@@ -456,8 +472,11 @@ def log_clocks(build) -> None:
     (csrc/cluster_gemm.cuh, RB rows a block, BK k a stage, fused and
     partial), the same over its K step's product section (RB rows x BK /
     4 k a thread); per log instantiation of the attention cluster kernel
-    (csrc/attn_cluster.cuh), over each of its row loops.  The fewest of
-    all bound every log kernel, so no row's share passes 100%."""
+    (csrc/attn_cluster.cuh), over each of its row loops; per log
+    instantiation of the fused convs' tile kernel (csrc/conv_tile.cuh),
+    over each of its channel loops (found by their dp4a, as the
+    attention kernel's).  The fewest of all bound every log kernel, so
+    no row's share passes 100%."""
     import re
 
     from repro_torch.kernels import sass
@@ -465,10 +484,28 @@ def log_clocks(build) -> None:
 
     print(f"  log product loop, instructions a product (alu / fma / xu / "
           f"either / all arithmetic) -> SM clocks a product, bound by:")
-    cluster = set()
+    cluster, tile = set(), set()
     for lib in ("log_gemm", "conv_gemm"):
         fns = sass.functions(sass.disassemble(build.library_path(lib)))
         for name, insns in sorted(fns.items()):
+            for comp, tag in ((False, "TileLogILb0E"), (True, "TileLogILb1E")):
+                if "conv_tile_kernel" not in name or tag not in name:
+                    continue
+                # the channel loops: a dp4a two products (mitchell) or one
+                rp, rn = map(int, re.search(r"ELi(\d+)ELi(\d+)E",
+                                            name).groups())
+                for li, (body, idp) in enumerate(sass.idp_loops(insns)):
+                    c = sass.section_per_product(body, idp * (1 if comp
+                                                              else 2))
+                    clk, by = sass.clocks_per_product(c)
+                    LOG_CLOCKS[comp] = min(LOG_CLOCKS.get(comp, clk), clk)
+                    tile.add(comp)
+                    inst = (f"tile {'log_our' if comp else 'mitchell'} RP "
+                            f"{rp} RN {rn} loop {li}")
+                    print(f"    {lib:<9} {inst:<48} {c['alu']:.3f} / "
+                          f"{c['fma']:.3f} / {c['xu']:.3f} / "
+                          f"{c['either']:.3f} / {c['int']:.3f} -> "
+                          f"{clk:.4f} ({by})")
             for comp, tag in ((False, "LogCoreILb0E"), (True, "LogCoreILb1E")):
                 if tag not in name:
                     continue
@@ -512,6 +549,9 @@ def log_clocks(build) -> None:
         fail("no LogCore instantiation found in the log libraries' SASS")
     if cluster != {False, True}:
         fail("no cluster log kernel found in liblog_gemm's SASS")
+    if tile != {False, True}:
+        fail("no channel loop of the conv tile kernel's log forms found in "
+             "libconv_gemm's SASS")
     if attn != {False, True}:
         fail("no log product loop of the attention cluster kernel found in "
              "libattn_gemm's SASS")
@@ -1114,8 +1154,13 @@ def check_conv(torch, sms: int, clock_hz: float):
                 def plain(t=tab, nb=nib):
                     return cg.conv_lut_fused_plain(x, w3, t, sx, sw,
                                                    nibble=nb, **geo)
+            wide = cg.KERNELS["conv_log_fused_wide"].launches
+            n_before = cg.KERNELS[name].launches
             got, want = kern(), plain()
             torch.cuda.synchronize()
+            if (cg.KERNELS[name].launches != n_before + 1
+                    or cg.KERNELS["conv_log_fused_wide"].launches != wide):
+                fail(f"{name} ({label}) {geom}: not one launch of its entry")
             err = float((got.double() - want.double()).abs().max())
             if not torch.equal(got, want):
                 fail(f"{name} ({label}) {geom}: kernel != plain version "
@@ -1153,6 +1198,17 @@ def check_conv(torch, sms: int, clock_hz: float):
         if not timed:
             print(f"  {str(geom):<42} every variant bitwise equal to its "
                   f"plain version", flush=True)
+    sums = {}
+    for name, rs in rows.items():
+        for r in rs:
+            if "ms" in r and r["geometry"][:5] != RESNET:
+                sums.setdefault(r["variant"], [0.0, 0.0])
+                sums[r["variant"]][0] += r["ms"]
+                sums[r["variant"]][1] += r["bound_ms"]
+    print("  the CNN's five convs summed by variant (ms, bound ms): "
+          + "; ".join(f"{v} {t:.4f}, {bd:.4f}" for v, (t, bd) in
+                      sums.items()), flush=True)
+    check_conv_tile(torch, dev)
     for gi, geom in enumerate(MXU_EDGES):
         b, h, w, c, n, kh, kw, s = geom
         g = torch.Generator(device=dev).manual_seed(400 + gi)
@@ -1183,6 +1239,81 @@ def check_conv(torch, sms: int, clock_hz: float):
           f"(the reference's 8 MiB VMEM model sends this plane to "
           f"conv_im2col)", flush=True)
     return rows
+
+
+def check_conv_tile(torch, dev):
+    """The fused convs' tile kernel (csrc/conv_tile.cuh): its launch plans
+    at the CNN's convs printed, then every variant bitwise equal to its
+    plain version at CONV_TILE_EDGES (the LUT also at 4 bits, the nibble
+    sub-tables of both specs, log at 16 bits on the template's entry),
+    each fused launch counted on the route its bits take: up to 8 bits
+    conv_lut_fused / conv_log_fused (the tile kernel), above them
+    conv_log_fused_wide (the template)."""
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import conv_gemm as cg
+    from repro_torch.kernels import ops
+
+    for form in ("lut", "nibble", "mitchell", "log_our"):
+        for h, w, c, n in CNN_CONVS:
+            x = torch.empty(CNN_BATCH, h, w, c, device=dev)
+            w3 = torch.empty(9, c, n, device=dev)
+            p = cg.device_plan(form, 8, x, w3, 3, 3, 1)
+            print(f"  tile plan {form:<8} {str((CNN_BATCH, h, w, c, n)):<24} "
+                  f"rp {p.rp} rn {p.rn}, tile {p.ib}x{p.tr}x{p.tc}, chunk "
+                  f"{p.cc} x {p.chunks}, taps {p.tg} x {p.groups}, tiles "
+                  f"{p.tiles} on {p.grid} blocks, whole stack {p.whole}",
+                  flush=True)
+    a8, a4 = MultiplierSpec("appro42", 8, True), MultiplierSpec("appro42",
+                                                                4, True)
+    variants = [("lut appro42", "lut", 8, ops.lut_table(a8, dev)),
+                ("lut appro42 4-bit", "lut", 4, ops.lut_table(a4, dev)),
+                ("nibble exact", "nibble", 8,
+                 ops.nibble_table(MultiplierSpec("exact", 8, True), dev)),
+                ("nibble appro42/4", "nibble", 8, ops.nibble_table(
+                    MultiplierSpec("appro42", 8, True, n_approx_cols=4),
+                    dev)),
+                ("mitchell", "mitchell", 8, None),
+                ("log_our", "log_our", 8, None),
+                ("mitchell 16-bit", "mitchell", 16, None),
+                ("log_our 16-bit", "log_our", 16, None)]
+    counted = ("conv_lut_fused", "conv_log_fused", "conv_log_fused_wide")
+    for gi, geom in enumerate(CONV_TILE_EDGES):
+        b, h, w, c, n, kh, kw, s = geom
+        g = torch.Generator(device=dev).manual_seed(500 + gi)
+        x = torch.randn(b, h, w, c, generator=g, device=dev)
+        w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+        geo = dict(kh=kh, kw=kw, stride=s)
+        for label, form, bits, tab in variants:
+            sx, sw = ops._scales(x, w3.reshape(-1, n), bits)
+            before = {k: cg.KERNELS[k].launches for k in counted}
+            if tab is not None:
+                nib = form == "nibble"
+                got = cg.conv_lut_fused(x, w3, tab, sx, sw, bits,
+                                        nibble=nib, **geo)
+                want = cg.conv_lut_fused_plain(x, w3, tab, sx, sw, bits,
+                                               nibble=nib, **geo)
+            else:
+                comp = form == "log_our"
+                got = cg.conv_log_fused(x, w3, sx, sw, bits,
+                                        compensated=comp, **geo)
+                want = cg.conv_log_fused_plain(x, w3, sx, sw, bits,
+                                               compensated=comp, **geo)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"conv tile kernel ({label}) {geom}: kernel != plain "
+                     f"version (max |diff| "
+                     f"{float((got - want).abs().max())})")
+            entry = ("conv_lut_fused" if tab is not None else
+                     "conv_log_fused" if bits <= cg.TILE_MAX_BITS else
+                     "conv_log_fused_wide")
+            delta = {k: cg.KERNELS[k].launches - before[k] for k in counted}
+            if delta != {k: int(k == entry) for k in counted}:
+                fail(f"conv tile kernel ({label}) {geom}: launched {delta}, "
+                     f"expected one {entry}")
+    print(f"  conv_lut_fused / conv_log_fused at CONV_TILE_EDGES "
+          f"{CONV_TILE_EDGES}: every variant bitwise equal to its plain "
+          f"version, up to 8 bits on the tile kernel, 16-bit log on "
+          f"conv_log_fused_wide (the template)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3083,7 +3214,7 @@ def _kernel_class(name: str, matmul_kernels) -> str:
         return "CiM conv kernel"
     if "int8_mma_dense" in low or "surrogate_cluster" in low:
         return "CiM surrogate kernel"
-    if "convsrc" in low:
+    if "convsrc" in low or "conv_tile_kernel" in low:
         return "CiM conv kernel"
     if "lutcore" in low:
         return "CiM LUT kernel"
@@ -3390,6 +3521,11 @@ def main():
         })
         if timed and all("warm_ms" in r for r in timed):
             kernels[-1]["warm_ms"] = sum(r["warm_ms"] for r in timed)
+        if name in conv_rows:          # each variant's row sum apart
+            var = {}
+            for r in timed:
+                var[r["variant"]] = var.get(r["variant"], 0.0) + r["ms"]
+            kernels[-1]["variants"] = var
         if lib and len(lib) != len(timed):
             kernels[-1]["library_shapes"] = [list(r["shape"]) for r in lib]
             kernels[-1]["ms_library_shapes"] = sum(r["ms"] for r in lib)

@@ -34,8 +34,17 @@ step, (ms(512) - ms(37)) / 475; at the smoke width (dh 16), where the
 dot is small, that slope is the step's floor: the gates, the exchange
 of h and the cluster barrier.
 
+``kernels/csrc/conv_tile.cuh`` (``conv_lut_fused``, ``conv_log_fused``
+up to 8 bits) cuts a conv into spatial tiles with all of N over a
+persistent grid; ``conv_gemm.conv_plan`` picks the micro-tile (pixels x
+columns a thread) and, from it, the tile, the channel chunks and the tap
+groups.  This times it at chip_smoke.py's five Table IV convs (batch 256)
+for its four variants (appro42's full table, the exact family's nibble
+sub-tables, mitchell, log_our) with every micro-tile the plan could take,
+beside the plan's choice and the fastest.
+
     PYTHONPATH=src python -m repro_torch.launch.cluster_sweep \\
-        --out build/cluster_sweep
+        --out build/cluster_sweep [--only conv]
 
 Writes ``<out>/sweep.json``.  Needs a CUDA device.
 """
@@ -54,6 +63,7 @@ from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.kernels import approx_matmul as am
 from repro_torch.kernels import attn_gemm as ag
 from repro_torch.kernels import cim_gemm as cg
+from repro_torch.kernels import conv_gemm as cvg
 from repro_torch.kernels import mitchell_gemm as mg
 from repro_torch.kernels import ops
 from repro_torch.kernels import slstm_scan as ss
@@ -68,6 +78,8 @@ SLSTM_LENGTHS = (1, 37, 512)
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/cluster_sweep")
+    ap.add_argument("--only", choices=("all", "conv"), default="all",
+                    help="conv: the conv tile kernel's sweep alone")
     args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
@@ -111,6 +123,10 @@ def main() -> None:
               + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
               flush=True)
 
+    conv_sweep(cs, dev, flush, res)
+    if args.only == "conv":
+        _write(args.out, res)
+        return
     attn_sweep(cs, dev, flush, res)
     slstm_sweep(cs, dev, flush, res)
     partial_sweep(cs, dev, flush, lut, sweep)
@@ -153,9 +169,69 @@ def main() -> None:
                     stream_of(x))
 
             sweep(name, (m, k, n), sur, (var, bf, bf), plan, launch, steps)
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "sweep.json"), "w") as f:
+    _write(args.out, res)
+
+
+def _write(out, res) -> None:
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "sweep.json"), "w") as f:
         json.dump(res, f, indent=1)
+
+
+def _median_ms(cs, fn, reps, flush) -> float:
+    """The median of `reps` launches of `fn`, each timed as chip_smoke.py
+    times one (L2 flushed, the card spun, CUDA events): a launch whose
+    host work outlasted the spin moves a mean of a few launches, not
+    their median."""
+    return float(np.median([cs._timed_ms(torch, fn, 1, flush)
+                            for _ in range(reps)]))
+
+
+def conv_sweep(cs, dev, flush, res) -> None:
+    """Time the conv tile kernel at chip_smoke.py's CNN_CONVS (batch 256,
+    its operands and timer, the median of 15 launches) on each variant
+    with every micro-tile of
+    conv_gemm.TILE_MICRO that fits (the rest of each plan as conv_plan
+    cuts it); record each, and print the plan's choice and the
+    fastest."""
+    variants = [("lut appro42", "lut",
+                 ops.lut_table(MultiplierSpec("appro42", 8, True), dev)),
+                ("nibble exact", "nibble",
+                 ops.nibble_table(MultiplierSpec("exact", 8, True), dev)),
+                ("mitchell", "mitchell", None), ("log_our", "log_our", None)]
+    for gi, (h, w, c, n) in enumerate(cs.CNN_CONVS):
+        b = cs.CNN_BATCH
+        g = torch.Generator(device=dev).manual_seed(31 * gi + 7)
+        x = torch.randn(b, h, w, c, generator=g, device=dev)
+        w3 = torch.randn(9, c, n, generator=g, device=dev) * 0.1
+        sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+        for label, form, tab in variants:
+            plan = cvg.device_plan(form, 8, x, w3, 3, 3, 1)
+            times = {}
+            for micro in cvg.TILE_MICRO:
+                try:
+                    p = cvg.device_plan(form, 8, x, w3, 3, 3, 1, force=micro)
+                except ValueError:       # no tile of this micro-tile fits
+                    continue
+
+                def call(f=micro):
+                    cvg._conv_tile_forced(x, w3, tab, sx, sw, form, 8, 3, 3,
+                                          1, f)
+
+                call()
+                times[micro] = (_median_ms(cs, call, 15, flush),
+                                (p.ib, p.tr, p.tc, p.tiles, p.grid))
+            mine = (plan.rp, plan.rn)
+            fast = min(times, key=lambda m: times[m][0])
+            res[f"conv {label} {(b, h, w, c, n)}"] = {
+                "plan": list(mine), "plan_ms": times[mine][0],
+                "fastest": list(fast), "fastest_ms": times[fast][0],
+                "grid": [[*m, t, *geo] for m, (t, geo) in times.items()]}
+            print(f"conv {label:12} {str((b, h, w, c, n)):22} (rp, rn): plan "
+                  f"{mine} {times[mine][0]:.4f} ms, fastest {fast} "
+                  f"{times[fast][0]:.4f} ms; "
+                  + " ".join(f"{m[0]}x{m[1]}:{t:.4f}"
+                             for m, (t, _) in times.items()), flush=True)
 
 
 def partial_sweep(cs, dev, flush, lut, sweep) -> None:

@@ -175,9 +175,11 @@ def test_conv_plan_key_holds_the_bit_safety_flag():
 
 def test_conv_plan_routes_a_large_plane_to_the_kernel():
     """The reference's VMEM model (a whole padded plane in 8 MiB) sends a
-    224x224 plane to the im2col fallback; the CUDA kernel holds no
-    plane, only its table and one A and B tile, so the port's
-    shared-memory gate admits it (ROADMAP queue C)."""
+    224x224 plane to the im2col fallback; the CUDA kernels hold no
+    plane, only their table and a fixed halo and weight region (the
+    fused tile kernel) or one A and B tile (the template: the partials
+    and wide log), so the port's shared-memory gate admits it (ROADMAP
+    queue C)."""
     spec = MultiplierSpec("exact", 8, True)
     big = plan_conv("exact", "hardware", 8, 4, 224, 224, 64, 64,
                     ConvParams(), "cuda", spec=spec)
@@ -186,8 +188,11 @@ def test_conv_plan_routes_a_large_plane_to_the_kernel():
                         jag.ConvParams(), backend="cpu",
                         spec=_jspec("exact", None))
     assert ref.entry.name == "conv_im2col"
-    assert conv_gemm.gemm_smem_bytes("lut", 8) == 137_216
-    assert conv_gemm.gemm_smem_bytes("nibble", 8) == 45_056
+    assert conv_gemm.gemm_smem_bytes("lut", 8) == 217_104
+    assert conv_gemm.gemm_smem_bytes("nibble", 8) == 111_632
+    assert conv_gemm.gemm_smem_bytes("log", 8) == 106_512
+    assert conv_gemm.template_smem_bytes("lut", 8) == 137_216
+    assert conv_gemm.template_smem_bytes("nibble", 8) == 45_056
     assert conv_gemm.gemm_smem_bytes("log", 16) == 40_960
     assert conv_gemm.gemm_smem_bytes("mxu", 8) == 54_848
     for name in ag._CONV_CORES:

@@ -416,6 +416,118 @@ def test_conv_kernels_bitwise_equal_plain_versions(geom):
         assert torch.equal(got, want), comp
 
 
+# the fused LUT and log convs' tile kernel (csrc/conv_tile.cuh) at its
+# edges: several N tiles and ragged channels, ragged N, N = 1, one pixel
+# tile, a plane wider than one tile in both dimensions, stride 2 with 5x5
+# and 7x7 taps, C = 3 and C = 96 on a 60-wide plane
+CONV_TILE_EDGES = [(3, 12, 12, 17, 80, 3, 3, 1), (2, 9, 9, 3, 7, 3, 3, 1),
+                   (2, 11, 7, 17, 1, 3, 3, 1), (1, 5, 5, 4, 16, 3, 3, 1),
+                   (1, 20, 700, 8, 16, 3, 3, 1), (2, 13, 13, 3, 16, 5, 5, 2),
+                   (2, 30, 30, 3, 64, 7, 7, 2), (1, 20, 60, 96, 24, 3, 3, 1),
+                   (1, 20, 60, 3, 24, 3, 3, 1)]
+
+
+def _tile_variants(dev):
+    """(form, bits, table): the full table at 8 and 4 bits, the nibble
+    sub-tables of the exact family and of appro42 with 4 approximate
+    columns, mitchell and log_our."""
+    a8, a4 = MultiplierSpec("appro42", 8, True), MultiplierSpec("appro42",
+                                                                4, True)
+    return [("lut", 8, ops.lut_table(a8, dev)),
+            ("lut", 4, ops.lut_table(a4, dev)),
+            ("nibble", 8, ops.nibble_table(NIBBLE[0], dev)),
+            ("nibble", 8, ops.nibble_table(NIBBLE[1], dev)),
+            ("mitchell", 8, None), ("log_our", 8, None)]
+
+
+def _tile_plain(form, bits, table, x, w3, sx, sw, geo):
+    from repro_torch.kernels import conv_gemm
+
+    if form in ("lut", "nibble"):
+        return conv_gemm.conv_lut_fused_plain(x, w3, table, sx, sw, bits,
+                                              nibble=form == "nibble", **geo)
+    return conv_gemm.conv_log_fused_plain(x, w3, sx, sw, bits,
+                                          compensated=form == "log_our",
+                                          **geo)
+
+
+@pytest.mark.parametrize("geom", CONV_TILE_EDGES, ids=str)
+def test_conv_tile_kernel_bitwise_at_its_edges(geom):
+    """Every variant of the two fused entries on the tile kernel, with the
+    plan's micro-tile and every other one, equals its plain version bit
+    for bit; log at 12 and 16 bits takes the template (the wide entry)."""
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    b, h, w, c, n, kh, kw, s = geom
+    g = torch.Generator(device=dev).manual_seed(sum(geom))
+    x = torch.randn(b, h, w, c, generator=g, device=dev)
+    w3 = torch.randn(kh * kw, c, n, generator=g, device=dev) * 0.1
+    geo = dict(kh=kh, kw=kw, stride=s)
+    tile = {k: conv_gemm.KERNELS[k] for k in ("conv_lut_fused",
+                                              "conv_log_fused",
+                                              "conv_log_fused_wide")}
+    for form, bits, table in _tile_variants(dev):
+        sx, sw = ops._scales(x, w3.reshape(-1, n), bits)
+        want = _tile_plain(form, bits, table, x, w3, sx, sw, geo)
+        for force in (None,) + conv_gemm.TILE_MICRO:
+            if force is None:
+                got = (conv_gemm.conv_lut_fused(
+                    x, w3, table, sx, sw, bits, nibble=form == "nibble",
+                    **geo) if table is not None else conv_gemm.conv_log_fused(
+                    x, w3, sx, sw, bits, compensated=form == "log_our",
+                    **geo))
+            else:
+                try:
+                    conv_gemm.conv_plan(form, bits, b, h, w, c, n, kh, kw, s,
+                                        132, 1, force=force)
+                except ValueError:       # no tile of this micro-tile fits
+                    continue
+                got = conv_gemm._conv_tile_forced(x, w3, table, sx, sw, form,
+                                                  bits, kh, kw, s, force)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (form, bits, force)
+    for bits in (12, 16):
+        sx, sw = ops._scales(x, w3.reshape(-1, n), bits)
+        before = {k: v.launches for k, v in tile.items()}
+        for comp in (False, True):
+            got = conv_gemm.conv_log_fused(x, w3, sx, sw, bits,
+                                           compensated=comp, **geo)
+            want = conv_gemm.conv_log_fused_plain(x, w3, sx, sw, bits,
+                                                  compensated=comp, **geo)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (bits, comp)
+        assert {k: v.launches - before[k] for k, v in tile.items()} == {
+            "conv_lut_fused": 0, "conv_log_fused": 0,
+            "conv_log_fused_wide": 2}
+
+
+def test_conv_tile_plan_reads_the_cards_residency():
+    """The plan's grid is at most the blocks the card holds at once (the
+    C query of the instantiation launched), and a plan the kernel does
+    not take is refused at launch."""
+    from repro_torch.kernels import conv_gemm
+
+    dev = _card()
+    x = torch.randn(256, 16, 16, 16, device=dev)
+    w3 = torch.randn(9, 16, 16, device=dev) * 0.1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for form in ("lut", "nibble", "mitchell", "log_our"):
+        plan = conv_gemm.device_plan(form, 8, x, w3, 3, 3, 1)
+        held = conv_gemm._tile_capacity(0, conv_gemm.TILE_KIND[form], 8,
+                                        plan.rp, plan.rn)
+        assert held >= 1 and plan.grid == min(plan.tiles, sms * held)
+    sx, sw = ops._scales(x, w3.reshape(-1, 16), 8)
+    plan = conv_gemm.device_plan("mitchell", 8, x, w3, 3, 3, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv_gemm._LOG(x.data_ptr(), w3.data_ptr(), sx.data_ptr(),
+                       sw.data_ptr(), torch.empty(1, device=dev).data_ptr(),
+                       256, 16, 16, 16, 16, 3, 3, 1, 8, 0, plan.smem,
+                       plan.rp, plan.rn, plan.ib, plan.tr, plan.tc,
+                       plan.cc, plan.tg, plan.tiles + 1,
+                       torch.cuda.current_stream().cuda_stream)
+
+
 def test_conv_and_nibble_wrappers_raise_on_what_the_kernels_do_not_take(
         monkeypatch):
     from repro_torch.kernels import conv_gemm

@@ -25,13 +25,15 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      operands, as the CNN feeds them) and one ragged shape
      (the nibble kernels for the exact table and appro42 with 4
      approximate columns, the int form also at the saturating int8
-     minimum); the fused LUT and log GEMMs and their partial forms (the
-     split-K cluster kernel, csrc/cluster_gemm.cuh, epilogue on and off)
-     also bitwise at CLUSTER_EDGES (every M, K and N corner of its plan,
-     bf16 and f32, the LUT at 4 and 8 bits, the log kernel at 8 and,
-     through the tiled side of its bits gate, 16; each partial also
-     through the epilogue against its fused form), its launch plans
-     printed and the LUT's table fill timed (a K = 32
+     minimum); the fused LUT, nibble and log GEMMs and their partial
+     forms (the split-K cluster kernel, csrc/cluster_gemm.cuh, epilogue
+     on and off) also bitwise at CLUSTER_EDGES (every M, K and N corner
+     of its plan, bf16 and f32, the LUT at 4 and 8 bits, the nibble forms
+     for the exact family at 2, 4, 6 and 8 bits and appro42/4, one shape
+     also on operands 2 and 4 bytes off 16-byte alignment, the log
+     kernel at 8 and, through the tiled side of its bits gate, 16; each
+     partial also through the epilogue against its fused form), its
+     launch plans printed and the LUT's table fill timed (a K = 32
      call with the 8-bit table against a 4-bit one); the two
      implicit-GEMM conv kernels (full LUT, nibble for
      both specs, Mitchell, Log-our; up to 8 bits the tile kernel,
@@ -110,11 +112,17 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      row-count invariance (rows 0-1 of 4 normed alone, bitwise, at d =
      2048 and 768);
   5. serve: ``build_engine`` over the hardware-mode ladder (exact /
-     balanced / economy) on full-size qwen3-1.7b with seeded random
-     weights, warmup, then a Poisson workload served twice under a
-     simulated clock (identical tokens, every request complete, both
-     fused kernels launched, no plan misses after warmup) and once under
-     the real clock (tokens/s and per-token p50 per tier); then one
+     balanced / economy) and the nibble GEMM's lane (``balanced/4``:
+     appro42/orplane with 4 approximate columns) on full-size
+     qwen3-1.7b with seeded random weights, warmup, then a Poisson
+     workload over the ladder (none of it to ``balanced/4``) served twice
+     under a simulated clock (identical tokens, every request complete,
+     both fused kernels launched, no plan misses after warmup) and once
+     under the real clock (tokens/s and per-token p50 per tier); four of
+     its requests pinned to ``balanced/4``, served twice under the
+     simulated clock (identical tokens, no plan misses after warmup,
+     ``nibble_lut_matmul_fused`` launched once a CiM GEMM of every
+     forward and nothing else); then one
      decode round and one prefill per lane on the host clock, and one
      decode round per lane under torch.profiler (kernels, device busy
      time and idle share, device time by kernel class; three rounds,
@@ -219,6 +227,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 GATHERS_PER_SM_CLOCK = 32          # shared-memory words a clock
+# shared-memory gathers a nibble product needs at least: the split-K
+# cluster kernel folds the four sub-tables into two signed ones
+# (csrc/cluster_gemm.cuh ClusterNibbleCore), so the fewest of any nibble
+# kernel, as LOG_CLOCKS keeps the fewest clocks of any log loop, bounds
+# every nibble row (GEMM, conv, attention): no share passes 100%
+NIBBLE_GATHERS = 2
 # SM clocks one log-domain product needs at least, keyed by `compensated`:
 # phase 2 counts the instructions of the log kernels' product loop in
 # their SASS (kernels/sass.py) and keeps the fewest of any instantiation
@@ -289,7 +303,7 @@ SOURCES = {
     "nibble_lut_matmul": ("src/repro_torch/kernels/csrc/nibble_gemm.cu",
                           "src/repro/kernels/approx_matmul.py:294"),
     "nibble_lut_matmul_fused": (
-        "src/repro_torch/kernels/csrc/nibble_gemm.cu",
+        "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
         "src/repro/kernels/approx_matmul.py:389"),
     "conv_lut_fused": ("src/repro_torch/kernels/csrc/conv_tile.cuh",
                        "src/repro/kernels/conv_gemm.py:236"),
@@ -304,7 +318,7 @@ SOURCES = {
     "lut_matmul_partial": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                            "src/repro/kernels/approx_matmul.py:248"),
     "nibble_lut_matmul_partial": (
-        "src/repro_torch/kernels/csrc/nibble_gemm.cu",
+        "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
         "src/repro/kernels/approx_matmul.py:402"),
     "mitchell_matmul_partial": (
         "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
@@ -455,7 +469,7 @@ def _bound(name: str, m: int, k: int, n: int, sms: int, clock_hz: float,
     if name.startswith(("lut", "nibble")):
         nibble = name.startswith("nibble")
         nbytes += NIBBLE_BYTES if nibble else LUT_BYTES
-        ops_s = (m * k * n * (4 if nibble else 1)
+        ops_s = (m * k * n * (NIBBLE_GATHERS if nibble else 1)
                  / (sms * GATHERS_PER_SM_CLOCK * clock_hz))
     else:
         ops_s = m * k * n * LOG_CLOCKS[False] / (sms * clock_hz)
@@ -694,10 +708,14 @@ def check_cluster_edges(torch, lut8, flush):
     """The cluster kernel (csrc/cluster_gemm.cuh) at CLUSTER_EDGES, fused
     and partial (the raw int32 sum, also through the epilogue against the
     fused kernel), bitwise against the plain versions, with the split each
-    shape was given (the partials' plans at the shard shapes too); then
-    what the LUT's table fill costs a call: lut_matmul_fused at K = 32
-    (one step) with the 8-bit table (128 KiB a block) against the 4-bit
-    one (512 bytes), the same shapes and operands otherwise."""
+    shape was given (the partials' plans at the shard shapes too): the
+    LUT at 4 and 8 bits, the log kernel (mitchell, log_our) at 8 (and 16,
+    the template's side, on the first CLUSTER_WIDE_EDGES), the nibble
+    forms for the exact family at 2, 4, 6 and 8 bits and appro42/4 (at
+    the misaligned edge also on bf16 operands, 2 bytes off); then what
+    the LUT's table fill costs a call: lut_matmul_fused at K = 32 (one
+    step) with the 8-bit table (128 KiB a block) against the 4-bit one
+    (512 bytes), the same shapes and operands otherwise."""
     from repro_torch.core.multipliers import MultiplierSpec
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import mitchell_gemm as mg
@@ -705,14 +723,47 @@ def check_cluster_edges(torch, lut8, flush):
 
     dev = torch.device("cuda")
     lut4 = ops.lut_table(MultiplierSpec("appro42", 4, True, "orplane"), dev)
+    nibs = [(f"nibble{b}", b, ops.nibble_table(
+        MultiplierSpec("exact", b, True), dev)) for b in (2, 4, 6, 8)]
+    nibs.append(("nibble8[appro42/4]", 8, ops.nibble_table(
+        MultiplierSpec("appro42", 8, True, "orplane", 4), dev)))
+
+    def nibble_calls(x, w, sfx=""):
+        # the plain partial once a width: the plain fused form is its
+        # epilogue (nibble_lut_matmul_fused_plain)
+        out = []
+        for tag, bits, subs in nibs:
+            sx, sw = ops._scales(x, w, bits)
+            memo = {}
+
+            def part_plain(t=subs, b=bits, a=sx, c=sw, memo=memo):
+                if "v" not in memo:
+                    memo["v"] = am.nibble_lut_matmul_partial_plain(
+                        x, w, t, a, c, b)
+                return memo["v"]
+
+            fused = (lambda t=subs, b=bits, a=sx, c=sw:
+                     am.nibble_lut_matmul_fused(x, w, t, a, c, b))
+            out.append((tag + sfx, fused,
+                        lambda p=part_plain, a=sx, c=sw:
+                        am.epilogue(p(), a, c), None, None))
+            out.append((f"{tag}{sfx} partial",
+                        lambda t=subs, b=bits, a=sx, c=sw:
+                        am.nibble_lut_matmul_partial(x, w, t, a, c, b),
+                        part_plain, (sx, sw), fused))
+        return out
+
     for i, (m, k, n) in enumerate(CLUSTER_EDGES):
         g = torch.Generator(device=dev).manual_seed(1000 + i)
         dt = torch.bfloat16 if i % 2 == 0 else torch.float32
         x = torch.randn(m, k, generator=g, device=dev).to(dt)
         w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(dt)
+        calls = []      # (tag, kernel, plain version, scales, fused)
         if (m, k, n) == (1, 2048, 2048):
             x, w = _misaligned(torch, x), _misaligned(torch, w)
-        calls = []      # (tag, kernel, plain version, scales, fused)
+            calls += nibble_calls(_misaligned(torch, x.to(torch.bfloat16)),
+                                  _misaligned(torch, w.to(torch.bfloat16)),
+                                  " bf16")
         for bits, table in ((8, lut8), (4, lut4)):
             sx, sw = ops._scales(x, w, bits)
             fused = (lambda t=table, b=bits, a=sx, c=sw:
@@ -745,6 +796,7 @@ def check_cluster_edges(torch, lut8, flush):
                     lambda b=bits, c=comp, a=sx, s=sw:
                     mg.mitchell_matmul_partial_plain(x, w, a, s, b, c),
                     (sx, sw), fused))
+        calls += nibble_calls(x, w)
         for tag, kern, plain, scales, fused in calls:
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -760,18 +812,24 @@ def check_cluster_edges(torch, lut8, flush):
         gp = am.fused_plan(mg.KERNELS["mitchell_matmul_fused"], x, w, 8, 0)
         lpp = am.fused_plan(am.KERNELS["lut_matmul_partial"], x, w, 8)
         gpp = am.fused_plan(mg.KERNELS["mitchell_matmul_partial"], x, w, 8, 0)
+        np_ = am.fused_plan(am.KERNELS["nibble_lut_matmul_fused"], x, w, 8)
+        npp = am.fused_plan(am.KERNELS["nibble_lut_matmul_partial"], x, w, 8)
         print(f"  cluster edge {(m, k, n)} {dt}: bitwise ({len(calls)} "
               f"calls); plan rows {lp.rows}, splits lut {lp.splits} / log "
-              f"{gp.splits}, partial lut {lpp.splits} / log {gpp.splits}",
+              f"{gp.splits} / nibble {np_.splits}, partial lut "
+              f"{lpp.splits} / log {gpp.splits} / nibble {npp.splits}",
               flush=True)
     plans = []
-    for m, k, n in MAIN_SHAPES:
-        x = torch.empty(m, k, device=dev, dtype=torch.bfloat16)
-        w = torch.empty(k, n, device=dev, dtype=torch.bfloat16)
+    for m, k, n in MAIN_SHAPES + [CNN_FC]:
+        dt = torch.float32 if (m, k, n) == CNN_FC else torch.bfloat16
+        x = torch.empty(m, k, device=dev, dtype=dt)
+        w = torch.empty(k, n, device=dev, dtype=dt)
         lp = am.fused_plan(am.KERNELS["lut_matmul_fused"], x, w, 8)
         gp = am.fused_plan(mg.KERNELS["mitchell_matmul_fused"], x, w, 8, 0)
+        np_ = am.fused_plan(am.KERNELS["nibble_lut_matmul_fused"], x, w, 8)
         plans.append(f"{(m, k, n)} lut {lp.tiles}x{lp.splits} log "
-                     f"{gp.tiles}x{gp.splits}")
+                     f"{gp.tiles}x{gp.splits} nibble "
+                     f"{np_.tiles}x{np_.splits}")
     print(f"  cluster plans (tiles x splits): {'; '.join(plans)}",
           flush=True)
     plans = []
@@ -780,8 +838,10 @@ def check_cluster_edges(torch, lut8, flush):
         w = torch.empty(k, n, device=dev, dtype=torch.bfloat16)
         lp = am.fused_plan(am.KERNELS["lut_matmul_partial"], x, w, 8)
         gp = am.fused_plan(mg.KERNELS["mitchell_matmul_partial"], x, w, 8, 0)
+        np_ = am.fused_plan(am.KERNELS["nibble_lut_matmul_partial"], x, w, 8)
         plans.append(f"{(m, k, n)} lut {lp.tiles}x{lp.splits} log "
-                     f"{gp.tiles}x{gp.splits}")
+                     f"{gp.tiles}x{gp.splits} nibble "
+                     f"{np_.tiles}x{np_.splits}")
     print(f"  partial plans at the shard shapes (tiles x splits): "
           f"{'; '.join(plans)}", flush=True)
     for n in (2048, 6144):
@@ -1054,8 +1114,8 @@ def check_surrogate_edges(torch):
 def _conv_bound(core, comp, b, h, w, c, n, oh, ow, sms, clock_hz):
     """(bound_ms, bound_by): the image, the weights and the scales read
     once and the output written once at 3.35 TB/s, against the M*K*N
-    products of the implicit GEMM as gathers (lut; nibble four a
-    product) at the SMs' peak rate, for log at LOG_CLOCKS a product, or
+    products of the implicit GEMM as gathers (lut; nibble NIBBLE_GATHERS
+    a product) at the SMs' peak rate, for log at LOG_CLOCKS a product, or
     for the exact core as 2 M K N int8 tensor-core operations."""
     m, k = b * oh * ow, 9 * c
     nbytes = 4 * (b * h * w * c + k * n + 1 + n + m * n)
@@ -1067,7 +1127,7 @@ def _conv_bound(core, comp, b, h, w, c, n, oh, ow, sms, clock_hz):
     elif core == "mxu":
         ops_s = 2 * products / INT8_TC_OPS_PER_S
     else:
-        ops_s = (products * (4 if core == "nibble" else 1)
+        ops_s = (products * (NIBBLE_GATHERS if core == "nibble" else 1)
                  / (sms * GATHERS_PER_SM_CLOCK * clock_hz))
     bytes_s = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(bytes_s, ops_s), ("operations" if ops_s >= bytes_s
@@ -1547,7 +1607,7 @@ def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
     if path == "mxu":
         ops_s = 2 * products / INT8_TC_OPS_PER_S
     elif path in ("lut", "nibble"):
-        gathers = products * (4 if path == "nibble" else 1)
+        gathers = products * (NIBBLE_GATHERS if path == "nibble" else 1)
         ops_s = gathers / (sms * GATHERS_PER_SM_CLOCK * clock_hz)
     else:
         ops_s = products * LOG_CLOCKS[comp] / (sms * clock_hz)
@@ -1922,12 +1982,7 @@ def check_reference(torch):
     tiers = (build_tiers(mode="hardware")
              + build_tiers(mode="hardware", attn=True)
              + build_tiers(mode="surrogate"))
-    # the balanced multiplier with 4 approximate columns: nibble-
-    # decomposable, so its GEMMs run the nibble kernel
-    bal = next(t for t in tiers if t.name == "balanced")
-    nibble_lane = dataclasses.replace(
-        bal, name="balanced/4", cim=dataclasses.replace(bal.cim,
-                                                        n_approx_cols=4))
+    nibble_lane = _nibble_tier(tiers)
     nibble_kernel = _kernel_modules()["nibble_lut_matmul_fused"]
     surr_kernel = _kernel_modules()["cim_gemm_fused"]
     for tier in tiers + (nibble_lane,):
@@ -2032,6 +2087,17 @@ def _to(torch, tree, device):
 # the cim_linear GEMMs of one qwen3 layer: wq, wk, wv, wo, mlp_wi, mlp_wg,
 # mlp_wo (the LM head is a plain matmul)
 GEMMS_PER_LAYER = 7
+# the served lane of the nibble GEMM (phases 4 and 5)
+NIBBLE_LANE = "balanced/4"
+
+
+def _nibble_tier(tiers):
+    """The balanced tier's multiplier with 4 approximate columns (appro42
+    orplane): nibble-decomposable, so its GEMMs run the nibble kernel."""
+    bal = next(t for t in tiers if t.name == "balanced")
+    return dataclasses.replace(
+        bal, name=NIBBLE_LANE,
+        cim=dataclasses.replace(bal.cim, n_approx_cols=4))
 
 
 def _kernel_modules():
@@ -2089,6 +2155,12 @@ def serve(torch, layers, power, attn: bool, mode: str = "hardware"):
           f"attention {attn}; {max_len}-token slots, prompt bucket {bucket}",
           flush=True)
     tiers = build_tiers(mode=mode, attn=attn)
+    # phase 5 also serves the nibble GEMM's lane, which the Poisson
+    # workload never reaches: its own requests below
+    nib_lane = mode == "hardware" and not attn
+    if nib_lane:
+        tiers = tiers + (_nibble_tier(tiers),)
+    nib_per_fwd = GEMMS_PER_LAYER * cfg.n_layers
     # the GEMM kernels each approximate forward must launch, and how often
     per_fwd = ({"cim_gemm_fused": GEMMS_PER_LAYER * cfg.n_layers}
                if mode == "surrogate" else {})
@@ -2113,7 +2185,7 @@ def serve(torch, layers, power, attn: bool, mode: str = "hardware"):
                           seed=seed)
     forwards = _count_forwards(eng)
 
-    def run_sim():
+    def run_sim(wl=wl):
         t = time.perf_counter()
         res = eng.run(wl, clock=SimClock())
         torch.cuda.synchronize()
@@ -2134,7 +2206,7 @@ def serve(torch, layers, power, attn: bool, mode: str = "hardware"):
     launches = _launch_counts()
     fallbacks = cim_attn_fallbacks()
     tiers_used = sorted({r.tier for r in res_a.values()})
-    if tiers_used != sorted(t.name for t in tiers):
+    if tiers_used != sorted(name for name, _, _ in mix):
         fail(f"the workload reached only the tiers {tiers_used}")
     print(f"  simulated-clock run: {len(wl)} requests ({', '.join(tiers_used)}"
           f"), {sum(len(r.tokens) for r in res_a.values())} tokens in "
@@ -2186,6 +2258,36 @@ def serve(torch, layers, power, attn: bool, mode: str = "hardware"):
               f"{st.p50_ms_per_token:.1f} ms, ttft p50 "
               f"{st.p50_ttft_ms:.1f} ms", flush=True)
 
+    if nib_lane:
+        # the nibble lane: the Poisson workload's first four requests
+        # pinned to it, served twice under the simulated clock; every
+        # forward launches the nibble kernel once a CiM GEMM, nothing else
+        nwl = [dataclasses.replace(r, rid=1000 + r.rid, tier=NIBBLE_LANE)
+               for r in wl[:4]]
+        eng.warmup()
+        for k in forwards:
+            forwards[k] = 0
+        _reset_counts()
+        res_n, secs = run_sim(nwl)
+        nib, nf = _launch_counts(), forwards[NIBBLE_LANE]
+        want = {"nibble_lut_matmul_fused": nib_per_fwd * nf}
+        if not nf or {k: v for k, v in nib.items() if v} != want:
+            fail(f"{NIBBLE_LANE}: launches {nib} in {nf} forwards, "
+                 f"expected {want}")
+        eng.warmup()
+        res_m, _ = run_sim(nwl)
+        if any(res_n[r.rid].tokens != res_m[r.rid].tokens for r in nwl):
+            fail(f"{NIBBLE_LANE}: the same requests served twice gave "
+                 "different tokens")
+        ntok = sum(len(r.tokens) for r in res_n.values())
+        print(f"  {NIBBLE_LANE} lane (appro42/orplane/4, the nibble GEMM): "
+              f"{len(nwl)} requests, {ntok} tokens in {secs:.1f}s under the "
+              f"simulated clock, {nf} forwards, nibble_lut_matmul_fused "
+              f"launched {nib['nibble_lut_matmul_fused']} times "
+              f"({nib_per_fwd} a forward), no plan misses after warmup; "
+              "served again: identical tokens", flush=True)
+        launches = {k: launches[k] + nib[k] for k in launches}
+
     # where the time goes: one pool decode round and one 4 x bucket
     # prefill per lane, host clock around work that ends in a synchronize
     for name, lane in eng.lanes.items():
@@ -2210,6 +2312,11 @@ def serve(torch, layers, power, attn: bool, mode: str = "hardware"):
             if counts[kname] != want:
                 fail(f"{name}: {kname} launched {counts[kname]} times in 3 "
                      f"decode rounds, expected {want}")
+        want = 3 * nib_per_fwd if name == NIBBLE_LANE else 0
+        if counts["nibble_lut_matmul_fused"] != want:
+            fail(f"{name}: nibble_lut_matmul_fused launched "
+                 f"{counts['nibble_lut_matmul_fused']} times in 3 decode "
+                 f"rounds, expected {want}")
         t = time.perf_counter()
         with torch.inference_mode():
             b.lm.prefill(b.params, {"tokens": toks, "lengths": lens,

@@ -23,17 +23,19 @@ functions execute it, in the JAX package's two table layouts:
 On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
 csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
 version beside it, which repeats the kernel's arithmetic
-(kernels/ref.py).  ``lut_matmul_fused`` and ``lut_matmul_partial`` (and
-the log forms ``mitchell_matmul_fused`` and ``mitchell_matmul_partial`` up
-to 8 bits) launch the split-K cluster kernel of csrc/cluster_gemm.cuh,
-cut by ``cluster_plan``, the partial forms with its epilogue off; the
-other forms the tiled template (csrc/cim_gemm.cuh).
+(kernels/ref.py).  The fused and partial forms of both layouts (and the
+log forms ``mitchell_matmul_fused`` and ``mitchell_matmul_partial`` up to
+8 bits) launch the split-K cluster kernel of csrc/cluster_gemm.cuh, cut
+by ``cluster_plan``, the partial forms with its epilogue off (the nibble
+forms fold the four sub-tables into two signed ones, two gathers a
+product); the int forms, the oracles, the tiled template
+(csrc/cim_gemm.cuh).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -53,8 +55,10 @@ _FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
 _PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial",
                       _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
 _NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8", _INT_ARGS)
-_NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused", _FUSED_ARGS)
-_NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial", _FUSED_ARGS)
+_NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused",
+                        _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
+_NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial",
+                          _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
 # resets their launch counts)
@@ -73,6 +77,13 @@ _FLOATS = (torch.float32, torch.bfloat16)
 # one thread-block cluster
 CLUSTER_ROWS = (4, 16, 64)
 CLUSTER_BN, CLUSTER_BK, CLUSTER_MAX_SPLITS = 64, 64, 8
+# the nibble forms' row tiles (ClusterNibbleCore::MAX_ROWS): a prefill's
+# rows in 16-row tiles, two blocks an SM (on an H100 a 64-row tile ran
+# 1.2x slower at M = 64: launch/cluster_sweep.py --only nibble)
+NIBBLE_ROWS = (4, 16)
+# the row tiles of each cluster kernel entry that has its own
+ROW_TILES = {"nibble_gemm_fused": NIBBLE_ROWS,
+             "nibble_gemm_partial": NIBBLE_ROWS}
 # a block's fixed cost (prologue, table, partial sums) in K steps, in the
 # plan's cost
 _BLOCK_STEPS = 2
@@ -133,14 +144,17 @@ def _capacity(library: str, symbol: str, device: int, args: tuple,
 
 
 def fused_plan(kern: CudaKernel, x, w, *lead,
-               row_tiles: Sequence[int] = CLUSTER_ROWS) -> ClusterPlan:
+               row_tiles: Optional[Sequence[int]] = None) -> ClusterPlan:
     """The plan of one call of the split-K cluster kernel `kern` on x's
     device, cut by the device's cluster capacity (its C query
     ``<symbol>_capacity``, of the instantiation `kern` launches, whose
-    arguments after the rows are `lead`, then x_bf16, w_bf16:
-    lut_gemm_fused's and lut_gemm_partial's bits, log_gemm_fused's and
-    log_gemm_partial's bits and compensated, cim_gemm_fused's
-    variant)."""
+    arguments after the rows are `lead`, then x_bf16, w_bf16: the bits
+    of lut_gemm_fused, nibble_gemm_fused and their partial forms,
+    log_gemm_fused's and log_gemm_partial's bits and compensated,
+    cim_gemm_fused's variant), over the entry's row tiles (`row_tiles`,
+    else ROW_TILES or CLUSTER_ROWS)."""
+    if row_tiles is None:
+        row_tiles = ROW_TILES.get(kern.symbol, CLUSTER_ROWS)
     m, k = x.shape
     args = (*lead, int(x.dtype == torch.bfloat16),
             int(w.dtype == torch.bfloat16))
@@ -154,8 +168,9 @@ def launch_cluster(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,
                    *flags, out_dtype=torch.float32) -> torch.Tensor:
     """One planned launch of the cluster kernel: f32/bf16 x (M,K), w (K,N)
     -> (M,N) of `out_dtype`, f32 for a fused form, int32 for a partial
-    one (its epilogue off); `table` None for the log kernel, `flags` its
-    trailing int arguments before the plan (compensated)."""
+    one (its epilogue off); `table` the LUT or the nibble sub-tables,
+    None for the log kernel; `flags` its trailing int arguments before
+    the plan (compensated)."""
     plan = fused_plan(kern, x, w, bits, *flags)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     tab = () if table is None else (table.data_ptr(),)
@@ -289,15 +304,6 @@ def _check_fused(x, w, sx, sw, n: int) -> None:
             and sw.is_contiguous(), f"sw must be {n} contiguous f32")
 
 
-def _launch_fused(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,
-                  out_dtype=torch.float32):
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-         int(w.dtype == torch.bfloat16), table.data_ptr(), sx.data_ptr(),
-         sw.data_ptr(), out.data_ptr(), m, k, n, bits, stream_of(x))
-    return out
-
-
 def lut_matmul_fused(x: torch.Tensor, w: torch.Tensor, lut_flat: torch.Tensor,
                      sx: torch.Tensor, sw: torch.Tensor,
                      bits: int = 8) -> torch.Tensor:
@@ -348,7 +354,8 @@ def nibble_lut_matmul_fused(x: torch.Tensor, w: torch.Tensor,
         return nibble_lut_matmul_fused_plain(x, w, subs_flat, sx, sw, bits)
     _check_fused(x, w, sx, sw, n)
     check_subs(subs_flat, bits)
-    return _launch_fused(_NIB_FUSED, x, w, subs_flat, sx, sw, m, k, n, bits)
+    return launch_cluster(_NIB_FUSED, x, w, subs_flat, sx, sw, m, k, n,
+                          bits)
 
 
 def lut_matmul_partial(x: torch.Tensor, w: torch.Tensor,
@@ -379,5 +386,5 @@ def nibble_lut_matmul_partial(x: torch.Tensor, w: torch.Tensor,
         return nibble_lut_matmul_partial_plain(x, w, subs_flat, sx, sw, bits)
     _check_fused(x, w, sx, sw, n)
     check_subs(subs_flat, bits)
-    return _launch_fused(_NIB_PARTIAL, x, w, subs_flat, sx, sw, m, k, n,
-                         bits, torch.int32)
+    return launch_cluster(_NIB_PARTIAL, x, w, subs_flat, sx, sw, m, k, n,
+                          bits, out_dtype=torch.int32)

@@ -24,7 +24,9 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# every kernel source of the port (csrc/<name>.cu)
+# every kernel source the port's paths launch (csrc/<name>.cu); the
+# measurement source csrc/nibble_shapes.cu is built by
+# launch/cluster_sweep.py alone
 SOURCES = ("lut_gemm", "nibble_gemm", "log_gemm", "conv_gemm", "attn_gemm",
            "surrogate_gemm", "slstm_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"

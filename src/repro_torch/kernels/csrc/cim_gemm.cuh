@@ -57,7 +57,7 @@
 // log product has no tensor-core form.  The exact int8 dots run on the
 // tensor cores instead: cim_gemm_core without SQ and the exact-mode conv
 // in int8_mma.cuh, the fused surrogate GEMM (D and SQ) in
-// surrogate_cluster.cuh; the served fused LUT and log GEMMs and their
+// surrogate_cluster.cuh; the fused LUT, nibble and log GEMMs and their
 // partial forms (up to 8 bits) run the split-K cluster kernel of
 // cluster_gemm.cuh.
 

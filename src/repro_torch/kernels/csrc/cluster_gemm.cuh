@@ -1,8 +1,9 @@
 // cluster_gemm.cuh - the split-K CiM GEMM for NVIDIA Hopper (sm_90a):
-// the fused LUT and log-domain GEMMs, operands quantized on load and
-// (acc * sx) * sw flushed in the kernel, and their partial forms, the
-// same kernel with the epilogue off.  Included by lut_gemm.cu
-// (lut_gemm_fused, lut_gemm_partial) and log_gemm.cu (log_gemm_fused,
+// the fused LUT, nibble sub-table and log-domain GEMMs, operands quantized
+// on load and (acc * sx) * sw flushed in the kernel, and their partial
+// forms, the same kernel with the epilogue off.  Included by lut_gemm.cu
+// (lut_gemm_fused, lut_gemm_partial), nibble_gemm.cu (nibble_gemm_fused,
+// nibble_gemm_partial) and log_gemm.cu (log_gemm_fused,
 // log_gemm_partial); its frame (the operand ring and tile copies,
 // cl_launch_ex, cl_capacity_ex, the plan's checks) also carries
 // surrogate_cluster.cuh's fused surrogate GEMM.
@@ -12,6 +13,11 @@
 //     _fused_kernel :171 (the full product table)
 //   src/repro/kernels/approx_matmul.py:248 lut_matmul_partial -> :208
 //     (_fused_kernel, epilogue off)
+//   src/repro/kernels/approx_matmul.py:389 nibble_lut_matmul_fused -> :367
+//     -> _nibble_fused_kernel :329 (_gather_nibble :83, the four
+//     2^{b/2} x 2^{b/2} sub-tables of a half-word-decomposable multiplier)
+//   src/repro/kernels/approx_matmul.py:402 nibble_lut_matmul_partial ->
+//     :367 (_nibble_fused_kernel, epilogue off)
 //   src/repro/kernels/mitchell_gemm.py:173 mitchell_matmul_fused -> :151
 //     -> _fused_kernel :115 (_log_product :44, mitchell and log_our)
 //   src/repro/kernels/mitchell_gemm.py:189 mitchell_matmul_partial ->
@@ -19,7 +25,8 @@
 // Log operands of 9..16 bits go to cim_gemm.cuh's tiled template, by the
 // gate kernels/mitchell_gemm.py fused_route (a function of the bits,
 // tested on the CPU), fused and partial alike; the int oracles stay
-// there too.
+// there too.  Every nibble width is even and at most 8 bits: the nibble
+// forms have no other route.
 //
 // What it computes: acc = sum_k prod(qa, qb) in 32 bits with
 // two's-complement wrap, qa = round(x / sx), qb = round(w / sw[n]) by
@@ -28,19 +35,22 @@
 // or the raw int32 acc (Epi = QuantIntOut, the partial forms: the mesh
 // path sums a shard's partials over the model axis before the epilogue):
 // bit for bit the plain versions lut_matmul_fused_plain,
-// mitchell_matmul_fused_plain and their *_partial_plain.
+// nibble_lut_matmul_fused_plain, mitchell_matmul_fused_plain and their
+// *_partial_plain.
 //
 // What bounds it on an H100: at a decode round (M = 4) the weight: each
 // element is read once (3.35 TB/s) and quantized once (an IEEE division),
 // for four products; at M = 64 the products: a shared-memory gather each
-// (LUT, 132 SMs x 32 words a clock), or the log product's instructions
-// (phase 2 of chip_smoke.py reads them from this kernel's SASS).
+// (LUT; two for the nibble form; 132 SMs x 32 words a clock), or the log
+// product's instructions (phase 2 of chip_smoke.py reads them from this
+// kernel's SASS).
 //
 // Design (the template before it left a decode GEMM latency-bound: 16-96
 // blocks of 16 rows for 132 SMs, synchronous loads, every weight element
 // quantized into a 16-byte operand once per 16-row tile):
 //  * Fill the card: a block owns up to RB = 4, 16 or 64 rows (every row
-//    of a served GEMM, M <= 64) and 64 columns, and one slice of K.  The
+//    of a served GEMM, M <= 64; the nibble kernel's tiles stop at 16) and
+//    64 columns, and one slice of K.  The
 //    K slices of a tile are one thread-block cluster of at most 8 blocks.
 //    kernels/approx_matmul.py cluster_plan chooses the split from the
 //    shape and from how many clusters of each size the device holds at
@@ -59,18 +69,33 @@
 //    same layout), and each stage is quantized from shared memory while
 //    the next ones land.
 //  * Quantize each weight element once a call (once an RB-row tile for M
-//    > 64): a block is 64 columns x k groups of threads (4 for the log
-//    kernel, two blocks an SM; 8 for the LUT kernel, whose table leaves
-//    room for one block an SM); a thread quantizes its column's BK / k
-//    groups k of a stage straight into registers and reuses each staged
-//    weight operand for every row of the tile.  The x tile is quantized
-//    once a stage into shared memory.  The k groups' sums meet in shared
-//    memory before the cluster sum.
-//  * Compact staged forms, each a 32-bit word or less (plain-torch model
-//    and exhaustive check: tests/test_torch_cluster_gemm.py):
+//    > RB): a block is 64 columns x k groups of threads (4 for the log
+//    and nibble kernels, two blocks an SM; 8 for the LUT kernel, whose
+//    table leaves room for one block an SM); a thread quantizes its
+//    column's BK / k groups k of a stage straight into registers and
+//    reuses each staged weight operand for every row of the tile.  The x
+//    tile is quantized once a stage into shared memory.  The k groups'
+//    sums meet in shared memory before the cluster sum.
+//  * Compact staged forms, each a 32-bit word or less (plain-torch models
+//    and exhaustive checks: tests/test_torch_cluster_gemm.py,
+//    tests/test_torch_nibble_cluster.py):
 //      LUT       a: byte offset of a's table row, ((a + h) << bits) * 2;
 //                b: byte offset (b + h) * 2, h = 2^(bits-1); a product is
 //                one int16 gather at table + a + b.
+//      nibble    the four sub-tables folded into two, signed by the x
+//                operand: row v (v = -qmax..qmax) holds sign(v) times
+//                (Q_h[|v|][0..hb), Q_l[|v|][0..hb)), with Q_h[am][bh] =
+//                S_hh[am >> h][bh] + S_lh[am & (hb-1)][bh] and Q_l[am][bl]
+//                = S_hl[am >> h][bl] + S_ll[am & (hb-1)][bl] (h = bits /
+//                2, hb = 2^h): 2 hb int32 words a row, one bank line at 8
+//                bits.  a: the byte offset of its row, (a + qmax) 8 hb;
+//                b: three registers, the byte offsets 4 bh and 4 (hb +
+//                bl) and sign(b).  A product is sign(b) (row[bh] +
+//                row[bl]): two gathers, both in the row of a warp-uniform
+//                a, so each is one wavefront.  These are the reference's
+//                four terms regrouped (wrapping sums are associative);
+//                the row of a = 0 is zero by its sign and sign(0) zeroes
+//                b = 0, whatever the sub-tables hold.
 //      mitchell  2^(k1+k2) + q1 2^k2 + q2 2^k1 = mag1 2^k2 + q2 2^k1, so
 //                with A = (s1 mag1, s1 2^k1) and B = (s2 2^k2, s2 q2) as
 //                signed bytes the signed product is A.B, a dot product of
@@ -88,7 +113,9 @@
 //                byte 2 and max(A, B) c_big in byte 3.
 //  * The int16 table (LUT) is copied into each block's shared memory by
 //    cp.async with the first stage (chip_smoke.py phase 3 times its cost
-//    a call: a K = 32 call with the 8-bit table against a 4-bit one).
+//    a call: a K = 32 call with the 8-bit table against a 4-bit one); the
+//    folded nibble table (32,640 bytes at 8 bits) is built from the 4 KiB
+//    sub-tables in global memory while the first stages land.
 // Ragged M, N and K edges are masked: operands outside the matrix stage
 // as 0, which every product form annihilates.
 
@@ -125,12 +152,18 @@ __host__ __device__ inline size_t cl_slot(int rb, int bk, int x_bytes,
 // The product forms.  K_PER_WORD: k a staged x word holds; THREADS: a
 // block's, CL_BN columns x THREADS / CL_BN k groups (the LUT kernel holds
 // one block an SM, its table filling the shared memory, so it runs 16
-// warps in one block where the log kernel runs two blocks of 8).
+// warps in one block where the log kernel runs two blocks of 8);
+// MAX_ROWS: its largest row tile; table_bytes: the block's table in
+// shared memory.
 struct ClusterLutCore {
   static constexpr int KIND = 0;
   static constexpr int K_PER_WORD = 1;
   static constexpr int THREADS = 512;
   static constexpr int MIN_BLOCKS = 1;
+  static constexpr int MAX_ROWS = 64;
+  __host__ __device__ static size_t table_bytes(int bits) {
+    return LutCore::table_bytes(bits);
+  }
 };
 template <bool COMP>
 struct ClusterLogCore {
@@ -138,6 +171,24 @@ struct ClusterLogCore {
   static constexpr int K_PER_WORD = COMP ? 1 : 2;
   static constexpr int THREADS = 256;
   static constexpr int MIN_BLOCKS = COMP ? 1 : 2;
+  static constexpr int MAX_ROWS = 64;
+  __host__ __device__ static size_t table_bytes(int) { return 0; }
+};
+// the folded nibble table: 2 qmax + 1 signed rows of 2 hb int32 words.
+// Two blocks of 8 warps an SM, rows in tiles of at most 16 (a prefill's
+// 64 rows are four tiles): measured on an H100 against one block of 16
+// warps and against 64-row tiles, whose 64 accumulators and three
+// registers a weight element leave the product loop too little room
+// (launch/cluster_sweep.py --only nibble, csrc/nibble_shapes.cu).
+struct ClusterNibbleCore {
+  static constexpr int KIND = 3;
+  static constexpr int K_PER_WORD = 1;
+  static constexpr int THREADS = 256;
+  static constexpr int MIN_BLOCKS = 2;
+  static constexpr int MAX_ROWS = 16;
+  __host__ __device__ static size_t table_bytes(int bits) {
+    return static_cast<size_t>((1 << bits) - 1) * (8u << (bits >> 1));
+  }
 };
 
 // dynamic shared memory of one block: the table, the ring, the staged x
@@ -145,9 +196,34 @@ template <class Core>
 __host__ __device__ inline size_t cl_smem_bytes(int rb, int bits,
                                                 int x_bytes, int w_bytes) {
   const int bk = cl_bk(x_bytes, w_bytes);
-  const size_t tab = Core::KIND == 0 ? al16(LutCore::table_bytes(bits)) : 0;
-  return tab + CL_STAGES * cl_slot(rb, bk, x_bytes, w_bytes) +
+  return al16(Core::table_bytes(bits)) +
+         CL_STAGES * cl_slot(rb, bk, x_bytes, w_bytes) +
          static_cast<size_t>(rb) * (bk / Core::K_PER_WORD) * 4;
+}
+
+// The folded nibble table of the raveled sub-tables `subs` = [S_hh, S_hl,
+// S_lh, S_ll] (global memory, 4 << bits int32) into `tab` (shared
+// memory), row v = -qmax..qmax: sign(v) (Q_h[|v|][0..hb) | Q_l[|v|][0..hb))
+// as uint32, the T threads of the block sharing the words
+template <int T>
+__device__ __forceinline__ void nibble_fold(uint32_t* tab,
+                                            const unsigned char* subs,
+                                            int bits, int tid) {
+  const int h = bits >> 1, hb = 1 << h, sz = hb * hb;
+  const int qmax = (1 << (bits - 1)) - 1;
+  const int words = (2 * qmax + 1) << (h + 1);
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(subs);
+#pragma unroll 4
+  for (int i = tid; i < words; i += T) {
+    const int v = (i >> (h + 1)) - qmax;
+    const int c = i & (2 * hb - 1);
+    const int am = abs(v), col = c & (hb - 1);
+    // Q_h: S_hh[am >> h] + S_lh[am & (hb-1)]; Q_l: S_hl[...] + S_ll[...]
+    const int hi = (c < hb ? 0 : sz) + (am >> h) * hb + col;
+    const int lo = (c < hb ? 2 * sz : 3 * sz) + (am & (hb - 1)) * hb + col;
+    const uint32_t q = __ldg(s + hi) + __ldg(s + lo);
+    tab[i] = static_cast<uint32_t>((v > 0) - (v < 0)) * q;
+  }
 }
 
 struct ClArgs {
@@ -288,6 +364,9 @@ __device__ __forceinline__ void cl_stage_x(uint32_t* sA,
     } else if constexpr (Core::KIND == 1) {
       word = log_x_bytes(q(r, 2 * j), a.bits) |
              (log_x_bytes(q(r, 2 * j + 1), a.bits) << 16);
+    } else if constexpr (Core::KIND == 3) {
+      // the byte offset of its signed row in the folded table
+      word = static_cast<uint32_t>(q(r, j) + qmax) << ((a.bits >> 1) + 3);
     } else {
       const int v = q(r, j);
       word = log_x_bytes(v, a.bits) | comp_word(v, a.bits);
@@ -316,8 +395,7 @@ cluster_gemm_kernel(const ClArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int tn = tid % CL_BN, tg = tid / CL_BN;
-  const size_t tbytes =
-      KIND == 0 ? al16(LutCore::table_bytes(a.bits)) : size_t{0};
+  const size_t tbytes = al16(Core::table_bytes(a.bits));
   const size_t slot = cl_slot(RB, BK, a.x_bytes, a.w_bytes);
   const unsigned char* s_tab = smem;
   unsigned char* ring = smem + tbytes;
@@ -346,6 +424,9 @@ cluster_gemm_kernel(const ClArgs a) {
                                kend, tid);
     cp_async_commit();
   }
+  // the folded nibble table, visible after the first stage's barrier
+  if constexpr (KIND == 3)
+    nibble_fold<T>(reinterpret_cast<uint32_t*>(smem), a.tab, a.bits, tid);
 
   uint32_t acc[RB];
 #pragma unroll
@@ -378,7 +459,8 @@ cluster_gemm_kernel(const ClArgs a) {
                   : 0;
     }
     // ... staged in the product form's registers
-    uint32_t b0[TW], b1[KIND == 2 ? TW : 1], b2[KIND == 2 ? TW : 1];
+    constexpr int TW3 = KIND >= 2 ? TW : 1;
+    uint32_t b0[TW], b1[TW3], b2[TW3];
 #pragma unroll
     for (int j = 0; j < TW; ++j) {
       if constexpr (KIND == 0) {
@@ -386,6 +468,13 @@ cluster_gemm_kernel(const ClArgs a) {
       } else if constexpr (KIND == 1) {
         b0[j] = log_w_bytes(qb[2 * j], a.bits) |
                 (log_w_bytes(qb[2 * j + 1], a.bits) << 16);
+      } else if constexpr (KIND == 3) {
+        // the byte offsets of columns bh and hb + bl, and sign(b)
+        const int h = a.bits >> 1, mag = abs(qb[j]);
+        b0[j] = static_cast<uint32_t>(mag >> h) * 4u;
+        b1[j] = static_cast<uint32_t>((1 << h) + (mag & ((1 << h) - 1))) *
+                4u;
+        b2[j] = static_cast<uint32_t>((qb[j] > 0) - (qb[j] < 0));
       } else {
         b0[j] = log_w_bytes(qb[j], a.bits);
         b1[j] = comp_word(qb[j], a.bits);
@@ -422,6 +511,12 @@ cluster_gemm_kernel(const ClArgs a) {
               s = static_cast<uint32_t>(__dp4a(static_cast<int>(aw[j]),
                                                static_cast<int>(b0[j]),
                                                static_cast<int>(s)));
+            } else if constexpr (KIND == 3) {
+              // two gathers in a's signed row, signed by b
+              const uint32_t g =
+                  *reinterpret_cast<const uint32_t*>(s_tab + aw[j] + b0[j]) +
+                  *reinterpret_cast<const uint32_t*>(s_tab + aw[j] + b1[j]);
+              s += g * b2[j];
             } else {
               // the mitchell part, signed
               s = static_cast<uint32_t>(__dp4a(static_cast<int>(aw[j]),
@@ -531,7 +626,9 @@ inline int cl_launch_rows(const ClArgs& a, int rb, int tiles, int splits,
     case 16:
       return cl_launch<Core, Epi, 16, BK>(a, tiles, splits, stream);
     default:
-      return cl_launch<Core, Epi, 64, BK>(a, tiles, splits, stream);
+      if constexpr (Core::MAX_ROWS >= 64)
+        return cl_launch<Core, Epi, 64, BK>(a, tiles, splits, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -568,7 +665,8 @@ template <class Core, class Epi>
 int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
                      int* out) {
   if (bits < 2 || bits > CL_MAX_BITS || splits < 1 ||
-      splits > CL_MAX_SPLITS || (rb != 4 && rb != 16 && rb != 64))
+      splits > CL_MAX_SPLITS || (rb != 4 && rb != 16 && rb != 64) ||
+      rb > Core::MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   const int xb = x_bf16 ? 2 : 4, wb = w_bf16 ? 2 : 4;
   const void* kern = nullptr;
@@ -583,7 +681,7 @@ int cluster_capacity(int rb, int bits, int x_bf16, int w_bf16, int splits,
                      cluster_gemm_kernel<Core, 16, 64, Epi>)
                : reinterpret_cast<const void*>(
                      cluster_gemm_kernel<Core, 16, 32, Epi>);
-  else
+  else if constexpr (Core::MAX_ROWS >= 64)
     kern = b64 ? reinterpret_cast<const void*>(
                      cluster_gemm_kernel<Core, 64, 64, Epi>)
                : reinterpret_cast<const void*>(
@@ -639,10 +737,10 @@ inline bool cl_make_args(ClArgs& a, const void* x, int x_bf16,
 // f32 or bf16 (M,K) x f32 or bf16 (K,N) -> (M,N) through Epi (f32 for
 // ScaleOut, the raw int32 sum for QuantIntOut), the launch that
 // kernels/approx_matmul.py cluster_plan chose: `rb` rows a block (4, 16
-// or 64), K in `splits` slices (1..8) of `k_split` (a multiple of
-// CL_SPLIT_K; the slices cover K and none is empty).  Returns the CUDA
-// error code; a plan the kernel does not take is refused
-// (cudaErrorInvalidValue).
+// or 64, at most Core::MAX_ROWS), K in `splits` slices (1..8) of
+// `k_split` (a multiple of CL_SPLIT_K; the slices cover K and none is
+// empty).  Returns the CUDA error code; a plan the kernel does not take
+// is refused (cudaErrorInvalidValue).
 template <class Core, class Epi>
 int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
                  const void* tab, const void* sx, const void* sw, void* out,
@@ -650,7 +748,7 @@ int cluster_gemm(const void* x, int x_bf16, const void* w, int w_bf16,
                  int k_split, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (M < 0 || K < 0 || N < 0 || bits < 2 || bits > CL_MAX_BITS) return bad;
-  if (rb != 4 && rb != 16 && rb != 64) return bad;
+  if ((rb != 4 && rb != 16 && rb != 64) || rb > Core::MAX_ROWS) return bad;
   if (!cl_split_ok(K, splits, k_split)) return bad;
   if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
   ClArgs a;

@@ -7,25 +7,32 @@
 //   nibble_lut_matmul_partial (-> _nibble_fused_kernel, epilogue off):
 //     the mesh path's shard-local form, global scales in, the raw int32
 //     sum out (QuantIntOut).
-// Both are cim_gemm.cuh's gemm_kernel with the NibbleCore: for a
-// multiplier whose table is half-word decomposable (core/luts.py
+// For a multiplier whose table is half-word decomposable (core/luts.py
 // nibble_sub_luts: the exact family always, appro42 when its approximate
 // columns lie in the low half-word), every product is rebuilt from four
 // 2^{b/2} x 2^{b/2} sub-tables on saturated magnitudes,
 //   sign(a) sign(b) (S_hh[ah,bh] + S_hl[ah,bl] + S_lh[al,bh] + S_ll[al,bl]),
-// the same products as attn_gemm.cu's nibble path.
+// the same products as attn_gemm.cu's nibble path.  The int form is
+// cim_gemm.cuh's tiled gemm_kernel with the NibbleCore (four gathers a
+// product); the fused and partial forms are cluster_gemm.cuh's split-K
+// cluster kernel with the ClusterNibbleCore, epilogue on (ScaleOut) and
+// off (QuantIntOut), which folds the four sub-tables into two signed ones
+// once a block: two conflict-free gathers a product.
 //
-// What bounds it on an H100: four shared-memory gathers a product, at
-// most 132 SMs x 32 words a clock (4*M*K*N gathers); bytes (x and w read
-// once, the output written once, at 3.35 TB/s) only at a handful of rows.
-//
-// Design: the four int32 sub-tables take 4 KiB at 8 bits (the full
-// table's int16 form takes 128 KiB), so several blocks share an SM.  Each
-// operand is split into its hi/lo nibble offsets and sign once, when it
-// is staged in shared memory; the inner loop does the four gathers, the
-// sum and the sign (cim_gemm.cuh).
+// What bounds it on an H100: the fused forms' two shared-memory gathers a
+// product, at most 132 SMs x 32 words a clock (2*M*K*N gathers); bytes (x
+// and w read once, the output written once, at 3.35 TB/s) only at a
+// handful of rows.
 
 #include "cim_gemm.cuh"
+#include "cluster_gemm.cuh"
+
+namespace {
+
+// the cluster kernel takes even widths of 2..8 bits only
+inline bool even_bits(int bits) { return bits % 2 == 0; }
+
+}  // namespace
 
 extern "C" {
 
@@ -38,24 +45,45 @@ int nibble_gemm_int8(const void* x, const void* w, const void* subs,
 }
 
 // f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N); sx: one f32 on the
-// device, sw: N f32 on the device
+// device, sw: N f32 on the device; rb, splits, k_split: the launch plan
+// (kernels/approx_matmul.py cluster_plan)
 int nibble_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
                       const void* subs, const void* sx, const void* sw,
-                      void* out, int M, int K, int N, int bits,
-                      void* stream) {
-  return cim::dense_quant<cim::NibbleCore>(x, x_bf16, w, w_bf16, subs, sx,
-                                           sw, out, cim::ScaleOut{}, M, K, N,
-                                           bits, stream);
+                      void* out, int M, int K, int N, int bits, int rb,
+                      int splits, int k_split, void* stream) {
+  if (!even_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return cim::cluster_gemm<cim::ClusterNibbleCore, cim::ScaleOut>(
+      x, x_bf16, w, w_bf16, subs, sx, sw, out, M, K, N, bits, rb, splits,
+      k_split, stream);
+}
+
+// the clusters of `splits` blocks of nibble_gemm_fused's kernel for `rb`
+// rows that the device holds at once, into *out (the launch plan's waves)
+int nibble_gemm_fused_capacity(int rb, int bits, int x_bf16, int w_bf16,
+                               int splits, int* out) {
+  if (!even_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return cim::cluster_capacity<cim::ClusterNibbleCore, cim::ScaleOut>(
+      rb, bits, x_bf16, w_bf16, splits, out);
 }
 
 // as nibble_gemm_fused, out: the raw int32 sum (M,N)
-int nibble_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
-                        const void* subs, const void* sx, const void* sw,
-                        void* out, int M, int K, int N, int bits,
+int nibble_gemm_partial(const void* x, int x_bf16, const void* w,
+                        int w_bf16, const void* subs, const void* sx,
+                        const void* sw, void* out, int M, int K, int N,
+                        int bits, int rb, int splits, int k_split,
                         void* stream) {
-  return cim::dense_quant<cim::NibbleCore>(x, x_bf16, w, w_bf16, subs, sx,
-                                           sw, out, cim::QuantIntOut{}, M, K,
-                                           N, bits, stream);
+  if (!even_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return cim::cluster_gemm<cim::ClusterNibbleCore, cim::QuantIntOut>(
+      x, x_bf16, w, w_bf16, subs, sx, sw, out, M, K, N, bits, rb, splits,
+      k_split, stream);
+}
+
+// as nibble_gemm_fused_capacity, of nibble_gemm_partial's kernel
+int nibble_gemm_partial_capacity(int rb, int bits, int x_bf16, int w_bf16,
+                                 int splits, int* out) {
+  if (!even_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return cim::cluster_capacity<cim::ClusterNibbleCore, cim::QuantIntOut>(
+      rb, bits, x_bf16, w_bf16, splits, out);
 }
 
 }  // extern "C"

@@ -1,19 +1,26 @@
 """Time the cluster kernels at every cluster size, beside their plan's.
 
 ``kernels/csrc/cluster_gemm.cuh`` (``lut_matmul_fused``,
-``mitchell_matmul_fused``) and ``kernels/csrc/surrogate_cluster.cuh``
-(``cim_gemm_fused``) split K over a thread-block cluster;
-``approx_matmul.cluster_plan`` picks the split from the clusters of each
-size that the device holds at once (``cudaOccupancyMaxActiveClusters``).
-This times the kernels (the balanced tier's LUT, mitchell, and the
-surrogate served on bf16 and with noise and SQ on f32, as chip_smoke.py
-times them) at chip_smoke.py's eight qwen3-1.7b shapes (M = 4 and 64) at
-every split from 1 to 8 that leaves no slice empty, with chip_smoke.py's
-timer (L2 flushed, the card spun before each start event), and prints
-each split's ms, the device's cluster capacity and the plan's choice
-against the fastest; and so the mesh path's partial forms
-(``lut_matmul_partial``, ``mitchell_matmul_partial``: the same kernel,
-its epilogue off) at chip_smoke.py's shard shapes (PARTIAL_SHAPES).
+``nibble_lut_matmul_fused``, ``mitchell_matmul_fused``) and
+``kernels/csrc/surrogate_cluster.cuh`` (``cim_gemm_fused``) split K over
+a thread-block cluster; ``approx_matmul.cluster_plan`` picks the split
+from the clusters of each size that the device holds at once
+(``cudaOccupancyMaxActiveClusters``).  This times the kernels (the
+balanced tier's LUT, the exact family's nibble sub-tables, mitchell, and
+the surrogate served on bf16 and with noise and SQ on f32, as
+chip_smoke.py times them) at chip_smoke.py's eight qwen3-1.7b shapes (M
+= 4 and 64) at every split from 1 to 8 that leaves no slice empty, with
+chip_smoke.py's timer (L2 flushed, the card spun before each start
+event), and prints each split's ms, the device's cluster capacity and
+the plan's choice against the fastest; and so the mesh path's partial
+forms (``lut_matmul_partial``, ``nibble_lut_matmul_partial``,
+``mitchell_matmul_partial``: the same kernel, its epilogue off) at
+chip_smoke.py's shard shapes (PARTIAL_SHAPES).  ``--only nibble`` runs
+the nibble rows alone, and then the nibble kernel's block shapes
+(``kernels/csrc/nibble_shapes.cu``: 512 threads one block an SM, and the
+shipped 256 threads two blocks an SM, each planned over the frame's row
+tiles 4, 16, 64 and over the shipped 4, 16) at the eight shapes and the
+CNN's fc, each checked bitwise against the plain version.
 
 ``kernels/csrc/attn_cluster.cuh`` (``attn_fused``) splits a query
 tile's kv blocks over a cluster; ``attn_gemm.attn_cluster_plan`` picks
@@ -44,7 +51,7 @@ sub-tables, mitchell, log_our) with every micro-tile the plan could take,
 beside the plan's choice and the fastest.
 
     PYTHONPATH=src python -m repro_torch.launch.cluster_sweep \\
-        --out build/cluster_sweep [--only conv]
+        --out build/cluster_sweep [--only conv|nibble]
 
 Writes ``<out>/sweep.json``.  Needs a CUDA device.
 """
@@ -78,8 +85,10 @@ SLSTM_LENGTHS = (1, 37, 512)
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/cluster_sweep")
-    ap.add_argument("--only", choices=("all", "conv"), default="all",
-                    help="conv: the conv tile kernel's sweep alone")
+    ap.add_argument("--only", choices=("all", "conv", "nibble"),
+                    default="all",
+                    help="conv: the conv tile kernel's sweep alone; "
+                    "nibble: the nibble GEMMs' alone")
     args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
@@ -92,6 +101,12 @@ def main() -> None:
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     lut = ops.lut_table(MultiplierSpec("appro42", 8, True, "orplane", 10),
                         dev)
+    subs = ops.nibble_table(MultiplierSpec("exact", 8, True), dev)
+    gemms = [("lut", "lut_matmul", (lut.data_ptr(),), ()),
+             ("nibble", "nibble_lut_matmul", (subs.data_ptr(),), ()),
+             ("mitchell", "mitchell_matmul", (), (0,))]
+    if args.only == "nibble":
+        gemms = gemms[1:2]
     print(f"{torch.cuda.get_device_name(0)}; "
           f"{cs.nvidia_smi('name,power.limit')}", flush=True)
     res = {}
@@ -123,13 +138,14 @@ def main() -> None:
               + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
               flush=True)
 
-    conv_sweep(cs, dev, flush, res)
-    if args.only == "conv":
-        _write(args.out, res)
-        return
-    attn_sweep(cs, dev, flush, res)
-    slstm_sweep(cs, dev, flush, res)
-    partial_sweep(cs, dev, flush, lut, sweep)
+    if args.only != "nibble":
+        conv_sweep(cs, dev, flush, res)
+        if args.only == "conv":
+            _write(args.out, res)
+            return
+        attn_sweep(cs, dev, flush, res)
+        slstm_sweep(cs, dev, flush, res)
+    partial_sweep(cs, dev, flush, gemms, sweep)
     mu, c0, c1 = -0.013, 1480.0, 2.1e-4     # a surrogate law with SQ
     sur = cg.KERNELS["cim_gemm_fused"]
     for m, k, n in cs.MAIN_SHAPES:
@@ -141,10 +157,8 @@ def main() -> None:
         sx, sw = ops._scales(x, w, 8)
         out = torch.empty(m, n, device=dev)
         steps = -(-k // am.CLUSTER_BK)
-        for name, kern, tab, flags in (
-                ("lut", am.KERNELS["lut_matmul_fused"], (lut.data_ptr(),),
-                 ()),
-                ("mitchell", mg.KERNELS["mitchell_matmul_fused"], (), (0,))):
+        for name, base, tab, flags in gemms:
+            kern = {**am.KERNELS, **mg.KERNELS}[base + "_fused"]
             plan = am.fused_plan(kern, x, w, 8, *flags)
 
             def launch(s, ks, kern=kern, tab=tab, flags=flags, plan=plan):
@@ -154,6 +168,8 @@ def main() -> None:
 
             sweep(name, (m, k, n), kern, (8, *flags, 1, 1), plan, launch,
                   steps)
+        if args.only == "nibble":
+            continue
         for name, var, xs, ws in (
                 ("surrogate", cg.SERVED, x, w),
                 ("surrogate noise", cg.NOISE_SQ, x.float(), w.float())):
@@ -169,6 +185,8 @@ def main() -> None:
                     stream_of(x))
 
             sweep(name, (m, k, n), sur, (var, bf, bf), plan, launch, steps)
+    if args.only == "nibble":
+        nibble_shapes(cs, dev, flush, subs, res)
     _write(args.out, res)
 
 
@@ -176,6 +194,65 @@ def _write(out, res) -> None:
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "sweep.json"), "w") as f:
         json.dump(res, f, indent=1)
+
+
+# csrc/nibble_shapes.cu's block shapes: (threads, blocks an SM)
+NIBBLE_SHAPES = ((512, 1), (256, 2))
+
+
+def nibble_shapes(cs, dev, flush, subs, res) -> None:
+    """The fused nibble GEMM at each of NIBBLE_SHAPES, planned over the
+    frame's row tiles (4, 16, 64) and over the shipped NIBBLE_ROWS, at
+    chip_smoke.py's eight LM shapes (bf16) and the CNN's fc (f32), its
+    operands and timer; each bitwise the plain version.  Records each
+    time and prints the row sums (the 64-row tile only where M > 16)."""
+    from repro_torch.kernels.build import INT, PTR, CudaKernel, query
+
+    kern = CudaKernel("nibble_shapes", "nibble_shape_fused",
+                      [INT, PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT,
+                       INT, INT, INT, INT, INT, INT, PTR])
+    sums = {}
+    for m, k, n in cs.MAIN_SHAPES + [cs.CNN_FC]:
+        g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+        x = torch.randn(m, k, generator=g, device=dev)
+        w = torch.randn(k, n, generator=g, device=dev) * 0.02
+        if (m, k, n) != cs.CNN_FC:
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        bf = int(x.dtype == torch.bfloat16)
+        sx, sw = ops._scales(x, w, 8)
+        want = am.nibble_lut_matmul_fused_plain(x, w, subs, sx, sw)
+        out = torch.empty(m, n, device=dev)
+        line = []
+        for shape, (threads, per_sm) in enumerate(NIBBLE_SHAPES):
+            for tiles in (am.CLUSTER_ROWS, am.NIBBLE_ROWS):
+                plan = am.cluster_plan(m, k, n, lambda r, s, sh=shape: query(
+                    "nibble_shapes", "nibble_shape_capacity", sh, r, 8, bf,
+                    bf, s), tiles)
+
+                def call(sh=shape, p=plan):
+                    kern(sh, x.data_ptr(), bf, w.data_ptr(), bf,
+                         subs.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                         out.data_ptr(), m, k, n, 8, p.rows, p.splits,
+                         p.k_split, stream_of(x))
+
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    sys.exit(f"nibble shape {threads}x{per_sm} rows "
+                             f"{plan.rows} {(m, k, n)}: != plain version")
+                ms = cs._timed_ms(torch, call, 20, flush)
+                tag = f"{threads}x{per_sm} rows {max(tiles)}"
+                sums[tag] = sums.get(tag, 0.0) + ms
+                res[f"nibble shape {tag} {(m, k, n)}"] = {
+                    "rows": plan.rows, "tiles": plan.tiles,
+                    "splits": plan.splits, "ms": ms}
+                line.append(f"{tag}: {plan.rows} rows {plan.tiles}x"
+                            f"{plan.splits} {ms:.4f}")
+        print(f"nibble shapes {str((m, k, n)):17} " + "; ".join(line),
+              flush=True)
+    print("nibble shapes, row sums (ms): " + "; ".join(
+        f"{t} {v:.4f}" for t, v in sums.items()), flush=True)
+    res["nibble shape sums"] = sums
 
 
 def _median_ms(cs, fn, reps, flush) -> float:
@@ -234,8 +311,9 @@ def conv_sweep(cs, dev, flush, res) -> None:
                              for m, (t, _) in times.items()), flush=True)
 
 
-def partial_sweep(cs, dev, flush, lut, sweep) -> None:
-    """The partial LUT and mitchell GEMMs (int32 out) at chip_smoke.py's
+def partial_sweep(cs, dev, flush, gemms, sweep) -> None:
+    """The partial forms of `gemms` ((name, wrapper base name, table
+    pointer, flags): LUT, nibble, mitchell; int32 out) at chip_smoke.py's
     shard shapes, with its operands (bf16, global scales 1.25x the
     shard's own), at every split through `sweep`."""
     for m, k, n in cs.PARTIAL_SHAPES:
@@ -247,11 +325,9 @@ def partial_sweep(cs, dev, flush, lut, sweep) -> None:
         sx, sw = sx * 1.25, sw * 1.25
         out = torch.empty(m, n, dtype=torch.int32, device=dev)
         steps = -(-k // am.CLUSTER_BK)
-        for name, kern, tab, flags in (
-                ("lut partial", am.KERNELS["lut_matmul_partial"],
-                 (lut.data_ptr(),), ()),
-                ("mitchell partial", mg.KERNELS["mitchell_matmul_partial"],
-                 (), (0,))):
+        for name, base, tab, flags in gemms:
+            name += " partial"
+            kern = {**am.KERNELS, **mg.KERNELS}[base + "_partial"]
             plan = am.fused_plan(kern, x, w, 8, *flags)
 
             def launch(s, ks, kern=kern, tab=tab, flags=flags, plan=plan):

@@ -1482,6 +1482,135 @@ def test_cluster_capacity_query_bounds_the_plan():
             4, plan.splits) > 0
 
 
+# the nibble forms on the cluster kernel (ClusterNibbleCore): the exact
+# family at every even width, appro42 with 4 approximate columns at 8
+NIBBLE_WIDTHS = [(MultiplierSpec("exact", b, True), b) for b in (2, 4, 6, 8)] \
+    + [(NIBBLE[1], 8)]
+
+
+def _nibble_cases(x, w, dev):
+    """(partial, plain partial, fused, plain fused, sx, sw) for every
+    NIBBLE_WIDTHS entry on x, w."""
+    cases = []
+    for spec, bits in NIBBLE_WIDTHS:
+        subs = ops.nibble_table(spec, dev)
+        sx, sw = ops._scales(x, w, bits)
+        cases.append((
+            approx_matmul.nibble_lut_matmul_partial(x, w, subs, sx, sw, bits),
+            approx_matmul.nibble_lut_matmul_partial_plain(x, w, subs, sx, sw,
+                                                          bits),
+            approx_matmul.nibble_lut_matmul_fused(x, w, subs, sx, sw, bits),
+            approx_matmul.nibble_lut_matmul_fused_plain(x, w, subs, sx, sw,
+                                                        bits), sx, sw))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", CLUSTER_EDGES, ids=str)
+def test_nibble_cluster_kernels_bitwise_at_the_edges(shape, dtype):
+    """The nibble fused and partial forms at the cluster kernel's edges, at
+    2, 4, 6 and 8 bits (the exact family) and for appro42/4: bitwise the
+    plain versions, each partial through the epilogue bitwise its fused
+    form, every launch on the cluster entries (the int template's entry
+    never)."""
+    dev = _card()
+    x, w = _float_ops(*shape, dev, dtype, seed=sum(shape) + 2)
+    kerns = approx_matmul.KERNELS
+    names = ("nibble_lut_matmul_fused", "nibble_lut_matmul_partial",
+             "nibble_lut_matmul")
+    before = {n: kerns[n].launches for n in names}
+    cases = _nibble_cases(x, w, dev)
+    torch.cuda.synchronize()
+    for part, part_plain, fused, fused_plain, sx, sw in cases:
+        assert part.dtype == torch.int32 and torch.equal(part, part_plain)
+        assert fused.dtype == torch.float32 and torch.equal(fused,
+                                                            fused_plain)
+        assert torch.equal(approx_matmul.epilogue(part, sx, sw), fused)
+    n = len(NIBBLE_WIDTHS)
+    assert {k: kerns[k].launches - c for k, c in before.items()} == \
+        {"nibble_lut_matmul_fused": n, "nibble_lut_matmul_partial": n,
+         "nibble_lut_matmul": 0}
+
+
+def test_nibble_cluster_kernels_take_mixed_and_misaligned_operands():
+    """x bf16 with w f32 and the reverse; bf16 operands 2 bytes and f32
+    operands 4 bytes past a 16-byte boundary (loaded by elements)."""
+    dev = _card()
+    for xt, wt in ((torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.bfloat16),
+                   (torch.float32, torch.float32)):
+        x, _ = _float_ops(4, 2048, 1024, dev, xt)
+        _, w = _float_ops(4, 2048, 1024, dev, wt, seed=1)
+        for shift in (0, 1):
+            if shift:
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+                w = torch.cat([w.new_zeros(1), w.flatten()])[1:].view(w.shape)
+                assert x.data_ptr() % 16 and w.data_ptr() % 16
+            for part, part_plain, fused, fused_plain, _, _ in _nibble_cases(
+                    x, w, dev):
+                assert torch.equal(part, part_plain)
+                assert torch.equal(fused, fused_plain)
+
+
+def test_nibble_cluster_capacity_query_bounds_the_plan():
+    """The nibble instantiations' capacity queries: positive for each of
+    their row tiles (NIBBLE_ROWS), split, operand type and even width,
+    never more threads than the SMs hold, no larger for a larger
+    cluster; an odd width and a 64-row tile refused; the plan at a decode
+    shape a split they hold, at a prefill 16-row tiles."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("nibble_lut_matmul_fused", "nibble_lut_matmul_partial"):
+        kern = approx_matmul.KERNELS[name]
+        for bits in (2, 8):
+            for xb, wb in ((1, 1), (0, 0), (1, 0)):
+                for rows in approx_matmul.NIBBLE_ROWS:
+                    caps = [approx_matmul._capacity(
+                        kern.library, kern.symbol + "_capacity", 0,
+                        (bits, xb, wb), rows, s) for s in range(1, 9)]
+                    assert all(c > 0 for c in caps), (name, rows, caps)
+                    assert all(c * s * 256 <= sms * 2048
+                               for s, c in enumerate(caps, 1)), caps
+                    assert caps == sorted(caps, reverse=True)
+        for bits, rows in ((7, 4), (8, 64)):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                approx_matmul._capacity(kern.library,
+                                        kern.symbol + "_capacity", 0,
+                                        (bits, 1, 1), rows, 1)
+        x, w = _float_ops(4, 2048, 2048, dev, torch.bfloat16)
+        plan = approx_matmul.fused_plan(kern, x, w, 8)
+        assert plan.rows == 4 and plan.tiles == 32 and plan.splits > 1
+        x, w = _float_ops(64, 2048, 2048, dev, torch.bfloat16)
+        plan = approx_matmul.fused_plan(kern, x, w, 8)
+        assert plan.rows == 16 and plan.tiles == 128
+
+
+def test_nibble_cluster_kernel_refuses_what_it_does_not_take():
+    """The C entry refuses a plan it does not take (an empty slice, a
+    split past 8, a K slice off the step, rows it has no tile for, the
+    frame's 64-row tile) and an odd width: each raises at launch."""
+    dev = _card()
+    x, w = _float_ops(4, 256, 64, dev, torch.bfloat16)
+    sx, sw = ops._scales(x, w, 8)
+    subs = ops.nibble_table(NIBBLE[0], dev)
+    out = torch.empty(4, 64, device=dev)
+    kern = approx_matmul.KERNELS["nibble_lut_matmul_fused"]
+    from repro_torch.kernels.build import stream_of
+
+    def launch(rows, splits, k_split, bits=8):
+        kern(x.data_ptr(), 1, w.data_ptr(), 1, subs.data_ptr(),
+             sx.data_ptr(), sw.data_ptr(), out.data_ptr(), 4, 256, 64, bits,
+             rows, splits, k_split, stream_of(x))
+
+    launch(4, 2, 128)                       # the plan's own cut runs
+    for bad in ((4, 3, 128), (4, 9, 32), (4, 2, 100), (8, 1, 256),
+                (4, 1, 128), (64, 1, 256), (4, 2, 128, 7)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(*bad)
+
+
 # ---------------------------------------------------------------------------
 # the fused surrogate GEMM on the split-K cluster kernel
 # (csrc/surrogate_cluster.cuh): bitwise against the plain version

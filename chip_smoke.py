@@ -44,7 +44,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      printed apart, and at CONV_TILE_EDGES (several N tiles, ragged N,
      one pixel tile and many, stride 2 with 5x5 and 7x7 taps, C = 3 and
      96 on a 60-wide plane; the LUT also at 4 bits, log at 16 bits on the
-     template's entry), every launch counted on the route it takes; then
+     template's entry; each variant's partial form too), every launch
+     counted on the route it takes; then
      the three attention kernels (fused, and the oracle's scores and PV
      stages) on every datapath at the serving decode and prefill
      geometries, the reference tests' geometry and a long ragged decode
@@ -77,7 +78,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      contraction-sharded wo and mlp.wo shapes at model = 2, M = 4 and
      64, bf16; ``conv_lut_partial`` full LUT and nibble,
      ``conv_log_partial`` at the CNN's convs with C halved where it
-     splits) bitwise against their plain versions and, through the
+     splits, on the conv tile kernel, their launch plans printed)
+     bitwise against their plain versions and, through the
      epilogue, their fused forms (timed beside them), the nibble partial
      also with an operand quantized past -qmax; and the fused sLSTM
      recurrence (``slstm_scan``) at xlstm-125m's width (batch 4, 4 heads
@@ -323,9 +325,9 @@ SOURCES = {
     "mitchell_matmul_partial": (
         "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
         "src/repro/kernels/mitchell_gemm.py:189"),
-    "conv_lut_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+    "conv_lut_partial": ("src/repro_torch/kernels/csrc/conv_tile.cuh",
                          "src/repro/kernels/conv_gemm.py:259"),
-    "conv_log_partial": ("src/repro_torch/kernels/csrc/conv_gemm.cu",
+    "conv_log_partial": ("src/repro_torch/kernels/csrc/conv_tile.cuh",
                          "src/repro/kernels/conv_gemm.py:343"),
     "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_cluster.cuh",
                    "src/repro/kernels/slstm_scan.py:71"),
@@ -1302,13 +1304,16 @@ def check_conv(torch, sms: int, clock_hz: float):
 
 
 def check_conv_tile(torch, dev):
-    """The fused convs' tile kernel (csrc/conv_tile.cuh): its launch plans
-    at the CNN's convs printed, then every variant bitwise equal to its
+    """The convs' tile kernel (csrc/conv_tile.cuh): its launch plans at
+    the CNN's convs printed, then every variant bitwise equal to its
     plain version at CONV_TILE_EDGES (the LUT also at 4 bits, the nibble
     sub-tables of both specs, log at 16 bits on the template's entry),
-    each fused launch counted on the route its bits take: up to 8 bits
-    conv_lut_fused / conv_log_fused (the tile kernel), above them
-    conv_log_fused_wide (the template)."""
+    and its partial form's int32 sum bitwise its plain version and,
+    through the epilogue, the fused kernel's output, each launch counted
+    on the route its bits take: up to 8 bits conv_lut_fused /
+    conv_log_fused and conv_lut_partial / conv_log_partial (the tile
+    kernel), above them conv_log_fused_wide and conv_log_partial_wide
+    (the template)."""
     from repro_torch.core.multipliers import MultiplierSpec
     from repro_torch.kernels import conv_gemm as cg
     from repro_torch.kernels import ops
@@ -1336,7 +1341,9 @@ def check_conv_tile(torch, dev):
                 ("log_our", "log_our", 8, None),
                 ("mitchell 16-bit", "mitchell", 16, None),
                 ("log_our 16-bit", "log_our", 16, None)]
-    counted = ("conv_lut_fused", "conv_log_fused", "conv_log_fused_wide")
+    counted = ("conv_lut_fused", "conv_log_fused", "conv_log_fused_wide",
+               "conv_lut_partial", "conv_log_partial",
+               "conv_log_partial_wide")
     for gi, geom in enumerate(CONV_TILE_EDGES):
         b, h, w, c, n, kh, kw, s = geom
         g = torch.Generator(device=dev).manual_seed(500 + gi)
@@ -1352,28 +1359,46 @@ def check_conv_tile(torch, dev):
                                         nibble=nib, **geo)
                 want = cg.conv_lut_fused_plain(x, w3, tab, sx, sw, bits,
                                                nibble=nib, **geo)
+                part = cg.conv_lut_partial(x, w3, tab, sx, sw, bits,
+                                           nibble=nib, **geo)
+                part_want = cg.conv_lut_partial_plain(x, w3, tab, sx, sw,
+                                                      bits, nibble=nib, **geo)
             else:
                 comp = form == "log_our"
                 got = cg.conv_log_fused(x, w3, sx, sw, bits,
                                         compensated=comp, **geo)
                 want = cg.conv_log_fused_plain(x, w3, sx, sw, bits,
                                                compensated=comp, **geo)
+                part = cg.conv_log_partial(x, w3, sx, sw, bits,
+                                           compensated=comp, **geo)
+                part_want = cg.conv_log_partial_plain(x, w3, sx, sw, bits,
+                                                      compensated=comp, **geo)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 fail(f"conv tile kernel ({label}) {geom}: kernel != plain "
                      f"version (max |diff| "
                      f"{float((got - want).abs().max())})")
-            entry = ("conv_lut_fused" if tab is not None else
-                     "conv_log_fused" if bits <= cg.TILE_MAX_BITS else
-                     "conv_log_fused_wide")
+            if part.dtype != torch.int32 or not torch.equal(part, part_want):
+                fail(f"conv tile kernel ({label}) {geom}: partial != plain "
+                     f"version")
+            if not torch.equal((part.float() * sx) * sw, got):
+                fail(f"conv tile kernel ({label}) {geom}: the epilogue of "
+                     f"the partial sum != the fused kernel")
+            tile = bits <= cg.TILE_MAX_BITS
+            entries = (("conv_lut_fused", "conv_lut_partial")
+                       if tab is not None else
+                       ("conv_log_fused", "conv_log_partial") if tile else
+                       ("conv_log_fused_wide", "conv_log_partial_wide"))
             delta = {k: cg.KERNELS[k].launches - before[k] for k in counted}
-            if delta != {k: int(k == entry) for k in counted}:
+            if delta != {k: int(k in entries) for k in counted}:
                 fail(f"conv tile kernel ({label}) {geom}: launched {delta}, "
-                     f"expected one {entry}")
-    print(f"  conv_lut_fused / conv_log_fused at CONV_TILE_EDGES "
-          f"{CONV_TILE_EDGES}: every variant bitwise equal to its plain "
-          f"version, up to 8 bits on the tile kernel, 16-bit log on "
-          f"conv_log_fused_wide (the template)", flush=True)
+                     f"expected one each of {entries}")
+    print(f"  conv_lut_fused / conv_log_fused and their partial forms at "
+          f"CONV_TILE_EDGES {CONV_TILE_EDGES}: every variant bitwise equal "
+          f"to its plain version, each partial through the epilogue to its "
+          f"fused kernel, up to 8 bits on the tile kernel, 16-bit log on "
+          f"conv_log_fused_wide / conv_log_partial_wide (the template)",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1475,6 +1500,21 @@ def check_partials(torch, sms: int, clock_hz: float):
                 ("nibble exact", "conv_lut_partial", "nibble", ex, False),
                 ("mitchell", "conv_log_partial", "log", None, False),
                 ("log_our", "conv_log_partial", "log", None, True)]
+    # the tile kernel's plans at the shard geometries (one instantiation
+    # and plan serve a fused form and its partial)
+    for label, name, core, spec, comp in variants:
+        form = (core if core != "log" else
+                "log_our" if comp else "mitchell")
+        for h, w_, c, n in CNN_CONVS:
+            cl = c // 2 if c % 2 == 0 else c
+            p = cg.device_plan(form, 8,
+                               torch.empty(CNN_BATCH, h, w_, cl, device=dev),
+                               torch.empty(9, cl, n, device=dev), 3, 3, 1)
+            print(f"  partial plan {form:<8} "
+                  f"{str((CNN_BATCH, h, w_, cl, n)):<24} rp {p.rp} rn "
+                  f"{p.rn}, tile {p.ib}x{p.tr}x{p.tc}, chunk {p.cc} x "
+                  f"{p.chunks}, taps {p.tg} x {p.groups}, tiles {p.tiles} "
+                  f"on {p.grid} blocks, whole stack {p.whole}", flush=True)
     for gi, (h, w_, c, n) in enumerate(CNN_CONVS):
         cl = c // 2 if c % 2 == 0 else c
         b = CNN_BATCH
@@ -1508,7 +1548,16 @@ def check_partials(torch, sms: int, clock_hz: float):
 
                 def fused(t=tab, nb=nib):
                     return cg.conv_lut_fused(x, w3, t, sx, sw, nibble=nb)
-            got, want, full = kern(), plain(), fused()
+            before = {k: cg.KERNELS[k].launches for k in
+                      ("conv_lut_partial", "conv_log_partial",
+                       "conv_log_partial_wide")}
+            got = kern()
+            delta = {k: cg.KERNELS[k].launches - v for k, v in
+                     before.items()}
+            if delta != {k: int(k == name) for k in before}:
+                fail(f"{name} ({label}): launched {delta}, expected one "
+                     f"{name} (the tile kernel)")
+            want, full = plain(), fused()
             torch.cuda.synchronize()
             err = float((got.double() - want.double()).abs().max())
             if got.dtype != torch.int32 or not torch.equal(got, want):
@@ -1529,8 +1578,9 @@ def check_partials(torch, sms: int, clock_hz: float):
                   f"{row['ms']:9.4f} {row['bound_ms']:9.4f} "
                   f"{row['bound_by']:>10} {row['plain_ms']:9.3f} "
                   f"{row['fused_ms']:9.4f}", flush=True)
-    print("  conv partials bitwise equal to their plain versions and to the "
-          "fused kernels before the epilogue", flush=True)
+    print("  conv partials on the tile kernel, bitwise equal to their plain "
+          "versions and to the fused kernels before the epilogue",
+          flush=True)
     return rows
 
 
@@ -3315,7 +3365,9 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 
 def _kernel_class(name: str, matmul_kernels) -> str:
     low = name.lower()
-    if "quantintout" in low:        # the mesh path's partials, every core
+    # the mesh path's GEMM partials (the conv partials share the conv tile
+    # kernel's instantiations with the fused convs: "CiM conv kernel")
+    if "quantintout" in low:
         return "CiM partial kernel"
     if "int8_mma_conv" in low:
         return "CiM conv kernel"

@@ -1178,39 +1178,33 @@ def im2col_nhwc(x: torch.Tensor, conv: ConvParams) -> torch.Tensor:
 
 
 def _conv_kernel_fits(entry_name: str, bits: int) -> bool:
-    """Does one block of each CUDA conv kernel the entry may launch fit a
-    Hopper SM's shared memory?
+    """Does one block of the CUDA conv kernel the entry launches at `bits`
+    fit a Hopper SM's shared memory?
 
     Re-derived from the reference's TPU VMEM model, which held a whole
     padded input plane (8 MiB budget), for csrc/conv_gemm.cu's layouts,
     none of which holds a plane, so the image size does not enter and
-    the answer depends on the core and the operand width alone.  The
-    fused LUT and log kernel up to 8 bits (csrc/conv_tile.cuh) holds the
-    table, TILE_HALO_WORDS words of staged input halo and a weight
-    region of the form's size, whatever the geometry: it takes the
-    channels in chunks and the taps in groups
-    (kernels/conv_gemm.gemm_smem_bytes, conv_plan).  The log core's
-    9..16 bits and the mesh path's partial forms run the template, which
-    holds the table and one staged A and B tile
-    (kernels/conv_gemm.template_smem_bytes).  The exact core (the int8
-    tensor-core kernel) holds an int8 input halo, an int8 weight tile
-    and its k-word offsets, 54,848 bytes, whatever the geometry; one
-    output pixel's halo must still fit, so it takes at most
-    conv_gemm.MXU_MAX_TAPS (4,096) taps; `plan_conv` sends a larger
-    kernel to `conv_im2col`.  No width the conv entries accept fails it
-    (the largest block, the 8-bit full table's tile kernel, is 217,104
-    bytes): it holds the registry to the kernels' layouts should an
-    entry widen, and each launch checks the same total again.  The plain
-    versions are held to the same gate, so a geometry routes alike on
-    both devices."""
+    the answer depends on the core and the operand width alone.  The LUT
+    and log kernel up to 8 bits (csrc/conv_tile.cuh, fused and partial
+    alike) holds the table, TILE_HALO_WORDS words of staged input halo
+    and a weight region of the form's size, whatever the geometry: it
+    takes the channels in chunks and the taps in groups; the log core's
+    9..16 bits run the template, which holds one staged A and B tile
+    (kernels/conv_gemm.gemm_smem_bytes, which reads template_smem_bytes
+    for them alone).  The exact core (the int8 tensor-core kernel) holds
+    an int8 input halo, an int8 weight tile and its k-word offsets,
+    54,848 bytes, whatever the geometry; one output pixel's halo must
+    still fit, so it takes at most conv_gemm.MXU_MAX_TAPS (4,096) taps;
+    `plan_conv` sends a larger kernel to `conv_im2col`.  No width the
+    conv entries accept fails it (the largest block, the 8-bit full
+    table's tile kernel, is 217,104 bytes): it holds the registry to the
+    kernels' layouts should an entry widen, and each launch checks the
+    same total again.  The plain versions are held to the same gate, so
+    a geometry routes alike on both devices."""
     from repro_torch.kernels.build import SMEM_BYTES
-    from repro_torch.kernels.conv_gemm import (gemm_smem_bytes,
-                                               template_smem_bytes)
+    from repro_torch.kernels.conv_gemm import gemm_smem_bytes
 
-    core = _CONV_CORES[entry_name]
-    if core != "mxu" and template_smem_bytes(core, bits) > SMEM_BYTES:
-        return False
-    return gemm_smem_bytes(core, bits) <= SMEM_BYTES
+    return gemm_smem_bytes(_CONV_CORES[entry_name], bits) <= SMEM_BYTES
 
 
 def _conv_bit_exact_safe(h: int, w: int, conv: ConvParams) -> bool:

@@ -30,12 +30,13 @@ sum out; the caller sums the shards' partials and applies the epilogue.
 The LUT and log integer cores are bit-identical to im2col + the GEMM
 kernels.  On CUDA tensors each launches csrc/conv_gemm.cu or raises; the
 kernel gathers the patch matrix from the image by index arithmetic, so
-neither a padded plane nor an im2col tensor is held anywhere.  The two
-fused LUT and log entries up to 8 bits run csrc/conv_tile.cuh's kernel
-(a block a spatial tile and all of N, the halo and the tap stack staged
-once, a persistent grid), its launch cut by `conv_plan`; wider log
-operands (``conv_route``) and the partial forms run the tiled template
-of csrc/cim_gemm.cuh.  On CPU
+neither a padded plane nor an im2col tensor is held anywhere.  The LUT
+and log entries up to 8 bits, fused and partial, run csrc/conv_tile.cuh's
+kernel (a block a spatial tile and all of N, the halo and the tap stack
+staged once, a persistent grid; a fused form and its partial share an
+instantiation and a plan, the epilogue picked at launch), its launch cut
+by `conv_plan`; wider log operands (``conv_route``) run the tiled
+template of csrc/cim_gemm.cuh.  On CPU
 tensors each runs its plain version below (pad, then per tap: quantize
 the shifted window and the weight tap, and add its gather, log or exact
 integer sum), bit-identical to the kernel.
@@ -55,8 +56,8 @@ from .build import INT, PTR, CudaKernel, on_cuda, query, require, stream_of
 from .ref import (gather_full, int_dot, log_sum, nibble_sum, quantize_tile,
                   taps)
 
-# the fused LUT and log entries also take the launch plan: rp, rn, ib,
-# tr, tc, cc, tg, grid (conv_plan)
+# the LUT and log entries of the tile kernel also take the launch plan:
+# rp, rn, ib, tr, tc, cc, tg, grid (conv_plan)
 _LUT = CudaKernel("conv_gemm", "conv_lut_fused",
                   [PTR] * 6 + [INT] * 19 + [PTR])
 _LOG = CudaKernel("conv_gemm", "conv_log_fused",
@@ -66,17 +67,20 @@ _LOG_WIDE = CudaKernel("conv_gemm", "conv_log_fused_wide",
 _MXU = CudaKernel("conv_gemm", "conv_mxu_fused",
                   [PTR] * 5 + [INT] * 10 + [PTR])
 _LUT_PARTIAL = CudaKernel("conv_gemm", "conv_lut_partial",
-                          [PTR] * 6 + [INT] * 11 + [PTR])
+                          [PTR] * 6 + [INT] * 19 + [PTR])
 _LOG_PARTIAL = CudaKernel("conv_gemm", "conv_log_partial",
-                          [PTR] * 5 + [INT] * 11 + [PTR])
+                          [PTR] * 5 + [INT] * 19 + [PTR])
+_LOG_PARTIAL_WIDE = CudaKernel("conv_gemm", "conv_log_partial_wide",
+                               [PTR] * 5 + [INT] * 11 + [PTR])
 
-# conv_log_fused_wide: the other side of conv_route (9..16-bit log
-# operands), on no Table IV path
+# conv_log_fused_wide, conv_log_partial_wide: the other side of conv_route
+# (9..16-bit log operands), on no Table IV path
 KERNELS = {"conv_lut_fused": _LUT, "conv_log_fused": _LOG,
            "conv_log_fused_wide": _LOG_WIDE, "conv_mxu_fused": _MXU,
-           "conv_lut_partial": _LUT_PARTIAL, "conv_log_partial": _LOG_PARTIAL}
+           "conv_lut_partial": _LUT_PARTIAL, "conv_log_partial": _LOG_PARTIAL,
+           "conv_log_partial_wide": _LOG_PARTIAL_WIDE}
 
-# the template's block (csrc/cim_gemm.cuh, the partials and wide log):
+# the template's block (csrc/cim_gemm.cuh, 9..16-bit log):
 # output pixels x channel chunk x out-channels, BM, BK, BN, fixed at
 # compile time, and the outputs each thread accumulates per K step (its
 # RPT)
@@ -141,11 +145,12 @@ def table_layout(form: str, bits: int) -> Tuple[int, int, int]:
 
 
 def conv_route(core: str, bits: int) -> str:
-    """The kernel a fused conv of `core` ("lut", "nibble" or "log") at
-    `bits` launches on the card: "tile" (csrc/conv_tile.cuh) up to
-    TILE_MAX_BITS, "template" (csrc/cim_gemm.cuh, the C entry
-    conv_log_fused_wide) for the log core's 9..16 bits.  Every geometry
-    takes its bits' route; the partial forms always run the template."""
+    """The kernel a conv of `core` ("lut", "nibble" or "log") at `bits`
+    launches on the card, fused or partial alike: "tile"
+    (csrc/conv_tile.cuh) up to TILE_MAX_BITS, "template"
+    (csrc/cim_gemm.cuh, the C entries conv_log_fused_wide and
+    conv_log_partial_wide) for the log core's 9..16 bits.  Every geometry
+    takes its bits' route."""
     if core not in ("lut", "nibble", "log"):
         raise ValueError(f"no tile route for core {core!r}")
     return "tile" if bits <= TILE_MAX_BITS else "template"
@@ -167,7 +172,10 @@ def template_smem_bytes(core: str, bits: int) -> int:
     template for `core` ("lut", "nibble" or "log"): the table, then the
     staged A (BM x BK) and B (BK x BN) tiles (the full table's int32 row
     offsets and int16 column indices; int4 nibble offsets or log
-    decompositions)."""
+    decompositions).  Only the log core's 9..16 bits launch it
+    (`gemm_smem_bytes`); the LUT and nibble totals are the template's
+    layout for those cores, which the tests hold the planner's gate and
+    routes to."""
     bm, bk, bn = TILE
     if core == "lut":
         return _al((1 << (2 * bits)) * 2) + _al(4 * bm * bk) + 2 * bk * bn
@@ -483,21 +491,6 @@ def _check_operands(x, w3, sx, sw, n: int) -> None:
             and sw.is_contiguous(), f"sw must be {n} contiguous f32")
 
 
-def _launch_lut(kern: CudaKernel, x, w3, table, sx, sw, bits, kh, kw,
-                stride, nibble, out_dtype):
-    """The template's launch (the partial form)."""
-    b, h, w, c, n = _check_lut(x, w3, table, sx, sw, bits, kh, kw, stride,
-                               nibble)
-    oh, ow = conv_out_hw(h, w, kh, kw, stride)
-    out = torch.empty((b, oh, ow, n), dtype=out_dtype, device=x.device)
-    kern(x.data_ptr(), w3.data_ptr(), table.data_ptr(), sx.data_ptr(),
-         sw.data_ptr(), out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits,
-         int(nibble),
-         template_smem_bytes("nibble" if nibble else "lut", bits),
-         stream_of(x))
-    return out
-
-
 def _check_lut(x, w3, table, sx, sw, bits, kh, kw, stride, nibble):
     b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
     _check_operands(x, w3, sx, sw, n)
@@ -509,14 +502,17 @@ def _check_lut(x, w3, table, sx, sw, bits, kh, kw, stride, nibble):
 
 
 def _launch_tile(kern: CudaKernel, form: str, x, w3, table, sx, sw, bits, kh,
-                 kw, stride, flag, force=None):
-    """csrc/conv_tile.cuh's launch (a fused entry up to 8 bits) with the
-    plan of `device_plan` (`force`: its micro-tile; cached, so the
-    shared-memory total is read from gemm_smem_bytes at every launch)."""
+                 kw, stride, flag, partial, force=None):
+    """csrc/conv_tile.cuh's launch (an entry up to 8 bits: f32 out, or the
+    raw int32 sum where `partial`) with the plan of `device_plan`
+    (`force`: its micro-tile; cached, so the shared-memory total is read
+    from gemm_smem_bytes at every launch)."""
     b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
     plan = device_plan(form, bits, x, w3, kh, kw, stride, force)
     oh, ow = conv_out_hw(h, w, kh, kw, stride)
-    out = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, oh, ow, n),
+                      dtype=torch.int32 if partial else torch.float32,
+                      device=x.device)
     tab = () if table is None else (table.data_ptr(),)
     kern(x.data_ptr(), w3.data_ptr(), *tab, sx.data_ptr(), sw.data_ptr(),
          out.data_ptr(), b, h, w, c, n, kh, kw, stride, bits, int(flag),
@@ -526,13 +522,14 @@ def _launch_tile(kern: CudaKernel, form: str, x, w3, table, sx, sw, bits, kh,
 
 
 def _conv_lut_tile(x, w3, table, sx, sw, bits, kh, kw, stride, nibble,
-                   force=None):
+                   partial=False, force=None):
     _check_lut(x, w3, table, sx, sw, bits, kh, kw, stride, nibble)
     require(2 <= bits <= TILE_MAX_BITS,
             f"the LUT conv kernel takes 2..{TILE_MAX_BITS}-bit operands, got "
             f"{bits}")
-    return _launch_tile(_LUT, "nibble" if nibble else "lut", x, w3, table,
-                        sx, sw, bits, kh, kw, stride, nibble, force)
+    return _launch_tile(_LUT_PARTIAL if partial else _LUT,
+                        "nibble" if nibble else "lut", x, w3, table, sx, sw,
+                        bits, kh, kw, stride, nibble, partial, force)
 
 
 def conv_lut_fused(x: torch.Tensor, w3: torch.Tensor, table: torch.Tensor,
@@ -565,13 +562,13 @@ def conv_lut_partial(x: torch.Tensor, w3: torch.Tensor, table: torch.Tensor,
     if not on_cuda(x, w3, table, sx, sw):
         return conv_lut_partial_plain(x, w3, table, sx, sw, bits, kh, kw,
                                       stride, nibble)
-    return _launch_lut(_LUT_PARTIAL, x, w3, table, sx, sw, bits, kh, kw,
-                       stride, nibble, torch.int32)
+    return _conv_lut_tile(x, w3, table, sx, sw, bits, kh, kw, stride, nibble,
+                          partial=True)
 
 
 def _launch_log(kern: CudaKernel, x, w3, sx, sw, bits, compensated, kh, kw,
                 stride, out_dtype):
-    """The template's launch (the partial form, and wide fused log)."""
+    """The template's launch (9..16-bit log, fused or partial)."""
     b, h, w, c, n = _geometry(x, w3, kh, kw, stride)
     _check_operands(x, w3, sx, sw, n)
     require(2 <= bits <= 16,
@@ -585,28 +582,30 @@ def _launch_log(kern: CudaKernel, x, w3, sx, sw, bits, compensated, kh, kw,
 
 
 def _conv_log_tile(x, w3, sx, sw, bits, compensated, kh, kw, stride,
-                   force=None):
+                   partial=False, force=None):
     _, _, _, _, n = _geometry(x, w3, kh, kw, stride)
     _check_operands(x, w3, sx, sw, n)
     require(2 <= bits <= TILE_MAX_BITS,
             f"the tile log conv kernel takes 2..{TILE_MAX_BITS}-bit "
             f"operands, got {bits}")
-    return _launch_tile(_LOG, "log_our" if compensated else "mitchell", x,
-                        w3, None, sx, sw, bits, kh, kw, stride, compensated,
+    return _launch_tile(_LOG_PARTIAL if partial else _LOG,
+                        "log_our" if compensated else "mitchell", x, w3, None,
+                        sx, sw, bits, kh, kw, stride, compensated, partial,
                         force)
 
 
 def _conv_tile_forced(x, w3, table, sx, sw, form: str, bits: int, kh: int,
-                      kw: int, stride: int, force: Tuple[int, int]):
-    """The fused LUT (`form` "lut", "nibble") or log ("mitchell",
-    "log_our") conv on the tile kernel with the micro-tile `force` (rp,
-    rn) and the rest of its plan as conv_plan cuts it (tests,
-    chip_smoke.py, launch/cluster_sweep.py)."""
+                      kw: int, stride: int, force: Tuple[int, int],
+                      partial: bool = False):
+    """The LUT (`form` "lut", "nibble") or log ("mitchell", "log_our")
+    conv, fused or (`partial`) its partial form, on the tile kernel with
+    the micro-tile `force` (rp, rn) and the rest of its plan as conv_plan
+    cuts it (tests, chip_smoke.py, launch/cluster_sweep.py)."""
     if form in ("lut", "nibble"):
         return _conv_lut_tile(x, w3, table, sx, sw, bits, kh, kw, stride,
-                              form == "nibble", force)
+                              form == "nibble", partial, force)
     return _conv_log_tile(x, w3, sx, sw, bits, form == "log_our", kh, kw,
-                          stride, force)
+                          stride, partial, force)
 
 
 def conv_log_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
@@ -635,8 +634,11 @@ def conv_log_partial(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,
     if not on_cuda(x, w3, sx, sw):
         return conv_log_partial_plain(x, w3, sx, sw, bits, compensated, kh,
                                       kw, stride)
-    return _launch_log(_LOG_PARTIAL, x, w3, sx, sw, bits, compensated, kh,
-                       kw, stride, torch.int32)
+    if conv_route("log", bits) == "template":
+        return _launch_log(_LOG_PARTIAL_WIDE, x, w3, sx, sw, bits,
+                           compensated, kh, kw, stride, torch.int32)
+    return _conv_log_tile(x, w3, sx, sw, bits, compensated, kh, kw, stride,
+                          partial=True)
 
 
 def conv_mxu_fused(x: torch.Tensor, w3: torch.Tensor, sx: torch.Tensor,

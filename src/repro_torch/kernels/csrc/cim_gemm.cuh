@@ -36,7 +36,8 @@
 // or ConvSrc (the implicit-GEMM patch matrix of a (B, H, W, C) image:
 // row m = (b, oy, ox) batch-major, column k = (tap, channel) tap-major,
 // the image read at (oy*stride + ki - kh/2, ox*stride + kj - kw/2) by
-// index arithmetic, out-of-image taps read as 0).  B is always a
+// index arithmetic, out-of-image taps read as 0; the log core's 9..16-bit
+// convs, fused and partial, alone take it).  B is always a
 // row-major (K, N) matrix; a conv's (kh*kw, C, N) tap stack is one.
 //
 // Design: one block owns a BM x BN output tile and loops over K in BK
@@ -59,7 +60,8 @@
 // in int8_mma.cuh, the fused surrogate GEMM (D and SQ) in
 // surrogate_cluster.cuh; the fused LUT, nibble and log GEMMs and their
 // partial forms (up to 8 bits) run the split-K cluster kernel of
-// cluster_gemm.cuh.
+// cluster_gemm.cuh, the LUT, nibble and log convs and their partial forms
+// (up to 8 bits) the spatial-tile kernel of conv_tile.cuh.
 
 #pragma once
 
@@ -326,23 +328,14 @@ struct ConvSrc {
 // --- the kernel --------------------------------------------------------------
 
 // The least resident blocks per SM asked of the compiler, the second
-// argument of __launch_bounds__ (0: none asked).  Asking for 1 lets nvcc
-// keep more of the inner loop in registers: measured on an H100
-// (launch/kernel_ab.py), it restores the dense LUT and log GEMMs to the
-// times of their own kernels before this template and speeds up the
-// nibble GEMM and the LUT and log convs, but slows down the nibble conv,
-// whose blocks are small enough to share an SM, which keeps none.
-template <class Core, class Src>
-struct MinBlocks {
-  static constexpr int value = 1;
-};
-template <typename T>
-struct MinBlocks<NibbleCore, ConvSrc<T>> {
-  static constexpr int value = 0;
-};
+// argument of __launch_bounds__.  Asking for 1 lets nvcc keep more of the
+// inner loop in registers: measured on an H100 (launch/kernel_ab.py), it
+// restores the dense LUT and log GEMMs to the times of their own kernels
+// before this template and speeds up the nibble GEMM and the log convs.
+constexpr int GEMM_MIN_BLOCKS = 1;
 
 template <class Core, class Src, typename TW, class Epi>
-__global__ void __launch_bounds__(THREADS, (MinBlocks<Core, Src>::value))
+__global__ void __launch_bounds__(THREADS, GEMM_MIN_BLOCKS)
 gemm_kernel(Src src, const TW* __restrict__ w,
             const unsigned char* __restrict__ tab,
             const float* __restrict__ sx_ptr, const float* __restrict__ sw,
@@ -499,7 +492,8 @@ int dense_quant(const void* x, int x_bf16, const void* w, int w_bf16,
 // f32 (B,H,W,C) image x f32 (kh*kw, C, N) tap stack, quantized on load,
 // -> (B,OH,OW,N) through the epilogue `epi` (f32 for ScaleOut, the raw
 // int32 sum for QuantIntOut) under kh//2, kw//2 zero padding (SAME at
-// stride 1)
+// stride 1); conv_gemm.cu instantiates it for the log core alone (9..16
+// bits)
 template <class Core, class Epi>
 int conv_quant(const void* x, const void* w, const void* tab, const void* sx,
                const void* sw, void* out, Epi epi, int B, int H, int W, int C,

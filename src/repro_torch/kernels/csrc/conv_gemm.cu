@@ -40,28 +40,29 @@
 // its shared memory one fixed total whatever the geometry (channels in
 // chunks, taps in groups):
 //   conv_mxu_fused: int8_mma.cuh's conv kernel on the int8 tensor cores;
-//   conv_lut_fused and conv_log_fused up to 8 bits: conv_tile.cuh's
-//     kernel (a register micro-tile of pixels x columns a thread, the
-//     tap stack staged once a block where it fits, a persistent grid cut
-//     by kernels/conv_gemm.py conv_plan, the table copied once a block by
-//     bulk asynchronous copies).
-// The partial forms and conv_log_fused's 9..16-bit operands
-// (conv_log_fused_wide, by kernels/conv_gemm.py conv_route) run
-// cim_gemm.cuh's gemm_kernel with ConvSrc as its A operand: a block owns
-// BM output pixels (rows of M, batch-major) x BN output channels and
-// loops over K = (tap, channel) in BK steps, loading each element of the
-// patch matrix from device memory by index arithmetic (out-of-image taps
-// read as 0, which every core annihilates), so no plane and no im2col
-// tensor is held anywhere and any plane size fits.  Every launch takes
-// the caller's shared-memory total (kernels/conv_gemm.py gemm_smem_bytes
-// and template_smem_bytes, which the planner's gate reads) and refuses
-// one that differs.  The K loop stays inside the block in every design,
-// so the int32 result is deterministic.
+//   conv_lut_fused, conv_log_fused and their partial forms up to 8 bits:
+//     conv_tile.cuh's kernel (a register micro-tile of pixels x columns
+//     a thread, the tap stack staged once a block where it fits, a
+//     persistent grid cut by kernels/conv_gemm.py conv_plan, the table
+//     copied once a block by bulk asynchronous copies); a fused form and
+//     its partial launch one instantiation, the store picked by a flag.
+// Log operands of 9..16 bits (conv_log_fused_wide, conv_log_partial_wide,
+// by kernels/conv_gemm.py conv_route) run cim_gemm.cuh's gemm_kernel with
+// ConvSrc as its A operand: a block owns BM output pixels (rows of M,
+// batch-major) x BN output channels and loops over K = (tap, channel) in
+// BK steps, loading each element of the patch matrix from device memory
+// by index arithmetic (out-of-image taps read as 0, which every core
+// annihilates), so no plane and no im2col tensor is held anywhere and
+// any plane size fits.  Every launch takes the caller's shared-memory
+// total (kernels/conv_gemm.py gemm_smem_bytes, which the planner's gate
+// reads) and refuses one that differs.  The K loop stays inside the
+// block in every design, so the int32 result is deterministic.
 
 #include "cim_gemm.cuh"
 #include "conv_tile.cuh"
 #include "int8_mma.cuh"
 
+// 9..16-bit log operands on cim_gemm.cuh's template, through `epi`
 template <class Epi>
 static int conv_log(const void* x, const void* w, const void* sx,
                     const void* sw, void* out, Epi epi, int B, int H, int W,
@@ -76,6 +77,38 @@ static int conv_log(const void* x, const void* w, const void* sx,
                                               stride, bits, smem, stream);
 }
 
+// a fused form (raw 0) or its partial (raw 1) on conv_tile.cuh's kernel
+static int conv_lut(const void* x, const void* w, const void* tab,
+                    const void* sx, const void* sw, void* out, int raw,
+                    int B, int H, int W, int C, int N, int kh, int kw,
+                    int stride, int bits, int nibble, int smem, int rp,
+                    int rn, int ib, int tr, int tc, int cc, int tg, int grid,
+                    void* stream) {
+  if (nibble)
+    return cim::conv_tile<cim::TileNibble>(x, w, tab, sx, sw, out, raw, B,
+                                           H, W, C, N, kh, kw, stride, bits,
+                                           smem, rp, rn, ib, tr, tc, cc, tg,
+                                           grid, stream);
+  return cim::conv_tile<cim::TileLut>(x, w, tab, sx, sw, out, raw, B, H, W,
+                                      C, N, kh, kw, stride, bits, smem, rp,
+                                      rn, ib, tr, tc, cc, tg, grid, stream);
+}
+
+static int conv_log_tile(const void* x, const void* w, const void* sx,
+                         const void* sw, void* out, int raw, int B, int H,
+                         int W, int C, int N, int kh, int kw, int stride,
+                         int bits, int compensated, int smem, int rp, int rn,
+                         int ib, int tr, int tc, int cc, int tg, int grid,
+                         void* stream) {
+  if (compensated)
+    return cim::conv_tile<cim::TileLog<true>>(
+        x, w, nullptr, sx, sw, out, raw, B, H, W, C, N, kh, kw, stride, bits,
+        smem, rp, rn, ib, tr, tc, cc, tg, grid, stream);
+  return cim::conv_tile<cim::TileLog<false>>(
+      x, w, nullptr, sx, sw, out, raw, B, H, W, C, N, kh, kw, stride, bits,
+      smem, rp, rn, ib, tr, tc, cc, tg, grid, stream);
+}
+
 extern "C" {
 
 // tab: the int16 full table (nibble == 0) or the four int32 sub-tables;
@@ -86,28 +119,21 @@ int conv_lut_fused(const void* x, const void* w, const void* tab,
                    int W, int C, int N, int kh, int kw, int stride, int bits,
                    int nibble, int smem, int rp, int rn, int ib, int tr,
                    int tc, int cc, int tg, int grid, void* stream) {
-  if (nibble)
-    return cim::conv_tile<cim::TileNibble, cim::ScaleOut>(
-        x, w, tab, sx, sw, out, B, H, W, C, N, kh, kw, stride, bits, smem,
-        rp, rn, ib, tr, tc, cc, tg, grid, stream);
-  return cim::conv_tile<cim::TileLut, cim::ScaleOut>(
-      x, w, tab, sx, sw, out, B, H, W, C, N, kh, kw, stride, bits, smem, rp,
-      rn, ib, tr, tc, cc, tg, grid, stream);
+  return conv_lut(x, w, tab, sx, sw, out, 0, B, H, W, C, N, kh, kw, stride,
+                  bits, nibble, smem, rp, rn, ib, tr, tc, cc, tg, grid,
+                  stream);
 }
 
 // as conv_lut_fused, out: the raw int32 sum (B,OH,OW,N)
 int conv_lut_partial(const void* x, const void* w, const void* tab,
                      const void* sx, const void* sw, void* out, int B, int H,
                      int W, int C, int N, int kh, int kw, int stride,
-                     int bits, int nibble, int smem, void* stream) {
-  if (nibble)
-    return cim::conv_quant<cim::NibbleCore>(x, w, tab, sx, sw, out,
-                                            cim::QuantIntOut{}, B, H, W, C,
-                                            N, kh, kw, stride, bits, smem,
-                                            stream);
-  return cim::conv_quant<cim::LutCore>(x, w, tab, sx, sw, out,
-                                       cim::QuantIntOut{}, B, H, W, C, N,
-                                       kh, kw, stride, bits, smem, stream);
+                     int bits, int nibble, int smem, int rp, int rn, int ib,
+                     int tr, int tc, int cc, int tg, int grid,
+                     void* stream) {
+  return conv_lut(x, w, tab, sx, sw, out, 1, B, H, W, C, N, kh, kw, stride,
+                  bits, nibble, smem, rp, rn, ib, tr, tc, cc, tg, grid,
+                  stream);
 }
 
 // the exact integer product (exact mode; no table) on the tensor cores
@@ -125,13 +151,20 @@ int conv_log_fused(const void* x, const void* w, const void* sx,
                    int N, int kh, int kw, int stride, int bits,
                    int compensated, int smem, int rp, int rn, int ib, int tr,
                    int tc, int cc, int tg, int grid, void* stream) {
-  if (compensated)
-    return cim::conv_tile<cim::TileLog<true>, cim::ScaleOut>(
-        x, w, nullptr, sx, sw, out, B, H, W, C, N, kh, kw, stride, bits,
-        smem, rp, rn, ib, tr, tc, cc, tg, grid, stream);
-  return cim::conv_tile<cim::TileLog<false>, cim::ScaleOut>(
-      x, w, nullptr, sx, sw, out, B, H, W, C, N, kh, kw, stride, bits, smem,
-      rp, rn, ib, tr, tc, cc, tg, grid, stream);
+  return conv_log_tile(x, w, sx, sw, out, 0, B, H, W, C, N, kh, kw, stride,
+                       bits, compensated, smem, rp, rn, ib, tr, tc, cc, tg,
+                       grid, stream);
+}
+
+// as conv_log_fused, out: the raw int32 sum (B,OH,OW,N)
+int conv_log_partial(const void* x, const void* w, const void* sx,
+                     const void* sw, void* out, int B, int H, int W, int C,
+                     int N, int kh, int kw, int stride, int bits,
+                     int compensated, int smem, int rp, int rn, int ib,
+                     int tr, int tc, int cc, int tg, int grid, void* stream) {
+  return conv_log_tile(x, w, sx, sw, out, 1, B, H, W, C, N, kh, kw, stride,
+                       bits, compensated, smem, rp, rn, ib, tr, tc, cc, tg,
+                       grid, stream);
 }
 
 // 9..16-bit log operands (kernels/conv_gemm.py conv_route), on the
@@ -144,35 +177,32 @@ int conv_log_fused_wide(const void* x, const void* w, const void* sx,
                   stride, bits, compensated, smem, stream);
 }
 
+// as conv_log_fused_wide, out: the raw int32 sum (B,OH,OW,N)
+int conv_log_partial_wide(const void* x, const void* w, const void* sx,
+                          const void* sw, void* out, int B, int H, int W,
+                          int C, int N, int kh, int kw, int stride, int bits,
+                          int compensated, int smem, void* stream) {
+  return conv_log(x, w, sx, sw, out, cim::QuantIntOut{}, B, H, W, C, N, kh,
+                  kw, stride, bits, compensated, smem, stream);
+}
+
 // The blocks of the tile kernel of `kind` (0 LUT, 1 nibble, 2 mitchell,
 // 3 log_our) and micro-tile (rp, rn) at `bits` resident on one SM at
-// once, into *out (conv_plan's capacity); returns the CUDA error code
+// once, into *out (conv_plan's capacity; one instantiation serves the
+// fused and the partial forms); returns the CUDA error code
 int conv_tile_capacity(int kind, int bits, int rp, int rn, int* out) {
   switch (kind) {
     case 0:
-      return cim::conv_tile_capacity<cim::TileLut, cim::ScaleOut>(bits, rp,
-                                                                  rn, out);
+      return cim::conv_tile_capacity<cim::TileLut>(bits, rp, rn, out);
     case 1:
-      return cim::conv_tile_capacity<cim::TileNibble, cim::ScaleOut>(
-          bits, rp, rn, out);
+      return cim::conv_tile_capacity<cim::TileNibble>(bits, rp, rn, out);
     case 2:
-      return cim::conv_tile_capacity<cim::TileLog<false>, cim::ScaleOut>(
-          bits, rp, rn, out);
+      return cim::conv_tile_capacity<cim::TileLog<false>>(bits, rp, rn, out);
     case 3:
-      return cim::conv_tile_capacity<cim::TileLog<true>, cim::ScaleOut>(
-          bits, rp, rn, out);
+      return cim::conv_tile_capacity<cim::TileLog<true>>(bits, rp, rn, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// as conv_log_fused, out: the raw int32 sum (B,OH,OW,N)
-int conv_log_partial(const void* x, const void* w, const void* sx,
-                     const void* sw, void* out, int B, int H, int W, int C,
-                     int N, int kh, int kw, int stride, int bits,
-                     int compensated, int smem, void* stream) {
-  return conv_log(x, w, sx, sw, out, cim::QuantIntOut{}, B, H, W, C, N, kh,
-                  kw, stride, bits, compensated, smem, stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,21 @@
-// conv_tile.cuh - the fused CiM convolutions of the Table IV CNN for NVIDIA
+// conv_tile.cuh - the CiM convolutions of the Table IV CNN for NVIDIA
 // Hopper (sm_90a): conv_lut_fused (the full product table, or the nibble
-// sub-tables) and conv_log_fused (mitchell, log_our), operands of at most
-// 8 bits.  Included by conv_gemm.cu, whose two fused entries launch it.
+// sub-tables) and conv_log_fused (mitchell, log_our), and the mesh path's
+// partial forms conv_lut_partial and conv_log_partial, operands of at
+// most 8 bits.  Included by conv_gemm.cu, whose four entries launch it.
 //
 // Replaces, for operands of at most 8 bits, the TPU kernels
 //   src/repro/kernels/conv_gemm.py:236 conv_lut_fused -> :131 ->
 //     _lut_kernel :197 (nibble=False: the full table; True: sub-tables)
 //   src/repro/kernels/conv_gemm.py:321 conv_log_fused -> :131 ->
 //     _log_kernel :286 (mitchell, and log_our when compensated)
-// Log operands of 9..16 bits keep cim_gemm.cuh's template (the C entry
-// conv_log_fused_wide), by the gate kernels/conv_gemm.py conv_route; the
-// mesh path's partial forms (conv_lut_partial, conv_log_partial) keep it
-// too.  The kernel takes either epilogue of cim_gemm.cuh (ScaleOut, and
-// QuantIntOut for those partials), though only ScaleOut is instantiated.
+//   src/repro/kernels/conv_gemm.py:259 conv_lut_partial and :343
+//     conv_log_partial -> :131, the same bodies with the epilogue off
+// Log operands of 9..16 bits keep cim_gemm.cuh's template (the C entries
+// conv_log_fused_wide, conv_log_partial_wide), by the gate
+// kernels/conv_gemm.py conv_route.  One instantiation serves both
+// epilogues: CtArgs::raw, uniform over the launch, picks cim_gemm.cuh's
+// QuantIntOut (the raw int32 sum, the partials) or ScaleOut at the store.
 //
 // What it computes: the implicit GEMM of a (kh, kw, stride) convolution
 // of an f32 image (B, H, W, C) with an f32 tap stack (kh*kw, C, N) under
@@ -20,8 +23,9 @@
 // prod(qa, qb) in 32 bits with two's-complement wrap, qa = quantize(x,
 // sx), qb = quantize(w, sw[n]) (cim_gemm.cuh's quantize(): __fdiv_rn,
 // rintf, clip; no fast-math), and out = (f32(acc) * sx) * sw[n] in that
-// order: bit for bit kernels/conv_gemm.py's conv_lut_fused_plain and
-// conv_log_fused_plain.  The products are those of cim_gemm.cuh's cores
+// order, or (the partial forms) the int32 acc itself: bit for bit
+// kernels/conv_gemm.py's conv_lut_fused_plain and conv_log_fused_plain
+// (conv_*_partial_plain).  The products are those of cim_gemm.cuh's cores
 // (LutCore, NibbleCore, LogCore), staged in compact 32-bit forms:
 //   LUT      x: byte offset of its table row in the laid-out table (see
 //            TabLayout); w: byte offset (b + h) * 2 in a row, as uint16;
@@ -298,7 +302,7 @@ struct CtArgs {
   const unsigned char* tab;
   const float* sx;
   const float* sw;
-  void* out;            // Epi::Out: f32 (ScaleOut) or int32 (QuantIntOut)
+  void* out;            // f32 (ScaleOut) or, where raw, int32 (QuantIntOut)
   int B, H, W, C, N, kh, kw, stride, ph, pw, OH, OW, bits;
   int IB, TR, TC;       // a tile: images, output rows, output columns
   int HR, HC;           // its halo: (TR-1) stride + kh, (TC-1) stride + kw
@@ -309,6 +313,7 @@ struct CtArgs {
   int tiles_c, tiles_r, tiles;
   int whole;            // the whole tap stack fits: staged once a block
   int vec4;             // C % 4 == 0 and x 16-byte aligned
+  int raw;              // the epilogue: the raw int32 sum (the partials)
 };
 
 // the halo of channels c0.. of the tile at (b0, oy0, ox0): each channel
@@ -566,10 +571,9 @@ __device__ __forceinline__ void ct_products(
   }
 }
 
-template <class F, int RP, int RN, class Epi>
+template <class F, int RP, int RN>
 __global__ void __launch_bounds__(CT_THREADS, (F::MIN_BLOCKS))
 conv_tile_kernel(const CtArgs a) {
-  static_assert(Epi::QUANT && !Epi::SQ, "float operands, one sum");
   using W = typename F::W;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t tbytes = al16(ct_table_bytes<F>(a.bits));
@@ -670,10 +674,14 @@ conv_tile_kernel(const CtArgs a) {
 #pragma unroll
           for (int j = 0; j < RN; ++j) {
             const int n = n0 + cg * RN + j;
-            if (n < a.N)
-              Epi{}.store(static_cast<typename Epi::Out*>(a.out),
-                          static_cast<size_t>(om[i]) * a.N + n, n, acc[i][j],
-                          0.f, sx, a.sw);
+            if (n >= a.N) continue;
+            const size_t o = static_cast<size_t>(om[i]) * a.N + n;
+            if (a.raw)
+              QuantIntOut{}.store(static_cast<int32_t*>(a.out), o, n,
+                                  acc[i][j], 0.f, sx, a.sw);
+            else
+              ScaleOut{}.store(static_cast<float*>(a.out), o, n, acc[i][j],
+                               0.f, sx, a.sw);
           }
         }
       }
@@ -730,35 +738,36 @@ inline bool ct_make_args(CtArgs& a, int rp, int rn, int ib, int tr, int tc,
   return true;
 }
 
-template <class F, int RP, int RN, class Epi>
+template <class F, int RP, int RN>
 inline const void* ct_kernel() {
-  return reinterpret_cast<const void*>(conv_tile_kernel<F, RP, RN, Epi>);
+  return reinterpret_cast<const void*>(conv_tile_kernel<F, RP, RN>);
 }
 
 // the instantiated micro-tiles (RP, RN) (kernels/conv_gemm.py TILE_MICRO)
 #define CT_MICRO(X) \
   X(4, 1) X(8, 1) X(4, 2) X(8, 2) X(2, 4) X(4, 4) X(8, 4)
 
-template <class F, class Epi>
+template <class F>
 inline const void* ct_pick(int rp, int rn) {
 #define CT_CASE(P, N) \
-  if (rp == P && rn == N) return ct_kernel<F, P, N, Epi>();
+  if (rp == P && rn == N) return ct_kernel<F, P, N>();
   CT_MICRO(CT_CASE)
 #undef CT_CASE
   return nullptr;
 }
 
-// Launches the tile kernel of form F and epilogue Epi: f32 (B,H,W,C) x
-// f32 (kh*kw, C, N) -> (B,OH,OW,N), `grid` persistent blocks over the
-// tiles of the plan (rp, rn, ib, tr, tc, cc, tg); `smem` is the caller's
-// shared-memory total, refused unless it is ct_smem_bytes<F>(bits).
-// Returns the CUDA error code; a plan the kernel does not take is
-// refused (cudaErrorInvalidValue).
-template <class F, class Epi>
+// Launches the tile kernel of form F: f32 (B,H,W,C) x f32 (kh*kw, C, N)
+// -> (B,OH,OW,N), f32 through ScaleOut or, where `raw`, the int32 sum
+// (QuantIntOut), `grid` persistent blocks over the tiles of the plan (rp,
+// rn, ib, tr, tc, cc, tg); `smem` is the caller's shared-memory total,
+// refused unless it is ct_smem_bytes<F>(bits).  Returns the CUDA error
+// code; a plan the kernel does not take is refused
+// (cudaErrorInvalidValue).
+template <class F>
 int conv_tile(const void* x, const void* w, const void* tab, const void* sx,
-              const void* sw, void* out, int B, int H, int W, int C, int N,
-              int kh, int kw, int stride, int bits, int smem, int rp, int rn,
-              int ib, int tr, int tc, int cc, int tg, int grid,
+              const void* sw, void* out, int raw, int B, int H, int W, int C,
+              int N, int kh, int kw, int stride, int bits, int smem, int rp,
+              int rn, int ib, int tr, int tc, int cc, int tg, int grid,
               void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (kh % 2 != 1 || kw % 2 != 1 || stride < 1 || bits < 2 ||
@@ -772,6 +781,7 @@ int conv_tile(const void* x, const void* w, const void* tab, const void* sx,
   a.sx = static_cast<const float*>(sx);
   a.sw = static_cast<const float*>(sw);
   a.out = out;
+  a.raw = raw != 0;
   a.B = B;
   a.H = H;
   a.W = W;
@@ -791,7 +801,7 @@ int conv_tile(const void* x, const void* w, const void* tab, const void* sx,
       grid > a.tiles)
     return bad;
   if (F::KIND < 2 && reinterpret_cast<uintptr_t>(tab) % 16 != 0) return bad;
-  const void* kern = ct_pick<F, Epi>(rp, rn);
+  const void* kern = ct_pick<F>(rp, rn);
   if (kern == nullptr) return bad;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -806,12 +816,13 @@ int conv_tile(const void* x, const void* w, const void* tab, const void* sx,
 
 // The blocks of the tile kernel of form F, micro-tile (rp, rn), at `bits`
 // resident on one SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// with its shared memory), into *out; returns the CUDA error code.
-template <class F, class Epi>
+// with its shared memory), into *out, for either epilogue (one
+// instantiation); returns the CUDA error code.
+template <class F>
 int conv_tile_capacity(int bits, int rp, int rn, int* out) {
   if (bits < 2 || bits > CT_MAX_BITS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kern = ct_pick<F, Epi>(rp, rn);
+  const void* kern = ct_pick<F>(rp, rn);
   if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(ct_smem_bytes<F>(bits));
   cudaError_t e = cudaFuncSetAttribute(

@@ -42,13 +42,18 @@ dot is small, that slope is the step's floor: the gates, the exchange
 of h and the cluster barrier.
 
 ``kernels/csrc/conv_tile.cuh`` (``conv_lut_fused``, ``conv_log_fused``
-up to 8 bits) cuts a conv into spatial tiles with all of N over a
-persistent grid; ``conv_gemm.conv_plan`` picks the micro-tile (pixels x
-columns a thread) and, from it, the tile, the channel chunks and the tap
-groups.  This times it at chip_smoke.py's five Table IV convs (batch 256)
-for its four variants (appro42's full table, the exact family's nibble
-sub-tables, mitchell, log_our) with every micro-tile the plan could take,
-beside the plan's choice and the fastest.
+and their partial forms up to 8 bits) cuts a conv into spatial tiles
+with all of N over a persistent grid; ``conv_gemm.conv_plan`` picks the
+micro-tile (pixels x columns a thread) and, from it, the tile, the
+channel chunks and the tap groups.  This times it at chip_smoke.py's
+five Table IV convs (batch 256) for its four variants (appro42's full
+table, the exact family's nibble sub-tables, mitchell, log_our) with
+every micro-tile the plan could take, beside the plan's choice and the
+fastest; then the partial forms (``conv_lut_partial``,
+``conv_log_partial``: int32 out) at chip_smoke.py's shard geometries
+(the same convs with C halved where it splits, global scales 1.25x the
+shard's own, as check_partials runs them), and counts the rows whose
+plan is within 4% (fused) and 5% (partial) of the fastest.
 
     PYTHONPATH=src python -m repro_torch.launch.cluster_sweep \\
         --out build/cluster_sweep [--only conv|nibble]
@@ -267,48 +272,68 @@ def _median_ms(cs, fn, reps, flush) -> float:
 def conv_sweep(cs, dev, flush, res) -> None:
     """Time the conv tile kernel at chip_smoke.py's CNN_CONVS (batch 256,
     its operands and timer, the median of 15 launches) on each variant
-    with every micro-tile of
-    conv_gemm.TILE_MICRO that fits (the rest of each plan as conv_plan
-    cuts it); record each, and print the plan's choice and the
-    fastest."""
+    with every micro-tile of conv_gemm.TILE_MICRO that fits (the rest of
+    each plan as conv_plan cuts it), the fused forms at the full convs
+    and the partial forms at the shard geometries; record each, print the
+    plan's choice and the fastest, and count the rows whose plan is
+    within 4% (fused) or 5% (partial) of the fastest."""
     variants = [("lut appro42", "lut",
                  ops.lut_table(MultiplierSpec("appro42", 8, True), dev)),
                 ("nibble exact", "nibble",
                  ops.nibble_table(MultiplierSpec("exact", 8, True), dev)),
                 ("mitchell", "mitchell", None), ("log_our", "log_our", None)]
-    for gi, (h, w, c, n) in enumerate(cs.CNN_CONVS):
-        b = cs.CNN_BATCH
-        g = torch.Generator(device=dev).manual_seed(31 * gi + 7)
-        x = torch.randn(b, h, w, c, generator=g, device=dev)
-        w3 = torch.randn(9, c, n, generator=g, device=dev) * 0.1
-        sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
-        for label, form, tab in variants:
-            plan = cvg.device_plan(form, 8, x, w3, 3, 3, 1)
-            times = {}
-            for micro in cvg.TILE_MICRO:
-                try:
-                    p = cvg.device_plan(form, 8, x, w3, 3, 3, 1, force=micro)
-                except ValueError:       # no tile of this micro-tile fits
-                    continue
+    near = {}
+    for partial, slack in ((False, 0.04), (True, 0.05)):
+        kind = "partial" if partial else "conv"
+        for gi, (h, w, c, n) in enumerate(cs.CNN_CONVS):
+            b = cs.CNN_BATCH
+            if partial:           # check_partials' shard and operands
+                c = c // 2 if c % 2 == 0 else c
+                g = torch.Generator(device=dev).manual_seed(41 * gi + 5)
+            else:
+                g = torch.Generator(device=dev).manual_seed(31 * gi + 7)
+            x = torch.randn(b, h, w, c, generator=g, device=dev)
+            w3 = torch.randn(9, c, n, generator=g, device=dev) * 0.1
+            sx, sw = ops._scales(x, w3.reshape(-1, n), 8)
+            if partial:
+                sx, sw = sx * 1.25, sw * 1.25
+            for label, form, tab in variants:
+                plan = cvg.device_plan(form, 8, x, w3, 3, 3, 1)
+                times = {}
+                for micro in cvg.TILE_MICRO:
+                    try:
+                        p = cvg.device_plan(form, 8, x, w3, 3, 3, 1,
+                                            force=micro)
+                    except ValueError:    # no tile of this micro-tile fits
+                        continue
 
-                def call(f=micro):
-                    cvg._conv_tile_forced(x, w3, tab, sx, sw, form, 8, 3, 3,
-                                          1, f)
+                    def call(f=micro):
+                        cvg._conv_tile_forced(x, w3, tab, sx, sw, form, 8,
+                                              3, 3, 1, f, partial=partial)
 
-                call()
-                times[micro] = (_median_ms(cs, call, 15, flush),
-                                (p.ib, p.tr, p.tc, p.tiles, p.grid))
-            mine = (plan.rp, plan.rn)
-            fast = min(times, key=lambda m: times[m][0])
-            res[f"conv {label} {(b, h, w, c, n)}"] = {
-                "plan": list(mine), "plan_ms": times[mine][0],
-                "fastest": list(fast), "fastest_ms": times[fast][0],
-                "grid": [[*m, t, *geo] for m, (t, geo) in times.items()]}
-            print(f"conv {label:12} {str((b, h, w, c, n)):22} (rp, rn): plan "
-                  f"{mine} {times[mine][0]:.4f} ms, fastest {fast} "
-                  f"{times[fast][0]:.4f} ms; "
-                  + " ".join(f"{m[0]}x{m[1]}:{t:.4f}"
-                             for m, (t, _) in times.items()), flush=True)
+                    call()
+                    times[micro] = (_median_ms(cs, call, 15, flush),
+                                    (p.ib, p.tr, p.tc, p.tiles, p.grid))
+                mine = (plan.rp, plan.rn)
+                fast = min(times, key=lambda m: times[m][0])
+                ok = times[mine][0] <= (1 + slack) * times[fast][0]
+                entry = (("conv_lut_" if tab is not None else "conv_log_")
+                         + ("partial" if partial else "fused"))
+                near.setdefault(entry, []).append(ok)
+                res[f"{kind} {label} {(b, h, w, c, n)}"] = {
+                    "plan": list(mine), "plan_ms": times[mine][0],
+                    "fastest": list(fast), "fastest_ms": times[fast][0],
+                    "grid": [[*m, t, *geo] for m, (t, geo) in times.items()]}
+                print(f"{kind} {label:12} {str((b, h, w, c, n)):22} (rp, rn): "
+                      f"plan {mine} {times[mine][0]:.4f} ms, fastest {fast} "
+                      f"{times[fast][0]:.4f} ms; "
+                      + " ".join(f"{m[0]}x{m[1]}:{t:.4f}"
+                                 for m, (t, _) in times.items()), flush=True)
+    res["conv plan near the fastest"] = {k: [sum(v), len(v)]
+                                         for k, v in near.items()}
+    print("plan's micro-tile within 4% (fused) / 5% (partial) of the "
+          "fastest: " + "; ".join(f"{k} {sum(v)} of {len(v)}"
+                                  for k, v in near.items()), flush=True)
 
 
 def partial_sweep(cs, dev, flush, gemms, sweep) -> None:

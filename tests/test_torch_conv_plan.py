@@ -1,15 +1,17 @@
-"""The fused CiM convs' tile kernel on the CPU.  csrc/conv_tile.cuh runs
+"""The CiM convs' tile kernel on the CPU.  csrc/conv_tile.cuh runs
 ``conv_lut_fused`` (full table and nibble sub-tables) and
-``conv_log_fused`` (mitchell, log_our) up to 8 bits; `conv_gemm.conv_plan`
-cuts each launch into spatial tiles with all of N, channel chunks and tap
-groups over a persistent grid.  Here: the plan's tiles cover every output
-pixel and column once, its chunks and groups every (tap, channel) once,
-its halos stay inside the padded image and its shared memory is the
-planner's total; a plain torch walk of the plan (the kernel's staged
-forms, halo and weight layouts, index arithmetic and int32 sums per
-tile) is bitwise the plain versions; the route between the tile kernel
-and the template, and the planner's gate, are as before.  The kernel
-itself runs only on the card (tests/test_torch_gpu.py)."""
+``conv_log_fused`` (mitchell, log_our) up to 8 bits, and their partial
+forms ``conv_lut_partial`` and ``conv_log_partial`` (the raw int32 sum);
+`conv_gemm.conv_plan` cuts each launch into spatial tiles with all of N,
+channel chunks and tap groups over a persistent grid.  Here: the plan's
+tiles cover every output pixel and column once, its chunks and groups
+every (tap, channel) once, its halos stay inside the padded image and its
+shared memory is the planner's total, also at the mesh path's shard
+geometries; a plain torch walk of the plan (the kernel's staged forms,
+halo and weight layouts, index arithmetic and int32 sums per tile) is
+bitwise the plain versions, partial and fused; the route between the
+tile kernel and the template, and the planner's gate, are as before.
+The kernel itself runs only on the card (tests/test_torch_gpu.py)."""
 
 import itertools
 
@@ -43,7 +45,12 @@ EDGES = [(2, 13, 13, 3, 16, 5, 5, 2), (2, 30, 30, 3, 64, 7, 7, 2),
          (3, 12, 12, 17, 80, 3, 3, 1), (1, 20, 60, 96, 24, 3, 3, 1),
          (2, 11, 7, 17, 1, 3, 3, 1), (2, 9, 9, 3, 7, 3, 3, 1),
          (5, 4, 4, 8, 17, 3, 3, 1), (4, 56, 56, 64, 64, 3, 3, 1)]
-GEOMS = CNN + RAGGED + EDGES
+# the mesh path's conv partials (chip_smoke.py check_partials): the CNN's
+# convs with the input channels halved where they split; conv 1 (C = 3,
+# not split) is CNN[0]
+SHARDS = [(256, 16, 16, 8, 16, 3, 3, 1), (256, 8, 8, 8, 32, 3, 3, 1),
+          (256, 8, 8, 16, 32, 3, 3, 1), (256, 4, 4, 16, 64, 3, 3, 1)]
+GEOMS = CNN + RAGGED + EDGES + SHARDS
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -421,17 +428,26 @@ def _operands(geom, seed):
 
 
 # batch 2: the CNN's convs, the ragged shapes, stride 2 with 5x5 taps,
-# several N tiles (N 80), chunks of channels (C 96), and N = 1
+# several N tiles (N 80), chunks of channels (C 96), and N = 1; then the
+# shard geometries, whose walks are held to the partial forms alone
 WALK = ([(2,) + g[1:] for g in CNN] + RAGGED
         + [EDGES[0], EDGES[2], (1, 6, 20, 96, 24, 3, 3, 1),
            (2, 5, 7, 17, 1, 3, 3, 1)])
+SHARD_WALK = [(2,) + g[1:] for g in SHARDS]
 
 
 @pytest.mark.parametrize("form", FORMS)
-@pytest.mark.parametrize("geom", WALK, ids=str)
+@pytest.mark.parametrize("geom", WALK + SHARD_WALK, ids=str)
 def test_plain_walk_of_the_plan_equals_the_plain_version(form, geom):
+    """The walk's raw int32 sum is bitwise the partial form's plain
+    version and, through the epilogue, the fused form's; at the shard
+    geometries the scales are global ones, 1.25x the shard's own, as the
+    mesh path supplies them, and the raw sum alone is held."""
     b, h, w, c, n, kh, kw, s = geom
     x, w3, sx, sw = _operands(geom, sum(geom))
+    shard = geom in SHARD_WALK
+    if shard:
+        sx, sw = sx * 1.25, sw * 1.25
     qmax = 127
     xq = cg.quantize_tile(x, sx.reshape(()), qmax).long()
     wq = cg.quantize_tile(w3, sw.reshape(1, 1, -1), qmax).long()
@@ -439,20 +455,27 @@ def test_plain_walk_of_the_plan_equals_the_plain_version(form, geom):
     table = None
     if form == "lut":
         table = ops.lut_table(MultiplierSpec("appro42", 8, True), "cpu")
-        want = cg.conv_lut_fused_plain(x, w3, table, sx, sw, **geo)
     elif form == "nibble":
         table = ops.nibble_table(MultiplierSpec("exact", 8, True), "cpu")
-        want = cg.conv_lut_fused_plain(x, w3, table, sx, sw, nibble=True,
-                                       **geo)
+    if table is not None:
+        nib = form == "nibble"
+        raw = cg.conv_lut_partial_plain(x, w3, table, sx, sw, nibble=nib,
+                                        **geo)
+        want = (None if shard else cg.conv_lut_fused_plain(
+            x, w3, table, sx, sw, nibble=nib, **geo))
     else:
-        want = cg.conv_log_fused_plain(x, w3, sx, sw,
-                                       compensated=form == "log_our", **geo)
+        comp = form == "log_our"
+        raw = cg.conv_log_partial_plain(x, w3, sx, sw, compensated=comp,
+                                        **geo)
+        want = (None if shard else cg.conv_log_fused_plain(
+            x, w3, sx, sw, compensated=comp, **geo))
     # the plan's own pick and, at the first geometries, every micro-tile
     plans = _plans(form, geom)
     for plan in plans[:1] if geom not in WALK[:2] else plans:
         acc = _walk(form, _Plan(plan, kh, kw, s), xq, wq, table, 8)
-        got = (acc.float() * sx) * sw
-        assert torch.equal(got, want), plan
+        assert acc.dtype == torch.int32 and torch.equal(acc, raw), plan
+        if want is not None:
+            assert torch.equal((acc.float() * sx) * sw, want), plan
 
 
 def test_nibble_words_pack_every_operand_in_range():
@@ -572,7 +595,7 @@ def _card_side(monkeypatch):
     monkeypatch.setattr(cg, "device_plan", plan)
     rec = {name: _Recorder(getattr(cg, name))
            for name in ("_LUT", "_LOG", "_LOG_WIDE", "_LUT_PARTIAL",
-                        "_LOG_PARTIAL")}
+                        "_LOG_PARTIAL", "_LOG_PARTIAL_WIDE")}
     for name, r in rec.items():
         monkeypatch.setattr(cg, name, r)
     return rec
@@ -584,8 +607,9 @@ def test_fused_log_takes_the_route_of_its_bits(monkeypatch, bits,
                                                compensated):
     """Up to 8 bits conv_log_fused launches the tile entry with the plan
     (rp, rn, ib, tr, tc, cc, tg, grid) and the planner's total, above it
-    the template's entry conv_log_fused_wide; the partial keeps the
-    template."""
+    the template's entry conv_log_fused_wide; the partial takes the same
+    route through its own entries (conv_log_partial with the same plan,
+    conv_log_partial_wide), an int32 out."""
     rec = _card_side(monkeypatch)
     geom = CNN[2]
     x, w3, sx, sw = _operands(geom, 3)
@@ -606,9 +630,18 @@ def test_fused_log_takes_the_route_of_its_bits(monkeypatch, bits,
                                plan.tg, plan.grid)
     else:
         assert args[15] == cg.template_smem_bytes("log", bits)
-    cg.conv_log_partial(x, w3, sx, sw, bits=bits, compensated=compensated)
-    (args,) = rec["_LOG_PARTIAL"].calls
-    assert args[15] == cg.template_smem_bytes("log", bits)
+    fused_args = args
+    part = cg.conv_log_partial(x, w3, sx, sw, bits=bits,
+                               compensated=compensated)
+    assert part.shape == (256, 8, 8, 32) and part.dtype == torch.int32
+    used, idle = ("_LOG_PARTIAL", "_LOG_PARTIAL_WIDE")[::1 if tile else -1]
+    (args,) = rec[used].calls
+    assert not rec[idle].calls
+    assert args[5:] == fused_args[5:]
+    if tile:
+        assert args[15] == cg.gemm_smem_bytes("log", bits)
+    else:
+        assert args[15] == cg.template_smem_bytes("log", bits)
 
 
 @pytest.mark.parametrize("nibble", [False, True])
@@ -628,9 +661,15 @@ def test_fused_lut_launches_the_tile_kernel(monkeypatch, nibble):
     assert args[16:25] == (cg.gemm_smem_bytes(form, 8), plan.rp, plan.rn,
                            plan.ib, plan.tr, plan.tc, plan.cc, plan.tg,
                            plan.grid)
-    cg.conv_lut_partial(x, w3, table, sx, sw, nibble=nibble)
+    fused_args = args
+    part = cg.conv_lut_partial(x, w3, table, sx, sw, nibble=nibble)
+    assert part.dtype == torch.int32
     (args,) = rec["_LUT_PARTIAL"].calls
-    assert args[16] == cg.template_smem_bytes(form, 8)
+    assert args[15] == int(nibble)
+    assert args[16:25] == (cg.gemm_smem_bytes(form, 8), plan.rp, plan.rn,
+                           plan.ib, plan.tr, plan.tc, plan.cc, plan.tg,
+                           plan.grid)
+    assert args[6:] == fused_args[6:]
 
 
 def test_every_launch_reads_the_planners_total(monkeypatch):

@@ -451,11 +451,47 @@ def _tile_plain(form, bits, table, x, w3, sx, sw, geo):
                                           **geo)
 
 
+def _partial_variants(dev):
+    """(form, bits, table) of the partial forms on the tile kernel at 2,
+    4, 6 and 8 bits: appro42's full table, the exact family's nibble
+    sub-tables, mitchell and log_our."""
+    out = []
+    for bits in (2, 4, 6, 8):
+        out += [("lut", bits, ops.lut_table(MultiplierSpec("appro42", bits,
+                                                           True), dev)),
+                ("nibble", bits, ops.nibble_table(MultiplierSpec(
+                    "exact", bits, True), dev)),
+                ("mitchell", bits, None), ("log_our", bits, None)]
+    return out
+
+
+def _partial_pair(form, bits, table, x, w3, sx, sw, geo):
+    """(the partial's plain version, the fused kernel) of one variant."""
+    from repro_torch.kernels import conv_gemm
+
+    if form in ("lut", "nibble"):
+        nib = form == "nibble"
+        return (conv_gemm.conv_lut_partial_plain(x, w3, table, sx, sw, bits,
+                                                 nibble=nib, **geo),
+                conv_gemm.conv_lut_fused(x, w3, table, sx, sw, bits,
+                                         nibble=nib, **geo))
+    comp = form == "log_our"
+    return (conv_gemm.conv_log_partial_plain(x, w3, sx, sw, bits,
+                                             compensated=comp, **geo),
+            conv_gemm.conv_log_fused(x, w3, sx, sw, bits, compensated=comp,
+                                     **geo))
+
+
 @pytest.mark.parametrize("geom", CONV_TILE_EDGES, ids=str)
 def test_conv_tile_kernel_bitwise_at_its_edges(geom):
     """Every variant of the two fused entries on the tile kernel, with the
     plan's micro-tile and every other one, equals its plain version bit
-    for bit; log at 12 and 16 bits takes the template (the wide entry)."""
+    for bit; log at 12 and 16 bits takes the template (the wide entry).
+    The partial forms at 2, 4, 6 and 8 bits, against global scales 1.25x
+    the shard's own, take the tile kernel at every micro-tile too: the
+    int32 sum bitwise the plain partial, through the epilogue bitwise the
+    fused kernel; the 12-bit log partial takes the template (its wide
+    entry)."""
     from repro_torch.kernels import conv_gemm
 
     dev = _card()
@@ -500,6 +536,55 @@ def test_conv_tile_kernel_bitwise_at_its_edges(geom):
         assert {k: v.launches - before[k] for k, v in tile.items()} == {
             "conv_lut_fused": 0, "conv_log_fused": 0,
             "conv_log_fused_wide": 2}
+    part = {k: conv_gemm.KERNELS[k] for k in ("conv_lut_partial",
+                                              "conv_log_partial",
+                                              "conv_log_partial_wide")}
+    for form, bits, table in _partial_variants(dev):
+        sx, sw = ops._scales(x, w3.reshape(-1, n), bits)
+        sx, sw = sx * 1.25, sw * 1.25
+        want, fused = _partial_pair(form, bits, table, x, w3, sx, sw, geo)
+        entry = ("conv_lut_partial" if table is not None
+                 else "conv_log_partial")
+        for force in (None,) + conv_gemm.TILE_MICRO:
+            before = {k: v.launches for k, v in part.items()}
+            if force is None:
+                got = (conv_gemm.conv_lut_partial(
+                    x, w3, table, sx, sw, bits, nibble=form == "nibble",
+                    **geo) if table is not None
+                    else conv_gemm.conv_log_partial(
+                        x, w3, sx, sw, bits, compensated=form == "log_our",
+                        **geo))
+            else:
+                try:
+                    conv_gemm.conv_plan(form, bits, b, h, w, c, n, kh, kw, s,
+                                        132, 1, force=force)
+                except ValueError:       # no tile of this micro-tile fits
+                    continue
+                got = conv_gemm._conv_tile_forced(x, w3, table, sx, sw, form,
+                                                  bits, kh, kw, s, force,
+                                                  partial=True)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32, (form, bits, force)
+            assert torch.equal(got, want), (form, bits, force)
+            assert torch.equal((got.float() * sx) * sw, fused), (form, bits,
+                                                                 force)
+            assert {k: v.launches - before[k] for k, v in part.items()} == {
+                k: int(k == entry) for k in part}
+    sx, sw = ops._scales(x, w3.reshape(-1, n), 12)
+    before = {k: v.launches for k, v in part.items()}
+    for comp in (False, True):
+        got = conv_gemm.conv_log_partial(x, w3, sx, sw, 12, compensated=comp,
+                                         **geo)
+        want = conv_gemm.conv_log_partial_plain(x, w3, sx, sw, 12,
+                                                compensated=comp, **geo)
+        fused = conv_gemm.conv_log_fused(x, w3, sx, sw, 12, compensated=comp,
+                                         **geo)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), comp
+        assert torch.equal((got.float() * sx) * sw, fused), comp
+    assert {k: v.launches - before[k] for k, v in part.items()} == {
+        "conv_lut_partial": 0, "conv_log_partial": 0,
+        "conv_log_partial_wide": 2}
 
 
 def test_conv_tile_plan_reads_the_cards_residency():
@@ -920,8 +1005,11 @@ def test_conv_partial_kernels_bitwise_equal_plain_versions(geom):
                                          **geo)
         want = conv_gemm.conv_log_partial_plain(x, w3, sx, sw,
                                                 compensated=comp, **geo)
+        fused = conv_gemm.conv_log_fused(x, w3, sx, sw, compensated=comp,
+                                         **geo)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and torch.equal(got, want), comp
+        assert torch.equal((got.float() * sx) * sw, fused), comp
 
 
 def test_partial_wrappers_raise_on_what_the_kernels_do_not_take():

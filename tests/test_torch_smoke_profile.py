@@ -95,8 +95,10 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi16ELi64ENS_"
      "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
-    ("_ZN3cim11gemm_kernelINS_7LutCoreENS_7ConvSrcIfEEfNS_11QuantIntOutEEEv"
-     "T0_PKT1_PKhPKfSB_PNT2_3OutES8_iiii", "CiM partial kernel"),
+    ("_ZN3cim11gemm_kernelINS_7LogCoreILb1EEENS_7ConvSrcIfEEfNS_11QuantIntOut"
+     "EEEvT0_PKT1_PKhPKfSB_PNT2_3OutES8_iiii", "CiM partial kernel"),
+    ("_ZN3cim16conv_tile_kernelINS_7TileLogILb1EEELi4ELi1EEEvNS_6CtArgsE",
+     "CiM conv kernel"),
     ("_ZN3cim20int8_mma_conv_kernelEPKfS1_S1_S1_PfNS_8ConvGeomEii",
      "CiM conv kernel"),
     ("_ZN4attn19attn_cluster_kernelILi1ELb0EEEvNS_6AcArgsE",

@@ -203,7 +203,38 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      prefill and decode-step time, tokens/s, peak memory and one
      profiled decode step and prefill per lane; then with ``cim=None``
      prefill + decode against the teacher-forced prefill of each prefix
-     (the reference's 0.12).
+     (the reference's 0.12);
+ 11. speculative decoding and per-token scales on full-size qwen3-1.7b
+     (seeded bf16 weights): (a) ``model_matmul`` with per-token
+     GemmParams for balanced, economy, balanced/4 and exact at the four
+     LM (K, N) shapes, M = 20 (4 slots x 5 verify positions) and M = 4,
+     bf16: every row of the M = 20 call bitwise that row of an M = 4
+     call and of an M = 64 call (a prefill group), the integer lanes'
+     bitwise the CPU's plain route and each M = 20 call exactly one
+     launch of its int form (``lut_matmul``, ``mitchell_matmul``,
+     ``nibble_lut_matmul``), timed at M = 4 and 20 beside its bound;
+     (b) on ragged pools of 4 slots x 5 positions and, on the exact
+     lane, 8 slots x 9 (72 rows), one ``decode_multi`` against as many
+     sequential
+     ``decode_step``s on cloned caches for the per-token exact lane and
+     the three per-token hardware lanes: max |d logit| and the caches'
+     max |d| (the first op that differs named from the recorded GEMM
+     inputs and outputs), greedy tokens equal under phase 4's gap rule,
+     196 int-form launches a forward and no fused form; (c)
+     ``build_engine(spec_decode=4, spec_ks=(1, 2, 4))`` over the
+     hardware ladder against an engine whose exact rung is
+     ``spec_pair``'s verifier, 8 requests on ``exact`` (8-16-token
+     prompts, 24-32 new tokens, all arriving at once, the second wave's
+     budgets complementing the first's so the pool stays full) on the
+     real clock at each depth: tokens identical to the baseline's but
+     where its top-2 gap is within 1e-2 (printed), no plan built after
+     warmup across the depth switches, every K/V entry at or past each
+     slot's fill zero after every call; tokens/s over the run and over
+     its full-pool window, acceptance, tokens a round, a round's host
+     time against a per-token exact decode round's in those windows (the
+     break-even), and a k = 1 call profiled.  The launches of (a)'s
+     M = 4 and M = 64 calls and (b)'s sequential steps, held against the
+     path, are the kernels line's ``check_launches``.
 
 ``--layers`` cuts the depth of phase 5 only (the cut is printed).
 
@@ -3358,6 +3389,525 @@ def xlstm_phase(torch, power):
     return main
 
 
+# ---------------------------------------------------------------------------
+# phase 11: speculative decoding and per-token activation scales
+# ---------------------------------------------------------------------------
+
+# the per-token lanes: the hardware ladder's approximate rungs and the
+# nibble lane, each with the int form of its GEMM (the fused runners take
+# one scalar sx, so a per-token GEMM runs the int kernel and the epilogue
+# outside it), and the exact rung (fake-quant and a torch matmul)
+PT_INT = {"balanced": "lut_matmul", "economy": "mitchell_matmul",
+          NIBBLE_LANE: "nibble_lut_matmul", "exact": None}
+SPEC_K, SPEC_KS, SPEC_SLOTS = 4, (1, 2, 4), 4
+# the verify width: 4 slots x (k + 1) positions at k = 4; a prefill
+# group: 4 prompts in the 16-token bucket
+PT_ROWS = SPEC_SLOTS * (SPEC_K + 1)
+PT_PREFILL = 64
+# (b)'s pools, (slots, positions scored): the k = 4 verify on every lane,
+# and on the exact lane 8 slots at k = 8, whose 72 rows pass a row block
+# (the float ops, the LM head and the attention einsums, are every
+# lane's); the prompts' lengths
+MULTI_CASES = ((SPEC_SLOTS, SPEC_K + 1),)
+WIDE_CASE = (8, 9)
+MULTI_LENS = (16, 12, 9, 5, 14, 3, 11, 7)
+SPEC_MAX_LEN, SPEC_BUCKET, SPEC_SEED = 64, 16, 26
+# (c)'s workload: 8 requests on `exact`, 8-16-token prompts, all arriving
+# at once, so the engine never reads its clock to schedule and the timed
+# run is the checked one; the second wave's budgets complement the first
+# wave's in the order its slots free up (56 tokens a slot), so the pool
+# stays full to the last round or two
+SPEC_BUDGETS = (24, 26, 29, 32, 32, 30, 27, 24)
+SPEC_DEVICE = "cuda"
+# what feeds each recorded GEMM's input (the op to blame when its input
+# is the first thing that differs)
+_GEMM_INPUT_OP = {"wq": "norm1", "wk": "norm1", "wv": "norm1",
+                  "wo": "attention (einsum, softmax, einsum)",
+                  "mlp_wi": "norm2", "mlp_wg": "norm2",
+                  "mlp_wo": "silu(mlp_wi) * mlp_wg"}
+
+
+def _spec_config():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b")
+
+
+def _pt_tiers():
+    """The hardware ladder plus the nibble lane, each with per-token
+    scales."""
+    from repro_torch.serving import build_tiers
+
+    tiers = build_tiers(mode="hardware")
+    tiers = tiers + (_nibble_tier(tiers),)
+    return {t.name: dataclasses.replace(
+        t, cim=dataclasses.replace(t.cim, per_token=True)) for t in tiers}
+
+
+def _add(total, counts):
+    """Add the launched kernels of `counts` into `total`; returns them."""
+    got = {k: v for k, v in counts.items() if v}
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return got
+
+
+def _expect_launches(where: str, got: dict, want: dict) -> None:
+    """Fail unless the port's kernels launched exactly `want`."""
+    if got != want:
+        fail(f"{where}: launches {got}, expected {want or 'none'}")
+
+
+def per_token_gemms(torch, sms, clock_hz, dev):
+    """Phase 11 (a): `model_matmul` with per-token GemmParams at the four
+    LM (K, N) shapes, M = 20 and M = 4, bf16: each M = 20 row bitwise the
+    row of an M = 4 call and of an M = 64 call (a prefill group), the
+    integer lanes' first 4 rows bitwise the CPU's plain route, exactly
+    one int-form launch a call.  Returns the launches of the M = 20
+    calls and those of the M = 4 and M = 64 calls held against them."""
+    from repro_torch.core.approx_gemm import (_quantize_operands,
+                                              model_matmul)
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import mitchell_gemm as mg
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import CiMParams
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    path, check = {}, {}
+    for name, tier in _pt_tiers().items():
+        gp = CiMParams.from_config(tier.cim).gemm_params()
+        kern = PT_INT[name]
+        for k, n in WEIGHT_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(k + n)
+            xp = torch.randn(PT_PREFILL, k, generator=g, device=dev).to(
+                torch.bfloat16)
+            x = xp[:PT_ROWS]
+            w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(
+                torch.bfloat16)
+            _reset_counts()
+            y = model_matmul(x, w, gp)
+            _sync(torch, dev)
+            _expect_launches(f"phase 11 (a) {name} ({PT_ROWS}, {k}, {n})",
+                             _add(path, _launch_counts()),
+                             {kern: 1} if kern else {})
+            _reset_counts()
+            y4 = torch.cat([model_matmul(x[i:i + 4], w, gp)
+                            for i in range(0, PT_ROWS, 4)])
+            yp = model_matmul(xp, w, gp)
+            _sync(torch, dev)
+            _add(check, _launch_counts())
+            if not torch.equal(yp[:PT_ROWS], y):
+                fail(f"phase 11 (a) {name} ({k}, {n}): rows of the M = "
+                     f"{PT_PREFILL} call differ from the M = {PT_ROWS} "
+                     "call's")
+            if not torch.equal(y, y4):
+                bad = int((y != y4).any(dim=1).sum())
+                fail(f"phase 11 (a) {name} ({k}, {n}): {bad} rows of the "
+                     f"M = {PT_ROWS} call differ from the M = 4 calls")
+            if not torch.isfinite(y).all():
+                fail(f"phase 11 (a) {name}: non-finite output")
+            line = (f"    {name:<10} ({PT_ROWS:>2}, {k}, {n}): rows bitwise "
+                    f"the M = 4 calls' and the M = {PT_PREFILL} call's")
+            if kern:
+                cpu = model_matmul(x[:4].cpu(), w.cpu(), gp)
+                if not torch.equal(cpu, y[:4].cpu()):
+                    fail(f"phase 11 (a) {name} ({k}, {n}): the card != the "
+                         "CPU's plain route")
+                # the int kernel alone on this call's codes, timed
+                xq, _, wq, _ = _quantize_operands(x.float(), w.float(), 8,
+                                                  True)
+                if kern == "mitchell_matmul":
+                    def int_call(xm):
+                        return mg.mitchell_matmul(xm, wq, compensated=False)
+                elif kern == "lut_matmul":
+                    def int_call(xm, t=ops.lut_table(gp.spec, dev)):
+                        return am.lut_matmul(xm, wq, t)
+                else:
+                    def int_call(xm, t=ops.nibble_table(gp.spec, dev)):
+                        return am.nibble_lut_matmul(xm, wq, t)
+                times = []
+                for m in (4, PT_ROWS):
+                    ms = _timed_ms(torch, lambda m=m: int_call(xq[:m]), 10,
+                                   flush)
+                    bound, by = _bound(kern, m, k, n, sms, clock_hz)
+                    times.append(f"M {m}: {ms:.4f} ms (bound {bound:.4f}, "
+                                 f"{by}; {100 * bound / ms:.1f}%)")
+                line += (f", the first 4 bitwise the CPU's; {kern} "
+                         + "; ".join(times))
+            print(line, flush=True)
+    print(f"  (a) per-token GEMMs: launches {path} (the M = 4 and M = "
+          f"{PT_PREFILL} calls held against them: {check})", flush=True)
+    return path, check
+
+
+class _Recorder:
+    """Wraps `cim_linear` where the qwen3 layers bind it (models.attention,
+    models.common) and records each call's (name, input, output)."""
+
+    def __init__(self):
+        from repro_torch.models import attention, common
+
+        self.mods, self.real = (attention, common), common.cim_linear
+        self.calls = None
+
+    def __enter__(self):
+        self.calls = []
+        real, calls = self.real, self.calls
+
+        def rec(x, w, ctx, name="", bias=None):
+            out = real(x, w, ctx, name, bias)
+            calls.append((name, x.detach().clone(), out.detach().clone()))
+            return out
+        for m in self.mods:
+            m.cim_linear = rec
+        return self.calls
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.cim_linear = self.real
+
+
+def _first_difference(torch, multi, steps):
+    """The first op whose result differs between the (B, K) pass and the
+    K sequential steps, from the recorded GEMM inputs and outputs."""
+    for j, (name, x, out) in enumerate(multi):
+        for i, rec in enumerate(steps):
+            sname, sx, sout = rec[j]
+            if sname != name:
+                return f"the call order differs at call {j}"
+            if not torch.equal(x[:, i:i + 1], sx):
+                return (f"{_GEMM_INPUT_OP.get(name, 'the op before')} "
+                        f"before {name} of layer {j // GEMMS_PER_LAYER} "
+                        f"(position {i})")
+            if not torch.equal(out[:, i:i + 1], sout):
+                return (f"the {name} GEMM of layer {j // GEMMS_PER_LAYER} "
+                        f"(position {i})")
+    return "the final norm or the LM head (every GEMM agrees)"
+
+
+def _gap_rule(torch, want, got, tol):
+    """Greedy tokens of `got` against `want` (rows of logits): equal
+    wherever want's top-2 gap exceeds `tol`; returns (differing tokens
+    beyond the gap, near-ties)."""
+    top2 = want.topk(2, dim=-1).values
+    wide = (top2[..., 0] - top2[..., 1]) > tol
+    differ = want.argmax(-1) != got.argmax(-1)
+    return int((differ & wide).sum()), int((~wide).sum())
+
+
+def decode_multi_vs_sequential(torch, cfg, params, dev):
+    """Phase 11 (b): on ragged pools (4 slots x 5 positions, the k = 4
+    verify, and on the exact lane 8 slots x 9, 72 rows), `decode_multi`
+    against as many sequential `decode_step`s on cloned caches, for the
+    per-token exact lane and the per-token hardware lanes.  Returns the launches of
+    the `decode_multi` calls and those of the steps held against them."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import LMLaneBackend
+
+    g = torch.Generator().manual_seed(SPEC_SEED)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).numpy()
+               for n in MULTI_LENS]
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+    path, check = {}, {}
+
+    def clone(caches):
+        return {"layers": [{n: t.clone() for n, t in layer.items()}
+                           for layer in caches["layers"]]}
+
+    for name, tier in _pt_tiers().items():
+        lm = LM(dataclasses.replace(cfg, cim=tier.cim), dev)
+        kern = PT_INT[name]
+        rec = _Recorder()
+        for slots, width in MULTI_CASES + ((WIDE_CASE,) if kern is None
+                                           else ()):
+            lane = LMLaneBackend(lm, params, n_slots=slots,
+                                 max_len=SPEC_MAX_LEN,
+                                 prompt_buckets=(SPEC_BUCKET,),
+                                 group_buckets=(slots,))
+            lane.admit(prompts[:slots], list(range(slots)))
+            fill = torch.as_tensor(lane.slot_pos, dtype=torch.int32,
+                                   device=dev)
+            toks = torch.randint(0, cfg.vocab, (slots, width),
+                                 generator=g).to(dev)
+            with torch.inference_mode():
+                c_s, rows, steps, pos = clone(lane.caches), [], [], fill
+                _sync(torch, dev)
+                _reset_counts()
+                for i in range(width):
+                    with rec as calls:
+                        lg, c_s = lm.decode_step(params, c_s,
+                                                 toks[:, i:i + 1], pos)
+                    steps.append(calls)
+                    rows.append(lg[:, -1])
+                    pos = pos + 1
+                _sync(torch, dev)
+                _expect_launches(
+                    f"phase 11 (b) {name}: {width} decode_steps",
+                    _add(check, _launch_counts()),
+                    {kern: per_fwd * width} if kern else {})
+                c_m = clone(lane.caches)
+                _sync(torch, dev)
+                _reset_counts()
+                with rec as multi:
+                    lg_m, c_m = lm.decode_multi(params, c_m, toks, fill)
+                _sync(torch, dev)
+                n_multi = _add(path, _launch_counts())
+                _expect_launches(f"phase 11 (b) {name}: decode_multi",
+                                 n_multi, {kern: per_fwd} if kern else {})
+            if not torch.isfinite(lg_m).all():
+                fail(f"phase 11 (b) {name}: non-finite logits")
+            want = torch.stack(rows, dim=1)
+            d_lg = float((lg_m.float() - want.float()).abs().max())
+            d_c = max(float((x[n].float() - y[n].float()).abs().max())
+                      for x, y in zip(c_m["layers"], c_s["layers"])
+                      for n in ("k", "v", "pos"))
+            beyond, close = _gap_rule(torch, want.float(), lg_m.float(),
+                                      REF_TOL[name])
+            if beyond:
+                fail(f"phase 11 (b) {name} {slots} x {width}: {beyond} "
+                     f"greedy tokens differ beyond the gap rule's "
+                     f"{REF_TOL[name]}")
+            where = ("bitwise" if d_lg == 0 and d_c == 0 else
+                     "first differs at "
+                     + _first_difference(torch, multi, steps))
+            print(f"    {name:<10} decode_multi ({slots} x {width}) vs "
+                  f"{width} decode_steps: max |d logit| {d_lg:.3e}, caches "
+                  f"max |d| {d_c:.3e}, {where}; greedy tokens equal "
+                  f"({close} near-ties under the gap rule's "
+                  f"{REF_TOL[name]}); launches {n_multi}", flush=True)
+            del lane, c_s, c_m, steps, multi
+        del lm
+    return path, check
+
+
+def _spec_stats(sb) -> str:
+    """A spec lane's acceptance, its tokens a round (all slots) and a
+    live slot's tokens a round."""
+    slot_rounds = sb.n_drafted / sb.draft_k
+    return (f"acceptance {sb.acceptance_rate:.3f}, {sb.tokens_per_round:.2f} "
+            f"tokens a round ({sb.n_emitted / max(slot_rounds, 1):.2f} a live "
+            f"slot), {sb.n_rounds} rounds")
+
+
+def _spec_workload(cfg):
+    """(c)'s requests: SPEC_BUDGETS new tokens, 8-16-token prompts from
+    SPEC_SEED, all on `exact`, all arriving at time 0."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(SPEC_SEED)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               int(rng.integers(8, 17))),
+                    max_new=b, tier="exact")
+            for i, b in enumerate(SPEC_BUDGETS)]
+
+
+def _served(torch, eng, wl, dev, check=None):
+    """Serve `wl` on `eng`'s exact lane on the real clock, recording each
+    round call's host-clock span, live slots, tokens and sub-rounds;
+    `check(backend)` runs after every call, its time taken out of the
+    run's.  Returns the results, the run's seconds, and over the full-pool
+    window (from the first call's start to the end of the last call at
+    which every slot was live, prefills between included) its tokens, its
+    seconds and the median host-clock time of a round (a sub-round of a
+    spec call) in it, from a call's start to the next one's: the engine's
+    step included."""
+    import statistics
+
+    from repro_torch.serving import RealClock
+
+    lane = eng.lanes["exact"]
+    b = lane.backend
+    spec = hasattr(b, "spec_round")
+    meth = "spec_round" if spec else "decode_round"
+    real = getattr(b, meth)
+    calls, checking = [], [0.0]
+
+    def timed(*a):
+        live = (int((a[0] > 0).sum()) if spec else len(lane.running))
+        n0 = b.n_rounds if spec else 0
+        t0 = time.perf_counter()
+        out = real(*a)
+        _sync(torch, dev)
+        t1 = time.perf_counter()
+        calls.append((t0, t1, live, int(out[1].sum()) if spec else live,
+                      b.n_rounds - n0 if spec else 1, checking[0]))
+        if check is not None:
+            check(b)
+            checking[0] += time.perf_counter() - t1
+        return out
+    setattr(b, meth, timed)
+    try:
+        b.reset()
+        res = eng.run(wl, clock=RealClock())
+        _sync(torch, dev)
+    finally:
+        delattr(b, meth)
+    full = [c for c in calls if c[2] == SPEC_SLOTS]
+    win = calls[:calls.index(full[-1]) + 1]
+    return {"results": res, "run_s": eng.last_run_s - checking[0],
+            "tokens": sum(c[3] for c in win),
+            "window_s": win[-1][1] - win[0][0] - (win[-1][5] - win[0][5]),
+            "round_s": statistics.median(
+                (n[0] - c[0] - (n[5] - c[5])) / c[4]
+                for c, n in zip(win, win[1:]) if c[2] == SPEC_SLOTS)}
+
+
+def spec_engine(torch, cfg, params, power, dev):
+    """Phase 11 (c): the spec engine (hardware ladder, spec_decode=4, depths
+    1, 2, 4) against a baseline engine whose exact rung is spec_pair's
+    verifier, 8 requests on `exact` on the real clock at each depth:
+    tokens, plans, the cache invariant after every call, tokens/s over
+    the run and over its full-pool window, a round's host time against a
+    decode round's (the break-even); then one k = 1 call profiled.
+    Returns the launches of the served runs."""
+    import numpy as np
+
+    from repro_torch.core.approx_gemm import plan_misses
+    from repro_torch.serving import build_engine, build_tiers, spec_pair
+    from repro_torch.serving.spec import nonzero_past_fill
+
+    tiers = build_tiers(mode="hardware")
+    d_tier, v_tier = spec_pair(tiers)
+    kw = dict(slots_per_tier=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+              prompt_buckets=(SPEC_BUCKET,), group_buckets=(1, 2, 4),
+              device=dev)
+    base = build_engine(cfg, params, tiers=(v_tier,), record_logits=True,
+                        **kw)
+    spec = build_engine(cfg, params, tiers=tiers, spec_decode=SPEC_K,
+                        spec_ks=SPEC_KS, **kw)
+    sb = spec.lanes["exact"].backend
+    t0 = time.perf_counter()
+    n = base.warmup() + spec.warmup()
+    _sync(torch, dev)
+    mark = plan_misses()
+    print(f"  (c) drafter {d_tier.name} ({d_tier.cim.family}, "
+          f"{d_tier.cim.n_approx_cols} approximate columns), verifier the "
+          f"exact rung with per-token scales; rounds a call "
+          f"{sb.rounds_per_call}; warmup ran {n} shapes in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    wl = _spec_workload(cfg)
+    stale = []
+
+    def invariant(b):
+        stale.append(nonzero_past_fill(b.caches, b.slot_pos))
+
+    path, rows = {}, []
+    for k in (None,) + SPEC_KS:
+        eng = base if k is None else spec
+        if k is not None:
+            sb.set_draft_k(k)
+            sb.n_rounds = sb.n_drafted = sb.n_accepted = sb.n_emitted = 0
+        _reset_counts()
+        run = _served(torch, eng, wl, dev, None if k is None else invariant)
+        _add(path, _launch_counts())
+        got = run["results"]
+        total = sum(len(r.tokens) for r in got.values())
+        if k is None:
+            want, base_round = got, run["round_s"]
+            what = (f"per-token exact lane, a decode round "
+                    f"{1e3 * base_round:.1f} ms")
+        else:
+            ties = []
+            for r in wl:
+                a, b = want[r.rid].tokens, got[r.rid].tokens
+                if a == b:
+                    continue
+                i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                gap = float("inf")
+                if i < min(len(a), len(b)):
+                    top2 = torch.as_tensor(want[r.rid].logits[i]).topk(2)
+                    gap = float(top2.values[0] - top2.values[1])
+                if gap > REF_TOL["exact"]:
+                    fail(f"phase 11 (c) k={k}: request {r.rid} tokens differ "
+                         f"from the baseline at step {i} (baseline top-2 gap "
+                         f"{gap:.3e})")
+                ties.append(f"request {r.rid} step {i} (gap {gap:.3e})")
+            what = (f"spec k={k}, "
+                    + ("identical to the baseline" if not ties else
+                       "differing at near-ties only: " + ", ".join(ties))
+                    + f"; {_spec_stats(sb)}; a round "
+                    f"{1e3 * run['round_s']:.1f} ms, break-even "
+                    f"{run['round_s'] / base_round - 1:.2f} accepted tokens "
+                    f"a live slot a round, "
+                    f"{sb.n_accepted / max(sb.n_drafted / k, 1):.2f} "
+                    "accepted")
+        win = run["tokens"] / run["window_s"]
+        rows.append((k, win))
+        print(f"    real clock on {power}: {what}; {total} tokens in "
+              f"{run['run_s']:.2f}s = {total / run['run_s']:.1f} tokens/s; "
+              f"full pool: {run['tokens']} tokens in {run['window_s']:.2f}s "
+              f"= {win:.1f} tokens/s", flush=True)
+    if any(stale):
+        fail(f"phase 11 (c): K/V entries past a slot's fill after a spec "
+             f"call: {[s for s in stale if s][:5]}")
+    if plan_misses() != mark:
+        fail(f"phase 11 (c): {plan_misses() - mark} plans built after "
+             "warmup (depth switches included)")
+    t = time.perf_counter()
+    invariant(sb)
+    check_ms = 1e3 * (time.perf_counter() - t)
+    best = max(rows[1:], key=lambda r: r[1])
+    print(f"  (c) {len(stale)} spec calls, every K/V entry at or past each "
+          f"slot's fill zero after each, in all {cfg.n_layers} layers (the "
+          f"check {check_ms:.1f} ms a call, out of the times); no plan built "
+          f"after warmup; launches {path}; full pool, spec k={best[0]} "
+          f"{best[1]:.1f} tokens/s against the per-token exact lane's "
+          f"{rows[0][1]:.1f} ({best[1] / rows[0][1]:.3f}x); "
+          f"{time.perf_counter() - t0:.1f}s so far", flush=True)
+
+    # one spec call of one round (every slot's budget 1) profiled
+    one = np.ones(SPEC_SLOTS, np.int64)
+    none = np.full(SPEC_SLOTS, -1, np.int64)
+    sb.set_draft_k(SPEC_KS[0])
+    sb.reset()
+    t = time.perf_counter()
+    sb.spec_round(one, none)
+    _sync(torch, dev)
+    _profile(torch, f"spec k={SPEC_KS[0]}", lambda: sb.spec_round(one, none),
+             time.perf_counter() - t, reps=1)
+    sb.reset()
+    return path
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def spec_phase(torch, power, sms, clock_hz):
+    """Phase 11: speculative decoding and per-token scales on full-size
+    qwen3-1.7b (seeded bf16 weights).  Returns the main path's launches
+    and the launches of the calls held against it in (a) and (b)."""
+    from repro_torch.models.transformer import LM
+
+    t_phase = time.perf_counter()
+    dev = torch.device(SPEC_DEVICE)
+    cfg = _spec_config()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}; {SPEC_SLOTS} slots, {SPEC_MAX_LEN}-token "
+          f"slots; per-token lanes {list(PT_INT)}", flush=True)
+    print("  (a) per-token model_matmul, bf16", flush=True)
+    path, check = per_token_gemms(torch, sms, clock_hz, dev)
+    params = LM(cfg, dev).init(0)
+    print(f"  (b) decode_multi against sequential decode (ragged pools; "
+          f"(a) took {time.perf_counter() - t_phase:.1f}s)", flush=True)
+    p, c = decode_multi_vs_sequential(torch, cfg, params, dev)
+    _add(path, p)
+    _add(check, c)
+    print(f"  (a) and (b) took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    _add(path, spec_engine(torch, cfg, params, power, dev))
+    stray = {k: v for k, v in {**check, **path}.items()
+             if k not in GEMM_KERNELS}
+    if stray:
+        fail(f"phase 11: kernels other than the GEMMs launched: {stray}")
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return path, check
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -3614,13 +4164,21 @@ def main():
     print("[10] xlstm-125m: prefill and lockstep decode on the hardware "
           "ladder", flush=True)
     xlstm_launches = xlstm_phase(torch, power)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[11] speculative decoding and per-token scales", flush=True)
+    spec_launches, spec_checks = spec_phase(torch, power, sms, clock_hz)
 
     kernels = []
     # the GEMM rows sum the eight LM shapes and, for the fused forms (the
     # CNN's fc, f32 operands) and the nibble rows, the CNN's fc shape,
     # with the launches of the main paths that run them (5: the LM
     # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs, 9: the
-    # mesh frontends and the mesh ladder, 10: the xLSTM ladder); the
+    # mesh frontends and the mesh ladder, 10: the xLSTM ladder, 11: the
+    # per-token GEMMs, the per-token lanes' decode_multi, and the spec
+    # engine's drafter; `check_launches`: phase 11's calls held against
+    # those, the M = 4 and M = 64 GEMMs and the sequential decode_steps); the
     # partial rows the shard-local
     # shapes (phase 9's launches); the
     # conv rows the CNN's five geometries on the families' variants; the
@@ -3636,7 +4194,8 @@ def main():
         shapes = MAIN_SHAPES + ([CNN_FC] if fc else [])
         main[name] = ([r for r in rs if r["shape"] in shapes],
                       launches[name] + cnn_launches[name]
-                      + mesh_launches[name] + xlstm_launches[name])
+                      + mesh_launches[name] + xlstm_launches[name]
+                      + spec_launches.get(name, 0))
     for name, rs in conv_rows.items():
         main[name] = ([r for r in rs if r["main"]],
                       cnn_launches[name] + surr_launches[name]
@@ -3678,6 +4237,8 @@ def main():
                             / sum(r["ms"] for r in timed)),
             "shapes": [_shape_key(r) for r in timed],
         })
+        if spec_checks.get(name):
+            kernels[-1]["check_launches"] = spec_checks[name]
         if timed and all("warm_ms" in r for r in timed):
             kernels[-1]["warm_ms"] = sum(r["warm_ms"] for r in timed)
         if name in conv_rows:          # each variant's row sum apart

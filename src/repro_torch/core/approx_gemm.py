@@ -441,14 +441,17 @@ class GemmParams:
     c1: float = 0.0                    # variance slope on p^2
     compressor: str = "yang1"
     n_approx_cols: Optional[int] = None
-    per_token: bool = False            # later slice
-    fault: Optional[object] = None     # later slice
+    # per-row activation scales: each row of x quantizes against its own
+    # max, so a row's result does not depend on the other rows (the
+    # speculative-decoding verifier, serving/spec.py); the fused runners
+    # carry one scalar sx, so integer modes take the int route
+    per_token: bool = False
+    fault: Optional[object] = None     # refused: ROADMAP A 2
 
     def __post_init__(self):
-        if self.per_token or self.fault is not None:
+        if self.fault is not None:
             raise NotImplementedError(
-                "per-token scales and fault injection are ported in a "
-                "later slice")
+                "fault injection is not ported yet (ROADMAP queue A 2)")
 
     @property
     def spec(self) -> MultiplierSpec:
@@ -632,10 +635,35 @@ def run_int_kernel(plan: GemmPlan, xq, wq, gp: GemmParams):
     return runner(xq, wq, gp)
 
 
-def _quantize_operands(x, w, bits):
-    # activations: per-tensor scale (the macro's ADC view); weights:
-    # per-out-channel
-    sx = quant_scale(x, bits)
+# A per-token float product runs in blocks of this many rows, the last
+# padded with zero rows: every block is one product of the same shape, so
+# a row's result does not depend on how many rows it is batched with.
+# (cuBLAS picks its kernel, and with it the order of a sum, by M: on an
+# H100 a row of the (64, 6144) @ (6144, 2048) product differs from the
+# same row of a 16-row one, which moved a prefilled request's cache.)
+# 64 rows: a 4 x 512 prefill of qwen3-1.7b takes 1.8x the unblocked
+# product's host time against 5.3x in 16-row blocks, and a decode round
+# pads its 4 rows at no measurable cost (launch/row_block_ab.py).  One
+# strided-batched product over the blocks is not row-pure there.
+ROW_BLOCK = 64
+
+
+def row_block_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ b (K, N) in ROW_BLOCK-row blocks."""
+    a2 = a.reshape(-1, a.shape[-1])
+    m = a2.shape[0]
+    pad = -m % ROW_BLOCK
+    if pad:
+        a2 = F.pad(a2, (0, 0, 0, pad))
+    out = torch.cat([a2[i:i + ROW_BLOCK] @ b
+                     for i in range(0, m + pad, ROW_BLOCK)])
+    return out[:m].reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _quantize_operands(x, w, bits, per_token: bool = False):
+    # activations: per-tensor scale (the macro's ADC view), or an (M, 1)
+    # per-row one for `per_token`; weights: per-out-channel
+    sx = quant_scale(x, bits, axis=-1 if per_token else None)
     sw = quant_scale(w, bits, axis=0)
     return quantize(x, sx, bits), sx, quantize(w, sw, bits), sw
 
@@ -771,10 +799,14 @@ def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
     mode = gp.mode
     if mode == "exact":
         def forward(xf, wf, eps=None):
-            xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits)
-            return dequantize(xq, sx) @ dequantize(wq, sw)
+            xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits,
+                                                gp.per_token)
+            mm = row_block_mm if gp.per_token else torch.matmul
+            return mm(dequantize(xq, sx), dequantize(wq, sw))
     elif mode in ("bit_exact", "hardware"):
-        if plan.entry.name in FUSED_RUNNERS:
+        # the fused runners carry one scalar sx: per-token (M, 1) scales
+        # take the int route, the epilogue applied outside the kernel
+        if not gp.per_token and plan.entry.name in FUSED_RUNNERS:
             runner = FUSED_RUNNERS[plan.entry.name]
 
             def forward(xf, wf, eps=None):
@@ -782,13 +814,16 @@ def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
         else:
             def forward(xf, wf, eps=None):
                 xq, sx, wq, sw = _quantize_operands(
-                    xf.to(torch.float32), wf.to(torch.float32), gp.bits)
+                    xf.to(torch.float32), wf.to(torch.float32), gp.bits,
+                    gp.per_token)
                 acc = run_int_kernel(plan, xq, wq, gp)
                 return (acc.to(torch.float32) * sx) * sw
     elif plan.entry.name == "cuda_fused_surrogate":
         def forward(xf, wf, eps=None):
             return _run_fused_surrogate(xf, wf, eps, gp)
     else:  # torch_surrogate: dequantized dot + the epilogue
+        # the surrogate forms quantize per tensor whatever `per_token`
+        # says, as the reference's surrogate branches do
         def forward(xf, wf, eps=None):
             xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits)
             xdq, wdq = dequantize(xq, sx), dequantize(wq, sw)
@@ -814,7 +849,7 @@ def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
     otherwise; the activation dtype is preserved.  eps is the pre-drawn
     (M, N) f32 surrogate noise, None for the deterministic term."""
     if apply and gp.mode in ("bit_exact", "hardware"):
-        if plan.entry.name in FUSED_RUNNERS:
+        if not gp.per_token and plan.entry.name in FUSED_RUNNERS:
             runner = FUSED_RUNNERS[plan.entry.name]
 
             def forward(x2, wf, eps=None):
@@ -822,24 +857,31 @@ def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
                 # f32 copy of the weight is made
                 return runner(x2, wf, gp).to(x2.dtype)
         else:
+            # per-token: the int kernel on the quantized operands, the
+            # (acc * sx) * sw epilogue with the (M, 1) sx outside it
             def forward(x2, wf, eps=None):
                 xq, sx, wq, sw = _quantize_operands(
-                    x2.to(torch.float32), wf.to(torch.float32), gp.bits)
+                    x2.to(torch.float32), wf.to(torch.float32), gp.bits,
+                    gp.per_token)
                 acc = run_int_kernel(plan, xq, wq, gp)
                 return ((acc.to(torch.float32) * sx) * sw).to(x2.dtype)
         return _ste(forward)
 
     if apply and plan.entry.name == "cuda_fused_surrogate":
-        # the production path on the card: one kernel, bf16 widened on load
+        # the production path on the card: one kernel, bf16 widened on
+        # load, one scalar sx whatever `per_token` says (the reference's
+        # fused surrogate branch does not read it either)
         def forward(x2, wf, eps=None):
             return _run_fused_surrogate(x2, wf, eps, gp).to(x2.dtype)
         return _ste(forward)
 
-    # exact / surrogate paths: fake-quant QAT form, the weight in ITS dtype
+    # exact / surrogate paths: fake-quant QAT form, the weight in ITS dtype;
+    # `per_token` quantizes x per row, the noise's sx stays per tensor (as
+    # in the reference)
     def fn(x, w, eps=None):
-        xq = fake_quant(x, gp.bits)
+        xq = fake_quant(x, gp.bits, axis=-1 if gp.per_token else None)
         wq = fake_quant(w, gp.bits, axis=0).to(x.dtype)
-        d = xq @ wq
+        d = row_block_mm(xq, wq) if gp.per_token else xq @ wq
         if not apply or gp.mode == "exact":
             return d
         out = _shift(d, gp.mu)
@@ -1980,6 +2022,10 @@ def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"cim_attention runs the integer modes {ATTN_MODES}; "
             f"mode {gp.mode!r} stays on the float attention path")
+    if gp.per_token:
+        raise ValueError(
+            "cim_attention quantizes per (batch, head); per_token scale "
+            "requests stay on the float attention path")
     backend = _backend(q, k)
     _backend(q, v)
     dev = q.device

@@ -23,10 +23,10 @@ from .approx_gemm import (FAMILIES, MODES, SURROGATE_MODES, GemmParams,
 from .error_model import ErrorMetrics, SurrogateModel, characterize
 from .multipliers import MultiplierSpec
 
-# CiMConfig fields whose non-default values select features of later
-# slices of the port (per-module allocation, fault injection, per-token
-# scales): accepted as fields, refused as values.
-_LATER_SLICE = ("alloc", "fault", "per_token")
+# CiMConfig fields whose non-default values select features the port
+# does not have yet (per-module allocation, ROADMAP A 3; fault
+# injection, A 2): accepted as fields, refused as values.
+_LATER_SLICE = ("alloc", "fault")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +45,11 @@ class CiMConfig:
     # () = everywhere (the paper's setting).
     apply_to: tuple = ()
     alloc: Optional[tuple] = None
+    # per-row (per-token) activation scales: each activation row
+    # quantizes against its own max, so a row's result does not depend on
+    # the rows batched with it (the speculative-decoding verifier,
+    # serving/spec.py); the macro (`CiMMacro.gemm_params`) stays per
+    # tensor, as the reference's
     per_token: bool = False
     # route self-attention's QK^T and PV through the fused CiM attention
     # kernels in the integer modes; `attn_heads` optionally gives one
@@ -63,7 +68,7 @@ class CiMConfig:
             if getattr(self, name) not in (None, False):
                 raise NotImplementedError(
                     f"CiMConfig.{name} is not ported yet (a later slice "
-                    "of the PyTorch port)")
+                    "of the PyTorch port, ROADMAP queue A)")
         if self.attn_heads is not None:
             if not self.attn:
                 raise ValueError("attn_heads requires attn=True")

@@ -23,8 +23,14 @@ rank on ``cuda:{rank % device_count}`` (or the CPU), for example
 
 The mesh path runs the integer modes (hardware, bit_exact) on shards;
 the surrogate modes do not compose with it and are refused.  Rank 0
-prints the report.  Speculative decoding, faults, sentinels and
-telemetry are later slices of the port.
+prints the report.
+
+`--spec-decode K` makes the exact lane speculative (serving/spec.py): K
+tokens a round drafted on the cheapest approximate tier (or
+`--spec-drafter`), all verified in one pass of the exact rung with
+per-token scales, `--spec-rounds` rounds a call; the tokens are the
+per-token exact lane's.  It does not compose with `--mesh`.  Faults,
+sentinels and telemetry are later slices of the port.
 """
 
 from __future__ import annotations
@@ -69,6 +75,20 @@ def _parser() -> argparse.ArgumentParser:
                          "--ranks); 0 = one device")
     ap.add_argument("--ranks", type=int, default=0, metavar="N",
                     help="with --mesh outside torchrun: start N ranks")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding on the exact lane: draft K "
+                         "tokens a round on the cheapest approximate tier, "
+                         "verify them in one pass of the exact rung with "
+                         "per-token scales, which takes the exact rung's "
+                         "place: the output is that rung's greedy decode "
+                         "(checked on an H100 up to 8 slots x 9 "
+                         "positions, serving/spec.py); 0 = off")
+    ap.add_argument("--spec-drafter", default=None, metavar="TIER",
+                    help="drafter tier for --spec-decode (default: the "
+                         "cheapest-energy approximate rung)")
+    ap.add_argument("--spec-rounds", type=int, default=4, metavar="R",
+                    help="draft + verify rounds in one call (admission "
+                         "waits up to R - 1 rounds for a free slot)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -85,7 +105,9 @@ def serve(args, mesh=None, device=None) -> bool:
         prompt_buckets=pbkts,
         group_buckets=(1, 2, args.slots) if args.slots > 2 else (1, 2),
         continuous=not args.static, seed=args.seed,
-        device=args.device if device is None else device, mesh=mesh)
+        device=args.device if device is None else device, mesh=mesh,
+        spec_decode=args.spec_decode or None,
+        spec_drafter=args.spec_drafter, spec_rounds=args.spec_rounds)
     say = print if mesh is None or mesh.index(mesh.axis_names) == 0 \
         else (lambda *a: None)
 
@@ -120,7 +142,15 @@ def serve(args, mesh=None, device=None) -> bool:
         f"warmup {m['steady_plan_misses']}")
     for name, d in m["lanes"].items():
         tps = f"{d['tokens_per_s']:.1f}" if d["tokens_per_s"] else "-"
-        say(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s")
+        acc = (f"; acceptance {d['acceptance_rate']:.2f}"
+               if d["acceptance_rate"] is not None else "")
+        say(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s{acc}")
+    if args.spec_decode:
+        sb = engine.lanes["exact"].backend
+        say(f"  spec-decode k={sb.draft_k} (drafter "
+            f"{sb.drafter_lm.cfg.cim.family}): {sb.n_rounds} rounds, "
+            f"acceptance rate {sb.acceptance_rate:.3f}, "
+            f"{sb.tokens_per_round:.2f} tokens a round")
     if mesh is not None:
         say(f"  rank 0 collectives: {mesh.comm['calls']} calls, "
             f"{mesh.comm['seconds']:.2f}s (host-staged gloo)")
@@ -143,6 +173,11 @@ def main():
                  "ported to shards")
     if args.ranks and not args.mesh:
         ap.error("--ranks needs --mesh")
+    if args.spec_decode and args.mesh:
+        ap.error("--spec-decode does not compose with --mesh: the "
+                 "verifier's per-token activation scales are row-local, "
+                 "and the mesh path takes global per-tensor scales "
+                 "(ROADMAP queue A 5)")
     if not args.mesh:
         ok = serve(args)
     elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:

@@ -228,6 +228,8 @@ def _cim_sdpa(q, k, v, p, *, causal, window, qpos, kpos, kval):
     from repro_torch.core.approx_gemm import GemmParams, cim_attention
 
     def gp_for(family):
+        # per_token is a linear layer's activation-row contract: attention
+        # scales are per (batch, head), so per sequence already
         return GemmParams(family=family, bits=p.bits, mode=p.mode,
                           mu=p.mu, c0=p.c0, c1=p.c1,
                           compressor=p.compressor,
@@ -282,7 +284,7 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
                     causal: bool = True, window: Optional[int] = None,
                     q_chunk: int = 1024, kv_chunk: int = 1024,
                     positions=None, cache: Optional[dict] = None,
-                    valid=None):
+                    valid=None, append: bool = False):
     """Full attention sub-block (projections + SDPA [+ cache update]).
 
     cache=None: training/scoring, returns (y, None).  s > 1 with a cache:
@@ -293,7 +295,14 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
     valid: optional (B, S) bool mask for ragged (right-padded) batches:
     pad tokens are masked out of the KV axis, `positions` supplies the
     per-sequence coordinates, and a prefilled cache records a per-slot
-    (B,) fill level."""
+    (B,) fill level.
+
+    append=True is the multi-token decode (the speculative verifier,
+    serving/spec.py): x is (B, K, D), K tokens a sequence continuing from
+    the cache's fill level; their keys and values go in at pos..pos+K-1
+    and query i attends causally through pos+i, the view K sequential
+    single-token steps build.  Dense causal attention only, on the float
+    path (as the reference's)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -313,6 +322,10 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
     kh_d = n_kv_heads * head_dim
     ck, cv = cache["k"], cache["v"]
     t = ck.shape[1]
+    if append:
+        return _append_decode(params, q, k, v, ck, cv, cache["pos"], x,
+                              n_heads, n_kv_heads, head_dim, ctx, causal,
+                              window)
     if s > 1:  # prefill into a pre-allocated cache
         skv = k.shape[1]
         kf = k.reshape(b, skv, kh_d)
@@ -400,6 +413,59 @@ def attention_block(params, x, *, n_heads, n_kv_heads, head_dim,
     p = torch.softmax(s_, dim=-1).to(cv.dtype)
     o = torch.einsum("bkgqt,btkd->bkgqd", p, cv4)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, n_heads, head_dim)
+    return _out_proj(params, o.to(x.dtype), ctx), new_cache
+
+
+def _append_decode(params, q, k, v, ck, cv, pos, x, n_heads, n_kv_heads,
+                   head_dim, ctx, causal, window):
+    """The append branch of `attention_block` (the reference's
+    ``append=True``).  Returns (y, new_cache)."""
+    if window is not None or not causal:
+        raise NotImplementedError(
+            "append (multi-token) decode supports dense causal "
+            "self-attention only")
+    b, s = q.shape[:2]
+    t = ck.shape[1]
+    if s > t:
+        raise ValueError(f"{s} appended tokens exceed the cache's {t}")
+    kh_d = n_kv_heads * head_dim
+    kf = k.reshape(b, s, kh_d).to(ck.dtype)
+    vf = v.reshape(b, s, kh_d).to(cv.dtype)
+    dev = x.device
+    tpos = torch.arange(t, device=dev)
+    off = torch.arange(s, device=dev)
+    if pos.dim() > 0:
+        slot = pos.to(torch.int64)[:, None] + off[None, :]       # (B, K)
+        # writes past max_len (a slot whose budget ends mid-draft) are
+        # dropped: such an entry's index wraps to slot - t, which no live
+        # write of this call touches (s <= t), and gets its own value
+        # back, so nothing is clamped onto a live row
+        ok = (slot < t)[:, :, None]
+        sl = slot % t
+        bidx = torch.arange(b, device=dev)[:, None]
+        ck[bidx, sl] = torch.where(ok, kf, ck[bidx, sl])
+        cv[bidx, sl] = torch.where(ok, vf, cv[bidx, sl])
+        vmask = (tpos[None, None, :] <= slot[:, :, None])[:, None, None]
+    else:
+        # a start past t - s clamps, as dynamic_update_slice does
+        start = torch.clamp(pos.to(torch.int64), 0, t - s)
+        ck.index_copy_(1, start + off, kf)
+        cv.index_copy_(1, start + off, vf)
+        vmask = (tpos[None, :] <= (pos + off)[:, None])[None, None, None]
+    new_cache = {"k": ck, "v": cv, "pos": pos + s}
+    kh = n_kv_heads
+    g = n_heads // kh
+    ck4 = ck.reshape(b, t, kh, head_dim)
+    cv4 = cv.reshape(b, t, kh, head_dim)
+    qg = q.reshape(b, s, kh, g, head_dim).to(ck.dtype)
+    # cache-dtype products, f32 softmax: the single-token decode's ops on
+    # K query rows
+    s_ = torch.einsum("bqkgd,btkd->bkgqt", qg, ck4).to(torch.float32) \
+        / (head_dim ** 0.5)
+    s_ = torch.where(vmask, s_, NEG_INF)
+    p = torch.softmax(s_, dim=-1).to(cv.dtype)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p, cv4)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, s, n_heads, head_dim)
     return _out_proj(params, o.to(x.dtype), ctx), new_cache
 
 

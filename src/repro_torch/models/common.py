@@ -163,6 +163,7 @@ class CiMParams:
     compressor: str = "yang1"
     n_approx_cols: Optional[int] = None
     apply_to: tuple = ()         # name prefixes; () = every matmul
+    per_token: bool = False      # per-row activation scales (serving/spec.py)
     attn: bool = False           # fused CiM attention (models/attention.py)
     attn_heads: Optional[tuple] = None   # per-q-head family allocation
 
@@ -175,7 +176,8 @@ class CiMParams:
                    mu=s.mu_rel, c0=s.c0_abs, c1=s.c1_rel,
                    compressor=cim.compressor,
                    n_approx_cols=cim.n_approx_cols,
-                   apply_to=tuple(cim.apply_to), attn=bool(cim.attn),
+                   apply_to=tuple(cim.apply_to),
+                   per_token=bool(cim.per_token), attn=bool(cim.attn),
                    attn_heads=(tuple(cim.attn_heads)
                                if cim.attn_heads is not None else None))
 
@@ -183,7 +185,8 @@ class CiMParams:
         return GemmParams(family=self.family, bits=self.bits,
                           mode=self.mode, mu=self.mu, c0=self.c0,
                           c1=self.c1, compressor=self.compressor,
-                          n_approx_cols=self.n_approx_cols)
+                          n_approx_cols=self.n_approx_cols,
+                          per_token=self.per_token)
 
     def selects(self, name: str) -> bool:
         """Does the approximate family apply to this matmul?  Unselected
@@ -292,9 +295,17 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
     dispatch engine's choice (core/approx_gemm.model_matmul); a context
     key draws this matmul's surrogate noise from its own child key.
     Under an ambient mesh x and w are this rank's shards and so is the
-    result (see the module docstring)."""
+    result (see the module docstring); per-token scales raise there."""
     assert w.dim() == 2, "cim_linear expects 2-D weights (flatten heads)"
     p = ctx.p
+    if p.per_token and p.mode != "off" and ambient_mesh() is not None:
+        # the reference leaves the shard path for GSPMD, which sees whole
+        # rows; every route here under a mesh takes global per-tensor
+        # scales (`_float_tp` too): a silently different result
+        raise NotImplementedError(
+            "per-token activation scales under a mesh are not ported: the "
+            "shard paths take global per-tensor scales (ROADMAP queue "
+            "A 5); drop the mesh or per_token")
     margs = _tp_mesh_args(ctx, name)
     if margs is not None:
         out = _mesh_linear(x, w, ctx, name, *margs)

@@ -6,13 +6,16 @@ residual ``x + block(norm1(x))``).
 Entry points:
   * ``prefill``      — fills pre-allocated caches, returns last logits
   * ``decode_step``  — one token in, one token out, caches updated
+  * ``decode_multi`` — K tokens a sequence scored in one pass (the
+                       speculative verifier, serving/spec.py): dense
+                       attention stacks only
   * ``forward_logits`` — full-sequence logits, no caches
 
 The CiM context (the paper's approximate execution) threads through
 every block.  The reference scans a stacked layer body; here the layers
 are a Python list (in ``cfg.layer_pattern`` order) and the stack is a
-loop.  MoE, MLA, RG-LRU, local and encoder layers, mixed attention and
-recurrent stacks, and ``decode_multi`` are later slices.
+loop.  MoE, MLA, RG-LRU, local and encoder layers and mixed attention
+and recurrent stacks are later slices (ROADMAP queue A 6).
 
 Under a mesh (``LM(cfg, mesh=...)``, launch.mesh) the model is
 tensor-parallel over the "model" axis: each rank holds its shards of the
@@ -34,6 +37,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.approx_gemm import row_block_mm
 from repro_torch.device import resolve_device
 from repro_torch.parallel.sharding import (DECODE_RULES, P, axes_of,
                                            axes_size, batch_axes,
@@ -125,8 +129,14 @@ _LINEARS = {("attn", "wq"): "wq", ("attn", "wk"): "wk", ("attn", "wv"): "wv",
 
 
 def _apply_layer(params, x, kind: str, cfg: ModelConfig, ctx: CiMContext,
-                 positions, cache, valid=None, heads=None):
-    """Returns (x, new_cache); `heads` = this rank's (query, kv) heads."""
+                 positions, cache, valid=None, heads=None, append=False):
+    """Returns (x, new_cache); `heads` = this rank's (query, kv) heads.
+    `append` routes the multi-token decode: attention layers only."""
+    if append and kind != C.ATTN:
+        raise ValueError(
+            "multi-token (append) decode needs dense full-attention "
+            f"layers with explicit positions; kind {kind!r} does not "
+            "qualify")
     n_heads, n_kv = heads or (cfg.n_heads, cfg.n_kv_heads)
     h = apply_norm(params["norm1"], x, cfg.norm)
     if kind == C.MLSTM:
@@ -144,7 +154,7 @@ def _apply_layer(params, x, kind: str, cfg: ModelConfig, ctx: CiMContext,
         head_dim=cfg.head_dim_, rope_fraction=cfg.rope_fraction,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, ctx=ctx,
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-        positions=positions, cache=cache, valid=valid)
+        positions=positions, cache=cache, valid=valid, append=append)
     x = x + a
     h = apply_norm(params["norm2"], x, cfg.norm)
     return x + apply_mlp(params["mlp"], h, cfg.act, ctx), new_cache
@@ -217,10 +227,14 @@ class LM:
         x = apply_norm(params["final_norm"], x, self.cfg.norm)
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["head"])
+        if self.cim.per_token:
+            # row-pure like the per-token GEMMs: a slot's logits do not
+            # depend on how many rows (slots x positions) share the pass
+            return row_block_mm(x, w)
         return x @ w
 
     def _run_stack(self, params, x, positions, caches, valid=None,
-                   data_parallel: bool = False):
+                   data_parallel: bool = False, append: bool = False):
         ctx = CiMContext(self.cim, specs=self.specs,
                          row_axes=self.row_axes if data_parallel else ())
         new = []
@@ -229,7 +243,7 @@ class LM:
                                                self.cfg.layer_pattern)):
                 c = None if caches is None else caches["layers"][i]
                 x, c2 = _apply_layer(lp, x, kind, self.cfg, ctx, positions,
-                                     c, valid, self.heads)
+                                     c, valid, self.heads, append)
                 new.append(c2)
         return x, (None if caches is None else {"layers": new})
 
@@ -318,6 +332,26 @@ class LM:
                                     positions, caches,
                                     data_parallel=data_parallel)
         return self._logits(params, x, data_parallel), caches
+
+    def decode_multi(self, params, caches, tokens, pos):
+        """Score K continuation tokens a sequence in one pass (the
+        speculative-decoding verifier).
+
+        tokens: (B, K); pos: scalar or (B,), the caches' fill level (the
+        position of tokens[:, 0]).  Returns (logits (B, K, V), caches
+        advanced by K, updated in place).  logits[:, i] is the next-token
+        distribution after tokens[:, :i+1], what K sequential
+        `decode_step` calls give; with per-token activation scales
+        (``CiMConfig.per_token``) every GEMM row is computed as it would
+        be alone."""
+        b, kk = tokens.shape
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
+        off = torch.arange(kk, dtype=torch.int32, device=tokens.device)
+        positions = (pos[:, None] + off[None, :] if pos.dim()
+                     else (pos + off).expand(b, kk))
+        x, caches = self._run_stack(params, self._embed(params, tokens),
+                                    positions, caches, append=True)
+        return self._logits(params, x), caches
 
 
 def _layer_params(kind: str, cfg: ModelConfig) -> int:

@@ -33,8 +33,11 @@ replicated scheduler makes the same decisions everywhere.  With an
 integer-mode ladder the pool's logits equal the unsharded engine's bit
 for bit.
 
-Speculative decoding, sentinels, fault injection and telemetry are
-later slices of the port.
+`build_engine(spec_decode=k)` makes the exact lane speculative
+(serving/spec.py): a cheaper tier drafts k tokens a round and the exact
+rung with per-token activation scales verifies them in one pass; the
+output is the per-token exact lane's.  Sentinels, fault injection and
+telemetry are later slices of the port (ROADMAP queue A 2, A 4).
 """
 
 from __future__ import annotations
@@ -524,6 +527,9 @@ class ServingEngine:
         for lane in self.lanes.values():
             if not lane.running:
                 continue
+            if hasattr(lane.backend, "spec_round"):
+                self._spec_round(lane, now)
+                continue
             nxt = lane.backend.decode_round()
             dec_lg = getattr(lane.backend, "last_decode_logits", None)
             for slot in sorted(lane.running):
@@ -534,6 +540,29 @@ class ServingEngine:
             self._check()
         return [r for rid, r in self.results.items()
                 if r.done and rid not in done_before]
+
+    def _spec_round(self, lane: _Lane, now: float) -> None:
+        """One spec call: up to rounds_per_call draft + verify rounds, up
+        to k + 1 tokens each, a live slot.  The backend cuts each slot's
+        tokens at its remaining budget and first EOS (a slot that finishes
+        mid-call idles for the rounds left), so each slot's tokens come in
+        the order sequential decoding gives them."""
+        b = lane.backend
+        remaining = np.zeros(b.n_slots, np.int64)
+        eos = np.full(b.n_slots, -1, np.int64)
+        for slot, run in lane.running.items():
+            remaining[slot] = run.req.max_new - len(run.result.tokens)
+            if run.req.eos_id is not None:
+                eos[slot] = run.req.eos_id
+        toks, counts = b.spec_round(remaining, eos)
+        lg = getattr(b, "last_spec_logits", None)
+        slots = sorted(lane.running)
+        for r in range(counts.shape[1]):
+            for slot in slots:
+                for i in range(int(counts[slot, r])):
+                    row = (lg[slot, r, i] if self.record_logits
+                           and lg is not None else None)
+                    self._emit(lane, slot, int(toks[slot, r, i]), now, row)
 
     def _check(self) -> None:
         total = 0
@@ -587,11 +616,14 @@ class ServingEngine:
                            f"within {max_steps} steps")
 
     def metrics(self) -> dict:
-        """Per-lane tokens and throughput over `last_run_s`."""
+        """Per-lane tokens and throughput over `last_run_s`, and a spec
+        lane's acceptance rate (None on the others)."""
         dur = self.last_run_s
         lanes = {name: {"tokens": lane.total_emitted,
                         "tokens_per_s": (lane.total_emitted / dur
-                                         if dur else None)}
+                                         if dur else None),
+                        "acceptance_rate": getattr(lane.backend,
+                                                   "acceptance_rate", None)}
                  for name, lane in self.lanes.items()}
         return {"duration_s": dur,
                 "n_requests": sum(1 for r in self.results.values()
@@ -617,6 +649,10 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
                  token_budget: Optional[int] = None,
                  record_logits: bool = False,
                  max_queued: Optional[int] = None,
+                 spec_decode: Optional[int] = None,
+                 spec_drafter: Optional[str] = None,
+                 spec_ks: Optional[Sequence[int]] = None,
+                 spec_rounds: int = 4,
                  seed: int = 0, device=None, mesh=None) -> ServingEngine:
     """One lane per accuracy tier over shared weights, on `device` (CUDA
     unless ``device="cpu"``).
@@ -629,17 +665,35 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     With `mesh` (every rank of it calls this alike, with the same full
     `params` or seed) the weights are cut to this rank's shards and each
     lane's pool is data-parallel (see the module docstring); every rank
-    then drives the engine with the same workload."""
+    then drives the engine with the same workload.
+
+    `spec_decode=k` makes the exact lane speculative (serving/spec.py):
+    a `SpecDecodeBackend` pairs `spec_drafter` (by default the
+    cheapest-energy approximate rung) with the exact rung upgraded to
+    per-token activation scales (`tiers.spec_pair`), which replaces the
+    exact rung; `spec_ks` are more draft depths warmup runs, so that
+    `set_draft_k` builds no plan, and `spec_rounds` the rounds of one
+    call.  The verify logits go to the host only with `record_logits`.
+    It does not compose with a mesh."""
     from repro_torch.device import resolve_device
     from repro_torch.models.bridge import shard_params
     from repro_torch.models.transformer import LM
 
-    from .tiers import TierRouter, build_tiers
+    from .tiers import TierRouter, build_tiers, spec_pair
 
     check_engine_arch(cfg)
+    if spec_decode is not None and mesh is not None:
+        raise ValueError(
+            "speculative decoding does not compose with a mesh: the "
+            "verifier's per-token scales are row-local and the mesh path "
+            "takes global per-tensor scales (ROADMAP queue A 5)")
     dev = resolve_device(device)
     if tiers is None:
         tiers = build_tiers()
+    d_tier = None
+    if spec_decode is not None:
+        d_tier, v_tier = spec_pair(tiers, spec_drafter)
+        tiers = tuple(v_tier if t.name == "exact" else t for t in tiers)
     if params is None:
         params = LM(cfg, dev).init(seed)
     if mesh is not None:
@@ -647,6 +701,16 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     lanes = {}
     for tier in tiers:
         lm = LM(dataclasses.replace(cfg, cim=tier.cim), dev, mesh=mesh)
+        if d_tier is not None and tier.name == "exact":
+            from .spec import SpecDecodeBackend
+
+            lanes[tier.name] = SpecDecodeBackend(
+                lm, LM(dataclasses.replace(cfg, cim=d_tier.cim), dev),
+                params, draft_k=spec_decode, draft_ks=spec_ks,
+                rounds_per_call=spec_rounds, keep_logits=record_logits,
+                n_slots=slots_per_tier, max_len=max_len,
+                prompt_buckets=prompt_buckets, group_buckets=group_buckets)
+            continue
         lanes[tier.name] = LMLaneBackend(
             lm, params, n_slots=slots_per_tier, max_len=max_len,
             prompt_buckets=prompt_buckets, group_buckets=group_buckets,

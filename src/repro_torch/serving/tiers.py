@@ -83,6 +83,39 @@ def build_tiers(bits: int = 8, mode: str = "surrogate_fast",
     return tuple(sorted(tiers, key=lambda t: t.nmed))
 
 
+def spec_pair(tiers: Sequence[AccuracyTier],
+              drafter: Optional[str] = None
+              ) -> Tuple[AccuracyTier, AccuracyTier]:
+    """(drafter, verifier) of speculative decoding (serving/spec.py).
+
+    The verifier is the ladder's ``exact`` rung with per-token activation
+    scales (``per_token=True``): under them a batched multi-position
+    verify computes every row as a single step would, so accepting only
+    the verifier's own argmax keeps the output the exact lane's.  The
+    drafter is the named tier or, by default, the cheapest-energy
+    approximate rung (a wrong guess costs a rejected draft, never
+    accuracy)."""
+    by_name = {t.name: t for t in tiers}
+    if "exact" not in by_name:
+        raise ValueError("spec decoding needs an 'exact' tier to verify "
+                         f"against; configured: {sorted(by_name)}")
+    ex = by_name["exact"]
+    verifier = dataclasses.replace(
+        ex, cim=dataclasses.replace(ex.cim, per_token=True))
+    approx = [t for t in tiers if t.name != "exact" and t.cim is not None]
+    if drafter is not None:
+        try:
+            d = by_name[drafter]
+        except KeyError:
+            raise KeyError(f"unknown drafter tier {drafter!r}; "
+                           f"configured: {sorted(by_name)}") from None
+    elif approx:
+        d = min(approx, key=lambda t: t.energy_per_mac_j)
+    else:
+        d = ex                    # degenerate: exact drafts for itself
+    return d, verifier
+
+
 class TierRouter:
     """Tolerance -> configured tier (feasibility filter + energy rank)."""
 

@@ -156,7 +156,13 @@ def test_fake_quant_straight_through_gradient():
 def test_later_slice_fields_raise(field, value):
     """Fields of later slices are refused as values.  `attn` is ported
     (CiM attention): it is accepted, and validated as the reference
-    validates it."""
+    validates it; so is `per_token` (speculative decoding's verifier),
+    which the macro does not pass on, as the reference's does not."""
+    if field == "per_token":
+        cfg = CiMConfig(family="appro42", mode="hardware", per_token=True)
+        assert cfg.per_token
+        assert not compile_macro(cfg).gemm_params().per_token
+        return
     if field == "attn":
         assert CiMConfig(family="appro42", mode="hardware", attn=True).attn
         heads = ("exact", "appro42")

@@ -219,8 +219,10 @@ def test_cim_matmul_and_ste_gradient():
 
 
 def test_later_slice_gemm_params_raise():
+    """Fault injection is a later slice; per-token scales are ported."""
     with pytest.raises(NotImplementedError):
-        GemmParams(family="exact", mode="hardware", per_token=True)
+        GemmParams(family="exact", mode="hardware", fault=object())
+    assert GemmParams(family="exact", mode="hardware", per_token=True)
 
 
 def test_entry_points_need_a_card_or_an_explicit_cpu():

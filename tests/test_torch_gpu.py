@@ -1849,3 +1849,164 @@ def test_fused_surrogate_capacity_bounds_the_plan():
         assert approx_matmul._capacity(
             kern.library, kern.symbol + "_capacity", 0, (var, 1, 1), 16,
             plan.splits) > 0
+
+
+# ---------------------------------------------------------------------------
+# per-token scales and speculative decoding
+# ---------------------------------------------------------------------------
+
+# the per-token hardware lanes and the int form each one launches
+PER_TOKEN_LANES = [
+    (dict(family="appro42", compressor="orplane", n_approx_cols=10),
+     "lut_matmul"),
+    (dict(family="mitchell"), "mitchell_matmul"),
+    (dict(family="appro42", compressor="orplane", n_approx_cols=4),
+     "nibble_lut_matmul")]
+
+
+@pytest.mark.parametrize("lane,kernel", PER_TOKEN_LANES, ids=str)
+def test_per_token_gemm_on_the_card_runs_the_int_kernel(lane, kernel):
+    """A per-token hardware GEMM launches its int form once (no fused
+    form, no plain version), its rows are the rows of 4-row calls, and it
+    equals the CPU's plain route bitwise."""
+    dev = _card()
+    gp = GemmParams(bits=8, mode="hardware", per_token=True, **lane)
+    x, w, _, _ = _ops(20, 2048, 1024, dev, seed=5)
+    kerns = {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS}
+    before = {n: k.launches for n, k in kerns.items()}
+    got = model_matmul(x.reshape(4, 5, 2048), w, gp)
+    torch.cuda.synchronize()
+    moved = {n: k.launches - before[n] for n, k in kerns.items()
+             if k.launches != before[n]}
+    assert moved == {kernel: 1}
+    rows = torch.cat([model_matmul(x[i:i + 4], w, gp)
+                      for i in range(0, 20, 4)])
+    assert torch.equal(rows, got.reshape(20, -1))
+    want = model_matmul(x[:4].cpu(), w.cpu(), gp)
+    assert torch.equal(got.reshape(20, -1)[:4].cpu(), want)
+
+
+def test_per_token_surrogate_on_the_card_is_the_fused_kernel_per_tensor():
+    """The fused surrogate kernel takes one scalar sx: a per-token
+    surrogate GEMM on the card is the per-tensor one, as the reference's
+    Pallas kernel on its TPU route."""
+    from repro_torch.kernels import cim_gemm
+
+    dev = _card()
+    kw = dict(family="appro42", bits=8, mode="surrogate", mu=-0.01,
+              compressor="orplane", n_approx_cols=10)
+    x, w, _, _ = _ops(20, 256, 96, dev, seed=6)
+    kern = cim_gemm.KERNELS["cim_gemm_fused"]
+    before = kern.launches
+    got = model_matmul(x, w, GemmParams(per_token=True, **kw))
+    assert kern.launches == before + 1
+    assert torch.equal(got, model_matmul(x, w, GemmParams(**kw)))
+
+
+def test_decode_multi_on_the_card_equals_sequential_decode():
+    """qwen3-1.7b-smoke on the card: decode_multi over 4 positions is
+    bitwise 4 sequential decode_steps on a ragged pool, per-token exact
+    and per-token balanced."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import build_tiers
+    from repro_torch.serving.engine import LMLaneBackend
+
+    dev = _card()
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    params = LM(cfg, dev).init(0)
+    g = torch.Generator().manual_seed(9)
+    for tier in build_tiers(mode="hardware")[:2]:
+        cim = dataclasses.replace(tier.cim, per_token=True)
+        lm = LM(dataclasses.replace(cfg, cim=cim), dev)
+        lane = LMLaneBackend(lm, params, n_slots=3, max_len=16,
+                             prompt_buckets=(6,), group_buckets=(3,))
+        lane.admit([torch.randint(0, cfg.vocab, (n,), generator=g).numpy()
+                    for n in (6, 4, 2)], [0, 1, 2])
+        toks = torch.randint(0, cfg.vocab, (3, 4), generator=g).to(dev)
+        fill = torch.as_tensor(lane.slot_pos, dtype=torch.int32, device=dev)
+
+        def clone():
+            return {"layers": [{n: t.clone() for n, t in layer.items()}
+                               for layer in lane.caches["layers"]]}
+        with torch.inference_mode():
+            lg_m, c_m = lm.decode_multi(params, clone(), toks, fill)
+            c, rows, pos = clone(), [], fill
+            for i in range(4):
+                lg, c = lm.decode_step(params, c, toks[:, i:i + 1], pos)
+                rows.append(lg[:, -1])
+                pos = pos + 1
+        assert torch.equal(lg_m, torch.stack(rows, dim=1)), tier.name
+        for a, b in zip(c_m["layers"], c["layers"]):
+            for name in ("k", "v", "pos"):
+                assert torch.equal(a[name], b[name]), (tier.name, name)
+
+
+def test_spec_engine_on_the_card_matches_the_exact_lane():
+    """The spec engine on the card (qwen3-1.7b-smoke, drafter on the
+    fused LUT kernel): tokens equal to the per-token exact engine's at
+    every warmed depth, no plan built after warmup, K/V past every fill
+    zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx_gemm import plan_misses
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import (SimClock, build_engine, build_tiers,
+                                     poisson_workload, spec_pair)
+    from repro_torch.serving.spec import nonzero_past_fill
+
+    dev = _card()
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    params = LM(cfg, dev).init(0)
+    tiers = build_tiers(mode="hardware")
+    _, v_tier = spec_pair(tiers)
+    kw = dict(slots_per_tier=2, max_len=32, prompt_buckets=(6,),
+              group_buckets=(1, 2))
+    base = build_engine(cfg, params, tiers=(v_tier,), **kw)
+    spec = build_engine(cfg, params, tiers=tiers, spec_decode=2,
+                        spec_ks=(1, 2, 4), **kw)
+    base.warmup()
+    spec.warmup()
+    mark = plan_misses()
+    wl = poisson_workload(6, 500.0, cfg.vocab, prompt_len=(3, 6),
+                          max_new=(2, 10), tier_mix=(("exact", None, 1.0),),
+                          seed=11)
+    want = base.run(wl, clock=SimClock())
+    sb = spec.lanes["exact"].backend
+    fused = approx_matmul.KERNELS["lut_matmul_fused"]
+    for k in (1, 2, 4):
+        sb.set_draft_k(k)
+        before = fused.launches
+        got = spec.run(wl, clock=SimClock())
+        assert fused.launches > before
+        for r in wl:
+            assert got[r.rid].tokens == want[r.rid].tokens, (k, r.rid)
+        assert nonzero_past_fill(sb.caches, sb.slot_pos) == 0
+    assert plan_misses() == mark
+
+
+def test_per_token_exact_prefill_rows_do_not_depend_on_the_group():
+    """The per-token exact lane's float products run in fixed row blocks
+    (approx_gemm.ROW_BLOCK): a prompt prefilled alone gives bitwise the
+    logits and caches it gets in a group of 4 (one cuBLAS product of 64
+    rows moved a row of mlp_wo before)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import build_tiers, spec_pair
+
+    dev = _card()
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    params = LM(cfg, dev).init(0)
+    lm = LM(dataclasses.replace(cfg, cim=spec_pair(
+        build_tiers(mode="hardware"))[1].cim), dev)
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (4, 16), generator=g).to(dev)
+    lens = torch.tensor([11, 16, 9, 13], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        lg4, c4 = lm.prefill(params, {"tokens": toks, "lengths": lens,
+                                      "max_len": 32})
+        lg1, c1 = lm.prefill(params, {"tokens": toks[:1],
+                                      "lengths": lens[:1], "max_len": 32})
+    assert torch.equal(lg4[:1], lg1)
+    for a, b in zip(c4["layers"], c1["layers"]):
+        for name in ("k", "v"):
+            assert torch.equal(a[name][:1], b[name])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU (built for an H100).
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--phases N [N ...]]
 
 Phases, each of which must pass (the script exits nonzero otherwise):
 
@@ -234,9 +234,38 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      time against a per-token exact decode round's in those windows (the
      break-even), and a k = 1 call profiled.  The launches of (a)'s
      M = 4 and M = 64 calls and (b)'s sequential steps, held against the
-     path, are the kernels line's ``check_launches``.
+     path, are the kernels line's ``check_launches``;
+ 12. fault injection and lane sentinels: (a) ``lut_matmul_mag`` (the
+     faulted table's form of ``lut_matmul``: uint16 magnitude products,
+     the signs from the operands) bitwise its plain version with the
+     balanced tier's table faulted at the Table V rate (32 rows, scale
+     1.0) at the LM shapes, M = 4 and 64 (timed beside its bound), with
+     the clean table bitwise ``lut_matmul``, and at 2..8 bits on the
+     ragged shape; (b) full-size qwen3-1.7b on the hardware ladder (the
+     exact rung per-token; 2 slots a tier, 64-token slots, one 8-token
+     prompt bucket; bench_faults.py's workload: 16 Poisson requests at
+     600/s): the clean ladder armed with ``SentinelConfig()`` for 8
+     ticks, its sentinels' drift against the per-token exact rung and
+     its trips printed (a measurement: at this width the default
+     thresholds trip a clean lane); the faulted ladder (a 2 s probe
+     cooldown), its weight masks drawn first: every faulted lane trips
+     within 8 tokens and no probe re-admits it, no request fails, every
+     request finished on exact holds the
+     exact-only run's tokens but where that run's top-2 gap is within
+     1e-2 (printed), 196 ``lut_matmul_mag`` (balanced) or
+     ``mitchell_matmul`` (economy) launches a faulted-lane forward and
+     nothing else, no plan built after warmup; one decode round of each
+     faulted lane profiled; (c) the reference's own setting,
+     qwen3-1.7b-smoke on the card: the clean armed ladder 0 trips and the
+     unarmed ladder's tokens, then the recovery drill (cooldown 0: a
+     forced trip, the probe re-admits, traffic returns, no plan built);
+     (d) one faulted ``cim_conv2d`` a family (conv_im2col, one int-kernel
+     launch) bitwise the CPU's plain route.  (a)'s and (d)'s launches are
+     the kernels line's ``check_launches``.
 
-``--layers`` cuts the depth of phase 5 only (the cut is printed).
+``--layers`` cuts the depth of phase 5 only (the cut is printed);
+``--phases`` runs phases 1, 2 and the listed ones and prints no result
+lines.
 
 It prints one ``{"kernels": [...]}`` JSON line and, last, one
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device it exits
@@ -271,6 +300,7 @@ NIBBLE_GATHERS = 2
 # their SASS (kernels/sass.py) and keeps the fewest of any instantiation
 LOG_CLOCKS = {}
 LUT_BYTES = (1 << 16) * 2          # the 8-bit int16 product table
+MAG_BYTES = (1 << 14) * 2          # the 8-bit uint16 magnitude table
 
 WEIGHT_SHAPES = ((2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048))
 MAIN_SHAPES = [(m, k, n) for m in (4, 64) for (k, n) in WEIGHT_SHAPES]
@@ -320,6 +350,8 @@ LSUM_EPS = 8
 SOURCES = {
     "lut_matmul": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
                    "src/repro/kernels/approx_matmul.py:137"),
+    "lut_matmul_mag": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+                       "src/repro/kernels/approx_matmul.py:137"),
     "lut_matmul_fused": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                          "src/repro/kernels/approx_matmul.py:230"),
     "mitchell_matmul": ("src/repro_torch/kernels/csrc/log_gemm.cu",
@@ -501,7 +533,8 @@ def _bound(name: str, m: int, k: int, n: int, sms: int, clock_hz: float,
               else m * k + k * n + m * n * 4)
     if name.startswith(("lut", "nibble")):
         nibble = name.startswith("nibble")
-        nbytes += NIBBLE_BYTES if nibble else LUT_BYTES
+        nbytes += (NIBBLE_BYTES if nibble else MAG_BYTES
+                   if name.endswith("mag") else LUT_BYTES)
         ops_s = (m * k * n * (NIBBLE_GATHERS if nibble else 1)
                  / (sms * GATHERS_PER_SM_CLOCK * clock_hz))
     else:
@@ -3908,6 +3941,496 @@ def spec_phase(torch, power, sms, clock_hz):
     return path, check
 
 
+# ---------------------------------------------------------------------------
+# phase 12: fault injection and lane sentinels
+# ---------------------------------------------------------------------------
+
+# the reference's fault benchmark (benchmarks/bench_faults.py) on the
+# hardware ladder: the stuck-at rate of the Table V geometry of 32 rows at
+# its MNIS-characterized Pf (scale 1.0), 2 slots a tier, 64-token slots,
+# one 8-token prompt bucket, groups of 1 and 2, 3 restarts a request; 16
+# Poisson requests at 600/s, 4-8-token prompts, 6-12 new tokens, tiers
+# exact 0.2 / balanced 0.4 / economy 0.4, seed 11
+FAULT_ROWS = 32
+FAULT_SLOTS, FAULT_MAX_LEN, FAULT_BUCKET, FAULT_GROUPS = 2, 64, 8, (1, 2)
+FAULT_RETRIES = 3
+FAULT_REQUESTS, FAULT_RATE, FAULT_SEED = 16, 600.0, 11
+FAULT_PROMPTS, FAULT_NEW = (4, 8), (6, 12)
+FAULT_MIX = (("exact", None, 0.2), ("balanced", None, 0.4),
+             ("economy", None, 0.4))
+# the most tokens a faulted lane may emit before its sentinel trips (two
+# shadow samples, one every second round, over 2 slots)
+FAULT_DETECT = 8
+# the clean ladder at full width is measured over this many scheduler
+# ticks (four shadow samples a lane), not served to the end
+FAULT_CLEAN_TICKS = 8
+# the faulted ladder's quarantine before a half-open probe.  The default
+# (0.1 s) is shorter than one tick of the full-width ladder on the card,
+# so a tripped lane would run a failing probe on every tick and the probes
+# would take most of the run; at 2 s a tripped lane probes a few times
+# while the exact lane serves the displaced requests
+FAULT_COOLDOWN_S = 2.0
+# the int kernel of each faulted lane's GEMMs (a fault gates the fused
+# runners off; the faulted table fits the magnitude form only)
+FAULT_INT = {"balanced": "lut_matmul_mag", "economy": "mitchell_matmul"}
+FAULT_DEVICE = "cuda"
+# (a): the magnitude-table kernel at every operand width it takes, on the
+# ragged shape, for the exact family's and appro42's tables
+MAG_BITS = tuple(range(2, 9))
+# (d): one faulted cim_conv2d a family at the CNN's second conv geometry
+# (H, W, C, N), batch 8
+FAULT_CONV_BATCH, FAULT_CONV = 8, CNN_CONVS[1]
+
+
+def _fault_config():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b")
+
+
+def _fault_tiers():
+    """The hardware ladder with per-token scales on the exact rung: its
+    rows are then their own (row-pure), so the tokens of a request on
+    `exact` do not depend on the slots beside it, and the faulted and
+    exact-only engines can be held token for token (the reference's
+    bench_faults.py)."""
+    from repro_torch.serving import build_tiers
+
+    return tuple(
+        dataclasses.replace(t, cim=dataclasses.replace(t.cim,
+                                                       per_token=True))
+        if t.name == "exact" else t
+        for t in build_tiers(mode="hardware"))
+
+
+def _ints(torch, g, shape, bits, dev):
+    half = 1 << (bits - 1)
+    return torch.randint(-half, half, shape, generator=g, device=dev,
+                         dtype=torch.int32).to(torch.int8)
+
+
+def fault_kernel(torch, sms, clock_hz, dev, fault, spec):
+    """Phase 12 (a): `lut_matmul_mag` bitwise its plain version with the
+    balanced tier's faulted table at the LM shapes (timed beside its bound
+    and plain version), and with the clean table bitwise `lut_matmul` on
+    the int16 signed table; at 2..8 bits on the ragged shape, faulted and
+    clean, for the exact family's and appro42's tables.  Returns the
+    timed rows and the check launches."""
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import ops
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    _reset_counts()
+    faulted = ops.magnitude_lut(spec, fault, dev)
+    clean = ops.magnitude_lut(spec, None, dev)
+    rows = []
+    for m, k, n in MAIN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+        xq, wq = _ints(torch, g, (m, k), 8, dev), _ints(torch, g, (k, n), 8,
+                                                        dev)
+        got = am.lut_matmul_mag(xq, wq, faulted)
+        want = am.lut_matmul_mag_plain(xq, wq, faulted)
+        if not torch.equal(got, want):
+            fail(f"phase 12 (a) lut_matmul_mag ({m}, {k}, {n}): the faulted "
+                 f"table's product != its plain version ({int((got != want).sum())} "
+                 "entries)")
+        if not torch.equal(am.lut_matmul_mag(xq, wq, clean),
+                           am.lut_matmul(xq, wq, ops.lut_table(spec, dev))):
+            fail(f"phase 12 (a) lut_matmul_mag ({m}, {k}, {n}): the clean "
+                 "magnitude table != lut_matmul on the int16 signed table")
+        ms = _timed_ms(torch, lambda: am.lut_matmul_mag(xq, wq, faulted), 10,
+                       flush)
+        plain_ms = _timed_ms(
+            torch, lambda: am.lut_matmul_mag_plain(xq, wq, faulted), 2, flush)
+        bound, by = _bound("lut_matmul_mag", m, k, n, sms, clock_hz)
+        rows.append({"shape": (m, k, n), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+                     "library_ms": None})
+        print(f"    lut_matmul_mag ({m:>2}, {k}, {n}): faulted bitwise plain, "
+              f"clean bitwise lut_matmul; {ms:.4f} ms (bound {bound:.4f}, "
+              f"{by}; {100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms",
+              flush=True)
+    m, k, n = RAGGED
+    for bits in MAG_BITS:
+        for fam, comp in (("exact", "yang1"), ("appro42", "yang1")):
+            sb = MultiplierSpec(fam, bits, True, comp, None)
+            g = torch.Generator(device=dev).manual_seed(bits)
+            xq, wq = _ints(torch, g, (m, k), bits, dev), _ints(
+                torch, g, (k, n), bits, dev)
+            for tab in (ops.magnitude_lut(sb, fault, dev),
+                        ops.magnitude_lut(sb, None, dev)):
+                if not torch.equal(am.lut_matmul_mag(xq, wq, tab, bits),
+                                   am.lut_matmul_mag_plain(xq, wq, tab,
+                                                           bits)):
+                    fail(f"phase 12 (a) lut_matmul_mag {fam} {bits}-bit "
+                         f"{RAGGED} != its plain version")
+            if not torch.equal(
+                    am.lut_matmul_mag(xq, wq, ops.magnitude_lut(sb, None, dev),
+                                      bits),
+                    am.lut_matmul(xq, wq, ops.lut_table(sb, dev), bits)):
+                fail(f"phase 12 (a) lut_matmul_mag {fam} {bits}-bit: the "
+                     "clean magnitude table != lut_matmul")
+    _sync(torch, dev)
+    check = {k: v for k, v in _launch_counts().items() if v}
+    print(f"  (a) lut_matmul_mag bitwise at the LM shapes (faulted and "
+          f"clean) and at {list(MAG_BITS)} bits on {RAGGED}; launches "
+          f"{check}", flush=True)
+    return rows, check
+
+
+def _fault_workload(cfg):
+    from repro_torch.serving import poisson_workload
+
+    return poisson_workload(FAULT_REQUESTS, FAULT_RATE, cfg.vocab,
+                            prompt_len=FAULT_PROMPTS, max_new=FAULT_NEW,
+                            tier_mix=FAULT_MIX, seed=FAULT_SEED)
+
+
+def _run_engine(torch, eng, wl, dev):
+    """Warm `eng`, serve `wl`, and read its plan misses right after (the
+    plan cache is shared, so each engine is held to its own run).
+    Returns (results, forwards per lane, launches, plan misses, warmup
+    seconds)."""
+    t = time.perf_counter()
+    eng.warmup()
+    _sync(torch, dev)
+    warm_s = time.perf_counter() - t
+    fwd = _count_forwards(eng)
+    _reset_counts()
+    res = eng.run(wl)
+    _sync(torch, dev)
+    return res, fwd, {k: v for k, v in _launch_counts().items() if v}, \
+        eng.steady_plan_misses(), warm_s
+
+
+def _exact_identity(torch, res, ref, where):
+    """Every request that finished on `exact` holds the exact-only run's
+    tokens, but where that run's top-2 gap at the first differing step is
+    within REF_TOL["exact"] (printed).  Returns the near-ties."""
+    ties = []
+    for rid, r in res.items():
+        if r.tier != "exact":
+            continue
+        a, b = ref[rid].tokens, r.tokens
+        if a == b:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = float("inf")
+        if i < min(len(a), len(b)):
+            top2 = torch.as_tensor(ref[rid].logits[i]).topk(2)
+            gap = float(top2.values[0] - top2.values[1])
+        if gap > REF_TOL["exact"]:
+            fail(f"phase 12 {where}: request {rid} on exact differs from the "
+                 f"exact-only run at step {i} (its top-2 gap {gap:.3e})")
+        ties.append(f"request {rid} step {i} (gap {gap:.3e})")
+    return ties
+
+
+def clean_width(torch, cfg, params, power, dev):
+    """Phase 12 (b), first: the clean ladder at full width, armed with
+    SentinelConfig() defaults, stepped FAULT_CLEAN_TICKS scheduler ticks
+    on the workload with its arrivals at time 0: each approximate lane's
+    trips and its sentinel's own drift (the last sample's and, at a trip,
+    the rolling argmax agreement and logit NMED against the per-token
+    exact rung).  A measurement: at this width the default thresholds
+    trip a clean lane on seeded weights, so the contract's 0 trips on a
+    clean ladder is held in (c), on the reference's own setting.  No plan
+    may be built after warmup."""
+    from repro_torch.serving import SentinelConfig, build_engine
+
+    eng = build_engine(cfg, params, tiers=_fault_tiers(),
+                       sentinel_cfg=SentinelConfig(), **_fault_engine_kw(dev))
+    eng.warmup()
+    _sync(torch, dev)
+    for r in _fault_workload(cfg):
+        eng.submit(dataclasses.replace(r, arrival=0.0))
+    t = time.perf_counter()
+    for _ in range(FAULT_CLEAN_TICKS):
+        eng.step(time.perf_counter() - t)
+    _sync(torch, dev)
+    if eng.steady_plan_misses():
+        fail(f"phase 12 (b) clean ladder: {eng.steady_plan_misses()} plans "
+             "built after warmup")
+    for name in FAULT_INT:
+        sen = eng.lanes[name].sentinel
+        trips = [f"after {t.tokens_before_trip} tokens ({t.reason}; rolling "
+                 f"agreement {t.trigger_agree:.3f}, NMED "
+                 f"{t.trigger_nmed:.3f})"
+                 for t in eng.trip_log if t.lane == name]
+        last = ("none" if sen.last_nmed is None else
+                f"agreement {sen.last_agree:.3f}, NMED {sen.last_nmed:.3f}")
+        print(f"    clean {name} at full width, SentinelConfig() defaults, "
+              f"{FAULT_CLEAN_TICKS} ticks on {power}: {sen.n_checks} shadow "
+              f"samples against the per-token exact rung, the last {last}; "
+              f"trips: {'; '.join(trips) or 'none'}", flush=True)
+
+
+def _fault_engine_kw(dev):
+    return dict(slots_per_tier=FAULT_SLOTS, max_len=FAULT_MAX_LEN,
+                prompt_buckets=(FAULT_BUCKET,), group_buckets=FAULT_GROUPS,
+                retry_budget=FAULT_RETRIES, device=dev)
+
+
+def _serve_ladder(torch, cfg, params, dev, name, reqs, power, **kw):
+    """Build and warm one ladder (`kw`: build_engine's fault and sentinel
+    options), serve `reqs` on the real clock and print the run: no plan
+    built after warmup and no failed request, else the phase fails.
+    Returns (engine, results, forwards per lane, launches)."""
+    from repro_torch.serving import EngineStats, build_engine
+
+    eng = build_engine(cfg, params, tiers=kw.pop("tiers", _fault_tiers()),
+                       **kw, **_fault_engine_kw(dev))
+    res, fwd, got, misses, warm_s = _run_engine(torch, eng, reqs, dev)
+    stats = EngineStats.from_results(res, eng.last_run_s)
+    if misses:
+        fail(f"phase 12 {name}: {misses} plans built after warmup")
+    if stats.n_failed or not all(r.done and r.status == "ok"
+                                 for r in res.values()):
+        fail(f"phase 12 {name}: {stats.n_failed} failed requests")
+    trips = "; ".join(
+        f"{t.lane} after {t.tokens_before_trip} tokens ({t.reason}; rolling "
+        f"agreement {t.trigger_agree:.3f}, NMED {t.trigger_nmed:.3f}; "
+        f"{t.in_flight_displaced} in flight)" for t in eng.trip_log)
+    print(f"    {name} real clock on {power}: warmup {warm_s:.1f}s; "
+          f"{stats.n_requests} requests ok, {stats.n_failed} failed, "
+          f"{sum(1 for r in res.values() if r.retries)} restarted; goodput "
+          f"{stats.total_tokens} tokens in {stats.duration_s:.2f}s = "
+          f"{stats.tokens_per_s:.1f} tokens/s; forwards {fwd}; trips: "
+          f"{trips or 'none'}; launches {got}", flush=True)
+    return eng, res, fwd, got
+
+
+def fault_engines(torch, cfg, params, power, dev, fault):
+    """Phase 12 (b): the faulted armed ladder and the exact-only engine on
+    the Poisson arrivals, each on the real clock: every faulted lane
+    trips within FAULT_DETECT tokens, no request fails, the requests that
+    finish on exact hold the exact-only run's tokens (near-ties printed),
+    196 int-kernel launches a faulted-lane forward.  Returns the faulted
+    run's launches and the faulted engine."""
+    from repro_torch.core import faults
+    from repro_torch.serving import SentinelConfig
+
+    wl = _fault_workload(cfg)
+    by_tier = {}
+    for r in wl:
+        by_tier[r.tier] = by_tier.get(r.tier, 0) + 1
+    print(f"    workload: {len(wl)} requests {by_tier}, arrivals over "
+          f"{1e3 * wl[-1].arrival:.1f} ms", flush=True)
+    t = time.perf_counter()
+    for k, n in WEIGHT_SHAPES:
+        faults.weight_masks(fault, (k, n), 8, dev)
+    _sync(torch, dev)
+    print(f"    the weight masks of the four LM shapes drawn and on the "
+          f"card in {time.perf_counter() - t:.1f}s", flush=True)
+    eng, res, fwd, got = _serve_ladder(
+        torch, cfg, params, dev, "(b) faulted", wl, power, fault=fault,
+        sentinel_cfg=SentinelConfig(cooldown_s=FAULT_COOLDOWN_S))
+    tripped = {t.lane for t in eng.trip_log}
+    served = {r.tier for r in wl} - {"exact"}
+    if not served <= tripped:
+        fail(f"phase 12 (b): faulted lanes {sorted(served - tripped)} did "
+             "not trip")
+    readmitted = [name for name in served
+                  if not eng.lanes[name].quarantined
+                  or eng.lanes[name].sentinel.breaker.n_recoveries]
+    if readmitted:
+        fail(f"phase 12 (b): a probe re-admitted the faulted lanes "
+             f"{sorted(readmitted)}")
+    late = [(t.lane, t.tokens_before_trip) for t in eng.trip_log
+            if t.tokens_before_trip > FAULT_DETECT]
+    if late:
+        fail(f"phase 12 (b): trips after more than {FAULT_DETECT} tokens: "
+             f"{late}")
+    want = {FAULT_INT[lane]: GEMMS_PER_LAYER * cfg.n_layers * fwd[lane]
+            for lane in FAULT_INT if fwd[lane]}
+    _expect_launches("phase 12 (b) faulted ladder", got, want)
+
+    ex_wl = [dataclasses.replace(r, tier="exact", tolerance=None) for r in wl]
+    _, ref, _, ex_got = _serve_ladder(
+        torch, cfg, params, dev, "(b) exact-only", ex_wl, power,
+        tiers=tuple(t for t in _fault_tiers() if t.name == "exact"),
+        record_logits=True)
+    _expect_launches("phase 12 (b) exact-only", ex_got, {})
+    ties = _exact_identity(torch, res, ref, "(b)")
+    on_exact = sum(1 for r in res.values() if r.tier == "exact")
+    print(f"  (b) faulted ladder: {len(eng.trip_log)} trips (detection "
+          f"{[t.tokens_before_trip for t in eng.trip_log]} tokens), 0 "
+          f"failed, {on_exact} requests finished on exact, "
+          + ("identical to the exact-only run" if not ties else
+             "identical to the exact-only run but at near-ties: "
+             + ", ".join(ties))
+          + f"; every faulted lane still quarantined (probes after a "
+          f"{FAULT_COOLDOWN_S:g} s cooldown, none passed); "
+          f"{GEMMS_PER_LAYER * cfg.n_layers} int-kernel launches a "
+          "faulted-lane forward, no fused or nibble form; no plan built "
+          "after warmup", flush=True)
+    return got, eng
+
+
+def fault_smoke(torch, dev, power):
+    """Phase 12 (c): the reference's own setting (bench_faults.py:
+    qwen3-1.7b-smoke) on the card: the clean armed ladder against the same
+    ladder unarmed, the workload's arrivals at time 0 so both admit alike:
+    0 trips and equal tokens; then the recovery drill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import SentinelConfig
+
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    params = LM(cfg, dev).init(0)
+    at0 = [dataclasses.replace(r, arrival=0.0) for r in _fault_workload(cfg)]
+    clean, res, _, _ = _serve_ladder(torch, cfg, params, dev,
+                                     "(c) smoke clean armed", at0, power,
+                                     sentinel_cfg=SentinelConfig())
+    _, unarmed, _, _ = _serve_ladder(torch, cfg, params, dev,
+                                     "(c) smoke unarmed", at0, power)
+    if clean.trip_log:
+        fail(f"phase 12 (c): the clean armed ladder tripped: "
+             f"{[(t.lane, t.reason) for t in clean.trip_log]}")
+    moved = [rid for rid in res if res[rid].tokens != unarmed[rid].tokens]
+    if moved:
+        fail(f"phase 12 (c): the armed clean ladder's tokens differ from "
+             f"the unarmed one's for requests {moved}")
+    print(f"  (c) {cfg.name}: the clean armed ladder 0 trips, its tokens the "
+          "unarmed ladder's", flush=True)
+    fault_recovery(torch, cfg, params, dev)
+
+
+def fault_recovery(torch, cfg, params, dev):
+    """Phase 12 (c): the recovery drill of bench_faults.py on the clean
+    armed ladder (cooldown 0): two requests on balanced, a forced trip
+    (both restart on exact), the half-open probe on the next tick, traffic
+    routed back to balanced, the demoted work drained; no plan built
+    after warmup."""
+    import numpy as np
+
+    from repro_torch.serving import (Request, SentinelConfig, SimClock,
+                                     build_engine)
+
+    eng = build_engine(cfg, params, tiers=_fault_tiers(),
+                       sentinel_cfg=SentinelConfig(cooldown_s=0.0),
+                       **_fault_engine_kw(dev))
+    eng.warmup()
+    _sync(torch, dev)
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (6,)),
+                    max_new=8, tier="balanced") for i in range(2)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step(0.0)
+    lane = eng.lanes["balanced"]
+    if not lane.running:
+        fail("phase 12 (c): the requests did not land on balanced")
+    eng._trip(lane, 0.01, "forced (recovery drill)")
+    if not (lane.quarantined and not lane.running
+            and all(eng.results[r.rid].retries == 1 for r in reqs)):
+        fail("phase 12 (c): the forced trip did not quarantine the lane and "
+             "restart its requests")
+    eng.step(0.02)                      # the half-open probe fires here
+    if lane.quarantined:
+        fail(f"phase 12 (c): the probe did not re-admit the clean lane "
+             f"(breaker {lane.sentinel.breaker.state})")
+    back = eng.submit(Request(rid=99, prompt=reqs[0].prompt, max_new=2,
+                              tier="balanced", arrival=0.03))
+    if back != "balanced":
+        fail(f"phase 12 (c): traffic went to {back} after the recovery")
+    eng.run([], clock=SimClock())
+    if not all(r.done and r.status == "ok" for r in eng.results.values()):
+        fail("phase 12 (c): the demoted work did not drain")
+    if eng.steady_plan_misses():
+        fail(f"phase 12 (c): {eng.steady_plan_misses()} plans built after "
+             "warmup")
+    br = lane.sentinel.breaker
+    print(f"  (c) recovery drill: forced trip, 2 requests restarted on "
+          f"{eng.results[0].tier}, probe passed ({br.n_trips} trip, "
+          f"{br.n_recoveries} recovery), request 99 routed back to "
+          f"{back}, drained, no plan built after warmup", flush=True)
+
+
+def fault_convs(torch, dev, fault, tiers):
+    """Phase 12 (d): one faulted `cim_conv2d` a family (hardware mode) on
+    the card bitwise the CPU's plain route, each one int-kernel launch on
+    the conv_im2col route.  Returns the launches."""
+    from repro_torch.core.approx_gemm import GemmParams, cim_conv2d
+
+    h, w, c, n = FAULT_CONV
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn(FAULT_CONV_BATCH, h, w, c, generator=g)
+    wt = torch.randn(9 * c, n, generator=g) * 0.1
+    bal = next(t for t in tiers if t.name == "balanced").cim
+    total = {}
+    for fam, comp, nac in (("exact", "yang1", None),
+                           ("appro42", bal.compressor, bal.n_approx_cols),
+                           ("mitchell", "yang1", None),
+                           ("log_our", "yang1", None)):
+        gp = GemmParams(family=fam, bits=8, mode="hardware",
+                        compressor=comp, n_approx_cols=nac, fault=fault)
+        _reset_counts()
+        with torch.no_grad():
+            got = cim_conv2d(x.to(dev), wt.to(dev), gp)
+            _sync(torch, dev)
+            got_launch = _add(total, _launch_counts())
+            want = cim_conv2d(x, wt, gp)
+        kern = "mitchell_matmul" if fam in ("mitchell", "log_our") \
+            else "lut_matmul_mag"
+        _expect_launches(f"phase 12 (d) {fam}", got_launch, {kern: 1})
+        if not torch.equal(got.cpu(), want):
+            fail(f"phase 12 (d) {fam}: the faulted conv on the card != the "
+                 "CPU's plain route")
+    print(f"  (d) faulted cim_conv2d ({FAULT_CONV_BATCH}, {h}, {w}, {c}) -> "
+          f"{n}, 3x3, for exact, appro42, mitchell and log_our: bitwise "
+          f"the CPU's, conv_im2col and one int kernel each; launches {total}",
+          flush=True)
+    return total
+
+
+def fault_phase(torch, power, sms, clock_hz):
+    """Phase 12: fault injection and lane sentinels on full-size
+    qwen3-1.7b (seeded bf16 weights).  Returns the served launches (the
+    faulted ladder's run), the launches of the calls held against them
+    ((a), (d)) and (a)'s timed rows of lut_matmul_mag."""
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.models.transformer import LM
+
+    t_phase = time.perf_counter()
+    dev = torch.device(FAULT_DEVICE)
+    cfg = _fault_config()
+    fault = FaultConfig.from_yield(rows=FAULT_ROWS, scale=1.0)
+    tiers = _fault_tiers()
+    bal = next(t for t in tiers if t.name == "balanced").cim
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}; {FAULT_SLOTS} slots a tier, "
+          f"{FAULT_MAX_LEN}-token slots; fault p_sa0 = p_sa1 = "
+          f"{fault.p_sa0:.6g} (Table V, {FAULT_ROWS} rows, Pf "
+          f"{fault.rate:.6g})", flush=True)
+    print("  (a) the magnitude-table LUT kernel against its plain version",
+          flush=True)
+    rows, check = fault_kernel(torch, sms, clock_hz, dev, fault, bal.spec)
+    params = LM(cfg, dev).init(0)
+    print(f"  (b) full width ({time.perf_counter() - t_phase:.1f}s so far)",
+          flush=True)
+    clean_width(torch, cfg, params, power, dev)
+    print(f"    ({time.perf_counter() - t_phase:.1f}s so far)", flush=True)
+    path, eng = fault_engines(torch, cfg, params, power, dev, fault)
+    for name in FAULT_INT:
+        b = eng.lanes[name].backend
+        t = time.perf_counter()
+        b.decode_round()
+        _sync(torch, dev)
+        _profile(torch, f"faulted {name}", b.decode_round,
+                 time.perf_counter() - t)
+    del eng, b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (c) ({time.perf_counter() - t_phase:.1f}s so far)", flush=True)
+    fault_smoke(torch, dev, power)
+    _add(check, fault_convs(torch, dev, fault, tiers))
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return path, check, rows
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -4082,7 +4605,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=0,
                     help="serve only this many layers (0 = all 28)")
+    ap.add_argument("--phases", type=int, nargs="+", default=None,
+                    metavar="N",
+                    help="run phases 1, 2 and these of 3-12 only, and "
+                         "print no result lines (default: all)")
     args = ap.parse_args()
+    if args.phases is not None and not set(args.phases) <= set(range(3, 13)):
+        ap.error("--phases takes phases 3 to 12")
+
+    def want(n):
+        return args.phases is None or n in args.phases
     t_start = time.perf_counter()
 
     import torch
@@ -4116,59 +4648,80 @@ def main():
     log_clocks(build)
     tensor_core_check(build)
 
-    print("[3] kernels against their plain versions", flush=True)
-    rows = check_kernels(torch, sms, clock_hz)
-    conv_rows = check_conv(torch, sms, clock_hz)
-    partial_rows = check_partials(torch, sms, clock_hz)
-    attn_rows = check_attention(torch, sms, clock_hz)
-    surr_rows = check_surrogate(torch, sms, clock_hz)
-    slstm_rows = check_slstm(torch, sms, clock_hz)
+    if want(3):
+        print("[3] kernels against their plain versions", flush=True)
+        rows = check_kernels(torch, sms, clock_hz)
+        conv_rows = check_conv(torch, sms, clock_hz)
+        partial_rows = check_partials(torch, sms, clock_hz)
+        attn_rows = check_attention(torch, sms, clock_hz)
+        surr_rows = check_surrogate(torch, sms, clock_hz)
+        slstm_rows = check_slstm(torch, sms, clock_hz)
 
-    print("[4] reference: the LM on the card against the CPU", flush=True)
-    check_reference(torch)
-    check_norm_rows(torch)
+    if want(4):
+        print("[4] reference: the LM on the card against the CPU", flush=True)
+        check_reference(torch)
+        check_norm_rows(torch)
 
-    print("[5] serve", flush=True)
-    launches = serve(torch, args.layers, power, attn=False)
-    gc.collect()                      # phase 5's engine is gone
-    torch.cuda.empty_cache()
+    if want(5):
+        print("[5] serve", flush=True)
+        launches = serve(torch, args.layers, power, attn=False)
+        gc.collect()                      # phase 5's engine is gone
+        torch.cuda.empty_cache()
 
-    print("[6] serve with CiM attention", flush=True)
-    attn_launches = serve(torch, 0, power, attn=True)
-    gc.collect()                      # phase 6's engine is gone
-    torch.cuda.empty_cache()
+    if want(6):
+        print("[6] serve with CiM attention", flush=True)
+        attn_launches = serve(torch, 0, power, attn=True)
+        gc.collect()                      # phase 6's engine is gone
+        torch.cuda.empty_cache()
 
-    print("[7] Table IV on the card", flush=True)
-    cnn_launches, _ = table4(torch)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if want(7):
+        print("[7] Table IV on the card", flush=True)
+        cnn_launches, _ = table4(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print("[8] surrogate: the compiler's default mode", flush=True)
-    surr_launches = surrogate_macro(torch)
-    serve_launches = serve(torch, 0, power, attn=False, mode="surrogate")
-    gc.collect()                      # phase 8's engine is gone
-    torch.cuda.empty_cache()
-    conv_launches = surrogate_conv(torch)
-    for k, v in serve_launches.items():
-        surr_launches[k] += v + conv_launches[k]
-    gc.collect()
-    torch.cuda.empty_cache()
+    if want(8):
+        print("[8] surrogate: the compiler's default mode", flush=True)
+        surr_launches = surrogate_macro(torch)
+        serve_launches = serve(torch, 0, power, attn=False, mode="surrogate")
+        gc.collect()                      # phase 8's engine is gone
+        torch.cuda.empty_cache()
+        conv_launches = surrogate_conv(torch)
+        for k, v in serve_launches.items():
+            surr_launches[k] += v + conv_launches[k]
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print("[9] mesh: (data 2, model 2) on four gloo ranks", flush=True)
-    t9 = time.perf_counter()
-    mesh_launches = mesh_phase(torch, power)
-    print(f"  phase 9 took {time.perf_counter() - t9:.1f}s", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if want(9):
+        print("[9] mesh: (data 2, model 2) on four gloo ranks", flush=True)
+        t9 = time.perf_counter()
+        mesh_launches = mesh_phase(torch, power)
+        print(f"  phase 9 took {time.perf_counter() - t9:.1f}s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print("[10] xlstm-125m: prefill and lockstep decode on the hardware "
-          "ladder", flush=True)
-    xlstm_launches = xlstm_phase(torch, power)
-    gc.collect()
-    torch.cuda.empty_cache()
+    if want(10):
+        print("[10] xlstm-125m: prefill and lockstep decode on the hardware "
+              "ladder", flush=True)
+        xlstm_launches = xlstm_phase(torch, power)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print("[11] speculative decoding and per-token scales", flush=True)
-    spec_launches, spec_checks = spec_phase(torch, power, sms, clock_hz)
+    if want(11):
+        print("[11] speculative decoding and per-token scales", flush=True)
+        spec_launches, spec_checks = spec_phase(torch, power, sms, clock_hz)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want(12):
+        print("[12] fault injection and lane sentinels", flush=True)
+        fault_launches, fault_checks, mag_rows = fault_phase(
+            torch, power, sms, clock_hz)
+    if args.phases is not None:
+        print(f"  phases 1, 2 and {args.phases} passed in "
+              f"{time.perf_counter() - t_start:.1f}s (a partial run: no "
+              "result lines)", flush=True)
+        return
 
     kernels = []
     # the GEMM rows sum the eight LM shapes and, for the fused forms (the
@@ -4177,8 +4730,9 @@ def main():
     # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs, 9: the
     # mesh frontends and the mesh ladder, 10: the xLSTM ladder, 11: the
     # per-token GEMMs, the per-token lanes' decode_multi, and the spec
-    # engine's drafter; `check_launches`: phase 11's calls held against
-    # those, the M = 4 and M = 64 GEMMs and the sequential decode_steps); the
+    # engine's drafter, 12: the faulted ladder's run; `check_launches`:
+    # phase 11's calls held against those, the M = 4 and M = 64 GEMMs and
+    # the sequential decode_steps, and phase 12's (a) and (d)); the
     # partial rows the shard-local
     # shapes (phase 9's launches); the
     # conv rows the CNN's five geometries on the families' variants; the
@@ -4195,7 +4749,8 @@ def main():
         main[name] = ([r for r in rs if r["shape"] in shapes],
                       launches[name] + cnn_launches[name]
                       + mesh_launches[name] + xlstm_launches[name]
-                      + spec_launches.get(name, 0))
+                      + spec_launches.get(name, 0)
+                      + fault_launches.get(name, 0))
     for name, rs in conv_rows.items():
         main[name] = ([r for r in rs if r["main"]],
                       cnn_launches[name] + surr_launches[name]
@@ -4214,8 +4769,14 @@ def main():
     main["slstm_scan"] = ([r for r in slstm_rows["slstm_scan"]
                            if r["shape"] in SLSTM_FULL and "ms" in r],
                           xlstm_launches["slstm_scan"])
+    # the faulted table's form of lut_matmul: the eight LM shapes, launched
+    # on phase 12's faulted balanced lane
+    main["lut_matmul_mag"] = (mag_rows, fault_launches.get("lut_matmul_mag",
+                                                           0))
     every = {**rows, **conv_rows, **attn_rows, **surr_rows, **partial_rows,
-             **slstm_rows}
+             **slstm_rows, "lut_matmul_mag": mag_rows}
+    checks = {k: spec_checks.get(k, 0) + fault_checks.get(k, 0)
+              for k in set(spec_checks) | set(fault_checks)}
     for name, (timed, n_launch) in main.items():
         ops_ms = sum(r["bound_ms"] for r in timed
                      if r["bound_by"] == "operations")
@@ -4237,8 +4798,8 @@ def main():
                             / sum(r["ms"] for r in timed)),
             "shapes": [_shape_key(r) for r in timed],
         })
-        if spec_checks.get(name):
-            kernels[-1]["check_launches"] = spec_checks[name]
+        if checks.get(name):
+            kernels[-1]["check_launches"] = checks[name]
         if timed and all("warm_ms" in r for r in timed):
             kernels[-1]["warm_ms"] = sum(r["warm_ms"] for r in timed)
         if name in conv_rows:          # each variant's row sum apart

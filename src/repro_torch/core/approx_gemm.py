@@ -51,6 +51,14 @@ Kernel-backed paths carry a straight-through estimator
 (`torch.autograd.Function`, backward ``g @ w.T`` / ``x.T @ g``, a zero
 cotangent for the pre-drawn noise).
 
+**Faults.**  A `GemmParams.fault` (core/faults.py, the integer and
+exact modes) gates the fused runners off: the weight is quantized, its
+stored words faulted (`apply_weight_faults`), and the int kernel runs
+on them; the full-LUT gather takes the faulted table (on the card the
+magnitude-table kernel, `lut_matmul_mag`), and routing passes no spec,
+so no nibble kernel (which holds clean sub-tables) is chosen.  A faulted
+conv runs `conv_im2col`; faulted attention and the mesh path refuse.
+
 The conv universe (``op="conv"`` entries) routes `cim_conv2d`: the
 implicit-GEMM conv kernels (kernels/conv_gemm.py) for hardware mode on
 bit-safe geometries and for exact mode, planned by `plan_conv` against a
@@ -87,6 +95,7 @@ import torch.nn.functional as F
 
 from .autotune import bucket, bucket_attn, bucket_conv, heuristic_attn_block
 from .error_model import SurrogateModel
+from .faults import FAULT_MODES, FaultConfig, apply_weight_faults
 from .luts import MAX_LUT_BITS, nibble_decomposable
 from .multipliers import MultiplierSpec
 from .quantization import (dequantize, fake_quant, quant_scale, quantize,
@@ -446,12 +455,19 @@ class GemmParams:
     # speculative-decoding verifier, serving/spec.py); the fused runners
     # carry one scalar sx, so integer modes take the int route
     per_token: bool = False
-    fault: Optional[object] = None     # refused: ROADMAP A 2
+    # as-fabricated stuck-at defects (core/faults.py): faults the stored
+    # LUT tables and the quantized weight words of the integer datapaths.
+    # Part of every plan key, so a faulted lane and a clean one never
+    # share a plan.  The fused runners quantize on load, so the word
+    # surgery has no place there: a faulted call takes the int route
+    fault: Optional[FaultConfig] = None
 
     def __post_init__(self):
-        if self.fault is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP queue A 2)")
+        if self.fault is not None and self.mode not in FAULT_MODES:
+            raise ValueError(
+                f"fault injection needs an integer storage domain "
+                f"(modes {FAULT_MODES}); mode {self.mode!r} stores no "
+                "words or tables to fault")
 
     @property
     def spec(self) -> MultiplierSpec:
@@ -459,16 +475,21 @@ class GemmParams:
                               self.compressor, self.n_approx_cols)
 
     @property
-    def routing_spec(self) -> MultiplierSpec:
-        return self.spec
+    def routing_spec(self) -> Optional[MultiplierSpec]:
+        """The spec the planners route with: None under a fault, since
+        the predicate-gated entries (the nibble kernels) hold the clean
+        sub-tables and cannot see the defect map, so a faulted GEMM
+        routes to the full-LUT gather, whose table is faulted."""
+        return None if self.fault is not None else self.spec
 
     @classmethod
     def from_spec(cls, spec: MultiplierSpec, surrogate: SurrogateModel,
-                  mode: str) -> "GemmParams":
+                  mode: str,
+                  fault: Optional[FaultConfig] = None) -> "GemmParams":
         return cls(family=spec.family, bits=spec.bits, mode=mode,
                    mu=surrogate.mu_rel, c0=surrogate.c0_abs,
                    c1=surrogate.c1_rel, compressor=spec.compressor,
-                   n_approx_cols=spec.n_approx_cols)
+                   n_approx_cols=spec.n_approx_cols, fault=fault)
 
 
 # ---------------------------------------------------------------------------
@@ -481,19 +502,26 @@ class GemmParams:
 def _run_ref_lut(xq, wq, gp: GemmParams):
     from repro_torch.kernels import ops, ref
 
-    return ref.lut_matmul_ref(xq, wq, ops.lut_table(gp.spec, xq.device),
-                              gp.bits)
+    table = (ops.lut_table(gp.spec, xq.device) if gp.fault is None
+             else ops.faulted_lut_table(gp.spec, gp.fault, xq.device))
+    return ref.lut_matmul_ref(xq, wq, table, gp.bits)
 
 
 def _run_lut(xq, wq, gp: GemmParams):
     from repro_torch.kernels import ops
 
+    if gp.fault is not None:       # the faulted table: the magnitude form
+        return ops.approx_matmul_faulted(xq, wq, gp.spec, gp.fault)
     return ops.approx_matmul_bit_exact(xq, wq, gp.spec)
 
 
 def _run_nibble(xq, wq, gp: GemmParams):
     from repro_torch.kernels import ops
 
+    if gp.fault is not None:
+        raise ValueError("the nibble kernels hold the clean sub-tables; a "
+                         "faulted GEMM routes to the full-LUT gather "
+                         "(GemmParams.routing_spec)")
     return ops.nibble_matmul_bit_exact(xq, wq, gp.spec)
 
 
@@ -792,6 +820,22 @@ def _run_fused_surrogate(x, w, eps, gp: GemmParams):
                                     bits=gp.bits)
 
 
+def _fused_route(gp: GemmParams, plan: GemmPlan) -> bool:
+    """Does an integer-mode GEMM run its fused runner?  Those carry one
+    scalar sx and quantize on load: per-token (M, 1) scales and faulted
+    weight words take the int route, the epilogue outside the kernel."""
+    return (not gp.per_token and gp.fault is None
+            and plan.entry.name in FUSED_RUNNERS)
+
+
+def _fault_words(wq: torch.Tensor, gp: GemmParams) -> torch.Tensor:
+    """The stored weight words as the macro reads them back (unchanged
+    without a fault)."""
+    if gp.fault is None:
+        return wq
+    return apply_weight_faults(wq, gp.fault, gp.bits)
+
+
 def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
     """Macro frontend's rank-2 forward (xf, wf, eps=None): true
     quantization, f32 out; eps is the pre-drawn surrogate noise (None:
@@ -801,12 +845,11 @@ def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
         def forward(xf, wf, eps=None):
             xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits,
                                                 gp.per_token)
+            wq = _fault_words(wq, gp)
             mm = row_block_mm if gp.per_token else torch.matmul
             return mm(dequantize(xq, sx), dequantize(wq, sw))
     elif mode in ("bit_exact", "hardware"):
-        # the fused runners carry one scalar sx: per-token (M, 1) scales
-        # take the int route, the epilogue applied outside the kernel
-        if not gp.per_token and plan.entry.name in FUSED_RUNNERS:
+        if _fused_route(gp, plan):
             runner = FUSED_RUNNERS[plan.entry.name]
 
             def forward(xf, wf, eps=None):
@@ -816,7 +859,7 @@ def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
                 xq, sx, wq, sw = _quantize_operands(
                     xf.to(torch.float32), wf.to(torch.float32), gp.bits,
                     gp.per_token)
-                acc = run_int_kernel(plan, xq, wq, gp)
+                acc = run_int_kernel(plan, xq, _fault_words(wq, gp), gp)
                 return (acc.to(torch.float32) * sx) * sw
     elif plan.entry.name == "cuda_fused_surrogate":
         def forward(xf, wf, eps=None):
@@ -849,7 +892,7 @@ def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
     otherwise; the activation dtype is preserved.  eps is the pre-drawn
     (M, N) f32 surrogate noise, None for the deterministic term."""
     if apply and gp.mode in ("bit_exact", "hardware"):
-        if not gp.per_token and plan.entry.name in FUSED_RUNNERS:
+        if _fused_route(gp, plan):
             runner = FUSED_RUNNERS[plan.entry.name]
 
             def forward(x2, wf, eps=None):
@@ -857,13 +900,13 @@ def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
                 # f32 copy of the weight is made
                 return runner(x2, wf, gp).to(x2.dtype)
         else:
-            # per-token: the int kernel on the quantized operands, the
-            # (acc * sx) * sw epilogue with the (M, 1) sx outside it
+            # per-token or faulted: the int kernel on the quantized (and
+            # faulted) operands, the (acc * sx) * sw epilogue outside it
             def forward(x2, wf, eps=None):
                 xq, sx, wq, sw = _quantize_operands(
                     x2.to(torch.float32), wf.to(torch.float32), gp.bits,
                     gp.per_token)
-                acc = run_int_kernel(plan, xq, wq, gp)
+                acc = run_int_kernel(plan, xq, _fault_words(wq, gp), gp)
                 return ((acc.to(torch.float32) * sx) * sw).to(x2.dtype)
         return _ste(forward)
 
@@ -880,7 +923,18 @@ def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
     # in the reference)
     def fn(x, w, eps=None):
         xq = fake_quant(x, gp.bits, axis=-1 if gp.per_token else None)
-        wq = fake_quant(w, gp.bits, axis=0).to(x.dtype)
+        if apply and gp.fault is not None:
+            # the as-fabricated exact macro: true-quantize the weight,
+            # fault its stored words, dequantize, under the STE (the
+            # gradient flows to w as through fake_quant)
+            wd = w.detach().to(torch.float32)
+            sw = quant_scale(wd, gp.bits, axis=0)
+            wi = apply_weight_faults(quantize(wd, sw, gp.bits), gp.fault,
+                                     gp.bits)
+            wdq = dequantize(wi, sw).to(w.dtype)
+            wq = (w + (wdq - w).detach()).to(x.dtype)
+        else:
+            wq = fake_quant(w, gp.bits, axis=0).to(x.dtype)
         d = row_block_mm(xq, wq) if gp.per_token else xq @ wq
         if not apply or gp.mode == "exact":
             return d
@@ -1414,6 +1468,14 @@ def _plan_conv_mesh_cached(family: str, mode: str, bits: int, b: int,
                     local_shape=(bl, h, w, cl, nl))
 
 
+def _fault_conv_plan(conv: ConvParams, backend: str) -> ConvPlan:
+    """The plan of a faulted conv: `conv_im2col`, always registered and
+    eligible, whose inner GEMM routes through the faultable int paths
+    (`GemmParams.routing_spec`)."""
+    return ConvPlan(entry=_REGISTRY["conv_im2col"], conv=conv,
+                    backend=backend)
+
+
 def _run_conv_mxu(x4, w2, gp: GemmParams, plan: ConvPlan):
     from repro_torch.kernels import ops
 
@@ -1704,9 +1766,11 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
     surrogate mode a `key` draws the (B*OH*OW, N) noise of the
     materialized GEMM (`noise_kind`, normal by default).  Plans are
     cached on the conv-bucketed shape, the bit-safety flag and whether
-    noise is drawn (a miss counts in `plan_misses()`).  Fault injection
-    (a `GemmParams` with a fault config) is a later slice and raises
-    where that is built.
+    noise is drawn (a miss counts in `plan_misses()`).  A faulted conv
+    (a `GemmParams` with a fault config) runs `conv_im2col`
+    (`_fault_conv_plan`): the implicit kernels quantize on load, where
+    the stored-word faults cannot reach, and the materialized GEMM
+    takes the faulted int route.
 
     With `mesh` (`x_spec` over the batch, `w_spec` over the (kh*kw*C, N)
     weight, see `plan_conv`) every rank passes the same global x and w
@@ -1735,8 +1799,12 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
         with _LOCK:
             fn = _FORWARDS.get(fkey)
             if fn is None:
-                plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_, c,
-                                 n, conv, backend=backend, spec=gp.spec)
+                if gp.fault is not None:
+                    plan = _fault_conv_plan(conv, backend)
+                else:
+                    plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_,
+                                     c, n, conv, backend=backend,
+                                     spec=gp.spec)
                 forward = _conv_forward(gp, plan, (b, h, w_, c, n))
 
                 def fn(x4, w2, eps, _forward=forward):
@@ -2004,8 +2072,10 @@ def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Integer modes only (`ATTN_MODES`); a geometry every entry rejects
     raises ValueError, which the models layer turns into the float path.
     A planned call that its kernel then refuses is a fault, not a
-    fallback, and raises RuntimeError.  Plans are cached on
-    `bucket_attn` (a miss counts in `plan_misses()`)."""
+    fallback, and raises RuntimeError; so does a faulted `gp`
+    (NotImplementedError: faulted attention tables are not ported).
+    Plans are cached on `bucket_attn` (a miss counts in
+    `plan_misses()`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
             f"cim_attention wants (B, S, H, D) operands; got q.dim="
@@ -2018,6 +2088,13 @@ def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if heads % kv_heads:
         raise ValueError(
             f"GQA needs H % KH == 0, got {heads} % {kv_heads}")
+    if gp.fault is not None:
+        # not a ValueError: the models layer turns those into the float
+        # path, which would hide the refusal
+        raise NotImplementedError(
+            "faulted CiM attention is not ported: the attention kernels "
+            "hold the clean int16 table (ROADMAP queue A 10); serve a "
+            "faulted ladder with attn=False")
     if gp.mode not in ATTN_MODES:
         raise ValueError(
             f"cim_attention runs the integer modes {ATTN_MODES}; "

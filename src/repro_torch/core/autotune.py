@@ -2,20 +2,34 @@
 buckets.
 
 The reference resolves every kernel's tile through a measured sweep on
-the TPU and a shape-clipped heuristic elsewhere.  This module ports the
-attention heuristic and the attention and conv plan caches' bucketing;
-the measured sweep and its disk cache are a later slice (ROADMAP queue
-A 4).  The CUDA GEMM and conv kernels (csrc/cim_gemm.cuh) run one tile
-fixed at compile time, which no plan chooses; the int8 tensor-core
-kernels (csrc/int8_mma.cuh) choose their K split or pixel tile at launch
-from the shape alone, and D is exact whatever they choose.  That holds for the fused
-surrogate kernel too: the reference's candidates for it, (64..256,
-128..256, 128..256) blocks, are shaped for the TPU's 128 x 128 matrix
-unit and VMEM.  On Hopper the template's 16 x 64 output block with a
-32-deep K step serves it as it serves the LUT and log GEMMs (256
-threads, four rows each; the integer core keeps the int32 D and, with
-noise, the f32 SQ sums in registers), and no block enters its numerics:
-D is exact and SQ is summed in K order whatever the tile.
+the TPU (with a disk cache) and a shape-clipped heuristic elsewhere.
+The port needs neither: each CUDA kernel that launches on a served path
+cuts its own launch from the shape and the device's capacity, queried
+from the instantiation it launches (`cudaOccupancyMaxActiveClusters` or
+the occupancy API, cached), and the C entry refuses a plan it does not
+take:
+
+  * the split-K cluster GEMMs (the fused and partial LUT, nibble and log
+    GEMMs, and the fused surrogate GEMM): kernels.approx_matmul
+    `cluster_plan` / `fused_plan` pick the row tile and the K split that
+    minimize waves x steps;
+  * the LUT and log convs and their partial forms (csrc/conv_tile.cuh):
+    kernels.conv_gemm `conv_plan` picks the micro-tile and the persistent
+    grid;
+  * CiM attention (csrc/attn_cluster.cuh): kernels.attn_gemm
+    `attn_cluster_plan` picks the query tile, the kv split and the ring
+    tile;
+  * the sLSTM scan: kernels.slstm_scan `cluster_plan` picks the cluster
+    size (or the streamed kernel for heads no cluster holds).
+
+launch/cluster_sweep.py measures every choice beside the plan's.  The
+int oracles (the template of csrc/cim_gemm.cuh) run one tile fixed at
+compile time, and the int8 tensor-core kernels (csrc/int8_mma.cuh)
+choose their K split or pixel tile at launch from the shape alone.  No
+GEMM or conv plan enters the numerics: the integer sums are exact
+whatever the split, and the surrogate's SQ is exact on the tensor cores.
+This module keeps the attention heuristic and the attention and conv
+plan caches' bucketing.
 
 For attention the block is a (bq, bk) pair, and ``bk`` is part of the
 numerics: the online softmax is tiled along the kv axis, so the float

@@ -21,12 +21,13 @@ from . import energy_model, sram_model, yield_analysis
 from .approx_gemm import (FAMILIES, MODES, SURROGATE_MODES, GemmParams,
                           GemmPlan, NoiseKey, cim_matmul, plan_gemm)
 from .error_model import ErrorMetrics, SurrogateModel, characterize
+from .faults import FAULT_MODES, FaultConfig
 from .multipliers import MultiplierSpec
 
 # CiMConfig fields whose non-default values select features the port
-# does not have yet (per-module allocation, ROADMAP A 3; fault
-# injection, A 2): accepted as fields, refused as values.
-_LATER_SLICE = ("alloc", "fault")
+# does not have yet (per-module allocation, ROADMAP queue A 3): accepted
+# as fields, refused as values.
+_LATER_SLICE = ("alloc",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +60,9 @@ class CiMConfig:
     sram: sram_model.SRAMConfig = dataclasses.field(
         default_factory=sram_model.SRAMConfig)
     run_yield: bool = False
-    fault: Optional[object] = None
+    # as-fabricated stuck-at defects of the macro's stored words and
+    # tables (core/faults.py); integer and exact modes only
+    fault: Optional[FaultConfig] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -69,6 +72,11 @@ class CiMConfig:
                 raise NotImplementedError(
                     f"CiMConfig.{name} is not ported yet (a later slice "
                     "of the PyTorch port, ROADMAP queue A)")
+        if self.fault is not None and self.mode not in FAULT_MODES:
+            raise ValueError(
+                f"fault injection needs an integer storage domain "
+                f"(modes {FAULT_MODES}); mode {self.mode!r} stores no "
+                "words or tables to fault")
         if self.attn_heads is not None:
             if not self.attn:
                 raise ValueError("attn_heads requires attn=True")
@@ -96,7 +104,8 @@ class CiMMacro:
     def gemm_params(self, mode: Optional[str] = None) -> GemmParams:
         """Static dispatch parameters for this macro."""
         return GemmParams.from_spec(self.config.spec, self.surrogate,
-                                    mode or self.config.mode)
+                                    mode or self.config.mode,
+                                    fault=self.config.fault)
 
     def matmul(self, x, w, key: Optional[NoiseKey] = None,
                mode: Optional[str] = None):

@@ -9,6 +9,9 @@ functions execute it, in the JAX package's two table layouts:
     load and the ``(acc * sx) * sw`` epilogue inside one kernel), over
     the int16 signed-product table of kernels/ops.py (the 8-bit table
     fits shared memory only as int16; every entry is checked to fit);
+    ``lut_matmul_mag``, the int form over the table of magnitude
+    products as uint16, the signs restored from the operands: the form
+    of a faulted table (core/faults.py), whose entries do not fit int16;
   * the **nibble sub-tables** — ``nibble_lut_matmul`` and
     ``nibble_lut_matmul_fused``, the same two forms over four
     2^{b/2} x 2^{b/2} int32 sub-tables on saturated magnitudes, for the
@@ -50,6 +53,7 @@ _FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
 # k_split
 _PLAN_ARGS = [INT, INT, INT]
 _INT = CudaKernel("lut_gemm", "lut_gemm_int8", _INT_ARGS)
+_INT_MAG = CudaKernel("lut_gemm", "lut_gemm_int8_mag", _INT_ARGS)
 _FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
                     _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
 _PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial",
@@ -62,7 +66,8 @@ _NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial",
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
 # resets their launch counts)
-KERNELS = {"lut_matmul": _INT, "lut_matmul_fused": _FUSED,
+KERNELS = {"lut_matmul": _INT, "lut_matmul_mag": _INT_MAG,
+           "lut_matmul_fused": _FUSED,
            "lut_matmul_partial": _PARTIAL,
            "nibble_lut_matmul": _NIB_INT,
            "nibble_lut_matmul_fused": _NIB_FUSED,
@@ -199,6 +204,39 @@ def check_table(lut: torch.Tensor, bits: int) -> None:
     require(lut.data_ptr() % 16 == 0, "table must be 16-byte aligned")
 
 
+def mag_entries(bits: int) -> int:
+    """Entries of the magnitude table as `lut_matmul_mag` takes it: the
+    2^{b-1} x 2^{b-1} magnitude products, zero-padded to 16 bytes (the
+    kernel copies its table in 16-byte words)."""
+    return max(1 << (2 * (bits - 1)), 8)
+
+
+def check_mag_table(mag: torch.Tensor, bits: int) -> None:
+    """The uint16 magnitude table, as the magnitude-table kernel takes it."""
+    require(2 <= bits <= 8, f"the LUT kernel takes 2..8-bit operands, got {bits}")
+    require(mag.dtype == torch.uint16 and mag.is_contiguous()
+            and mag.numel() == mag_entries(bits),
+            f"magnitude table must be {mag_entries(bits)} contiguous uint16 "
+            "entries")
+    require(mag.data_ptr() % 16 == 0, "table must be 16-byte aligned")
+
+
+def signed_from_magnitude(mag_flat: torch.Tensor, bits: int) -> torch.Tensor:
+    """The flat (2^{2b},) int32 signed table of a magnitude table: entry
+    (a + 2^{b-1}, b + 2^{b-1}) = sign(a) sign(b) mag[min(|a|, qmax),
+    min(|b|, qmax)], the construction of core/luts.signed_product_lut
+    and core/faults.faulted_signed_lut_flat."""
+    half = 1 << (bits - 1)
+    # uint16 widened through its int16 view (casts of uint16 itself are
+    # not supported on every device)
+    m = (mag_flat[:half * half].view(torch.int16).to(torch.int32)
+         & 0xFFFF).reshape(half, half)
+    vals = torch.arange(-half, half, device=mag_flat.device)
+    mags = torch.clamp(vals.abs(), max=half - 1)
+    signs = torch.sign(vals).to(torch.int32)
+    return (m[mags][:, mags] * signs[:, None] * signs[None, :]).reshape(-1)
+
+
 def check_subs(subs: torch.Tensor, bits: int) -> None:
     """The four nibble sub-tables, as every nibble kernel takes them."""
     require(2 <= bits <= 8 and bits % 2 == 0,
@@ -290,6 +328,43 @@ def lut_matmul(xq: torch.Tensor, wq: torch.Tensor, lut_flat: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
     _INT(xq.data_ptr(), wq.data_ptr(), lut_flat.data_ptr(), out.data_ptr(),
          m, k, n, bits, stream_of(xq))
+    return out
+
+
+def lut_matmul_mag_plain(xq: torch.Tensor, wq: torch.Tensor,
+                         mag_flat: torch.Tensor,
+                         bits: int = 8) -> torch.Tensor:
+    """The plain version of `lut_matmul_mag`: the gather from the int32
+    signed table built from `mag_flat` (``ref.lut_matmul_ref``, the
+    function the reference computes over its faulted table)."""
+    return lut_matmul_ref(xq, wq, signed_from_magnitude(mag_flat, bits), bits)
+
+
+def lut_matmul_mag(xq: torch.Tensor, wq: torch.Tensor, mag_flat: torch.Tensor,
+                   bits: int = 8) -> torch.Tensor:
+    """Bit-exact signed LUT GEMM over a table of magnitude products: int8
+    xq (M,K), wq (K,N) -> int32 (M,N).
+
+    ``mag_flat`` holds uf[|a|, |b|] for |a|, |b| <= qmax as uint16
+    (`mag_entries` entries); the product of a and b is sign(a) sign(b)
+    uf[min(|a|, qmax), min(|b|, qmax)], so the result equals
+    ``lut_matmul`` over the signed table built from it
+    (`signed_from_magnitude`).  It is the form of the faulted table
+    (core/faults.py), whose entries do not fit the int16 signed table."""
+    m, k, n = _shapes(xq, wq)
+    cuda = on_cuda(xq, wq, mag_flat)
+    _check_range(xq, bits)
+    _check_range(wq, bits)
+    if not cuda:
+        return lut_matmul_mag_plain(xq, wq, mag_flat, bits)
+    require(xq.dtype == torch.int8 and wq.dtype == torch.int8,
+            f"int8 operands expected, got {xq.dtype}, {wq.dtype}")
+    require(xq.is_contiguous() and wq.is_contiguous(),
+            "operands must be contiguous")
+    check_mag_table(mag_flat, bits)
+    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    _INT_MAG(xq.data_ptr(), wq.data_ptr(), mag_flat.data_ptr(),
+             out.data_ptr(), m, k, n, bits, stream_of(xq))
     return out
 
 

@@ -10,6 +10,9 @@
 // reference's int32 sums), where prod is one of four cores:
 //   LutCore     the full signed product table, int16 in shared memory:
 //               LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})]
+//   MagLutCore  the same products from the table of magnitude products,
+//               uint16 (the faulted table's form), the sign restored
+//               from the operands
 //   NibbleCore  four 2^{b/2} x 2^{b/2} int32 sub-tables [S_hh, S_hl, S_lh,
 //               S_ll] on saturated magnitudes (|a| clipped to qmax), the
 //               sign restored from the operands:
@@ -53,7 +56,8 @@
 // shared memory once per block.  Ragged M/N/K edges are masked, not
 // padded: out-of-range operands stage as 0, which every core annihilates
 // (the tables map (0, b) and (a, 0) to 0, asserted when they are built;
-// sign 0 zeroes the nibble and log products, and 0 the integer product
+// sign 0 zeroes the magnitude-table, nibble and log products, and 0 the
+// integer product
 // and its square).  No tensor cores, no asynchronous copies: a table or
 // log product has no tensor-core form.  The exact int8 dots run on the
 // tensor cores instead: cim_gemm_core without SQ and the exact-mode conv
@@ -131,6 +135,35 @@ struct LutCore {
                                      int) {
     return static_cast<uint32_t>(static_cast<int32_t>(
         reinterpret_cast<const int16_t*>(tab)[a + b]));
+  }
+};
+
+// The full table held as magnitude products: uf[|a|, |b|] for |a|, |b|
+// <= qmax, uint16 (2^{b-1} x 2^{b-1} entries, 32 KiB at 8 bits), the sign
+// restored from the operands: sign(a) sign(b) uf[min(|a|, qmax),
+// min(|b|, qmax)], the sign-magnitude construction of the signed table.
+// It takes the faulted table (core/faults.py), whose 2b-bit magnitude
+// words reach 2^16 - 1 and so do not fit the int16 signed form of
+// LutCore; its bytes are padded to 16 (the host pads the 2-bit table).
+struct MagLutCore {
+  using A = int2;      // (row offset min(|a|, qmax) * 2^{b-1}, sign a)
+  using B = int2;      // (min(|b|, qmax), sign b)
+  __host__ __device__ static size_t table_bytes(int bits) {
+    return al16((static_cast<size_t>(1) << (2 * (bits - 1))) * 2);
+  }
+  __device__ static int2 mag_sign(int v, int bits) {
+    const int qmax = (1 << (bits - 1)) - 1;
+    return make_int2(min(abs(v), qmax), (v > 0) - (v < 0));
+  }
+  __device__ static A stage_a(int v, int bits) {
+    const int2 ms = mag_sign(v, bits);
+    return make_int2(ms.x << (bits - 1), ms.y);
+  }
+  __device__ static B stage_b(int v, int bits) { return mag_sign(v, bits); }
+  __device__ static uint32_t product(A a, B b, const unsigned char* tab,
+                                     int) {
+    const int mag = reinterpret_cast<const uint16_t*>(tab)[a.x + b.x];
+    return static_cast<uint32_t>(a.y * b.y * mag);
   }
 };
 

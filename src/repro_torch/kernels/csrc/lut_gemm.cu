@@ -8,7 +8,11 @@
 //   lut_matmul_partial (-> _fused_kernel, epilogue off): the mesh path's
 //     shard-local form over a slice of K: quantization on load against
 //     the caller's global scales, the raw int32 sum out (QuantIntOut).
-// The int form is cim_gemm.cuh's gemm_kernel with the LutCore; the fused
+//   lut_matmul_mag (-> _int_kernel over the faulted table of
+//     core/faults.py, the reference's _lut_for): the int form over the
+//     table of magnitude products, uint16, the signs from the operands.
+// The int form is cim_gemm.cuh's gemm_kernel with the LutCore (the
+// magnitude form: MagLutCore, 32 KiB of table at 8 bits); the fused
 // and partial forms are cluster_gemm.cuh's split-K cluster kernel with
 // the ClusterLutCore, epilogue on (ScaleOut) and off (QuantIntOut).  Each
 // computes out[m,n] = sum_k
@@ -29,7 +33,14 @@
 // (one block per SM), then gathers row offset + column index staged per
 // K step (cim_gemm.cuh); the fused and partial forms split K over a
 // cluster so that a decode GEMM (M = 4) fills the card
-// (cluster_gemm.cuh).
+// (cluster_gemm.cuh).  A faulted table (stuck-at cells in its 2b-bit
+// magnitude words) spans up to +-(2^16 - 1): it fits neither int16 nor,
+// as int32 (256 KiB), shared memory.  Its signed entries are
+// sign(a) sign(b) uf[|a|, |b|] (core/faults.py, as luts.py builds the
+// clean table), so the magnitude form holds uf's 2^{b-1} x 2^{b-1}
+// used entries as uint16 (32 KiB at 8 bits) and restores the sign from
+// the operands, bitwise the gather from the int32 signed table; the sum
+// stays in int32 (65,535 x K < 2^31 for K < 32,768).
 
 #include "cim_gemm.cuh"
 #include "cluster_gemm.cuh"
@@ -41,6 +52,16 @@ int lut_gemm_int8(const void* x, const void* w, const void* lut, void* out,
                   int M, int K, int N, int bits, void* stream) {
   return cim::dense_int8<cim::LutCore>(x, w, lut, out, M, K, N, bits,
                                        stream);
+}
+
+// int8 (M,K) x int8 (K,N) -> int32 (M,N); mag: the 2^(2*bits-2) uint16
+// magnitude products (at least 8 entries: 16 bytes), signs restored from
+// the operands (the faulted table's form, core/faults.py)
+int lut_gemm_int8_mag(const void* x, const void* w, const void* mag,
+                      void* out, int M, int K, int N, int bits,
+                      void* stream) {
+  return cim::dense_int8<cim::MagLutCore>(x, w, mag, out, M, K, N, bits,
+                                          stream);
 }
 
 // f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N); sx: one f32 on the

@@ -3,7 +3,8 @@ GEMM, implicit-GEMM conv and CiM attention).
 
 Routing across kernels lives in the registry (core/approx_gemm.py);
 these wrappers resolve a multiplier spec to its product table (the int16
-full table or the int32 nibble sub-tables), compute the quantization
+full table, the int32 nibble sub-tables, or, faulted, the uint16 table of
+magnitude products), compute the quantization
 scales as plain torch reductions outside the kernel (``sx = max|x| /
 qmax`` per tensor, ``sw = max|w[:, n]| / qmax`` per column, as the
 reference's ``_scales``), and call the kernel wrappers of
@@ -20,12 +21,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.autotune import heuristic_attn_block
 from repro_torch.core.luts import nibble_sub_luts, signed_product_lut
 from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.core.quantization import quant_scale
 
-from .approx_matmul import (lut_matmul, lut_matmul_fused, lut_matmul_partial,
+from .approx_matmul import (lut_matmul, lut_matmul_fused, lut_matmul_mag,
+                            lut_matmul_partial, mag_entries,
                             nibble_lut_matmul, nibble_lut_matmul_fused,
                             nibble_lut_matmul_partial)
 from .attn_gemm import (attn_fused, attn_materialized, attn_reference,
@@ -65,6 +68,47 @@ def lut_table(spec: MultiplierSpec, device) -> torch.Tensor:
     """The spec's int16 signed-product table on `device` (cached)."""
     key = (spec.family, spec.bits, spec.compressor, spec.n_approx_cols)
     return _lut_on(key, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _mag_np(key, fault) -> np.ndarray:
+    """The magnitude table of `lut_matmul_mag` (faulted with `fault`,
+    clean for None), uint16, zero-padded to `mag_entries`.  Every entry
+    is checked to fit, on the host, before any kernel sees it."""
+    tab = faults.magnitude_table(key, fault)
+    lo, hi = int(tab.min()), int(tab.max())
+    if lo < 0 or hi > np.iinfo(np.uint16).max:
+        raise ValueError(
+            f"{key}: magnitude table range [{lo}, {hi}] does not fit "
+            "uint16, the shared-memory form of the magnitude-table kernel")
+    out = np.zeros(mag_entries(key[1]), np.uint16)
+    out[:tab.size] = tab
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _mag_on(key, fault, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_mag_np(key, fault)).to(device)
+
+
+def magnitude_lut(spec: MultiplierSpec, fault, device) -> torch.Tensor:
+    """The spec's uint16 magnitude table on `device` (cached), faulted
+    with `fault` (a core.faults.FaultConfig), clean for None."""
+    key = (spec.family, spec.bits, spec.compressor, spec.n_approx_cols)
+    return _mag_on(key, fault, torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _faulted_lut_on(key, fault, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(faults.faulted_signed_lut_flat(key, fault)).to(
+        device)
+
+
+def faulted_lut_table(spec: MultiplierSpec, fault, device) -> torch.Tensor:
+    """The spec's faulted signed-product table, int32, on `device`
+    (cached): the table of the plain gather oracle (bit_exact)."""
+    key = (spec.family, spec.bits, spec.compressor, spec.n_approx_cols)
+    return _faulted_lut_on(key, fault, torch.device(device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -113,6 +157,14 @@ def approx_matmul_bit_exact(xq, wq, spec: MultiplierSpec) -> torch.Tensor:
     """Bit-exact LUT GEMM for any LUT-representable multiplier (int8 in,
     int32 out)."""
     return lut_matmul(xq, wq, lut_table(spec, xq.device), bits=spec.bits)
+
+
+def approx_matmul_faulted(xq, wq, spec: MultiplierSpec,
+                          fault) -> torch.Tensor:
+    """Bit-exact LUT GEMM over the spec's faulted table (int8 in, int32
+    out): the magnitude-table kernel."""
+    return lut_matmul_mag(xq, wq, magnitude_lut(spec, fault, xq.device),
+                          bits=spec.bits)
 
 
 def approx_matmul_fused(x, w, spec: MultiplierSpec) -> torch.Tensor:

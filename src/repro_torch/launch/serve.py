@@ -29,8 +29,21 @@ prints the report.
 tokens a round drafted on the cheapest approximate tier (or
 `--spec-drafter`), all verified in one pass of the exact rung with
 per-token scales, `--spec-rounds` rounds a call; the tokens are the
-per-token exact lane's.  It does not compose with `--mesh`.  Faults,
-sentinels and telemetry are later slices of the port.
+per-token exact lane's.  It does not compose with `--mesh`.
+
+`--fault-rate P` serves an as-fabricated ladder: stuck-at faults at P a
+bit cell (half stuck at 0, half at 1; `--fault-seed` picks the defect
+map) in the approximate tiers' stored tables and weight words, which
+needs an integer `--mode`; `--sentinel` arms a sentinel on each
+approximate lane (shadow scores every `--sentinel-period` rounds, trip,
+quarantine, restart on the exact lane within `--retry-budget` restarts,
+probe), for example
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode hardware --fault-rate 0.02 --sentinel
+
+Neither composes with `--mesh`.  `--max-queued Q` bounds the admission
+queues (backpressure).  Telemetry is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -39,9 +52,10 @@ import argparse
 import os
 
 from repro_torch.configs import get_config
-from repro_torch.serving import (EngineStats, RealClock, SharedClock,
-                                 build_engine, build_tiers, poisson_workload,
-                                 servable_archs)
+from repro_torch.core.faults import FAULT_MODES, FaultConfig
+from repro_torch.serving import (EngineStats, RealClock, SentinelConfig,
+                                 SharedClock, build_engine, build_tiers,
+                                 poisson_workload, servable_archs)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -89,6 +103,26 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-rounds", type=int, default=4, metavar="R",
                     help="draft + verify rounds in one call (admission "
                          "waits up to R - 1 rounds for a free slot)")
+    ap.add_argument("--fault-rate", type=float, default=0.0, metavar="P",
+                    help="inject stuck-at faults into the approximate "
+                         "tiers' stored tables and weight words at this "
+                         "rate a bit cell, split evenly SA0/SA1 (needs an "
+                         "integer --mode); 0 = as designed")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="defect-map seed for --fault-rate")
+    ap.add_argument("--sentinel", action="store_true",
+                    help="arm a sentinel on each approximate lane: shadow "
+                         "scores against the exact reference; trip, "
+                         "quarantine and restart on the exact lane on "
+                         "drift")
+    ap.add_argument("--sentinel-period", type=int, default=2, metavar="N",
+                    help="shadow-score every Nth decode round")
+    ap.add_argument("--max-queued", type=int, default=0, metavar="Q",
+                    help="admission-queue bound (backpressure); 0 = "
+                         "unbounded")
+    ap.add_argument("--retry-budget", type=int, default=3, metavar="R",
+                    help="restarts a request gets across sentinel trips "
+                         "before it is marked failed")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -96,6 +130,12 @@ def _parser() -> argparse.ArgumentParser:
 def serve(args, mesh=None, device=None) -> bool:
     """Build, warm and serve; print the report on rank 0 (or without a
     mesh).  Returns whether no plan was built after warmup."""
+    fault = None
+    if args.fault_rate > 0:
+        fault = FaultConfig(p_sa0=args.fault_rate / 2,
+                            p_sa1=args.fault_rate / 2, seed=args.fault_seed)
+    sentinel_cfg = (SentinelConfig(period=args.sentinel_period)
+                    if args.sentinel else None)
     cfg = get_config(args.arch, smoke=not args.full)
     tiers = build_tiers(mode=args.mode)
     pmax = max(args.prompt_len)
@@ -107,7 +147,9 @@ def serve(args, mesh=None, device=None) -> bool:
         continuous=not args.static, seed=args.seed,
         device=args.device if device is None else device, mesh=mesh,
         spec_decode=args.spec_decode or None,
-        spec_drafter=args.spec_drafter, spec_rounds=args.spec_rounds)
+        spec_drafter=args.spec_drafter, spec_rounds=args.spec_rounds,
+        fault=fault, sentinel_cfg=sentinel_cfg,
+        max_queued=args.max_queued or None, retry_budget=args.retry_budget)
     say = print if mesh is None or mesh.index(mesh.axis_names) == 0 \
         else (lambda *a: None)
 
@@ -137,14 +179,18 @@ def serve(args, mesh=None, device=None) -> bool:
     say(f"  per-token latency p50 {stats.p50_ms_per_token:.1f}ms "
         f"p95 {stats.p95_ms_per_token:.1f}ms; "
         f"ttft p50 {stats.p50_ttft_ms:.1f}ms")
+    for t in engine.trip_log:
+        say(f"  trip [{t.lane}] {t.reason} after {t.tokens_before_trip} "
+            f"tokens ({t.in_flight_displaced} in flight displaced)")
     m = engine.metrics()
     say(f"  peak concurrency {m['peak_concurrency']}; plan misses after "
-        f"warmup {m['steady_plan_misses']}")
+        f"warmup {m['steady_plan_misses']}; {m['n_failed']} failed")
     for name, d in m["lanes"].items():
         tps = f"{d['tokens_per_s']:.1f}" if d["tokens_per_s"] else "-"
         acc = (f"; acceptance {d['acceptance_rate']:.2f}"
                if d["acceptance_rate"] is not None else "")
-        say(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s{acc}")
+        say(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s; "
+            f"{d['trips']} trips, {d['retries']} retries{acc}")
     if args.spec_decode:
         sb = engine.lanes["exact"].backend
         say(f"  spec-decode k={sb.draft_k} (drafter "
@@ -173,6 +219,18 @@ def main():
                  "ported to shards")
     if args.ranks and not args.mesh:
         ap.error("--ranks needs --mesh")
+    if args.fault_rate < 0 or args.fault_rate > 1:
+        ap.error("--fault-rate must be in [0, 1]")
+    if args.fault_rate > 0 and args.mode not in FAULT_MODES:
+        ap.error(f"--fault-rate needs an integer --mode "
+                 f"({'/'.join(FAULT_MODES)}): the surrogate modes store no "
+                 "words or tables to fault")
+    if args.sentinel_period < 1:
+        ap.error("--sentinel-period must be >= 1")
+    if (args.fault_rate > 0 or args.sentinel) and args.mesh:
+        ap.error("--fault-rate and --sentinel do not compose with --mesh: "
+                 "the shard kernels quantize their words on load, and the "
+                 "sentinel scores the whole pool")
     if args.spec_decode and args.mesh:
         ap.error("--spec-decode does not compose with --mesh: the "
                  "verifier's per-token activation scales are row-local, "

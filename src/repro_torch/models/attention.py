@@ -229,11 +229,13 @@ def _cim_sdpa(q, k, v, p, *, causal, window, qpos, kpos, kval):
 
     def gp_for(family):
         # per_token is a linear layer's activation-row contract: attention
-        # scales are per (batch, head), so per sequence already
+        # scales are per (batch, head), so per sequence already; a fault
+        # goes on, for cim_attention to refuse
         return GemmParams(family=family, bits=p.bits, mode=p.mode,
                           mu=p.mu, c0=p.c0, c1=p.c1,
                           compressor=p.compressor,
-                          n_approx_cols=p.n_approx_cols)
+                          n_approx_cols=p.n_approx_cols,
+                          fault=getattr(p, "fault", None))
 
     kw = dict(causal=causal, window=window, q_positions=qpos,
               kv_positions=kpos, kv_valid=kval)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core.approx_gemm import (MESH_MODES, GemmParams, NoiseKey,
                                           model_matmul)
 from repro_torch.core.compiler import CiMConfig, compile_macro
+from repro_torch.core.faults import FaultConfig
 from repro_torch.core.quantization import qmax, scale_from_max
 from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.parallel.sharding import P, axes_of, spec_entry
@@ -166,6 +167,7 @@ class CiMParams:
     per_token: bool = False      # per-row activation scales (serving/spec.py)
     attn: bool = False           # fused CiM attention (models/attention.py)
     attn_heads: Optional[tuple] = None   # per-q-head family allocation
+    fault: Optional[FaultConfig] = None  # as-fabricated defects (core/faults.py)
 
     @classmethod
     def from_config(cls, cim: Optional[CiMConfig]) -> "CiMParams":
@@ -179,14 +181,15 @@ class CiMParams:
                    apply_to=tuple(cim.apply_to),
                    per_token=bool(cim.per_token), attn=bool(cim.attn),
                    attn_heads=(tuple(cim.attn_heads)
-                               if cim.attn_heads is not None else None))
+                               if cim.attn_heads is not None else None),
+                   fault=cim.fault)
 
     def gemm_params(self) -> GemmParams:
         return GemmParams(family=self.family, bits=self.bits,
                           mode=self.mode, mu=self.mu, c0=self.c0,
                           c1=self.c1, compressor=self.compressor,
                           n_approx_cols=self.n_approx_cols,
-                          per_token=self.per_token)
+                          per_token=self.per_token, fault=self.fault)
 
     def selects(self, name: str) -> bool:
         """Does the approximate family apply to this matmul?  Unselected
@@ -295,7 +298,8 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
     dispatch engine's choice (core/approx_gemm.model_matmul); a context
     key draws this matmul's surrogate noise from its own child key.
     Under an ambient mesh x and w are this rank's shards and so is the
-    result (see the module docstring); per-token scales raise there."""
+    result (see the module docstring); per-token scales and faults raise
+    there."""
     assert w.dim() == 2, "cim_linear expects 2-D weights (flatten heads)"
     p = ctx.p
     if p.per_token and p.mode != "off" and ambient_mesh() is not None:
@@ -306,6 +310,13 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
             "per-token activation scales under a mesh are not ported: the "
             "shard paths take global per-tensor scales (ROADMAP queue "
             "A 5); drop the mesh or per_token")
+    if p.fault is not None and p.mode != "off" and ambient_mesh() is not None:
+        # the shard kernels quantize on load and `_float_tp` fake-quants:
+        # neither sees the defect map (the reference refuses it too)
+        raise ValueError(
+            "fault injection is not supported under a mesh (the shard "
+            "paths quantize their words on load); drop the mesh or the "
+            "fault config")
     margs = _tp_mesh_args(ctx, name)
     if margs is not None:
         out = _mesh_linear(x, w, ctx, name, *margs)

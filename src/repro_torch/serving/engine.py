@@ -36,8 +36,17 @@ for bit.
 `build_engine(spec_decode=k)` makes the exact lane speculative
 (serving/spec.py): a cheaper tier drafts k tokens a round and the exact
 rung with per-token activation scales verifies them in one pass; the
-output is the per-token exact lane's.  Sentinels, fault injection and
-telemetry are later slices of the port (ROADMAP queue A 2, A 4).
+output is the per-token exact lane's.
+
+`build_engine(fault=..., sentinel=True)` serves an as-fabricated ladder
+(core/faults.py: stuck-at defects in every approximate tier's stored
+tables and weight words, never the exact tier's) with a sentinel on each
+approximate lane (serving/sentinel.py).  A lane whose drift leaves its
+envelope trips before its round's tokens are emitted: it is quarantined,
+its queued requests re-route, its in-flight ones restart from their
+prompts on the safest healthy lane (within `retry_budget` restarts each,
+then "failed"), and a half-open probe re-admits it once it verifies
+clean.  Telemetry is a later slice of the port (ROADMAP queue A 4).
 """
 
 from __future__ import annotations
@@ -50,9 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-
-class LaneHealthError(RuntimeError):
-    """A lane produced non-finite logits."""
+from .sentinel import LaneHealthError
 
 
 class AdmissionRejected(RuntimeError):
@@ -96,6 +103,8 @@ class RequestResult:
     t_first: Optional[float] = None
     t_done: Optional[float] = None
     logits: Optional[List[np.ndarray]] = None   # record_logits engines
+    retries: int = 0         # restarts after a sentinel trip
+    status: str = "ok"       # "ok" | "failed" (retry budget exhausted)
 
     @property
     def done(self) -> bool:
@@ -117,11 +126,15 @@ class EngineStats:
     p95_ms_per_token: float
     p50_ttft_ms: float
     p95_ttft_ms: float
+    n_failed: int = 0        # retry budget exhausted
 
     @classmethod
     def from_results(cls, results: Dict[int, "RequestResult"],
                      duration_s: float) -> "EngineStats":
-        done = [r for r in results.values() if r.done]
+        """Goodput: only requests that finished "ok" count."""
+        n_failed = sum(1 for r in results.values()
+                       if r.done and r.status != "ok")
+        done = [r for r in results.values() if r.done and r.status == "ok"]
         tot = sum(len(r.tokens) for r in done)
         lat = np.asarray([r.ms_per_token for r in done]) if done else \
             np.zeros(1)
@@ -133,7 +146,40 @@ class EngineStats:
                    p50_ms_per_token=float(np.percentile(lat, 50)),
                    p95_ms_per_token=float(np.percentile(lat, 95)),
                    p50_ttft_ms=float(np.percentile(ttft, 50)),
-                   p95_ttft_ms=float(np.percentile(ttft, 95)))
+                   p95_ttft_ms=float(np.percentile(ttft, 95)),
+                   n_failed=n_failed)
+
+
+@dataclasses.dataclass
+class TripEvent:
+    """One sentinel trip: engine-clock time, the tripped lane, the
+    reason, the tokens the lane emitted since its last trip or recovery
+    (the detection latency), the in-flight requests it displaced, the
+    sentinel's rolling (agreement, NMED) at detection (None on a lane
+    without a sentinel) and the breaker state on either side.  Dict-style
+    access (``ev["lane"]``, ``ev.get(...)``) reads the fields."""
+
+    lane: str
+    t: float
+    reason: str
+    tokens_before_trip: int
+    in_flight_displaced: int
+    trigger_agree: Optional[float] = None
+    trigger_nmed: Optional[float] = None
+    breaker_before: str = "healthy"
+    breaker_after: str = "tripped"
+
+    def __getitem__(self, key: str):
+        try:
+            return getattr(self, key)
+        except AttributeError:
+            raise KeyError(key) from None
+
+    def get(self, key: str, default=None):
+        return getattr(self, key, default)
+
+    def keys(self):
+        return [f.name for f in dataclasses.fields(self)]
 
 
 def _bucket_up(v: int, buckets: Sequence[int], what: str) -> int:
@@ -351,7 +397,11 @@ class _Lane:
         self.queue: deque = deque()
         self.free: List[int] = list(range(backend.n_slots))
         self.running: Dict[int, _Running] = {}
-        self.total_emitted = 0
+        self.sentinel = None          # LaneSentinel (serving/sentinel.py)
+        self.quarantined = False      # breaker open: no admit, no decode
+        self.emitted = 0              # tokens since the last trip/recovery
+        self.total_emitted = 0        # tokens ever (never reset)
+        self.n_retries = 0            # restarts this lane's trips caused
 
 
 class ServingEngine:
@@ -361,6 +411,9 @@ class ServingEngine:
     tests drive the scheduler with a fake backend).  `continuous=False`
     degrades admission to static batching — a lane only admits when it
     is fully drained (the lockstep baseline); everything else is shared.
+    `sentinels` maps a lane name to its LaneSentinel; `retry_budget`
+    bounds the restarts of one request after trips, `retry_backoff_s`
+    delays the n-th restart by ``retry_backoff_s * 2^(n-1)``.
     """
 
     def __init__(self, lanes: Dict[str, object], router, *,
@@ -368,7 +421,10 @@ class ServingEngine:
                  token_budget: Optional[int] = None,
                  record_logits: bool = False,
                  check_invariants: bool = False,
-                 max_queued: Optional[int] = None):
+                 max_queued: Optional[int] = None,
+                 sentinels: Optional[Dict[str, object]] = None,
+                 retry_budget: int = 3,
+                 retry_backoff_s: float = 0.0):
         if not lanes:
             raise ValueError("need at least one lane")
         self.lanes = {name: _Lane(name, b) for name, b in lanes.items()}
@@ -378,19 +434,29 @@ class ServingEngine:
         self.record_logits = record_logits
         self.check_invariants = check_invariants
         self.max_queued = max_queued
+        self.retry_budget = int(retry_budget)
+        self.retry_backoff_s = float(retry_backoff_s)
+        for name, sen in (sentinels or {}).items():
+            self.lanes[name].sentinel = sen
         self.results: Dict[int, RequestResult] = {}
         self.active_tokens = 0
         self.peak_running = 0
+        self.trip_log: List[TripEvent] = []      # one entry per trip
         self.last_run_s: Optional[float] = None  # engine-clock duration
+        self._deferred: List[Tuple[float, Request]] = []   # backoff queue
         self._expected: Dict[str, int] = {}
         self._plan_mark: Optional[int] = None
 
     # -- warmup / plan-miss probe ------------------------------------------
     def warmup(self) -> int:
-        """Run every (tier x bucket) shape once, then arm the plan-miss
-        probe."""
+        """Run every (tier x bucket) shape once, and each sentinel's
+        shadow scorer, then arm the plan-miss probe (so trip, probe and
+        recovery build no plan)."""
         n = sum(lane.backend.warmup() for lane in self.lanes.values()
                 if hasattr(lane.backend, "warmup"))
+        n += sum(lane.sentinel.warmup(lane.backend)
+                 for lane in self.lanes.values()
+                 if lane.sentinel is not None)
         from repro_torch.core.approx_gemm import plan_misses
 
         self._plan_mark = plan_misses()
@@ -407,7 +473,15 @@ class ServingEngine:
 
     # -- submission --------------------------------------------------------
     def _route_name(self, req: Request) -> str:
-        tier = self.router.route(req.tolerance, req.tier)
+        """Route around quarantined lanes: they go to the router as
+        `avoid`, so a pinned request demotes to the next feasible rung
+        (quarantine arises only on sentinel-guarded lanes, which
+        build_engine pairs with a TierRouter)."""
+        avoid = {n for n, lane in self.lanes.items() if lane.quarantined}
+        if avoid:
+            tier = self.router.route(req.tolerance, req.tier, avoid=avoid)
+        else:
+            tier = self.router.route(req.tolerance, req.tier)
         return tier.name if hasattr(tier, "name") else str(tier)
 
     def submit(self, req: Request) -> str:
@@ -419,7 +493,8 @@ class ServingEngine:
             raise ValueError(
                 f"request id {req.rid} is already queued or running")
         if self.max_queued is not None:
-            queued = sum(len(l.queue) for l in self.lanes.values())
+            queued = (sum(len(l.queue) for l in self.lanes.values())
+                      + len(self._deferred))
             if queued >= self.max_queued:
                 raise AdmissionRejected(req.rid, queued, self.max_queued)
         name = self._route_name(req)
@@ -504,6 +579,7 @@ class ServingEngine:
         run = lane.running[slot]
         rr = run.result
         rr.tokens.append(tok)
+        lane.emitted += 1
         lane.total_emitted += 1
         if rr.t_first is None:
             rr.t_first = now
@@ -518,19 +594,57 @@ class ServingEngine:
             bisect.insort(lane.free, slot)     # eviction frees capacity
 
     def step(self, now: Optional[float] = None) -> List[RequestResult]:
-        """One scheduler tick: admit, then one decode round per lane with
-        live slots.  Returns results completed this tick."""
+        """One scheduler tick: release the due backoff restarts, probe
+        quarantined lanes whose cooldown expired, admit, then one decode
+        round per lane with live slots (a speculative call on a spec
+        lane).  On a sentinel-guarded lane the round is shadow-scored
+        every period-th tick, and a trip (drift out of the envelope, or a
+        LaneHealthError at admission or decode) is handled BEFORE the
+        round's tokens are emitted: a tripped round's output never
+        reaches a result.  Returns results completed this tick."""
         now = 0.0 if now is None else now
         done_before = {rid for rid, r in self.results.items() if r.done}
+        if self._deferred:
+            due = [d for d in self._deferred if d[0] <= now]
+            if due:
+                self._deferred = [d for d in self._deferred if d[0] > now]
+                for _, req in due:
+                    self._requeue(req)
         for lane in self.lanes.values():
-            self._admit_lane(lane, now)
+            if lane.quarantined:
+                self._maybe_probe(lane, now)
+                continue
+            try:
+                self._admit_lane(lane, now)
+            except LaneHealthError as e:
+                if lane.sentinel is None:
+                    raise
+                self._trip(lane, now, str(e))
         for lane in self.lanes.values():
-            if not lane.running:
+            if lane.quarantined or not lane.running:
                 continue
             if hasattr(lane.backend, "spec_round"):
                 self._spec_round(lane, now)
                 continue
-            nxt = lane.backend.decode_round()
+            sen = lane.sentinel
+            shadow = None
+            if sen is not None and sen.due():
+                # the exact reference for the CURRENT state: before the
+                # lane's own decode advances its caches
+                shadow = sen.shadow(lane.backend)
+            try:
+                nxt = lane.backend.decode_round()
+            except LaneHealthError as e:
+                if sen is None:
+                    raise
+                self._trip(lane, now, str(e))
+                continue
+            if shadow is not None and sen.observe(
+                    lane.backend.last_decode_logits, shadow,
+                    sorted(lane.running), now):
+                self._trip(lane, now, sen.last_trip_reason,
+                           breaker_tripped=True)
+                continue                       # trip before emit
             dec_lg = getattr(lane.backend, "last_decode_logits", None)
             for slot in sorted(lane.running):
                 lg = (dec_lg[slot] if self.record_logits
@@ -540,6 +654,85 @@ class ServingEngine:
             self._check()
         return [r for rid, r in self.results.items()
                 if r.done and rid not in done_before]
+
+    # -- fault containment --------------------------------------------------
+    def _safest_lane(self) -> str:
+        """The healthy lane with the tightest characterized NMED (the
+        exact lane on the default ladder)."""
+        ok = [n for n, lane in self.lanes.items() if not lane.quarantined]
+        if not ok:
+            raise RuntimeError("every lane is quarantined")
+        tiers = getattr(self.router, "tiers", None)
+        if tiers:
+            ok.sort(key=lambda n: tiers[n].nmed if n in tiers
+                    else float("inf"))
+            return ok[0]
+        return "exact" if "exact" in ok else ok[0]
+
+    def _requeue(self, req: Request) -> None:
+        """Re-enqueue a displaced request on the safest healthy lane,
+        bypassing `submit` (its RequestResult, retry count included,
+        survives the restart)."""
+        name = self._safest_lane()
+        self.results[req.rid].tier = name
+        self.lanes[name].queue.append(req)
+
+    def _trip(self, lane: _Lane, now: float, reason: str,
+              breaker_tripped: bool = False) -> None:
+        """Quarantine `lane` and displace its work: queued requests
+        re-route untouched (they never ran on it); in-flight requests
+        RESTART: their tokens are discarded (fault-suspect) and they
+        prefill again from the prompt on the safest healthy lane, so the
+        output is what an exact-lane-only run gives.  Each restart spends
+        one unit of the retry budget; past it the result is "failed"."""
+        sen = lane.sentinel
+        if sen is not None and not breaker_tripped:
+            sen.record_failure(now, reason)
+        lane.quarantined = True
+        trigger = sen.last_trip_stats if sen is not None else None
+        self.trip_log.append(TripEvent(
+            lane=lane.name, t=now, reason=reason,
+            tokens_before_trip=lane.emitted,
+            in_flight_displaced=len(lane.running),
+            trigger_agree=trigger[0] if trigger else None,
+            trigger_nmed=trigger[1] if trigger else None,
+            breaker_after=(sen.breaker.state if sen is not None
+                           else "tripped")))
+        lane.emitted = 0
+        while lane.queue:
+            self._requeue(lane.queue.popleft())
+        for slot in sorted(lane.running):
+            run = lane.running.pop(slot)
+            bisect.insort(lane.free, slot)
+            self.active_tokens -= run.req.cost
+            rr = run.result
+            lane.n_retries += 1
+            rr.tokens.clear()
+            if rr.logits is not None:
+                rr.logits.clear()
+            rr.t_admit = rr.t_first = None
+            rr.retries += 1
+            if rr.retries > self.retry_budget:
+                rr.status = "failed"
+                rr.t_done = now
+                continue
+            delay = self.retry_backoff_s * (2 ** (rr.retries - 1))
+            if delay > 0:
+                self._deferred.append((now + delay, run.req))
+            else:
+                self._requeue(run.req)
+
+    def _maybe_probe(self, lane: _Lane, now: float) -> None:
+        """Half-open re-admission: once the cooldown has expired (and the
+        lane is drained), run the sentinel's verification burst in a free
+        slot; a clean burst lifts the quarantine."""
+        sen = lane.sentinel
+        if (sen is None or lane.running or not lane.free
+                or not sen.breaker.should_probe(now)):
+            return
+        if sen.probe(lane.backend, lane.free[0], now):
+            lane.quarantined = False
+            lane.emitted = 0
 
     def _spec_round(self, lane: _Lane, now: float) -> None:
         """One spec call: up to rounds_per_call draft + verify rounds, up
@@ -607,27 +800,36 @@ class ServingEngine:
             self.step(now)
             busy = any(l.running for l in self.lanes.values())
             queued = any(l.queue for l in self.lanes.values())
-            if not pending and not busy and not queued:
+            if not (pending or busy or queued or self._deferred):
                 self.last_run_s = clock.now() - t_run0
                 return {rid: self.results[rid] for rid in submitted}
-            if not busy and pending:
-                clock.wait_until(pending[0].arrival)
+            if not busy and (pending or self._deferred):
+                clock.wait_until(min(
+                    [r.arrival for r in list(pending)[:1]]
+                    + [t for t, _ in self._deferred]))
         raise RuntimeError("engine did not drain the workload "
                            f"within {max_steps} steps")
 
     def metrics(self) -> dict:
-        """Per-lane tokens and throughput over `last_run_s`, and a spec
-        lane's acceptance rate (None on the others)."""
+        """Per-lane tokens and throughput over `last_run_s`, sentinel
+        trips and the restarts they caused, quarantine, and a spec lane's
+        acceptance rate (None on the others)."""
         dur = self.last_run_s
         lanes = {name: {"tokens": lane.total_emitted,
                         "tokens_per_s": (lane.total_emitted / dur
                                          if dur else None),
+                        "trips": sum(1 for t in self.trip_log
+                                     if t.lane == name),
+                        "retries": lane.n_retries,
+                        "quarantined": lane.quarantined,
                         "acceptance_rate": getattr(lane.backend,
                                                    "acceptance_rate", None)}
                  for name, lane in self.lanes.items()}
         return {"duration_s": dur,
                 "n_requests": sum(1 for r in self.results.values()
                                   if r.done),
+                "n_failed": sum(1 for r in self.results.values()
+                                if r.done and r.status != "ok"),
                 "total_tokens": sum(d["tokens"] for d in lanes.values()),
                 "peak_concurrency": self.peak_running,
                 "steady_plan_misses": (self.steady_plan_misses()
@@ -653,6 +855,11 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
                  spec_drafter: Optional[str] = None,
                  spec_ks: Optional[Sequence[int]] = None,
                  spec_rounds: int = 4,
+                 fault=None,
+                 sentinel: bool = False,
+                 sentinel_cfg=None,
+                 retry_budget: int = 3,
+                 retry_backoff_s: float = 0.0,
                  seed: int = 0, device=None, mesh=None) -> ServingEngine:
     """One lane per accuracy tier over shared weights, on `device` (CUDA
     unless ``device="cpu"``).
@@ -674,7 +881,16 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     exact rung; `spec_ks` are more draft depths warmup runs, so that
     `set_draft_k` builds no plan, and `spec_rounds` the rounds of one
     call.  The verify logits go to the host only with `record_logits`.
-    It does not compose with a mesh."""
+    It does not compose with a mesh.
+
+    `fault` (a `core.faults.FaultConfig`) puts as-fabricated stuck-at
+    defects into every approximate tier's stored tables and weight words
+    (their mode must be one of `faults.FAULT_MODES`); the exact tier
+    stays clean, the containment target.  `sentinel=True` (or a
+    `SentinelConfig` as `sentinel_cfg`) arms a sentinel on each
+    approximate lane, which needs an `exact` tier (its per-token rung is
+    the shadow reference); `retry_budget` and `retry_backoff_s` bound the
+    restarts (see `ServingEngine`).  Neither composes with a mesh."""
     from repro_torch.device import resolve_device
     from repro_torch.models.bridge import shard_params
     from repro_torch.models.transformer import LM
@@ -687,9 +903,26 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
             "speculative decoding does not compose with a mesh: the "
             "verifier's per-token scales are row-local and the mesh path "
             "takes global per-tensor scales (ROADMAP queue A 5)")
+    if fault is not None and mesh is not None:
+        raise ValueError(
+            "fault injection does not compose with a mesh: the shard "
+            "kernels quantize their words on load and cannot see the "
+            "defect map; drop the mesh or the fault config")
+    armed = sentinel or sentinel_cfg is not None
+    if armed and mesh is not None:
+        raise ValueError(
+            "sentinels do not compose with a mesh: they score through "
+            "LM.decode_multi on the whole pool, which the mesh lanes do "
+            "not hold")
     dev = resolve_device(device)
     if tiers is None:
         tiers = build_tiers()
+    if fault is not None:
+        tiers = tuple(
+            t if t.name == "exact" or t.cim is None
+            else dataclasses.replace(
+                t, cim=dataclasses.replace(t.cim, fault=fault))
+            for t in tiers)
     d_tier = None
     if spec_decode is not None:
         d_tier, v_tier = spec_pair(tiers, spec_drafter)
@@ -715,6 +948,22 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
             lm, params, n_slots=slots_per_tier, max_len=max_len,
             prompt_buckets=prompt_buckets, group_buckets=group_buckets,
             mesh=mesh)
+    sentinels = None
+    if armed:
+        from .sentinel import LaneSentinel, reference_lm
+
+        by_name = {t.name: t for t in tiers}
+        if "exact" not in by_name:
+            raise ValueError("sentinels need an 'exact' tier as the "
+                             "shadow-scoring reference and demotion "
+                             f"target; configured: {sorted(by_name)}")
+        ref_lm = reference_lm(cfg, by_name["exact"].cim, dev)
+        sentinels = {t.name: LaneSentinel(ref_lm, params, t.nmed,
+                                          sentinel_cfg)
+                     for t in tiers
+                     if t.name != "exact" and t.cim is not None}
     return ServingEngine(lanes, TierRouter(tiers), continuous=continuous,
                          token_budget=token_budget,
-                         record_logits=record_logits, max_queued=max_queued)
+                         record_logits=record_logits, max_queued=max_queued,
+                         sentinels=sentinels, retry_budget=retry_budget,
+                         retry_backoff_s=retry_backoff_s)

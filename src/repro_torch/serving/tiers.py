@@ -125,20 +125,41 @@ class TierRouter:
         self.tiers: Dict[str, AccuracyTier] = {t.name: t for t in tiers}
 
     def route(self, tolerance: Optional[float] = None,
-              tier: Optional[str] = None) -> AccuracyTier:
-        """An explicit `tier` name wins (SLA class); otherwise the
+              tier: Optional[str] = None,
+              avoid: Sequence[str] = ()) -> AccuracyTier:
+        """Pick a tier for one request.
+
+        An explicit `tier` name wins (SLA class); otherwise the
         cheapest-energy tier with NMED <= tolerance (None or 0 demands
-        the exact rung)."""
+        the exact rung).
+
+        `avoid` names quarantined tiers (sentinel-tripped lanes).  A
+        pinned request whose tier is avoided is demoted to the
+        cheapest-energy healthy tier whose NMED is no worse than the
+        pinned tier's: accuracy degrades upward, never downward.
+        Tolerance routing filters the avoided tiers out."""
+        avoid = frozenset(avoid)
         if tier is not None:
             try:
-                return self.tiers[tier]
+                t = self.tiers[tier]
             except KeyError:
                 raise KeyError(f"unknown tier {tier!r}; configured: "
                                f"{sorted(self.tiers)}") from None
+            if tier not in avoid:
+                return t
+            ok = [u for u in self.tiers.values()
+                  if u.name not in avoid and u.nmed <= t.nmed]
+            if not ok:
+                raise ValueError(
+                    f"tier {tier!r} is quarantined and no healthy tier "
+                    f"with NMED <= {t.nmed:g} remains")
+            return min(ok, key=lambda u: u.energy_per_mac_j)
         tol = tolerance or 0.0
-        ok = [t for t in self.tiers.values() if t.nmed <= tol]
+        ok = [t for t in self.tiers.values()
+              if t.nmed <= tol and t.name not in avoid]
         if not ok:
             raise ValueError(
-                f"no configured tier meets NMED <= {tol:g}; tightest is "
+                f"no configured{' healthy' if avoid else ''} tier meets "
+                f"NMED <= {tol:g}; tightest is "
                 f"{min(self.tiers.values(), key=lambda t: t.nmed).nmed:g}")
         return min(ok, key=lambda t: t.energy_per_mac_j)

@@ -219,9 +219,15 @@ def test_cim_matmul_and_ste_gradient():
 
 
 def test_later_slice_gemm_params_raise():
-    """Fault injection is a later slice; per-token scales are ported."""
-    with pytest.raises(NotImplementedError):
-        GemmParams(family="exact", mode="hardware", fault=object())
+    """Fault injection and per-token scales are ported: a fault is taken
+    in the integer and exact modes and refused in the surrogate modes,
+    which store no words to fault (tests/test_torch_faults.py)."""
+    from repro_torch.core.faults import FaultConfig
+
+    f = FaultConfig(p_sa0=0.01)
+    assert GemmParams(family="exact", mode="hardware", fault=f).fault == f
+    with pytest.raises(ValueError, match="integer storage"):
+        GemmParams(family="exact", mode="surrogate", fault=f)
     assert GemmParams(family="exact", mode="hardware", per_token=True)
 
 

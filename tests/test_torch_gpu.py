@@ -61,6 +61,64 @@ def test_kernels_bitwise_equal_plain_versions(shape):
         assert torch.equal(got, want)
 
 
+# the magnitude-table form of lut_matmul (the faulted table's): the LM
+# shapes, ragged M, K and N (one element, odd tiles), faulted at the
+# Table V rate and clean
+MAG_SHAPES = [(4, 2048, 1024), (64, 6144, 2048), (33, 70, 17), (1, 1, 1),
+              (17, 33, 65)]
+
+
+@pytest.mark.parametrize("faulted", [True, False])
+@pytest.mark.parametrize("shape", MAG_SHAPES, ids=str)
+def test_magnitude_table_kernel_bitwise_plain(shape, faulted):
+    from repro_torch.core.faults import FaultConfig
+
+    dev = _card()
+    _, _, xq, wq = _ops(*shape, dev, seed=sum(shape))
+    mag = ops.magnitude_lut(
+        BALANCED, FaultConfig.from_yield(rows=32) if faulted else None, dev)
+    got = approx_matmul.lut_matmul_mag(xq, wq, mag)
+    torch.cuda.synchronize()
+    assert torch.equal(got, approx_matmul.lut_matmul_mag_plain(xq, wq, mag))
+    if not faulted:
+        assert torch.equal(got, approx_matmul.lut_matmul(
+            xq, wq, ops.lut_table(BALANCED, dev)))
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+def test_magnitude_table_kernel_at_every_width(bits):
+    """Operands at [-2^{b-1}, 2^{b-1}) (the saturating minimum included)
+    through the faulted and the clean table of the exact family and
+    appro42; the wrapper refuses a table of another form and operands
+    outside the table."""
+    from repro_torch.core.faults import FaultConfig
+
+    dev = _card()
+    half = 1 << (bits - 1)
+    g = torch.Generator(device=dev).manual_seed(bits)
+    xq = torch.randint(-half, half, (33, 70), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    wq = torch.randint(-half, half, (70, 17), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    xq[0, :3] = -half
+    for fam in ("exact", "appro42"):
+        spec = MultiplierSpec(fam, bits, True)
+        for f in (FaultConfig(p_sa0=0.05, p_sa1=0.05, seed=bits), None):
+            mag = ops.magnitude_lut(spec, f, dev)
+            got = approx_matmul.lut_matmul_mag(xq, wq, mag, bits)
+            assert torch.equal(got, approx_matmul.lut_matmul_mag_plain(
+                xq, wq, mag, bits))
+        assert torch.equal(got, approx_matmul.lut_matmul(
+            xq, wq, ops.lut_table(spec, dev), bits))
+    with pytest.raises(ValueError, match="magnitude table"):
+        approx_matmul.lut_matmul_mag(xq, wq, mag.view(torch.int16), bits)
+    with pytest.raises(ValueError, match="magnitude table"):
+        approx_matmul.lut_matmul_mag(xq, wq, mag[:-1].clone(), bits)
+    if bits < 8:
+        with pytest.raises(ValueError):
+            approx_matmul.lut_matmul_mag(xq + half, wq, mag, bits)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _card()
     x, w, xq, wq = _ops(8, 64, 16, dev)

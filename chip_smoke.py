@@ -11,28 +11,37 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      compiled by ``nvcc`` for sm_90a in parallel, with the ``-Xptxas -v``
      report; the log kernels' product loop read from their SASS
      (``cuobjdump``; for the split-K cluster kernel, its K step's product
-     section; for the fused convs' tile kernel, its channel loops), its
+     section, fused, partial and int instantiations; for the fused convs'
+     tile kernel, its channel loops), its
      instructions a product counted by pipe; the
      tensor-core instructions (IMMA, IGMMA) of every int8_mma.cuh kernel
      and of every instantiation of the fused surrogate kernel
      (surrogate_cluster.cuh) counted, none failing;
-  3. kernels: each of the six GEMM kernels (full-LUT gather, nibble
-     sub-LUT gather and log-domain, int and fused forms) against its
-     plain PyTorch version on the card, bitwise, at the shapes the
-     qwen3-1.7b serving path gives them (M = 4 for a decode round of 4
-     slots, M = 64 for a 4 x 16 prefill, times the model's four (K, N)
-     weight shapes; bf16 operands), the Table IV CNN's fc shape (f32
-     operands, as the CNN feeds them) and one ragged shape
+  3. kernels: each of the seven GEMM kernels (full-LUT gather, its
+     magnitude-table form, nibble sub-LUT gather and log-domain, int and
+     fused forms) against its plain PyTorch version on the card, bitwise,
+     at the shapes the qwen3-1.7b serving path gives them (M = 4 for a
+     decode round of 4 slots, M = 64 for a 4 x 16 prefill, times the
+     model's four (K, N) weight shapes; bf16 operands), the Table IV CNN's
+     fc shape (f32 operands, as the CNN feeds them) and one ragged shape
      (the nibble kernels for the exact table and appro42 with 4
-     approximate columns, the int form also at the saturating int8
-     minimum); the fused LUT, nibble and log GEMMs and their partial
-     forms (the split-K cluster kernel, csrc/cluster_gemm.cuh, epilogue
-     on and off) also bitwise at CLUSTER_EDGES (every M, K and N corner
+     approximate columns, the int forms also at the saturating int8
+     minimum, the magnitude form over the balanced tier's table faulted
+     at phase 12's rate and clean); the int LUT, magnitude and log forms
+     (the split-K cluster kernel with int8 operands) also at SERVED_SHAPES
+     (M = 1, 2, 8, 16, 20, the per-token and faulted lanes' calls),
+     timed beside their bound and share, and at 2..8 bits (exact and
+     appro42 tables, faulted and clean, mitchell and log_our, log_our's
+     operands past 2^bits refused); the fused LUT, nibble and log GEMMs,
+     their partial forms and the int forms (the split-K cluster kernel,
+     csrc/cluster_gemm.cuh, epilogue on, off and int8 in) also bitwise at
+     CLUSTER_EDGES (every M, K and N corner
      of its plan, bf16 and f32, the LUT at 4 and 8 bits, the nibble forms
      for the exact family at 2, 4, 6 and 8 bits and appro42/4, one shape
      also on operands 2 and 4 bytes off 16-byte alignment, the log
      kernel at 8 and, through the tiled side of its bits gate, 16; each
-     partial also through the epilogue against its fused form), its
+     partial also through the epilogue against its fused form; the int
+     forms on int8, one shape 1 byte off alignment), its
      launch plans printed and the LUT's table fill timed (a K = 32
      call with the 8-bit table against a 4-bit one); the two
      implicit-GEMM conv kernels (full LUT, nibble for
@@ -237,7 +246,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      path, are the kernels line's ``check_launches``;
  12. fault injection and lane sentinels: (a) ``lut_matmul_mag`` (the
      faulted table's form of ``lut_matmul``: uint16 magnitude products,
-     the signs from the operands) bitwise its plain version with the
+     the signs from the operands; the split-K cluster kernel with int8
+     operands, ClusterMagLutCore) bitwise its plain version with the
      balanced tier's table faulted at the Table V rate (32 rows, scale
      1.0) at the LM shapes, M = 4 and 64 (timed beside its bound), with
      the clean table bitwise ``lut_matmul``, and at 2..8 bits on the
@@ -348,13 +358,13 @@ ATTN_WIDE_BITS = (10, 12)
 LSUM_EPS = 8
 
 SOURCES = {
-    "lut_matmul": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+    "lut_matmul": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                    "src/repro/kernels/approx_matmul.py:137"),
-    "lut_matmul_mag": ("src/repro_torch/kernels/csrc/lut_gemm.cu",
+    "lut_matmul_mag": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                        "src/repro/kernels/approx_matmul.py:137"),
     "lut_matmul_fused": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                          "src/repro/kernels/approx_matmul.py:230"),
-    "mitchell_matmul": ("src/repro_torch/kernels/csrc/log_gemm.cu",
+    "mitchell_matmul": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                         "src/repro/kernels/mitchell_gemm.py:88"),
     "mitchell_matmul_fused": (
         "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
@@ -405,6 +415,16 @@ PARTIAL_SHAPES = [(m, k, n) for m in (4, 64)
 GEMM_KERNELS = ("lut_matmul", "lut_matmul_fused", "mitchell_matmul",
                 "mitchell_matmul_fused", "nibble_lut_matmul",
                 "nibble_lut_matmul_fused")
+# the int forms on the split-K cluster kernel (the oracles that the
+# per-token and faulted lanes serve): phase 3 also holds them at the
+# shapes those lanes give them, M = 1, 2 (a faulted lane's decode round
+# of one or two slots), 8, 16 (its 4-8-token prompts over 2 slots) and 20
+# (phase 11's verify), times the four LM (K, N), timed; at 2..8 bits on
+# the ragged shape and INT_BITS_SHAPE
+INT_KERNELS = ("lut_matmul", "lut_matmul_mag", "mitchell_matmul")
+SERVED_SHAPES = [(m, k, n) for m in (1, 2, 8, 16, 20)
+                 for (k, n) in WEIGHT_SHAPES]
+INT_BITS_SHAPE = (20, 2048, 1024)
 # the Table IV CNN (models/cnn.py, width 16): its five conv geometries
 # (H, W, C, N), 3x3 at stride 1, at the evaluation batch, and one
 # ResNet-18 conv2_x layer, timed only (B, H, W, C, N)
@@ -549,13 +569,13 @@ def log_clocks(build) -> None:
     attention libraries: per instantiation of the template's LogCore, the
     product loop's instructions a product by pipe, and the SM clocks they
     need; per log instantiation of the cluster kernel
-    (csrc/cluster_gemm.cuh, RB rows a block, BK k a stage, fused and
-    partial), the same over its K step's product section (RB rows x BK /
-    4 k a thread); per log instantiation of the attention cluster kernel
-    (csrc/attn_cluster.cuh), over each of its row loops; per log
-    instantiation of the fused convs' tile kernel (csrc/conv_tile.cuh),
-    over each of its channel loops (found by their dp4a, as the
-    attention kernel's).  The fewest of all bound every log kernel, so
+    (csrc/cluster_gemm.cuh, RB rows a block, BK k a stage, fused,
+    partial and int), the same over its K step's product section (RB
+    rows x BK / 4 k a thread); per log instantiation of the attention
+    cluster kernel (csrc/attn_cluster.cuh), over each of its row loops;
+    per log instantiation of the fused convs' tile kernel
+    (csrc/conv_tile.cuh), over each of its channel loops (found by their
+    dp4a, as the attention kernel's).  The fewest of all bound every log kernel, so
     no row's share passes 100%."""
     import re
 
@@ -594,10 +614,11 @@ def log_clocks(build) -> None:
                                                 name).groups())
                     c = sass.section_per_product(sass.step_products(insns),
                                                  rb * bk // 4)
+                    form = ("partial" if "QuantIntOut" in name else
+                            "int" if "IntOut" in name else "fused")
                     inst = (f"cluster {'log_our' if comp else 'mitchell'} "
-                            f"RB {rb} BK {bk}"
-                            + (" partial" if "QuantIntOut" in name else ""))
-                    cluster.add(comp)
+                            f"RB {rb} BK {bk} {form}")
+                    cluster.add((comp, form == "int"))
                 else:
                     c = sass.per_product(insns, TILE[1], ROWS_PER_THREAD)
                     inst = name[name.index(tag):][:48]
@@ -627,8 +648,9 @@ def log_clocks(build) -> None:
                       f"/ {c['int']:.3f} -> {clk:.4f} ({by})")
     if set(LOG_CLOCKS) != {False, True}:
         fail("no LogCore instantiation found in the log libraries' SASS")
-    if cluster != {False, True}:
-        fail("no cluster log kernel found in liblog_gemm's SASS")
+    if cluster != {(c, i) for c in (False, True) for i in (False, True)}:
+        fail("a cluster log kernel (fused or int, mitchell or log_our) is "
+             "missing from liblog_gemm's SASS")
     if tile != {False, True}:
         fail("no channel loop of the conv tile kernel's log forms found in "
              "libconv_gemm's SASS")
@@ -674,6 +696,7 @@ def tensor_core_check(build) -> None:
 
 
 def check_kernels(torch, sms: int, clock_hz: float):
+    from repro_torch.core.faults import FaultConfig
     from repro_torch.core.multipliers import MultiplierSpec
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import mitchell_gemm as mg
@@ -682,15 +705,20 @@ def check_kernels(torch, sms: int, clock_hz: float):
 
     dev = torch.device("cuda")
     # the balanced tier's multiplier (appro42, orplane cells, 10 columns)
-    lut = ops.lut_table(MultiplierSpec("appro42", 8, True, "orplane", 10),
-                        dev)
+    balanced = MultiplierSpec("appro42", 8, True, "orplane", 10)
+    lut = ops.lut_table(balanced, dev)
+    # its magnitude table faulted at phase 12's Table V rate (timed), and
+    # clean (equal to lut_matmul on the int16 table)
+    mags = {"": ops.magnitude_lut(balanced, FaultConfig.from_yield(
+        rows=FAULT_ROWS, scale=1.0), dev),
+            "[clean]": ops.magnitude_lut(balanced, None, dev)}
     # the nibble-decomposable specs: the exact table (timed) and appro42
     # with its approximate columns in the low half-word (phase 4's lane)
     subs = {"": ops.nibble_table(MultiplierSpec("exact", 8, True), dev),
             "[appro42/4]": ops.nibble_table(
                 MultiplierSpec("appro42", 8, True, "orplane", 4), dev)}
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
-    rows = {name: [] for name in GEMM_KERNELS}
+    rows = {name: [] for name in GEMM_KERNELS + ("lut_matmul_mag",)}
     for shape in MAIN_SHAPES + [CNN_FC, RAGGED]:
         m, k, n = shape
         g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
@@ -707,6 +735,12 @@ def check_kernels(torch, sms: int, clock_hz: float):
         calls = {
             "lut_matmul": (lambda: am.lut_matmul(xq, wq, lut),
                            lambda: ref.lut_matmul_ref(xq, wq, lut)),
+            "lut_matmul_mag": (
+                lambda: am.lut_matmul_mag(xq, wq, mags[""]),
+                lambda: am.lut_matmul_mag_plain(xq, wq, mags[""])),
+            "lut_matmul_mag[clean]": (
+                lambda: am.lut_matmul_mag(xq, wq, mags["[clean]"]),
+                lambda: ref.lut_matmul_ref(xq, wq, lut)),
             "lut_matmul_fused": (
                 lambda: am.lut_matmul_fused(x, w, lut, sx, sw),
                 lambda: am.lut_matmul_fused_plain(x, w, lut, sx, sw)),
@@ -738,7 +772,7 @@ def check_kernels(torch, sms: int, clock_hz: float):
                 fail(f"{name} {shape}: kernel != plain version "
                      f"(max |diff| {err})")
             if name not in rows:
-                continue            # log_our, appro42/4: correctness only
+                continue            # log_our, appro42/4, clean: checked
             row = {"shape": shape, "max_abs_err": err}
             if shape != RAGGED:
                 row["ms"] = _timed_ms(torch, kern, 10, flush)
@@ -748,17 +782,148 @@ def check_kernels(torch, sms: int, clock_hz: float):
             rows[name].append(row)
         print(f"  {shape} ({x.dtype} fused operands): all kernels bitwise "
               f"equal to their plain versions (mitchell and log_our; "
-              f"nibble for exact and appro42/4)", flush=True)
-    check_cluster_edges(torch, lut, flush)
+              f"nibble for exact and appro42/4; the magnitude table "
+              f"faulted and clean)", flush=True)
+    check_cluster_edges(torch, lut, mags, flush)
+    check_int_forms(torch, sms, clock_hz, lut, mags, rows, flush)
     print(f"  {'kernel':<22} {'M,K,N':>16} {'ms':>9} {'bound_ms':>9} "
-          f"{'by':>10} {'plain_ms':>9}")
+          f"{'by':>10} {'share':>6} {'plain_ms':>9}")
     for name, rs in rows.items():
         for r in rs:
             if "ms" in r:
                 print(f"  {name:<22} {str(r['shape']):>16} {r['ms']:9.4f} "
                       f"{r['bound_ms']:9.4f} {r['bound_by']:>10} "
+                      f"{100 * r['bound_ms'] / r['ms']:5.1f}% "
                       f"{r['plain_ms']:9.3f}")
     return rows
+
+
+def check_int_forms(torch, sms: int, clock_hz: float, lut, mags, rows,
+                    flush):
+    """The int forms on the split-K cluster kernel (INT_KERNELS) at the
+    shapes the per-token and faulted lanes serve (SERVED_SHAPES), bitwise
+    their plain versions (lut_matmul over the balanced tier's table, the
+    magnitude form over its faulted and its clean table, mitchell_matmul
+    as mitchell and log_our), each timed and bounded (mitchell, the
+    faulted table), its row appended to `rows`; then at 2..8 bits on the
+    ragged shape and INT_BITS_SHAPE, operands over the whole b-bit range
+    (the saturating -2^(b-1) in the first row), for the exact family's
+    and appro42's tables (the magnitude form faulted at a high rate and
+    clean), and mitchell also on every int8 below 2^bits; the launch
+    plans of the served shapes printed."""
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import mitchell_gemm as mg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    plans = []
+    for m, k, n in SERVED_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
+        xq, wq = _ints(torch, g, (m, k), 8, dev), _ints(torch, g, (k, n), 8,
+                                                        dev)
+        xq[:, 0] = -128
+        calls = {
+            "lut_matmul": (lambda: am.lut_matmul(xq, wq, lut),
+                           lambda: ref.lut_matmul_ref(xq, wq, lut)),
+            "lut_matmul_mag": (
+                lambda: am.lut_matmul_mag(xq, wq, mags[""]),
+                lambda: am.lut_matmul_mag_plain(xq, wq, mags[""])),
+            "lut_matmul_mag[clean]": (
+                lambda: am.lut_matmul_mag(xq, wq, mags["[clean]"]),
+                lambda: ref.lut_matmul_ref(xq, wq, lut)),
+            "mitchell_matmul": (
+                lambda: mg.mitchell_matmul(xq, wq, compensated=False),
+                lambda: ref.mitchell_matmul_ref(xq, wq, compensated=False)),
+            "mitchell_matmul[log_our]": (
+                lambda: mg.mitchell_matmul(xq, wq),
+                lambda: ref.mitchell_matmul_ref(xq, wq)),
+        }
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{name} {(m, k, n)}: kernel != plain version "
+                     f"({int((got != want).sum())} entries)")
+            if name not in rows:
+                continue
+            bound, by = _bound(name, m, k, n, sms, clock_hz)
+            rows[name].append({
+                "shape": (m, k, n), "max_abs_err": 0.0,
+                "ms": _timed_ms(torch, kern, 10, flush),
+                "plain_ms": _timed_ms(torch, plain, 1, flush),
+                "bound_ms": bound, "bound_by": by})
+        lp = am.fused_plan(am.KERNELS["lut_matmul"], xq, wq, 8)
+        mp = am.fused_plan(am.KERNELS["lut_matmul_mag"], xq, wq, 8)
+        gp = am.fused_plan(mg.KERNELS["mitchell_matmul"], xq, wq, 8, 0)
+        plans.append(f"{(m, k, n)} lut {lp.rows}:{lp.tiles}x{lp.splits} "
+                     f"mag {mp.rows}:{mp.tiles}x{mp.splits} log "
+                     f"{gp.rows}:{gp.tiles}x{gp.splits}")
+    print(f"  int forms bitwise at the served shapes (M 1, 2, 8, 16, 20); "
+          f"plans (rows:tiles x splits): {'; '.join(plans)}", flush=True)
+    for shape in (RAGGED, INT_BITS_SHAPE):
+        m, k, n = shape
+        for bits in range(2, 9):
+            g = torch.Generator(device=dev).manual_seed(bits * 31 + m)
+            xq, wq = _ints(torch, g, (m, k), bits, dev), _ints(
+                torch, g, (k, n), bits, dev)
+            xq[0, :3] = -(1 << (bits - 1))
+            for fam in ("exact", "appro42"):
+                sb = MultiplierSpec(fam, bits, True)
+                t = ops.lut_table(sb, dev)
+                pairs = [("lut_matmul", am.lut_matmul(xq, wq, t, bits),
+                          ref.lut_matmul_ref(xq, wq, t, bits))]
+                for f in (FaultConfig(p_sa0=0.05, p_sa1=0.05, seed=bits),
+                          None):
+                    tab = ops.magnitude_lut(sb, f, dev)
+                    kind = "clean" if f is None else "faulted"
+                    pairs.append((f"lut_matmul_mag {kind}",
+                                  am.lut_matmul_mag(xq, wq, tab, bits),
+                                  am.lut_matmul_mag_plain(xq, wq, tab,
+                                                          bits)))
+                pairs.append(("lut_matmul_mag clean = lut_matmul",
+                              pairs[-1][1], pairs[0][1]))
+                for tag, got, want in pairs:
+                    if not torch.equal(got, want):
+                        fail(f"{tag} {fam} {bits}-bit {shape}: kernel != "
+                             "plain version")
+            for comp in (False, True):
+                if not torch.equal(mg.mitchell_matmul(xq, wq, bits, comp),
+                                   ref.mitchell_matmul_ref(xq, wq, bits,
+                                                           comp)):
+                    fail(f"mitchell_matmul (compensated {comp}) {bits}-bit "
+                         f"{shape}: kernel != plain version")
+            if bits < 8:
+                # mitchell takes every int8; log_our's domain below 8
+                # bits, |v| < 2^bits, and its first value past it refused
+                lim = 1 << bits
+                wide = torch.randint(-128, 128, (m, k), generator=g,
+                                     device=dev, dtype=torch.int8)
+                inside = wide.clamp(-lim + 1, lim - 1)
+                torch.cuda.synchronize()
+                for tag, xs, comp in (("mitchell, any int8", wide, False),
+                                      ("log_our, |v| < 2^bits", inside,
+                                       True)):
+                    if not torch.equal(
+                            mg.mitchell_matmul(xs, wq, bits, comp),
+                            ref.mitchell_matmul_ref(xs, wq, bits, comp)):
+                        fail(f"mitchell_matmul ({tag}) {bits}-bit {shape}: "
+                             "kernel != plain version")
+                past = inside.clone()
+                past[0, 0] = -lim                  # int8 down to -128
+                try:
+                    mg.mitchell_matmul(past, wq, bits, True)
+                except ValueError:
+                    pass
+                else:
+                    fail(f"mitchell_matmul log_our {bits}-bit took an "
+                         f"operand of {-lim}")
+    print(f"  int forms bitwise at 2..8 bits on {RAGGED} and "
+          f"{INT_BITS_SHAPE} (exact and appro42 tables, the magnitude table "
+          f"faulted and clean, mitchell and log_our; mitchell on every int8, "
+          f"log_our's |v| >= 2^bits refused)", flush=True)
 
 
 def _misaligned(torch, t):
@@ -770,15 +935,17 @@ def _misaligned(torch, t):
     return out
 
 
-def check_cluster_edges(torch, lut8, flush):
+def check_cluster_edges(torch, lut8, mags, flush):
     """The cluster kernel (csrc/cluster_gemm.cuh) at CLUSTER_EDGES, fused
     and partial (the raw int32 sum, also through the epilogue against the
-    fused kernel), bitwise against the plain versions, with the split each
-    shape was given (the partials' plans at the shard shapes too): the
-    LUT at 4 and 8 bits, the log kernel (mitchell, log_our) at 8 (and 16,
-    the template's side, on the first CLUSTER_WIDE_EDGES), the nibble
-    forms for the exact family at 2, 4, 6 and 8 bits and appro42/4 (at
-    the misaligned edge also on bf16 operands, 2 bytes off); then what
+    fused kernel) and int (int8 operands, -128 in the first column),
+    bitwise against the plain versions, with the split each shape was
+    given (the partials' plans at the shard shapes too): the LUT at 4
+    and 8 bits, the magnitude form over the faulted table `mags[""]`, the
+    log kernel (mitchell, log_our) at 8 (and 16, the template's side, on
+    the first CLUSTER_WIDE_EDGES), the nibble forms for the exact family
+    at 2, 4, 6 and 8 bits and appro42/4 (at the misaligned edge also on
+    bf16 operands, 2 bytes off, and int8, 1 byte off); then what
     the LUT's table fill costs a call: lut_matmul_fused at K = 32 (one
     step) with the 8-bit table (128 KiB a block) against the 4-bit one
     (512 bytes), the same shapes and operands otherwise."""
@@ -786,9 +953,31 @@ def check_cluster_edges(torch, lut8, flush):
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import mitchell_gemm as mg
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     lut4 = ops.lut_table(MultiplierSpec("appro42", 4, True, "orplane"), dev)
+
+    def int_calls(xq, wq, wide):
+        # the int forms: (tag, kernel, plain version, None, None)
+        x4, w4 = xq // 16, wq // 16               # [-8, 8): 4-bit operands
+        out = [("lut8 int", lambda: am.lut_matmul(xq, wq, lut8),
+                lambda: ref.lut_matmul_ref(xq, wq, lut8), None, None),
+               ("lut4 int", lambda: am.lut_matmul(x4, w4, lut4, 4),
+                lambda: ref.lut_matmul_ref(x4, w4, lut4, 4), None, None),
+               ("mag8 int", lambda: am.lut_matmul_mag(xq, wq, mags[""]),
+                lambda: am.lut_matmul_mag_plain(xq, wq, mags[""]), None,
+                None)]
+        for bits in (8, 16) if wide else (8,):
+            for comp in (False, True):
+                out.append((
+                    f"{'log_our' if comp else 'mitchell'}{bits} int",
+                    lambda b=bits, c=comp: mg.mitchell_matmul(xq, wq, b, c),
+                    lambda b=bits, c=comp: ref.mitchell_matmul_ref(xq, wq,
+                                                                   b, c),
+                    None, None))
+        return out
+
     nibs = [(f"nibble{b}", b, ops.nibble_table(
         MultiplierSpec("exact", b, True), dev)) for b in (2, 4, 6, 8)]
     nibs.append(("nibble8[appro42/4]", 8, ops.nibble_table(
@@ -824,12 +1013,19 @@ def check_cluster_edges(torch, lut8, flush):
         dt = torch.bfloat16 if i % 2 == 0 else torch.float32
         x = torch.randn(m, k, generator=g, device=dev).to(dt)
         w = (torch.randn(k, n, generator=g, device=dev) * 0.02).to(dt)
+        xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        xq[:, :1] = -128
         calls = []      # (tag, kernel, plain version, scales, fused)
         if (m, k, n) == (1, 2048, 2048):
             x, w = _misaligned(torch, x), _misaligned(torch, w)
+            xq, wq = _misaligned(torch, xq), _misaligned(torch, wq)
             calls += nibble_calls(_misaligned(torch, x.to(torch.bfloat16)),
                                   _misaligned(torch, w.to(torch.bfloat16)),
                                   " bf16")
+        calls += int_calls(xq, wq, i < CLUSTER_WIDE_EDGES)
         for bits, table in ((8, lut8), (4, lut4)):
             sx, sw = ops._scales(x, w, bits)
             fused = (lambda t=table, b=bits, a=sx, c=sw:
@@ -880,11 +1076,15 @@ def check_cluster_edges(torch, lut8, flush):
         gpp = am.fused_plan(mg.KERNELS["mitchell_matmul_partial"], x, w, 8, 0)
         np_ = am.fused_plan(am.KERNELS["nibble_lut_matmul_fused"], x, w, 8)
         npp = am.fused_plan(am.KERNELS["nibble_lut_matmul_partial"], x, w, 8)
+        li = am.fused_plan(am.KERNELS["lut_matmul"], xq, wq, 8)
+        mi = am.fused_plan(am.KERNELS["lut_matmul_mag"], xq, wq, 8)
+        gi = am.fused_plan(mg.KERNELS["mitchell_matmul"], xq, wq, 8, 0)
         print(f"  cluster edge {(m, k, n)} {dt}: bitwise ({len(calls)} "
               f"calls); plan rows {lp.rows}, splits lut {lp.splits} / log "
               f"{gp.splits} / nibble {np_.splits}, partial lut "
-              f"{lpp.splits} / log {gpp.splits} / nibble {npp.splits}",
-              flush=True)
+              f"{lpp.splits} / log {gpp.splits} / nibble {npp.splits}, int "
+              f"lut {li.splits} / mag {mi.rows}:{mi.splits} / log "
+              f"{gi.splits}", flush=True)
     plans = []
     for m, k, n in MAIN_SHAPES + [CNN_FC]:
         dt = torch.float32 if (m, k, n) == CNN_FC else torch.bfloat16

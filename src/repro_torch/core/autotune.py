@@ -10,7 +10,8 @@ the occupancy API, cached), and the C entry refuses a plan it does not
 take:
 
   * the split-K cluster GEMMs (the fused and partial LUT, nibble and log
-    GEMMs, and the fused surrogate GEMM): kernels.approx_matmul
+    GEMMs, the int LUT, magnitude-table and log GEMMs, and the fused
+    surrogate GEMM): kernels.approx_matmul
     `cluster_plan` / `fused_plan` pick the row tile and the K split that
     minimize waves x steps;
   * the LUT and log convs and their partial forms (csrc/conv_tile.cuh):
@@ -23,8 +24,9 @@ take:
     size (or the streamed kernel for heads no cluster holds).
 
 launch/cluster_sweep.py measures every choice beside the plan's.  The
-int oracles (the template of csrc/cim_gemm.cuh) run one tile fixed at
-compile time, and the int8 tensor-core kernels (csrc/int8_mma.cuh)
+kernels left on the template of csrc/cim_gemm.cuh (the nibble oracle,
+9..16-bit log operands) run one tile fixed at compile time, and the int8
+tensor-core kernels (csrc/int8_mma.cuh)
 choose their K split or pixel tile at launch from the shape alone.  No
 GEMM or conv plan enters the numerics: the integer sums are exact
 whatever the split, and the surrogate's SQ is exact on the tensor cores.

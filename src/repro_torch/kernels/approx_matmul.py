@@ -26,13 +26,15 @@ functions execute it, in the JAX package's two table layouts:
 On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
 csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
 version beside it, which repeats the kernel's arithmetic
-(kernels/ref.py).  The fused and partial forms of both layouts (and the
-log forms ``mitchell_matmul_fused`` and ``mitchell_matmul_partial`` up to
-8 bits) launch the split-K cluster kernel of csrc/cluster_gemm.cuh, cut
-by ``cluster_plan``, the partial forms with its epilogue off (the nibble
-forms fold the four sub-tables into two signed ones, two gathers a
-product); the int forms, the oracles, the tiled template
-(csrc/cim_gemm.cuh).
+(kernels/ref.py).  Every form but ``nibble_lut_matmul`` (and the log
+forms of mitchell_gemm.py up to 8 bits) launches the split-K cluster
+kernel of csrc/cluster_gemm.cuh, cut by ``cluster_plan``: the fused
+forms quantize on load and flush the epilogue, the partial forms
+quantize and write the raw int32 sum, the int forms (``lut_matmul``,
+``lut_matmul_mag``) take int8 operands and write the raw int32 sum (the
+nibble forms fold the four sub-tables into two signed ones, two gathers
+a product); ``nibble_lut_matmul``, the nibble oracle, runs the tiled
+template (csrc/cim_gemm.cuh).
 """
 
 from __future__ import annotations
@@ -52,8 +54,10 @@ _FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
 # the cluster kernel's forms also take their launch plan: rows, splits,
 # k_split
 _PLAN_ARGS = [INT, INT, INT]
-_INT = CudaKernel("lut_gemm", "lut_gemm_int8", _INT_ARGS)
-_INT_MAG = CudaKernel("lut_gemm", "lut_gemm_int8_mag", _INT_ARGS)
+_INT = CudaKernel("lut_gemm", "lut_gemm_int8_cluster",
+                  _INT_ARGS[:-1] + _PLAN_ARGS + [PTR])
+_INT_MAG = CudaKernel("lut_gemm", "lut_gemm_int8_mag_cluster",
+                      _INT_ARGS[:-1] + _PLAN_ARGS + [PTR])
 _FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
                     _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
 _PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial",
@@ -77,18 +81,22 @@ _FLOATS = (torch.float32, torch.bfloat16)
 
 # the split-K cluster kernel (csrc/cluster_gemm.cuh): a block owns
 # CLUSTER_ROWS[i] rows and CLUSTER_BN columns and walks one slice of K, a
-# multiple of CLUSTER_BK (its stages: 64 k for bf16 operands, 32 where
-# either is f32); the slices of a tile, at most CLUSTER_MAX_SPLITS, form
-# one thread-block cluster
+# multiple of CLUSTER_BK (its stages: 64 k for bf16 and int8 operands, 32
+# where either is f32); the slices of a tile, at most CLUSTER_MAX_SPLITS,
+# form one thread-block cluster
 CLUSTER_ROWS = (4, 16, 64)
 CLUSTER_BN, CLUSTER_BK, CLUSTER_MAX_SPLITS = 64, 64, 8
 # the nibble forms' row tiles (ClusterNibbleCore::MAX_ROWS): a prefill's
 # rows in 16-row tiles, two blocks an SM (on an H100 a 64-row tile ran
 # 1.2x slower at M = 64: launch/cluster_sweep.py --only nibble)
 NIBBLE_ROWS = (4, 16)
+# the magnitude form's row tiles (ClusterMagLutCore::MAX_ROWS): two
+# registers a staged weight element leave 64 accumulators no room
+MAG_ROWS = (4, 16)
 # the row tiles of each cluster kernel entry that has its own
 ROW_TILES = {"nibble_gemm_fused": NIBBLE_ROWS,
-             "nibble_gemm_partial": NIBBLE_ROWS}
+             "nibble_gemm_partial": NIBBLE_ROWS,
+             "lut_gemm_int8_mag_cluster": MAG_ROWS}
 # a block's fixed cost (prologue, table, partial sums) in K steps, in the
 # plan's cost
 _BLOCK_STEPS = 2
@@ -153,16 +161,18 @@ def fused_plan(kern: CudaKernel, x, w, *lead,
     """The plan of one call of the split-K cluster kernel `kern` on x's
     device, cut by the device's cluster capacity (its C query
     ``<symbol>_capacity``, of the instantiation `kern` launches, whose
-    arguments after the rows are `lead`, then x_bf16, w_bf16: the bits
-    of lut_gemm_fused, nibble_gemm_fused and their partial forms,
-    log_gemm_fused's and log_gemm_partial's bits and compensated,
-    cim_gemm_fused's variant), over the entry's row tiles (`row_tiles`,
-    else ROW_TILES or CLUSTER_ROWS)."""
+    arguments after the rows are `lead`, then, for float operands,
+    x_bf16 and w_bf16 (an int form's query takes int8 alone): the bits
+    of lut_gemm_fused, nibble_gemm_fused, their partial forms and the int
+    LUT forms, the log forms' bits and compensated, cim_gemm_fused's
+    variant), over the entry's row tiles (`row_tiles`, else ROW_TILES or
+    CLUSTER_ROWS)."""
     if row_tiles is None:
         row_tiles = ROW_TILES.get(kern.symbol, CLUSTER_ROWS)
     m, k = x.shape
-    args = (*lead, int(x.dtype == torch.bfloat16),
-            int(w.dtype == torch.bfloat16))
+    args = lead if x.dtype == torch.int8 else (
+        *lead, int(x.dtype == torch.bfloat16),
+        int(w.dtype == torch.bfloat16))
     dev = x.device.index if x.device.index is not None else 0
     return cluster_plan(m, k, w.shape[1], functools.partial(
         _capacity, kern.library, kern.symbol + "_capacity", dev, args),
@@ -171,18 +181,23 @@ def fused_plan(kern: CudaKernel, x, w, *lead,
 
 def launch_cluster(kern: CudaKernel, x, w, table, sx, sw, m, k, n, bits,
                    *flags, out_dtype=torch.float32) -> torch.Tensor:
-    """One planned launch of the cluster kernel: f32/bf16 x (M,K), w (K,N)
-    -> (M,N) of `out_dtype`, f32 for a fused form, int32 for a partial
-    one (its epilogue off); `table` the LUT or the nibble sub-tables,
-    None for the log kernel; `flags` its trailing int arguments before
-    the plan (compensated)."""
+    """One planned launch of the cluster kernel: x (M,K), w (K,N) ->
+    (M,N) of `out_dtype`: f32/bf16 operands to f32 for a fused form, to
+    int32 for a partial one (its epilogue off); int8 operands to int32
+    for an int form (no scales: `sx`, `sw` None).  `table` the LUT, the
+    magnitude table or the nibble sub-tables, None for the log kernel;
+    `flags` its trailing int arguments before the plan (compensated)."""
     plan = fused_plan(kern, x, w, bits, *flags)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     tab = () if table is None else (table.data_ptr(),)
-    kern(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-         int(w.dtype == torch.bfloat16), *tab, sx.data_ptr(), sw.data_ptr(),
-         out.data_ptr(), m, k, n, bits, *flags, plan.rows, plan.splits,
-         plan.k_split, stream_of(x))
+    if x.dtype == torch.int8:
+        operands = (x.data_ptr(), w.data_ptr(), *tab)
+    else:
+        operands = (x.data_ptr(), int(x.dtype == torch.bfloat16),
+                    w.data_ptr(), int(w.dtype == torch.bfloat16), *tab,
+                    sx.data_ptr(), sw.data_ptr())
+    kern(*operands, out.data_ptr(), m, k, n, bits, *flags, plan.rows,
+         plan.splits, plan.k_split, stream_of(x))
     return out
 
 
@@ -325,10 +340,8 @@ def lut_matmul(xq: torch.Tensor, wq: torch.Tensor, lut_flat: torch.Tensor,
     require(xq.is_contiguous() and wq.is_contiguous(),
             "operands must be contiguous")
     check_table(lut_flat, bits)
-    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
-    _INT(xq.data_ptr(), wq.data_ptr(), lut_flat.data_ptr(), out.data_ptr(),
-         m, k, n, bits, stream_of(xq))
-    return out
+    return launch_cluster(_INT, xq, wq, lut_flat, None, None, m, k, n, bits,
+                          out_dtype=torch.int32)
 
 
 def lut_matmul_mag_plain(xq: torch.Tensor, wq: torch.Tensor,
@@ -362,10 +375,8 @@ def lut_matmul_mag(xq: torch.Tensor, wq: torch.Tensor, mag_flat: torch.Tensor,
     require(xq.is_contiguous() and wq.is_contiguous(),
             "operands must be contiguous")
     check_mag_table(mag_flat, bits)
-    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
-    _INT_MAG(xq.data_ptr(), wq.data_ptr(), mag_flat.data_ptr(),
-             out.data_ptr(), m, k, n, bits, stream_of(xq))
-    return out
+    return launch_cluster(_INT_MAG, xq, wq, mag_flat, None, None, m, k, n,
+                          bits, out_dtype=torch.int32)
 
 
 def _check_fused(x, w, sx, sw, n: int) -> None:

@@ -1,18 +1,19 @@
-// cim_gemm.cuh - the integer cores and the one tiled GEMM template behind
-// every CiM GEMM and implicit-GEMM convolution kernel of the port, for
-// NVIDIA Hopper (sm_90a).  Included by lut_gemm.cu, nibble_gemm.cu,
-// log_gemm.cu, conv_gemm.cu and surrogate_gemm.cu, each of which
-// instantiates it (the split-K kernels of cluster_gemm.cuh and
-// surrogate_cluster.cuh take its quantize()).
+// cim_gemm.cuh - the integer cores and the tiled GEMM template of the
+// port's remaining template kernels, for NVIDIA Hopper (sm_90a): the
+// nibble int form, the log forms of 9..16-bit operands (int, fused,
+// partial, conv) and cim_gemm_core with SQ.  Included by lut_gemm.cu,
+// nibble_gemm.cu, log_gemm.cu, conv_gemm.cu and surrogate_gemm.cu (the
+// split-K kernels of cluster_gemm.cuh and surrogate_cluster.cuh take its
+// quantize() and epilogues, conv_tile.cuh and attn_cluster.cuh its LUT
+// layout).
 //
 // What it computes: out[m,n] = sum_k prod(a[m,k], b[k,n]), summed in 32
 // bits with two's-complement wrap (unsigned accumulation, as the
-// reference's int32 sums), where prod is one of four cores:
-//   LutCore     the full signed product table, int16 in shared memory:
-//               LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})]
-//   MagLutCore  the same products from the table of magnitude products,
-//               uint16 (the faulted table's form), the sign restored
-//               from the operands
+// reference's int32 sums), where prod is one of the cores:
+//   LutCore     the layout of the full signed product table, int16 in
+//               shared memory: LUT[(a+2^{b-1}) * 2^b + (b+2^{b-1})] (the
+//               cluster, conv tile and attention kernels gather it; no
+//               template kernel runs it)
 //   NibbleCore  four 2^{b/2} x 2^{b/2} int32 sub-tables [S_hh, S_hl, S_lh,
 //               S_ll] on saturated magnitudes (|a| clipped to qmax), the
 //               sign restored from the operands:
@@ -56,8 +57,7 @@
 // shared memory once per block.  Ragged M/N/K edges are masked, not
 // padded: out-of-range operands stage as 0, which every core annihilates
 // (the tables map (0, b) and (a, 0) to 0, asserted when they are built;
-// sign 0 zeroes the magnitude-table, nibble and log products, and 0 the
-// integer product
+// sign 0 zeroes the nibble and log products, and 0 the integer product
 // and its square).  No tensor cores, no asynchronous copies: a table or
 // log product has no tensor-core form.  The exact int8 dots run on the
 // tensor cores instead: cim_gemm_core without SQ and the exact-mode conv
@@ -65,7 +65,9 @@
 // surrogate_cluster.cuh; the fused LUT, nibble and log GEMMs and their
 // partial forms (up to 8 bits) run the split-K cluster kernel of
 // cluster_gemm.cuh, the LUT, nibble and log convs and their partial forms
-// (up to 8 bits) the spatial-tile kernel of conv_tile.cuh.
+// (up to 8 bits) the spatial-tile kernel of conv_tile.cuh, and the int
+// LUT, magnitude-table and log GEMMs (up to 8 bits) the split-K cluster
+// kernel too.
 
 #pragma once
 
@@ -119,51 +121,14 @@ __device__ __forceinline__ uint32_t lod(uint32_t v, int bits) {
 // integer operand is staged, the product of two staged operands as a
 // uint32 summand, and the bytes of its table.
 
+// the table's bytes and the column index b + half of an operand (row a
+// sits at (a + half) << bits)
 struct LutCore {
-  using A = int32_t;   // row offset (a + half) << bits
-  using B = int16_t;   // column index b + half
   __host__ __device__ static size_t table_bytes(int bits) {
     return (static_cast<size_t>(1) << (2 * bits)) * 2;
   }
-  __device__ static A stage_a(int v, int bits) {
-    return (v + (1 << (bits - 1))) << bits;
-  }
-  __device__ static B stage_b(int v, int bits) {
+  __device__ static int16_t stage_b(int v, int bits) {
     return static_cast<int16_t>(v + (1 << (bits - 1)));
-  }
-  __device__ static uint32_t product(A a, B b, const unsigned char* tab,
-                                     int) {
-    return static_cast<uint32_t>(static_cast<int32_t>(
-        reinterpret_cast<const int16_t*>(tab)[a + b]));
-  }
-};
-
-// The full table held as magnitude products: uf[|a|, |b|] for |a|, |b|
-// <= qmax, uint16 (2^{b-1} x 2^{b-1} entries, 32 KiB at 8 bits), the sign
-// restored from the operands: sign(a) sign(b) uf[min(|a|, qmax),
-// min(|b|, qmax)], the sign-magnitude construction of the signed table.
-// It takes the faulted table (core/faults.py), whose 2b-bit magnitude
-// words reach 2^16 - 1 and so do not fit the int16 signed form of
-// LutCore; its bytes are padded to 16 (the host pads the 2-bit table).
-struct MagLutCore {
-  using A = int2;      // (row offset min(|a|, qmax) * 2^{b-1}, sign a)
-  using B = int2;      // (min(|b|, qmax), sign b)
-  __host__ __device__ static size_t table_bytes(int bits) {
-    return al16((static_cast<size_t>(1) << (2 * (bits - 1))) * 2);
-  }
-  __device__ static int2 mag_sign(int v, int bits) {
-    const int qmax = (1 << (bits - 1)) - 1;
-    return make_int2(min(abs(v), qmax), (v > 0) - (v < 0));
-  }
-  __device__ static A stage_a(int v, int bits) {
-    const int2 ms = mag_sign(v, bits);
-    return make_int2(ms.x << (bits - 1), ms.y);
-  }
-  __device__ static B stage_b(int v, int bits) { return mag_sign(v, bits); }
-  __device__ static uint32_t product(A a, B b, const unsigned char* tab,
-                                     int) {
-    const int mag = reinterpret_cast<const uint16_t*>(tab)[a.x + b.x];
-    return static_cast<uint32_t>(a.y * b.y * mag);
   }
 };
 

@@ -8,13 +8,14 @@
 //   mitchell_matmul_partial (-> _fused_kernel, epilogue off): the mesh
 //     path's shard-local form, global scales in, the raw int32 sum out
 //     (QuantIntOut).
-// The int form, and the fused and partial forms of 9..16-bit operands
-// (log_gemm_fused_wide, log_gemm_partial_wide), are cim_gemm.cuh's
-// gemm_kernel with LogCore<compensated>; the fused and partial forms of
-// 2..8-bit operands (log_gemm_fused, log_gemm_partial) are
+// The int, fused and partial forms of 2..8-bit operands
+// (log_gemm_int8_cluster, log_gemm_fused, log_gemm_partial) are
 // cluster_gemm.cuh's split-K cluster kernel with
-// ClusterLogCore<compensated>, its operands staged as signed byte pairs
-// whose dot product is the Mitchell product.  kernels/mitchell_gemm.py
+// ClusterLogCore<compensated> (epilogues IntOut, ScaleOut, QuantIntOut),
+// its operands staged as signed byte pairs whose dot product is the
+// Mitchell product; those of 9..16-bit operands (log_gemm_int8_wide,
+// log_gemm_fused_wide, log_gemm_partial_wide) are cim_gemm.cuh's
+// gemm_kernel with LogCore<compensated>.  kernels/mitchell_gemm.py
 // fused_route chooses between the two by the bits.
 //
 // What it computes, per scalar pair (a, b), following _log_product of
@@ -37,9 +38,10 @@
 // once, at 3.35 TB/s) bound only a GEMM with a handful of rows.
 //
 // Design: each operand's (q, k, sign, magnitude) is worked out once when
-// it is staged in shared memory, so the inner loop does only the
-// pairwise part (cim_gemm.cuh); cluster_gemm.cuh stages it in a byte
-// pair (mitchell) or one word (log_our) and splits K over a cluster.
+// it is staged, so the inner loop does only the pairwise part;
+// cluster_gemm.cuh stages it in a byte pair (mitchell) or one word
+// (log_our) and splits K over a cluster (the template, cim_gemm.cuh,
+// stages it in shared memory as four ints).
 
 #include "cim_gemm.cuh"
 #include "cluster_gemm.cuh"
@@ -85,9 +87,35 @@ static int log_capacity(int rb, int bits, int compensated, int x_bf16,
 
 extern "C" {
 
-// int8 (M,K) x int8 (K,N) -> int32 (M,N)
-int log_gemm_int8(const void* x, const void* w, void* out, int M, int K,
-                  int N, int bits, int compensated, void* stream) {
+// int8 (M,K) x int8 (K,N) -> int32 (M,N), 2..8-bit operands (log_our's
+// of magnitude below 2^bits, kernels/mitchell_gemm.py); rb, splits,
+// k_split: the launch plan (kernels/approx_matmul.py cluster_plan)
+int log_gemm_int8_cluster(const void* x, const void* w, void* out, int M,
+                          int K, int N, int bits, int compensated, int rb,
+                          int splits, int k_split, void* stream) {
+  if (compensated)
+    return cim::cluster_gemm_int8<cim::ClusterLogCore<true>>(
+        x, w, nullptr, out, M, K, N, bits, rb, splits, k_split, stream);
+  return cim::cluster_gemm_int8<cim::ClusterLogCore<false>>(
+      x, w, nullptr, out, M, K, N, bits, rb, splits, k_split, stream);
+}
+
+// the clusters of `splits` blocks of log_gemm_int8_cluster's kernel for
+// `rb` rows that the device holds at once, into *out (the plan's waves)
+int log_gemm_int8_cluster_capacity(int rb, int bits, int compensated,
+                                   int splits, int* out) {
+  if (compensated)
+    return cim::cluster_capacity_int8<cim::ClusterLogCore<true>>(
+        rb, bits, splits, out);
+  return cim::cluster_capacity_int8<cim::ClusterLogCore<false>>(
+      rb, bits, splits, out);
+}
+
+// as log_gemm_int8_cluster for 2..16-bit operands on the tiled template
+// (the int form of 9..16-bit operands)
+int log_gemm_int8_wide(const void* x, const void* w, void* out, int M,
+                       int K, int N, int bits, int compensated,
+                       void* stream) {
   if (compensated)
     return cim::dense_int8<cim::LogCore<true>>(x, w, nullptr, out, M, K, N,
                                                bits, stream);

@@ -449,8 +449,8 @@ inline int surrogate_cluster(const void* x, int x_bf16, const void* w,
   if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
   SgArgs s;
   int tiles = 0;
-  if (!cl_make_args(s.c, x, x_bf16, w, w_bf16, nullptr, sx, sw, out, M, K,
-                    N, bits, rb, k_split, &tiles))
+  if (!cl_make_args(s.c, x, x_bf16 ? 2 : 4, w, w_bf16 ? 2 : 4, nullptr, sx,
+                    sw, out, M, K, N, bits, rb, k_split, &tiles))
     return bad;
   s.eps = static_cast<const float*>(eps);
   s.one_mu = one_mu;

@@ -16,9 +16,9 @@ the JAX package:
 On CUDA tensors each launches its kernel (csrc/log_gemm.cu) or raises;
 on CPU tensors it runs the plain version (kernels/ref.py).  Sums
 wrap at 32 bits (16-bit operands can overflow int32, as in the
-reference).  The fused and partial forms of operands of at most 8 bits
-run the split-K cluster kernel (csrc/cluster_gemm.cuh), wider ones the
-tiled template (csrc/cim_gemm.cuh): ``fused_route`` says which.
+reference).  Every form of operands of at most 8 bits runs the split-K
+cluster kernel (csrc/cluster_gemm.cuh), wider ones the tiled template
+(csrc/cim_gemm.cuh): ``fused_route`` says which.
 """
 
 from __future__ import annotations
@@ -29,8 +29,11 @@ from .approx_matmul import _check_fused, _shapes, epilogue, launch_cluster
 from .build import INT, PTR, CudaKernel, on_cuda, require, stream_of
 from .ref import log_sum, mitchell_matmul_ref, quantize_tile
 
-_INT = CudaKernel("log_gemm", "log_gemm_int8",
-                  [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR])
+_INT_ARGS = [PTR, PTR, PTR, INT, INT, INT, INT, INT]
+# the cluster kernel also takes its launch plan: rows, splits, k_split
+_INT = CudaKernel("log_gemm", "log_gemm_int8_cluster",
+                  _INT_ARGS + [INT, INT, INT, PTR])
+_INT_WIDE = CudaKernel("log_gemm", "log_gemm_int8_wide", _INT_ARGS + [PTR])
 _QUANT_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT, INT, INT]
 # the cluster kernel also takes its launch plan: rows, splits, k_split
 _FUSED = CudaKernel("log_gemm", "log_gemm_fused",
@@ -44,7 +47,8 @@ _PARTIAL_WIDE = CudaKernel("log_gemm", "log_gemm_partial_wide",
 
 # the *_wide kernels: the other side of fused_route (9..16-bit operands),
 # on no served path
-KERNELS = {"mitchell_matmul": _INT, "mitchell_matmul_fused": _FUSED,
+KERNELS = {"mitchell_matmul": _INT, "mitchell_matmul_wide": _INT_WIDE,
+           "mitchell_matmul_fused": _FUSED,
            "mitchell_matmul_fused_wide": _FUSED_WIDE,
            "mitchell_matmul_partial": _PARTIAL,
            "mitchell_matmul_partial_wide": _PARTIAL_WIDE}
@@ -59,10 +63,10 @@ def _check_bits(bits: int) -> None:
 
 
 def fused_route(bits: int) -> str:
-    """The kernel a fused or partial log GEMM of `bits`-bit operands
-    launches on the card: "cluster" (csrc/cluster_gemm.cuh) up to
-    CLUSTER_MAX_BITS, "tiled" (csrc/cim_gemm.cuh) for wider operands, up
-    to 16 bits.  Every shape takes its bits' route."""
+    """The kernel a log GEMM (int, fused or partial) of `bits`-bit
+    operands launches on the card: "cluster" (csrc/cluster_gemm.cuh) up
+    to CLUSTER_MAX_BITS, "tiled" (csrc/cim_gemm.cuh) for wider operands,
+    up to 16 bits.  Every shape takes its bits' route."""
     _check_bits(bits)
     return "cluster" if bits <= CLUSTER_MAX_BITS else "tiled"
 
@@ -81,9 +85,27 @@ def mitchell_matmul_fused_plain(x, w, sx, sw, bits: int = 8,
                                                   compensated), sx, sw)
 
 
+def _check_log_our_domain(t: torch.Tensor, bits: int) -> None:
+    """log_our on the cluster kernel below 8 bits: operands of magnitude
+    below 2^bits.  Past it the capped leading one leaves q >= 2^k, and the
+    reference's OR (2^(k1+k2) | comp) can meet a carry that the kernel's
+    sum of the two does not (csrc/cluster_gemm.cuh, log_our); every
+    quantized operand, and every int8 at 8 bits, lies inside it."""
+    if bits >= 8 or t.numel() == 0:
+        return
+    lim = 1 << bits
+    require(-lim < int(t.min()) and int(t.max()) < lim,
+            f"{bits}-bit log_our operands must lie in ({-lim}, {lim}) on "
+            "the card")
+
+
 def mitchell_matmul(xq: torch.Tensor, wq: torch.Tensor, bits: int = 8,
                     compensated: bool = True) -> torch.Tensor:
-    """Signed log-domain GEMM: int8 xq (M,K), wq (K,N) -> int32 (M,N)."""
+    """Signed log-domain GEMM: int8 xq (M,K), wq (K,N) -> int32 (M,N).
+
+    On the card log_our (`compensated`) below 8 bits takes operands of
+    magnitude below 2^bits (`_check_log_our_domain`); mitchell takes
+    every int8."""
     m, k, n = _shapes(xq, wq)
     if not on_cuda(xq, wq):
         return mitchell_matmul_ref(xq, wq, bits, compensated)
@@ -91,11 +113,16 @@ def mitchell_matmul(xq: torch.Tensor, wq: torch.Tensor, bits: int = 8,
             f"int8 operands expected, got {xq.dtype}, {wq.dtype}")
     require(xq.is_contiguous() and wq.is_contiguous(),
             "operands must be contiguous")
-    _check_bits(bits)
-    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
-    _INT(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, k, n, bits,
-         int(compensated), stream_of(xq))
-    return out
+    if fused_route(bits) == "tiled":
+        out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+        _INT_WIDE(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, k, n,
+                  bits, int(compensated), stream_of(xq))
+        return out
+    if compensated:
+        _check_log_our_domain(xq, bits)
+        _check_log_our_domain(wq, bits)
+    return launch_cluster(_INT, xq, wq, None, None, None, m, k, n, bits,
+                          int(compensated), out_dtype=torch.int32)
 
 
 def mitchell_matmul_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,

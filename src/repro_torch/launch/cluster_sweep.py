@@ -15,7 +15,11 @@ event), and prints each split's ms, the device's cluster capacity and
 the plan's choice against the fastest; and so the mesh path's partial
 forms (``lut_matmul_partial``, ``nibble_lut_matmul_partial``,
 ``mitchell_matmul_partial``: the same kernel, its epilogue off) at
-chip_smoke.py's shard shapes (PARTIAL_SHAPES).  ``--only nibble`` runs
+chip_smoke.py's shard shapes (PARTIAL_SHAPES).  ``--only int`` times the
+int forms on the same kernel (``lut_matmul``, ``lut_matmul_mag`` over
+the balanced tier's table faulted at phase 12's rate, ``mitchell_matmul``:
+int8 operands) at the eight shapes and chip_smoke.py's SERVED_SHAPES, each
+split checked bitwise against the plain version.  ``--only nibble`` runs
 the nibble rows alone, and then the nibble kernel's block shapes
 (``kernels/csrc/nibble_shapes.cu``: 512 threads one block an SM, and the
 shipped 256 threads two blocks an SM, each planned over the frame's row
@@ -56,7 +60,7 @@ shard's own, as check_partials runs them), and counts the rows whose
 plan is within 4% (fused) and 5% (partial) of the fastest.
 
     PYTHONPATH=src python -m repro_torch.launch.cluster_sweep \\
-        --out build/cluster_sweep [--only conv|nibble]
+        --out build/cluster_sweep [--only conv|nibble|int]
 
 Writes ``<out>/sweep.json``.  Needs a CUDA device.
 """
@@ -90,10 +94,11 @@ SLSTM_LENGTHS = (1, 37, 512)
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/cluster_sweep")
-    ap.add_argument("--only", choices=("all", "conv", "nibble"),
+    ap.add_argument("--only", choices=("all", "conv", "nibble", "int"),
                     default="all",
                     help="conv: the conv tile kernel's sweep alone; "
-                    "nibble: the nibble GEMMs' alone")
+                    "nibble: the nibble GEMMs' alone; int: the int forms' "
+                    "alone")
     args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
@@ -143,6 +148,10 @@ def main() -> None:
               + " ".join(f"{s}:{t:.4f}" for s, t in times.items()),
               flush=True)
 
+    if args.only == "int":
+        int_sweep(cs, dev, lut, sweep)
+        _write(args.out, res)
+        return
     if args.only != "nibble":
         conv_sweep(cs, dev, flush, res)
         if args.only == "conv":
@@ -193,6 +202,48 @@ def main() -> None:
     if args.only == "nibble":
         nibble_shapes(cs, dev, flush, subs, res)
     _write(args.out, res)
+
+
+def int_sweep(cs, dev, lut, sweep) -> None:
+    """The int forms of the cluster kernel (int8 in, int32 out) at every
+    split at chip_smoke.py's eight LM shapes and SERVED_SHAPES, each
+    split's result bitwise the plain version."""
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.kernels import ref
+
+    spec = MultiplierSpec("appro42", 8, True, "orplane", 10)
+    mag = ops.magnitude_lut(spec, FaultConfig.from_yield(rows=32, scale=1.0),
+                            dev)
+    for m, k, n in cs.MAIN_SHAPES + cs.SERVED_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
+        xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        out = torch.empty(m, n, dtype=torch.int32, device=dev)
+        steps = -(-k // am.CLUSTER_BK)
+        for name, kern, tab, flags, want in (
+                ("lut int", am.KERNELS["lut_matmul"], (lut.data_ptr(),), (),
+                 ref.lut_matmul_ref(xq, wq, lut)),
+                ("mag int", am.KERNELS["lut_matmul_mag"], (mag.data_ptr(),),
+                 (), am.lut_matmul_mag_plain(xq, wq, mag)),
+                ("mitchell int", mg.KERNELS["mitchell_matmul"], (), (0,),
+                 ref.mitchell_matmul_ref(xq, wq, compensated=False))):
+            plan = am.fused_plan(kern, xq, wq, 8, *flags)
+            checked = set()
+
+            def launch(s, ks, kern=kern, tab=tab, flags=flags, plan=plan,
+                       want=want, checked=checked, name=name):
+                kern(xq.data_ptr(), wq.data_ptr(), *tab, out.data_ptr(), m,
+                     k, n, 8, *flags, plan.rows, s, ks, stream_of(xq))
+                if s not in checked:        # the untimed first call
+                    checked.add(s)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, want):
+                        sys.exit(f"{name} {(m, k, n)} splits {s}: != plain "
+                                 "version")
+
+            sweep(name, (m, k, n), kern, (8, *flags), plan, launch, steps)
 
 
 def _write(out, res) -> None:

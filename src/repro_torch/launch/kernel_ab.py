@@ -7,7 +7,12 @@ runs its phase-3 checks (``check_kernels`` and, where the root has
 them, ``check_conv``, ``check_partials``, ``check_attention``,
 ``check_surrogate``, ``check_slstm``): every kernel against its plain
 version, then timed per shape with the root's own timer (``_timed_ms``:
-a mean of launches, each after an L2 flush).  ``--spin CYCLES`` times
+a mean of launches, each after an L2 flush).  Then, the same in every
+root, the int GEMMs the per-token and faulted lanes serve
+(``lut_matmul`` over the balanced tier's table, ``lut_matmul_mag`` over
+it faulted at phase 12's rate, ``mitchell_matmul``) at M = 1, 2, 4, 8,
+16, 20 and 64 times the four LM (K, N), each checked against its plain
+version, keyed ``int <name>``.  ``--spin CYCLES`` times
 every root with one timer instead: the L2 flush, then the card spun for
 CYCLES SM clocks (``torch.cuda._sleep``; 0 spins not at all) so that a
 launch's host work is queued before the start event, then the launch
@@ -23,13 +28,16 @@ moves nothing).
 
 It writes ``<out>/ab.json`` ({label: {kernel: {shape: [ms, ...]}}}) and
 prints, per kernel and shape, each label's median ms and its ratio to
-the first label's.  Needs a CUDA device; ``--report AB_JSON`` prints the
-table of a saved ab.json again, anywhere.
+the first label's, with each kernel's sums over the shapes every label
+timed.  Needs a CUDA device; ``--report AB_JSON`` prints the table of a
+saved ab.json again, anywhere (``--rows M [M ...]``: only the shapes of
+those leading dimensions, e.g. ``--rows 4 64`` for the eight LM shapes).
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import statistics
@@ -68,6 +76,43 @@ def timed_ms(torch, fn, reps, flush):
 
 if spin is not None:
     cs._timed_ms = timed_ms
+
+
+def int_forms(out):
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.multipliers import MultiplierSpec
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import mitchell_gemm as mg
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    spec = MultiplierSpec("appro42", 8, True, "orplane", 10)
+    lut = ops.lut_table(spec, dev)
+    mag = ops.magnitude_lut(spec, FaultConfig.from_yield(rows=32, scale=1.0),
+                            dev)
+    for m in (1, 2, 4, 8, 16, 20, 64):
+        for k, n in cs.WEIGHT_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
+            xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                               dtype=torch.int8)
+            wq = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                               dtype=torch.int8)
+            for name, fn, plain in (
+                    ("lut_matmul", lambda: am.lut_matmul(xq, wq, lut),
+                     lambda: ref.lut_matmul_ref(xq, wq, lut)),
+                    ("lut_matmul_mag", lambda: am.lut_matmul_mag(xq, wq, mag),
+                     lambda: am.lut_matmul_mag_plain(xq, wq, mag)),
+                    ("mitchell_matmul",
+                     lambda: mg.mitchell_matmul(xq, wq, compensated=False),
+                     lambda: ref.mitchell_matmul_ref(xq, wq,
+                                                     compensated=False))):
+                if not torch.equal(fn(), plain()):
+                    sys.exit(f"int {name} {(m, k, n)}: != plain version")
+                out.setdefault("int " + name, {})[str((m, k, n))] = \
+                    cs._timed_ms(torch, fn, 10, flush)
+
+
 log = open(sys.argv[1], "w")
 with contextlib.redirect_stdout(log):
     build.build(build.SOURCES)
@@ -91,6 +136,7 @@ with contextlib.redirect_stdout(log):
                 while shape in out.setdefault(key, {}):
                     shape += "'"
                 out[key][shape] = r["ms"]
+    int_forms(out)
 print(json.dumps(out))
 """
 
@@ -108,11 +154,14 @@ def main() -> None:
     ap.add_argument("--report", metavar="AB_JSON", default=None,
                     help="print the table of a saved ab.json and run "
                     "nothing")
+    ap.add_argument("--rows", type=int, nargs="+", default=None,
+                    metavar="M", help="with --report: only the shapes "
+                    "whose leading dimension is one of these")
     args = ap.parse_args()
     if args.report:
         with open(args.report) as f:
             saved = json.load(f)
-        report(saved, list(saved))
+        report(saved, list(saved), args.rows)
         return
     if not args.runs:
         ap.error("give LABEL=ROOT runs, or --report AB_JSON")
@@ -141,9 +190,10 @@ def main() -> None:
     report(times, labels)
 
 
-def report(times, labels) -> None:
+def report(times, labels, rows=None) -> None:
     """Print each kernel's median ms a shape per label, the ratio to the
-    first label, and the sums over a kernel's shapes."""
+    first label, and the sums over the shapes that every label timed
+    (with `rows`, only shapes whose leading dimension is one of them)."""
     base = labels[0]
     names = sorted({n for lab in labels for n in times[lab]})
     print(f"{'kernel':<34} {'shape':<26} "
@@ -152,6 +202,9 @@ def report(times, labels) -> None:
     for name in names:
         shapes = sorted({s for lab in labels for s in times[lab].get(name,
                                                                      {})})
+        if rows is not None:
+            shapes = [s for s in shapes
+                      if ast.literal_eval(s.rstrip("'"))[0] in rows]
         sums = defaultdict(float)
         for shape in shapes:
             meds = {}
@@ -159,7 +212,9 @@ def report(times, labels) -> None:
                 ms = times[lab].get(name, {}).get(shape)
                 if ms:
                     meds[lab] = statistics.median(ms)
-                    sums[lab] += meds[lab]
+            if len(meds) == len(labels):
+                for lab, v in meds.items():
+                    sums[lab] += v
             cells = " ".join(f"{meds[lab]:12.4f}" if lab in meds
                              else f"{'-':>12}" for lab in labels)
             ratios = " ".join(f"{meds[lab] / meds[base]:.3f}"

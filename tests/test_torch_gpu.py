@@ -119,6 +119,70 @@ def test_magnitude_table_kernel_at_every_width(bits):
             approx_matmul.lut_matmul_mag(xq + half, wq, mag, bits)
 
 
+# the int forms on the split-K cluster kernel at its edges: one row tile
+# of 4, 16 or 64 rows or several, K one step, ragged or split over a
+# cluster, N ragged (rows not 16-byte multiples: the element loads), and
+# one shape with both operands one byte off 16-byte alignment
+INT_EDGES = [(1, 31, 7), (4, 1, 1), (17, 33, 17), (65, 6144, 17),
+             (130, 33, 2048), (2048, 31, 1), (1, 2048, 2048)]
+
+
+@pytest.mark.parametrize("shape", INT_EDGES, ids=str)
+def test_int_forms_on_the_cluster_kernel_at_its_edges(shape):
+    """lut_matmul, lut_matmul_mag (faulted) and mitchell_matmul (both
+    compensations) bitwise their plain versions, -128 in x's first
+    column, each one launch of its cluster entry."""
+    from repro_torch.core.faults import FaultConfig
+
+    dev = _card()
+    m, k, n = shape
+    _, _, xq, wq = _ops(m, k, n, dev, seed=m + k + n)
+    xq[:, :1] = -128
+    if shape == (1, 2048, 2048):
+        bx = torch.empty(xq.numel() + 1, dtype=torch.int8, device=dev)
+        bw = torch.empty(wq.numel() + 1, dtype=torch.int8, device=dev)
+        xq = bx[1:].view(m, k).copy_(xq)
+        wq = bw[1:].view(k, n).copy_(wq)
+    lut = ops.lut_table(BALANCED, dev)
+    mag = ops.magnitude_lut(BALANCED, FaultConfig.from_yield(rows=32), dev)
+    kerns = {**approx_matmul.KERNELS, **mitchell_gemm.KERNELS}
+    before = {name: kerns[name].launches
+              for name in ("lut_matmul", "lut_matmul_mag", "mitchell_matmul")}
+    pairs = [(approx_matmul.lut_matmul(xq, wq, lut),
+              ref.lut_matmul_ref(xq, wq, lut)),
+             (approx_matmul.lut_matmul_mag(xq, wq, mag),
+              approx_matmul.lut_matmul_mag_plain(xq, wq, mag))]
+    for comp in (False, True):
+        pairs.append((mitchell_gemm.mitchell_matmul(xq, wq, compensated=comp),
+                      ref.mitchell_matmul_ref(xq, wq, compensated=comp)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    assert {name: kerns[name].launches - v for name, v in before.items()} \
+        == {"lut_matmul": 1, "lut_matmul_mag": 1, "mitchell_matmul": 2}
+
+
+@pytest.mark.parametrize("bits", [3, 5, 7])
+def test_log_int_forms_below_8_bits_on_the_card(bits):
+    """Below 8 bits mitchell takes every int8 and log_our every operand of
+    magnitude below 2^bits, bitwise the plain version; log_our refuses one
+    past it."""
+    dev = _card()
+    lim = 1 << bits
+    _, _, xq, wq = _ops(33, 70, 17, dev, seed=bits)
+    inside = xq.clamp(-lim + 1, lim - 1)
+    w_in = wq.clamp(-lim + 1, lim - 1)
+    got = mitchell_gemm.mitchell_matmul(xq, wq, bits, False)
+    assert torch.equal(got, ref.mitchell_matmul_ref(xq, wq, bits, False))
+    got = mitchell_gemm.mitchell_matmul(inside, w_in, bits, True)
+    assert torch.equal(got, ref.mitchell_matmul_ref(inside, w_in, bits,
+                                                    True))
+    past = inside.clone()
+    past[0, 0] = -lim
+    with pytest.raises(ValueError, match="log_our"):
+        mitchell_gemm.mitchell_matmul(past, w_in, bits, True)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     dev = _card()
     x, w, xq, wq = _ops(8, 64, 16, dev)

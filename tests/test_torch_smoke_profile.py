@@ -91,6 +91,12 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "8ScaleOutEEEvNS_6ClArgsE", "CiM log kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi4ELi64ENS_"
      "8ScaleOutEEEvNS_6ClArgsE", "CiM LUT kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi64ELi64ENS_"
+     "6IntOutEEEvNS_6ClArgsE", "CiM LUT kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_17ClusterMagLutCoreELi16ELi64ENS_"
+     "6IntOutEEEvNS_6ClArgsE", "CiM LUT kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb0EEELi4ELi64ENS_"
+     "6IntOutEEEvNS_6ClArgsE", "CiM log kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi4ELi64ENS_"
      "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi16ELi64ENS_"

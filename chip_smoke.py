@@ -16,7 +16,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      instructions a product counted by pipe; the
      tensor-core instructions (IMMA, IGMMA) of every int8_mma.cuh kernel
      and of every instantiation of the fused surrogate kernel
-     (surrogate_cluster.cuh) counted, none failing;
+     (surrogate_cluster.cuh) counted, none failing; the nibble int form's
+     cluster instantiations (ClusterNibbleCore, IntOut, rows 4 and 16)
+     found in libnibble_gemm and no template kernel there;
   3. kernels: each of the seven GEMM kernels (full-LUT gather, its
      magnitude-table form, nibble sub-LUT gather and log-domain, int and
      fused forms) against its plain PyTorch version on the card, bitwise,
@@ -27,12 +29,14 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      (the nibble kernels for the exact table and appro42 with 4
      approximate columns, the int forms also at the saturating int8
      minimum, the magnitude form over the balanced tier's table faulted
-     at phase 12's rate and clean); the int LUT, magnitude and log forms
-     (the split-K cluster kernel with int8 operands) also at SERVED_SHAPES
-     (M = 1, 2, 8, 16, 20, the per-token and faulted lanes' calls),
-     timed beside their bound and share, and at 2..8 bits (exact and
-     appro42 tables, faulted and clean, mitchell and log_our, log_our's
-     operands past 2^bits refused); the fused LUT, nibble and log GEMMs,
+     at phase 12's rate and clean); the int LUT, magnitude, nibble and
+     log forms (the split-K cluster kernel with int8 operands) also at
+     SERVED_SHAPES (M = 1, 2, 8, 16, 20, the per-token and faulted lanes'
+     calls), timed beside their bound and share, and at 2..8 bits (exact
+     and appro42 tables, faulted and clean, mitchell and log_our, log_our's
+     operands past 2^bits refused; the nibble form at the even widths on
+     every int8, its magnitudes saturated at qmax); the fused LUT, nibble
+     and log GEMMs,
      their partial forms and the int forms (the split-K cluster kernel,
      csrc/cluster_gemm.cuh, epilogue on, off and int8 in) also bitwise at
      CLUSTER_EDGES (every M, K and N corner
@@ -257,8 +261,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      600/s): the clean ladder armed with ``SentinelConfig()`` for 8
      ticks, its sentinels' drift against the per-token exact rung and
      its trips printed (a measurement: at this width the default
-     thresholds trip a clean lane); the faulted ladder (a 2 s probe
-     cooldown), its weight masks drawn first: every faulted lane trips
+     thresholds trip a clean lane); the faulted ladder (its probe
+     cooldown 10 of its own rounds, measured after warmup, and at least
+     2 s; the round, the cooldown, the run's seconds and each faulted
+     lane's forwards in probes and else printed), its weight masks drawn
+     first: every faulted lane trips
      within 8 tokens and no probe re-admits it, no request fails, every
      request finished on exact holds the
      exact-only run's tokens but where that run's top-2 gap is within
@@ -273,7 +280,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      launch) bitwise the CPU's plain route.  (a)'s and (d)'s launches are
      the kernels line's ``check_launches``.
 
-``--layers`` cuts the depth of phase 5 only (the cut is printed);
+``--layers`` cuts the depth of phase 5 only (the cut is printed); each
+phase prints its seconds;
 ``--phases`` runs phases 1, 2 and the listed ones and prints no result
 lines.
 
@@ -375,7 +383,7 @@ SOURCES = {
                     "src/repro/kernels/attn_gemm.py:447"),
     "attn_pv": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
                 "src/repro/kernels/attn_gemm.py:461"),
-    "nibble_lut_matmul": ("src/repro_torch/kernels/csrc/nibble_gemm.cu",
+    "nibble_lut_matmul": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                           "src/repro/kernels/approx_matmul.py:294"),
     "nibble_lut_matmul_fused": (
         "src/repro_torch/kernels/csrc/cluster_gemm.cuh",
@@ -419,9 +427,10 @@ GEMM_KERNELS = ("lut_matmul", "lut_matmul_fused", "mitchell_matmul",
 # per-token and faulted lanes serve): phase 3 also holds them at the
 # shapes those lanes give them, M = 1, 2 (a faulted lane's decode round
 # of one or two slots), 8, 16 (its 4-8-token prompts over 2 slots) and 20
-# (phase 11's verify), times the four LM (K, N), timed; at 2..8 bits on
-# the ragged shape and INT_BITS_SHAPE
-INT_KERNELS = ("lut_matmul", "lut_matmul_mag", "mitchell_matmul")
+# (phase 11's verify), times the four LM (K, N), timed; at 2..8 bits (the
+# nibble form at the even ones) on the ragged shape and INT_BITS_SHAPE
+INT_KERNELS = ("lut_matmul", "lut_matmul_mag", "mitchell_matmul",
+               "nibble_lut_matmul")
 SERVED_SHAPES = [(m, k, n) for m in (1, 2, 8, 16, 20)
                  for (k, n) in WEIGHT_SHAPES]
 INT_BITS_SHAPE = (20, 2048, 1024)
@@ -695,6 +704,33 @@ def tensor_core_check(build) -> None:
              f"libsurrogate_gemm, expected {SURROGATE_KERNELS}")
 
 
+def nibble_int_check(build) -> None:
+    """The nibble int form's instantiations in libnibble_gemm's SASS: the
+    split-K cluster kernel on ClusterNibbleCore with IntOut at each of
+    its row tiles (approx_matmul.NIBBLE_ROWS), and no tiled template
+    kernel on NibbleCore; fail otherwise."""
+    import re
+
+    from repro_torch.kernels import sass
+    from repro_torch.kernels.approx_matmul import NIBBLE_ROWS
+
+    fns = sass.functions(sass.disassemble(build.library_path("nibble_gemm")))
+    rows, template = set(), []
+    for name in fns:
+        if "cluster_gemm_kernel" in name and "17ClusterNibbleCore" in name \
+                and "6IntOutE" in name:
+            rows.add(int(re.search(r"CoreELi(\d+)E", name).group(1)))
+        elif "gemm_kernel" in name and "10NibbleCore" in name:
+            template.append(name)
+    if rows != set(NIBBLE_ROWS) or template:
+        fail(f"libnibble_gemm: the int form's cluster instantiations for "
+             f"rows {sorted(rows)} (expected {list(NIBBLE_ROWS)}), template "
+             f"kernels {template}")
+    print(f"  nibble int form: cluster_gemm_kernel<ClusterNibbleCore, RB, "
+          f"64, IntOut> for RB {sorted(rows)} in libnibble_gemm, no template "
+          f"kernel", flush=True)
+
+
 def check_kernels(torch, sms: int, clock_hz: float):
     from repro_torch.core.faults import FaultConfig
     from repro_torch.core.multipliers import MultiplierSpec
@@ -804,13 +840,19 @@ def check_int_forms(torch, sms: int, clock_hz: float, lut, mags, rows,
     shapes the per-token and faulted lanes serve (SERVED_SHAPES), bitwise
     their plain versions (lut_matmul over the balanced tier's table, the
     magnitude form over its faulted and its clean table, mitchell_matmul
-    as mitchell and log_our), each timed and bounded (mitchell, the
-    faulted table), its row appended to `rows`; then at 2..8 bits on the
-    ragged shape and INT_BITS_SHAPE, operands over the whole b-bit range
-    (the saturating -2^(b-1) in the first row), for the exact family's
-    and appro42's tables (the magnitude form faulted at a high rate and
-    clean), and mitchell also on every int8 below 2^bits; the launch
-    plans of the served shapes printed."""
+    as mitchell and log_our, nibble_lut_matmul over the exact family's
+    and appro42/orplane/4's sub-tables), each timed and bounded
+    (mitchell, the faulted table, the exact family's sub-tables), its
+    row appended to `rows`; then at 2..8 bits on the ragged shape and
+    INT_BITS_SHAPE, operands over the whole b-bit range (the saturating
+    -2^(b-1) in the first row), for the exact family's and appro42's
+    tables (the magnitude form faulted at a high rate and clean), and
+    mitchell also on every int8 below 2^bits; the nibble form at the even
+    widths on int8 operands over the whole int8 range (-128 in the first
+    row; below 8 bits most magnitudes past qmax, saturated) for the exact
+    family's and appro42's sub-tables (approximate columns in the low
+    half-word), and on the b-bit range equal to lut_matmul over the same
+    spec's full table; the launch plans of the served shapes printed."""
     from repro_torch.core.faults import FaultConfig
     from repro_torch.core.multipliers import MultiplierSpec
     from repro_torch.kernels import approx_matmul as am
@@ -819,6 +861,9 @@ def check_int_forms(torch, sms: int, clock_hz: float, lut, mags, rows,
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
+    subs = ops.nibble_table(MultiplierSpec("exact", 8, True), dev)
+    subs4 = ops.nibble_table(MultiplierSpec("appro42", 8, True, "orplane",
+                                            4), dev)
     plans = []
     for m, k, n in SERVED_SHAPES:
         g = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
@@ -840,6 +885,12 @@ def check_int_forms(torch, sms: int, clock_hz: float, lut, mags, rows,
             "mitchell_matmul[log_our]": (
                 lambda: mg.mitchell_matmul(xq, wq),
                 lambda: ref.mitchell_matmul_ref(xq, wq)),
+            "nibble_lut_matmul": (
+                lambda: am.nibble_lut_matmul(xq, wq, subs),
+                lambda: ref.nibble_matmul_ref(xq, wq, subs)),
+            "nibble_lut_matmul[appro42/4]": (
+                lambda: am.nibble_lut_matmul(xq, wq, subs4),
+                lambda: ref.nibble_matmul_ref(xq, wq, subs4)),
         }
         for name, (kern, plain) in calls.items():
             got, want = kern(), plain()
@@ -858,9 +909,11 @@ def check_int_forms(torch, sms: int, clock_hz: float, lut, mags, rows,
         lp = am.fused_plan(am.KERNELS["lut_matmul"], xq, wq, 8)
         mp = am.fused_plan(am.KERNELS["lut_matmul_mag"], xq, wq, 8)
         gp = am.fused_plan(mg.KERNELS["mitchell_matmul"], xq, wq, 8, 0)
+        np_ = am.fused_plan(am.KERNELS["nibble_lut_matmul"], xq, wq, 8)
         plans.append(f"{(m, k, n)} lut {lp.rows}:{lp.tiles}x{lp.splits} "
                      f"mag {mp.rows}:{mp.tiles}x{mp.splits} log "
-                     f"{gp.rows}:{gp.tiles}x{gp.splits}")
+                     f"{gp.rows}:{gp.tiles}x{gp.splits} nibble "
+                     f"{np_.rows}:{np_.tiles}x{np_.splits}")
     print(f"  int forms bitwise at the served shapes (M 1, 2, 8, 16, 20); "
           f"plans (rows:tiles x splits): {'; '.join(plans)}", flush=True)
     for shape in (RAGGED, INT_BITS_SHAPE):
@@ -920,10 +973,34 @@ def check_int_forms(torch, sms: int, clock_hz: float, lut, mags, rows,
                 else:
                     fail(f"mitchell_matmul log_our {bits}-bit took an "
                          f"operand of {-lim}")
+            if bits % 2:
+                continue
+            # the nibble form on every int8 (saturated at qmax), and on
+            # the b-bit range equal to the full table's gather
+            x8 = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                               dtype=torch.int8)
+            w8 = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                               dtype=torch.int8)
+            x8[0, :3] = -128
+            for fam, cols in (("exact", None), ("appro42", bits // 2)):
+                sb = MultiplierSpec(fam, bits, True, "orplane", cols)
+                t = ops.nibble_table(sb, dev)
+                for tag, got, want in (
+                        ("int8", am.nibble_lut_matmul(x8, w8, t, bits),
+                         ref.nibble_matmul_ref(x8, w8, t, bits)),
+                        ("= lut_matmul", am.nibble_lut_matmul(xq, wq, t,
+                                                              bits),
+                         am.lut_matmul(xq, wq, ops.lut_table(sb, dev),
+                                       bits))):
+                    if not torch.equal(got, want):
+                        fail(f"nibble_lut_matmul ({tag}) {fam} {bits}-bit "
+                             f"{shape}: kernel != plain version")
     print(f"  int forms bitwise at 2..8 bits on {RAGGED} and "
           f"{INT_BITS_SHAPE} (exact and appro42 tables, the magnitude table "
           f"faulted and clean, mitchell and log_our; mitchell on every int8, "
-          f"log_our's |v| >= 2^bits refused)", flush=True)
+          f"log_our's |v| >= 2^bits refused; the nibble form at 2, 4, 6, 8 "
+          f"bits on every int8, saturated, and = lut_matmul on the b-bit "
+          f"range)", flush=True)
 
 
 def _misaligned(torch, t):
@@ -943,8 +1020,9 @@ def check_cluster_edges(torch, lut8, mags, flush):
     given (the partials' plans at the shard shapes too): the LUT at 4
     and 8 bits, the magnitude form over the faulted table `mags[""]`, the
     log kernel (mitchell, log_our) at 8 (and 16, the template's side, on
-    the first CLUSTER_WIDE_EDGES), the nibble forms for the exact family
-    at 2, 4, 6 and 8 bits and appro42/4 (at the misaligned edge also on
+    the first CLUSTER_WIDE_EDGES), the nibble forms (fused, partial and
+    int, the int form on every int8, saturated) for the exact family at
+    2, 4, 6 and 8 bits and appro42/4 (at the misaligned edge also on
     bf16 operands, 2 bytes off, and int8, 1 byte off); then what
     the LUT's table fill costs a call: lut_matmul_fused at K = 32 (one
     step) with the 8-bit table (128 KiB a block) against the 4-bit one
@@ -958,8 +1036,14 @@ def check_cluster_edges(torch, lut8, mags, flush):
     dev = torch.device("cuda")
     lut4 = ops.lut_table(MultiplierSpec("appro42", 4, True, "orplane"), dev)
 
+    nibs = [(f"nibble{b}", b, ops.nibble_table(
+        MultiplierSpec("exact", b, True), dev)) for b in (2, 4, 6, 8)]
+    nibs.append(("nibble8[appro42/4]", 8, ops.nibble_table(
+        MultiplierSpec("appro42", 8, True, "orplane", 4), dev)))
+
     def int_calls(xq, wq, wide):
-        # the int forms: (tag, kernel, plain version, None, None)
+        # the int forms: (tag, kernel, plain version, None, None); the
+        # nibble form on every int8 at each width (saturated at qmax)
         x4, w4 = xq // 16, wq // 16               # [-8, 8): 4-bit operands
         out = [("lut8 int", lambda: am.lut_matmul(xq, wq, lut8),
                 lambda: ref.lut_matmul_ref(xq, wq, lut8), None, None),
@@ -976,12 +1060,13 @@ def check_cluster_edges(torch, lut8, mags, flush):
                     lambda b=bits, c=comp: ref.mitchell_matmul_ref(xq, wq,
                                                                    b, c),
                     None, None))
+        for tag, bits, subs in nibs:
+            out.append((
+                f"{tag} int",
+                lambda t=subs, b=bits: am.nibble_lut_matmul(xq, wq, t, b),
+                lambda t=subs, b=bits: ref.nibble_matmul_ref(xq, wq, t, b),
+                None, None))
         return out
-
-    nibs = [(f"nibble{b}", b, ops.nibble_table(
-        MultiplierSpec("exact", b, True), dev)) for b in (2, 4, 6, 8)]
-    nibs.append(("nibble8[appro42/4]", 8, ops.nibble_table(
-        MultiplierSpec("appro42", 8, True, "orplane", 4), dev)))
 
     def nibble_calls(x, w, sfx=""):
         # the plain partial once a width: the plain fused form is its
@@ -1079,12 +1164,13 @@ def check_cluster_edges(torch, lut8, mags, flush):
         li = am.fused_plan(am.KERNELS["lut_matmul"], xq, wq, 8)
         mi = am.fused_plan(am.KERNELS["lut_matmul_mag"], xq, wq, 8)
         gi = am.fused_plan(mg.KERNELS["mitchell_matmul"], xq, wq, 8, 0)
+        ni = am.fused_plan(am.KERNELS["nibble_lut_matmul"], xq, wq, 8)
         print(f"  cluster edge {(m, k, n)} {dt}: bitwise ({len(calls)} "
               f"calls); plan rows {lp.rows}, splits lut {lp.splits} / log "
               f"{gp.splits} / nibble {np_.splits}, partial lut "
               f"{lpp.splits} / log {gpp.splits} / nibble {npp.splits}, int "
               f"lut {li.splits} / mag {mi.rows}:{mi.splits} / log "
-              f"{gi.splits}", flush=True)
+              f"{gi.splits} / nibble {ni.rows}:{ni.splits}", flush=True)
     plans = []
     for m, k, n in MAIN_SHAPES + [CNN_FC]:
         dt = torch.float32 if (m, k, n) == CNN_FC else torch.bfloat16
@@ -4164,12 +4250,18 @@ FAULT_DETECT = 8
 # the clean ladder at full width is measured over this many scheduler
 # ticks (four shadow samples a lane), not served to the end
 FAULT_CLEAN_TICKS = 8
-# the faulted ladder's quarantine before a half-open probe.  The default
-# (0.1 s) is shorter than one tick of the full-width ladder on the card,
-# so a tripped lane would run a failing probe on every tick and the probes
-# would take most of the run; at 2 s a tripped lane probes a few times
-# while the exact lane serves the displaced requests
+# the faulted ladder's quarantine before a half-open probe: the larger of
+# FAULT_COOLDOWN_S and FAULT_COOLDOWN_ROUNDS of the ladder's own rounds
+# (one decode round of every lane, measured on the card after warmup,
+# the median of FAULT_ROUND_REPS).  The default (0.1 s) is shorter than
+# one tick of the full-width ladder, so a tripped lane would run a
+# failing probe (a prefill and a shadow-scored round) on every tick; so
+# would a fixed 2 s on a host whose rounds take 0.35-0.45 s, where the
+# probes took most of the run.  Counted in rounds, a probe is a fixed
+# share of the run on a slow host as on a fast one, while the exact lane
+# serves the displaced requests.
 FAULT_COOLDOWN_S = 2.0
+FAULT_COOLDOWN_ROUNDS, FAULT_ROUND_REPS = 10, 3
 # the int kernel of each faulted lane's GEMMs (a fault gates the fused
 # runners off; the faulted table fits the magnitude form only)
 FAULT_INT = {"balanced": "lut_matmul_mag", "economy": "mitchell_matmul"}
@@ -4288,20 +4380,16 @@ def _fault_workload(cfg):
 
 
 def _run_engine(torch, eng, wl, dev):
-    """Warm `eng`, serve `wl`, and read its plan misses right after (the
-    plan cache is shared, so each engine is held to its own run).
-    Returns (results, forwards per lane, launches, plan misses, warmup
-    seconds)."""
-    t = time.perf_counter()
-    eng.warmup()
-    _sync(torch, dev)
-    warm_s = time.perf_counter() - t
+    """Serve `wl` on the warmed `eng`, and read its plan misses right
+    after (the plan cache is shared, so each engine is held to its own
+    run).  Returns (results, forwards per lane, launches, plan
+    misses)."""
     fwd = _count_forwards(eng)
     _reset_counts()
     res = eng.run(wl)
     _sync(torch, dev)
     return res, fwd, {k: v for k, v in _launch_counts().items() if v}, \
-        eng.steady_plan_misses(), warm_s
+        eng.steady_plan_misses()
 
 
 def _exact_identity(torch, res, ref, where):
@@ -4373,16 +4461,28 @@ def _fault_engine_kw(dev):
                 retry_budget=FAULT_RETRIES, device=dev)
 
 
-def _serve_ladder(torch, cfg, params, dev, name, reqs, power, **kw):
+def _ladder(torch, cfg, params, dev, **kw):
     """Build and warm one ladder (`kw`: build_engine's fault and sentinel
-    options), serve `reqs` on the real clock and print the run: no plan
-    built after warmup and no failed request, else the phase fails.
-    Returns (engine, results, forwards per lane, launches)."""
-    from repro_torch.serving import EngineStats, build_engine
+    options).  Returns (engine, warmup seconds)."""
+    from repro_torch.serving import build_engine
 
     eng = build_engine(cfg, params, tiers=kw.pop("tiers", _fault_tiers()),
                        **kw, **_fault_engine_kw(dev))
-    res, fwd, got, misses, warm_s = _run_engine(torch, eng, reqs, dev)
+    t = time.perf_counter()
+    eng.warmup()
+    _sync(torch, dev)
+    return eng, time.perf_counter() - t
+
+
+def _serve_ladder(torch, ladder, dev, name, reqs, power):
+    """Serve `reqs` on the real clock on `ladder` (`_ladder`'s engine and
+    warmup seconds) and print the run: no plan built after warmup and no
+    failed request, else the phase fails.  Returns (engine, results,
+    forwards per lane, launches)."""
+    from repro_torch.serving import EngineStats
+
+    eng, warm_s = ladder
+    res, fwd, got, misses = _run_engine(torch, eng, reqs, dev)
     stats = EngineStats.from_results(res, eng.last_run_s)
     if misses:
         fail(f"phase 12 {name}: {misses} plans built after warmup")
@@ -4402,13 +4502,49 @@ def _serve_ladder(torch, cfg, params, dev, name, reqs, power, **kw):
     return eng, res, fwd, got
 
 
+def _ladder_round(torch, dev, eng):
+    """The ladder's round: one decode round of every lane, the median of
+    FAULT_ROUND_REPS, each pool reset after (as warmup leaves it)."""
+    ticks = []
+    for _ in range(FAULT_ROUND_REPS):
+        t = time.perf_counter()
+        for lane in eng.lanes.values():
+            lane.backend.decode_round()
+        _sync(torch, dev)
+        ticks.append(time.perf_counter() - t)
+    for lane in eng.lanes.values():
+        lane.backend.reset()
+    return sorted(ticks)[len(ticks) // 2]
+
+
+def _quarantined_forwards(eng, names):
+    """Count, a lane of `names`, the forwards it runs while quarantined:
+    its half-open probes, a prefill each and then their decode rounds.
+    Returns {name: [probes, forwards]}, filled as the engine runs."""
+    counts = {name: [0, 0] for name in names}
+    for name in names:
+        lane = eng.lanes[name]
+        for meth, opens in (("prefill", 1), ("decode_step", 0)):
+            def wrapped(*a, _real=getattr(lane.backend.lm, meth), _lane=lane,
+                        _n=counts[name], _opens=opens, **kw):
+                if _lane.quarantined:
+                    _n[0] += _opens
+                    _n[1] += 1
+                return _real(*a, **kw)
+            setattr(lane.backend.lm, meth, wrapped)
+    return counts
+
+
 def fault_engines(torch, cfg, params, power, dev, fault):
     """Phase 12 (b): the faulted armed ladder and the exact-only engine on
     the Poisson arrivals, each on the real clock: every faulted lane
     trips within FAULT_DETECT tokens, no request fails, the requests that
     finish on exact hold the exact-only run's tokens (near-ties printed),
-    196 int-kernel launches a faulted-lane forward.  Returns the faulted
-    run's launches and the faulted engine."""
+    196 int-kernel launches a faulted-lane forward.  The faulted ladder's
+    probe cooldown is scaled to its own round (`_ladder_round`, measured
+    after warmup); the round, the cooldown, the run's seconds and each
+    faulted lane's forwards, in probes and the rest, are printed.
+    Returns the faulted run's launches and the faulted engine."""
     from repro_torch.core import faults
     from repro_torch.serving import SentinelConfig
 
@@ -4424,9 +4560,25 @@ def fault_engines(torch, cfg, params, power, dev, fault):
     _sync(torch, dev)
     print(f"    the weight masks of the four LM shapes drawn and on the "
           f"card in {time.perf_counter() - t:.1f}s", flush=True)
-    eng, res, fwd, got = _serve_ladder(
-        torch, cfg, params, dev, "(b) faulted", wl, power, fault=fault,
-        sentinel_cfg=SentinelConfig(cooldown_s=FAULT_COOLDOWN_S))
+    eng, warm_s = _ladder(torch, cfg, params, dev, fault=fault,
+                          sentinel_cfg=SentinelConfig())
+    rnd = _ladder_round(torch, dev, eng)
+    cooldown = max(FAULT_COOLDOWN_S, FAULT_COOLDOWN_ROUNDS * rnd)
+    for name in FAULT_INT:
+        eng.lanes[name].sentinel.breaker.cooldown_s = cooldown
+    probes = _quarantined_forwards(eng, FAULT_INT)
+    _, res, fwd, got = _serve_ladder(torch, (eng, warm_s), dev,
+                                     "(b) faulted", wl, power)
+    split = "; ".join(f"{name} {fwd[name]} ({probes[name][1]} in "
+                      f"{probes[name][0]} probes, "
+                      f"{fwd[name] - probes[name][1]} else)"
+                      for name in FAULT_INT)
+    print(f"    (b) faulted run {eng.last_run_s:.1f}s: the ladder's round "
+          f"{rnd:.3f} s (one decode round of each of its {len(eng.lanes)} "
+          f"lanes, median of {FAULT_ROUND_REPS}) -> a probe cooldown of "
+          f"{cooldown:.2f} s (the larger of {FAULT_COOLDOWN_S:g} s and "
+          f"{FAULT_COOLDOWN_ROUNDS} rounds); forwards a faulted lane: "
+          f"{split}", flush=True)
     tripped = {t.lane for t in eng.trip_log}
     served = {r.tier for r in wl} - {"exact"}
     if not served <= tripped:
@@ -4449,9 +4601,10 @@ def fault_engines(torch, cfg, params, power, dev, fault):
 
     ex_wl = [dataclasses.replace(r, tier="exact", tolerance=None) for r in wl]
     _, ref, _, ex_got = _serve_ladder(
-        torch, cfg, params, dev, "(b) exact-only", ex_wl, power,
-        tiers=tuple(t for t in _fault_tiers() if t.name == "exact"),
-        record_logits=True)
+        torch, _ladder(torch, cfg, params, dev, record_logits=True,
+                       tiers=tuple(t for t in _fault_tiers()
+                                   if t.name == "exact")),
+        dev, "(b) exact-only", ex_wl, power)
     _expect_launches("phase 12 (b) exact-only", ex_got, {})
     ties = _exact_identity(torch, res, ref, "(b)")
     on_exact = sum(1 for r in res.values() if r.tier == "exact")
@@ -4462,7 +4615,7 @@ def fault_engines(torch, cfg, params, power, dev, fault):
              "identical to the exact-only run but at near-ties: "
              + ", ".join(ties))
           + f"; every faulted lane still quarantined (probes after a "
-          f"{FAULT_COOLDOWN_S:g} s cooldown, none passed); "
+          f"{cooldown:.2f} s cooldown, none passed); "
           f"{GEMMS_PER_LAYER * cfg.n_layers} int-kernel launches a "
           "faulted-lane forward, no fused or nibble form; no plan built "
           "after warmup", flush=True)
@@ -4481,11 +4634,11 @@ def fault_smoke(torch, dev, power):
     cfg = get_config("qwen3-1.7b", smoke=True)
     params = LM(cfg, dev).init(0)
     at0 = [dataclasses.replace(r, arrival=0.0) for r in _fault_workload(cfg)]
-    clean, res, _, _ = _serve_ladder(torch, cfg, params, dev,
-                                     "(c) smoke clean armed", at0, power,
-                                     sentinel_cfg=SentinelConfig())
-    _, unarmed, _, _ = _serve_ladder(torch, cfg, params, dev,
-                                     "(c) smoke unarmed", at0, power)
+    clean, res, _, _ = _serve_ladder(
+        torch, _ladder(torch, cfg, params, dev, sentinel_cfg=SentinelConfig()),
+        dev, "(c) smoke clean armed", at0, power)
+    _, unarmed, _, _ = _serve_ladder(torch, _ladder(torch, cfg, params, dev),
+                                     dev, "(c) smoke unarmed", at0, power)
     if clean.trip_log:
         fail(f"phase 12 (c): the clean armed ladder tripped: "
              f"{[(t.lane, t.reason) for t in clean.trip_log]}")
@@ -4674,17 +4827,75 @@ PORT_CLASSES = ("CiM conv kernel", "CiM LUT kernel", "CiM nibble kernel",
                 "CiM attention kernel", "sLSTM scan", "CiM partial kernel")
 
 
+# this process's profiled calls: their count, and the seconds they took
+# in all and beyond the calls themselves (the profiler's start, stop and
+# the reading of its events), printed with the script's total
+PROFILE_COST = {"calls": 0, "s": 0.0, "beyond_s": 0.0}
+
+
+def _profile_read(prof):
+    """What `_profile_once` reads of a finished torch.profiler run, from
+    its raw events: as the profiler's own event list (`prof.events()`)
+    gives it, the same names filtered out and demangled, a runtime event
+    on the thread of the op it was linked to, an event's parent the
+    innermost synchronous CPU event around it on its thread; but without
+    building that list, which costs ~2 s of host time for a decode
+    round's ~25,000 events.  Returns the device events as (name, start
+    ns, end ns), the count of top-level aten ops, and the names of the
+    kernels that MATMUL_OPS launched."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    names = {}
+
+    def name(raw):
+        if raw not in names:
+            names[raw] = _rewrite_name(name=raw, with_wildcard=True)
+        return names[raw]
+
+    evs = [(name(e.name()), e) for e in prof.profiler.kineto_results.events()
+           if not _filter_name(e.name())
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    cpu = [(n, e, not e.is_async()
+            and e.start_thread_id() == e.end_thread_id())
+           for n, e in evs if e.device_type() == DeviceType.CPU]
+    thread, matmul_ids = {}, set()
+    for n, e, sync in cpu:
+        if sync and not e.linked_correlation_id():
+            thread[e.correlation_id()] = e.start_thread_id()
+            if n in MATMUL_OPS:
+                matmul_ids.add(e.correlation_id())
+    stacks, n_ops = {}, 0
+    tree = [(thread.get(e.linked_correlation_id(), e.start_thread_id())
+             if e.linked_correlation_id() else e.start_thread_id(),
+             e.start_ns(), -e.end_ns(), i, n)
+            for i, (n, e, sync) in enumerate(cpu) if sync]
+    for th, start, neg_end, _, n in sorted(tree):
+        stack = stacks.setdefault(th, [])
+        while stack and (start >= stack[-1] or -neg_end > stack[-1]):
+            stack.pop()
+        n_ops += not stack and n.startswith("aten::")
+        stack.append(-neg_end)
+    n_ops += sum(1 for n, _, sync in cpu
+                 if not sync and n.startswith("aten::"))
+    dev = [(n, e.start_ns(), e.end_ns(), e.linked_correlation_id())
+           for n, e in evs if e.device_type() == DeviceType.CUDA]
+    return ([(n, s, t) for n, s, t, _ in dev], n_ops,
+            {n for n, _, _, link in dev if link in matmul_ids})
+
+
 def _profile_once(torch, run):
     """One call of `run` under torch.profiler, with CUDA events around it:
     a dict of the host ms, the top-level ops, the kernels, the device
     busy ms (the union of the kernels' intervals; None if no kernel was
     seen), the event span ms (first to last event on the stream), device
     time by kernel class and by kernel, and the port's kernels the call
-    launched (its launch counters) against those the profiler saw."""
-    from torch.autograd import DeviceType
+    launched (its launch counters) against those the profiler saw.  Its
+    cost is added to PROFILE_COST."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t_all = time.perf_counter()
     before = sum(_launch_counts().values())
     start = torch.cuda.Event(enable_timing=True)
     end_ev = torch.cuda.Event(enable_timing=True)
@@ -4697,26 +4908,25 @@ def _profile_once(torch, run):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     launched = sum(_launch_counts().values()) - before
-    events = prof.events()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
-    n_ops = sum(1 for e in events if e.device_type == DeviceType.CPU
-                and e.cpu_parent is None and e.name.startswith("aten::"))
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in kern):
+    kern, n_ops, matmul_kernels = _profile_read(prof)
+    busy_ns, end = 0, float("-inf")
+    for s, e in sorted((s, e) for _, s, e in kern):
         if e > end:
-            busy_us += e - max(s, end)
+            busy_ns += e - max(s, end)
             end = e
-    matmul_kernels = {k.name for e in events if e.name in MATMUL_OPS
-                      for k in e.kernels}
     by_class, by_name, seen = {}, {}, 0
-    for e in kern:
-        us = e.time_range.elapsed_us()
-        c = _kernel_class(e.name, matmul_kernels)
+    for name, s, e in kern:
+        us = (e - s) / 1e3
+        c = _kernel_class(name, matmul_kernels)
         by_class[c] = by_class.get(c, 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
+        by_name[name] = by_name.get(name, 0.0) + us
         seen += c in PORT_CLASSES
+    took_s = time.perf_counter() - t_all
+    PROFILE_COST["calls"] += 1
+    PROFILE_COST["s"] += took_s
+    PROFILE_COST["beyond_s"] += took_s - wall_ms / 1e3
     return {"wall_ms": wall_ms, "n_ops": n_ops, "n_kern": len(kern),
-            "busy_ms": busy_us / 1e3 if kern else None,
+            "busy_ms": busy_ns / 1e6 if kern else None,
             "span_ms": start.elapsed_time(end_ev), "by_class": by_class,
             "by_name": by_name, "launched": launched, "seen": seen}
 
@@ -4847,32 +5057,44 @@ def main():
           flush=True)
     log_clocks(build)
     tensor_core_check(build)
+    nibble_int_check(build)
+
+    def took(n, t):
+        print(f"  phase {n} took {time.perf_counter() - t:.1f}s", flush=True)
 
     if want(3):
         print("[3] kernels against their plain versions", flush=True)
+        t3 = time.perf_counter()
         rows = check_kernels(torch, sms, clock_hz)
         conv_rows = check_conv(torch, sms, clock_hz)
         partial_rows = check_partials(torch, sms, clock_hz)
         attn_rows = check_attention(torch, sms, clock_hz)
         surr_rows = check_surrogate(torch, sms, clock_hz)
         slstm_rows = check_slstm(torch, sms, clock_hz)
+        took(3, t3)
 
     if want(4):
         print("[4] reference: the LM on the card against the CPU", flush=True)
+        t4 = time.perf_counter()
         check_reference(torch)
         check_norm_rows(torch)
+        took(4, t4)
 
     if want(5):
         print("[5] serve", flush=True)
+        t5 = time.perf_counter()
         launches = serve(torch, args.layers, power, attn=False)
         gc.collect()                      # phase 5's engine is gone
         torch.cuda.empty_cache()
+        took(5, t5)
 
     if want(6):
         print("[6] serve with CiM attention", flush=True)
+        t6 = time.perf_counter()
         attn_launches = serve(torch, 0, power, attn=True)
         gc.collect()                      # phase 6's engine is gone
         torch.cuda.empty_cache()
+        took(6, t6)
 
     if want(7):
         print("[7] Table IV on the card", flush=True)
@@ -4882,6 +5104,7 @@ def main():
 
     if want(8):
         print("[8] surrogate: the compiler's default mode", flush=True)
+        t8 = time.perf_counter()
         surr_launches = surrogate_macro(torch)
         serve_launches = serve(torch, 0, power, attn=False, mode="surrogate")
         gc.collect()                      # phase 8's engine is gone
@@ -4891,6 +5114,7 @@ def main():
             surr_launches[k] += v + conv_launches[k]
         gc.collect()
         torch.cuda.empty_cache()
+        took(8, t8)
 
     if want(9):
         print("[9] mesh: (data 2, model 2) on four gloo ranks", flush=True)
@@ -5010,7 +5234,10 @@ def main():
         if lib and len(lib) != len(timed):
             kernels[-1]["library_shapes"] = [list(r["shape"]) for r in lib]
             kernels[-1]["ms_library_shapes"] = sum(r["ms"] for r in lib)
-    print(f"  total {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(f"  total {time.perf_counter() - t_start:.1f}s; of it "
+          f"{PROFILE_COST['calls']} profiled calls in this process "
+          f"{PROFILE_COST['s']:.1f}s, {PROFILE_COST['beyond_s']:.1f}s of "
+          "that beyond the calls themselves", flush=True)
     print(power)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

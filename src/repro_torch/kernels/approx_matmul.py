@@ -26,15 +26,15 @@ functions execute it, in the JAX package's two table layouts:
 On CUDA tensors each launches its kernel (csrc/lut_gemm.cu,
 csrc/nibble_gemm.cu) or raises; on CPU tensors it runs the plain PyTorch
 version beside it, which repeats the kernel's arithmetic
-(kernels/ref.py).  Every form but ``nibble_lut_matmul`` (and the log
-forms of mitchell_gemm.py up to 8 bits) launches the split-K cluster
-kernel of csrc/cluster_gemm.cuh, cut by ``cluster_plan``: the fused
-forms quantize on load and flush the epilogue, the partial forms
-quantize and write the raw int32 sum, the int forms (``lut_matmul``,
-``lut_matmul_mag``) take int8 operands and write the raw int32 sum (the
-nibble forms fold the four sub-tables into two signed ones, two gathers
-a product); ``nibble_lut_matmul``, the nibble oracle, runs the tiled
-template (csrc/cim_gemm.cuh).
+(kernels/ref.py).  Every form (and the log forms of mitchell_gemm.py up
+to 8 bits) launches the split-K cluster kernel of csrc/cluster_gemm.cuh,
+cut by ``cluster_plan``: the fused forms quantize on load and flush the
+epilogue, the partial forms quantize and write the raw int32 sum, the
+int forms (``lut_matmul``, ``lut_matmul_mag``, ``nibble_lut_matmul``)
+take int8 operands and write the raw int32 sum (the nibble forms fold
+the four sub-tables into two signed ones, two gathers a product; the
+nibble int form saturates its operands' magnitudes at qmax in the
+kernel, as the reference does).
 """
 
 from __future__ import annotations
@@ -48,25 +48,20 @@ from .build import INT, PTR, CudaKernel, on_cuda, query, require, stream_of
 from .ref import (gather_full, lut_matmul_ref, nibble_matmul_ref,
                   nibble_sum, quantize_tile)
 
-_INT_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR]
-_FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
-               PTR]
-# the cluster kernel's forms also take their launch plan: rows, splits,
-# k_split
+# every form is the split-K cluster kernel: its operands (int8 x, w, the
+# table, out; or float x, x_bf16, w, w_bf16, the table, sx, sw, out), M, K,
+# N, bits, then the launch plan (rows, splits, k_split) and the stream
 _PLAN_ARGS = [INT, INT, INT]
-_INT = CudaKernel("lut_gemm", "lut_gemm_int8_cluster",
-                  _INT_ARGS[:-1] + _PLAN_ARGS + [PTR])
-_INT_MAG = CudaKernel("lut_gemm", "lut_gemm_int8_mag_cluster",
-                      _INT_ARGS[:-1] + _PLAN_ARGS + [PTR])
-_FUSED = CudaKernel("lut_gemm", "lut_gemm_fused",
-                    _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
-_PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial",
-                      _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
-_NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8", _INT_ARGS)
-_NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused",
-                        _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
-_NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial",
-                          _FUSED_ARGS[:-1] + _PLAN_ARGS + [PTR])
+_INT_ARGS = [PTR, PTR, PTR, PTR, INT, INT, INT, INT] + _PLAN_ARGS + [PTR]
+_FUSED_ARGS = [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT,
+               INT] + _PLAN_ARGS + [PTR]
+_INT = CudaKernel("lut_gemm", "lut_gemm_int8_cluster", _INT_ARGS)
+_INT_MAG = CudaKernel("lut_gemm", "lut_gemm_int8_mag_cluster", _INT_ARGS)
+_FUSED = CudaKernel("lut_gemm", "lut_gemm_fused", _FUSED_ARGS)
+_PARTIAL = CudaKernel("lut_gemm", "lut_gemm_partial", _FUSED_ARGS)
+_NIB_INT = CudaKernel("nibble_gemm", "nibble_gemm_int8_cluster", _INT_ARGS)
+_NIB_FUSED = CudaKernel("nibble_gemm", "nibble_gemm_fused", _FUSED_ARGS)
+_NIB_PARTIAL = CudaKernel("nibble_gemm", "nibble_gemm_partial", _FUSED_ARGS)
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
 # resets their launch counts)
@@ -96,6 +91,7 @@ MAG_ROWS = (4, 16)
 # the row tiles of each cluster kernel entry that has its own
 ROW_TILES = {"nibble_gemm_fused": NIBBLE_ROWS,
              "nibble_gemm_partial": NIBBLE_ROWS,
+             "nibble_gemm_int8_cluster": NIBBLE_ROWS,
              "lut_gemm_int8_mag_cluster": MAG_ROWS}
 # a block's fixed cost (prologue, table, partial sums) in K steps, in the
 # plan's cost
@@ -164,7 +160,7 @@ def fused_plan(kern: CudaKernel, x, w, *lead,
     arguments after the rows are `lead`, then, for float operands,
     x_bf16 and w_bf16 (an int form's query takes int8 alone): the bits
     of lut_gemm_fused, nibble_gemm_fused, their partial forms and the int
-    LUT forms, the log forms' bits and compensated, cim_gemm_fused's
+    LUT, magnitude and nibble forms, the log forms' bits and compensated, cim_gemm_fused's
     variant), over the entry's row tiles (`row_tiles`, else ROW_TILES or
     CLUSTER_ROWS)."""
     if row_tiles is None:
@@ -413,8 +409,9 @@ def nibble_lut_matmul(xq: torch.Tensor, wq: torch.Tensor,
 
     ``subs_flat`` is core.luts.nibble_sub_luts(spec).ravel() as int32,
     order [S_hh, S_hl, S_lh, S_ll].  Magnitudes saturate at qmax
-    (|-2^{b-1}| -> qmax), so the result equals ``lut_matmul`` over the
-    spec's full table for every int8 operand."""
+    (|-2^{b-1}| -> qmax, and below 8 bits every int8 magnitude past
+    qmax), so the result equals ``lut_matmul`` over the spec's full table
+    for every operand that table takes.  Even widths of 2..8 bits."""
     m, k, n = _shapes(xq, wq)
     if not on_cuda(xq, wq, subs_flat):
         return nibble_matmul_ref(xq, wq, subs_flat, bits)
@@ -423,10 +420,8 @@ def nibble_lut_matmul(xq: torch.Tensor, wq: torch.Tensor,
     require(xq.is_contiguous() and wq.is_contiguous(),
             "operands must be contiguous")
     check_subs(subs_flat, bits)
-    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
-    _NIB_INT(xq.data_ptr(), wq.data_ptr(), subs_flat.data_ptr(),
-             out.data_ptr(), m, k, n, bits, stream_of(xq))
-    return out
+    return launch_cluster(_NIB_INT, xq, wq, subs_flat, None, None, m, k, n,
+                          bits, out_dtype=torch.int32)
 
 
 def nibble_lut_matmul_fused(x: torch.Tensor, w: torch.Tensor,

@@ -1,11 +1,11 @@
 // cim_gemm.cuh - the integer cores and the tiled GEMM template of the
-// port's remaining template kernels, for NVIDIA Hopper (sm_90a): the
-// nibble int form, the log forms of 9..16-bit operands (int, fused,
-// partial, conv) and cim_gemm_core with SQ.  Included by lut_gemm.cu,
-// nibble_gemm.cu, log_gemm.cu, conv_gemm.cu and surrogate_gemm.cu (the
-// split-K kernels of cluster_gemm.cuh and surrogate_cluster.cuh take its
-// quantize() and epilogues, conv_tile.cuh and attn_cluster.cuh its LUT
-// layout).
+// port's remaining template kernels, for NVIDIA Hopper (sm_90a): the log
+// forms of 9..16-bit operands (int, fused, partial, conv) and
+// cim_gemm_core with SQ.  Included by lut_gemm.cu, nibble_gemm.cu,
+// log_gemm.cu, conv_gemm.cu and surrogate_gemm.cu (the split-K kernels of
+// cluster_gemm.cuh and surrogate_cluster.cuh take its quantize() and
+// epilogues, conv_tile.cuh and attn_cluster.cuh its LUT layout and its
+// NibbleCore's staging and product).
 //
 // What it computes: out[m,n] = sum_k prod(a[m,k], b[k,n]), summed in 32
 // bits with two's-complement wrap (unsigned accumulation, as the
@@ -18,7 +18,8 @@
 //               S_ll] on saturated magnitudes (|a| clipped to qmax), the
 //               sign restored from the operands:
 //               sign(a) sign(b) (S_hh[ah,bh] + S_hl[ah,bl] + S_lh[al,bh]
-//               + S_ll[al,bl])
+//               + S_ll[al,bl]) (the attention cluster and conv tile
+//               kernels stage through it; no template kernel runs it)
 //   LogCore     the Mitchell / Log-our log-domain product (LoD, shifts
 //               and the paper's OR-merged compensation), no table
 //   IntSqCore   the exact integer product a * b, with a^2 and b^2 staged
@@ -66,8 +67,8 @@
 // partial forms (up to 8 bits) run the split-K cluster kernel of
 // cluster_gemm.cuh, the LUT, nibble and log convs and their partial forms
 // (up to 8 bits) the spatial-tile kernel of conv_tile.cuh, and the int
-// LUT, magnitude-table and log GEMMs (up to 8 bits) the split-K cluster
-// kernel too.
+// LUT, magnitude-table, nibble and log GEMMs (up to 8 bits) the split-K
+// cluster kernel too.
 
 #pragma once
 

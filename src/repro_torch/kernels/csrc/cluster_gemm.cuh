@@ -5,11 +5,11 @@
 // the raw int32 sum out) and the int forms (int8 operands in, the raw
 // int32 sum out).  Included by lut_gemm.cu (lut_gemm_fused,
 // lut_gemm_partial, lut_gemm_int8_cluster, lut_gemm_int8_mag_cluster),
-// nibble_gemm.cu (nibble_gemm_fused, nibble_gemm_partial) and log_gemm.cu
-// (log_gemm_fused, log_gemm_partial, log_gemm_int8_cluster); its frame
-// (the operand ring and tile copies, cl_launch_ex, cl_capacity_ex, the
-// plan's checks) also carries surrogate_cluster.cuh's fused surrogate
-// GEMM.
+// nibble_gemm.cu (nibble_gemm_fused, nibble_gemm_partial,
+// nibble_gemm_int8_cluster) and log_gemm.cu (log_gemm_fused,
+// log_gemm_partial, log_gemm_int8_cluster); its frame (the operand ring
+// and tile copies, cl_launch_ex, cl_capacity_ex, the plan's checks) also
+// carries surrogate_cluster.cuh's fused surrogate GEMM.
 //
 // Replaces, for operands of at most 8 bits, the TPU kernels
 //   src/repro/kernels/approx_matmul.py:230 lut_matmul_fused -> :208 ->
@@ -25,6 +25,8 @@
 //     2^{b/2} x 2^{b/2} sub-tables of a half-word-decomposable multiplier)
 //   src/repro/kernels/approx_matmul.py:402 nibble_lut_matmul_partial ->
 //     :367 (_nibble_fused_kernel, epilogue off)
+//   src/repro/kernels/approx_matmul.py:294 nibble_lut_matmul -> :313 ->
+//     _nibble_int_kernel :269 (int8 in)
 //   src/repro/kernels/mitchell_gemm.py:173 mitchell_matmul_fused -> :151
 //     -> _fused_kernel :115 (_log_product :44, mitchell and log_our)
 //   src/repro/kernels/mitchell_gemm.py:189 mitchell_matmul_partial ->
@@ -34,8 +36,8 @@
 // Log operands of 9..16 bits go to cim_gemm.cuh's tiled template, by the
 // gate kernels/mitchell_gemm.py fused_route (a function of the bits,
 // tested on the CPU), fused, partial and int alike.  Every nibble width is
-// even and at most 8 bits: the nibble forms have no other route; the nibble
-// int form (nibble_lut_matmul) stays on the template.
+// even and at most 8 bits: the nibble forms, int included, have no other
+// route.
 //
 // What it computes: acc = sum_k prod(qa, qb) in 32 bits with
 // two's-complement wrap, and out[m,n] = (f32(acc) * sx) * sw[n] (Epi =
@@ -47,8 +49,8 @@
 // int forms take qa, qb as the int8 they are, and sx, sw are not read:
 // bit for bit the plain versions lut_matmul_fused_plain,
 // nibble_lut_matmul_fused_plain, mitchell_matmul_fused_plain, their
-// *_partial_plain, ref.lut_matmul_ref, lut_matmul_mag_plain and
-// ref.mitchell_matmul_ref.
+// *_partial_plain, ref.lut_matmul_ref, lut_matmul_mag_plain,
+// ref.nibble_matmul_ref and ref.mitchell_matmul_ref.
 //
 // What bounds it on an H100: at a decode round (M = 4) the weight: each
 // element is read once (3.35 TB/s) and, in a fused form, quantized once
@@ -124,7 +126,12 @@
 //                a, so each is one wavefront.  These are the reference's
 //                four terms regrouped (wrapping sums are associative);
 //                the row of a = 0 is zero by its sign and sign(0) zeroes
-//                b = 0, whatever the sub-tables hold.
+//                b = 0, whatever the sub-tables hold.  An int8 operand
+//                saturates as the reference's _nibble_int_kernel: x stages
+//                the row of sign(a) min(|a|, qmax), w the columns of
+//                min(|b|, qmax) (-128, and below 8 bits every magnitude
+//                past qmax); a quantized operand never leaves +-qmax, so
+//                the fused and partial forms skip the clamp.
 //      mitchell  2^(k1+k2) + q1 2^k2 + q2 2^k1 = mag1 2^k2 + q2 2^k1, so
 //                with A = (s1 mag1, s1 2^k1) and B = (s2 2^k2, s2 q2) as
 //                signed bytes the signed product is A.B, a dot product of
@@ -444,8 +451,11 @@ __device__ __forceinline__ void cl_stage_x(uint32_t* sA,
       word = log_x_bytes(q(r, 2 * j), a.bits) |
              (log_x_bytes(q(r, 2 * j + 1), a.bits) << 16);
     } else if constexpr (Core::KIND == 3) {
-      // the byte offset of its signed row in the folded table
-      word = static_cast<uint32_t>(q(r, j) + qmax) << ((a.bits >> 1) + 3);
+      // the byte offset of its signed row in the folded table; an int8
+      // operand saturates to +-qmax (a quantized one is inside already)
+      int v = q(r, j);
+      if constexpr (!QUANT) v = max(-qmax, min(v, qmax));
+      word = static_cast<uint32_t>(v + qmax) << ((a.bits >> 1) + 3);
     } else if constexpr (Core::KIND == 4) {
       // the byte offset of row min(|a|, qmax); sign(a) in the sign plane
       const int v = q(r, j);
@@ -561,8 +571,11 @@ cluster_gemm_kernel(const ClArgs a) {
         b0[j] = log_w_bytes(qb[2 * j], a.bits) |
                 (log_w_bytes(qb[2 * j + 1], a.bits) << 16);
       } else if constexpr (KIND == 3) {
-        // the byte offsets of columns bh and hb + bl, and sign(b)
-        const int h = a.bits >> 1, mag = abs(qb[j]);
+        // the byte offsets of columns bh and hb + bl, and sign(b); an
+        // int8 magnitude saturates at qmax
+        const int h = a.bits >> 1;
+        int mag = abs(qb[j]);
+        if constexpr (!QUANT) mag = min(mag, qmax);
         b0[j] = static_cast<uint32_t>(mag >> h) * 4u;
         b1[j] = static_cast<uint32_t>((1 << h) + (mag & ((1 << h) - 1))) *
                 4u;

@@ -12,17 +12,19 @@
 // columns lie in the low half-word), every product is rebuilt from four
 // 2^{b/2} x 2^{b/2} sub-tables on saturated magnitudes,
 //   sign(a) sign(b) (S_hh[ah,bh] + S_hl[ah,bl] + S_lh[al,bh] + S_ll[al,bl]),
-// the same products as attn_gemm.cu's nibble path.  The int form is
-// cim_gemm.cuh's tiled gemm_kernel with the NibbleCore (four gathers a
-// product); the fused and partial forms are cluster_gemm.cuh's split-K
-// cluster kernel with the ClusterNibbleCore, epilogue on (ScaleOut) and
-// off (QuantIntOut), which folds the four sub-tables into two signed ones
-// once a block: two conflict-free gathers a product.
+// the same products as attn_gemm.cu's nibble path.  Every form is
+// cluster_gemm.cuh's split-K cluster kernel with the ClusterNibbleCore,
+// which folds the four sub-tables into two signed ones once a block (two
+// conflict-free gathers a product): the fused form with its epilogue on
+// (ScaleOut), the partial form with it off (QuantIntOut), the int form on
+// int8 operands (IntOut: an 8-stage ring of 64 k, no scale read), whose
+// staging saturates |a| and |b| at qmax as the reference does (int8 -128,
+// and below 8 bits every magnitude past qmax).  cim_gemm.cuh's NibbleCore
+// stays for the attention and conv tile kernels, which stage through it.
 //
-// What bounds it on an H100: the fused forms' two shared-memory gathers a
-// product, at most 132 SMs x 32 words a clock (2*M*K*N gathers); bytes (x
-// and w read once, the output written once, at 3.35 TB/s) only at a
-// handful of rows.
+// What bounds it on an H100: the two shared-memory gathers a product, at
+// most 132 SMs x 32 words a clock (2*M*K*N gathers); bytes (x and w read
+// once, the output written once, at 3.35 TB/s) only at a handful of rows.
 
 #include "cim_gemm.cuh"
 #include "cluster_gemm.cuh"
@@ -36,12 +38,24 @@ inline bool even_bits(int bits) { return bits % 2 == 0; }
 
 extern "C" {
 
-// int8 (M,K) x int8 (K,N) -> int32 (M,N); subs: 4 * 2^bits int32 entries
-int nibble_gemm_int8(const void* x, const void* w, const void* subs,
-                     void* out, int M, int K, int N, int bits,
-                     void* stream) {
-  return cim::dense_int8<cim::NibbleCore>(x, w, subs, out, M, K, N, bits,
-                                          stream);
+// int8 (M,K) x int8 (K,N) -> int32 (M,N); subs: 4 * 2^bits int32 entries;
+// rb, splits, k_split: the launch plan (kernels/approx_matmul.py
+// cluster_plan), rows 4 or 16
+int nibble_gemm_int8_cluster(const void* x, const void* w, const void* subs,
+                             void* out, int M, int K, int N, int bits,
+                             int rb, int splits, int k_split, void* stream) {
+  if (!even_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return cim::cluster_gemm_int8<cim::ClusterNibbleCore>(
+      x, w, subs, out, M, K, N, bits, rb, splits, k_split, stream);
+}
+
+// the clusters of `splits` blocks of nibble_gemm_int8_cluster's kernel for
+// `rb` rows that the device holds at once, into *out (the plan's waves)
+int nibble_gemm_int8_cluster_capacity(int rb, int bits, int splits,
+                                      int* out) {
+  if (!even_bits(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  return cim::cluster_capacity_int8<cim::ClusterNibbleCore>(rb, bits,
+                                                            splits, out);
 }
 
 // f32 or bf16 (M,K) x f32 or bf16 (K,N) -> f32 (M,N); sx: one f32 on the

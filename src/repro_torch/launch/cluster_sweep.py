@@ -17,8 +17,9 @@ forms (``lut_matmul_partial``, ``nibble_lut_matmul_partial``,
 ``mitchell_matmul_partial``: the same kernel, its epilogue off) at
 chip_smoke.py's shard shapes (PARTIAL_SHAPES).  ``--only int`` times the
 int forms on the same kernel (``lut_matmul``, ``lut_matmul_mag`` over
-the balanced tier's table faulted at phase 12's rate, ``mitchell_matmul``:
-int8 operands) at the eight shapes and chip_smoke.py's SERVED_SHAPES, each
+the balanced tier's table faulted at phase 12's rate, ``mitchell_matmul``,
+``nibble_lut_matmul`` over the balanced/4 lane's sub-tables: int8
+operands) at the eight shapes and chip_smoke.py's SERVED_SHAPES, each
 split checked bitwise against the plain version.  ``--only nibble`` runs
 the nibble rows alone, and then the nibble kernel's block shapes
 (``kernels/csrc/nibble_shapes.cu``: 512 threads one block an SM, and the
@@ -214,6 +215,8 @@ def int_sweep(cs, dev, lut, sweep) -> None:
     spec = MultiplierSpec("appro42", 8, True, "orplane", 10)
     mag = ops.magnitude_lut(spec, FaultConfig.from_yield(rows=32, scale=1.0),
                             dev)
+    subs = ops.nibble_table(MultiplierSpec("appro42", 8, True, "orplane", 4),
+                            dev)
     for m, k, n in cs.MAIN_SHAPES + cs.SERVED_SHAPES:
         g = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
         xq = torch.randint(-128, 128, (m, k), generator=g, device=dev,
@@ -228,7 +231,10 @@ def int_sweep(cs, dev, lut, sweep) -> None:
                 ("mag int", am.KERNELS["lut_matmul_mag"], (mag.data_ptr(),),
                  (), am.lut_matmul_mag_plain(xq, wq, mag)),
                 ("mitchell int", mg.KERNELS["mitchell_matmul"], (), (0,),
-                 ref.mitchell_matmul_ref(xq, wq, compensated=False))):
+                 ref.mitchell_matmul_ref(xq, wq, compensated=False)),
+                ("nibble int", am.KERNELS["nibble_lut_matmul"],
+                 (subs.data_ptr(),), (), ref.nibble_matmul_ref(xq, wq,
+                                                               subs))):
             plan = am.fused_plan(kern, xq, wq, 8, *flags)
             checked = set()
 

@@ -10,9 +10,10 @@ version, then timed per shape with the root's own timer (``_timed_ms``:
 a mean of launches, each after an L2 flush).  Then, the same in every
 root, the int GEMMs the per-token and faulted lanes serve
 (``lut_matmul`` over the balanced tier's table, ``lut_matmul_mag`` over
-it faulted at phase 12's rate, ``mitchell_matmul``) at M = 1, 2, 4, 8,
-16, 20 and 64 times the four LM (K, N), each checked against its plain
-version, keyed ``int <name>``.  ``--spin CYCLES`` times
+it faulted at phase 12's rate, ``mitchell_matmul``,
+``nibble_lut_matmul`` over the sub-tables of the balanced/4 lane,
+appro42/orplane/4) at M = 1, 2, 4, 8, 16, 20 and 64 times the four LM
+(K, N), each checked against its plain version, keyed ``int <name>``.  ``--spin CYCLES`` times
 every root with one timer instead: the L2 flush, then the card spun for
 CYCLES SM clocks (``torch.cuda._sleep``; 0 spins not at all) so that a
 launch's host work is queued before the start event, then the launch
@@ -91,6 +92,8 @@ def int_forms(out):
     lut = ops.lut_table(spec, dev)
     mag = ops.magnitude_lut(spec, FaultConfig.from_yield(rows=32, scale=1.0),
                             dev)
+    subs = ops.nibble_table(MultiplierSpec("appro42", 8, True, "orplane", 4),
+                            dev)
     for m in (1, 2, 4, 8, 16, 20, 64):
         for k, n in cs.WEIGHT_SHAPES:
             g = torch.Generator(device=dev).manual_seed(m * 13 + k + n)
@@ -106,7 +109,10 @@ def int_forms(out):
                     ("mitchell_matmul",
                      lambda: mg.mitchell_matmul(xq, wq, compensated=False),
                      lambda: ref.mitchell_matmul_ref(xq, wq,
-                                                     compensated=False))):
+                                                     compensated=False)),
+                    ("nibble_lut_matmul",
+                     lambda: am.nibble_lut_matmul(xq, wq, subs),
+                     lambda: ref.nibble_matmul_ref(xq, wq, subs))):
                 if not torch.equal(fn(), plain()):
                     sys.exit(f"int {name} {(m, k, n)}: != plain version")
                 out.setdefault("int " + name, {})[str((m, k, n))] = \

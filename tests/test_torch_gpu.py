@@ -1375,6 +1375,47 @@ def test_slstm_profiler_classes_the_cluster_kernel():
     assert {smoke._kernel_class(n, set()) for n in names} == {"sLSTM scan"}
 
 
+def test_profile_read_is_the_profilers_tree_on_the_card():
+    """chip_smoke.py's `_profile_read` gives on the card what the
+    profiler's own event list gives: the kernels (a port kernel, cuBLAS,
+    elementwise and a copy) with their times, the top-level aten ops and
+    the matmul's kernels, which the profile classes as torch.matmul; in
+    every profile, and one of three sees them all."""
+    import importlib.util
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from test_torch_smoke_profile import same_as_the_tree
+
+    dev = _card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    x, w, _, _ = _ops(64, 2048, 2048, dev)
+    lut = ops.lut_table(BALANCED, dev)
+    sx, sw = ops._scales(x, w, 8)
+
+    def run():
+        y = approx_matmul.lut_matmul_fused(x, w, lut, sx, sw)
+        z = torch.matmul(x, w).float()
+        (y + z).softmax(-1).sum().cpu()
+        torch.cuda.synchronize()
+
+    run()
+    seen = []
+    for _ in range(3):              # CUPTI drops a record now and then
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        kern, n_ops, mm = same_as_the_tree(smoke, prof)
+        seen.append(({smoke._kernel_class(n, mm) for n, _ in kern}, n_ops))
+    assert any({"CiM LUT kernel", "torch.matmul", "copies"} <= classes
+               and n_ops >= 5 for classes, n_ops in seen), seen
+
+
 def test_slstm_wrapper_raises_on_what_the_kernel_does_not_take():
     from repro_torch.kernels import slstm_scan
 
@@ -1722,7 +1763,7 @@ def test_nibble_cluster_kernels_bitwise_at_the_edges(shape, dtype):
     """The nibble fused and partial forms at the cluster kernel's edges, at
     2, 4, 6 and 8 bits (the exact family) and for appro42/4: bitwise the
     plain versions, each partial through the epilogue bitwise its fused
-    form, every launch on the cluster entries (the int template's entry
+    form, every launch on the fused and partial entries (the int entry
     never)."""
     dev = _card()
     x, w = _float_ops(*shape, dev, dtype, seed=sum(shape) + 2)
@@ -1819,6 +1860,39 @@ def test_nibble_cluster_kernel_refuses_what_it_does_not_take():
                 (4, 1, 128), (64, 1, 256), (4, 2, 128, 7)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             launch(*bad)
+
+
+@pytest.mark.parametrize("shape", CLUSTER_EDGES, ids=str)
+def test_nibble_int_form_bitwise_at_the_cluster_edges(shape):
+    """nibble_lut_matmul on the split-K cluster kernel at its edges, at 2,
+    4, 6 and 8 bits (the exact family) and for appro42/4: int8 operands
+    over the whole int8 range (-128 in x's first column; below 8 bits most
+    magnitudes lie past qmax, which the kernel saturates) bitwise
+    ref.nibble_matmul_ref, one launch of nibble_gemm_int8_cluster a call;
+    at (1, 2048, 2048) both operands one byte off 16-byte alignment (the
+    element loads)."""
+    dev = _card()
+    m, k, n = shape
+    _, _, xq, wq = _ops(m, k, n, dev, seed=m + k + n + 3)
+    xq[:, :1] = -128
+    if shape == (1, 2048, 2048):
+        bx = torch.empty(xq.numel() + 1, dtype=torch.int8, device=dev)
+        bw = torch.empty(wq.numel() + 1, dtype=torch.int8, device=dev)
+        xq = bx[1:].view(m, k).copy_(xq)
+        wq = bw[1:].view(k, n).copy_(wq)
+        assert xq.data_ptr() % 16 and wq.data_ptr() % 16
+    kern = approx_matmul.KERNELS["nibble_lut_matmul"]
+    assert kern.symbol == "nibble_gemm_int8_cluster"
+    before = kern.launches
+    pairs = []
+    for spec, bits in NIBBLE_WIDTHS:
+        subs = ops.nibble_table(spec, dev)
+        pairs.append((approx_matmul.nibble_lut_matmul(xq, wq, subs, bits),
+                      ref.nibble_matmul_ref(xq, wq, subs, bits)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert kern.launches - before == len(NIBBLE_WIDTHS)
 
 
 # ---------------------------------------------------------------------------

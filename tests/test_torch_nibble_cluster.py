@@ -16,8 +16,13 @@ int32 limit that ``ops._subs_np`` admits, row 0 nonzero), with every
 gather of a warp in one bank line; the kernel's rank-order split-K sum of
 those products against the plain partial; the whole fused form against
 the JAX kernel; the launch plan at the LM and shard shapes; and the
-wrappers' card side (faked): the cluster entries with the plan, never
-the template.  The kernels themselves run only on the card
+wrappers' card side (faked): the cluster entries with the plan.  The int
+form ``nibble_lut_matmul`` (int8 operands, IntOut) runs the same core,
+its staging saturating both magnitudes at qmax (int8 -128, and below 8
+bits every magnitude past qmax, which the quantized forms never meet):
+its staged products on every int8 pair, its split-K sum, the whole int
+form against the JAX kernel, its plan at the served shapes and its card
+side.  The kernels themselves run only on the card
 (tests/test_torch_gpu.py)."""
 
 import jax.numpy as jnp
@@ -26,6 +31,7 @@ import pytest
 import torch
 
 from repro.kernels.approx_matmul import _gather_nibble
+from repro.kernels.approx_matmul import nibble_lut_matmul as j_int
 from repro.kernels.approx_matmul import nibble_lut_matmul_fused as j_fused
 from repro_torch.kernels import approx_matmul, ops
 from repro_torch.kernels import ref as tref
@@ -267,6 +273,117 @@ def test_kernel_model_equals_the_jax_fused_kernel(bits):
         tx, tw, subs, tsx, tsw, bits))
 
 
+# --- the int form: int8 operands, saturated in the staging -----------------
+
+def x_word_int(a, bits):
+    """cl_stage_x on an int8 operand (IntOut): the row of sign(a) min(|a|,
+    qmax)."""
+    qmax = (1 << (bits - 1)) - 1
+    return x_word(torch.clamp(a, -qmax, qmax), bits)
+
+
+def w_regs_int(b, bits):
+    """The weight's registers from an int8 operand: the columns of
+    min(|b|, qmax), and sign(b)."""
+    qmax = (1 << (bits - 1)) - 1
+    bh, bl, _ = w_regs(torch.clamp(b.abs(), max=qmax), bits)
+    return bh, bl, torch.sign(b)
+
+
+def _int8_values():
+    return torch.arange(-128, 128, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("kind", ["exact", "appro42", "random"])
+@pytest.mark.parametrize("bits", BITS)
+def test_int8_staging_saturates_on_every_int8_pair(bits, kind):
+    """Every int8 pair, -128 and (below 8 bits) the magnitudes past qmax
+    included: the saturated staged product equals ref.nibble_sum (the
+    plain int form) and the reference's _gather_nibble on min(|a|, qmax),
+    min(|b|, qmax), with every gather inside the folded table; a zero
+    operand gives 0.  Unsaturated, -128 at 8 bits would stage row -1, a
+    read before the table, and 128 the columns (8, 0)."""
+    subs = _subs(kind, bits)
+    table = fold(subs, bits)
+    v = _int8_values()
+    a, b = v[:, None], v[None, :]
+    got = product(x_word_int(a, bits), w_regs_int(b, bits), table)
+    want = tref.nibble_sum(subs, a.to(torch.int32), b.to(torch.int32), bits)
+    assert torch.equal(got, want.to(torch.int64))
+    qmax = (1 << (bits - 1)) - 1
+    am = jnp.asarray(torch.clamp(a.abs(), max=qmax).numpy(), jnp.int32)
+    bm = jnp.asarray(torch.clamp(b.abs(), max=qmax).numpy(), jnp.int32)
+    ref = _gather_nibble(jnp.asarray(subs.numpy()), am, bm,
+                         jnp.sign(jnp.asarray(a.numpy(), jnp.int32)),
+                         jnp.sign(jnp.asarray(b.numpy(), jnp.int32)),
+                         bits // 2, 1)
+    assert np.array_equal(got.numpy(), np.asarray(ref).astype(np.int64))
+    zero = (a == 0) | (b == 0)
+    assert not bool(got[zero].any())
+    if bits == 8:
+        assert int(x_word(torch.tensor(-128), bits)) < 0
+        bh, bl, _ = w_regs(torch.tensor(128), bits)
+        assert (int(bh), int(bl)) == (8 * 4, 16 * 4)
+
+
+def _int_products(qa, qb, subs, bits):
+    """The int form's products on the CPU: (M, K, N), each in 32 bits."""
+    regs = tuple(r[None] for r in w_regs_int(qb, bits))
+    return product(x_word_int(qa, bits)[:, :, None], regs, fold(subs, bits))
+
+
+@pytest.mark.parametrize("kind", ["exact", "random"])
+def test_rank_order_int_sum_equals_the_plain_int_form(kind):
+    """At the plan's 8 slices of a long K (250,000 for the exact table,
+    6,000 for the random tables at the int32 limit), int8 operands of
+    magnitude 110..127, -128 in x's first column, one k in 64 of the
+    weight negated: every sum passes 2^31 and wraps; the kernel's split-K
+    sum of the saturated products, written as int32, equals the plain int
+    form bit for bit."""
+    m, n, bits = 2, 3, 8
+    k = 250_000 if kind == "exact" else 6_000
+    rng = np.random.default_rng(17)
+    qa = torch.from_numpy(rng.integers(110, 128, (m, k)))
+    qb = torch.from_numpy(rng.integers(110, 128, (k, n)))
+    qb[::64] *= -1
+    qa[:, 0] = -128
+    subs = _subs(kind, bits)
+    plan = _plan(m, k, n)
+    assert plan.splits == approx_matmul.CLUSTER_MAX_SPLITS
+    prods = _int_products(qa, qb, subs, bits)
+    assert int(prods.sum(1).abs().min()) >= 1 << 31    # every sum wraps
+    want = approx_matmul.nibble_lut_matmul(qa.to(torch.int8),
+                                           qb.to(torch.int8), subs)
+    got = _rank_order_sum(prods, plan.k_split)
+    assert want.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["exact", "appro42"])
+@pytest.mark.parametrize("bits", BITS)
+def test_int_kernel_model_equals_the_jax_int_kernel(bits, kind):
+    """The whole int form as the kernel computes it (the saturated staged
+    products, the plan's slices summed in rank order) against the JAX
+    package's nibble_lut_matmul in interpret mode, bitwise, on int8
+    operands over the whole int8 range (-128 in x's first row; below 8
+    bits most magnitudes lie past qmax)."""
+    m, k, n = 5, 200, 9
+    rng = np.random.default_rng(bits + 40)
+    xq = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    wq = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    xq[0, :3] = -128
+    subs = _subs(kind, bits)
+    plan = _plan(m, k, n)
+    got = _rank_order_sum(_int_products(
+        torch.from_numpy(xq).long(), torch.from_numpy(wq).long(), subs, bits),
+        plan.k_split)
+    want = np.asarray(j_int(jnp.asarray(xq), jnp.asarray(wq),
+                            jnp.asarray(subs.numpy()), bits=bits,
+                            interpret=True))
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, approx_matmul.nibble_lut_matmul(
+        torch.from_numpy(xq), torch.from_numpy(wq), subs, bits))
+
+
 # --- the launch plan and the wrappers' card side ----------------------------
 
 # chip_smoke.py's LM shapes (M = 4 and 64 times qwen3-1.7b's four weight
@@ -296,6 +413,34 @@ def test_cluster_plan_at_the_lm_and_shard_shapes(shape, per_sm):
     assert p.tiles >= 96 or p.splits > 1 or k <= 64
 
 
+# chip_smoke.py's SERVED_SHAPES: the per-token and faulted lanes' calls, M =
+# 1, 2 (a decode round of one or two slots), 8, 16 (prompts over two
+# slots) and 20 (the k = 4 verify), times the four LM (K, N)
+SERVED_SHAPES = [(m, k, n) for m in (1, 2, 8, 16, 20)
+                 for (k, n) in ((2048, 2048), (2048, 1024), (2048, 6144),
+                                (6144, 2048))]
+
+
+@pytest.mark.parametrize("shape", SERVED_SHAPES, ids=str)
+def test_int_plan_at_the_served_shapes(shape):
+    """The int form's plan over NIBBLE_ROWS (its entry's tiles in
+    ROW_TILES) at two blocks an SM: the fewest row tiles that hold M, a
+    split the device holds, K covered with no slice empty, a decode
+    round's 32 tiles split to fill the card."""
+    m, k, n = shape
+    kern = approx_matmul.KERNELS["nibble_lut_matmul"]
+    assert approx_matmul.ROW_TILES[kern.symbol] == approx_matmul.NIBBLE_ROWS
+    cap = _gpcs(H100_GPCS, 2)
+    p = _plan(m, k, n)
+    assert p.rows == (4 if m <= 4 else 16)
+    assert p.tiles == -(-m // p.rows) * (n // 64)
+    assert cap(p.rows, p.splits) > 0
+    assert p.k_split % approx_matmul.CLUSTER_BK == 0
+    assert (p.splits - 1) * p.k_split < k <= p.splits * p.k_split
+    if m <= 4 and n == 2048:
+        assert p.splits > 1
+
+
 class _Recorder:
     """A CudaKernel stand-in on the CPU: records each call (checked
     against the C entry's signature); `refuse` raises as a launch the
@@ -314,8 +459,8 @@ class _Recorder:
 
 def _card_side(monkeypatch, refuse=False):
     """approx_matmul's card side on CPU tensors: on_cuda says yes, the
-    three nibble entries record, the plan reads an H100-like capacity
-    from the launched kernel's own query."""
+    three nibble cluster entries (int, fused, partial) record, the plan
+    reads an H100-like capacity from the launched kernel's own query."""
     monkeypatch.setattr(approx_matmul, "on_cuda", lambda *t: True)
     monkeypatch.setattr(approx_matmul, "stream_of", lambda t: 0)
     asked = set()
@@ -340,8 +485,7 @@ def test_nibble_wrappers_launch_the_cluster_kernel(monkeypatch, bits,
     """On a (faked) card the fused and partial wrappers launch the cluster
     entry (f32 out, or the raw int32 sum) with the plan from that entry's
     own capacity query over its row tiles (16 rows at M = 64), and never
-    the template's int entry; a refused launch raises: nothing falls
-    back."""
+    the int entry; a refused launch raises: nothing falls back."""
     k, n = 1024, 2048
     rng = np.random.default_rng(bits)
     x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(
@@ -375,12 +519,77 @@ def test_nibble_wrappers_launch_the_cluster_kernel(monkeypatch, bits,
 
 
 def test_nibble_wrappers_refuse_odd_widths_on_the_card(monkeypatch):
-    """The nibble kernels take even widths of 2..8 bits only."""
+    """The nibble kernels take even widths of 2..8 bits only, the int form
+    too."""
     rec, _ = _card_side(monkeypatch)
     x, w = torch.ones(4, 64), torch.ones(64, 64)
+    xq, wq = torch.ones(4, 64, dtype=torch.int8), torch.ones(
+        64, 64, dtype=torch.int8)
     for bits in (3, 7):
         subs = torch.zeros(4 << bits, dtype=torch.int32)
         with pytest.raises(ValueError, match="even width"):
             approx_matmul.nibble_lut_matmul_fused(x, w, subs, torch.ones(1),
                                                   torch.ones(64), bits)
+        with pytest.raises(ValueError, match="even width"):
+            approx_matmul.nibble_lut_matmul(xq, wq, subs, bits)
     assert not any(r.calls for r in rec.values())
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 64])
+@pytest.mark.parametrize("bits", BITS)
+def test_nibble_int_form_launches_the_cluster_kernel(monkeypatch, bits, m):
+    """On a (faked) card nibble_lut_matmul launches its cluster entry
+    (nibble_gemm_int8_cluster: int8 operands, an int32 output, no scale)
+    with the plan from that entry's own capacity query, whose arguments
+    after the rows are (bits,) alone, over NIBBLE_ROWS; no other entry;
+    operands past qmax go to the kernel, which saturates them (no range
+    check refuses them); a refused launch raises: nothing falls back."""
+    k, n = 1024, 2048
+    rng = np.random.default_rng(bits + m)
+    xq = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    xq[0, 0] = -128
+    subs = _subs("exact", bits)
+    rec, asked = _card_side(monkeypatch)
+    out = approx_matmul.nibble_lut_matmul(xq, wq, subs, bits)
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    (args,) = rec["_NIB_INT"].calls
+    assert not any(r.calls for name, r in rec.items() if name != "_NIB_INT")
+    symbol = "nibble_gemm_int8_cluster"
+    assert rec["_NIB_INT"].symbol == symbol
+    plan = _plan(m, k, n)
+    assert asked == {("nibble_gemm", symbol + "_capacity", (bits,),
+                      plan.rows)}
+    assert args == (xq.data_ptr(), wq.data_ptr(), subs.data_ptr(),
+                    out.data_ptr(), m, k, n, bits, plan.rows, plan.splits,
+                    plan.k_split, 0)
+    with pytest.raises(ValueError, match="sub-tables"):
+        approx_matmul.nibble_lut_matmul(xq, wq, subs[:-1].clone(), bits)
+    with pytest.raises(ValueError, match="int8"):
+        approx_matmul.nibble_lut_matmul(xq.int(), wq, subs, bits)
+    _card_side(monkeypatch, refuse=True)
+    with pytest.raises(RuntimeError, match=symbol):
+        approx_matmul.nibble_lut_matmul(xq, wq, subs, bits)
+
+
+def test_the_template_nibble_gemm_is_gone():
+    """Every nibble entry is a cluster entry with its own capacity query:
+    nibble_gemm.cu instantiates no tiled template GEMM (dense_int8) and
+    exports no nibble_gemm_int8; cim_gemm.cuh keeps NibbleCore for the
+    attention and conv tile kernels, which stage through it."""
+    import pathlib
+
+    csrc = pathlib.Path(approx_matmul.__file__).parent / "csrc"
+    nib = [kern for name, kern in approx_matmul.KERNELS.items()
+           if name.startswith("nibble")]
+    assert sorted(k.symbol for k in nib) == [
+        "nibble_gemm_fused", "nibble_gemm_int8_cluster",
+        "nibble_gemm_partial"]
+    src = (csrc / "nibble_gemm.cu").read_text()
+    assert "dense_int8" not in src and "nibble_gemm_int8(" not in src
+    for k in nib:
+        assert f"int {k.symbol}(" in src
+        assert f"int {k.symbol}_capacity(" in src
+    assert "struct NibbleCore" in (csrc / "cim_gemm.cuh").read_text()
+    for user in ("attn_cluster.cuh", "conv_tile.cuh"):
+        assert "NibbleCore::stage_" in (csrc / user).read_text()

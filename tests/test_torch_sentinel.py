@@ -14,6 +14,7 @@ from tests/test_sentinel.py and tests/test_faults.py:
     drill, faulted convs) passes on the CPU."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -428,3 +429,49 @@ def test_chip_smoke_phase_12_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert "identical to the exact-only run" in out
     assert "every faulted lane still quarantined" in out
     assert "probe passed" in out and "phase 12 took" in out
+    # the faulted ladder's probe cooldown: its measured round and the
+    # cooldown it gave (printed to 3 and 2 places), each faulted lane's
+    # forwards in probes and else
+    m = re.search(r"the ladder's round ([0-9.]+) s .* a probe cooldown of "
+                  r"([0-9.]+) s", out)
+    rnd, cooldown = float(m.group(1)), float(m.group(2))
+    assert abs(cooldown - max(cs.FAULT_COOLDOWN_S,
+                              cs.FAULT_COOLDOWN_ROUNDS * rnd)) < 0.02
+    for name in cs.FAULT_INT:
+        assert re.search(rf"{name} \d+ \(\d+ in \d+ probes, \d+ else\)",
+                         out), name
+
+
+def test_chip_smoke_counts_probes_from_the_quarantine():
+    """chip_smoke.py's phase 12 splits a faulted lane's forwards into its
+    half-open probes and the rest by the lane's quarantine: on the smoke
+    LM the forwards before a trip are not counted, and a forced trip and
+    one passing probe are one probe of a prefill and probe_rounds decode
+    rounds."""
+    import importlib.util
+    import os
+
+    from repro_torch.serving import Request
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_probes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = get_config(ARCH, smoke=True)
+    eng = build_engine(cfg, LM(cfg, "cpu").init(0), tiers=cs._fault_tiers(),
+                       sentinel_cfg=SentinelConfig(cooldown_s=0.0),
+                       **cs._fault_engine_kw("cpu"))
+    eng.warmup()
+    probes = cs._quarantined_forwards(eng, ["balanced"])
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, (6,)),
+                           max_new=8, tier="balanced"))
+    eng.step(0.0)
+    lane = eng.lanes["balanced"]
+    assert lane.running and probes == {"balanced": [0, 0]}
+    eng._trip(lane, 0.01, "forced")
+    eng.step(0.02)                      # the half-open probe fires here
+    assert not lane.quarantined
+    assert probes == {"balanced": [1, 1 + SentinelConfig().probe_rounds]}

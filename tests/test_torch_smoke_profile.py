@@ -2,7 +2,8 @@
 kernels (the profiler recorded none, or fewer of the port's kernels than
 the launch counters say the call launched) is left out and made again,
 at most twice more, never divided by; the median and spread come from
-the profiles that measured."""
+the profiles that measured; every port kernel is told by its name; and
+phase 2's check of the nibble int form's instantiations."""
 
 import importlib.util
 import os
@@ -97,6 +98,8 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "6IntOutEEEvNS_6ClArgsE", "CiM LUT kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb0EEELi4ELi64ENS_"
      "6IntOutEEEvNS_6ClArgsE", "CiM log kernel"),
+    ("_ZN3cim19cluster_gemm_kernelINS_17ClusterNibbleCoreELi4ELi64ENS_"
+     "6IntOutEEEvNS_6ClArgsE", "CiM nibble kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi4ELi64ENS_"
      "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi16ELi64ENS_"
@@ -145,3 +148,86 @@ def test_profile_reads_records_made_elsewhere(smoke, monkeypatch, capsys,
     assert not calls
     assert f"{kept} profiled runs: median" in out
     assert out.count("lost kernels") == left_out
+
+
+_NIB = ("_ZN3cim19cluster_gemm_kernelINS_17ClusterNibbleCoreELi{}ELi64ENS_{}"
+        "EEEvNS_6ClArgsE")
+_NIB_TEMPLATE = ("_ZN3cim11gemm_kernelINS_10NibbleCoreENS_5DenseIaEEaNS_"
+                 "6IntOutEEEvT0_PKT1_PKhPKfSB_PNT2_3OutES8_iiii")
+
+
+@pytest.mark.parametrize("names, ok", [
+    ([_NIB.format(r, e) for r in (4, 16)
+      for e in ("6IntOut", "8ScaleOut", "11QuantIntOut")], True),
+    ([_NIB.format(4, "6IntOut"), _NIB.format(16, "11QuantIntOut")], False),
+    ([_NIB.format(r, "6IntOut") for r in (4, 16)] + [_NIB_TEMPLATE], False),
+], ids=["shipped", "int_rows_16_missing", "template_left"])
+def test_phase_2_requires_the_nibble_int_instantiations(smoke, monkeypatch,
+                                                        capsys, names, ok):
+    """Phase 2 reads libnibble_gemm's functions: the int form's cluster
+    instantiations (ClusterNibbleCore with IntOut at rows 4 and 16, the
+    partial form's QuantIntOut not counting) must all be there, and no
+    tiled template kernel on NibbleCore; else the run fails."""
+    from repro_torch.kernels import sass
+
+    monkeypatch.setattr(sass, "disassemble", lambda path: path)
+    monkeypatch.setattr(sass, "functions",
+                        lambda text: {n: [] for n in names})
+
+    class Build:
+        @staticmethod
+        def library_path(name):
+            assert name == "nibble_gemm"
+            return name
+
+    if ok:
+        smoke.nibble_int_check(Build)
+        assert "for RB [4, 16] in libnibble_gemm" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit):
+            smoke.nibble_int_check(Build)
+
+
+def same_as_the_tree(smoke, prof):
+    """Hold `_profile_read` of a finished torch.profiler run to what
+    `_profile_once` read from the profiler's own event list before it:
+    the device events as (name, microseconds), the top-level aten ops and
+    the kernels MATMUL_OPS launched.  Returns them."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    want = (sorted((e.name, round(e.time_range.elapsed_us(), 3))
+                   for e in events if e.device_type == DeviceType.CUDA),
+            sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.cpu_parent is None and e.name.startswith("aten::")),
+            {k.name for e in events if e.name in smoke.MATMUL_OPS
+             for k in e.kernels})
+    kern, n_ops, mm = smoke._profile_read(prof)
+    got = (sorted((n, round((e - s) / 1e3, 3)) for n, s, e in kern), n_ops,
+           mm)
+    assert got == want
+    return got
+
+
+def test_profile_read_counts_the_ops_of_the_profilers_tree(smoke):
+    """`_profile_read` counts the top-level aten ops that the profiler's
+    own event tree does: ops nested in ops and in a record_function range
+    (whose matmul is not top-level), in-place ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.randn(16, 32)
+
+    def run():
+        for _ in range(5):
+            with record_function("block"):
+                y = torch.matmul(x, x.T)
+            z = torch.nn.functional.linear(x, x).relu()
+            torch.cat([y, z]).softmax(-1).sum()
+            x.add_(0).mul_(1)
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    kern, n_ops, mm = same_as_the_tree(smoke, prof)
+    assert kern == [] and mm == set() and n_ops >= 5 * 5

@@ -18,7 +18,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      and of every instantiation of the fused surrogate kernel
      (surrogate_cluster.cuh) counted, none failing; the nibble int form's
      cluster instantiations (ClusterNibbleCore, IntOut, rows 4 and 16)
-     found in libnibble_gemm and no template kernel there;
+     found in libnibble_gemm and no template kernel there; the attention
+     cluster kernel's and the template's instantiations found in
+     libattn_gemm, each in its three modes (fused, scores, PV) on the five
+     paths;
   3. kernels: each of the seven GEMM kernels (full-LUT gather, its
      magnitude-table form, nibble sub-LUT gather and log-domain, int and
      fused forms) against its plain PyTorch version on the card, bitwise,
@@ -60,17 +63,24 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      template's entry; each variant's partial form too), every launch
      counted on the route it takes; then
      the three attention kernels (fused, and the oracle's scores and PV
-     stages) on every datapath at the serving decode and prefill
+     stages: the cluster kernel, csrc/attn_cluster.cuh, in its three
+     modes) on every datapath at the serving decode and prefill
      geometries, the reference tests' geometry and a long ragged decode
-     (Skv 2048): scores bitwise against the plain version, fused bitwise
-     against the oracle, fused and the PV stage within 8 eps of |plain|
-     in every output (only the order of the l sum differs), and the
-     fused cluster kernel (csrc/attn_cluster.cuh) forced to every split
-     of the kv blocks, each bitwise the oracle, also at a head dim of 10
-     and with K/V one float off 16-byte alignment (its element-wise
-     ring); the log path's 10- and 12-bit operands on the template's
-     fused kernel (``attn_fused_wide``, fused_route's other side), fused
-     bitwise the oracle and within 8 eps of plain; the surrogate GEMMs at
+     (Skv 2048): scores bitwise against the plain version and against the
+     template's scores stage (``attn_scores_wide``, forced at 8 bits: the
+     independent witness), PV bitwise the template's PV over the same
+     stored scores, fused bitwise against the oracle, fused and the PV
+     stage within 8 eps of |plain| in every output (only the order of the
+     l sum differs), one ``attn_materialized`` launching each cluster
+     stage once and no template kernel, and the fused and PV modes forced
+     to every split of the kv blocks (the scores mode to every split of
+     its grid), each bitwise both oracles, also at a head dim of 10 and
+     with K/V (and, for PV, the scores) one float off 16-byte alignment
+     (the element-wise loads); the log path's 10- and 12-bit operands on
+     the template's kernels (``attn_fused_wide``, ``attn_scores_wide``,
+     ``attn_pv_wide``: fused_route's and materialized_route's other
+     side), each call launching only those, fused bitwise the oracle and
+     within 8 eps of plain; the surrogate GEMMs at
      the LM shapes, the CNN's fc and the ragged shape: ``cim_gemm_core``
      D bitwise and SQ within (K - 1) 2^-24 relative of the exact value
      (the f32 sum's bound), ``cim_gemm_fused`` (the split-K cluster kernel,
@@ -379,9 +389,9 @@ SOURCES = {
         "src/repro/kernels/mitchell_gemm.py:173"),
     "attn_fused": ("src/repro_torch/kernels/csrc/attn_cluster.cuh",
                    "src/repro/kernels/attn_gemm.py:381"),
-    "attn_scores": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
+    "attn_scores": ("src/repro_torch/kernels/csrc/attn_cluster.cuh",
                     "src/repro/kernels/attn_gemm.py:447"),
-    "attn_pv": ("src/repro_torch/kernels/csrc/attn_gemm.cu",
+    "attn_pv": ("src/repro_torch/kernels/csrc/attn_cluster.cuh",
                 "src/repro/kernels/attn_gemm.py:461"),
     "nibble_lut_matmul": ("src/repro_torch/kernels/csrc/cluster_gemm.cuh",
                           "src/repro/kernels/approx_matmul.py:294"),
@@ -729,6 +739,38 @@ def nibble_int_check(build) -> None:
     print(f"  nibble int form: cluster_gemm_kernel<ClusterNibbleCore, RB, "
           f"64, IntOut> for RB {sorted(rows)} in libnibble_gemm, no template "
           f"kernel", flush=True)
+
+
+def attn_instances_check(build) -> None:
+    """The attention kernels' instantiations in libattn_gemm's SASS: the
+    cluster kernel (csrc/attn_cluster.cuh) and the template
+    (csrc/attn_gemm.cu) each in its three modes (fused, scores, PV) for
+    each path (log as mitchell and log_our): the cluster kernel up to 8
+    bits, the template for 9..12-bit log operands and as the witness;
+    fail if one is missing."""
+    import re
+
+    from repro_torch.kernels import sass
+
+    kinds = ((0, 0), (1, 0), (2, 0), (3, 0), (3, 1))   # (path, comp)
+    want = {(p, c, m) for p, c in kinds for m in range(3)}
+    fns = sass.functions(sass.disassemble(build.library_path("attn_gemm")))
+    found = {"cluster": set(), "template": set()}
+    for name in fns:
+        for kind, pat in (("cluster", r"attn_cluster_kernelILi(\d)ELb([01])"
+                                      r"ELi(\d)E"),
+                          ("template", r"attn_kernelILi(\d)ELb([01])E[as]"
+                                       r"Li(\d)E")):
+            m = re.search(pat, name)
+            if m:
+                found[kind].add(tuple(map(int, m.groups())))
+    if found["cluster"] != want or found["template"] != want:
+        fail(f"libattn_gemm: the attention kernels' (path, comp, mode) "
+             f"instantiations: cluster {sorted(found['cluster'])}, template "
+             f"{sorted(found['template'])}; expected each of {sorted(want)}")
+    print(f"  attention: attn_cluster_kernel<PATH, COMP, MODE> and "
+          f"attn_kernel<PATH, COMP, QT, MODE> in libattn_gemm, "
+          f"{len(want)} each (5 paths x fused, scores, PV)", flush=True)
 
 
 def check_kernels(torch, sms: int, clock_hz: float):
@@ -1974,7 +2016,7 @@ def _attn_inputs(torch, dev, b, h, kh, sq, skv, d, variant, seed):
     return (q, k, v), sc, (qpos, kpos.contiguous(), kval), window
 
 
-def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
+def _attn_bound(name, path, comp, q, k, v, pos, table, window, bk, sms,
                 clock_hz):
     """(bound_ms, bound_by): the bytes the output depends on, each read or
     written once, at 3.35 TB/s, against the integer products the data
@@ -1982,8 +2024,10 @@ def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
     template's log core compiles it).  Both count only what the mask
     admits: the (query, key) pairs, the q rows and K/V rows that take
     part in one (the scales are passed in, so no other row is read), and
-    the admitted entries of the oracle's score tensor; every output row
-    is written, every position and scale read."""
+    the admitted entries of the oracle's score tensor where PV reads it;
+    every output is written whole (the scores stage's (B, H, Sq, Skvp)
+    tensor too, its masked entries NEG_INF), every position and scale
+    read."""
     qpos, kpos, kval = pos
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
@@ -2000,9 +2044,10 @@ def _attn_bound(name, path, comp, q, k, v, pos, table, window, sms,
     tab = 0 if table is None else table.numel() * table.element_size()
     q_in, kv_in, out = 4 * q_rows * d, 4 * kv_rows * d, 4 * q.numel()
     scores = 4 * pairs
+    all_scores = 4.0 * b * h * sq * -(-skv // bk) * bk
     nbytes = small + tab + {
         "attn_fused": q_in + 2 * kv_in + out,
-        "attn_scores": q_in + kv_in + scores,
+        "attn_scores": q_in + kv_in + all_scores,
         "attn_pv": scores + kv_in + out}[name]
     if path == "mxu":
         ops_s = 2 * products / INT8_TC_OPS_PER_S
@@ -2030,6 +2075,16 @@ def _lsum_check(torch, got, want):
     return float(diff.max()), int((diff > 0).sum()), int(beyond.sum())
 
 
+def _oracle_launches(ag, call):
+    """Run `call` and return the launches it made of the oracle's four
+    entries: (attn_scores, attn_pv, attn_scores_wide, attn_pv_wide)."""
+    names = ("attn_scores", "attn_pv", "attn_scores_wide", "attn_pv_wide")
+    before = [ag.KERNELS[n].launches for n in names]
+    out = call()
+    return out, tuple(ag.KERNELS[n].launches - c
+                      for n, c in zip(names, before))
+
+
 def check_attention(torch, sms: int, clock_hz: float):
     from repro_torch.core.autotune import heuristic_attn_block
     from repro_torch.core.multipliers import MultiplierSpec
@@ -2049,8 +2104,9 @@ def check_attention(torch, sms: int, clock_hz: float):
              ("mxu", "mxu", None, False)]
     rows = {"attn_fused": [], "attn_scores": [], "attn_pv": []}
     print(f"  {'path':<8} {'geometry':<28} {'kernel':<12} {'ms':>9} "
-          f"{'bound_ms':>9} {'by':>10} {'plain_ms':>9}  fused-plain: max "
-          f"|d|, outputs differing, beyond l-sum rounding", flush=True)
+          f"{'bound_ms':>9} {'by':>10} {'plain_ms':>9} {'tmpl_ms':>9}  "
+          f"fused-plain: max |d|, outputs differing, beyond l-sum rounding",
+          flush=True)
     for label, path, spec, comp in paths:
         table = ops._attn_table(path, spec, dev)
         geoms = (ATTN_MAIN + (ATTN_SMALL if label != "log_our" else [])
@@ -2063,6 +2119,7 @@ def check_attention(torch, sms: int, clock_hz: float):
                   heuristic_attn_block(f"pallas_attn_{path}", sq, skv)[1])
             kw = dict(path=path, bits=8, causal=True, window=window,
                       compensated=comp, block=(8, bk))
+            tpl = dict(kw, route="template")
             calls = {
                 "attn_fused": (
                     lambda: ag.attn_fused(q, k, v, *sc, *pos, table, **kw),
@@ -2072,24 +2129,44 @@ def check_attention(torch, sms: int, clock_hz: float):
                     lambda: ag.attn_scores(q, k, sc[0], sc[1], *pos, table,
                                            **kw),
                     lambda: ag.attn_scores_plain(q, k, sc[0], sc[1], *pos,
-                                                 table, **kw)),
+                                                 table, **kw),
+                    lambda: ag._attn_scores_forced(q, k, sc[0], sc[1], *pos,
+                                                   table, **tpl)),
             }
             fused, plain = calls["attn_fused"][0](), calls["attn_fused"][1]()
             scores = calls["attn_scores"][0]()
+            tpl_scores = calls["attn_scores"][2]()
             mat = ag.attn_pv(scores, v, sc[2], *pos, table, **kw)
             calls["attn_pv"] = (
                 lambda: ag.attn_pv(scores, v, sc[2], *pos, table, **kw),
                 lambda: ag.attn_pv_plain(scores, v, sc[2], *pos, table,
-                                         **kw))
+                                         **kw),
+                lambda: ag._attn_pv_forced(scores, v, sc[2], *pos, table,
+                                           **tpl))
+            # the template's PV over the same stored scores: with its
+            # scores bitwise these, the template's attn_materialized
+            tpl_mat = calls["attn_pv"][2]()
             plain_scores = calls["attn_scores"][1]()
+            # a <= 8-bit attn_materialized launches each cluster stage once
+            # and no template entry
+            again, moved = _oracle_launches(ag, lambda: ag.attn_materialized(
+                q, k, v, *sc, *pos, table, **kw))
             torch.cuda.synchronize()
             where = f"attention {label} {geom}"
-            if not torch.equal(scores, plain_scores):
-                fail(f"{where}: scores kernel != plain version (max |d| "
-                     f"{float((scores - plain_scores).abs().max())})")
-            if not torch.equal(fused, mat):
-                fail(f"{where}: fused != materialized (max |d| "
-                     f"{float((fused - mat).abs().max())})")
+            if moved != (1, 1, 0, 0):
+                fail(f"{where}: attn_materialized launched (attn_scores, "
+                     f"attn_pv, attn_scores_wide, attn_pv_wide) {moved}, "
+                     f"not (1, 1, 0, 0)")
+            for what, got, want in (
+                    ("scores kernel != plain version", scores, plain_scores),
+                    ("scores kernel != the template's", scores, tpl_scores),
+                    ("PV kernel != the template's over the same scores",
+                     mat, tpl_mat),
+                    ("attn_materialized != its two stages", again, mat),
+                    ("fused != materialized", fused, mat)):
+                if not torch.equal(got, want):
+                    fail(f"{where}: {what} (max |d| "
+                         f"{float((got - want).abs().max())})")
             err, n_diff, n_level = _lsum_check(torch, fused, plain)
             if n_level:
                 fail(f"{where}: fused vs plain: {n_level} outputs differ by "
@@ -2101,25 +2178,54 @@ def check_attention(torch, sms: int, clock_hz: float):
                 fail(f"{where}: PV stage vs plain: {pv_level} outputs differ "
                      f"by more than {LSUM_EPS} eps of |plain| (max |d| "
                      f"{pv_err})")
+            if variant == "offset":
+                # the PV kernel's element-wise score loads (rows one float
+                # off 16-byte alignment)
+                off = ag.attn_pv(_misaligned(torch, scores), v, sc[2], *pos,
+                                 table, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(off, mat):
+                    fail(f"{where}: PV over misaligned scores != aligned "
+                         f"(max |d| {float((off - mat).abs().max())})")
             # the cluster kernel forced to every split of the kv blocks
-            # that leaves no range empty: bitwise the oracle (so within
-            # the l sum's rounding of the plain version, as above)
+            # that leaves no range empty, fused and PV (bitwise both
+            # oracles, so within the l sum's rounding of the plain
+            # version), and the scores mode at every split of its grid
             plan = ag.device_plan(q, k, path, 8, bk, comp, causal=True)
             nk = -(-skv // bk)
             for splits in range(1, min(ag.MAX_SPLITS, nk) + 1):
+                force = {"splits": splits}
                 forced = ag._attn_fused_forced(q, k, v, *sc, *pos, table,
-                                               {"splits": splits}, **kw)
+                                               force, **kw)
+                pv = ag._attn_pv_forced(scores, v, sc[2], *pos, table,
+                                        force=force, **kw)
                 torch.cuda.synchronize()
-                if not torch.equal(forced, mat):
-                    fail(f"{where}: the cluster kernel at {splits} splits "
-                         f"!= materialized (max |d| "
-                         f"{float((forced - mat).abs().max())})")
+                for what, got in (("the cluster kernel", forced),
+                                  ("the PV kernel", pv)):
+                    if not (torch.equal(got, mat) and
+                            torch.equal(got, tpl_mat)):
+                        fail(f"{where}: {what} at {splits} splits != "
+                             f"materialized (max |d| "
+                             f"{float((got - tpl_mat).abs().max())})")
+            for splits in range(1, min(ag.MAX_SCORE_SPLITS, nk) + 1):
+                got = ag._attn_scores_forced(q, k, sc[0], sc[1], *pos, table,
+                                             force={"splits": splits}, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, tpl_scores):
+                    fail(f"{where}: the scores kernel at {splits} splits != "
+                         f"the template's")
+            plans = {m: ag.device_plan(q, k, path, 8, bk, comp, causal=True,
+                                       mode=m) for m in ("scores", "pv")}
             print(f"  {label:<8} {str(geom[:6]):<28} plan: bq {plan.bq}, "
                   f"{plan.splits} splits of {plan.per} kv blocks ("
                   f"{plan.chunks} chunks), ring {plan.rk} keys, "
                   f"{plan.smem} B, {plan.tiles} tiles in {plan.waves} "
-                  f"waves; splits 1..{min(ag.MAX_SPLITS, nk)} forced, each "
-                  f"== oracle", flush=True)
+                  f"waves; oracle " + ", ".join(
+                      f"{m} bq {p.bq} x {p.splits} of {p.per} rk {p.rk} "
+                      f"{p.waves} waves" for m, p in plans.items())
+                  + f"; splits 1..{min(ag.MAX_SPLITS, nk)} forced (fused, "
+                  f"PV; scores 1..{min(ag.MAX_SCORE_SPLITS, nk)}), each == "
+                  f"both oracles", flush=True)
             timed = geom in ATTN_MAIN
             for name in rows:
                 row = {"path": label, "geometry": geom,
@@ -2127,30 +2233,36 @@ def check_attention(torch, sms: int, clock_hz: float):
                                        0.0 if name == "attn_scores"
                                        else pv_err)}
                 if timed:
-                    kern, pl = calls[name]
+                    kern, pl = calls[name][:2]
                     row["ms"] = _timed_ms(torch, kern, 10, flush)
                     row["plain_ms"] = _timed_ms(torch, pl, 1, flush)
+                    if name != "attn_fused":   # the witness, same timer
+                        row["template_ms"] = _timed_ms(torch, calls[name][2],
+                                                       10, flush)
                     row["bound_ms"], row["bound_by"] = _attn_bound(
-                        name, path, comp, q, k, v, pos, table, window,
+                        name, path, comp, q, k, v, pos, table, window, bk,
                         sms, clock_hz)
                     print(f"  {label:<8} {str(geom[:6]):<28} {name:<12} "
                           f"{row['ms']:9.4f} {row['bound_ms']:9.4f} "
-                          f"{row['bound_by']:>10} {row['plain_ms']:9.3f}"
+                          f"{row['bound_by']:>10} {row['plain_ms']:9.3f} "
+                          f"{row.get('template_ms', float('nan')):9.4f}"
                           + (f"  {err:.3e}, {n_diff}, {n_level}"
                              if name == "attn_fused" else ""), flush=True)
                 rows[name].append(row)
             if not timed:
                 print(f"  {label:<8} {str(geom):<40} scores bitwise, fused "
-                      f"== oracle, fused-plain {err:.3e} ({n_diff} differ, "
-                      f"none beyond l-sum rounding)", flush=True)
+                      f"== both oracles, fused-plain {err:.3e} ({n_diff} "
+                      f"differ, none beyond l-sum rounding)", flush=True)
     check_attention_wide(torch, dev)
     return rows
 
 
 def check_attention_wide(torch, dev):
     """The log path's ATTN_WIDE_BITS operands (mitchell and log_our) at
-    ATTN_SMALL and the serving decode: each call launches the template's
-    fused kernel (attn_fused_wide) once and the cluster kernel no time,
+    ATTN_SMALL and the serving decode: each fused call launches the
+    template's fused kernel (attn_fused_wide) once and the cluster kernel
+    no time, each attn_materialized the template's pair (attn_scores_wide,
+    attn_pv_wide) once each and the cluster kernel's stages no time,
     fused bitwise the oracle and within LSUM_EPS eps of the plain
     version."""
     from repro_torch.core.autotune import heuristic_attn_block
@@ -2173,13 +2285,18 @@ def check_attention_wide(torch, dev):
                 n_wide, n_cluster = wide.launches, cluster.launches
                 fused = ag.attn_fused(q, k, v, *sc, *pos, **kw)
                 moved = (wide.launches - n_wide, cluster.launches - n_cluster)
-                mat = ag.attn_materialized(q, k, v, *sc, *pos, **kw)
+                mat, oracle = _oracle_launches(ag, lambda: ag.attn_materialized(
+                    q, k, v, *sc, *pos, **kw))
                 plain = ag.attn_reference(q, k, v, *sc, *pos, **kw)
                 torch.cuda.synchronize()
                 where = f"attention {label} {bits} bits {geom}"
                 if moved != (1, 0):
                     fail(f"{where}: launched attn_fused_wide {moved[0]} and "
                          f"the cluster kernel {moved[1]} times, not 1 and 0")
+                if oracle != (0, 0, 1, 1):
+                    fail(f"{where}: attn_materialized launched (attn_scores, "
+                         f"attn_pv, attn_scores_wide, attn_pv_wide) {oracle}, "
+                         f"not (0, 0, 1, 1)")
                 if not torch.equal(fused, mat):
                     fail(f"{where}: fused (template) != materialized (max "
                          f"|d| {float((fused - mat).abs().max())})")
@@ -2189,9 +2306,10 @@ def check_attention_wide(torch, dev):
                          f"outputs differ by more than {LSUM_EPS} eps of "
                          f"|plain| (max |d| {err})")
                 worst = max(worst, err)
-            print(f"  {label:<8} {bits} bits, the template's fused kernel at "
-                  f"{len(ATTN_SMALL) + 1} geometries: == oracle, fused-plain "
-                  f"{worst:.3e} (none beyond l-sum rounding)", flush=True)
+            print(f"  {label:<8} {bits} bits, the template's three kernels "
+                  f"at {len(ATTN_SMALL) + 1} geometries: fused == oracle, "
+                  f"fused-plain {worst:.3e} (none beyond l-sum rounding)",
+                  flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5058,6 +5176,7 @@ def main():
     log_clocks(build)
     tensor_core_check(build)
     nibble_int_check(build)
+    attn_instances_check(build)
 
     def took(n, t):
         print(f"  phase {n} took {time.perf_counter() - t:.1f}s", flush=True)
@@ -5226,6 +5345,8 @@ def main():
             kernels[-1]["check_launches"] = checks[name]
         if timed and all("warm_ms" in r for r in timed):
             kernels[-1]["warm_ms"] = sum(r["warm_ms"] for r in timed)
+        if timed and all("template_ms" in r for r in timed):
+            kernels[-1]["template_ms"] = sum(r["template_ms"] for r in timed)
         if name in conv_rows:          # each variant's row sum apart
             var = {}
             for r in timed:

@@ -12,11 +12,11 @@ online-softmax tiling along the kv axis:
     tile at the fixed scale 1/qmax, integer PV against the quantized V
     tile, and finally ``acc / max(l, 1e-30)``.  Only (B, H, Sq, D)
     leaves the kernel.
-  * ``attn_materialized`` — the oracle: two kernels sharing the same
-    device functions, with the masked (B, H, Sq, Skvp) score tensor
-    written to device memory between them.  Integer sums are exact and
-    every float expression runs in the same code and order, so fused ==
-    materialized bit for bit.
+  * ``attn_materialized`` — the oracle: two kernels (``attn_scores``,
+    ``attn_pv``) with the masked (B, H, Sq, Skvp) score tensor written to
+    device memory between them.  Integer sums are exact and every float
+    expression runs in the same order, so fused == materialized bit for
+    bit.
 
 Masking is unified as in the reference: qpos (B, Sq), kpos and kval
 (B, Skv) int32, and ``kval != 0 & (causal -> kpos <= qpos) & (window ->
@@ -30,7 +30,15 @@ the reference's ``attn_reference`` and its two-stage oracle).  The fused
 form of operands of at most 8 bits runs the cluster kernel of
 csrc/attn_cluster.cuh (``fused_route``), cut by ``attn_cluster_plan``:
 a block holds every q head of one kv head over a tile of query rows, and
-a thread-block cluster splits the tile's kv blocks.  The
+a thread-block cluster splits the tile's kv blocks.  The oracle's two
+stages run the same kernel's other modes (``materialized_route``): the
+scores mode is its Phase A with a store (the kv blocks spread over the
+grid), the PV mode its Phases B and C after a load of the stored scores,
+so the two forms differ only in the score tensor's round trip.  The
+template of csrc/attn_gemm.cu (``*_wide``) takes the log path's 9..12-bit
+operands, and its oracle pair stays callable at 8 bits as the cluster
+kernel's independent witness (``_attn_materialized_forced(...,
+route="template")``).  The
 scales are per-(batch, q-head) for Q and per-(batch, kv-head) for K/V
 (``attn_scales``), so GQA head expansion and per-head tier composition
 are exact.
@@ -60,20 +68,30 @@ _PATH_ID = {p: i for i, p in enumerate(ATTN_PATHS)}
 # uses min(ATTN_BQ, Sq)
 ATTN_BQ = 32
 
+# the template's entries: q, k, v, the scales, the positions, the table,
+# out and scores, then 14 ints and the stream
 _ARGS = [PTR] * 12 + [INT] * 14 + [PTR]
-# the cluster kernel: no score tensor, then its plan (bq, splits, per, rk)
-_FUSED = CudaKernel("attn_gemm", "attn_fused", [PTR] * 11 + [INT] * 17
-                    + [PTR])
+# the cluster kernel's entries, one a mode: the same tensors, then 17 ints
+# (its plan bq, splits, per, rk among them) and the stream
+_CLUSTER_ARGS = [PTR] * 12 + [INT] * 17 + [PTR]
+_FUSED = CudaKernel("attn_gemm", "attn_fused", _CLUSTER_ARGS)
+_SCORES = CudaKernel("attn_gemm", "attn_scores", _CLUSTER_ARGS)
+_PV = CudaKernel("attn_gemm", "attn_pv", _CLUSTER_ARGS)
 _FUSED_WIDE = CudaKernel("attn_gemm", "attn_fused_wide", _ARGS)
-_SCORES = CudaKernel("attn_gemm", "attn_scores", _ARGS)
-_PV = CudaKernel("attn_gemm", "attn_pv", _ARGS)
+_SCORES_WIDE = CudaKernel("attn_gemm", "attn_scores_wide", _ARGS)
+_PV_WIDE = CudaKernel("attn_gemm", "attn_pv_wide", _ARGS)
 
 # the kernels of this module by wrapper name (chip_smoke.py reads and
-# resets their launch counts); the oracle `attn_materialized` is two;
-# attn_fused_wide is the other side of fused_route (9..12-bit log
-# operands), on no served path
-KERNELS = {"attn_fused": _FUSED, "attn_fused_wide": _FUSED_WIDE,
-           "attn_scores": _SCORES, "attn_pv": _PV}
+# resets their launch counts): the cluster kernel's three modes, the fused
+# form and the oracle's two stages (`attn_materialized`), up to 8 bits;
+# the template's three (`*_wide`) for the log path's 9..12-bit operands
+# (fused_route, materialized_route), on no served path, its oracle pair
+# also at 8 bits where chip_smoke.py or a test forces it as the cluster
+# kernel's independent witness
+KERNELS = {"attn_fused": _FUSED, "attn_scores": _SCORES, "attn_pv": _PV,
+           "attn_fused_wide": _FUSED_WIDE, "attn_scores_wide": _SCORES_WIDE,
+           "attn_pv_wide": _PV_WIDE}
+_CLUSTER_KERNELS = {"fused": _FUSED, "scores": _SCORES, "pv": _PV}
 
 # the widest operands the cluster kernel stages (csrc/attn_cluster.cuh
 # AC_MAX_BITS: a log operand as signed bytes)
@@ -389,6 +407,13 @@ def attn_smem_bytes(path: str, bits: int, bq: int, bk: int, d: int) -> int:
 
 _AC_STAGES = 4                 # the K/V ring's stages (AC_STAGES)
 MAX_SPLITS = 8                 # the portable cluster size (AC_MAX_SPLITS)
+# the scores mode spreads a tile's kv blocks over the grid, not a cluster
+MAX_SCORE_SPLITS = 64          # (AC_MAX_SCORE_SPLITS)
+# what one launch of the cluster kernel computes (csrc AC_FUSED,
+# AC_SCORES, AC_PV): attn_fused; the oracle's scores (Phase A, stored);
+# its PV (Phase A a load of the stored scores, then Phases B and C)
+CLUSTER_MODES = ("fused", "scores", "pv")
+_MODE_ID = {m: i for i, m in enumerate(CLUSTER_MODES)}
 RING_KEYS = (64, 32, 16, 8, 4)  # keys a ring tile (the K/V ring's tiles)
 QUERY_ROWS = (1, 2, 4, 8, 16, 32, 64)   # bq candidates
 # The quantization of a kv block's K and V (2 bk D IEEE divisions) in
@@ -416,6 +441,36 @@ def fused_route(path: str, bits: int) -> str:
     return "cluster" if bits <= CLUSTER_MAX_BITS else "template"
 
 
+def materialized_route(path: str, bits: int) -> str:
+    """The kernels the oracle's two stages (`attn_scores`, `attn_pv`) of
+    `bits`-bit operands launch on the card: "cluster" (the cluster
+    kernel's scores and PV modes) up to CLUSTER_MAX_BITS, "template" (the
+    template's attn_scores_wide and attn_pv_wide) for the log path's
+    9..12-bit operands.  It is fused_route's answer, so a call's fused
+    and materialized forms run one design and differ only in the score
+    tensor's round trip through device memory."""
+    return fused_route(path, bits)
+
+
+def _route_of(route: Optional[str], path: str, bits: int,
+              force: Optional[dict] = None) -> str:
+    """The oracle's route: materialized_route's, or a forced one
+    ("template" at any bits: the cluster kernel's independent witness;
+    "cluster" up to CLUSTER_MAX_BITS).  Only the cluster kernel takes a
+    forced plan."""
+    which = materialized_route(path, bits)
+    if route is not None:
+        require(route in ("cluster", "template"),
+                f"route {route!r}: expected 'cluster' or 'template'")
+        require(route == "template" or which == "cluster",
+                f"the cluster kernel takes at most {CLUSTER_MAX_BITS}-bit "
+                f"operands, got {bits}")
+        which = route
+    require(not force or which == "cluster",
+            "only the cluster kernel takes a forced plan")
+    return which
+
+
 def _apw(path: str, compensated: bool) -> int:
     """Operands a staged A word holds (csrc ac_apw)."""
     if path == "lut":
@@ -440,26 +495,34 @@ def padded_block(bk: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def attn_cluster_smem(path: str, bits: int, group: int, bq: int, per: int,
-                      bk: int, d: int, rk: int,
-                      compensated: bool = False) -> int:
-    """Dynamic shared memory of one block of the cluster kernel (the total
-    of csrc/attn_cluster.cuh's ac_geometry, which refuses any other):
-    the table, the K/V ring, the staged K / V^T tile, the staged q rows
-    (then pq's), per kv block of the range its score tile (then its
-    pvf), row maxima, corr, sum p and prefix maxima, the accumulator,
-    the row state, the liveness and the positions."""
+                      bk: int, d: int, rk: int, compensated: bool = False,
+                      mode: str = "fused") -> int:
+    """Dynamic shared memory of one block of the cluster kernel in `mode`
+    (the total of csrc/attn_cluster.cuh's ac_geometry, which refuses any
+    other): the table, the K/V ring, the staged K / V^T tile, the staged
+    q rows (then pq's), per kv block of the range its score tile (then
+    its pvf), row maxima, corr, sum p and prefix maxima, the accumulator,
+    the row state, the liveness and the positions.  A region the mode
+    does not use takes no bytes: "scores" has no V side, no softmax state
+    and one block's stage for its score tiles; "pv" no K side and no q."""
+    require(mode in CLUSTER_MODES, f"unknown cluster kernel mode {mode!r}")
+    qk, pv = mode != "pv", mode != "scores"
     r, c = group * bq, per
     kpq, bkp = -(-d // 16) * 16, padded_block(bk)
     apw, bpw = _apw(path, compensated), _bpw(path, compensated)
     rsq, rsp = (kpq // bpw // 4) | 1, (bkp // bpw // 4) | 1
     drs = -(-d // 4) * 4 + 4
+    btq, btp = (bkp * rsq * 16 if qk else 0), (d * rsp * 16 if pv else 0)
+    aq, ap = (kpq // apw if qk else 0), (bkp // apw if pv else 0)
+    cr = c * r * 4 if pv else 0               # a float a row a kv block
     return (_al(_table_bytes(path, bits))
             + _al(_AC_STAGES * rk * drs * 4)
-            + _al(max(bkp * rsq, d * rsp) * 16)
-            + _al(r * max(kpq, bkp) // apw * 4)
-            + _al(c * r * max(bkp, d) * 4) + _al(r * d * 4)
-            + 5 * _al(c * r * 4) + 3 * _al(r * 4)
-            + 2 * _al(c * 4) + _al((c + 1) * 4)
+            + _al(max(btq, btp)) + _al(r * max(aq, ap) * 4)
+            + _al(c * r * max(bkp, d) * 4 if pv else r * bkp * 4)
+            + _al(r * d * 4 if pv else 0)
+            + 5 * _al(cr) + 2 * _al(r * 4 if pv else 0)
+            + _al(r * 4 if qk else 0)
+            + _al(c * 4 if pv else 0) + _al(c * 4) + _al((c + 1) * 4)
             + 2 * _al(c * bkp * 4) + _al(bq * 4))
 
 
@@ -468,7 +531,7 @@ class AttnClusterPlan(NamedTuple):
     blocks in `splits` ranges of `per` blocks (as `chunks` of splits x
     per where one range does not fit), `rk` keys a ring tile, `smem`
     bytes a block; `tiles` clusters in `waves` of the device's
-    capacity."""
+    capacity (the scores mode: `tiles` x `splits` lone blocks)."""
     bq: int
     splits: int
     per: int
@@ -502,38 +565,46 @@ def attn_cluster_plan(b: int, h: int, kh: int, sq: int, skv: int, d: int,
                       capacity: Callable[[int, int], int], *, bk: int,
                       compensated: bool = False, causal: bool = False,
                       splits: Optional[int] = None, bq: Optional[int] = None,
-                      rk: Optional[int] = None) -> AttnClusterPlan:
-    """How one call of the cluster kernel is cut.
+                      rk: Optional[int] = None,
+                      mode: str = "fused") -> AttnClusterPlan:
+    """How one call of the cluster kernel in `mode` is cut.
 
     ``capacity(smem, splits)`` is the number of clusters of `splits`
     blocks of `smem` bytes the device holds at once (0: none fits).  For
     each query tile bq of QUERY_ROWS (up to sq) and each split of the
-    nk = ceil(skv / bk) kv blocks into `splits` <= MAX_SPLITS contiguous
-    ranges of `per` blocks with no range empty, the range runs in one
-    chunk where its blocks fit a block's shared memory (else in the most
-    that fit), with any ring tile of RING_KEYS that fits; ``splits``,
-    ``bq`` and ``rk``, where given, force theirs.  The plan minimizes waves x the kv
-    blocks of a tile's slowest rank (`_blocks_a_tile`: a causal mask
+    nk = ceil(skv / bk) kv blocks into `splits` contiguous ranges of
+    `per` blocks with no range empty (at most MAX_SPLITS, a cluster; the
+    scores mode, which combines nothing, MAX_SCORE_SPLITS lone blocks,
+    whose capacity is asked at splits 1), the range runs in one chunk
+    where its blocks fit a block's shared memory (else in the most that
+    fit), with any ring tile of RING_KEYS that fits; ``splits``, ``bq``
+    and ``rk``, where given, force theirs.  The plan minimizes waves x the
+    kv blocks of a tile's slowest rank (`_blocks_a_tile`: a causal mask
     kills the blocks past a tile's queries) x (R + _QUANT_ROWS + 2 bk /
     rk _TILE_ROWS), R = group bq the rows of a block: a kv block's
-    products, its quantization and the waits of its K and V ring tiles;
+    products, its quantization and the waits of its K and V ring tiles
+    (a mode of one dot has half of each, in rows of half the products);
     ties go to fewer splits, then to the larger query tile, then to the
     larger ring tile."""
+    require(mode in CLUSTER_MODES, f"unknown cluster kernel mode {mode!r}")
+    lone = mode == "scores"              # no cluster: blocks on the grid
+    most = MAX_SCORE_SPLITS if lone else MAX_SPLITS
     group = h // kh
     nk = -(-skv // bk)
     bkp = padded_block(bk)
     label = "log_our" if path == "log" and compensated else path
     quant = _QUANT_ROWS[label]
     if splits is not None:
-        require(1 <= splits <= MAX_SPLITS and splits <= nk,
-                f"{splits} splits of {nk} kv blocks leave a range empty")
+        require(1 <= splits <= most and splits <= nk,
+                f"{splits} splits of {nk} kv blocks leave a range empty "
+                f"or pass {most}")
         per = -(-nk // splits)
         if (splits - 1) * per >= nk:     # chunks of fewer blocks a range
             per = (nk - 1) // (splits - 1)
         cuts = [(splits, per)]
     else:
         cuts = sorted({(-(-nk // -(-nk // w)), -(-nk // w))
-                       for w in range(1, min(MAX_SPLITS, nk) + 1)})
+                       for w in range(1, min(most, nk) + 1)})
     best = None
     query_rows = [bq] if bq else sorted({min(c, sq) for c in QUERY_ROWS})
     ring_keys = (rk,) if rk else RING_KEYS
@@ -543,7 +614,7 @@ def attn_cluster_plan(b: int, h: int, kh: int, sq: int, skv: int, d: int,
 
         def smem(per, rk, bq=bq):
             return attn_cluster_smem(path, bits, group, bq, per, bk, d, rk,
-                                     compensated)
+                                     compensated, mode)
 
         if smem(1, 4) > SMEM_BYTES:
             continue
@@ -559,10 +630,10 @@ def attn_cluster_plan(b: int, h: int, kh: int, sq: int, skv: int, d: int,
                 nbytes = smem(lo, rk)
                 if bkp % rk or nbytes > SMEM_BYTES:
                     continue
-                held = capacity(nbytes, n_split)
+                held = capacity(nbytes, 1 if lone else n_split)
                 if held <= 0:
                     continue
-                waves = -(-tiles // held)
+                waves = -(-tiles * (n_split if lone else 1) // held)
                 cost = waves * blocks * (
                     rows + quant + 2 * (bkp // rk) * _TILE_ROWS[label])
                 key = (cost, n_split, -bq, -rk)
@@ -571,39 +642,43 @@ def attn_cluster_plan(b: int, h: int, kh: int, sq: int, skv: int, d: int,
                                                  tiles, waves, chunks))
     if best is None:
         raise ValueError(f"no block of the attention cluster kernel fits "
-                         f"({path}, {bits} bits, bk {bk}, head dim {d})")
+                         f"({path}, {bits} bits, bk {bk}, head dim {d}, "
+                         f"{mode})")
     return best[1]
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(device: int, path: str, compensated: bool, smem: int,
-              splits: int) -> int:
-    """csrc attn_fused_capacity on CUDA device `device`; cached."""
+def _capacity(device: int, path: str, compensated: bool, mode: str,
+              smem: int, splits: int) -> int:
+    """csrc attn_cluster_capacity on CUDA device `device`; cached."""
     with torch.cuda.device(device):
-        return query("attn_gemm", "attn_fused_capacity", _PATH_ID[path],
-                     int(compensated), smem, splits)
+        return query("attn_gemm", "attn_cluster_capacity", _PATH_ID[path],
+                     int(compensated), _MODE_ID[mode], smem, splits)
 
 
 @functools.lru_cache(maxsize=1024)
 def _device_plan(device: int, dims: tuple, path: str, bits: int, bk: int,
-                 compensated: bool, causal: bool, force: tuple):
+                 compensated: bool, causal: bool, force: tuple,
+                 mode: str = "fused"):
     return attn_cluster_plan(*dims, path, bits, functools.partial(
-        _capacity, device, path, compensated), bk=bk,
-        compensated=compensated, causal=causal, **dict(force))
+        _capacity, device, path, compensated, mode), bk=bk,
+        compensated=compensated, causal=causal, mode=mode, **dict(force))
 
 
 def device_plan(q, k, path: str, bits: int, bk: int,
                 compensated: bool = False, causal: bool = False,
-                force: Optional[dict] = None) -> AttnClusterPlan:
-    """The cluster kernel's plan for q (B, H, Sq, D), k (B, KH, Skv, D) on
-    their CUDA device (cached by shape); `force` holds attn_cluster_plan's
-    forced splits / bq / rk, if any."""
+                force: Optional[dict] = None,
+                mode: str = "fused") -> AttnClusterPlan:
+    """The cluster kernel's plan in `mode` for q (B, H, Sq, D), k (B, KH,
+    Skv, D) (or tensors of their shapes) on their CUDA device (cached by
+    shape); `force` holds attn_cluster_plan's forced splits / bq / rk, if
+    any."""
     b, h, sq, d = q.shape
     dev = q.device.index if q.device.index is not None else 0
     comp = bool(compensated) and path == "log"
     return _device_plan(dev, (b, h, k.shape[1], sq, k.shape[2], d), path,
                         bits, int(bk), comp, bool(causal),
-                        tuple(sorted((force or {}).items())))
+                        tuple(sorted((force or {}).items())), mode)
 
 
 # ---------------------------------------------------------------------------
@@ -676,30 +751,34 @@ def _launch(kern, dims, *, q=None, k=None, v=None, sq_s=None, sk_s=None,
          0 if window is None else int(window), smem, stream_of(kpos))
 
 
-def _launch_cluster(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table,
-                    out, *, path, bits, causal, window, compensated, block,
-                    force=None):
-    """One planned launch of the cluster kernel on the current stream; the
-    shared-memory total goes with it, and the kernel refuses (CUDA error
-    1, invalid value) a plan or a total that is not its own."""
+def _launch_cluster(mode, dims, *, q=None, k=None, v=None, sq_s=None,
+                    sk_s=None, sv_s=None, qpos, kpos, kval, table, out=None,
+                    scores=None, path, bits, causal, window, compensated,
+                    block, force=None):
+    """One planned launch of the cluster kernel in `mode` on the current
+    stream (the operands the mode does not read are None); the shared-
+    memory total goes with it, and the kernel refuses (CUDA error 1,
+    invalid value) a plan or a total that is not its own."""
     if path == "lut":
         check_table(table, bits)
     elif path == "nibble":
         check_subs(table, bits)
-    b, h, sq, d = q.shape
-    kh, skv = k.shape[1], k.shape[2]
+    b, h, kh, sq, skv, d = dims
     bk = int(block[1])
     comp = bool(compensated) and path == "log"
-    plan = device_plan(q, k, path, bits, bk, comp, causal, force)
+    dev = kpos.device.index if kpos.device.index is not None else 0
+    plan = _device_plan(dev, dims, path, bits, bk, comp, bool(causal),
+                        tuple(sorted((force or {}).items())), mode)
     smem = attn_cluster_smem(path, bits, h // kh, plan.bq, plan.per, bk, d,
-                             plan.rk, comp)
-    tab = table.data_ptr() if path in ("lut", "nibble") else None
-    _FUSED(q.data_ptr(), k.data_ptr(), v.data_ptr(), sq_s.data_ptr(),
-           sk_s.data_ptr(), sv_s.data_ptr(), qpos.data_ptr(),
-           kpos.data_ptr(), kval.data_ptr(), tab, out.data_ptr(), b, h, kh,
-           sq, skv, d, bk, bits, _PATH_ID[path], int(comp), int(causal),
-           0 if window is None else int(window), plan.bq, plan.splits,
-           plan.per, plan.rk, smem, stream_of(kpos))
+                             plan.rk, comp, mode)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    tab = table if path in ("lut", "nibble") else None
+    _CLUSTER_KERNELS[mode](
+        ptr(q), ptr(k), ptr(v), ptr(sq_s), ptr(sk_s), ptr(sv_s), ptr(qpos),
+        ptr(kpos), ptr(kval), ptr(tab), ptr(out), ptr(scores), b, h, kh, sq,
+        skv, d, bk, bits, _PATH_ID[path], int(comp), int(causal),
+        0 if window is None else int(window), plan.bq, plan.splits,
+        plan.per, plan.rk, smem, stream_of(kpos))
 
 
 def attn_fused(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table=None, *,
@@ -735,12 +814,12 @@ def _attn_fused_forced(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table,
     ts = dict(q=_f32c(q), k=_f32c(k), v=_f32c(v), sq_s=_f32c(sq_s),
               sk_s=_f32c(sk_s), sv_s=_f32c(sv_s), qpos=_i32c(qpos),
               kpos=_i32c(kpos), kval=_i32c(kval), table=table, out=out)
+    dims = (b, h, k.shape[1], sq, k.shape[2], d)
     if fused_route(kw["path"], kw["bits"]) == "cluster":
-        _launch_cluster(**ts, **kw, force=force)
+        _launch_cluster("fused", dims, **ts, **kw, force=force)
     else:
         require(not force, "only the cluster kernel takes a forced plan")
-        _launch(_FUSED_WIDE, (b, h, k.shape[1], sq, k.shape[2], d), **ts,
-                **kw)
+        _launch(_FUSED_WIDE, dims, **ts, **kw)
     return out
 
 
@@ -749,10 +828,26 @@ def attn_scores(q, k, sq_s, sk_s, qpos, kpos, kval, table=None, *, path,
                 block=(32, 128)):
     """Stage one of the oracle: the masked f32 (B, H, Sq, Skvp) scores,
     Skvp the kv length rounded up to ``block[1]`` (padded keys hold
-    NEG_INF)."""
-    _check(q, k, k, sq_s, sk_s, sk_s, qpos, kpos, kval, table, path, block)
+    NEG_INF).  On the card the operands' bits pick the kernel
+    (``materialized_route``)."""
+    return _attn_scores_forced(q, k, sq_s, sk_s, qpos, kpos, kval, table,
+                               path=path, bits=bits, causal=causal,
+                               window=window, compensated=compensated,
+                               block=block)
+
+
+def _attn_scores_forced(q, k, sq_s, sk_s, qpos, kpos, kval, table=None, *,
+                        route=None, force=None, path, bits=8, causal=True,
+                        window=None, compensated=True, block=(32, 128)):
+    """``attn_scores`` on a forced `route` ("template": the template's
+    attn_scores_wide at any bits, the cluster kernel's independent
+    witness; "cluster"; None: materialized_route's) with the cluster
+    kernel's plan forced where `force` gives it: the tests and
+    chip_smoke.py."""
     kw = dict(path=path, bits=bits, causal=causal, window=window,
               compensated=compensated, block=block)
+    _check(q, k, k, sq_s, sk_s, sk_s, qpos, kpos, kval, table, path, block)
+    which = _route_of(route, path, bits, force)
     if not _dev(q, k, sq_s, sk_s, qpos, kpos, kval, table):
         return attn_scores_plain(q, k, sq_s, sk_s, qpos, kpos, kval, table,
                                  **kw)
@@ -761,33 +856,62 @@ def attn_scores(q, k, sq_s, sk_s, qpos, kpos, kval, table=None, *, path,
     skvp = -(-k.shape[2] // bk) * bk
     scores = torch.empty((b, h, sq, skvp), dtype=torch.float32,
                          device=q.device)
-    _launch(_SCORES, (b, h, k.shape[1], sq, k.shape[2], d), q=_f32c(q),
-            k=_f32c(k), sq_s=_f32c(sq_s), sk_s=_f32c(sk_s),
-            qpos=_i32c(qpos), kpos=_i32c(kpos), kval=_i32c(kval),
-            table=table, scores=scores, **kw)
+    ts = dict(q=_f32c(q), k=_f32c(k), sq_s=_f32c(sq_s), sk_s=_f32c(sk_s),
+              qpos=_i32c(qpos), kpos=_i32c(kpos), kval=_i32c(kval),
+              table=table, scores=scores)
+    dims = (b, h, k.shape[1], sq, k.shape[2], d)
+    if which == "cluster":
+        _launch_cluster("scores", dims, **ts, **kw, force=force)
+    else:
+        _launch(_SCORES_WIDE, dims, **ts, **kw)
     return scores
 
 
 def attn_pv(scores, v, sv_s, qpos, kpos, kval, table=None, *, path, bits=8,
             causal=True, window=None, compensated=True, block=(32, 128)):
     """Stage two of the oracle: the online softmax and PV over the stored
-    scores (B, H, Sq, Skvp); v (B, KH, Skv, D).  Returns f32
-    (B, H, Sq, D)."""
+    scores (B, H, Sq, Skvp), as `attn_scores` wrote them (a masked entry
+    NEG_INF: a kv block with no admitted pair in a query tile is skipped
+    unread on the card); v (B, KH, Skv, D).  Returns f32 (B, H, Sq, D).
+    On the card the operands' bits pick the kernel
+    (``materialized_route``)."""
+    return _attn_pv_forced(scores, v, sv_s, qpos, kpos, kval, table,
+                           path=path, bits=bits, causal=causal,
+                           window=window, compensated=compensated,
+                           block=block)
+
+
+def _attn_pv_forced(scores, v, sv_s, qpos, kpos, kval, table=None, *,
+                    route=None, force=None, path, bits=8, causal=True,
+                    window=None, compensated=True, block=(32, 128)):
+    """``attn_pv`` on a forced `route` and plan, as
+    `_attn_scores_forced`."""
+    kw = dict(path=path, bits=bits, causal=causal, window=window,
+              compensated=compensated, block=block)
     b, h, sq, skvp = scores.shape
     kh, skv, d = v.shape[1], v.shape[2], v.shape[3]
     bk = int(block[1])
     require(skvp == -(-skv // bk) * bk and v.shape[0] == b and h % kh == 0,
             f"scores {tuple(scores.shape)} do not match v {tuple(v.shape)} "
             f"at bk {bk}")
-    kw = dict(path=path, bits=bits, causal=causal, window=window,
-              compensated=compensated, block=block)
+    require(tuple(sv_s.shape) == (b, kh) and tuple(qpos.shape) == (b, sq)
+            and tuple(kpos.shape) == (b, skv)
+            and tuple(kval.shape) == (b, skv),
+            "sv_s (B,KH), qpos (B,Sq), kpos/kval (B,Skv) expected")
+    require(path in ATTN_PATHS, f"unknown attention datapath {path!r}")
+    which = _route_of(route, path, bits, force)
     if not _dev(scores, v, sv_s, qpos, kpos, kval, table):
         return attn_pv_plain(scores, v, sv_s, qpos, kpos, kval, table, **kw)
     out = torch.empty((b, h, sq, d), dtype=torch.float32,
                       device=scores.device)
-    _launch(_PV, (b, h, kh, sq, skv, d), v=_f32c(v), sv_s=_f32c(sv_s),
-            qpos=_i32c(qpos), kpos=_i32c(kpos), kval=_i32c(kval),
-            table=table, out=out, scores=_f32c(scores), **kw)
+    ts = dict(v=_f32c(v), sv_s=_f32c(sv_s), qpos=_i32c(qpos),
+              kpos=_i32c(kpos), kval=_i32c(kval), table=table, out=out,
+              scores=_f32c(scores))
+    dims = (b, h, kh, sq, skv, d)
+    if which == "cluster":
+        _launch_cluster("pv", dims, **ts, **kw, force=force)
+    else:
+        _launch(_PV_WIDE, dims, **ts, **kw)
     return out
 
 
@@ -798,11 +922,24 @@ def attn_materialized(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval,
     score tensor through device memory between two kernels
     (`attn_scores`, `attn_pv`).  Bitwise equal to ``attn_fused`` on one
     device."""
-    _check(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, path, block)
+    return _attn_materialized_forced(q, k, v, sq_s, sk_s, sv_s, qpos, kpos,
+                                     kval, table, path=path, bits=bits,
+                                     causal=causal, window=window,
+                                     compensated=compensated, block=block)
+
+
+def _attn_materialized_forced(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval,
+                              table=None, *, route=None, force=None,
+                              path, bits=8, causal=True, window=None,
+                              compensated=True, block=(32, 128)):
+    """``attn_materialized`` with both stages on a forced `route` and plan
+    (`_attn_scores_forced`, `_attn_pv_forced`)."""
     kw = dict(path=path, bits=bits, causal=causal, window=window,
-              compensated=compensated, block=block)
-    scores = attn_scores(q, k, sq_s, sk_s, qpos, kpos, kval, table, **kw)
-    return attn_pv(scores, v, sv_s, qpos, kpos, kval, table, **kw)
+              compensated=compensated, block=block, route=route, force=force)
+    _check(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, path, block)
+    scores = _attn_scores_forced(q, k, sq_s, sk_s, qpos, kpos, kval, table,
+                                 **kw)
+    return _attn_pv_forced(scores, v, sv_s, qpos, kpos, kval, table, **kw)
 
 
 __all__ = [
@@ -819,4 +956,5 @@ __all__ = [
     "attn_scales",
     "attn_scores",
     "fused_route",
+    "materialized_route",
 ]

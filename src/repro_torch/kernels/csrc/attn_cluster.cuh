@@ -1,16 +1,22 @@
-// attn_cluster.cuh - attn_fused, the CiM flash attention, for NVIDIA
-// Hopper (sm_90a): the GQA heads of one kv head in one block, the kv
-// blocks of a query tile split over a thread-block cluster, the online
-// softmax's combine run in kv order through distributed shared memory.
-// Included by attn_gemm.cu, whose attn_fused entry launches it.
+// attn_cluster.cuh - attn_fused, the CiM flash attention, and the two
+// stages of its materialized oracle, for NVIDIA Hopper (sm_90a): the GQA
+// heads of one kv head in one block, the kv blocks of a query tile split
+// over a thread-block cluster, the online softmax's combine run in kv
+// order through distributed shared memory.  Included by attn_gemm.cu,
+// whose attn_fused, attn_scores and attn_pv entries launch it (MODE
+// AC_FUSED, AC_SCORES, AC_PV).
 //
-// Replaces, for operands of at most 8 bits, the TPU kernel
+// Replaces, for operands of at most 8 bits, the TPU kernels
 //   src/repro/kernels/attn_gemm.py:381 attn_fused -> :402 -> _attn_kernel
 //     :245 (all four datapaths)
-// Log operands of 9..12 bits keep attn_gemm.cu's template (entry
-// attn_fused_wide), by kernels/attn_gemm.py fused_route (a function of the
-// bits, tested on the CPU); the oracle attn_materialized (attn_scores,
-// attn_pv) stays on that template too.
+//   src/repro/kernels/attn_gemm.py:423 attn_materialized -> :447 ->
+//     _scores_kernel :282 (AC_SCORES) and -> :461 -> _pv_kernel :294
+//     (AC_PV)
+// Log operands of 9..12 bits keep attn_gemm.cu's template (entries
+// attn_fused_wide, attn_scores_wide, attn_pv_wide), by kernels/
+// attn_gemm.py fused_route and materialized_route (functions of the bits,
+// tested on the CPU); the template's oracle pair also stays callable at 8
+// bits, forced, as this kernel's independent witness.
 //
 // What it computes is attn_gemm.cu's fused kernel bit for bit (the
 // reference's _score_step / _online_step, attn_gemm.py:209-237): q/k/v
@@ -38,7 +44,10 @@
 // Skv D over the admitted pairs (a shared-memory gather each on the LUT
 // path, 132 SMs x 32 words a clock; the log product's instructions,
 // which phase 2 of chip_smoke.py reads from this kernel's SASS); at
-// decode K and V, read once (3.35 TB/s).
+// decode K and V, read once (3.35 TB/s).  Each oracle mode takes one of
+// the two dots; AC_SCORES also writes the whole score tensor (16.8 MB
+// at qwen3's 4 x 256 prefill: about 5 us), AC_PV reads its admitted
+// entries.
 //
 // Design (the template before it ran one block per (q tile, q head) with
 // one-row tiles at decode, quantized K/V once per q head, left half its
@@ -111,10 +120,35 @@
 //    ring's cp.async copies would still need their own barriers.
 //  * kernels/attn_gemm.py attn_cluster_plan picks bq, splits, per and rk
 //    from the shape, from attn_cluster_smem (this file's ac_geometry) and
-//    from the device's capacity for each size (attn_fused_capacity,
+//    from the device's capacity for each size (attn_cluster_capacity,
 //    cudaOccupancyMaxActiveClusters); the entry refuses a plan it does
 //    not take and a shared-memory total not its own, and a refused
 //    launch raises: nothing falls back.
+//
+// The oracle's stages are the same body in two other modes, so that the
+// fused and the materialized forms differ only in the score tensor's
+// round trip through device memory (the template's pair, one block a (q
+// tile, q head), K/V quantized group times, products by scalar loads, no
+// dead-block skip, took 50x the fused kernel's time a stage):
+//  * AC_SCORES is Phase A with a store.  It combines nothing, so its kv
+//    ranges are no cluster's ranks but lone blocks on the grid (up to
+//    AC_MAX_SCORE_SPLITS a tile, to fill 132 SMs at decode); each block
+//    stages q once, K arrives through the ring and is quantized once per
+//    q tile, and each product sum is written straight to the (B, H, Sq,
+//    skvp) score tensor (a warp's columns are adjacent keys).  A dead
+//    block's scores are written NEG_INF with no K fetched and no product.
+//  * AC_PV is the cluster kernel with Phase A replaced by a load: each
+//    live block's score tile comes from device memory by cp.async into
+//    its place (one copy group ahead of the ring, which carries V alone),
+//    each row's max is taken from it by Phase A's warp reduction, and the
+//    prefix maxima, Phase B and Phase C run as in AC_FUSED.  Its input is
+//    AC_SCORES' output: a dead block's entries are all NEG_INF there, so
+//    skipping it unread leaves the running max, l and acc as the
+//    template's pass over it does.  The mask is recomputed from the
+//    positions, never read from the scores.
+//  Both compute the template's values in its float order, so AC_SCORES
+//  is bitwise attn_scores_plain and AC_PV over its scores bitwise
+//  AC_FUSED.
 
 #pragma once
 
@@ -134,12 +168,17 @@ constexpr int AC_THREADS = 512;
 constexpr int AC_WARPS = AC_THREADS / 32;
 constexpr int AC_STAGES = 4;                    // the K/V ring
 constexpr int AC_MAX_SPLITS = cim::CL_MAX_SPLITS;
+// AC_SCORES spreads a tile's kv blocks over the grid, not a cluster
+constexpr int AC_MAX_SCORE_SPLITS = 64;
 constexpr int AC_MAX_BITS = cim::CL_MAX_BITS;
 constexpr float AC_NEG_INF = -1e30f;
 constexpr float AC_EPS_L = 1e-30f;
 
 // attn_gemm.cu's path ids
 enum { AC_MXU = 0, AC_LUT = 1, AC_NIBBLE = 2, AC_LOG = 3 };
+// what one launch computes: attn_fused; attn_scores (Phase A, the scores
+// stored); attn_pv (Phase A a load of the stored scores, then B and C)
+enum { AC_FUSED = 0, AC_SCORES = 1, AC_PV = 2 };
 
 // operands a staged A word holds, by path (log: mitchell 2, log_our 1)
 __host__ __device__ inline int ac_apw(int path, int comp) {
@@ -161,7 +200,8 @@ __host__ __device__ inline size_t ac_table_bytes(int path, int bits) {
   return 0;
 }
 
-// The block's geometry and its dynamic shared memory (byte offsets).
+// The block's geometry and its dynamic shared memory (byte offsets) in
+// `mode`: a region the mode does not use takes no bytes.
 // kernels/attn_gemm.py attn_cluster_smem computes the same total.
 struct AcGeom {
   int rows;        // R = group bq
@@ -177,9 +217,11 @@ struct AcGeom {
 
 __host__ __device__ inline AcGeom ac_geometry(int path, int comp, int bits,
                                               int group, int bq, int per,
-                                              int bk, int d, int rk) {
+                                              int bk, int d, int rk,
+                                              int mode) {
   AcGeom g;
   const int apw = ac_apw(path, comp), bpw = ac_bpw(path, comp);
+  const bool qk = mode != AC_PV, pv = mode != AC_SCORES;
   g.rows = group * bq;
   g.kpq = (d + 15) / 16 * 16;
   g.bkp = (bk + 15) / 16 * 16;
@@ -190,26 +232,29 @@ __host__ __device__ inline AcGeom ac_geometry(int path, int comp, int bits,
   g.sw = g.bkp > d ? g.bkp : d;
   g.drs = (d + 3) / 4 * 4 + 4;
   const size_t R = g.rows, C = per, BKP = g.bkp;
-  const size_t btq = static_cast<size_t>(g.bkp) * g.rsq * 16;
-  const size_t btp = static_cast<size_t>(d) * g.rsp * 16;
+  const size_t btq = qk ? static_cast<size_t>(g.bkp) * g.rsq * 16 : 0;
+  const size_t btp = pv ? static_cast<size_t>(d) * g.rsp * 16 : 0;
+  const size_t aq = qk ? g.aqw : 0, ap = pv ? g.apw : 0;
+  const size_t cr = pv ? C * R * 4 : 0;   // a float per row per kv block
   size_t o = 0;
   g.tab = o;    o += al16(ac_table_bytes(path, bits));
   g.ring = o;   o += al16(static_cast<size_t>(AC_STAGES) * rk * g.drs * 4);
   g.bt = o;     o += al16(btq > btp ? btq : btp);
   // q rows (Phase A), then pq rows (Phase B): q is staged every chunk
-  g.a = o;      o += al16(R * (g.aqw > g.apw ? g.aqw : g.apw) * 4);
-  // a kv block's f32 scores (Phase A), then its pvf (from its PV on)
-  g.s = o;      o += al16(C * R * g.sw * 4);
-  g.acc = o;    o += al16(R * d * 4);
-  g.rmax = o;   o += al16(C * R * 4);
-  g.corr = o;   o += al16(C * R * 4);
-  g.sp = o;     o += al16(C * R * 4);
-  g.mprev = o;  o += al16(C * R * 4);
-  g.mnew = o;   o += al16(C * R * 4);
-  g.mrun = o;   o += al16(R * 4);
-  g.l = o;      o += al16(R * 4);
-  g.rscale = o; o += al16(R * 4);
-  g.plive = o;  o += al16(C * 4);
+  g.a = o;      o += al16(R * (aq > ap ? aq : ap) * 4);
+  // a kv block's f32 scores (Phase A or loaded), then its pvf (from its PV
+  // on); AC_SCORES: one block's stage for threads that share k
+  g.s = o;      o += al16(pv ? C * R * g.sw * 4 : R * BKP * 4);
+  g.acc = o;    o += al16(pv ? R * d * 4 : 0);
+  g.rmax = o;   o += al16(cr);
+  g.corr = o;   o += al16(cr);
+  g.sp = o;     o += al16(cr);
+  g.mprev = o;  o += al16(cr);
+  g.mnew = o;   o += al16(cr);
+  g.mrun = o;   o += al16(pv ? R * 4 : 0);
+  g.l = o;      o += al16(pv ? R * 4 : 0);
+  g.rscale = o; o += al16(qk ? R * 4 : 0);
+  g.plive = o;  o += al16(pv ? C * 4 : 0);
   g.live = o;   o += al16(C * 4);
   g.lidx = o;   o += al16((C + 1) * 4);
   g.kpos = o;   o += al16(C * BKP * 4);
@@ -223,11 +268,14 @@ struct AcArgs {
   const float *q, *k, *v, *sq_s, *sk_s, *sv_s;
   const int *qpos, *kpos, *kval;
   const unsigned char* tab;
-  float* out;
+  float* out;     // (B, H, Sq, D): AC_FUSED, AC_PV
+  float* scores;  // (B, H, Sq, skvp): AC_SCORES writes it, AC_PV reads it
   int B, H, KH, Sq, Skv, D, bk, bits, causal, window;
   int bq, splits, per, rk;  // the plan
   int n_qt;                 // q tiles a (batch, kv head)
+  int skvp;                 // Skv rounded up to bk
   int kv_async;             // K/V rows 16-byte aligned: cp.async
+  int sc_async;             // score rows 16-byte aligned: cp.async
 };
 
 __device__ __forceinline__ bool ac_valid(int qp, int kp, int kv, int causal,
@@ -527,22 +575,42 @@ __device__ __forceinline__ void ac_fill(float* dst, const float* src,
   }
 }
 
-// grid (tiles, 1, splits), clusters of (1, 1, splits): tile = (b KH + hk)
-// n_qt + q tile, the cluster's ranks its kv ranges
-template <int PATH, bool COMP>
+// each row's max over a kv block's bkp scores (`sc`, rows `sw` f32 apart)
+// into out[i]: one warp a row, fmaxf from -inf lane-strided over the keys,
+// then the xor butterfly (Phase A's, and AC_PV's over a loaded tile)
+__device__ __forceinline__ void ac_row_max(const float* sc, int R, int sw,
+                                           int bkp, float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < R; i += AC_WARPS) {
+    float mx = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+    for (int j = lane; j < bkp; j += 32)
+      mx = fmaxf(mx, sc[static_cast<size_t>(i) * sw + j]);
+    for (int o = 16; o; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) out[i] = mx;
+  }
+}
+
+// grid (tiles, 1, splits): tile = (b KH + hk) n_qt + q tile.  AC_FUSED and
+// AC_PV: clusters of (1, 1, splits), the cluster's ranks its kv ranges;
+// AC_SCORES: no cluster, blockIdx.z the range (nothing is combined)
+template <int PATH, bool COMP, int MODE>
 __global__ void __launch_bounds__(AC_THREADS, (Form<PATH, COMP>::MIN_BLOCKS))
 attn_cluster_kernel(const AcArgs a) {
   using F = Form<PATH, COMP>;
   namespace cgp = cooperative_groups;
+  constexpr bool QK = MODE != AC_PV;      // quantizes K, takes QK^T
+  constexpr bool PV = MODE != AC_SCORES;  // the softmax, PV, the combine
   extern __shared__ __align__(16) unsigned char sm[];
   const int group = a.H / a.KH;
-  const AcGeom g =
-      ac_geometry(PATH, COMP, a.bits, group, a.bq, a.per, a.bk, a.D, a.rk);
+  const AcGeom g = ac_geometry(PATH, COMP, a.bits, group, a.bq, a.per, a.bk,
+                               a.D, a.rk, MODE);
   cgp::cluster_group cluster = cgp::this_cluster();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int S = a.splits, C = a.per, R = g.rows, D = a.D, bk = a.bk;
   const int bkp = g.bkp, bq = a.bq;
-  const int rank = static_cast<int>(cluster.block_rank());
+  const int rank = MODE == AC_SCORES ? static_cast<int>(blockIdx.z)
+                                     : static_cast<int>(cluster.block_rank());
   const int qt = static_cast<int>(blockIdx.x) % a.n_qt;
   const int bh = static_cast<int>(blockIdx.x) / a.n_qt;  // b KH + hk
   const int hk = bh % a.KH, b = bh / a.KH;
@@ -556,7 +624,8 @@ attn_cluster_kernel(const AcArgs a) {
   uint32_t* btw = reinterpret_cast<uint32_t*>(bt);
   unsigned char* aq = sm + g.a;   // q rows, then pq rows (ap)
   unsigned char* ap = sm + g.a;
-  float* s = reinterpret_cast<float*>(sm + g.s);  // scores, then pvf
+  // score tiles (Phase A's or loaded), then pvf; AC_SCORES: ac_gemm's stage
+  float* s = reinterpret_cast<float*>(sm + g.s);
   float* pvf = s;
   float* acc = reinterpret_cast<float*>(sm + g.acc);
   float* rmax = reinterpret_cast<float*>(sm + g.rmax);
@@ -574,25 +643,37 @@ attn_cluster_kernel(const AcArgs a) {
   int* kval = reinterpret_cast<int*>(sm + g.kval);
   int* qpos = reinterpret_cast<int*>(sm + g.qpos);
 
-  {  // the table: asynchronous, committed with the first ring stage
+  {  // the table: asynchronous, committed with the first copies
     const int n16 = static_cast<int>(ac_table_bytes(PATH, a.bits) / 16);
     for (int i = tid; i < n16; i += AC_THREADS)
       cim::cp_async16(sm + g.tab + 16 * i, a.tab + 16 * i, true);
   }
-  const float sk = a.sk_s[bh], sv = a.sv_s[bh];
+  const float sk = QK ? a.sk_s[bh] : 0.f, sv = PV ? a.sv_s[bh] : 0.f;
   // (sq_s * sk_s) * sm_scale, sm_scale = 1/sqrt(D) rounded once to f32
   const float sm_scale =
       static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const float vscale = __fdiv_rn(sv, qmf);
   for (int i = tid; i < R; i += AC_THREADS) {
-    const int h = hk * group + i / bq;
-    rscale[i] = __fmul_rn(__fmul_rn(a.sq_s[b * a.H + h], sk), sm_scale);
-    mrun[i] = AC_NEG_INF;
-    lsum[i] = 0.f;
+    if constexpr (QK) {
+      const int h = hk * group + i / bq;
+      rscale[i] = __fmul_rn(__fmul_rn(a.sq_s[b * a.H + h], sk), sm_scale);
+    }
+    if constexpr (PV) {
+      mrun[i] = AC_NEG_INF;
+      lsum[i] = 0.f;
+    }
   }
   for (int i = tid; i < bq; i += AC_THREADS)
     qpos[i] = i < rows_q ? a.qpos[static_cast<size_t>(b) * a.Sq + q0 + i] : 0;
-  for (int e = tid; e < R * D; e += AC_THREADS) acc[e] = 0.f;
+  if constexpr (PV) {
+    for (int e = tid; e < R * D; e += AC_THREADS) acc[e] = 0.f;
+  }
+  // the first score of tile row i (= g bq + qi: head hk group + g, query
+  // q0 + qi) in the (B, H, Sq, skvp) score tensor
+  auto srow = [&](int i) -> size_t {
+    return ((static_cast<size_t>(b) * a.H + hk * group + i / bq) * a.Sq +
+            q0 + i % bq) * a.skvp;
+  };
   const int nk = (a.Skv + bk - 1) / bk;
   const int span = S * C;
   const int chunks = (nk + span - 1) / span;
@@ -614,10 +695,12 @@ attn_cluster_kernel(const AcArgs a) {
       kpos[e] = ok ? a.kpos[pos0 + key] : 0;
       kval[e] = ok ? a.kval[pos0 + key] : 0;
     }
-    for (int e = tid; e < C * R; e += AC_THREADS) rmax[e] = AC_NEG_INF;
+    if constexpr (PV) {
+      for (int e = tid; e < C * R; e += AC_THREADS) rmax[e] = AC_NEG_INF;
+    }
     __syncthreads();
     // a kv block is live iff some (query, key) pair of the tile is
-    // admitted: from the positions, before its K/V are fetched
+    // admitted: from the positions, before its K/V (or scores) are fetched
 #pragma unroll 1
     for (int c = 0; c < C; ++c) {
       int any = 0;
@@ -640,13 +723,60 @@ attn_cluster_kernel(const AcArgs a) {
     }
     __syncthreads();
     const int nlive = lidx[C];
-    const int n_k = nlive * ipb, n_items = 2 * n_k;
+    const int n_k = nlive * ipb;
+    const int n_items = MODE == AC_FUSED ? 2 * n_k : n_k;
 
-    // the ring: K tiles of every live block, then V tiles
+    if constexpr (MODE == AC_SCORES) {
+      // a dead block's scores are all masked: NEG_INF, no products
+#pragma unroll 1
+      for (int c = 0; c < cnt; ++c) {
+        if (live[c]) continue;
+        const size_t col0 = static_cast<size_t>(base + c) * bk;
+        for (int e = tid; e < group * rows_q * bk; e += AC_THREADS) {
+          const int r = e / bk, j = e - r * bk;   // r = g rows_q + qi
+          const int gi = r / rows_q;
+          a.scores[srow(gi * bq + r - gi * rows_q) + col0 + j] = AC_NEG_INF;
+        }
+      }
+    }
+    if constexpr (MODE == AC_PV) {
+      // the live blocks' score tiles into their places in `s`, one copy
+      // group ahead of the V ring's: 16 bytes at a time where the rows
+      // allow (sc_async), else by elements; keys past bk and the tile's
+      // rows past Sq hold NEG_INF
+      for (int li = 0; li < nlive; ++li) {
+        const int c = lidx[li];
+        float* sc = s + static_cast<size_t>(c) * R * g.sw;
+        const size_t col0 = static_cast<size_t>(base + c) * bk;
+        if (a.sc_async) {
+          const int u4 = bkp / 4;
+          for (int e = tid; e < R * u4; e += AC_THREADS) {
+            const int i = e / u4, j = (e - i * u4) * 4;
+            float* dst = sc + static_cast<size_t>(i) * g.sw + j;
+            if (j < bk && i % bq < rows_q)
+              cim::cp_async16(dst, a.scores + srow(i) + col0 + j, true);
+            else
+              *reinterpret_cast<float4*>(dst) = make_float4(
+                  AC_NEG_INF, AC_NEG_INF, AC_NEG_INF, AC_NEG_INF);
+          }
+        } else {
+          for (int e = tid; e < R * bkp; e += AC_THREADS) {
+            const int i = e / bkp, j = e - i * bkp;
+            sc[static_cast<size_t>(i) * g.sw + j] =
+                j < bk && i % bq < rows_q ? a.scores[srow(i) + col0 + j]
+                                          : AC_NEG_INF;
+          }
+        }
+      }
+      cim::cp_async_commit();
+    }
+
+    // the ring: K tiles of every live block, then V tiles (AC_SCORES: K
+    // only; AC_PV: V only)
     auto issue = [&](int t) {
       if (t < n_items) {
-        const bool isv = t >= n_k;
-        const int tt = isv ? t - n_k : t;
+        const bool isv = MODE == AC_PV || (MODE == AC_FUSED && t >= n_k);
+        const int tt = MODE == AC_FUSED && isv ? t - n_k : t;
         const int li = tt / ipb, key0 = (tt - li * ipb) * a.rk;
         const int k0 = (base + lidx[li]) * bk;
         const float* src = isv ? a.v : a.k;
@@ -665,8 +795,9 @@ attn_cluster_kernel(const AcArgs a) {
     };
 #pragma unroll
     for (int t = 0; t < AC_STAGES - 1; ++t) issue(t);
-    {  // q, staged each chunk (pq took its rows) while the ring fills; a
-       // thread's loads of AC_QU elements issued together
+    // q, staged while the ring fills (each chunk in AC_FUSED, whose pq
+    // takes its rows); a thread's loads of AC_QU elements issued together
+    if (QK && (MODE == AC_FUSED || ch == 0)) {
       constexpr int AC_QU = 8;
       const int nq = R * g.kpq;
 #pragma unroll 1
@@ -697,241 +828,305 @@ attn_cluster_kernel(const AcArgs a) {
     }
     int t = 0;
 
-    // Phase A: scores and row maxima of the live blocks
+    // Phase A: scores (and row maxima) of the live blocks
+    if constexpr (QK) {
 #pragma unroll 1
-    for (int li = 0; li < nlive; ++li) {
-      const int c = lidx[li];
+      for (int li = 0; li < nlive; ++li) {
+        const int c = lidx[li];
 #pragma unroll 1
-      for (int it = 0; it < ipb; ++it) {  // K tile -> B columns (key, d)
-        const float* raw = acquire(t++);
-        const int kw = g.kpq / F::BPW, key0 = it * a.rk;
-        for (int e = tid; e < a.rk * kw; e += AC_THREADS) {
-          const int r = e / kw, w = e - r * kw;
-          uint32_t word = 0u;
+        for (int it = 0; it < ipb; ++it) {  // K tile -> B columns (key, d)
+          const float* raw = acquire(t++);
+          const int kw = g.kpq / F::BPW, key0 = it * a.rk;
+          for (int e = tid; e < a.rk * kw; e += AC_THREADS) {
+            const int r = e / kw, w = e - r * kw;
+            uint32_t word = 0u;
 #pragma unroll
-          for (int x = 0; x < F::BPW; ++x) {
-            const int dd = w * F::BPW + x;
-            const int qv =
-                dd < D ? cim::quantize(raw[r * g.drs + dd], sk, qmax) : 0;
-            word |= F::b_unit(qv, a.bits) << (x * (32 / F::BPW));
+            for (int x = 0; x < F::BPW; ++x) {
+              const int dd = w * F::BPW + x;
+              const int qv =
+                  dd < D ? cim::quantize(raw[r * g.drs + dd], sk, qmax) : 0;
+              word |= F::b_unit(qv, a.bits) << (x * (32 / F::BPW));
+            }
+            btw[static_cast<size_t>(key0 + r) * g.rsq * 4 + w] = word;
           }
-          btw[static_cast<size_t>(key0 + r) * g.rsq * 4 + w] = word;
+        }
+        __syncthreads();
+        const int* kp = kpos + c * bkp;
+        const int* kv = kval + c * bkp;
+        auto score = [&](int i, int j, uint32_t sum) {
+          return ac_valid(qpos[i % bq], kp[j], kv[j], a.causal, a.window)
+                     ? __fmul_rn(static_cast<float>(static_cast<int32_t>(sum)),
+                                 rscale[i])
+                     : AC_NEG_INF;
+        };
+        if constexpr (MODE == AC_SCORES) {
+          // straight to the score tensor (a warp's columns are adjacent
+          // keys); `s` is only the stage of threads that share k
+          const size_t col0 = static_cast<size_t>(base + c) * bk;
+          ac_gemm<F>(aq, R, bt, g.rsq, bkp, g.kpq, tab, a.bits,
+                     reinterpret_cast<uint32_t*>(s), bkp,
+                     [&](int i, int j, uint32_t sum) {
+                       if (j < bk && i % bq < rows_q)
+                         a.scores[srow(i) + col0 + j] = score(i, j, sum);
+                     });
+        } else {
+          float* sc = s + static_cast<size_t>(c) * R * g.sw;
+          ac_gemm<F>(aq, R, bt, g.rsq, bkp, g.kpq, tab, a.bits,
+                     reinterpret_cast<uint32_t*>(sc), g.sw,
+                     [&](int i, int j, uint32_t sum) {
+                       sc[static_cast<size_t>(i) * g.sw + j] =
+                           score(i, j, sum);
+                     });
+          __syncthreads();
+          ac_row_max(sc, R, g.sw, bkp, rmax + c * R);
         }
       }
-      __syncthreads();
-      float* sc = s + static_cast<size_t>(c) * R * g.sw;
-      const int* kp = kpos + c * bkp;
-      const int* kv = kval + c * bkp;
-      ac_gemm<F>(aq, R, bt, g.rsq, bkp, g.kpq, tab, a.bits,
-                 reinterpret_cast<uint32_t*>(sc), g.sw,
-                 [&](int i, int j, uint32_t sum) {
-                   sc[static_cast<size_t>(i) * g.sw + j] =
-                       ac_valid(qpos[i % bq], kp[j], kv[j], a.causal,
-                                a.window)
-                           ? __fmul_rn(static_cast<float>(
-                                           static_cast<int32_t>(sum)),
-                                       rscale[i])
-                           : AC_NEG_INF;
-                 });
-      __syncthreads();
-      for (int i = warp; i < R; i += AC_WARPS) {
-        float mx = __int_as_float(static_cast<int>(0xff800000u));  // -inf
-        for (int j = lane; j < bkp; j += 32)
-          mx = fmaxf(mx, sc[static_cast<size_t>(i) * g.sw + j]);
-        for (int o = 16; o; o >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        if (lane == 0) rmax[c * R + i] = mx;
-      }
     }
-    cluster.sync();  // every rank's row maxima are visible
+    if constexpr (MODE == AC_SCORES) {
+      cim::cp_async_wait<0>();  // the ring's last (empty) groups
+      __syncthreads();          // the next chunk rewrites the positions
+    } else {
+      if constexpr (MODE == AC_PV) {
+        // the score tiles have landed (the V ring's AC_STAGES - 1 groups
+        // are the only younger ones): each row's max of each live block
+        cim::cp_async_wait<AC_STAGES - 1>();
+        __syncthreads();
+        for (int li = 0; li < nlive; ++li) {
+          const int c = lidx[li];
+          ac_row_max(s + static_cast<size_t>(c) * R * g.sw, R, g.sw, bkp,
+                     rmax + c * R);
+        }
+      }
+      cluster.sync();  // every rank's row maxima are visible
 
-    // the prefix maxima in kv order: the running max, the earlier ranks'
-    // blocks, this rank's (then the later ranks', for the next chunk)
-    for (int i = tid; i < R; i += AC_THREADS) {
-      float m = mrun[i];
-      for (int q = 0; q < rank; ++q) {
-        const float* pr = cluster.map_shared_rank(rmax, q);
-        for (int c = 0; c < C; ++c) m = fmaxf(m, pr[c * R + i]);
+      // the prefix maxima in kv order: the running max, the earlier
+      // ranks' blocks, this rank's (then the later ranks', for the next
+      // chunk)
+      for (int i = tid; i < R; i += AC_THREADS) {
+        float m = mrun[i];
+        for (int q = 0; q < rank; ++q) {
+          const float* pr = cluster.map_shared_rank(rmax, q);
+          for (int c = 0; c < C; ++c) m = fmaxf(m, pr[c * R + i]);
+        }
+        for (int c = 0; c < C; ++c) {
+          mprev[c * R + i] = m;
+          m = fmaxf(m, rmax[c * R + i]);
+          mnew[c * R + i] = m;
+        }
+        for (int q = rank + 1; q < S; ++q) {
+          const float* pr = cluster.map_shared_rank(rmax, q);
+          for (int c = 0; c < C; ++c) m = fmaxf(m, pr[c * R + i]);
+        }
+        mrun[i] = m;
       }
-      for (int c = 0; c < C; ++c) {
-        mprev[c * R + i] = m;
-        m = fmaxf(m, rmax[c * R + i]);
-        mnew[c * R + i] = m;
-      }
-      for (int q = rank + 1; q < S; ++q) {
-        const float* pr = cluster.map_shared_rank(rmax, q);
-        for (int c = 0; c < C; ++c) m = fmaxf(m, pr[c * R + i]);
-      }
-      mrun[i] = m;
-    }
 
-    // Phase B: p, pq, sum p and the integer PV of the live blocks
+      // Phase B: p, pq, sum p and the integer PV of the live blocks
+      const int warp = tid >> 5, lane = tid & 31;
 #pragma unroll 1
-    for (int li = 0; li < nlive; ++li) {
-      const int c = lidx[li];
+      for (int li = 0; li < nlive; ++li) {
+        const int c = lidx[li];
 #pragma unroll 1
-      for (int it = 0; it < ipb; ++it) {  // V tile -> B columns (d, key)
-        const float* raw = acquire(t++);
-        const int kw = a.rk / F::BPW, key0 = it * a.rk;
-        for (int e = tid; e < D * kw; e += AC_THREADS) {
-          const int col = e / kw, j = e - col * kw;
-          uint32_t word = 0u;
+        for (int it = 0; it < ipb; ++it) {  // V tile -> B columns (d, key)
+          const float* raw = acquire(t++);
+          const int kw = a.rk / F::BPW, key0 = it * a.rk;
+          for (int e = tid; e < D * kw; e += AC_THREADS) {
+            const int col = e / kw, j = e - col * kw;
+            uint32_t word = 0u;
 #pragma unroll
-          for (int x = 0; x < F::BPW; ++x)
-            word |= F::b_unit(cim::quantize(raw[(j * F::BPW + x) * g.drs +
-                                                col],
-                                            sv, qmax),
-                              a.bits)
-                    << (x * (32 / F::BPW));
-          btw[static_cast<size_t>(col) * g.rsp * 4 + key0 / F::BPW + j] =
-              word;
+            for (int x = 0; x < F::BPW; ++x)
+              word |= F::b_unit(cim::quantize(raw[(j * F::BPW + x) * g.drs +
+                                                  col],
+                                              sv, qmax),
+                                a.bits)
+                      << (x * (32 / F::BPW));
+            btw[static_cast<size_t>(col) * g.rsp * 4 + key0 / F::BPW + j] =
+                word;
+          }
         }
+        __syncthreads();  // (the prefix maxima too)
+        const float* sc = s + static_cast<size_t>(c) * R * g.sw;
+        const int* kp = kpos + c * bkp;
+        const int* kv = kval + c * bkp;
+        for (int i = warp; i < R; i += AC_WARPS) {  // one warp a row
+          const float mn = mnew[c * R + i];
+          const float cr = expf(__fsub_rn(mprev[c * R + i], mn));
+          const int qp = qpos[i % bq];
+          unsigned char* prow = ap + static_cast<size_t>(i) * g.apw * 4;
+          float ps = 0.f;
+          for (int j = lane; j < bkp; j += 32) {
+            // the mask, not the score, decides: on a fully masked row s ==
+            // m' == NEG_INF and exp(0) = 1 would be wrong
+            const float p =
+                ac_valid(qp, kp[j], kv[j], a.causal, a.window)
+                    ? expf(__fsub_rn(sc[static_cast<size_t>(i) * g.sw + j],
+                                     mn))
+                    : 0.f;
+            ps = __fadd_rn(ps, p);
+            ac_store_unit<F::APW>(
+                prow, j,
+                F::a_unit(static_cast<int>(rintf(__fmul_rn(p, qmf))),
+                          a.bits));
+          }
+          for (int o = 16; o; o >>= 1)
+            ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, o));
+          if (lane == 0) {
+            corr[c * R + i] = cr;
+            sp[c * R + i] = ps;
+          }
+        }
+        __syncthreads();
+        float* pc = pvf + static_cast<size_t>(c) * R * g.sw;
+        ac_gemm<F>(ap, R, bt, g.rsp, D, bkp, tab, a.bits,
+                   reinterpret_cast<uint32_t*>(pc), g.sw,
+                   [&](int i, int col, uint32_t sum) {
+                     pc[static_cast<size_t>(i) * g.sw + col] = __fmul_rn(
+                         static_cast<float>(static_cast<int32_t>(sum)),
+                         vscale);
+                   });
       }
-      __syncthreads();  // (the prefix maxima too)
-      const float* sc = s + static_cast<size_t>(c) * R * g.sw;
-      const int* kp = kpos + c * bkp;
-      const int* kv = kval + c * bkp;
-      for (int i = warp; i < R; i += AC_WARPS) {  // one warp a row
-        const float mn = mnew[c * R + i];
-        const float cr = expf(__fsub_rn(mprev[c * R + i], mn));
-        const int qp = qpos[i % bq];
-        unsigned char* prow = ap + static_cast<size_t>(i) * g.apw * 4;
-        float ps = 0.f;
-        for (int j = lane; j < bkp; j += 32) {
-          // the mask, not the score, decides: on a fully masked row s ==
-          // m' == NEG_INF and exp(0) = 1 would be wrong
-          const float p = ac_valid(qp, kp[j], kv[j], a.causal, a.window)
-                              ? expf(__fsub_rn(
-                                    sc[static_cast<size_t>(i) * g.sw + j], mn))
-                              : 0.f;
-          ps = __fadd_rn(ps, p);
-          ac_store_unit<F::APW>(
-              prow, j,
-              F::a_unit(static_cast<int>(rintf(__fmul_rn(p, qmf))), a.bits));
-        }
-        for (int o = 16; o; o >>= 1)
-          ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, o));
-        if (lane == 0) {
-          corr[c * R + i] = cr;
-          sp[c * R + i] = ps;
-        }
-      }
-      __syncthreads();
-      float* pc = pvf + static_cast<size_t>(c) * R * g.sw;
-      ac_gemm<F>(ap, R, bt, g.rsp, D, bkp, tab, a.bits,
-                 reinterpret_cast<uint32_t*>(pc), g.sw,
-                 [&](int i, int col, uint32_t sum) {
-                   pc[static_cast<size_t>(i) * g.sw + col] = __fmul_rn(
-                       static_cast<float>(static_cast<int32_t>(sum)), vscale);
-                 });
-    }
-    for (int c = tid; c < C; c += AC_THREADS) plive[c] = live[c];
-    cim::cp_async_wait<0>();
-    cluster.sync();  // every rank's pvf, corr, sum p are visible
+      for (int c = tid; c < C; c += AC_THREADS) plive[c] = live[c];
+      cim::cp_async_wait<0>();
+      cluster.sync();  // every rank's pvf, corr, sum p are visible
 
-    // Phase C: the in-order combine, this rank's columns of every row
-    for (int i = tid; i < R; i += AC_THREADS) {
-      float lv = lsum[i];
-      for (int q = 0; q < S; ++q) {
-        const int* pl = cluster.map_shared_rank(plive, q);
-        const float* pcr = cluster.map_shared_rank(corr, q);
-        const float* psp = cluster.map_shared_rank(sp, q);
-        for (int c = 0; c < C; ++c)
-          if (pl[c])
-            lv = __fadd_rn(__fmul_rn(lv, pcr[c * R + i]), psp[c * R + i]);
+      // Phase C: the in-order combine, this rank's columns of every row
+      for (int i = tid; i < R; i += AC_THREADS) {
+        float lv = lsum[i];
+        for (int q = 0; q < S; ++q) {
+          const int* pl = cluster.map_shared_rank(plive, q);
+          const float* pcr = cluster.map_shared_rank(corr, q);
+          const float* psp = cluster.map_shared_rank(sp, q);
+          for (int c = 0; c < C; ++c)
+            if (pl[c])
+              lv = __fadd_rn(__fmul_rn(lv, pcr[c * R + i]), psp[c * R + i]);
+        }
+        lsum[i] = lv;
       }
-      lsum[i] = lv;
+      for (int e = tid; e < R * cw; e += AC_THREADS) {
+        const int i = e / cw, col = c0 + (e - i * cw);
+        float av = acc[i * D + col];
+        for (int q = 0; q < S; ++q) {
+          const int* pl = cluster.map_shared_rank(plive, q);
+          const float* pcr = cluster.map_shared_rank(corr, q);
+          const float* ppv = cluster.map_shared_rank(pvf, q);
+          for (int c = 0; c < C; ++c)
+            if (pl[c])
+              av = __fadd_rn(
+                  __fmul_rn(av, pcr[c * R + i]),
+                  ppv[(static_cast<size_t>(c) * R + i) * g.sw + col]);
+        }
+        acc[i * D + col] = av;
+      }
+      // the next chunk's scores overwrite this one's pvf, which the peers
+      // read above
+      if (chunks > 1) cluster.sync();
     }
+  }
+  if constexpr (PV) {
+    __syncthreads();  // l of every row is visible
     for (int e = tid; e < R * cw; e += AC_THREADS) {
       const int i = e / cw, col = c0 + (e - i * cw);
-      float av = acc[i * D + col];
-      for (int q = 0; q < S; ++q) {
-        const int* pl = cluster.map_shared_rank(plive, q);
-        const float* pcr = cluster.map_shared_rank(corr, q);
-        const float* ppv = cluster.map_shared_rank(pvf, q);
-        for (int c = 0; c < C; ++c)
-          if (pl[c])
-            av = __fadd_rn(
-                __fmul_rn(av, pcr[c * R + i]),
-                ppv[(static_cast<size_t>(c) * R + i) * g.sw + col]);
-      }
-      acc[i * D + col] = av;
+      const int gi = i / bq, qi = i - gi * bq;
+      if (qi < rows_q)
+        a.out[((static_cast<size_t>(b) * a.H + hk * group + gi) * a.Sq + q0 +
+               qi) * D + col] =
+            __fdiv_rn(acc[i * D + col], fmaxf(lsum[i], AC_EPS_L));
     }
-    // the next chunk's scores overwrite this one's pvf, which the peers
-    // read above
-    if (chunks > 1) cluster.sync();
+    cluster.sync();  // no block leaves while a peer reads its shared memory
   }
-  __syncthreads();  // l of every row is visible
-  for (int e = tid; e < R * cw; e += AC_THREADS) {
-    const int i = e / cw, col = c0 + (e - i * cw);
-    const int gi = i / bq, qi = i - gi * bq;
-    if (qi < rows_q)
-      a.out[((static_cast<size_t>(b) * a.H + hk * group + gi) * a.Sq + q0 +
-             qi) * D + col] =
-          __fdiv_rn(acc[i * D + col], fmaxf(lsum[i], AC_EPS_L));
-  }
-  cluster.sync();  // no block leaves while a peer reads its shared memory
 }
 
 using AcKernel = void (*)(AcArgs);
 
-inline AcKernel ac_kernel(int path, int comp) {
+template <int MODE>
+inline AcKernel ac_kernel_of(int path, int comp) {
   switch (path) {
     case AC_MXU:
-      return attn_cluster_kernel<AC_MXU, false>;
+      return attn_cluster_kernel<AC_MXU, false, MODE>;
     case AC_LUT:
-      return attn_cluster_kernel<AC_LUT, false>;
+      return attn_cluster_kernel<AC_LUT, false, MODE>;
     case AC_NIBBLE:
-      return attn_cluster_kernel<AC_NIBBLE, false>;
+      return attn_cluster_kernel<AC_NIBBLE, false, MODE>;
     case AC_LOG:
-      return comp ? attn_cluster_kernel<AC_LOG, true>
-                  : attn_cluster_kernel<AC_LOG, false>;
+      return comp ? attn_cluster_kernel<AC_LOG, true, MODE>
+                  : attn_cluster_kernel<AC_LOG, false, MODE>;
     default:
       return nullptr;
   }
 }
 
-// The clusters of `splits` blocks of the instantiation for `path` and
-// `comp` at `smem` bytes that the current device holds at once, into
-// *out; returns the CUDA error code.
-inline int ac_capacity(int path, int comp, int smem, int splits, int* out) {
-  const AcKernel kern = ac_kernel(path, comp);
-  if (kern == nullptr || splits < 1 || splits > AC_MAX_SPLITS || smem <= 0)
+inline AcKernel ac_kernel(int path, int comp, int mode) {
+  switch (mode) {
+    case AC_FUSED:
+      return ac_kernel_of<AC_FUSED>(path, comp);
+    case AC_SCORES:
+      return ac_kernel_of<AC_SCORES>(path, comp);
+    case AC_PV:
+      return ac_kernel_of<AC_PV>(path, comp);
+    default:
+      return nullptr;
+  }
+}
+
+// The clusters of `splits` blocks of the instantiation for `path`, `comp`
+// and `mode` at `smem` bytes that the current device holds at once, into
+// *out (AC_SCORES launches no cluster: its blocks, splits 1); returns the
+// CUDA error code.
+inline int ac_capacity(int path, int comp, int mode, int smem, int splits,
+                       int* out) {
+  const AcKernel kern = ac_kernel(path, comp, mode);
+  const int most = mode == AC_SCORES ? 1 : AC_MAX_SPLITS;
+  if (kern == nullptr || splits < 1 || splits > most || smem <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return cim::cl_capacity_ex(reinterpret_cast<const void*>(kern),
                              static_cast<size_t>(smem), AC_THREADS, splits,
                              out);
 }
 
-// One launch of the plan (bq, splits, per, rk) with `smem` bytes, which
-// must be ac_geometry's total; a plan the kernel does not take is refused
-// (cudaErrorInvalidValue): bits 2..AC_MAX_BITS, splits 1..AC_MAX_SPLITS
-// with no rank empty in the first chunk, rk in {4, 8, 16, 32, 64} dividing
-// the padded kv block.
-inline int ac_launch(AcArgs a, int path, int comp, int smem,
+// One launch of the plan (bq, splits, per, rk) in `mode` with `smem` bytes,
+// which must be ac_geometry's total; a plan the kernel does not take is
+// refused (cudaErrorInvalidValue): bits 2..AC_MAX_BITS, splits 1..
+// AC_MAX_SPLITS (AC_SCORES: 1..AC_MAX_SCORE_SPLITS) with no rank empty in
+// the first chunk, rk in {4, 8, 16, 32, 64} dividing the padded kv block,
+// a score tensor given iff the mode writes or reads one.
+inline int ac_launch(AcArgs a, int path, int comp, int mode, int smem,
                      cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  const AcKernel kern = ac_kernel(path, comp);
+  const AcKernel kern = ac_kernel(path, comp, mode);
+  const int most = mode == AC_SCORES ? AC_MAX_SCORE_SPLITS : AC_MAX_SPLITS;
   if (kern == nullptr || a.B <= 0 || a.H <= 0 || a.KH <= 0 || a.Sq <= 0 ||
       a.Skv <= 0 || a.D <= 0 || a.H % a.KH != 0 || a.bk <= 0 ||
       a.bits < 2 || a.bits > AC_MAX_BITS || a.bq <= 0 || a.per <= 0 ||
-      a.splits < 1 || a.splits > AC_MAX_SPLITS)
+      a.splits < 1 || a.splits > most)
     return bad;
+  if ((mode == AC_FUSED) != (a.scores == nullptr)) return bad;
   if (a.rk != 4 && a.rk != 8 && a.rk != 16 && a.rk != 32 && a.rk != 64)
     return bad;
   const int64_t nk = (static_cast<int64_t>(a.Skv) + a.bk - 1) / a.bk;
   if (static_cast<int64_t>(a.splits - 1) * a.per >= nk) return bad;
+  if (nk * a.bk > INT32_MAX) return bad;
   const AcGeom g = ac_geometry(path, comp, a.bits, a.H / a.KH, a.bq, a.per,
-                               a.bk, a.D, a.rk);
+                               a.bk, a.D, a.rk, mode);
   if (g.bkp % a.rk != 0 || g.total != static_cast<size_t>(smem)) return bad;
   const int64_t n_qt = (static_cast<int64_t>(a.Sq) + a.bq - 1) / a.bq;
   const int64_t tiles = static_cast<int64_t>(a.B) * a.KH * n_qt;
   if (tiles > INT32_MAX) return bad;
   a.n_qt = static_cast<int>(n_qt);
+  a.skvp = static_cast<int>(nk * a.bk);
   a.kv_async = a.D % 4 == 0 && reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
                reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
-  return cim::cl_launch_ex(kern, a, g.total, AC_THREADS,
-                           static_cast<int>(tiles), a.splits, stream);
+  a.sc_async = a.bk % 4 == 0 && g.sw % 4 == 0 &&
+               reinterpret_cast<uintptr_t>(a.scores) % 16 == 0;
+  if (mode != AC_SCORES)
+    return cim::cl_launch_ex(kern, a, g.total, AC_THREADS,
+                             static_cast<int>(tiles), a.splits, stream);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.total));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles), 1,
+              static_cast<unsigned>(a.splits)),
+         AC_THREADS, g.total, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace attn

@@ -3,16 +3,21 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/attn_gemm.py:
 //   attn_fused        (-> _attn_kernel):   one pass, all four datapaths;
-//     up to 8 bits the cluster kernel of attn_cluster.cuh (entry
-//     attn_fused), log operands of 9..12 bits this file's template (entry
-//     attn_fused_wide), by kernels/attn_gemm.py fused_route
 //   attn_materialized (-> _scores_kernel, _pv_kernel): the two-kernel
 //     oracle with the masked score tensor in device memory between them.
+// Up to 8 bits all three run the cluster kernel of attn_cluster.cuh in its
+// three modes (entries attn_fused, attn_scores, attn_pv); log operands of
+// 9..12 bits run this file's template (entries attn_fused_wide,
+// attn_scores_wide, attn_pv_wide), by kernels/attn_gemm.py fused_route and
+// materialized_route.  The template's oracle pair also stays callable at 8
+// bits when a caller forces it (kernels/attn_gemm.py
+// _attn_materialized_forced(..., route="template")): it is separate code,
+// so it is the cluster kernel's independent witness on the card.
 // The template's three kernels are attn_kernel<PATH, COMP, QT, MODE>,
 // whose stages are the same __device__ functions (score_tile,
 // online_step, flush), so its fused form == materialized bit for bit on
 // one card; attn_cluster.cuh computes the same values in the same float
-// order, so it equals the oracle bit for bit too.
+// order, so each of its modes equals the template's bit for bit too.
 //
 // What it computes, per (batch b, head h), with hk = h / (H / KH):
 //   qi = q(b,h) quantized at sq_s[b,h], ki/vi at sk_s/sv_s[b,hk]
@@ -41,8 +46,8 @@
 // once, the output written once, at 3.35 TB/s) bound only the shortest
 // sequences.
 //
-// The template's design (the oracle's, and the wide log operands' fused
-// form; attn_cluster.cuh says what the served kernel does instead): one
+// The template's design (the wide log operands' three kernels, and the
+// witness; attn_cluster.cuh says what the cluster kernel does instead): one
 // block per (q block of bq rows, h, b) loops over the kv blocks; GQA
 // reads k/v at hk with no repeat.  q/k/v are quantized on load
 // (__fdiv_rn + rintf, clipped to +-qmax; build without fast-math)
@@ -438,24 +443,19 @@ Args make_args(const void* q, const void* k, const void* v, const void* sq_s,
   }
 
 ATTN_ENTRY(attn_fused_wide, FUSED)
-ATTN_ENTRY(attn_scores, SCORES)
-ATTN_ENTRY(attn_pv, PV)
+ATTN_ENTRY(attn_scores_wide, SCORES)
+ATTN_ENTRY(attn_pv_wide, PV)
 
-// The cluster kernel (attn_cluster.cuh), operands of 2..8 bits: the same
-// tensors as above (no score tensor), then the plan of
-// kernels/attn_gemm.py attn_cluster_plan: bq query rows a tile, the kv
-// blocks in `splits` ranges of `per` blocks, rk keys a ring tile, and smem
-// its shared-memory total (cudaErrorInvalidValue for a plan or a total
-// the kernel does not take).
-extern "C" int attn_fused(const void* q, const void* k, const void* v,
-                          const void* sq_s, const void* sk_s,
-                          const void* sv_s, const void* qpos,
-                          const void* kpos, const void* kval,
-                          const void* tab, void* out, int B, int H, int KH,
-                          int Sq, int Skv, int D, int bk, int bits, int path,
-                          int compensated, int causal, int window, int bq,
-                          int splits, int per, int rk, int smem,
-                          void* stream) {
+namespace {
+
+// One launch of the cluster kernel (attn_cluster.cuh) in `mode`
+int cluster_entry(int mode, const void* q, const void* k, const void* v,
+                  const void* sq_s, const void* sk_s, const void* sv_s,
+                  const void* qpos, const void* kpos, const void* kval,
+                  const void* tab, void* out, void* scores, int B, int H,
+                  int KH, int Sq, int Skv, int D, int bk, int bits, int path,
+                  int compensated, int causal, int window, int bq,
+                  int splits, int per, int rk, int smem, void* stream) {
   attn::AcArgs a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -468,18 +468,49 @@ extern "C" int attn_fused(const void* q, const void* k, const void* v,
   a.kval = static_cast<const int*>(kval);
   a.tab = static_cast<const unsigned char*>(tab);
   a.out = static_cast<float*>(out);
+  a.scores = static_cast<float*>(scores);
   a.B = B; a.H = H; a.KH = KH; a.Sq = Sq; a.Skv = Skv; a.D = D; a.bk = bk;
   a.bits = bits; a.causal = causal; a.window = window;
   a.bq = bq; a.splits = splits; a.per = per; a.rk = rk;
-  a.n_qt = 0; a.kv_async = 0;
-  return attn::ac_launch(a, path, compensated, smem,
+  a.n_qt = 0; a.skvp = 0; a.kv_async = 0; a.sc_async = 0;
+  return attn::ac_launch(a, path, compensated, mode, smem,
                          static_cast<cudaStream_t>(stream));
 }
 
-// The clusters of `splits` blocks of the cluster kernel for `path` and
-// `compensated` at `smem` bytes of shared memory that the current device
+}  // namespace
+
+// The cluster kernel (attn_cluster.cuh), operands of 2..8 bits: the
+// template's tensors (each mode reads or writes only its own: attn_fused
+// q, k, v to out; attn_scores q, k to scores; attn_pv scores, v to out;
+// the others may be null), then the plan of kernels/attn_gemm.py
+// attn_cluster_plan: bq query rows a tile, the kv blocks in `splits`
+// ranges of `per` blocks, rk keys a ring tile, and smem its shared-memory
+// total (cudaErrorInvalidValue for a plan or a total the kernel does not
+// take).
+#define CLUSTER_ENTRY(NAME, MODE)                                            \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* sq_s, const void* sk_s, const void* sv_s,  \
+                      const void* qpos, const void* kpos, const void* kval,  \
+                      const void* tab, void* out, void* scores, int B,       \
+                      int H, int KH, int Sq, int Skv, int D, int bk,         \
+                      int bits, int path, int compensated, int causal,       \
+                      int window, int bq, int splits, int per, int rk,       \
+                      int smem, void* stream) {                              \
+    return cluster_entry(MODE, q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval,  \
+                         tab, out, scores, B, H, KH, Sq, Skv, D, bk, bits,   \
+                         path, compensated, causal, window, bq, splits, per, \
+                         rk, smem, stream);                                  \
+  }
+
+CLUSTER_ENTRY(attn_fused, attn::AC_FUSED)
+CLUSTER_ENTRY(attn_scores, attn::AC_SCORES)
+CLUSTER_ENTRY(attn_pv, attn::AC_PV)
+
+// The clusters of `splits` blocks of the cluster kernel for `path`,
+// `compensated` and `mode` (0 attn_fused, 1 attn_scores: blocks, splits 1;
+// 2 attn_pv) at `smem` bytes of shared memory that the current device
 // holds at once, into *out (attn_cluster_plan's waves)
-extern "C" int attn_fused_capacity(int path, int compensated, int smem,
-                                   int splits, int* out) {
-  return attn::ac_capacity(path, compensated, smem, splits, out);
+extern "C" int attn_cluster_capacity(int path, int compensated, int mode,
+                                     int smem, int splits, int* out) {
+  return attn::ac_capacity(path, compensated, mode, smem, splits, out);
 }

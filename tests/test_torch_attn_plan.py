@@ -82,23 +82,24 @@ def _case(path, fam, comp, nac, variant, kh, seed):
     return ins, table, kw
 
 
-def _model_every_split(ins, table, kw, bq):
+def _model_every_split(ins, table, kw, bq, scores=None):
     """The model at every split of 1..8 (past the 4 kv blocks too), each
-    in one chunk and in chunks of one block a rank; all must agree."""
+    in one chunk and in chunks of one block a rank; all must agree.
+    `scores`: the PV mode's, Phase A a load of these stored scores."""
     nk = -(-SKV // BK)
     memo, outs = {}, []
     for splits in range(1, 9):
         for per in sorted({-(-nk // splits), 1}):
             outs.append(((splits, per), _kernel_model(
                 *ins, table, **kw, bq=bq, splits=splits, per=per,
-                memo=memo)))
+                memo=memo, scores=scores)))
     assert len(memo) == nk + 1        # every block's Phase B reused
     return outs
 
 
 def _kernel_model(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, *,
                   path, bits, causal, window, compensated, block, bq,
-                  splits, per, memo=None):
+                  splits, per, memo=None, scores=None):
     """The cluster kernel's evaluation order in plain torch.
 
     A query tile is bq rows of every head of a kv head; its nk kv blocks
@@ -115,7 +116,10 @@ def _kernel_model(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, *,
     as they were.  The sums over a block's keys are attn_reference's.
     `memo` (a dict kept across calls on the same inputs) reuses a block's
     Phase A and, where its prefix maxima are bitwise those of the call
-    that filled it, its Phase B."""
+    that filled it, its Phase B.  With `scores` (B, H, Sq, Skvp) given,
+    the order of the kernel's PV mode: Phase A takes a block's tile from
+    those stored scores instead of computing it (its row maxima as
+    before; a dead block's tile is discarded by the liveness, unread)."""
     memo = {} if memo is None else memo
     bk = block[1]
     b, h, sq, d = q.shape
@@ -146,9 +150,10 @@ def _kernel_model(q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval, table, *,
         tiles = torch.nn.functional.pad(m[:, 0].any(dim=-1), (0, pad))
         tiles = tiles.reshape(b, -1, bq).any(dim=-1)             # (B, tiles)
         rows_live = tiles[:, tile_of][:, None, :, None]          # (B,1,Sq,1)
-        sc = T._score_step(qf, kf[:, :, sl], sqb, skb, m, table, path=path,
-                           bits=bits, compensated=compensated,
-                           sm_scale=T._sm_scale(d))
+        sc = (T._score_step(qf, kf[:, :, sl], sqb, skb, m, table,
+                            path=path, bits=bits, compensated=compensated,
+                            sm_scale=T._sm_scale(d))
+              if scores is None else scores[..., sl])
         mask.append(m)
         s.append(sc)
         rmax.append(torch.where(rows_live, sc.amax(dim=-1, keepdim=True),
@@ -237,10 +242,12 @@ def _capacity(smem, splits):
     return (132 // splits) * min(8, 233_472 // smem)
 
 
-def _assert_valid(plan, geom, path, comp, bits=8):
+def _assert_valid(plan, geom, path, comp, bits=8, mode="fused"):
     b, h, kh, sq, skv, d, bk = geom
     nk = -(-skv // bk)
-    assert 1 <= plan.splits <= T.MAX_SPLITS
+    lone = mode == "scores"           # lone blocks on the grid, no cluster
+    assert 1 <= plan.splits <= (T.MAX_SCORE_SPLITS if lone else
+                                T.MAX_SPLITS)
     assert 1 <= plan.per and (plan.splits - 1) * plan.per < nk
     assert plan.chunks == -(-nk // (plan.splits * plan.per))
     assert plan.chunks == 1 or plan.per == -(-nk // plan.splits) or \
@@ -249,10 +256,16 @@ def _assert_valid(plan, geom, path, comp, bits=8):
         min(c, sq) for c in T.QUERY_ROWS}
     assert plan.rk in T.RING_KEYS and T.padded_block(bk) % plan.rk == 0
     assert plan.smem == T.attn_cluster_smem(path, bits, h // kh, plan.bq,
-                                            plan.per, bk, d, plan.rk, comp)
+                                            plan.per, bk, d, plan.rk, comp,
+                                            mode)
     assert plan.smem <= SMEM_BYTES
     assert plan.tiles == b * kh * -(-sq // plan.bq)
-    assert plan.waves == -(-plan.tiles // _capacity(plan.smem, plan.splits))
+    if lone:
+        assert plan.waves == -(-plan.tiles * plan.splits //
+                               _capacity(plan.smem, 1))
+    else:
+        assert plan.waves == -(-plan.tiles //
+                               _capacity(plan.smem, plan.splits))
 
 
 @pytest.mark.parametrize("path,comp", KINDS, ids=str)
@@ -336,6 +349,228 @@ def test_route_sends_wide_log_operands_to_the_template():
         with pytest.raises(ValueError):
             T.fused_route(path, bits)
 
+
+
+@pytest.mark.parametrize("bits", range(1, 14))
+@pytest.mark.parametrize("path", T.ATTN_PATHS)
+def test_materialized_route_mirrors_the_fused_route(path, bits):
+    """The oracle's two stages take the fused form's design at every
+    width: the cluster kernel up to 8 bits, the template for 9..12-bit
+    log operands, a refusal past each path's widths."""
+    try:
+        want = T.fused_route(path, bits)
+    except ValueError:
+        with pytest.raises(ValueError):
+            T.materialized_route(path, bits)
+        return
+    assert T.materialized_route(path, bits) == want
+    assert T._route_of(None, path, bits) == want
+    # the template pair, the cluster kernel's witness, at any width it
+    # takes; the cluster kernel only up to 8 bits; a plan only to it
+    assert T._route_of("template", path, bits) == "template"
+    if want == "cluster":
+        assert T._route_of("cluster", path, bits, {"splits": 1}) == "cluster"
+    else:
+        with pytest.raises(ValueError, match="at most 8-bit"):
+            T._route_of("cluster", path, bits)
+    with pytest.raises(ValueError, match="forced plan"):
+        T._route_of("template", path, bits, {"splits": 1})
+    with pytest.raises(ValueError, match="route"):
+        T._route_of("plain", path, bits)
+
+
+def test_forced_routes_are_refused_on_either_device():
+    """A forced route or plan the kernels do not take raises before any
+    kernel or plain version runs, on the CPU as on the card."""
+    ins, table, kw = _case("log", "log_our", "yang1", None, "causal", 2, 3)
+    q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval = ins
+    wide = dict(kw, bits=12)
+    with pytest.raises(ValueError, match="at most 8-bit"):
+        T._attn_scores_forced(q, k, sq_s, sk_s, qpos, kpos, kval, table,
+                              route="cluster", **wide)
+    scores = T.attn_scores(q, k, sq_s, sk_s, qpos, kpos, kval, table, **kw)
+    with pytest.raises(ValueError, match="forced plan"):
+        T._attn_pv_forced(scores, v, sv_s, qpos, kpos, kval, table,
+                          route="template", force={"splits": 2}, **kw)
+    with pytest.raises(ValueError, match="forced plan"):
+        T._attn_materialized_forced(*ins, table, force={"splits": 2},
+                                    **wide)
+    # on the CPU every route is the plain version, bit for bit
+    want = T.attn_materialized(*ins, table, **kw)
+    for route in ("template", "cluster"):
+        assert torch.equal(T._attn_materialized_forced(
+            *ins, table, route=route, **kw), want)
+
+
+ORACLE_MODES = ("scores", "pv")
+
+
+@pytest.mark.parametrize("mode", ORACLE_MODES)
+@pytest.mark.parametrize("path,comp", KINDS, ids=str)
+def test_oracle_plans_at_the_served_geometries(path, comp, mode):
+    """The oracle's modes plan every served geometry within their limits:
+    the decode round spreads its 3 kv blocks one a block (PV: a cluster
+    of 3, as the fused form), the long decode's 16 blocks the scores mode
+    over 16 lone blocks a tile where that is no more waves; a mode's block
+    needs no more shared memory than the fused form's at its plan."""
+    for geom in ATTN_MAIN + ATTN_SMALL + ATTN_LONG:
+        plan = T.attn_cluster_plan(*geom[:6], path, 8, _capacity,
+                                   bk=geom[6], compensated=comp, mode=mode)
+        _assert_valid(plan, geom, path, comp, mode=mode)
+        group = geom[1] // geom[2]
+        assert plan.smem <= T.attn_cluster_smem(
+            path, 8, group, plan.bq, plan.per, geom[6], geom[5], plan.rk,
+            comp, "fused")
+    plan = T.attn_cluster_plan(*ATTN_MAIN[0][:6], path, 8, _capacity,
+                               bk=128, compensated=comp, mode=mode)
+    assert (plan.bq, plan.splits, plan.per, plan.chunks) == (1, 3, 1, 1)
+
+
+@pytest.mark.parametrize("mode", ORACLE_MODES)
+@pytest.mark.parametrize("path,comp", KINDS, ids=str)
+def test_oracle_plans_fit_every_geometry_the_gate_admits(path, comp, mode):
+    """As test_plan_fits_every_geometry_the_gate_admits, for the scores
+    and PV modes: every (bk, head dim) core/approx_gemm._attn_kernel_fits
+    admits at 8 bits has a plan of each that fits its shared memory, at a
+    long prefill and a long decode."""
+    admitted = 0
+    for d in (12, 64, 128, 256):
+        for bk in range(8, 129):
+            if not ag._attn_kernel_fits(ENTRY[path], 8, (32, bk), d):
+                continue
+            admitted += 1
+            for geom in ((2, 8, 2, 300, 3000, d, bk), (2, 8, 2, 1, 9000, d,
+                                                       bk)):
+                plan = T.attn_cluster_plan(*geom[:6], path, 8, _capacity,
+                                           bk=bk, compensated=comp,
+                                           mode=mode)
+                _assert_valid(plan, geom, path, comp, mode=mode)
+    assert admitted >= 3 * 121
+
+
+def test_oracle_forced_plans_and_refusals():
+    """The scores mode takes any split of the kv blocks up to
+    MAX_SCORE_SPLITS (no cluster), the PV mode up to a cluster's
+    MAX_SPLITS; a split either does not take, a range left empty, an
+    unknown mode or a capacity of none is refused."""
+    geom = ATTN_LONG[0]                       # 16 kv blocks
+    for splits in range(1, 17):
+        plan = T.attn_cluster_plan(*geom[:6], "lut", 8, _capacity, bk=128,
+                                   splits=splits, mode="scores")
+        assert plan.splits == splits
+        _assert_valid(plan, geom, "lut", False, mode="scores")
+    for splits in range(1, 9):
+        plan = T.attn_cluster_plan(*geom[:6], "lut", 8, _capacity, bk=128,
+                                   splits=splits, mode="pv")
+        _assert_valid(plan, geom, "lut", False, mode="pv")
+    for mode, splits in (("pv", 9), ("scores", 17), ("scores", 65)):
+        with pytest.raises(ValueError, match="empty"):
+            T.attn_cluster_plan(*geom[:6], "lut", 8, _capacity, bk=128,
+                                splits=splits, mode=mode)
+    with pytest.raises(ValueError, match="no block"):
+        T.attn_cluster_plan(*geom[:6], "lut", 8, lambda *a: 0, bk=128,
+                            mode="scores")
+    with pytest.raises(ValueError, match="mode"):
+        T.attn_cluster_plan(*geom[:6], "lut", 8, _capacity, bk=128,
+                            mode="materialized")
+    with pytest.raises(ValueError, match="mode"):
+        T.attn_cluster_smem("lut", 8, 2, 1, 1, 128, 128, 16, False, "both")
+
+
+@pytest.mark.parametrize("path,comp", KINDS, ids=str)
+def test_oracle_modes_share_the_fused_layout(path, comp):
+    """A mode's shared memory is the fused form's without the regions it
+    does not use: the scores mode has no V side, softmax state or
+    accumulator and one block's stage, the PV mode no K side or q; so
+    the scores mode's total does not grow with the blocks a chunk (but
+    their positions), and neither mode's passes the fused form's."""
+    for geom in ATTN_MAIN + ATTN_SMALL + ATTN_LONG:
+        _, h, kh, _, _, d, bk = geom
+        for bq, per, rk in ((1, 1, 16), (4, 3, 8), (16, 2, 4)):
+            size = {m: T.attn_cluster_smem(path, 8, h // kh, bq, per, bk, d,
+                                           rk, comp, m)
+                    for m in T.CLUSTER_MODES}
+            assert size["scores"] < size["fused"]
+            assert size["pv"] < size["fused"]
+            grown = T.attn_cluster_smem(path, 8, h // kh, bq, per + 1, bk,
+                                        d, rk, comp, "scores")
+            pos = 2 * T.padded_block(bk) * 4 + 8    # kpos, kval, live, lidx
+            assert size["scores"] <= grown <= size["scores"] + pos + 48
+
+
+def _poison_dead(scores, qpos, kpos, kval, *, bq, bk, causal, window):
+    """The stored scores with every kv block no (query, key) pair of a
+    query tile of `bq` rows admits set to NaN in that tile's rows: the PV
+    mode skips such a block unread, so the result must not move."""
+    s = scores.clone()
+    sq, skvp = s.shape[2], s.shape[3]
+    pad = skvp - kpos.shape[1]
+    kp = torch.nn.functional.pad(kpos.to(torch.int32), (0, pad))
+    kv = torch.nn.functional.pad(kval.to(torch.int32), (0, pad))
+    dead = 0
+    for k0 in range(0, skvp, bk):
+        m = T._mask4(qpos.to(torch.int32), kp[:, k0:k0 + bk],
+                     kv[:, k0:k0 + bk], causal, window)[:, 0]
+        for t0 in range(0, sq, bq):
+            for bi in range(s.shape[0]):
+                if not m[bi, t0:t0 + bq].any():
+                    s[bi, :, t0:t0 + bq, k0:k0 + bk] = float("nan")
+                    dead += 1
+    return s, dead
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("path,fam,comp,nac", PATHS, ids=lambda p: str(p))
+def test_pv_mode_order_is_bitwise_the_kernel_order(path, fam, comp, nac,
+                                                   variant):
+    """The PV mode's order (the stored scores of attn_scores_plain, each
+    row's max a kv block from the stored tile, dead blocks skipped by
+    position and never read: poisoned with NaN here, the in-order
+    combine) equals the fused order model bit for bit at every split, so
+    attn_reference too; and the scores of a dead block are all NEG_INF,
+    so the scores mode writes them without a product."""
+    ins, table, kw = _case(path, fam, comp, nac, variant, 2, seed=13)
+    q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval = ins
+    bq = 1 if variant == "decode" else 4
+    scores = T.attn_scores_plain(q, k, sq_s, sk_s, qpos, kpos, kval, table,
+                                 **kw)
+    poisoned, dead = _poison_dead(scores, qpos, kpos, kval, bq=bq, bk=BK,
+                                  causal=True, window=kw["window"])
+    assert dead > 0                   # every variant has a dead block
+    nan = torch.isnan(poisoned)
+    assert (scores[nan] == T.NEG_INF).all()
+    want = T.attn_reference(*ins, table, **kw)
+    fused = _model_every_split(ins, table, kw, bq)
+    for (cut, got), (_, ref) in zip(
+            _model_every_split(ins, table, kw, bq, scores=poisoned), fused):
+        assert torch.equal(got, ref), cut
+        assert torch.equal(got, want), cut
+    assert torch.equal(T.attn_pv_plain(scores, v, sv_s, qpos, kpos, kval,
+                                       table, **kw), want)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_pv_mode_order_against_jax_materialized(variant):
+    """The PV mode's order over attn_scores_plain's scores against the
+    JAX package's attn_materialized (its Pallas _scores_kernel and
+    _pv_kernel in interpret mode), within one probability level of
+    max|v| (the bound test_kernel_order_against_jax holds: XLA's exp and
+    sums round otherwise than torch's on the CPU)."""
+    path, fam, comp, nac = PATHS[0]
+    ins, table, kw = _case(path, fam, comp, nac, variant, 2, seed=21)
+    q, k, v, sq_s, sk_s, sv_s, qpos, kpos, kval = ins
+    bq = 1 if variant == "decode" else 4
+    scores = T.attn_scores_plain(q, k, sq_s, sk_s, qpos, kpos, kval, table,
+                                 **kw)
+    poisoned, _ = _poison_dead(scores, qpos, kpos, kval, bq=bq, bk=BK,
+                               causal=True, window=kw["window"])
+    jt = jnp.asarray(_lut_np(fam, 8, comp, nac))
+    want = np.asarray(J.attn_materialized(
+        *[jnp.asarray(t.numpy()) for t in ins], jt, **kw))
+    tol = float(v.abs().max()) / 127
+    for cut, got in _model_every_split(ins, table, kw, bq, scores=poisoned):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol,
+                                   err_msg=str(cut))
 
 
 def test_plan_counts_the_blocks_a_causal_mask_leaves():

@@ -304,9 +304,11 @@ def _beyond_lsum_rounding(got, want):
 @pytest.mark.parametrize("geom", ATTN_GEOMS, ids=str)
 @pytest.mark.parametrize("path,spec,comp", ATTN_PATHS, ids=str)
 def test_attn_kernels_against_plain_versions(path, spec, comp, geom):
-    """Scores bitwise against the plain version, fused bitwise against
-    materialized, fused against the plain version within the l sum's
-    rounding in every output (the order of that sum differs)."""
+    """Scores bitwise against the plain version and the template's (the
+    cluster kernel's witness, forced at 8 bits), fused bitwise against
+    materialized and the template's materialized, fused against the
+    plain version within the l sum's rounding in every output (the order
+    of that sum differs)."""
     from repro_torch.kernels import attn_gemm
 
     dev = _card()
@@ -317,12 +319,18 @@ def test_attn_kernels_against_plain_versions(path, spec, comp, geom):
     scores = attn_gemm.attn_scores(q, k, sc[0], sc[1], *pos, table, **kw)
     plain_scores = attn_gemm.attn_scores_plain(q, k, sc[0], sc[1], *pos,
                                                table, **kw)
+    tpl_scores = attn_gemm._attn_scores_forced(
+        q, k, sc[0], sc[1], *pos, table, route="template", **kw)
     fused = attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)
     mat = attn_gemm.attn_materialized(q, k, v, *sc, *pos, table, **kw)
+    tpl_mat = attn_gemm._attn_materialized_forced(
+        q, k, v, *sc, *pos, table, route="template", **kw)
     plain = attn_gemm.attn_reference(q, k, v, *sc, *pos, table, **kw)
     torch.cuda.synchronize()
     assert torch.equal(scores, plain_scores)
+    assert torch.equal(scores, tpl_scores)
     assert torch.equal(fused, mat)
+    assert torch.equal(mat, tpl_mat)
     assert _beyond_lsum_rounding(fused, plain) == 0
 
 
@@ -340,7 +348,8 @@ ATTN_SPLIT_GEOMS = ATTN_GEOMS[:3] + [(2, 4, 2, 1, 29, 12, "decode"),
 @pytest.mark.parametrize("path,spec,comp", ATTN_PATHS, ids=str)
 def test_attn_cluster_kernel_at_every_split(path, spec, comp, geom):
     """The cluster kernel forced to every split of the kv blocks that
-    leaves no range empty: bitwise equal to the materialized oracle, and
+    leaves no range empty, fused and PV (the scores mode at every split of
+    its grid): bitwise equal to the template's materialized oracle, and
     within the l sum's rounding of its plain version in every output."""
     from repro_torch.kernels import attn_gemm
 
@@ -350,21 +359,34 @@ def test_attn_cluster_kernel_at_every_split(path, spec, comp, geom):
     bk = 128 if geom[4] > 64 else 16
     kw = dict(path=path, bits=8, causal=True, window=window,
               compensated=comp, block=(8, bk))
-    mat = attn_gemm.attn_materialized(q, k, v, *sc, *pos, table, **kw)
+    scores = attn_gemm._attn_scores_forced(q, k, sc[0], sc[1], *pos, table,
+                                           route="template", **kw)
+    mat = attn_gemm._attn_pv_forced(scores, v, sc[2], *pos, table,
+                                    route="template", **kw)
     plain = attn_gemm.attn_reference(q, k, v, *sc, *pos, table, **kw)
     nk = -(-geom[4] // bk)
     for splits in range(1, min(attn_gemm.MAX_SPLITS, nk) + 1):
+        force = {"splits": splits}
         before = attn_gemm.KERNELS["attn_fused"].launches
         fused = attn_gemm._attn_fused_forced(q, k, v, *sc, *pos, table,
-                                             {"splits": splits}, **kw)
+                                             force, **kw)
+        pv = attn_gemm._attn_pv_forced(scores, v, sc[2], *pos, table,
+                                       force=force, **kw)
         torch.cuda.synchronize()
         assert attn_gemm.KERNELS["attn_fused"].launches == before + 1
         assert torch.equal(fused, mat), splits
+        assert torch.equal(pv, mat), splits
         assert _beyond_lsum_rounding(fused, plain) == 0, splits
+    for splits in range(1, min(attn_gemm.MAX_SCORE_SPLITS, nk) + 1):
+        got = attn_gemm._attn_scores_forced(q, k, sc[0], sc[1], *pos, table,
+                                            force={"splits": splits}, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, scores), splits
 
 
 def test_attn_wide_log_operands_take_the_template():
-    """9..12-bit log operands run the template (fused_route), fused ==
+    """9..12-bit log operands run the template's three kernels
+    (fused_route, materialized_route) and no cluster kernel, fused ==
     materialized bit for bit, within the l sum's rounding of the plain
     version."""
     from repro_torch.kernels import attn_gemm
@@ -373,22 +395,28 @@ def test_attn_wide_log_operands_take_the_template():
     (q, k, v), _, pos, _ = _attn_case(dev, 2, 4, 2, 21, 29, 12, "causal")
     sc = attn_gemm.attn_scales(q, k, v, 12)
     kw = dict(path="log", bits=12, compensated=True, block=(8, 16))
-    before = attn_gemm.KERNELS["attn_fused_wide"].launches
+    before = {n: kern.launches for n, kern in attn_gemm.KERNELS.items()}
     fused = attn_gemm.attn_fused(q, k, v, *sc, *pos, **kw)
     mat = attn_gemm.attn_materialized(q, k, v, *sc, *pos, **kw)
     plain = attn_gemm.attn_reference(q, k, v, *sc, *pos, **kw)
     torch.cuda.synchronize()
-    assert attn_gemm.KERNELS["attn_fused_wide"].launches == before + 1
+    assert {n: kern.launches - before[n]
+            for n, kern in attn_gemm.KERNELS.items()} == {
+        "attn_fused": 0, "attn_scores": 0, "attn_pv": 0,
+        "attn_fused_wide": 1, "attn_scores_wide": 1, "attn_pv_wide": 1}
     assert torch.equal(fused, mat)
     assert _beyond_lsum_rounding(fused, plain) == 0
 
 
 # (the shared-memory model the launch sends, its operands' bits, the
 # kernel the call launches): the template's fused kernel (9..12-bit log
-# operands; its scores stage holds the same model) and the cluster kernel
+# operands) and its scores stage (forced at 8 bits, as the witness), and
+# the cluster kernel in its three modes
 REFUSING = [("attn_smem_bytes", "log", 12, "attn_fused_wide"),
-            ("attn_smem_bytes", "lut", 8, "attn_scores"),
-            ("attn_cluster_smem", "lut", 8, "attn_fused")]
+            ("attn_smem_bytes", "lut", 8, "attn_scores_wide"),
+            ("attn_cluster_smem", "lut", 8, "attn_fused"),
+            ("attn_cluster_smem", "lut", 8, "attn_scores"),
+            ("attn_cluster_smem", "lut", 8, "attn_pv")]
 
 
 @pytest.mark.parametrize("model,path,bits,kernel", REFUSING, ids=str)
@@ -405,10 +433,16 @@ def test_attn_kernel_refuses_a_shared_memory_total_not_its_own(
     sc = attn_gemm.attn_scales(q, k, v, bits)
     table = ops._attn_table(path, BALANCED, dev) if path == "lut" else None
     kw = dict(path=path, bits=bits, block=(8, 16))
-    call = ((lambda: attn_gemm.attn_scores(q, k, sc[0], sc[1], *pos, table,
-                                           **kw))
-            if kernel == "attn_scores" else
-            (lambda: attn_gemm.attn_fused(q, k, v, *sc, *pos, table, **kw)))
+    scores = attn_gemm.attn_scores(q, k, sc[0], sc[1], *pos, table, **kw)
+    call = {
+        "attn_scores_wide": lambda: attn_gemm._attn_scores_forced(
+            q, k, sc[0], sc[1], *pos, table, route="template", **kw),
+        "attn_scores": lambda: attn_gemm.attn_scores(
+            q, k, sc[0], sc[1], *pos, table, **kw),
+        "attn_pv": lambda: attn_gemm.attn_pv(scores, v, sc[2], *pos, table,
+                                             **kw)}.get(
+        kernel, lambda: attn_gemm.attn_fused(q, k, v, *sc, *pos, table,
+                                             **kw))
     call()
     real = getattr(attn_gemm, model)
     monkeypatch.setattr(attn_gemm, model, lambda *a: real(*a) + 16)

@@ -3,7 +3,8 @@ kernels (the profiler recorded none, or fewer of the port's kernels than
 the launch counters say the call launched) is left out and made again,
 at most twice more, never divided by; the median and spread come from
 the profiles that measured; every port kernel is told by its name; and
-phase 2's check of the nibble int form's instantiations."""
+phase 2's checks of the nibble int form's and the attention kernels'
+instantiations."""
 
 import importlib.util
 import os
@@ -112,6 +113,10 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "CiM conv kernel"),
     ("_ZN4attn19attn_cluster_kernelILi1ELb0EEEvNS_6AcArgsE",
      "CiM attention kernel"),
+    ("_ZN4attn19attn_cluster_kernelILi1ELb0ELi1EEEvNS_6AcArgsE",
+     "CiM attention kernel"),
+    ("void attn::attn_cluster_kernel<3, true, 2>(attn::AcArgs)",
+     "CiM attention kernel"),
     ("void attn::attn_cluster_kernel<3, true>(attn::AcArgs)",
      "CiM attention kernel"),
     ("_ZN45_GLOBAL__N__a1670d44_12_attn_gemm_cu_b6a0606011attn_kernelILi3ELb1E"
@@ -186,6 +191,52 @@ def test_phase_2_requires_the_nibble_int_instantiations(smoke, monkeypatch,
     else:
         with pytest.raises(SystemExit):
             smoke.nibble_int_check(Build)
+
+
+_ATTN = "_ZN4attn19attn_cluster_kernelILi{}ELb{}ELi{}EEEvNS_6AcArgsE"
+_ATTN_TEMPLATE = ("_ZN45_GLOBAL__N__a1670d44_12_attn_gemm_cu_b6a0606011attn_"
+                  "kernelILi{}ELb{}E{}Li{}EEEvNS_4ArgsE")
+_KINDS = ((0, 0), (1, 0), (2, 0), (3, 0), (3, 1))
+
+
+def _attn_names(modes=(0, 1, 2), kinds=_KINDS):
+    return [_ATTN.format(p, c, m) for p, c in kinds for m in modes] + [
+        _ATTN_TEMPLATE.format(p, c, "s" if p == 3 else "a", m)
+        for p, c in _KINDS for m in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("names, ok", [
+    (_attn_names(), True),
+    (_attn_names(modes=(0,)), False),
+    (_attn_names(kinds=_KINDS[:4]), False),
+    (_attn_names()[:15], False),
+], ids=["shipped", "oracle_modes_missing", "log_our_missing",
+        "template_missing"])
+def test_phase_2_requires_the_attention_instantiations(smoke, monkeypatch,
+                                                       capsys, names, ok):
+    """Phase 2 reads libattn_gemm's functions: the cluster kernel in each
+    of its modes (fused, scores, PV) on each path, log as mitchell and
+    log_our, and the template in each of its three modes (the 9..12-bit
+    log operands' route and the witness) must all be there; else the run
+    fails."""
+    from repro_torch.kernels import sass
+
+    monkeypatch.setattr(sass, "disassemble", lambda path: path)
+    monkeypatch.setattr(sass, "functions",
+                        lambda text: {n: [] for n in names})
+
+    class Build:
+        @staticmethod
+        def library_path(name):
+            assert name == "attn_gemm"
+            return name
+
+    if ok:
+        smoke.attn_instances_check(Build)
+        assert "15 each" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit):
+            smoke.attn_instances_check(Build)
 
 
 def same_as_the_tree(smoke, prof):

@@ -201,12 +201,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      at the CNN's five convs (batch 256 on "data") for the four
      families in both layouts where C or N splits (C = 3 must raise),
      each bitwise equal to the one-device call, and (c) the same
-     workload on ``build_engine(mesh=...)`` over full-size qwen3-1.7b:
+     workload on ``build_engine(mesh=...)`` over qwen3-1.7b at its
+     published widths, 8 of its 28 layers (MESH_LAYERS):
      balanced and economy tokens identical and logits bitwise, the
      exact lane within 2^-3 of each step's largest |logit| up to its
      first differing token (tokens equal past that margin), no plan
-     misses after warmup on any rank, 56 partial and 140 fused kernel
-     launches per approximate-lane forward on every rank, the same
+     misses after warmup on any rank, 2 partial and 5 fused kernel
+     launches a layer per approximate-lane forward on every rank, the same
      logits on every rank; per lane one decode round's time and the
      collectives' share, and rank 0's pool decode round under
      torch.profiler as in phase 5 (every rank decoding; the partials a
@@ -288,10 +289,37 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      forced trip, the probe re-admits, traffic returns, no plan built);
      (d) one faulted ``cim_conv2d`` a family (conv_im2col, one int-kernel
      launch) bitwise the CPU's plain route.  (a)'s and (d)'s launches are
-     the kernels line's ``check_launches``.
+     the kernels line's ``check_launches``;
+ 13. per-module accuracy allocation (core/allocate.py): (a)
+     ``characterize_batch`` on the card over BENCH_dse's six 12-bit specs
+     at 200,000 samples, byte-equal to the serial ``characterize``, the
+     serial, cold and median-of-3 steady seconds and the steady speedup
+     printed (the reference contract's 10x recorded, not gated); (b)
+     qwen3-1.7b-smoke, modules wq, wv and mlp_wo, ``make_evaluator(mode=
+     "hardware")`` on the card and on the CPU on the same weights and
+     tokens: the single-module truth table within rtol 0.15 of the CPU's
+     (the exact column 0) and every selection's logits within phase 4's
+     tolerance, then ``exhaustive_oracle`` (64 evaluations) and
+     ``autoallocate`` at NMED 1e-2: both measured within the budget,
+     autoallocate's energy at most 1.10x the oracle's; (c) qwen3-1.7b at
+     its published widths (28 layers, seeded weights): the evaluator over
+     the seven modules, its truth table, ``autoallocate`` at 1e-2 and,
+     while that is all-exact, at twice the smallest approximate
+     single-module NMED (then twice that, at most four reruns): the lane
+     runs at least one approximate multiplier; (d) the ladder (exact,
+     ``allocation_tier(a, mode="hardware")``), 4 slots a tier, 12 Poisson
+     requests over both: all done, both tiers served, no plan built after
+     warmup, identical tokens when served again, the allocation lane's
+     fused GEMM launches (its modules' kernels, a layer each, a forward)
+     and nothing else; an alloc table of all seven modules on the
+     balanced tier's multiplier gives its prefill and decode logits
+     bitwise; one decode round of the allocation lane on the host clock
+     and three profiled.  (d)'s first run is phase 13's main path in the
+     kernels line.
 
-``--layers`` cuts the depth of phase 5 only (the cut is printed); each
-phase prints its seconds;
+``--layers`` cuts the depth of phase 5 only (the cut is printed); phase 9
+serves 8 of qwen3-1.7b's 28 layers at its widths; each phase prints its
+seconds;
 ``--phases`` runs phases 1, 2 and the listed ones and prints no result
 lines.
 
@@ -3151,6 +3179,10 @@ def surrogate_conv(torch):
 
 # four ranks on the one card (NCCL refuses two ranks on one GPU)
 MESH_SHAPE = (2, 2)
+# phase 9 serves qwen3-1.7b at its published widths, 8 of its 28 layers:
+# its checks (integer lanes bitwise one device, the collectives' share a
+# round) hold at any depth, and the gloo rounds are the script's slowest
+MESH_LAYERS = 8
 MESH_REQUESTS, MESH_SEED = 6, 0     # 2 exact, 2 balanced, 2 economy
 # The exact lane (mode "exact", a float lane) runs its tensor-parallel
 # layers as f32 partial products summed over the model axis and rounded
@@ -3329,6 +3361,15 @@ def _exact_lane_codes(torch, base_probe, ranked, n_layers):
     return first
 
 
+def _mesh_config():
+    """qwen3-1.7b at its widths, cut to MESH_LAYERS layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-1.7b")
+    return dataclasses.replace(cfg, n_layers=MESH_LAYERS,
+                               n_periods=MESH_LAYERS)
+
+
 def _mesh_engine(cfg, mesh=None):
     from repro_torch.serving import build_engine, build_tiers
 
@@ -3397,7 +3438,6 @@ def _mesh_rank(rank, world, dev, wl):
     from 0, the single-device calls it is compared with made after."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import approx_gemm as ag
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import P
@@ -3474,8 +3514,8 @@ def _mesh_rank(rank, world, dev, wl):
                               f"max |d| {float((y - want).abs().max())}")
     del got
 
-    # (c) the hardware ladder on full-size qwen3-1.7b
-    cfg = get_config("qwen3-1.7b")
+    # (c) the hardware ladder on qwen3-1.7b at its widths
+    cfg = _mesh_config()
     t = time.perf_counter()
     eng = _mesh_engine(cfg, mesh)
     torch.cuda.synchronize()
@@ -3516,12 +3556,13 @@ def mesh_phase(torch, power):
     workload on a (data 2, model 2) mesh of four gloo ranks on the card
     (plus the mesh GEMM and conv frontends); every rank checked.  Returns
     the main-path launches summed over the ranks."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn
     from repro_torch.serving import SimClock, poisson_workload
 
     t_phase = time.perf_counter()
-    cfg = get_config("qwen3-1.7b")
+    cfg = _mesh_config()
+    print(f"  CUT: {cfg.n_layers} of qwen3-1.7b's 28 layers (widths "
+          "unchanged)", flush=True)
     wl = poisson_workload(MESH_REQUESTS, rate=20.0, vocab=cfg.vocab,
                           prompt_len=(8, 8), max_new=(3, 8), tier_mix=MIX,
                           seed=MESH_SEED)
@@ -4902,6 +4943,349 @@ def fault_phase(torch, power, sms, clock_hz):
     return path, check, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: per-module accuracy allocation (core/allocate.py)
+# ---------------------------------------------------------------------------
+
+# BENCH_dse's characterization grid: six 12-bit specs, Monte Carlo
+ALLOC_CHAR_SPECS = ([("appro42", 12, False, "yang1", n) for n in (4, 8)]
+                    + [("appro42", 12, False, "orplane", n) for n in (6, 10)]
+                    + [("log_our", 12, False, "yang1", None),
+                       ("mitchell", 12, False, "yang1", None)])
+ALLOC_CHAR_SAMPLES = 200_000
+# the reference contract's speedup of the batched characterization
+# (recorded, not gated)
+ALLOC_CHAR_SPEEDUP = 10.0
+ALLOC_BUDGET = 1e-2
+# autoallocate's energy against the exhaustive oracle's
+ALLOC_ENERGY_SLACK = 1.10
+ALLOC_SMOKE_MODULES = ("wq", "wv", "mlp_wo")
+ALLOC_MODULES = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wg", "mlp_wo")
+# the card's single-module truth table against the CPU's: rtol as
+# tests/test_torch_allocate.py holds the port's to the JAX package's (a
+# last-ulp difference on a rounding boundary moves a whole code); each
+# selection's logits within phase 4's REF_TOL
+ALLOC_TRUTH_RTOL = 0.15
+# (c): reruns at twice the last budget while the search returns
+# all-exact, the first at 2x the smallest approximate single-module NMED
+ALLOC_RERUNS = 4
+ALLOC_REQUESTS, ALLOC_SEED = 12, 1
+# new tokens a request: (d) serves the workload twice at ~170 ms a decode
+# round of the allocation lane at full width (on an H100, (4, 16) took
+# 23.9 s a run and the phase 106.2 s)
+ALLOC_NEW = (4, 10)
+ALLOC_MIX = (("exact", None, 0.5), ("autoalloc", None, 0.5))
+ALLOC_DEVICE = "cuda"
+
+
+def _alloc_config():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b")
+
+
+def _alloc_smoke_config():
+    from repro_torch.configs import get_config
+
+    return get_config("qwen3-1.7b", smoke=True)
+
+
+def _alloc_kernel(family: str, ncols, bits: int = 8):
+    """The fused kernel a hardware-mode module of this multiplier launches
+    (None for the exact macro)."""
+    if family == "exact":
+        return None
+    if family == "appro42":
+        n = bits if ncols is None else ncols
+        return ("nibble_lut_matmul_fused" if n <= bits // 2
+                else "lut_matmul_fused")
+    return "mitchell_matmul_fused"
+
+
+def alloc_characterize(torch, dev):
+    """(a) characterize_batch on the device against the serial path."""
+    from repro_torch.core import error_model as erm
+    from repro_torch.core.multipliers import MultiplierSpec
+
+    specs = [MultiplierSpec(*k) for k in ALLOC_CHAR_SPECS]
+    n = ALLOC_CHAR_SAMPLES
+    t = time.perf_counter()
+    serial = [erm.characterize(s, n_samples=n, cache=False) for s in specs]
+    serial_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cold = erm.characterize_batch(specs, n_samples=n, cache=False,
+                                  device=dev)
+    cold_s = time.perf_counter() - t
+    steady = []
+    for _ in range(3):
+        t = time.perf_counter()
+        got = erm.characterize_batch(specs, n_samples=n, cache=False,
+                                     device=dev)
+        steady.append(time.perf_counter() - t)
+        if got != serial:
+            fail("(a) characterize_batch differs from characterize")
+    if cold != serial:
+        fail("(a) characterize_batch (cold) differs from characterize")
+    steady_s = float(np.median(steady))
+    speedup = serial_s / steady_s
+    print(f"  (a) characterize_batch on {dev.type}: {len(specs)} 12-bit "
+          f"specs x {n} samples, byte-equal to characterize; serial "
+          f"{serial_s:.3f}s, batched cold {cold_s:.3f}s, steady median of "
+          f"3 {steady_s:.4f}s ({', '.join(f'{s:.4f}' for s in steady)}); "
+          f"steady speedup {speedup:.1f}x (the reference contract asks "
+          f">= {ALLOC_CHAR_SPEEDUP:.0f}x: "
+          f"{'met' if speedup >= ALLOC_CHAR_SPEEDUP else 'not met'})",
+          flush=True)
+
+
+def _selection_logits(torch, ev, assignments):
+    return [ev.logits(a).to(torch.float32).cpu() for a in assignments]
+
+
+def _singles(L, T):
+    out = []
+    for i in range(L):
+        for t in range(T):
+            a = [0] * L
+            a[i] = t
+            out.append(a)
+    return out
+
+
+def alloc_smoke(torch, dev):
+    """(b) the smoke model: the device's truth table against the CPU's on
+    the same weights and tokens, then the oracle and the search."""
+    from repro_torch.core import allocate
+    from repro_torch.models.transformer import LM
+
+    cfg = _alloc_smoke_config()
+    lm = LM(cfg, dev)
+    params = lm.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    kw = dict(tokens=toks, modules=ALLOC_SMOKE_MODULES, mode="hardware")
+    t_b = time.perf_counter()
+    ev = allocate.make_evaluator(lm, params=params, **kw)
+    cpu = allocate.make_evaluator(LM(cfg, "cpu"),
+                                  params=_to(torch, params, "cpu"), **kw)
+    L, T = len(ev.modules), len(ev.candidates)
+    singles = _singles(L, T)
+    truth = ev.nmed_many(singles).reshape(L, T)
+    want = cpu.nmed_many(singles).reshape(L, T)
+    worst = {}
+    for a, x, y in zip(singles, _selection_logits(torch, ev, singles),
+                       _selection_logits(torch, cpu, singles)):
+        tol = REF_TOL["exact" if not any(a) else "balanced"]
+        d = float((x - y).abs().max())
+        if not torch.isfinite(x).all() or d > tol:
+            fail(f"(b) selection {a}: logits {d:.3e} from the CPU's "
+                 f"(tolerance {tol})")
+        worst[tol] = max(worst.get(tol, 0.0), d)
+    if not (truth[:, 0] == 0).all() or not (truth[:, 1:] > 0).all():
+        fail(f"(b) truth table {truth.tolist()}: the exact column must be "
+             "0 and every approximate entry positive")
+    rel = np.abs(truth - want) / np.maximum(want, 1e-30)
+    if rel[:, 1:].max() > ALLOC_TRUTH_RTOL:
+        fail(f"(b) truth table {truth.tolist()} vs the CPU's "
+             f"{want.tolist()}: beyond rtol {ALLOC_TRUTH_RTOL}")
+    names = [c.short_name() for c in ev.candidates]
+    print(f"  (b) {cfg.name}, modules {ALLOC_SMOKE_MODULES}, tiers {names}: "
+          f"single-module NMED on {dev.type} (CPU's in brackets), max rel "
+          f"{rel[:, 1:].max():.3e} <= {ALLOC_TRUTH_RTOL}; logits max |d| "
+          + ", ".join(f"{v:.3e} <= {k}" for k, v in sorted(worst.items())),
+          flush=True)
+    for i, m in enumerate(ev.modules):
+        print(f"    {m.name:<7} " + ", ".join(
+            f"{truth[i, j]:.6f} [{want[i, j]:.6f}]" for j in range(T)),
+            flush=True)
+    t = time.perf_counter()
+    o = allocate.exhaustive_oracle(lm, ALLOC_BUDGET, evaluator=ev)
+    o_s = time.perf_counter() - t
+    t = time.perf_counter()
+    a = allocate.autoallocate(lm, ALLOC_BUDGET, evaluator=ev)
+    a_s = time.perf_counter() - t
+    for what, r in (("oracle", o), ("autoallocate", a)):
+        if r.nmed > ALLOC_BUDGET:
+            fail(f"(b) {what} measured NMED {r.nmed} > {ALLOC_BUDGET}")
+    if a.energy_per_mac_j > ALLOC_ENERGY_SLACK * o.energy_per_mac_j:
+        fail(f"(b) autoallocate {a.energy_per_mac_j:.4g} J/MAC > "
+             f"{ALLOC_ENERGY_SLACK} x the oracle's {o.energy_per_mac_j:.4g}")
+    for what, r, s in (("oracle", o, o_s), ("autoallocate", a, a_s)):
+        print(f"    {what} at {ALLOC_BUDGET}: {dict(r.tier_map)}, NMED "
+              f"{r.nmed:.6e}, {r.energy_per_mac_j * 1e12:.4f} pJ/MAC "
+              f"(FreePDK45 model; {100 * r.energy_saving:.1f}% below "
+              f"exact), {r.evals} evaluations in {s:.2f}s", flush=True)
+    print(f"    autoallocate / oracle energy "
+          f"{a.energy_per_mac_j / o.energy_per_mac_j:.4f} <= "
+          f"{ALLOC_ENERGY_SLACK}; (b) took {time.perf_counter() - t_b:.1f}s",
+          flush=True)
+
+
+def alloc_full(torch, cfg, params, dev):
+    """(c) the search at the published width: the seven modules' truth
+    table, then autoallocate at ALLOC_BUDGET and, while that is
+    all-exact, at twice the smallest approximate single-module NMED (then
+    twice that).  Returns the allocation, which runs at least one
+    approximate multiplier."""
+    from repro_torch.core import allocate
+    from repro_torch.models.transformer import LM
+
+    lm = LM(cfg, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    t = time.perf_counter()
+    ev = allocate.make_evaluator(lm, params=params, tokens=toks,
+                                 modules=ALLOC_MODULES, mode="hardware")
+    build_s = time.perf_counter() - t
+    L, T = len(ev.modules), len(ev.candidates)
+    t = time.perf_counter()
+    truth = ev.nmed_many(_singles(L, T)).reshape(L, T)
+    truth_s = time.perf_counter() - t
+    print(f"  (c) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"modules {[m.name for m in ev.modules]}; evaluator built in "
+          f"{build_s:.1f}s; single-module NMED ({L * T} evaluations in "
+          f"{truth_s:.1f}s, tiers {[c.short_name() for c in ev.candidates]}):",
+          flush=True)
+    for i, m in enumerate(ev.modules):
+        print(f"    {m.name:<7} k {m.k} n {m.n} " + ", ".join(
+            f"{truth[i, j]:.6f}" for j in range(T)), flush=True)
+    if not (truth[:, 0] == 0).all():
+        fail(f"(c) an all-exact selection measured NMED {truth[:, 0]}")
+    budget = ALLOC_BUDGET
+    for attempt in range(ALLOC_RERUNS + 1):
+        t = time.perf_counter()
+        a = allocate.autoallocate(lm, budget, evaluator=ev)
+        print(f"    autoallocate at {budget:.6e}: {a.evals} evaluations in "
+              f"{time.perf_counter() - t:.1f}s; {a.report()}", flush=True)
+        if a.nmed > budget:
+            fail(f"(c) measured NMED {a.nmed} > budget {budget}")
+        if any(family != "exact" for _, family, _, _ in a.alloc):
+            return a
+        budget = (2.0 * float(truth[:, 1:].min()) if attempt == 0
+                  else 2.0 * budget)
+    fail(f"(c) autoallocate returned all-exact up to budget {budget / 2}")
+
+
+def alloc_serve(torch, cfg, params, a, power, dev):
+    """(d) the ladder (exact, autoalloc) served; returns the launches of
+    its first run (the main path)."""
+    from repro_torch.core.compiler import CiMConfig
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import (SimClock, allocation_tier, build_engine,
+                                     build_tiers, poisson_workload)
+
+    tier = allocation_tier(a, mode="hardware")
+    exact = [t for t in build_tiers(mode="hardware") if t.name == "exact"]
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, params, tiers=tuple(exact) + (tier,),
+                       slots_per_tier=4, max_len=32, prompt_buckets=(16,),
+                       group_buckets=(1, 2, 4), seed=0, device=dev)
+    eng.warmup()
+    _sync(torch, dev)
+    print(f"  (d) ladder (exact, autoalloc: NMED {tier.nmed:.6e}, "
+          f"{tier.energy_per_mac_j * 1e12:.4f} pJ/MAC) built and warmed in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    wl = poisson_workload(ALLOC_REQUESTS, rate=20.0, vocab=cfg.vocab,
+                          prompt_len=(8, 16), max_new=ALLOC_NEW,
+                          tier_mix=ALLOC_MIX, seed=ALLOC_SEED)
+    forwards = _count_forwards(eng)
+    per_fwd = {}
+    for _, family, _, ncols in a.alloc:
+        k = _alloc_kernel(family, ncols, a.bits)
+        if k is not None:
+            per_fwd[k] = per_fwd.get(k, 0) + cfg.n_layers
+
+    def run():
+        t = time.perf_counter()
+        res = eng.run(wl, clock=SimClock())
+        _sync(torch, dev)
+        if not all(r.done for r in res.values()):
+            fail("(d) a request was not done")
+        if {r.tier for r in res.values()} != {"exact", "autoalloc"}:
+            fail(f"(d) tiers served: {sorted({r.tier for r in res.values()})}")
+        if eng.steady_plan_misses() != 0:
+            fail(f"(d) {eng.steady_plan_misses()} plan misses after warmup")
+        return res, time.perf_counter() - t
+
+    for k in forwards:
+        forwards[k] = 0
+    _reset_counts()
+    res_a, secs = run()
+    launches = _launch_counts()
+    fw = dict(forwards)
+    _expect_launches("(d) the allocation lane's run",
+                     {k: v for k, v in launches.items() if v},
+                     {k: v * fw["autoalloc"] for k, v in per_fwd.items()})
+    eng.warmup()
+    res_b, _ = run()
+    if any(res_a[r.rid].tokens != res_b[r.rid].tokens for r in wl):
+        fail("(d) the same workload served twice gave different tokens")
+    print(f"    {len(wl)} requests, "
+          f"{sum(len(r.tokens) for r in res_a.values())} tokens in "
+          f"{secs:.1f}s (simulated clock), forwards {fw}, "
+          f"launches {({k: v for k, v in launches.items() if v})} "
+          f"({per_fwd} a forward of the allocation lane); no plan misses "
+          "after warmup; served again: identical tokens", flush=True)
+
+    # every module on the balanced tier's multiplier is the balanced tier
+    bal = next(t for t in build_tiers(mode="hardware")
+               if t.name == "balanced").cim
+    table = tuple((m, bal.family, bal.compressor, bal.n_approx_cols)
+                  for m in ALLOC_MODULES)
+    toks = torch.as_tensor(np.stack([r.prompt[:8] for r in wl[:4]]),
+                           device=dev)
+    lens = torch.full((4,), 8, dtype=torch.int32, device=dev)
+    out = []
+    for cim in (CiMConfig(family="appro42", mode="hardware", alloc=table),
+                bal):
+        lm = LM(dataclasses.replace(cfg, cim=cim), dev)
+        with torch.inference_mode():
+            lg, caches = lm.prefill(params, {"tokens": toks, "lengths": lens,
+                                             "max_len": 16})
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            dl, _ = lm.decode_step(params, caches, tok, lens)
+        out.append((lg, dl))
+    if not (torch.equal(out[0][0], out[1][0])
+            and torch.equal(out[0][1], out[1][1])):
+        fail("(d) an all-balanced alloc table's logits differ from the "
+             "balanced tier's")
+    print(f"    alloc table of all seven modules -> {table[0][1:]}: prefill "
+          "and decode logits bitwise the balanced tier's", flush=True)
+
+    b = eng.lanes["autoalloc"].backend
+    b.reset()
+    t = time.perf_counter()
+    b.decode_round()
+    _sync(torch, dev)
+    dec = time.perf_counter() - t
+    print(f"    autoalloc decode round (4 slots) {1e3 * dec:.1f} ms on "
+          f"{power}", flush=True)
+    _profile(torch, "autoalloc", b.decode_round, dec)
+    b.reset()
+    return launches
+
+
+def alloc_phase(torch, power):
+    """Phase 13: per-module accuracy allocation.  Returns the launches of
+    (d)'s first served run."""
+    from repro_torch.models.transformer import LM
+
+    t_phase = time.perf_counter()
+    dev = torch.device(ALLOC_DEVICE)
+    alloc_characterize(torch, dev)
+    alloc_smoke(torch, dev)
+    cfg = _alloc_config()
+    params = LM(cfg, dev).init(0)
+    a = alloc_full(torch, cfg, params, dev)
+    launches = alloc_serve(torch, cfg, params, a, power, dev)
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -5129,17 +5513,26 @@ def _shape_key(r):
     return [where, *dims] if where else dims
 
 
-def main():
+LAST_PHASE = 13
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=0,
                     help="serve only this many layers (0 = all 28)")
     ap.add_argument("--phases", type=int, nargs="+", default=None,
                     metavar="N",
-                    help="run phases 1, 2 and these of 3-12 only, and "
-                         "print no result lines (default: all)")
-    args = ap.parse_args()
-    if args.phases is not None and not set(args.phases) <= set(range(3, 13)):
-        ap.error("--phases takes phases 3 to 12")
+                    help=f"run phases 1, 2 and these of 3-{LAST_PHASE} "
+                         "only, and print no result lines (default: all)")
+    args = ap.parse_args(argv)
+    if args.phases is not None and not set(args.phases) <= set(
+            range(3, LAST_PHASE + 1)):
+        ap.error(f"--phases takes phases 3 to {LAST_PHASE}")
+    return args
+
+
+def main():
+    args = parse_args()
 
     def want(n):
         return args.phases is None or n in args.phases
@@ -5260,6 +5653,12 @@ def main():
         print("[12] fault injection and lane sentinels", flush=True)
         fault_launches, fault_checks, mag_rows = fault_phase(
             torch, power, sms, clock_hz)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want(13):
+        print("[13] per-module allocation", flush=True)
+        alloc_launches = alloc_phase(torch, power)
     if args.phases is not None:
         print(f"  phases 1, 2 and {args.phases} passed in "
               f"{time.perf_counter() - t_start:.1f}s (a partial run: no "
@@ -5273,7 +5672,8 @@ def main():
     # ladder, 7: the CNN, 8: the surrogate macro, ladder and convs, 9: the
     # mesh frontends and the mesh ladder, 10: the xLSTM ladder, 11: the
     # per-token GEMMs, the per-token lanes' decode_multi, and the spec
-    # engine's drafter, 12: the faulted ladder's run; `check_launches`:
+    # engine's drafter, 12: the faulted ladder's run, 13: the allocation
+    # lane's first served run; `check_launches`:
     # phase 11's calls held against those, the M = 4 and M = 64 GEMMs and
     # the sequential decode_steps, and phase 12's (a) and (d)); the
     # partial rows the shard-local
@@ -5293,7 +5693,8 @@ def main():
                       launches[name] + cnn_launches[name]
                       + mesh_launches[name] + xlstm_launches[name]
                       + spec_launches.get(name, 0)
-                      + fault_launches.get(name, 0))
+                      + fault_launches.get(name, 0)
+                      + alloc_launches.get(name, 0))
     for name, rs in conv_rows.items():
         main[name] = ([r for r in rs if r["main"]],
                       cnn_launches[name] + surr_launches[name]

@@ -24,12 +24,6 @@ from .error_model import ErrorMetrics, SurrogateModel, characterize
 from .faults import FAULT_MODES, FaultConfig
 from .multipliers import MultiplierSpec
 
-# CiMConfig fields whose non-default values select features the port
-# does not have yet (per-module allocation, ROADMAP queue A 3): accepted
-# as fields, refused as values.
-_LATER_SLICE = ("alloc",)
-
-
 @dataclasses.dataclass(frozen=True)
 class CiMConfig:
     """User-facing specification of the approximate CiM substrate."""
@@ -45,6 +39,14 @@ class CiMConfig:
     # one of these prefixes; everything else runs the exact int8 macro.
     # () = everywhere (the paper's setting).
     apply_to: tuple = ()
+    # heterogeneous per-module allocation (`core.allocate.autoallocate`'s
+    # output): entries of (name_prefix, family, compressor, n_approx_cols)
+    # route each matmul whose name matches the LONGEST prefix to that
+    # multiplier; "exact"-family entries and unmatched modules run the
+    # exact int8 macro.  Every entry runs in this config's `mode` at its
+    # `bits`.  Exclusive with `apply_to` (its single-family special case)
+    # and with `fault` (a defect map is compiled against one multiplier's
+    # tables)
     alloc: Optional[tuple] = None
     # per-row (per-token) activation scales: each activation row
     # quantizes against its own max, so a row's result does not depend on
@@ -67,11 +69,8 @@ class CiMConfig:
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r} not in {MODES}")
-        for name in _LATER_SLICE:
-            if getattr(self, name) not in (None, False):
-                raise NotImplementedError(
-                    f"CiMConfig.{name} is not ported yet (a later slice "
-                    "of the PyTorch port, ROADMAP queue A)")
+        if self.alloc is not None:
+            self._check_alloc()
         if self.fault is not None and self.mode not in FAULT_MODES:
             raise ValueError(
                 f"fault injection needs an integer storage domain "
@@ -84,6 +83,37 @@ class CiMConfig:
             if bad:
                 raise ValueError(
                     f"attn_heads families {bad!r} not in {FAMILIES}")
+
+    def _check_alloc(self) -> None:
+        """Validate `alloc` as the reference does and normalize it to a
+        tuple of (str, str, str, int | None) tuples."""
+        if self.apply_to:
+            raise ValueError(
+                "alloc and apply_to are mutually exclusive: apply_to is "
+                "the single-family special case of alloc")
+        if self.fault is not None:
+            raise ValueError(
+                "alloc and fault are mutually exclusive: a defect map is "
+                "compiled against one multiplier's tables")
+        norm = []
+        for e in self.alloc:
+            if len(e) != 4:
+                raise ValueError(
+                    f"alloc entries are (prefix, family, compressor, "
+                    f"n_approx_cols) 4-tuples; got {e!r}")
+            prefix, family, compressor, ncols = e
+            if not isinstance(prefix, str) or not prefix:
+                raise ValueError(
+                    f"alloc prefix must be a non-empty str: {e!r}")
+            if family not in FAMILIES:
+                raise ValueError(
+                    f"alloc family {family!r} not in {FAMILIES}")
+            if ncols is not None and (not isinstance(ncols, int)
+                                      or ncols < 0):
+                raise ValueError(
+                    f"alloc n_approx_cols must be None or int >= 0: {e!r}")
+            norm.append((prefix, family, str(compressor), ncols))
+        object.__setattr__(self, "alloc", tuple(norm))
 
     @property
     def spec(self) -> MultiplierSpec:

@@ -7,8 +7,9 @@ conserves the arithmetic value; approximate cells trade value
 conservation for fewer gates (OpenACM Sec. III-B).
 
 All cells here are *vectorized truth tables*: they operate on integer
-0/1 numpy arrays, so the same definition serves exhaustive LUT
-compilation and the property tests.  (The numpy copy of the JAX
+0/1 numpy arrays or torch tensors (keeping their dtype), so the same
+definition serves exhaustive LUT compilation, the property tests and
+the batched characterization on a device.  (The numpy copy of the JAX
 package's module; the port never imports that package.)
 
 Naming: the paper adopts the widely cited design of Yang, Han & Lombardi
@@ -48,13 +49,20 @@ class Compressor:
         return self.fn(x1, x2, x3, x4)
 
 
+def _as_int(cond, like):
+    """A 0/1 comparison in `like`'s integer dtype (numpy, torch, int)."""
+    if hasattr(cond, "astype"):
+        return cond.astype(like.dtype)
+    if hasattr(cond, "to"):
+        return cond.to(like.dtype)
+    return cond * 1
+
+
 def _exact42(x1, x2, x3, x4):
     t = x1 + x2 + x3 + x4                     # 0..4
     s = t & 1
     r = t >> 1                                # 0..2
-    carry = (r >= 1).astype(x1.dtype) if hasattr(r, "astype") else (r >= 1) * 1
-    cout = (r >= 2).astype(x1.dtype) if hasattr(r, "astype") else (r >= 2) * 1
-    return s, carry, cout
+    return s, _as_int(r >= 1, x1), _as_int(r >= 2, x1)
 
 
 def _yang1(x1, x2, x3, x4):
@@ -64,7 +72,7 @@ def _yang1(x1, x2, x3, x4):
     # this accuracy class matches the paper's reported Appro4-2 NMED
     # (1.7e-9 at 32-bit normalization; ours is 7.4e-10 at 16-bit).
     t = x1 + x2 + x3 + x4
-    t3 = t - (t == 4)  # 0..3
+    t3 = t - _as_int(t == 4, t)  # 0..3
     return t3 & 1, t3 >> 1, x1 * 0
 
 
@@ -127,7 +135,13 @@ def truth_table_compressor(name: str, table) -> Compressor:
 
     def fn(x1, x2, x3, x4):
         idx = x1 * 8 + x2 * 4 + x3 * 2 + x4
-        return table[:, 0][idx], table[:, 1][idx], x1 * 0
+        tab = table
+        if hasattr(idx, "device"):            # a torch tensor
+            import torch
+
+            tab = torch.as_tensor(table, dtype=idx.dtype, device=idx.device)
+            idx = idx.long()
+        return tab[:, 0][idx], tab[:, 1][idx], x1 * 0
 
     exact = all(
         int(table[i, 0] + 2 * table[i, 1]) == bin(i).count("1") for i in range(16)

@@ -6,14 +6,21 @@ Gaussian-weighted least-squares fit of the surrogate noise law
 
     e(a, b) = mu_rel * p + r,     E[r^2 | p] ~= c0_abs + c1_rel * p^2
 
-(see the JAX package's module docstring for the derivation).  This is
-the serial numpy path of the reference, bitwise the same as its batched
-JAX evaluation; the batched form is left for a later slice.
+(see the JAX package's module docstring for the derivation).
+
+`characterize_batch(specs)` evaluates a whole spec grid with one torch
+evaluation per bit width on a device (the card unless the caller asks
+for the CPU): the bit-exact emulators of core/multipliers.py run on
+int32 tensors, the stacked products come back to the host and are
+reduced by the same float64 numpy routine as the serial path, so the
+batched metrics are byte-equal to `characterize`'s and share its cache
+rows.
 
 Characterization is the DSE inner loop (`core/dse.enumerate_space`,
-`serving/tiers.build_tiers`), so results are cached in memory and on
-disk.  The port keeps its own cache file (``OPENACM_TORCH_CHAR_CACHE``,
-default ``build/characterize.json`` in the repository checkout), written
+`serving/tiers.build_tiers`, `core/allocate.build_candidates`), so
+results are cached in memory and on disk.  The port keeps its own cache
+file (``OPENACM_TORCH_CHAR_CACHE``, default ``build/characterize.json``
+in the repository checkout), written
 atomically (per-PID temp + `os.replace`, merge-on-save) and read
 defensively (a corrupt file is treated as cold).
 """
@@ -25,9 +32,10 @@ import json
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .luts import MAX_LUT_BITS, build_lut
 from .multipliers import MultiplierSpec, multiply_unsigned
@@ -35,6 +43,10 @@ from .multipliers import MultiplierSpec, multiply_unsigned
 # reference integer operand distribution for surrogate fitting: per-tensor
 # symmetric quantization of ~N(0,1) data maps sigma to roughly qmax/3.2
 _GAUSS_SIGMA_FRAC = 1.0 / 3.2
+
+# the batched products are int32 tensors: unsigned products need 2*bits
+# magnitude bits (the reference's limit with JAX's x64 off)
+_MAX_BATCHED_BITS = 15
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +66,16 @@ class ErrorMetrics:
         return float(np.sqrt(self.c1_rel))
 
 
+def _spec_key(spec: MultiplierSpec) -> Tuple:
+    # constructor order: MultiplierSpec(*_spec_key(spec)) round-trips
+    return (spec.family, spec.bits, spec.signed, spec.compressor,
+            spec.n_approx_cols)
+
+
 def _operands(bits: int, n_samples: int, seed: int):
-    """(a, b, exhaustive): exhaustive grid below the LUT cap, else the
-    seeded MC draw (two `integers` calls off one fresh Generator)."""
+    """(a, b, exhaustive): the same operand stream for the serial and the
+    batched path — exhaustive grid below the LUT cap, else the seeded MC
+    draw (two `integers` calls off one fresh Generator)."""
     if bits <= MAX_LUT_BITS:
         n = 1 << bits
         a, b = np.meshgrid(np.arange(n, dtype=np.int64),
@@ -204,24 +223,53 @@ def _save_disk(path: str, table: Dict[str, ErrorMetrics]) -> None:
             pass
 
 
+def _store(rows: Dict[str, ErrorMetrics], path: str) -> None:
+    with _lock:
+        _mem_cache.update(rows)
+        merged = _load_disk(path)
+        merged.update(rows)
+        _save_disk(path, merged)
+
+
+# Observability sink: notified once per resolved spec with the cache
+# outcome ("mem_hit" | "disk_hit" | "serial" | "batched").  Guarded with
+# getattr, so a sink without the hook is left alone.
+_OBS_SINK: List[Optional[object]] = [None]
+
+
+def set_obs_sink(sink) -> Optional[object]:
+    """Install the characterization telemetry sink (should expose
+    ``char_cache(key, outcome)``); returns the previous one."""
+    prev = _OBS_SINK[0]
+    _OBS_SINK[0] = sink
+    return prev
+
+
+def _obs(key: str, outcome: str) -> None:
+    sink = _OBS_SINK[0]
+    if sink is not None:
+        fn = getattr(sink, "char_cache", None)
+        if fn is not None:
+            fn(key=key, outcome=outcome)
+
+
 def _cache_get(key: str, path: str) -> Optional[ErrorMetrics]:
     with _lock:
         if key in _mem_cache:
+            _obs(key, "mem_hit")
             return _mem_cache[key]
     disk = _load_disk(path)
     if key in disk:
         with _lock:
             _mem_cache[key] = disk[key]
+        _obs(key, "disk_hit")
         return disk[key]
     return None
 
 
-def _store(key: str, m: ErrorMetrics, path: str) -> None:
-    with _lock:
-        _mem_cache[key] = m
-        merged = _load_disk(path)
-        merged[key] = m
-        _save_disk(path, merged)
+# ---------------------------------------------------------------------------
+# Serial + batched characterization
+# ---------------------------------------------------------------------------
 
 
 def characterize(spec: MultiplierSpec, n_samples: int = 200_000,
@@ -236,8 +284,88 @@ def characterize(spec: MultiplierSpec, n_samples: int = 200_000,
     a, b, p, exhaustive = _error_grid(spec, n_samples, seed)
     m = _metrics_from_products(a, b, p, spec.bits, exhaustive)
     if cache:
-        _store(key, m, path)
+        _store({key: m}, path)
+    _obs(key, "serial")
     return m
+
+
+def _products(spec_keys: Tuple[Tuple, ...], a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """The stacked int32 products of a whole spec group on the operands'
+    device: the batched replacement for the per-spec numpy loop."""
+    return torch.stack([
+        multiply_unsigned(a, b, MultiplierSpec(*k)).to(torch.int32)
+        for k in spec_keys])
+
+
+def characterize_batch(specs: Sequence[MultiplierSpec],
+                       n_samples: int = 200_000, seed: int = 0,
+                       mesh=None, cache: bool = True,
+                       cache_file: Optional[str] = None,
+                       device=None) -> List[ErrorMetrics]:
+    """Characterize a whole spec grid with one torch evaluation per bit
+    width on `device` (the card unless ``device="cpu"``) instead of a
+    serial per-spec numpy loop.
+
+    Metrics are byte-equal to `characterize` (same operand stream, same
+    host-side reduction) and land in the same caches.  Specs wider than
+    the int32 product budget (bits > 15) and cache hits take the serial
+    path.  `mesh` is the reference's sample-axis partition; the port
+    runs on one card and takes None only."""
+    from repro_torch.device import resolve_device
+
+    if mesh is not None:
+        raise ValueError(
+            "characterize_batch runs on one device: a mesh partition of "
+            "the samples is not ported (pass mesh=None)")
+    dev = resolve_device(device)
+    path = cache_file or cache_path()
+    results: List[Optional[ErrorMetrics]] = [None] * len(specs)
+    todo: List[int] = []
+    seen: Dict[str, int] = {}
+    for i, spec in enumerate(specs):
+        key = _cache_key(spec, n_samples, seed)
+        if cache:
+            hit = _cache_get(key, path)
+            if hit is not None:
+                results[i] = hit
+                continue
+        todo.append(i)
+        seen.setdefault(key, i)           # one compute per distinct key
+
+    groups: Dict[int, List[int]] = {}
+    for i in seen.values():
+        groups.setdefault(specs[i].bits, []).append(i)
+
+    fresh: Dict[str, ErrorMetrics] = {}
+    for bits, idxs in sorted(groups.items()):
+        a, b, exhaustive = _operands(bits, n_samples, seed)
+        if bits <= _MAX_BATCHED_BITS:
+            keys = tuple(_spec_key(specs[i]) for i in idxs)
+            stacked = _products(
+                keys, torch.from_numpy(a.astype(np.int32)).to(dev),
+                torch.from_numpy(b.astype(np.int32)).to(dev),
+            ).cpu().numpy().astype(np.int64)
+            outcome = "batched"
+        else:
+            stacked = np.stack(
+                [np.asarray(multiply_unsigned(a, b, specs[i]),
+                            dtype=np.int64) for i in idxs])
+            outcome = "serial"
+        for row, i in enumerate(idxs):
+            m = _metrics_from_products(a, b, stacked[row], bits,
+                                       exhaustive)
+            key = _cache_key(specs[i], n_samples, seed)
+            results[i] = m
+            fresh[key] = m
+            _obs(key, outcome)
+    if cache and fresh:
+        _store(fresh, path)
+    # duplicates of freshly computed keys resolve off the new rows
+    for i in todo:
+        if results[i] is None:
+            results[i] = fresh[_cache_key(specs[i], n_samples, seed)]
+    return results  # type: ignore[return-value]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,10 +17,11 @@ Three families (paper Sec. III-B/C), arbitrary bit width:
                     the compensation is merged with the 2^(k1+k2) term by
                     bitwise OR (adder-free, Eq. 3).
 
-All functions are vectorized over numpy integer arrays: this is the
-LUT compiler (offline).  The GEMM kernels' own arithmetic lives beside
-them in kernels/ (the port's numpy copy drops the reference's jnp
-branch).
+All functions are vectorized over numpy integer arrays (the LUT
+compiler, offline) and over torch integer tensors on any device, where
+the reference takes jax.numpy arrays: `error_model.characterize_batch`
+evaluates a whole spec grid as int32 tensors on the card.  The GEMM
+kernels' own arithmetic lives beside them in kernels/.
 
 Wiring note: silicon reduction trees chain cin/cout inside a stage; our
 scheduler feeds compressors cin=0 and treats cout as an extra carry bit.
@@ -35,12 +36,16 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .compressors import Compressor, get_compressor
 
 
 def _xp(a):
-    """Array namespace for `a` (numpy only in the port)."""
+    """Array namespace for `a`: torch for a tensor (its `asarray`,
+    `where`, `maximum`, ... take numpy's arguments), numpy otherwise."""
+    if isinstance(a, torch.Tensor):
+        return torch
     return np
 
 

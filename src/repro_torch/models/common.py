@@ -26,7 +26,9 @@ import torch.nn.functional as F
 from repro_torch.core.approx_gemm import (MESH_MODES, GemmParams, NoiseKey,
                                           model_matmul)
 from repro_torch.core.compiler import CiMConfig, compile_macro
+from repro_torch.core.error_model import SurrogateModel
 from repro_torch.core.faults import FaultConfig
+from repro_torch.core.multipliers import MultiplierSpec
 from repro_torch.core.quantization import qmax, scale_from_max
 from repro_torch.launch.mesh import ambient_mesh
 from repro_torch.parallel.sharding import P, axes_of, spec_entry
@@ -152,8 +154,9 @@ def apply_rope(x, tables):
 class CiMParams:
     """Static CiM execution parameters, from a compiled macro: the
     routing inputs (family/mode/bits), the calibrated surrogate
-    coefficients and the per-module allocation filter.  Execution is the
-    dispatch engine's (core/approx_gemm.py)."""
+    coefficients and the per-module allocation (the `apply_to` filter or
+    the `alloc` table).  Execution is the dispatch engine's
+    (core/approx_gemm.py)."""
 
     mode: str = "off"            # off | one of core.approx_gemm.MODES
     bits: int = 8
@@ -168,12 +171,31 @@ class CiMParams:
     attn: bool = False           # fused CiM attention (models/attention.py)
     attn_heads: Optional[tuple] = None   # per-q-head family allocation
     fault: Optional[FaultConfig] = None  # as-fabricated defects (core/faults.py)
+    # heterogeneous per-module allocation (CiMConfig.alloc): compiled
+    # (prefix, GemmParams, apply) entries, longest prefix first; each
+    # module pins its own frozen GemmParams, so each has its own plans
+    alloc: Optional[tuple] = None
 
     @classmethod
     def from_config(cls, cim: Optional[CiMConfig]) -> "CiMParams":
         if cim is None:
             return cls()
         s = compile_macro(cim).surrogate
+        alloc = None
+        if cim.alloc:
+            entries = []
+            for prefix, family, compressor, ncols in cim.alloc:
+                spec = MultiplierSpec(family, cim.bits, cim.signed,
+                                      compressor, ncols)
+                sur = (SurrogateModel.exact(spec) if family == "exact"
+                       else SurrogateModel.fit(spec))
+                gp = GemmParams.from_spec(spec, sur, cim.mode)
+                if cim.per_token:
+                    gp = dataclasses.replace(gp, per_token=True)
+                entries.append((prefix, gp, family != "exact"))
+            # longest prefix wins: sort once, match first
+            entries.sort(key=lambda e: len(e[0]), reverse=True)
+            alloc = tuple(entries)
         return cls(mode=cim.mode, bits=cim.bits, family=cim.family,
                    mu=s.mu_rel, c0=s.c0_abs, c1=s.c1_rel,
                    compressor=cim.compressor,
@@ -182,7 +204,7 @@ class CiMParams:
                    per_token=bool(cim.per_token), attn=bool(cim.attn),
                    attn_heads=(tuple(cim.attn_heads)
                                if cim.attn_heads is not None else None),
-                   fault=cim.fault)
+                   fault=cim.fault, alloc=alloc)
 
     def gemm_params(self) -> GemmParams:
         return GemmParams(family=self.family, bits=self.bits,
@@ -198,7 +220,16 @@ class CiMParams:
                                         for p in self.apply_to)
 
     def routing(self, name: str) -> Tuple[GemmParams, bool]:
-        """(gemm params, apply) for one named matmul."""
+        """(gemm params, apply) for one named matmul.  With an `alloc`
+        table the longest matching prefix picks the module's multiplier
+        ("exact" entries and unmatched names run the exact int8 macro,
+        apply=False); otherwise the homogeneous (family, apply_to)
+        routing applies."""
+        if self.alloc is not None:
+            for prefix, gp, apply in self.alloc:
+                if name.startswith(prefix):
+                    return gp, apply
+            return self.gemm_params(), False
         return self.gemm_params(), self.selects(name)
 
 
@@ -222,6 +253,19 @@ class CiMContext:
         if self.key is None:
             return self
         return dataclasses.replace(self, key=self.key.child(name))
+
+
+# Interception of every named linear (core/allocate.py's probe and mixing
+# evaluator).  The hook is called as fn(x, w, ctx, name); returning None
+# falls through to the normal routing, any other value becomes the layer
+# output (the bias is still added by cim_linear).  A list of one, so
+# closures see swaps without a global statement.
+_LINEAR_OVERRIDE = [None]
+
+
+def set_linear_override(fn) -> None:
+    """Install (or clear, with None) the cim_linear interception hook."""
+    _LINEAR_OVERRIDE[0] = fn
 
 
 def _tp_mesh_args(ctx: CiMContext, name: str):
@@ -299,8 +343,14 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
     key draws this matmul's surrogate noise from its own child key.
     Under an ambient mesh x and w are this rank's shards and so is the
     result (see the module docstring); per-token scales and faults raise
-    there."""
+    there.  An installed `set_linear_override` hook sees the call first."""
     assert w.dim() == 2, "cim_linear expects 2-D weights (flatten heads)"
+    if _LINEAR_OVERRIDE[0] is not None:
+        out = _LINEAR_OVERRIDE[0](x, w, ctx, name)
+        if out is not None:
+            if bias is not None:
+                out = out + bias
+            return out
     p = ctx.p
     if p.per_token and p.mode != "off" and ambient_mesh() is not None:
         # the reference leaves the shard path for GSPMD, which sees whole

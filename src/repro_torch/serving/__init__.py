@@ -9,6 +9,7 @@ from .engine import (AdmissionRejected, EngineStats, LMLaneBackend,  # noqa: F40
                      build_engine, servable_archs)
 from .sentinel import (CircuitBreaker, LaneHealthError, LaneSentinel,  # noqa: F401
                        RollingStats, SentinelConfig)
-from .tiers import AccuracyTier, TierRouter, build_tiers, spec_pair  # noqa: F401
+from .tiers import (AccuracyTier, TierRouter, allocation_tier,  # noqa: F401
+                    build_tiers, spec_pair)
 from .workload import (Clock, RealClock, SharedClock, SimClock,  # noqa: F401
                        poisson_workload)

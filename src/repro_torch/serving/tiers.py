@@ -10,9 +10,10 @@ The default ladder is built from the DSE characterization
   * ``balanced`` — the best Appro4-2 point
   * ``economy``  — the best log-domain point (mitchell / log_our)
 
-`TierRouter.route` maps a request's declared error tolerance (max NMED)
-to the cheapest-energy tier whose characterized NMED fits; requests may
-also pin a tier by name (SLA classes).
+`allocation_tier` makes a rung of a per-module allocation
+(core/allocate.py).  `TierRouter.route` maps a request's declared error
+tolerance (max NMED) to the cheapest-energy tier whose characterized
+NMED fits; requests may also pin a tier by name (SLA classes).
 """
 
 from __future__ import annotations
@@ -81,6 +82,24 @@ def build_tiers(bits: int = 8, mode: str = "surrogate_fast",
                                  mode=mode, attn=attn),
             best.nmed, best.energy_per_mac_j))
     return tuple(sorted(tiers, key=lambda t: t.nmed))
+
+
+def allocation_tier(allocation, name: str = "autoalloc",
+                    mode: Optional[str] = None,
+                    attn: bool = False) -> AccuracyTier:
+    """Turn a `core.allocate.Allocation` into a serving-ladder rung.
+
+    The tier's CiMConfig carries the per-module `alloc` table, so the
+    engine builds it like any other lane: every module's frozen
+    GemmParams keys its own plans, warmed with the lane's shapes, and the
+    MEASURED allocation NMED (not a per-multiplier proxy) is what the
+    router ranks against request tolerances.  Energy is the allocation's
+    MAC-weighted energy/MAC over the probed modules."""
+    cim = allocation.to_cim_config(attn=attn,
+                                   **({} if mode is None
+                                      else {"mode": mode}))
+    return AccuracyTier(name, cim, allocation.nmed,
+                        allocation.energy_per_mac_j)
 
 
 def spec_pair(tiers: Sequence[AccuracyTier],

@@ -154,10 +154,18 @@ def test_fake_quant_straight_through_gradient():
                                          ("per_token", True),
                                          ("attn", True)])
 def test_later_slice_fields_raise(field, value):
-    """Fields of later slices are refused as values.  `attn` is ported
-    (CiM attention): it is accepted, and validated as the reference
-    validates it; so is `per_token` (speculative decoding's verifier),
-    which the macro does not pass on, as the reference's does not."""
+    """Fields of later slices were refused as values; every one is ported
+    now and accepted.  `attn` (CiM attention) is validated as the
+    reference validates it; so is `per_token` (speculative decoding's
+    verifier), which the macro does not pass on, as the reference's does
+    not; and `alloc` (per-module allocation), normalized to a tuple of
+    4-tuples and compiled to per-module GemmParams."""
+    if field == "alloc":
+        table = [list(e) for e in value]
+        cfg = CiMConfig(family="appro42", mode="hardware", alloc=table)
+        assert cfg.alloc == value
+        assert compile_macro(cfg).gemm_params().family == "appro42"
+        return
     if field == "per_token":
         cfg = CiMConfig(family="appro42", mode="hardware", per_token=True)
         assert cfg.per_token
@@ -173,8 +181,7 @@ def test_later_slice_fields_raise(field, value):
         with pytest.raises(ValueError, match="not in"):
             CiMConfig(mode="hardware", attn=True, attn_heads=("warp",))
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        CiMConfig(family="appro42", mode="hardware", **{field: value})
+    raise AssertionError(f"no case for {field}")
 
 
 def test_macro_matmul_runs_cim_matmul_for_its_mode():

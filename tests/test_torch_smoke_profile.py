@@ -14,6 +14,20 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's torch ops, restored after it.
+    Its ops are small; next to the other test workers on the same cores,
+    torch's default pool (a thread a core) spends its time waiting for
+    cores those workers hold, not computing."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture
 def smoke():
     spec = importlib.util.spec_from_file_location(
@@ -282,3 +296,66 @@ def test_profile_read_counts_the_ops_of_the_profilers_tree(smoke):
         run()
     kern, n_ops, mm = same_as_the_tree(smoke, prof)
     assert kern == [] and mm == set() and n_ops >= 5 * 5
+
+
+@pytest.mark.parametrize("phases, ok", [
+    (["3"], True), (["13"], True), (["5", "13"], True), (["2"], False),
+    (["14"], False), (["12", "14"], False),
+], ids=["3", "13", "5_13", "2", "14", "12_14"])
+def test_phases_take_3_to_13(smoke, phases, ok):
+    """`--phases` runs phases 3 to 13 (1 and 2 always run)."""
+    if ok:
+        assert smoke.parse_args(["--phases", *phases]).phases == \
+            [int(p) for p in phases]
+    else:
+        with pytest.raises(SystemExit):
+            smoke.parse_args(["--phases", *phases])
+    assert smoke.parse_args([]).phases is None
+
+
+def test_phase_9_serves_8_layers_at_the_published_widths(smoke):
+    from repro_torch.configs import get_config
+
+    full = get_config("qwen3-1.7b")
+    cfg = smoke._mesh_config()
+    assert (cfg.n_layers, cfg.n_periods) == (8, 8)
+    assert len(cfg.layer_pattern) == 8
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) \
+        == (full.d_model, full.n_heads, full.n_kv_heads, full.d_ff,
+            full.vocab)
+
+
+def test_chip_smoke_phase_13_rehearsed_on_the_cpu(smoke, monkeypatch):
+    """chip_smoke.py's phase 13 end to end on the CPU at the smoke config
+    (the kernels' plain versions; fewer characterization samples): (a)
+    byte-equal, (b) the truth table (here the CPU's against itself), the
+    oracle and the search within the budget, (c) an allocation that is
+    not all-exact, (d) the ladder served twice with no plan built, the
+    all-balanced table bitwise the balanced tier; the launch check
+    expects the card's counts while the CPU launches nothing.  The
+    profiler stands in for the card's."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    monkeypatch.setattr(smoke, "ALLOC_DEVICE", "cpu")
+    monkeypatch.setattr(smoke, "ALLOC_CHAR_SAMPLES", 2000)
+    monkeypatch.setattr(smoke, "_alloc_config",
+                        lambda: get_config("qwen3-1.7b", smoke=True))
+    profiled = []
+    monkeypatch.setattr(smoke, "_profile", lambda torch, lane, run, s, **kw: (
+        profiled.append(lane), run()))
+    checks = []
+    monkeypatch.setattr(smoke, "_expect_launches",
+                        lambda where, got, want: checks.append(
+                            (where, got, want)))
+    launches = smoke.alloc_phase(torch, "cpu")
+    assert not any(launches.values())
+    assert profiled == ["autoalloc"]
+    [(where, got, want)] = checks
+    assert got == {} and want
+    assert set(want) <= {"lut_matmul_fused", "mitchell_matmul_fused",
+                         "nibble_lut_matmul_fused"}
+    # one launch a layer per module on its multiplier, a forward
+    n_layers = get_config("qwen3-1.7b", smoke=True).n_layers
+    assert all(v % n_layers == 0 and v > 0 for v in want.values())

@@ -315,11 +315,31 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      balanced tier's multiplier gives its prefill and decode logits
      bitwise; one decode round of the allocation lane on the host clock
      and three profiled.  (d)'s first run is phase 13's main path in the
-     kernels line.
+     kernels line;
+ 14. telemetry (obs/, launch/obs.py): qwen3-1.7b at its published widths,
+     8 of its 28 layers (OBS_LAYERS), on ``build_tiers(mode=
+     "surrogate")`` (every approximate GEMM on ``cim_gemm_fused``): one
+     engine with an ``EngineTelemetry`` attached and detached in turn,
+     five off/on pairs of BENCH_obs's mix (24 requests, all at time 0),
+     the pools reset between runs: tokens identical in every run, no plan
+     built after warmup, the live ``repro_dispatch_macs_total`` of the
+     telemetry-on runs equal to the energy meters' MACs, 56
+     ``cim_gemm_fused`` launches a forward of balanced and economy and no
+     other port kernel (these runs are phase 14's main path in the
+     kernels line); the per-pair tokens/s ratios, their median and
+     spread and each lane's estimated J/token printed (BENCH_obs's 3%
+     reported, not gated); a decode round of each lane on the host clock
+     and three profiled while the telemetry records, the approximate
+     lanes' profiles showing the fused surrogate kernel; 20 adjacent
+     off/on pairs of decode rounds a lane (the hooks' cost with less drift
+     between the arms; the ratio's median printed); then the trace
+     section (spec decoding at k = 2, sentinels of period 2, a forced trip
+     of the balanced lane): the queue, prefill, decode, decode_round,
+     spec_round and retry spans in a Chrome trace that loads as JSON.
 
-``--layers`` cuts the depth of phase 5 only (the cut is printed); phase 9
-serves 8 of qwen3-1.7b's 28 layers at its widths; each phase prints its
-seconds;
+``--layers`` cuts the depth of phase 5 only (the cut is printed); phases
+9 and 14 serve 8 of qwen3-1.7b's 28 layers at its widths; each phase
+prints its seconds;
 ``--phases`` runs phases 1, 2 and the listed ones and prints no result
 lines.
 
@@ -5286,6 +5306,139 @@ def alloc_phase(torch, power):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: telemetry (obs/, launch/obs.py) at qwen3-1.7b's widths
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b's layers phase 14 serves (its checks hold at any depth)
+OBS_LAYERS = 8
+OBS_DEVICE = "cuda"
+
+
+def _obs_config():
+    from repro_torch.launch import obs
+
+    return obs.config(OBS_LAYERS)
+
+
+def obs_phase(torch, power):
+    """Phase 14: launch/obs.py's two sections on the card.  The overhead
+    runs (telemetry off and on in turn over one engine) are the phase's
+    main path: tokens identical in every run (a), no plan built after
+    warmup (b), live dispatch MACs = the meters' over the telemetry-on
+    runs (c; all three checked inside `obs.overhead`), and exactly
+    GEMMS_PER_LAYER x layers ``cim_gemm_fused`` launches a forward of
+    the approximate lanes.  Then a decode round of each lane on the host
+    clock and three profiled while the telemetry records: every
+    approximate lane's profile must show the fused surrogate kernel (e).
+    Then the trace section (d).  Returns the overhead runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import obs
+    from repro_torch.models.transformer import LM
+
+    t_phase = time.perf_counter()
+    dev = torch.device(OBS_DEVICE)
+    cfg = _obs_config()
+    full = get_config("qwen3-1.7b")
+    if cfg.n_layers < full.n_layers:
+        print(f"  CUT: {cfg.n_layers} of {full.n_layers} layers (widths "
+              "unchanged)", flush=True)
+    params = LM(cfg, dev).init(0)
+    t = time.perf_counter()
+    eng, tel = obs.overhead_engine(cfg, params, dev)
+    _sync(torch, dev)
+    print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers; "
+          f"{obs.MODE} ladder, telemetry attached, built and warmed in "
+          f"{time.perf_counter() - t:.1f}s (energy meters profiled)",
+          flush=True)
+    wl = obs.overhead_workload(cfg)
+    forwards = _count_forwards(eng)
+    for k in forwards:
+        forwards[k] = 0
+    _reset_counts()
+    t = time.perf_counter()
+    ovh = obs.overhead(eng, tel, wl, dev)
+    secs = time.perf_counter() - t
+    launches = _launch_counts()
+    fw = dict(forwards)
+    per_fwd = GEMMS_PER_LAYER * cfg.n_layers
+    _expect_launches("phase 14's overhead runs",
+                     {k: v for k, v in launches.items() if v},
+                     {"cim_gemm_fused":
+                      per_fwd * (fw["balanced"] + fw["economy"])})
+    print(f"  overhead ({secs:.1f}s): {len(ovh['pairs'])} off/on pairs over "
+          f"one engine, {len(wl)} requests, {ovh['tokens']} tokens a run, "
+          f"identical in every run; forwards {fw}, launches "
+          f"{({k: v for k, v in launches.items() if v})} ({per_fwd} a "
+          f"forward of balanced and economy); plan misses after warmup "
+          f"{ovh['steady_plan_misses']}; MACs live {ovh['macs_live']:.0f} "
+          f"= the meters' {ovh['macs_meters']:.0f}", flush=True)
+    for i, p in enumerate(ovh["pairs"]):
+        print(f"    pair {i}: tokens/s off {p['off']:.3f}, on {p['on']:.3f}, "
+              f"on/off {p['on'] / p['off']:.4f}", flush=True)
+    print(f"  on {power}: tokens/s off median "
+          f"{ovh['tokens_per_s_off_median']:.3f}, on median "
+          f"{ovh['tokens_per_s_on_median']:.3f}; on/off median "
+          f"{ovh['ratio_median']:.4f} (spread {ovh['ratio_spread'][0]:.4f} - "
+          f"{ovh['ratio_spread'][1]:.4f}): overhead "
+          f"{100 * ovh['overhead_frac']:.2f}%, BENCH_obs's "
+          f"{100 * obs.BOUND:.0f}% "
+          f"{'met' if ovh['overhead_within_bound'] else 'missed'} (not "
+          "gated); estimated J/token (FreePDK45 model) " + ", ".join(
+              f"{n} {v:.6e}" for n, v in ovh["energy_per_token_j"].items()),
+          flush=True)
+
+    # where the time goes while recording: a pool decode round per lane
+    for name, lane in eng.lanes.items():
+        b = lane.backend
+        b.reset()
+        t = time.perf_counter()
+        b.decode_round()
+        _sync(torch, dev)
+        dec = time.perf_counter() - t
+        print(f"    {name:<9} decode round (4 slots) {1e3 * dec:.1f} ms on "
+              f"{power}", flush=True)
+        med = _profile(torch, name, b.decode_round, dec)
+        if name != "exact" and (med is None or med["by_class"].get(
+                "CiM surrogate kernel", 0.0) <= 0.0):
+            fail(f"(e) {name}: no profile of its decode round showed the "
+                 "fused surrogate kernel")
+        b.reset()
+    rnd = obs.round_ab(eng, tel, dev)
+    print(f"  decode rounds, {obs.ROUND_PAIRS} adjacent off/on pairs a lane "
+          f"on {power}: " + "; ".join(
+              f"{n} off {d['off_ms_median']:.2f} ms, on/off "
+              f"{d['ratio_median']:.4f} ({d['ratio_spread'][0]:.4f} - "
+              f"{d['ratio_spread'][1]:.4f})" for n, d in rnd.items()),
+          flush=True)
+    tel.detach()
+    del eng, tel
+    gc.collect()
+
+    t = time.perf_counter()
+    eng, tel = obs.trace_engine(cfg, params, dev)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trc = obs.trace(eng, tel, cfg, dev, os.path.join(tmp, "trace.json"))
+    tel.detach()
+    print(f"  trace ({time.perf_counter() - t:.1f}s, spec k = 2, sentinels, "
+          f"a forced trip): {trc['spans']} spans "
+          f"({', '.join(trc['span_names'])}), {trc['spans_dropped']} "
+          f"dropped, {trc['trace_events']} trace events loaded back; trips "
+          f"{[(d['lane'], d['reason']) for d in trc['trips']]}, "
+          f"{trc['retries']} retries, {trc['n_failed']} failed; J/token "
+          + ", ".join(f"{n} {v:.6e}"
+                      for n, v in trc["energy_per_token_j"].items()),
+          flush=True)
+    del eng, tel, params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
+
+
 # PyTorch ops whose kernels count as torch.matmul (cuBLAS names its
 # kernels in several ways, so they are told by the op that launched them)
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -5513,7 +5666,7 @@ def _shape_key(r):
     return [where, *dims] if where else dims
 
 
-LAST_PHASE = 13
+LAST_PHASE = 14
 
 
 def parse_args(argv=None):
@@ -5659,6 +5812,12 @@ def main():
     if want(13):
         print("[13] per-module allocation", flush=True)
         alloc_launches = alloc_phase(torch, power)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want(14):
+        print("[14] telemetry", flush=True)
+        obs_launches = obs_phase(torch, power)
     if args.phases is not None:
         print(f"  phases 1, 2 and {args.phases} passed in "
               f"{time.perf_counter() - t_start:.1f}s (a partial run: no "
@@ -5673,7 +5832,8 @@ def main():
     # mesh frontends and the mesh ladder, 10: the xLSTM ladder, 11: the
     # per-token GEMMs, the per-token lanes' decode_multi, and the spec
     # engine's drafter, 12: the faulted ladder's run, 13: the allocation
-    # lane's first served run; `check_launches`:
+    # lane's first served run, 14: the telemetry's overhead runs;
+    # `check_launches`:
     # phase 11's calls held against those, the M = 4 and M = 64 GEMMs and
     # the sequential decode_steps, and phase 12's (a) and (d)); the
     # partial rows the shard-local
@@ -5706,7 +5866,8 @@ def main():
         main[name] = ([r for r in rs if "ms" in r and r["path"] in
                        ("lut", "log")], attn_launches[name])
     for name, rs in surr_rows.items():
-        main[name] = ([r for r in rs if r["main"]], surr_launches[name])
+        main[name] = ([r for r in rs if r["main"]],
+                      surr_launches[name] + obs_launches.get(name, 0))
     # the sLSTM recurrence: the full-width cases (xlstm-125m's 4 heads of
     # 192 at batch 4, T = 1, 37, 512, from zero and from a state), launched
     # on phase 10's path

@@ -78,6 +78,11 @@ on (frontend, GemmParams, apply, noise drawn or not, operand dtypes,
 power-of-two-bucketed shape, backend); a miss routes, builds the forward
 and counts one `plan_misses()`.  This is the port's form of the reference's
 zero-retrace contract: after an engine's warmup the count stays flat.
+
+**Telemetry.**  `set_obs_sink` installs a host-side sink (obs/) that each
+frontend tells of its call (op, multiplier, mode, width, exact MACs,
+plan-cache hit) and each plan miss tells as a retrace; see `_OBS_SINK`
+for what those count in an eager port.
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ import dataclasses
 import functools
 import threading
 import zlib
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -973,6 +978,42 @@ def plan_misses() -> int:
     return _PLAN_MISSES[0]
 
 
+# Observability sink (obs/): a host-side object told of every frontend
+# call, with its operation, multiplier, mode, width, exact MAC count and
+# whether the plan cache held its plan, and of every plan built.  The
+# reference's sink hears only eager calls and traces (a jitted replay
+# never re-enters its frontends); the port runs eagerly, so its sink
+# hears every call: `repro_dispatch_calls_total{cache="hit"}` grows with
+# the traffic, and the live `repro_dispatch_macs_total` is every MAC the
+# frontends ran.  `None` (the default) costs one list load and a branch.
+_OBS_SINK: List[Optional[object]] = [None]
+
+
+def set_obs_sink(sink) -> Optional[object]:
+    """Install the dispatch-boundary telemetry sink; returns the previous
+    one, so a scoped capture (obs/energy.py) can restore it.  The sink
+    must expose ``dispatch(op, family, mode, bits, macs, cache_hit)``
+    and ``retrace()``."""
+    prev = _OBS_SINK[0]
+    _OBS_SINK[0] = sink
+    return prev
+
+
+def _obs_dispatch(op: str, gp: "GemmParams", macs: float,
+                  cache_hit: bool) -> None:
+    _OBS_SINK[0].dispatch(op=op, family=gp.family, mode=gp.mode,
+                          bits=gp.bits, macs=macs, cache_hit=cache_hit)
+
+
+def _plan_miss() -> None:
+    """Count one plan built; a plan miss is the port's form of the
+    reference's executable trace, so the sink hears it as `retrace`."""
+    _PLAN_MISSES[0] += 1
+    sink = _OBS_SINK[0]
+    if sink is not None:
+        sink.retrace()
+
+
 def clear_dispatch_caches() -> None:
     """Drop the plan cache and the memoized routing table (tests)."""
     with _LOCK:
@@ -991,6 +1032,10 @@ def _backend(x: torch.Tensor, w: torch.Tensor) -> str:
     return x.device.type
 
 
+# the dispatch sink's op names of the GEMM frontends (the reference's)
+_OBS_OPS = {"cim": "gemm", "model": "model_gemm"}
+
+
 def _forward_for(frontend: str, gp: GemmParams, apply: bool, noisy: bool,
                  x: torch.Tensor, w: torch.Tensor) -> Callable:
     m = 1
@@ -1001,6 +1046,9 @@ def _forward_for(frontend: str, gp: GemmParams, apply: bool, noisy: bool,
     key = (frontend, gp, apply, noisy, x.dtype, w.dtype, bucket(m),
            bucket(k), bucket(n), backend)
     fn = _FORWARDS.get(key)
+    if _OBS_SINK[0] is not None:
+        _obs_dispatch(_OBS_OPS[frontend], gp, float(m) * k * n,
+                      fn is not None)
     if fn is None:
         with _LOCK:
             fn = _FORWARDS.get(key)
@@ -1013,7 +1061,7 @@ def _forward_for(frontend: str, gp: GemmParams, apply: bool, noisy: bool,
                 fn = (_cim_forward(gp, plan) if frontend == "cim"
                       else _model_forward(gp, plan, apply))
                 _FORWARDS[key] = fn
-                _PLAN_MISSES[0] += 1
+                _plan_miss()
     return fn
 
 
@@ -1101,6 +1149,10 @@ def _mesh_matmul(frontend: str, gp: GemmParams, x: torch.Tensor,
            bucket(n), backend, mesh.key, _canon_spec(x_spec),
            _canon_spec(w_spec))
     fn = _FORWARDS.get(key)
+    if _OBS_SINK[0] is not None:
+        # the global product, as the reference's GSPMD frontend sees it
+        _obs_dispatch(_OBS_OPS[frontend], gp, float(m) * k * n,
+                      fn is not None)
     if fn is None:
         with _LOCK:
             fn = _FORWARDS.get(key)
@@ -1110,7 +1162,7 @@ def _mesh_matmul(frontend: str, gp: GemmParams, x: torch.Tensor,
                                  x_spec=x_spec, w_spec=w_spec)
                 fn = _mesh_core(gp, plan)
                 _FORWARDS[key] = fn
-                _PLAN_MISSES[0] += 1
+                _plan_miss()
 
     def forward(x2_, w_, eps=None):
         if not local:
@@ -1622,6 +1674,12 @@ def _mesh_conv_core(gp: GemmParams, mp: MeshPlan) -> Callable:
     return forward
 
 
+def _conv_macs(b: int, h: int, w: int, c: int, n: int,
+               conv: ConvParams) -> float:
+    oh, ow = conv_out_hw(h, w, conv.kh, conv.kw, conv.stride)
+    return float(b) * oh * ow * conv.kh * conv.kw * c * n
+
+
 def _mesh_conv2d(gp: GemmParams, x: torch.Tensor, w: torch.Tensor,
                  conv: ConvParams, mesh, x_spec, w_spec) -> torch.Tensor:
     """One mesh conv over the global x (B, H, W, C) and w (kh*kw*C, N),
@@ -1639,6 +1697,9 @@ def _mesh_conv2d(gp: GemmParams, x: torch.Tensor, w: torch.Tensor,
            + bucket_conv(b, h, w_, c, conv.kh, conv.kw, conv.stride)
            + (bucket(n),))
     fn = _FORWARDS.get(key)
+    if _OBS_SINK[0] is not None:
+        _obs_dispatch("conv", gp, _conv_macs(b, h, w_, c, n, conv),
+                      fn is not None)
     if fn is None:
         with _LOCK:
             fn = _FORWARDS.get(key)
@@ -1648,7 +1709,7 @@ def _mesh_conv2d(gp: GemmParams, x: torch.Tensor, w: torch.Tensor,
                                  mesh=mesh, x_spec=x_spec, w_spec=w_spec)
                 fn = _mesh_conv_core(gp, plan)
                 _FORWARDS[key] = fn
-                _PLAN_MISSES[0] += 1
+                _plan_miss()
 
     def forward(x4, w2, eps=None):
         x_l = shard(x4, (spec_entry(dp), None, None, spec_entry(wk)), mesh)
@@ -1795,6 +1856,9 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
     fkey = (("conv2d", gp, conv, bit_safe, noisy, x.dtype, w.dtype, backend)
             + bucket_conv(b, h, w_, c, kh, kw, stride) + (bucket(n),))
     fn = _FORWARDS.get(fkey)
+    if _OBS_SINK[0] is not None:
+        _obs_dispatch("conv", gp, _conv_macs(b, h, w_, c, n, conv),
+                      fn is not None)
     if fn is None:
         with _LOCK:
             fn = _FORWARDS.get(fkey)
@@ -1810,7 +1874,7 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
                 def fn(x4, w2, eps, _forward=forward):
                     return _STEConv.apply(x4, w2, eps, _forward, conv)
                 _FORWARDS[fkey] = fn
-                _PLAN_MISSES[0] += 1
+                _plan_miss()
     eps = None
     if noisy:
         oh, ow = conv_out_hw(h, w_, kh, kw, stride)
@@ -2117,6 +2181,10 @@ def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if block is None else tuple(block), backend)
            + bucket_attn(b, heads, kv_heads, sq, skv, hd))
     fn = _FORWARDS.get(key)
+    if _OBS_SINK[0] is not None:
+        # QK^T + PV: two Skv-deep dots per (batch, head, query)
+        _obs_dispatch("attn", gp, 2.0 * b * heads * sq * skv * hd,
+                      fn is not None)
     if fn is None:
         with _LOCK:
             fn = _FORWARDS.get(key)
@@ -2126,7 +2194,7 @@ def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  block=block, spec=gp.spec)
                 fn = _attn_forward(gp, plan)
                 _FORWARDS[key] = fn
-                _PLAN_MISSES[0] += 1
+                _plan_miss()
     try:
         return fn(q, k, v, q_positions.to(torch.int32),
                   kv_positions.to(torch.int32), kv_valid.to(torch.int32))

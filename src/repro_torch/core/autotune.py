@@ -24,10 +24,10 @@ take:
     size (or the streamed kernel for heads no cluster holds).
 
 launch/cluster_sweep.py measures every choice beside the plan's.  The
-kernels left on the template of csrc/cim_gemm.cuh (the nibble oracle,
-9..16-bit log operands) run one tile fixed at compile time, and the int8
-tensor-core kernels (csrc/int8_mma.cuh)
-choose their K split or pixel tile at launch from the shape alone.  No
+kernels left on the template of csrc/cim_gemm.cuh (9..16-bit log
+operands, and `cim_gemm_core` with SQ) run one tile fixed at compile
+time, and the int8 tensor-core kernels (csrc/int8_mma.cuh) choose their
+K split or pixel tile at launch from the shape alone.  No
 GEMM or conv plan enters the numerics: the integer sums are exact
 whatever the split, and the surrogate's SQ is exact on the tensor cores.
 This module keeps the attention heuristic and the attention and conv
@@ -40,11 +40,18 @@ result depends on it.  The port therefore resolves the reference's
 query row's result does not depend on which rows share its block); the
 CUDA kernels pick their own (the template kernels.attn_gemm.ATTN_BQ, the
 cluster kernel attn_gemm.attn_cluster_plan).
+
+`set_obs_sink` installs the telemetry sink (obs/) the reference's
+autotune tells of each block resolution.  With no sweep and no disk
+cache, the port's outcomes are two of the reference's four: "heuristic"
+when `heuristic_attn_block` resolves a block, and "mem_hit" when its
+in-memory memo already holds it ("disk_hit" and "sweep" never occur).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 AttnBlock = Tuple[int, int]
 
@@ -89,8 +96,43 @@ def _clip_attn_block(block: AttnBlock, sq: int, skv: int) -> AttnBlock:
     return (max(8, min(bq, bucket(sq))), max(8, min(bk, bucket(skv))))
 
 
+_mem_cache: Dict[Tuple[str, int, int], AttnBlock] = {}
+_lock = threading.Lock()
+_OBS_SINK: List[Optional[object]] = [None]
+
+
+def set_obs_sink(sink) -> Optional[object]:
+    """Install the autotune telemetry sink (must expose
+    ``autotune(key, outcome)``); returns the previous one."""
+    prev = _OBS_SINK[0]
+    _OBS_SINK[0] = sink
+    return prev
+
+
+def _obs_autotune(key: str, outcome: str) -> None:
+    sink = _OBS_SINK[0]
+    if sink is not None:
+        sink.autotune(key=key, outcome=outcome)
+
+
+def clear_memory_cache() -> None:
+    with _lock:
+        _mem_cache.clear()
+
+
 def heuristic_attn_block(kernel: str, sq: int, skv: int) -> AttnBlock:
     """The reference's block for `kernel` (a reference kernel name),
-    clipped to the bucketed sequence lengths."""
-    return _clip_attn_block(DEFAULT_ATTN_BLOCKS.get(kernel, (32, 128)),
-                            sq, skv)
+    clipped to the bucketed sequence lengths; memoized, each resolution
+    told to the sink as "heuristic" or "mem_hit"."""
+    key = (kernel, sq, skv)
+    with _lock:
+        block = _mem_cache.get(key)
+    if block is not None:
+        _obs_autotune(f"{kernel}:q{sq}:kv{skv}", "mem_hit")
+        return block
+    block = _clip_attn_block(DEFAULT_ATTN_BLOCKS.get(kernel, (32, 128)),
+                             sq, skv)
+    with _lock:
+        _mem_cache[key] = block
+    _obs_autotune(f"{kernel}:q{sq}:kv{skv}", "heuristic")
+    return block

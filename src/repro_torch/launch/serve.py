@@ -43,7 +43,19 @@ probe), for example
         --mode hardware --fault-rate 0.02 --sentinel
 
 Neither composes with `--mesh`.  `--max-queued Q` bounds the admission
-queues (backpressure).  Telemetry is a later slice of the port.
+queues (backpressure).
+
+Telemetry (obs/) is on by default: the closing per-tier table carries
+each lane's estimated energy per token (the FreePDK45 per-MAC model, not
+a device measurement); `--metrics PATH` (``-`` for stdout) writes the
+run's Prometheus text and `--trace-out PATH` its Chrome-trace JSON of
+the request lifecycle spans (load it in Perfetto), for example
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --metrics - --trace-out build/serve.trace.json
+
+`--no-telemetry` serves without it and refuses `--metrics` and
+`--trace-out`.  Under `--mesh` every rank records and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -123,6 +135,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--retry-budget", type=int, default=3, metavar="R",
                     help="restarts a request gets across sentinel trips "
                          "before it is marked failed")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="write a Prometheus text exposition of the run's "
+                         "telemetry at shutdown ('-' = stdout)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON of the "
+                         "per-request lifecycle spans (queue -> prefill -> "
+                         "decode, retries, lane rounds)")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="serve without telemetry (the overhead baseline; "
+                         "no --metrics/--trace-out and no energy column)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -136,6 +158,11 @@ def serve(args, mesh=None, device=None) -> bool:
                             p_sa1=args.fault_rate / 2, seed=args.fault_seed)
     sentinel_cfg = (SentinelConfig(period=args.sentinel_period)
                     if args.sentinel else None)
+    telemetry = None
+    if not args.no_telemetry:
+        from repro_torch.obs import EngineTelemetry
+
+        telemetry = EngineTelemetry()
     cfg = get_config(args.arch, smoke=not args.full)
     tiers = build_tiers(mode=args.mode)
     pmax = max(args.prompt_len)
@@ -149,9 +176,10 @@ def serve(args, mesh=None, device=None) -> bool:
         spec_decode=args.spec_decode or None,
         spec_drafter=args.spec_drafter, spec_rounds=args.spec_rounds,
         fault=fault, sentinel_cfg=sentinel_cfg,
-        max_queued=args.max_queued or None, retry_budget=args.retry_budget)
-    say = print if mesh is None or mesh.index(mesh.axis_names) == 0 \
-        else (lambda *a: None)
+        max_queued=args.max_queued or None, retry_budget=args.retry_budget,
+        telemetry=telemetry)
+    rank0 = mesh is None or mesh.index(mesh.axis_names) == 0
+    say = print if rank0 else (lambda *a: None)
 
     clock = RealClock() if mesh is None else SharedClock(RealClock(), mesh)
     t0 = clock.now()
@@ -185,12 +213,16 @@ def serve(args, mesh=None, device=None) -> bool:
     m = engine.metrics()
     say(f"  peak concurrency {m['peak_concurrency']}; plan misses after "
         f"warmup {m['steady_plan_misses']}; {m['n_failed']} failed")
+    say(f"  {'tier':<10} {'tokens':>7} {'tok/s':>8} {'J/token':>10} "
+        f"{'accept':>7} {'trips':>6} {'retries':>8}")
     for name, d in m["lanes"].items():
         tps = f"{d['tokens_per_s']:.1f}" if d["tokens_per_s"] else "-"
-        acc = (f"; acceptance {d['acceptance_rate']:.2f}"
-               if d["acceptance_rate"] is not None else "")
-        say(f"  {name:<10} {d['tokens']:>7} tokens {tps:>8} tok/s; "
-            f"{d['trips']} trips, {d['retries']} retries{acc}")
+        ept = (f"{d['energy_per_token_j']:.3e}"
+               if d["energy_per_token_j"] is not None else "-")
+        acc = (f"{d['acceptance_rate']:.2f}"
+               if d["acceptance_rate"] is not None else "-")
+        say(f"  {name:<10} {d['tokens']:>7} {tps:>8} {ept:>10} "
+            f"{acc:>7} {d['trips']:>6} {d['retries']:>8}")
     if args.spec_decode:
         sb = engine.lanes["exact"].backend
         say(f"  spec-decode k={sb.draft_k} (drafter "
@@ -200,6 +232,26 @@ def serve(args, mesh=None, device=None) -> bool:
     if mesh is not None:
         say(f"  rank 0 collectives: {mesh.comm['calls']} calls, "
             f"{mesh.comm['seconds']:.2f}s (host-staged gloo)")
+    if rank0 and args.metrics:
+        from repro_torch.obs import prometheus_text
+
+        text = prometheus_text(telemetry.registry)
+        if args.metrics == "-":
+            print(text, end="")
+        else:
+            with open(args.metrics, "w") as f:
+                f.write(text)
+            print(f"  metrics -> {args.metrics}")
+    if rank0 and args.trace_out:
+        from repro_torch.obs import write_chrome_trace
+
+        write_chrome_trace(telemetry.registry.spans.items(), args.trace_out,
+                           tid_names=telemetry.tid_names)
+        print(f"  trace -> {args.trace_out} "
+              f"({len(telemetry.registry.spans)} spans, "
+              f"{telemetry.registry.spans.dropped} dropped)")
+    if telemetry is not None:
+        telemetry.detach()
     return engine.steady_plan_misses() == 0
 
 
@@ -212,6 +264,8 @@ def _rank_serve(rank, world, device, args, mp):
 def main():
     ap = _parser()
     args = ap.parse_args()
+    if args.no_telemetry and (args.metrics or args.trace_out):
+        ap.error("--no-telemetry contradicts --metrics/--trace-out")
     if args.mesh and args.mode not in ("hardware", "bit_exact"):
         ap.error(f"--mode {args.mode} does not compose with --mesh: the "
                  "mesh path runs the integer modes (hardware, bit_exact); "

@@ -46,7 +46,13 @@ envelope trips before its round's tokens are emitted: it is quarantined,
 its queued requests re-route, its in-flight ones restart from their
 prompts on the safest healthy lane (within `retry_budget` restarts each,
 then "failed"), and a half-open probe re-admits it once it verifies
-clean.  Telemetry is a later slice of the port (ROADMAP queue A 4).
+clean.
+
+`build_engine(telemetry=EngineTelemetry())` (obs/) records the serving
+telemetry: per-request lifecycle spans (queue, prefill, decode, retry)
+and per-lane round spans on the run's clock, token, request, trip and
+breaker counters, sentinel drift gauges, and each lane's estimated
+energy per token from MAC profiles its warmup takes.
 """
 
 from __future__ import annotations
@@ -414,6 +420,7 @@ class ServingEngine:
     `sentinels` maps a lane name to its LaneSentinel; `retry_budget`
     bounds the restarts of one request after trips, `retry_backoff_s`
     delays the n-th restart by ``retry_backoff_s * 2^(n-1)``.
+    `telemetry` (an `obs.EngineTelemetry`) hears the scheduler's events.
     """
 
     def __init__(self, lanes: Dict[str, object], router, *,
@@ -424,7 +431,8 @@ class ServingEngine:
                  max_queued: Optional[int] = None,
                  sentinels: Optional[Dict[str, object]] = None,
                  retry_budget: int = 3,
-                 retry_backoff_s: float = 0.0):
+                 retry_backoff_s: float = 0.0,
+                 telemetry=None):
         if not lanes:
             raise ValueError("need at least one lane")
         self.lanes = {name: _Lane(name, b) for name, b in lanes.items()}
@@ -438,6 +446,7 @@ class ServingEngine:
         self.retry_backoff_s = float(retry_backoff_s)
         for name, sen in (sentinels or {}).items():
             self.lanes[name].sentinel = sen
+        self.telemetry = telemetry               # obs.EngineTelemetry
         self.results: Dict[int, RequestResult] = {}
         self.active_tokens = 0
         self.peak_running = 0
@@ -446,17 +455,26 @@ class ServingEngine:
         self._deferred: List[Tuple[float, Request]] = []   # backoff queue
         self._expected: Dict[str, int] = {}
         self._plan_mark: Optional[int] = None
+        self._clock = None                       # set by run()
 
     # -- warmup / plan-miss probe ------------------------------------------
     def warmup(self) -> int:
         """Run every (tier x bucket) shape once, and each sentinel's
-        shadow scorer, then arm the plan-miss probe (so trip, probe and
+        shadow scorer; with telemetry, profile each lane's MACs; reset
+        the pools; then arm the plan-miss probe (so trip, probe and
         recovery build no plan)."""
         n = sum(lane.backend.warmup() for lane in self.lanes.values()
                 if hasattr(lane.backend, "warmup"))
         n += sum(lane.sentinel.warmup(lane.backend)
                  for lane in self.lanes.values()
                  if lane.sentinel is not None)
+        if self.telemetry is not None:
+            # the profiled decodes write K/V into the pools: the resets
+            # below return them to a fresh pool's state
+            self.telemetry.on_warmup(self)
+        for lane in self.lanes.values():
+            if hasattr(lane.backend, "reset"):
+                lane.backend.reset()
         from repro_torch.core.approx_gemm import plan_misses
 
         self._plan_mark = plan_misses()
@@ -559,11 +577,15 @@ class ServingEngine:
                   else len(req.prompt))
             groups.setdefault(pb, []).append((req, slot))
         max_g = getattr(lane.backend, "max_group", lane.backend.n_slots)
-        for members in groups.values():
+        for pb, members in groups.items():
             for i in range(0, len(members), max_g):
                 chunk = members[i:i + max_g]
                 first = lane.backend.admit([r.prompt for r, _ in chunk],
                                            [s for _, s in chunk])
+                if self.telemetry is not None:
+                    self.telemetry.on_prefill(
+                        lane.name, len(chunk), pb,
+                        [r.rid for r, _ in chunk], now)
                 pre_lg = getattr(lane.backend, "last_prefill_logits",
                                  None)
                 for j, (req, slot) in enumerate(chunk):
@@ -581,6 +603,8 @@ class ServingEngine:
         rr.tokens.append(tok)
         lane.emitted += 1
         lane.total_emitted += 1
+        if self.telemetry is not None:
+            self.telemetry.on_token(lane.name)
         if rr.t_first is None:
             rr.t_first = now
         if rr.logits is not None and logits_row is not None:
@@ -592,6 +616,14 @@ class ServingEngine:
             self.active_tokens -= run.req.cost
             del lane.running[slot]
             bisect.insort(lane.free, slot)     # eviction frees capacity
+            if self.telemetry is not None:
+                self.telemetry.on_request_done(rr, lane.name)
+
+    def _now_fine(self, now: float) -> float:
+        """Sub-tick timestamp for span durations: the run() clock when
+        one is live, else the tick's own `now` (durations are 0 under
+        direct step() driving, as in deterministic tests)."""
+        return self._clock.now() if self._clock is not None else now
 
     def step(self, now: Optional[float] = None) -> List[RequestResult]:
         """One scheduler tick: release the due backoff restarts, probe
@@ -632,6 +664,7 @@ class ServingEngine:
                 # the exact reference for the CURRENT state: before the
                 # lane's own decode advances its caches
                 shadow = sen.shadow(lane.backend)
+            t0 = self._now_fine(now)
             try:
                 nxt = lane.backend.decode_round()
             except LaneHealthError as e:
@@ -639,12 +672,21 @@ class ServingEngine:
                     raise
                 self._trip(lane, now, str(e))
                 continue
-            if shadow is not None and sen.observe(
-                    lane.backend.last_decode_logits, shadow,
-                    sorted(lane.running), now):
-                self._trip(lane, now, sen.last_trip_reason,
-                           breaker_tripped=True)
-                continue                       # trip before emit
+            if self.telemetry is not None:
+                self.telemetry.on_decode_round(
+                    lane.name, [r.result.rid for r in lane.running.values()],
+                    t0, self._now_fine(now) - t0)
+            if shadow is not None:
+                tripped = sen.observe(lane.backend.last_decode_logits,
+                                      shadow, sorted(lane.running), now)
+                if (self.telemetry is not None
+                        and sen.last_agree is not None):
+                    self.telemetry.on_sentinel(lane.name, sen.last_agree,
+                                               sen.last_nmed)
+                if tripped:
+                    self._trip(lane, now, sen.last_trip_reason,
+                               breaker_tripped=True)
+                    continue                   # trip before emit
             dec_lg = getattr(lane.backend, "last_decode_logits", None)
             for slot in sorted(lane.running):
                 lg = (dec_lg[slot] if self.record_logits
@@ -690,14 +732,18 @@ class ServingEngine:
             sen.record_failure(now, reason)
         lane.quarantined = True
         trigger = sen.last_trip_stats if sen is not None else None
-        self.trip_log.append(TripEvent(
+        after = sen.breaker.state if sen is not None else "tripped"
+        ev = TripEvent(
             lane=lane.name, t=now, reason=reason,
             tokens_before_trip=lane.emitted,
             in_flight_displaced=len(lane.running),
             trigger_agree=trigger[0] if trigger else None,
             trigger_nmed=trigger[1] if trigger else None,
-            breaker_after=(sen.breaker.state if sen is not None
-                           else "tripped")))
+            breaker_after=after)
+        self.trip_log.append(ev)
+        if self.telemetry is not None:
+            self.telemetry.on_trip(ev)
+            self.telemetry.on_breaker(lane.name, "healthy", after, now)
         lane.emitted = 0
         while lane.queue:
             self._requeue(lane.queue.popleft())
@@ -707,6 +753,8 @@ class ServingEngine:
             self.active_tokens -= run.req.cost
             rr = run.result
             lane.n_retries += 1
+            if self.telemetry is not None:
+                self.telemetry.on_request_retry(rr, lane.name, now)
             rr.tokens.clear()
             if rr.logits is not None:
                 rr.logits.clear()
@@ -715,6 +763,8 @@ class ServingEngine:
             if rr.retries > self.retry_budget:
                 rr.status = "failed"
                 rr.t_done = now
+                if self.telemetry is not None:
+                    self.telemetry.on_request_done(rr, lane.name)
                 continue
             delay = self.retry_backoff_s * (2 ** (rr.retries - 1))
             if delay > 0:
@@ -730,7 +780,14 @@ class ServingEngine:
         if (sen is None or lane.running or not lane.free
                 or not sen.breaker.should_probe(now)):
             return
-        if sen.probe(lane.backend, lane.free[0], now):
+        if self.telemetry is not None:
+            self.telemetry.on_breaker(lane.name, "tripped", "half_open",
+                                      now)
+        ok = sen.probe(lane.backend, lane.free[0], now)
+        if self.telemetry is not None:
+            self.telemetry.on_breaker(
+                lane.name, "half_open", "healthy" if ok else "tripped", now)
+        if ok:
             lane.quarantined = False
             lane.emitted = 0
 
@@ -747,7 +804,17 @@ class ServingEngine:
             remaining[slot] = run.req.max_new - len(run.result.tokens)
             if run.req.eos_id is not None:
                 eos[slot] = run.req.eos_id
+        tel = self.telemetry
+        pre = (b.n_rounds, b.n_drafted, b.n_accepted, b.n_emitted)
+        t0 = self._now_fine(now)
         toks, counts = b.spec_round(remaining, eos)
+        if tel is not None:
+            tel.on_spec_round(
+                lane.name, b.draft_k, b.n_rounds - pre[0],
+                b.n_drafted - pre[1], b.n_accepted - pre[2],
+                b.n_emitted - pre[3],
+                [r.result.rid for r in lane.running.values()],
+                t0, self._now_fine(now) - t0)
         lg = getattr(b, "last_spec_logits", None)
         slots = sorted(lane.running)
         for r in range(counts.shape[1]):
@@ -781,7 +848,8 @@ class ServingEngine:
             from .workload import RealClock
 
             clock = RealClock()
-        t_run0 = clock.now()
+        self._clock = clock              # one time source per run: spans
+        t_run0 = clock.now()             # and stats stay coherent
         submitted = [r.rid for r in requests]
         pending = deque(sorted(requests, key=lambda r: r.arrival))
         self.peak_running = sum(len(l.running) for l in self.lanes.values())
@@ -812,19 +880,36 @@ class ServingEngine:
 
     def metrics(self) -> dict:
         """Per-lane tokens and throughput over `last_run_s`, sentinel
-        trips and the restarts they caused, quarantine, and a spec lane's
-        acceptance rate (None on the others)."""
+        trips and the restarts they caused, quarantine, a spec lane's
+        acceptance rate, tokens a round and draft depth, and, with an
+        `EngineTelemetry` whose meter profiled the lane, its estimated
+        energy, energy per token and MACs (None, or no "macs", else)."""
         dur = self.last_run_s
-        lanes = {name: {"tokens": lane.total_emitted,
-                        "tokens_per_s": (lane.total_emitted / dur
-                                         if dur else None),
-                        "trips": sum(1 for t in self.trip_log
-                                     if t.lane == name),
-                        "retries": lane.n_retries,
-                        "quarantined": lane.quarantined,
-                        "acceptance_rate": getattr(lane.backend,
-                                                   "acceptance_rate", None)}
-                 for name, lane in self.lanes.items()}
+        lanes = {}
+        for name, lane in self.lanes.items():
+            b = lane.backend
+            d = {"tokens": lane.total_emitted,
+                 "tokens_per_s": (lane.total_emitted / dur
+                                  if dur else None),
+                 "trips": sum(1 for t in self.trip_log if t.lane == name),
+                 "retries": lane.n_retries,
+                 "quarantined": lane.quarantined,
+                 "energy_j": None,
+                 "energy_per_token_j": None,
+                 "acceptance_rate": None,
+                 "tokens_per_round": None,
+                 "draft_k": None}
+            if hasattr(b, "acceptance_rate"):
+                d["acceptance_rate"] = b.acceptance_rate
+                d["tokens_per_round"] = b.tokens_per_round
+                d["draft_k"] = b.draft_k
+            if self.telemetry is not None:
+                m = self.telemetry.meters.get(name)
+                if m is not None and m.profiled:
+                    d["energy_j"] = m.energy_j
+                    d["energy_per_token_j"] = m.energy_per_token_j
+                    d["macs"] = m.macs
+            lanes[name] = d
         return {"duration_s": dur,
                 "n_requests": sum(1 for r in self.results.values()
                                   if r.done),
@@ -860,6 +945,7 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
                  sentinel_cfg=None,
                  retry_budget: int = 3,
                  retry_backoff_s: float = 0.0,
+                 telemetry=None,
                  seed: int = 0, device=None, mesh=None) -> ServingEngine:
     """One lane per accuracy tier over shared weights, on `device` (CUDA
     unless ``device="cpu"``).
@@ -890,7 +976,9 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     `SentinelConfig` as `sentinel_cfg`) arms a sentinel on each
     approximate lane, which needs an `exact` tier (its per-token rung is
     the shadow reference); `retry_budget` and `retry_backoff_s` bound the
-    restarts (see `ServingEngine`).  Neither composes with a mesh."""
+    restarts (see `ServingEngine`).  Neither composes with a mesh.
+    `telemetry` (an `obs.EngineTelemetry`) records the serving telemetry
+    (see the module docstring)."""
     from repro_torch.device import resolve_device
     from repro_torch.models.bridge import shard_params
     from repro_torch.models.transformer import LM
@@ -966,4 +1054,5 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
                          token_budget=token_budget,
                          record_logits=record_logits, max_queued=max_queued,
                          sentinels=sentinels, retry_budget=retry_budget,
-                         retry_backoff_s=retry_backoff_s)
+                         retry_backoff_s=retry_backoff_s,
+                         telemetry=telemetry)

@@ -300,10 +300,11 @@ def test_profile_read_counts_the_ops_of_the_profilers_tree(smoke):
 
 @pytest.mark.parametrize("phases, ok", [
     (["3"], True), (["13"], True), (["5", "13"], True), (["2"], False),
-    (["14"], False), (["12", "14"], False),
-], ids=["3", "13", "5_13", "2", "14", "12_14"])
-def test_phases_take_3_to_13(smoke, phases, ok):
-    """`--phases` runs phases 3 to 13 (1 and 2 always run)."""
+    (["14"], True), (["12", "14"], True), (["15"], False),
+    (["13", "15"], False),
+], ids=["3", "13", "5_13", "2", "14", "12_14", "15", "13_15"])
+def test_phases_take_3_to_14(smoke, phases, ok):
+    """`--phases` runs phases 3 to 14 (1 and 2 always run)."""
     if ok:
         assert smoke.parse_args(["--phases", *phases]).phases == \
             [int(p) for p in phases]
@@ -359,3 +360,41 @@ def test_chip_smoke_phase_13_rehearsed_on_the_cpu(smoke, monkeypatch):
     # one launch a layer per module on its multiplier, a forward
     n_layers = get_config("qwen3-1.7b", smoke=True).n_layers
     assert all(v % n_layers == 0 and v > 0 for v in want.values())
+
+
+def test_chip_smoke_phase_14_rehearsed_on_the_cpu(smoke, monkeypatch):
+    """chip_smoke.py's phase 14 end to end on the CPU at the smoke config
+    (the kernels' plain versions, two off/on pairs): the overhead runs'
+    checks (tokens identical, no plan built, live MACs = the meters'),
+    the launch check, which expects the card's fused surrogate launches
+    while the CPU launches nothing, a profiled decode round a lane, and
+    the trace's spans.  The profiler stands in for the card's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import obs
+
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    monkeypatch.setattr(smoke, "OBS_DEVICE", "cpu")
+    monkeypatch.setattr(smoke, "_obs_config", lambda: cfg)
+    monkeypatch.setattr(obs, "PAIRS", 2)
+    profiled = []
+
+    def profile(torch, lane, run, s, **kw):
+        profiled.append(lane)
+        run()
+        return {"by_class": {"CiM surrogate kernel": 1.0}}
+
+    monkeypatch.setattr(smoke, "_profile", profile)
+    checks = []
+    monkeypatch.setattr(smoke, "_expect_launches",
+                        lambda where, got, want: checks.append(
+                            (where, got, want)))
+    launches = smoke.obs_phase(torch, "cpu")
+    assert not any(launches.values())
+    assert profiled == ["exact", "balanced", "economy"]
+    [(where, got, want)] = checks
+    assert got == {} and list(want) == ["cim_gemm_fused"]
+    per_fwd = smoke.GEMMS_PER_LAYER * cfg.n_layers
+    assert want["cim_gemm_fused"] > 0
+    assert want["cim_gemm_fused"] % per_fwd == 0

@@ -750,23 +750,27 @@ def surrogate_noise(key: NoiseKey, shape, device,
 
 
 def surrogate_variance(gp: "GemmParams", scale2, k_len: int, xf=None,
-                       wf=None, fast: bool = False):
+                       wf=None, fast: bool = False,
+                       reduce: Optional[Callable] = None):
     """var[out] = c0 * K * s^2 + c1 * (A^2 @ B^2), the calibrated law.
 
     `scale2` is the squared product of quantization scales broadcastable
     to the output; `xf`/`wf` the dequantized operands for the c1 term
     (``fast``: the rank-1 estimate sum_k a^2 * sum_k b^2 / K of
-    ``surrogate_fast``).  None when the family carries no noise."""
+    ``surrogate_fast``); `k_len` the whole contraction.  `reduce` (the
+    identity by default) completes each sum over K: on shards, the sum
+    over the other K shards.  None when the family carries no noise."""
     if gp.c0 <= 0.0 and gp.c1 <= 0.0:
         return None
+    red = reduce or (lambda t: t)
     var = gp.c0 * k_len * scale2
     if gp.c1 > 0.0 and xf is not None and wf is not None:
         if fast:
-            a2 = torch.sum(xf * xf, dim=-1, keepdim=True)        # (M, 1)
-            b2 = torch.sum(wf * wf, dim=0, keepdim=True)         # (1, N)
+            a2 = red(torch.sum(xf * xf, dim=-1, keepdim=True))   # (M, 1)
+            b2 = red(torch.sum(wf * wf, dim=0, keepdim=True))    # (1, N)
             sq = a2 * b2 / k_len
         else:
-            sq = (xf * xf) @ (wf * wf)
+            sq = red((xf * xf) @ (wf * wf))
         var = var + gp.c1 * sq
     return var
 
@@ -812,9 +816,9 @@ def _ste(forward: Callable) -> Callable:
     return run
 
 
-def _shift(d: torch.Tensor, mu: float) -> torch.Tensor:
-    # (1 + mu) * d with the factor rounded to d's dtype first, as the
-    # reference's weakly typed Python float is
+def mean_shift(d: torch.Tensor, mu: float) -> torch.Tensor:
+    """The surrogate's mean shift, (1 + mu) * d, with the factor rounded
+    to d's dtype first, as the reference's weakly typed Python float is."""
     return d * torch.tensor(1.0 + mu, dtype=d.dtype).item()
 
 
@@ -875,7 +879,7 @@ def _cim_core(gp: GemmParams, plan: GemmPlan) -> Callable:
         def forward(xf, wf, eps=None):
             xq, sx, wq, sw = _quantize_operands(xf, wf, gp.bits)
             xdq, wdq = dequantize(xq, sx), dequantize(wq, sw)
-            out = _shift(xdq @ wdq, gp.mu)
+            out = mean_shift(xdq @ wdq, gp.mu)
             if eps is not None:
                 s = sx * sw                    # (1, N): per-out-channel
                 var = surrogate_variance(gp, s * s, xf.shape[-1], xdq, wdq,
@@ -943,7 +947,7 @@ def _model_forward(gp: GemmParams, plan: GemmPlan, apply: bool) -> Callable:
         d = row_block_mm(xq, wq) if gp.per_token else xq @ wq
         if not apply or gp.mode == "exact":
             return d
-        out = _shift(d, gp.mu)
+        out = mean_shift(d, gp.mu)
         if eps is not None:
             sx = quant_scale(x.detach(), gp.bits)
             sw = quant_scale(w.detach(), gp.bits, axis=0)
@@ -1036,6 +1040,23 @@ def _backend(x: torch.Tensor, w: torch.Tensor) -> str:
 _OBS_OPS = {"cim": "gemm", "model": "model_gemm"}
 
 
+def _cached(key, build: Callable, op: str, gp: GemmParams,
+            macs: float) -> Callable:
+    """The forward under `key` in the plan cache, built by `build` on a
+    miss (counted by `_plan_miss`); the call told to the sink as `op`
+    with its MACs."""
+    fn = _FORWARDS.get(key)
+    if _OBS_SINK[0] is not None:
+        _obs_dispatch(op, gp, macs, fn is not None)
+    if fn is None:
+        with _LOCK:
+            fn = _FORWARDS.get(key)
+            if fn is None:
+                fn = _FORWARDS[key] = build()
+                _plan_miss()
+    return fn
+
+
 def _forward_for(frontend: str, gp: GemmParams, apply: bool, noisy: bool,
                  x: torch.Tensor, w: torch.Tensor) -> Callable:
     m = 1
@@ -1045,24 +1066,16 @@ def _forward_for(frontend: str, gp: GemmParams, apply: bool, noisy: bool,
     backend = _backend(x, w)
     key = (frontend, gp, apply, noisy, x.dtype, w.dtype, bucket(m),
            bucket(k), bucket(n), backend)
-    fn = _FORWARDS.get(key)
-    if _OBS_SINK[0] is not None:
-        _obs_dispatch(_OBS_OPS[frontend], gp, float(m) * k * n,
-                      fn is not None)
-    if fn is None:
-        with _LOCK:
-            fn = _FORWARDS.get(key)
-            if fn is None:
-                if gp.mode not in MODES:
-                    raise ValueError(f"mode {gp.mode!r} not in {MODES}")
-                mode = gp.mode if apply else "exact"
-                plan = plan_gemm(gp.family, mode, gp.bits, m, k, n, backend,
-                                 spec=gp.routing_spec)
-                fn = (_cim_forward(gp, plan) if frontend == "cim"
-                      else _model_forward(gp, plan, apply))
-                _FORWARDS[key] = fn
-                _plan_miss()
-    return fn
+
+    def build():
+        if gp.mode not in MODES:
+            raise ValueError(f"mode {gp.mode!r} not in {MODES}")
+        plan = plan_gemm(gp.family, gp.mode if apply else "exact", gp.bits,
+                         m, k, n, backend, spec=gp.routing_spec)
+        return (_cim_forward(gp, plan) if frontend == "cim"
+                else _model_forward(gp, plan, apply))
+
+    return _cached(key, build, _OBS_OPS[frontend], gp, float(m) * k * n)
 
 
 def _noise(noisy: bool, key, x: torch.Tensor, n: int, kind: str):
@@ -1148,21 +1161,11 @@ def _mesh_matmul(frontend: str, gp: GemmParams, x: torch.Tensor,
     key = ("mesh", frontend, gp, x.dtype, w.dtype, bucket(m), bucket(k),
            bucket(n), backend, mesh.key, _canon_spec(x_spec),
            _canon_spec(w_spec))
-    fn = _FORWARDS.get(key)
-    if _OBS_SINK[0] is not None:
-        # the global product, as the reference's GSPMD frontend sees it
-        _obs_dispatch(_OBS_OPS[frontend], gp, float(m) * k * n,
-                      fn is not None)
-    if fn is None:
-        with _LOCK:
-            fn = _FORWARDS.get(key)
-            if fn is None:
-                plan = plan_gemm(gp.family, gp.mode, gp.bits, m, k, n,
-                                 backend, spec=gp.routing_spec, mesh=mesh,
-                                 x_spec=x_spec, w_spec=w_spec)
-                fn = _mesh_core(gp, plan)
-                _FORWARDS[key] = fn
-                _plan_miss()
+    # the global product's MACs, as the reference's GSPMD frontend sees it
+    fn = _cached(key, lambda: _mesh_core(gp, plan_gemm(
+        gp.family, gp.mode, gp.bits, m, k, n, backend, spec=gp.routing_spec,
+        mesh=mesh, x_spec=x_spec, w_spec=w_spec)), _OBS_OPS[frontend], gp,
+        float(m) * k * n)
 
     def forward(x2_, w_, eps=None):
         if not local:
@@ -1234,6 +1237,120 @@ def model_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
     noisy = _draws_noise(gp, key, apply)
     eps = _noise(noisy, key, x, w.shape[-1], noise_kind)
     return _forward_for("model", gp, apply, noisy, x, w)(x, w, eps)
+
+
+# ---------------------------------------------------------------------------
+# The models layer's float and surrogate modes on shards.  The dispatch
+# engine's mesh plans take the integer modes only (`_check_mesh_mode`, as
+# the reference's shard_map path does); `models.common.cim_linear` runs
+# the other modes on a rank's shards: `surrogate` through
+# `surrogate_shard_matmul`, the float forms (mode "exact", the exact
+# macro, `surrogate_fast`) through `models.common._float_tp`, whose
+# layout `mesh_float_plan` plans.  Both plan, cache and announce like
+# `_mesh_matmul`: the global m * k * n to the sink (the reference's GSPMD
+# frontend sees the global shapes), a plan miss to `_plan_miss`.
+# ---------------------------------------------------------------------------
+
+
+def _mesh_local_layout(kind: str, gp: GemmParams, x: torch.Tensor,
+                       w: torch.Tensor, mesh, x_spec, w_spec, *extra):
+    """(dp, wk, wn, (m, k, n) global, plan-cache key) of one shard-local
+    matmul of the models layer; validates the layout and divisibility
+    (every call: they are not bucket-stable)."""
+    dp, wk, wn = _mesh_axes(mesh, x_spec, w_spec)
+    m = x.numel() // x.shape[-1]
+    m, k, n = (m * axes_size(mesh, dp), x.shape[-1] * axes_size(mesh, wk),
+               w.shape[-1] * axes_size(mesh, wn))
+    _mesh_gemm_layout(m, k, n, mesh, x_spec, w_spec)
+    key = ("mesh", kind, gp, *extra, x.dtype, w.dtype, bucket(m),
+           bucket(k), bucket(n), _backend(x, w), mesh.key,
+           _canon_spec(x_spec), _canon_spec(w_spec))
+    return dp, wk, wn, (m, k, n), key
+
+
+def mesh_float_plan(gp: GemmParams, x: torch.Tensor, w: torch.Tensor, mesh,
+                    x_spec, w_spec, noisy: bool = False):
+    """The layout of a fake-quantized float matmul on shards
+    (`models.common._float_tp`), from the plan cache: (dp, wk, wn) and
+    the global (m, k, n).  The call is announced with its global MACs, as
+    one device's `model_matmul` announces it."""
+    dp, wk, wn, mkn, key = _mesh_local_layout("float", gp, x, w, mesh,
+                                              x_spec, w_spec, noisy)
+    m, k, n = mkn
+    return (_cached(key, lambda: (dp, wk, wn), "model_gemm", gp,
+                    float(m) * k * n), mkn)
+
+
+def shard_noise(key: "NoiseKey", m: int, n: int, device, mesh, dp,
+                wn) -> torch.Tensor:
+    """This rank's block of the (m, n) noise of the global product: drawn
+    whole from `key` on the rank's device (`NOISE_KIND`, as the models
+    layer draws it) and cut to its rows (over `dp`) and columns (over
+    `wn`), so the noise is one device's, element for element."""
+    eps = surrogate_noise(key, (m, n), device, NOISE_KIND)
+    return shard(eps, (spec_entry(dp), spec_entry(wn)), mesh)
+
+
+def _surrogate_shard_core(gp: GemmParams, mesh, dp, wk, wn):
+    """The shard-local (x2 (M_l, K_l), w (K_l, N_l), key, m, k, n) ->
+    (M_l, N_l) forward of `surrogate_shard_matmul`."""
+    from repro_torch.kernels import cim_gemm
+
+    x_axes = dp + wk
+
+    def forward(x2, w, key, m, k, n):
+        sx = scale_from_max(_global_max(x2, mesh, x_axes), gp.bits)
+        sw = scale_from_max(_global_colmax(w, mesh, wk), gp.bits)
+        eps = (None if key is None else
+               shard_noise(key, m, n, x2.device, mesh, dp, wn))
+        if not wk:
+            # the whole contraction on this rank: the fused kernel itself
+            return cim_gemm.cim_gemm_fused(x2, w, sx, sw, eps, gp.mu, gp.c0,
+                                           gp.c1, bits=gp.bits)
+        need_sq = eps is not None and gp.c1 > 0.0
+        if need_sq:
+            cim_gemm.check_sq_k(k)          # the sums of every shard
+        acc = cim_gemm.cim_gemm_partial(x2, w, sx, sw, need_sq, gp.bits)
+        acc = mesh.all_reduce(acc, "sum", wk)
+        return cim_gemm.partial_flush(acc, sx, sw, eps, gp.mu, gp.c0, gp.c1,
+                                      k)
+
+    return forward
+
+
+def surrogate_shard_matmul(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
+                           key: Optional[NoiseKey] = None, *, mesh, x_spec,
+                           w_spec) -> torch.Tensor:
+    """A `surrogate`-mode GEMM on this rank's shards (the models layer's
+    route, `models.common.cim_linear` under a mesh; inference only).
+
+    x (..., K_l) and w (K_l, N_l) are this rank's shards under `x_spec`
+    and `w_spec` (as `model_matmul(local=True)`), and so is the result,
+    in x's dtype.  The scales are one device's: sx the max |x| over the
+    rows' and K's shards, sw each column's max over the K shards.  A
+    `key` draws the noise of the GLOBAL (M, N) output on the rank's
+    device and cuts the rank's block out of it (`shard_noise`).  A rank
+    that holds the whole contraction (a column-parallel layer, or a whole
+    weight) runs the fused kernel `cim_gemm_fused` on its shard; a
+    contraction-sharded one runs `cim_gemm_partial` (the same kernel,
+    flush off), the exact int32 sums are added over the K shards and the
+    flush runs once with the global K (`cim_gemm.partial_flush`).  Either
+    way the result is one device's `cim_gemm_fused` bit for bit, noise
+    included; the kernel wrappers run their plain versions on CPU
+    tensors.  Per-token scales and faults are refused, as on the mesh
+    frontends."""
+    if gp.mode != "surrogate":
+        raise ValueError(f"surrogate_shard_matmul runs mode 'surrogate', "
+                         f"not {gp.mode!r}")
+    _check_mesh_gemm_request(gp)
+    noisy = _draws_noise(gp, key)
+    dp, wk, wn, (m, k, n), ckey = _mesh_local_layout(
+        "surrogate", gp, x, w, mesh, x_spec, w_spec, noisy)
+    fn = _cached(ckey, lambda: _surrogate_shard_core(gp, mesh, dp, wk, wn),
+                 "model_gemm", gp, float(m) * k * n)
+    x2 = x.reshape(-1, x.shape[-1])
+    out = fn(x2, w, key if noisy else None, m, k, n).to(x.dtype)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor, spec: MultiplierSpec,
@@ -1696,20 +1813,10 @@ def _mesh_conv2d(gp: GemmParams, x: torch.Tensor, w: torch.Tensor,
             _canon_spec(x_spec), _canon_spec(w_spec))
            + bucket_conv(b, h, w_, c, conv.kh, conv.kw, conv.stride)
            + (bucket(n),))
-    fn = _FORWARDS.get(key)
-    if _OBS_SINK[0] is not None:
-        _obs_dispatch("conv", gp, _conv_macs(b, h, w_, c, n, conv),
-                      fn is not None)
-    if fn is None:
-        with _LOCK:
-            fn = _FORWARDS.get(key)
-            if fn is None:
-                plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_, c, n,
-                                 conv, backend=backend, spec=gp.spec,
-                                 mesh=mesh, x_spec=x_spec, w_spec=w_spec)
-                fn = _mesh_conv_core(gp, plan)
-                _FORWARDS[key] = fn
-                _plan_miss()
+    fn = _cached(key, lambda: _mesh_conv_core(gp, plan_conv(
+        gp.family, gp.mode, gp.bits, b, h, w_, c, n, conv, backend=backend,
+        spec=gp.spec, mesh=mesh, x_spec=x_spec, w_spec=w_spec)), "conv", gp,
+        _conv_macs(b, h, w_, c, n, conv))
 
     def forward(x4, w2, eps=None):
         x_l = shard(x4, (spec_entry(dp), None, None, spec_entry(wk)), mesh)
@@ -1855,26 +1962,17 @@ def cim_conv2d(x: torch.Tensor, w: torch.Tensor, gp: GemmParams,
     noisy = _draws_noise(gp, key)
     fkey = (("conv2d", gp, conv, bit_safe, noisy, x.dtype, w.dtype, backend)
             + bucket_conv(b, h, w_, c, kh, kw, stride) + (bucket(n),))
-    fn = _FORWARDS.get(fkey)
-    if _OBS_SINK[0] is not None:
-        _obs_dispatch("conv", gp, _conv_macs(b, h, w_, c, n, conv),
-                      fn is not None)
-    if fn is None:
-        with _LOCK:
-            fn = _FORWARDS.get(fkey)
-            if fn is None:
-                if gp.fault is not None:
-                    plan = _fault_conv_plan(conv, backend)
-                else:
-                    plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_,
-                                     c, n, conv, backend=backend,
-                                     spec=gp.spec)
-                forward = _conv_forward(gp, plan, (b, h, w_, c, n))
 
-                def fn(x4, w2, eps, _forward=forward):
-                    return _STEConv.apply(x4, w2, eps, _forward, conv)
-                _FORWARDS[fkey] = fn
-                _plan_miss()
+    def build():
+        if gp.fault is not None:
+            plan = _fault_conv_plan(conv, backend)
+        else:
+            plan = plan_conv(gp.family, gp.mode, gp.bits, b, h, w_, c, n,
+                             conv, backend=backend, spec=gp.spec)
+        forward = _conv_forward(gp, plan, (b, h, w_, c, n))
+        return lambda x4, w2, eps: _STEConv.apply(x4, w2, eps, forward, conv)
+
+    fn = _cached(fkey, build, "conv", gp, _conv_macs(b, h, w_, c, n, conv))
     eps = None
     if noisy:
         oh, ow = conv_out_hw(h, w_, kh, kw, stride)
@@ -2180,21 +2278,11 @@ def cim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key = (("attn", gp, ap, q.dtype, k.dtype, v.dtype,
             None if block is None else tuple(block), backend)
            + bucket_attn(b, heads, kv_heads, sq, skv, hd))
-    fn = _FORWARDS.get(key)
-    if _OBS_SINK[0] is not None:
-        # QK^T + PV: two Skv-deep dots per (batch, head, query)
-        _obs_dispatch("attn", gp, 2.0 * b * heads * sq * skv * hd,
-                      fn is not None)
-    if fn is None:
-        with _LOCK:
-            fn = _FORWARDS.get(key)
-            if fn is None:
-                plan = plan_attn(gp.family, gp.mode, gp.bits, b, heads,
-                                 kv_heads, sq, skv, hd, ap, backend=backend,
-                                 block=block, spec=gp.spec)
-                fn = _attn_forward(gp, plan)
-                _FORWARDS[key] = fn
-                _plan_miss()
+    # QK^T + PV: two Skv-deep dots per (batch, head, query)
+    fn = _cached(key, lambda: _attn_forward(gp, plan_attn(
+        gp.family, gp.mode, gp.bits, b, heads, kv_heads, sq, skv, hd, ap,
+        backend=backend, block=block, spec=gp.spec)), "attn", gp,
+        2.0 * b * heads * sq * skv * hd)
     try:
         return fn(q, k, v, q_positions.to(torch.int32),
                   kv_positions.to(torch.int32), kv_valid.to(torch.int32))

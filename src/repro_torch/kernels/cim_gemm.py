@@ -8,7 +8,8 @@ SQ = A^2 @ B^2 (f32, only when noise is drawn and c1 > 0), and flushes
     out = (1 + mu) * D * s + sqrt(max(c0 * K * s^2 + c1 * SQ * s^2, 0)) * eps
 
 with s = sx * sw (ref.surrogate_epilogue spells out the order of the
-roundings).  Two entry points, as in the JAX package:
+roundings).  Two entry points, as in the JAX package, and the partial
+form the mesh path's row-parallel layers run:
 
   * ``cim_gemm_core`` — int8 operands -> (D int32, SQ f32), the oracle
     surface (SQ zeros without ``need_sq``; ops.surrogate_gemm puts the
@@ -16,7 +17,14 @@ roundings).  Two entry points, as in the JAX package:
   * ``cim_gemm_fused`` — f32 or bf16 operands (bf16 widened on load),
     the per-tensor ``sx`` / per-column ``sw`` quantization on load and
     the whole epilogue in one kernel; ``eps`` is None for the
-    deterministic term.
+    deterministic term;
+  * ``cim_gemm_partial`` — the fused kernel with its flush off: f32 or
+    bf16 operands quantized on load against the caller's GLOBAL ``sx``
+    and ``sw``, out the exact int32 sums, D and, with ``need_sq``, the
+    four sums of SQ's squared halves (HH, HL, LH, LL), stacked (1 or 5,
+    M, N).  A rank of the mesh adds them over the weight's K shards
+    (exact in any order), then `partial_flush` forms SQ once and runs the
+    epilogue, so the row-parallel result is one device's bit for bit.
 
 On CUDA tensors each launches csrc/surrogate_gemm.cu or raises; on CPU
 tensors it runs its plain version.  ``cim_gemm_fused`` is the split-K
@@ -40,7 +48,8 @@ import torch
 
 from .approx_matmul import _FLOATS, ClusterPlan, _shapes, fused_plan
 from .build import FLT, INT, PTR, CudaKernel, on_cuda, require, stream_of
-from .ref import int_dot, quantize_tile, square_dot, surrogate_epilogue
+from .ref import (int_dot, quantize_tile, sq_from_halves, sq_halves,
+                  square_dot, surrogate_epilogue)
 
 _CORE = CudaKernel("surrogate_gemm", "cim_gemm_core",
                    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
@@ -50,7 +59,13 @@ _FUSED = CudaKernel("surrogate_gemm", "cim_gemm_fused",
                     [PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, INT,
                      INT, FLT, FLT, FLT, INT, INT, INT, INT, PTR])
 
-KERNELS = {"cim_gemm_core": _CORE, "cim_gemm_fused": _FUSED}
+# the partial form takes need_sq and the plan before the stream
+_PARTIAL = CudaKernel("surrogate_gemm", "cim_gemm_partial",
+                      [PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT,
+                       INT, INT, INT, INT, INT, PTR])
+
+KERNELS = {"cim_gemm_core": _CORE, "cim_gemm_fused": _FUSED,
+           "cim_gemm_partial": _PARTIAL}
 
 # the fused kernel's row tiles: one or four m16 groups of the int8 tensor
 # cores (M <= 16 runs one group with masked rows)
@@ -90,6 +105,12 @@ def fused_launch_plan(x, w, var: int) -> ClusterPlan:
     return fused_plan(_FUSED, x, w, var, row_tiles=FUSED_ROWS)
 
 
+def partial_launch_plan(x, w, need_sq: bool) -> ClusterPlan:
+    """The launch plan of one cim_gemm_partial call, with or without SQ's
+    sums, on x's device (as `fused_launch_plan`)."""
+    return fused_plan(_PARTIAL, x, w, int(need_sq), row_tiles=FUSED_ROWS)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (CPU tensors; chip_smoke.py also runs them on the card)
 # ---------------------------------------------------------------------------
@@ -114,6 +135,34 @@ def cim_gemm_fused_plain(x, w, sx, sw, eps, mu: float, c0: float, c1: float,
     return surrogate_epilogue(int_dot(a, b), sq, sx, sw,
                               None if var == SERVED else eps, mu, c0, c1,
                               x.shape[-1])
+
+
+def cim_gemm_partial_plain(x, w, sx, sw, need_sq: bool,
+                           bits: int = 8) -> torch.Tensor:
+    """The partial's sums: int_dot of the quantized operands, and with
+    `need_sq` the int_dot of each pair of squared halves."""
+    qmax = (1 << (bits - 1)) - 1
+    a = quantize_tile(x.to(torch.float32), sx.reshape(()).to(torch.float32),
+                      qmax)
+    b = quantize_tile(w.to(torch.float32),
+                      sw.reshape(1, -1).to(torch.float32), qmax)
+    d = int_dot(a, b)
+    if not need_sq:
+        return d[None]
+    (ah, al), (bh, bl) = sq_halves(a), sq_halves(b)
+    return torch.stack([d, int_dot(ah, bh), int_dot(ah, bl),
+                        int_dot(al, bh), int_dot(al, bl)])
+
+
+def partial_flush(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                  eps, mu: float, c0: float, c1: float,
+                  k: int) -> torch.Tensor:
+    """The fused kernel's flush over `cim_gemm_partial`'s sums, added up
+    over the shards: SQ formed once from the halves' sums (with five
+    planes), then ref.surrogate_epilogue with the GLOBAL contraction
+    length `k`; eps None for the deterministic term."""
+    sq = sq_from_halves(acc[1:]) if acc.shape[0] == 5 else None
+    return surrogate_epilogue(acc[0], sq, sx, sw, eps, mu, c0, c1, k)
 
 
 # ---------------------------------------------------------------------------
@@ -180,4 +229,38 @@ def cim_gemm_fused(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
            float(np.float32(1.0 + mu)), float(np.float32(c0 * k)),
            float(np.float32(c1)), var, plan.rows, plan.splits, plan.k_split,
            stream_of(x))
+    return out
+
+
+def cim_gemm_partial(x: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
+                     sw: torch.Tensor, need_sq: bool,
+                     bits: int = 8) -> torch.Tensor:
+    """The fused surrogate GEMM with its flush off (the mesh path's
+    row-parallel layers): f32/bf16 x (M,K), w (K,N) quantized against the
+    global ``sx`` (one f32) and ``sw`` (N f32) -> int32 (1, M, N) D, or
+    with `need_sq` (5, M, N): D, HH, HL, LH, LL.  Bit-identical to
+    ``cim_gemm_partial_plain``; SQ's sums need K < SQ_MAX_K (the caller
+    checks the global K: a shard's sums must add up below 2^31 too)."""
+    m, k, n = _shapes(x, w)
+    if not on_cuda(x, w, sx, sw):
+        return cim_gemm_partial_plain(x, w, sx, sw, need_sq, bits)
+    require(x.dtype in _FLOATS and w.dtype in _FLOATS,
+            f"f32/bf16 operands expected, got {x.dtype}, {w.dtype}")
+    require(x.is_contiguous() and w.is_contiguous(),
+            "operands must be contiguous")
+    require(sx.dtype == torch.float32 and sx.numel() == 1,
+            "sx must be one f32 element")
+    require(sw.dtype == torch.float32 and sw.numel() == n
+            and sw.is_contiguous(), f"sw must be {n} contiguous f32")
+    require(2 <= bits <= 8, f"the surrogate kernel takes 2..8-bit operands, "
+            f"got {bits}")
+    if need_sq:
+        check_sq_k(k)
+    plan = partial_launch_plan(x, w, need_sq)
+    out = torch.empty((5 if need_sq else 1, m, n), dtype=torch.int32,
+                      device=x.device)
+    _PARTIAL(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+             int(w.dtype == torch.bfloat16), sx.data_ptr(), sw.data_ptr(),
+             out.data_ptr(), m, k, n, bits, int(need_sq), plan.rows,
+             plan.splits, plan.k_split, stream_of(x))
     return out

@@ -1,6 +1,7 @@
 // surrogate_cluster.cuh - the fused surrogate CiM GEMM for NVIDIA Hopper
 // (sm_90a): a split-K cluster kernel whose products run on the int8
-// tensor cores.  Included by surrogate_gemm.cu (cim_gemm_fused).
+// tensor cores.  Included by surrogate_gemm.cu (cim_gemm_fused and its
+// epilogue-off partial cim_gemm_partial).
 //
 // Replaces the TPU kernel src/repro/kernels/cim_gemm.py:141
 // cim_gemm_fused -> pallas_call :173 -> _fused_kernel :111.
@@ -16,7 +17,12 @@
 //   s = sx * sw,  var = f32(c0 * K) * s^2 [ + (c1 * SQ) * s^2 ].
 // Three variants, each its own instantiation: served (no eps: nothing of
 // the noise term is read or summed), noise with c1 == 0 (eps read, no
-// SQ) and noise with SQ.
+// SQ) and noise with SQ.  The mesh path's row-parallel layers run the
+// same body with its flush off, `surrogate_partial_kernel` (with or
+// without SQ's four sums of squared halves): the exact int32 sums out, so
+// that a rank's sums add up over the weight's K shards to one device's
+// and the flush runs once after (ref.sq_from_halves, then
+// ref.surrogate_epilogue).
 //
 // What bounds it on an H100: at a decode round (M = 4) the weight's bytes
 // (read once at 3.35 TB/s) and its quantization (an IEEE division an
@@ -187,12 +193,18 @@ __device__ __forceinline__ void sg_put(unsigned char* dst, int plane,
   }
 }
 
-// grid (m tiles x n tiles, 1, K slices), clusters of (1, 1, gridDim.z):
-// the K slices of one tile are one cluster
-template <int RB, int BK, bool NEED_SQ, bool STOCH>
-__global__ void __launch_bounds__(SG_THREADS, (sg_min_blocks(RB, NEED_SQ)))
-surrogate_cluster_kernel(const SgArgs s) {
-  static_assert(STOCH || !NEED_SQ, "SQ feeds only the noise term");
+// The body of both kernels below, on a grid (m tiles x n tiles, 1, K
+// slices) in clusters of (1, 1, gridDim.z): the K slices of one tile are
+// one cluster.  RAW turns the flush off: the cluster's exact int32 sums
+// (D, and with NEED_SQ the four sums of squared halves HH, HL, LH, LL)
+// are written as they stand, plane p of an int32 (NS, M, N) output, for
+// the mesh path's row-parallel layers (kernels/cim_gemm.py
+// cim_gemm_partial), whose ranks add them over the weight's K shards
+// before the one flush.
+template <int RB, int BK, bool NEED_SQ, bool STOCH, bool RAW>
+__device__ __forceinline__ void sg_body(const SgArgs& s) {
+  static_assert(STOCH || !NEED_SQ || RAW, "SQ feeds only the noise term");
+  static_assert(!(RAW && STOCH), "a partial reads no eps");
   static_assert(RB % 16 == 0 && BK % 32 == 0, "m16 row groups, k32 steps");
   constexpr int NP = NEED_SQ ? 3 : 1;        // int8 planes: q (h, l)
   constexpr int NS = NEED_SQ ? 5 : 1;        // int32 sums: D (HH HL LH LL)
@@ -367,19 +379,42 @@ surrogate_cluster_kernel(const SgArgs s) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if (n0 + c4 + c >= a.N) continue;
-      float sq = 0.f;
-      if constexpr (NEED_SQ) {
-        // exact in 64 bits (each sum below 2^31), rounded once
-        const long long v = (static_cast<long long>(sum[1][c]) << 14) +
-                            ((static_cast<long long>(sum[2][c]) +
-                              static_cast<long long>(sum[3][c])) << 7) +
-                            static_cast<long long>(sum[4][c]);
-        sq = __ll2float_rn(v);
+      if constexpr (RAW) {
+        int* raw = static_cast<int*>(a.out);
+        const size_t plane = static_cast<size_t>(a.M) * a.N;
+#pragma unroll
+        for (int p = 0; p < NS; ++p)
+          raw[p * plane + o + c] = static_cast<int>(sum[p][c]);
+      } else {
+        float sq = 0.f;
+        if constexpr (NEED_SQ) {
+          // exact in 64 bits (each sum below 2^31), rounded once
+          const long long v = (static_cast<long long>(sum[1][c]) << 14) +
+                              ((static_cast<long long>(sum[2][c]) +
+                                static_cast<long long>(sum[3][c])) << 7) +
+                              static_cast<long long>(sum[4][c]);
+          sq = __ll2float_rn(v);
+        }
+        sg_flush<NEED_SQ, STOCH>(s, o + c, n0 + c4 + c, sum[0][c], sq, sx);
       }
-      sg_flush<NEED_SQ, STOCH>(s, o + c, n0 + c4 + c, sum[0][c], sq, sx);
     }
   }
   cluster.sync();  // no block leaves while a peer reads its partials
+}
+
+// the fused surrogate GEMM (cim_gemm_fused): quantize, sum, flush
+template <int RB, int BK, bool NEED_SQ, bool STOCH>
+__global__ void __launch_bounds__(SG_THREADS, (sg_min_blocks(RB, NEED_SQ)))
+surrogate_cluster_kernel(const SgArgs s) {
+  sg_body<RB, BK, NEED_SQ, STOCH, false>(s);
+}
+
+// its epilogue-off partial (cim_gemm_partial): quantize against the
+// caller's global scales, sum, write the int32 sums
+template <int RB, int BK, bool NEED_SQ>
+__global__ void __launch_bounds__(SG_THREADS, (sg_min_blocks(RB, NEED_SQ)))
+surrogate_partial_kernel(const SgArgs s) {
+  sg_body<RB, BK, NEED_SQ, false, true>(s);
 }
 
 using SgKernel = void (*)(SgArgs);
@@ -394,11 +429,31 @@ inline SgKernel sg_kernel(int rb, int bk) {
                   : surrogate_cluster_kernel<64, 32, NEED_SQ, STOCH>;
 }
 
+// the partial's instantiation for `rb` rows, stages of `bk` k, with or
+// without the four sums of squared halves
+template <bool NEED_SQ>
+inline SgKernel sg_partial_kernel(int rb, int bk) {
+  if (rb == 16)
+    return bk == 64 ? surrogate_partial_kernel<16, 64, NEED_SQ>
+                    : surrogate_partial_kernel<16, 32, NEED_SQ>;
+  return bk == 64 ? surrogate_partial_kernel<64, 64, NEED_SQ>
+                  : surrogate_partial_kernel<64, 32, NEED_SQ>;
+}
+
 template <bool NEED_SQ, bool STOCH>
 inline int sg_launch(const SgArgs& s, int rb, int tiles, int splits,
                      cudaStream_t stream) {
   const int xb = s.c.x_bytes, wb = s.c.w_bytes;
   return cl_launch_ex(sg_kernel<NEED_SQ, STOCH>(rb, cl_bk(xb, wb)), s,
+                      sg_smem_bytes(rb, NEED_SQ, xb, wb), SG_THREADS, tiles,
+                      splits, stream);
+}
+
+template <bool NEED_SQ>
+inline int sg_partial_launch(const SgArgs& s, int rb, int tiles, int splits,
+                             cudaStream_t stream) {
+  const int xb = s.c.x_bytes, wb = s.c.w_bytes;
+  return cl_launch_ex(sg_partial_kernel<NEED_SQ>(rb, cl_bk(xb, wb)), s,
                       sg_smem_bytes(rb, NEED_SQ, xb, wb), SG_THREADS, tiles,
                       splits, stream);
 }
@@ -462,6 +517,50 @@ inline int surrogate_cluster(const void* x, int x_bf16, const void* w,
   if (variant == SG_NOISE)
     return sg_launch<false, true>(s, rb, tiles, splits, st);
   return sg_launch<true, true>(s, rb, tiles, splits, st);
+}
+
+// The clusters of `splits` blocks of the partial's instantiation for `rb`
+// rows, with or without SQ's sums, and these operand types that the
+// current device holds at once, into *out
+inline int sg_partial_capacity(int rb, int need_sq, int x_bf16, int w_bf16,
+                               int splits, int* out) {
+  if ((rb != 16 && rb != 64) || splits < 1 || splits > CL_MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int xb = x_bf16 ? 2 : 4, wb = w_bf16 ? 2 : 4;
+  const int bk = cl_bk(xb, wb);
+  const SgKernel kern = need_sq ? sg_partial_kernel<true>(rb, bk)
+                                : sg_partial_kernel<false>(rb, bk);
+  return cl_capacity_ex(reinterpret_cast<const void*>(kern),
+                        sg_smem_bytes(rb, need_sq != 0, xb, wb), SG_THREADS,
+                        splits, out);
+}
+
+// f32 or bf16 x (M,K), w (K,N) quantized against the caller's global sx
+// (one f32) and sw (N f32) -> int32 (1, M, N) D, or with `need_sq` (5, M,
+// N): D, then the sums of SQ's squared halves HH, HL, LH and LL, each
+// exact (K < SG_SQ_MAX_K); the plan as surrogate_cluster's.  Returns the
+// CUDA error code; a plan the kernel does not take, and SQ at K >=
+// SG_SQ_MAX_K, are refused (cudaErrorInvalidValue).
+inline int surrogate_partial(const void* x, int x_bf16, const void* w,
+                             int w_bf16, const void* sx, const void* sw,
+                             void* out, int M, int K, int N, int bits,
+                             int need_sq, int rb, int splits, int k_split,
+                             void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 0 || K < 0 || N < 0 || bits < 2 || bits > CL_MAX_BITS) return bad;
+  if ((rb != 16 && rb != 64) || !cl_split_ok(K, splits, k_split)) return bad;
+  if (need_sq && K >= SG_SQ_MAX_K) return bad;
+  if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  SgArgs s;
+  int tiles = 0;
+  if (!cl_make_args(s.c, x, x_bf16 ? 2 : 4, w, w_bf16 ? 2 : 4, nullptr, sx,
+                    sw, out, M, K, N, bits, rb, k_split, &tiles))
+    return bad;
+  s.eps = nullptr;
+  s.one_mu = s.c0k = s.c1 = 0.f;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return need_sq ? sg_partial_launch<true>(s, rb, tiles, splits, st)
+                 : sg_partial_launch<false>(s, rb, tiles, splits, st);
 }
 
 }  // namespace cim

@@ -9,7 +9,11 @@
 //     quantization on load and the whole surrogate epilogue in the kernel:
 //       out = (1+mu) D s + sqrt(max(c0 K s^2 + c1 SQ s^2, 0)) eps,
 //       s = sx * sw (surrogate_cluster.cuh spells out the order of the
-//       roundings).
+//       roundings);
+//   and, for the mesh path's row-parallel layers, cim_gemm_partial: the
+//     fused kernel with its flush off, the exact int32 sums out (D and,
+//     with SQ, its four sums of squared halves) for the ranks to add over
+//     the weight's K shards before the one flush.
 //
 // What bounds it on an H100: D is an int8 dot, 2 M K N operations the
 // tensor cores do at 1,979 TOP/s (SQ, on the fused path, four times that
@@ -78,6 +82,26 @@ int cim_gemm_fused(const void* x, int x_bf16, const void* w, int w_bf16,
 int cim_gemm_fused_capacity(int rb, int variant, int x_bf16, int w_bf16,
                             int splits, int* out) {
   return cim::sg_capacity(rb, variant, x_bf16, w_bf16, splits, out);
+}
+
+// the mesh path's row-parallel partial of cim_gemm_fused: the same kernel
+// with its flush off.  f32 or bf16 (M,K) x (K,N) quantized against the
+// caller's global sx (one f32) and sw (N f32) -> int32 (1, M, N) D, or
+// with need_sq (5, M, N): D, HH, HL, LH, LL (SQ = 2^14 HH + 2^7 (HL + LH)
+// + LL once summed over the shards); rb, splits, k_split: the launch plan
+int cim_gemm_partial(const void* x, int x_bf16, const void* w, int w_bf16,
+                     const void* sx, const void* sw, void* out, int M, int K,
+                     int N, int bits, int need_sq, int rb, int splits,
+                     int k_split, void* stream) {
+  return cim::surrogate_partial(x, x_bf16, w, w_bf16, sx, sw, out, M, K, N,
+                                bits, need_sq, rb, splits, k_split, stream);
+}
+
+// the clusters of `splits` blocks of cim_gemm_partial's kernel for `rb`
+// rows, with or without SQ's sums, that the device holds at once
+int cim_gemm_partial_capacity(int rb, int need_sq, int x_bf16, int w_bf16,
+                              int splits, int* out) {
+  return cim::sg_partial_capacity(rb, need_sq, x_bf16, w_bf16, splits, out);
 }
 
 }  // extern "C"

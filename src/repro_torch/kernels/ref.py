@@ -9,8 +9,10 @@ arithmetic (`_quantize_tile`, `_gather_full`, `_gather_nibble`,
 Integer sums wrap at 32 bits, like the reference's int32 sums.
 
 The surrogate GEMM's pieces: `int_dot` (D, the exact integer dot),
-`square_dot` (SQ = A^2 @ B^2, computed exactly and rounded once to f32)
-and `surrogate_epilogue` (the fused kernel's flush, op for op);
+`square_dot` (SQ = A^2 @ B^2, computed exactly and rounded once to f32),
+`sq_halves` / `sq_from_halves` (the kernels' split of each square into
+two s8 halves, and SQ from the four sums over them) and
+`surrogate_epilogue` (the fused kernel's flush, op for op);
 `cim_gemm_ref` is the reference's f32 oracle of the whole.
 
 The sLSTM recurrence: `slstm_gates` is one step's stabilized
@@ -217,6 +219,22 @@ def square_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     af = a.to(torch.float64)
     bf = b.to(torch.float64)
     return ((af * af) @ (bf * bf)).to(torch.float32)
+
+
+def sq_halves(q: torch.Tensor):
+    """The two non-negative halves of each square, q^2 = 128 h + l with
+    h = q^2 >> 7 and l = q^2 & 127 (|q| <= 127: each at most 126 or 127,
+    a valid s8), int32: the operands of the kernels' exact SQ."""
+    sq = q.to(torch.int32) * q.to(torch.int32)
+    return sq >> 7, sq & 127
+
+
+def sq_from_halves(halves: torch.Tensor) -> torch.Tensor:
+    """SQ from its four int32 sums of squared halves (HH, HL, LH, LL on
+    the first dim): 2^14 HH + 2^7 (HL + LH) + LL in 64 bits, exact, then
+    rounded once to f32, the value `square_dot` gives."""
+    hh, hl, lh, ll = (h.to(torch.int64) for h in halves)
+    return ((hh << 14) + ((hl + lh) << 7) + ll).to(torch.float32)
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:

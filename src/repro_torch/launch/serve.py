@@ -19,17 +19,23 @@ over its world, else over `--ranks N` processes it starts itself, every
 rank on ``cuda:{rank % device_count}`` (or the CPU), for example
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh 2 --ranks 4 \\
-        --device cpu --mode hardware --n-requests 6 --max-new 2 6
+        --device cpu --mode surrogate --n-requests 6 --max-new 2 6 \\
+        --metrics -
 
-The mesh path runs the integer modes (hardware, bit_exact) on shards;
-the surrogate modes do not compose with it and are refused.  Rank 0
-prints the report.
+Every `--mode` runs on shards: the integer modes (hardware, bit_exact)
+and surrogate on the shard kernels (the approximate lanes' logits equal
+one device's bit for bit), the float forms (the exact lane,
+surrogate_fast) by tensor-parallel float products (allclose).  Every
+rank records the telemetry; rank 0 prints the report and writes
+`--metrics` and `--trace-out`, whose MACs are the global products'.
 
 `--spec-decode K` makes the exact lane speculative (serving/spec.py): K
 tokens a round drafted on the cheapest approximate tier (or
 `--spec-drafter`), all verified in one pass of the exact rung with
 per-token scales, `--spec-rounds` rounds a call; the tokens are the
-per-token exact lane's.  It does not compose with `--mesh`.
+per-token exact lane's.  It does not compose with `--mesh` here, as in
+the JAX package's launcher (the engine, `build_engine(spec_decode=k,
+mesh=...)`, serves it).
 
 `--fault-rate P` serves an as-fabricated ladder: stuck-at faults at P a
 bit cell (half stuck at 0, half at 1; `--fault-seed` picks the defect
@@ -42,8 +48,10 @@ probe), for example
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode hardware --fault-rate 0.02 --sentinel
 
-Neither composes with `--mesh`.  `--max-queued Q` bounds the admission
-queues (backpressure).
+`--sentinel` composes with `--mesh` (each rank shadow-scores its own
+slots; the samples are summed over the data axes before any threshold);
+`--fault-rate` does not (the shard kernels quantize their words on
+load).  `--max-queued Q` bounds the admission queues (backpressure).
 
 Telemetry (obs/) is on by default: the closing per-tier table carries
 each lane's estimated energy per token (the FreePDK45 per-MAC model, not
@@ -266,11 +274,6 @@ def main():
     args = ap.parse_args()
     if args.no_telemetry and (args.metrics or args.trace_out):
         ap.error("--no-telemetry contradicts --metrics/--trace-out")
-    if args.mesh and args.mode not in ("hardware", "bit_exact"):
-        ap.error(f"--mode {args.mode} does not compose with --mesh: the "
-                 "mesh path runs the integer modes (hardware, bit_exact); "
-                 "the surrogate modes' noise and float sums are not "
-                 "ported to shards")
     if args.ranks and not args.mesh:
         ap.error("--ranks needs --mesh")
     if args.fault_rate < 0 or args.fault_rate > 1:
@@ -281,15 +284,16 @@ def main():
                  "words or tables to fault")
     if args.sentinel_period < 1:
         ap.error("--sentinel-period must be >= 1")
-    if (args.fault_rate > 0 or args.sentinel) and args.mesh:
-        ap.error("--fault-rate and --sentinel do not compose with --mesh: "
-                 "the shard kernels quantize their words on load, and the "
-                 "sentinel scores the whole pool")
+    if args.fault_rate > 0 and args.mesh:
+        ap.error("--fault-rate does not compose with --mesh: the shard "
+                 "kernels quantize their words on load and cannot see the "
+                 "defect map")
     if args.spec_decode and args.mesh:
-        ap.error("--spec-decode does not compose with --mesh: the "
-                 "verifier's per-token activation scales are row-local, "
-                 "and the mesh path takes global per-tensor scales "
-                 "(ROADMAP queue A 5)")
+        ap.error("--spec-decode does not compose with --mesh in this "
+                 "launcher, as in the JAX package's, whose reason is that "
+                 "the verifier's per-token activation scales are "
+                 "row-local, which its shard_map global-scale path cannot "
+                 "express; build_engine(spec_decode=k, mesh=...) serves it")
     if not args.mesh:
         ok = serve(args)
     elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:

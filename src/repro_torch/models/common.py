@@ -10,9 +10,15 @@ Under an ambient mesh (launch.mesh: ``with mesh:``) every rank holds its
 shards of the weights and of the activation rows, and `cim_linear` runs
 each matmul tensor-parallel: the integer modes through the dispatch
 engine's mesh path (one shard-local kernel, global scales, an exact
-int32 sum for a contraction-sharded weight), the float modes by hand
-(global fake-quant scales, a local float product, an f32 sum for a
-contraction-sharded weight: allclose to one device, not bitwise).
+int32 sum for a contraction-sharded weight), `surrogate` through
+`approx_gemm.surrogate_shard_matmul` (the fused surrogate kernel on a
+shard that holds the whole contraction, its epilogue-off partial, an
+exact int32 sum and one flush on a contraction-sharded one: one device's
+result bit for bit, noise included), and the float modes by hand
+(`_float_tp`: global fake-quant scales, per row with per-token scales,
+a local float product, an f32 sum for a contraction-sharded weight:
+allclose to one device, not bitwise; `surrogate_fast` is that product
+times its mean shift, plus its rank-1 noise).
 """
 
 from __future__ import annotations
@@ -23,8 +29,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.approx_gemm import (MESH_MODES, GemmParams, NoiseKey,
-                                          model_matmul)
+from repro_torch.core.approx_gemm import (MESH_MODES, GemmParams,
+                                          NoiseKey, _draws_noise, mean_shift,
+                                          mesh_float_plan, model_matmul,
+                                          row_block_mm, shard_noise,
+                                          surrogate_shard_matmul,
+                                          surrogate_variance)
 from repro_torch.core.compiler import CiMConfig, compile_macro
 from repro_torch.core.error_model import SurrogateModel
 from repro_torch.core.faults import FaultConfig
@@ -297,40 +307,91 @@ def _fake_quant_at(x: torch.Tensor, m: torch.Tensor, bits: int):
                        qmax(bits)) * scale
 
 
-def _float_tp(x, w, quantized: bool, bits: int, mesh, x_spec, w_spec):
-    """A float-mode matmul on shards (the fake-quant QAT form of mode
-    "exact", or the plain product of mode "off"): the global scales as
-    max-reductions over the shards and the local product; for a
-    contraction-sharded weight the partial products are taken in f32,
-    summed in f32 over the weight's K axes and rounded to the activation
-    dtype once, as one device's dot rounds once.  The sum reassociates
-    the dot, so this is allclose to one device, not bitwise."""
+def _float_tp(x, w, gp: Optional[GemmParams], mesh, x_spec, w_spec,
+              fast: bool = False, key: Optional[NoiseKey] = None):
+    """A float-mode matmul on shards: the plain product of mode "off"
+    (`gp` None), or the fake-quant QAT form of mode "exact", of the exact
+    macro an unselected module runs and of `surrogate_fast` (`gp` its
+    GemmParams): the global scales as max-reductions over the shards
+    (per tensor; with `gp.per_token` each row's over x's K shards only,
+    the rows' products in `approx_gemm.ROW_BLOCK`-row blocks, so that a
+    row is computed as it is alone, as on one device), and the local
+    product; for a contraction-sharded weight the partial products are
+    taken in f32, summed in f32 over the weight's K axes and rounded to
+    the activation dtype once, as one device's dot rounds once.  The sum
+    reassociates the dot, so this is allclose to one device, not bitwise.
+    `fast` (an applied `surrogate_fast` GEMM) multiplies that product by
+    its mean shift and, with `key`, adds one device's rank-1 noise: the
+    row and column sums of squares summed over the K shards in f32, the
+    global output's noise cut to this rank's block.  A quantized call is
+    announced with its global MACs (`approx_gemm.mesh_float_plan`)."""
     wk = axes_of(w_spec[0])
-    if quantized:
-        x_axes = axes_of(x_spec[0]) + axes_of(x_spec[1])
-        x = _fake_quant_at(x, _mesh_max(x.abs().amax(), mesh, x_axes),
-                           bits)
-        cm = _mesh_max(w.abs().amax(dim=0, keepdim=True), mesh, wk)
-        w = _fake_quant_at(w, cm, bits).to(x.dtype)
+    if gp is None:
+        return _tp_product(x, w, torch.matmul, mesh, wk)
+    noisy = fast and _draws_noise(gp, key)
+    (dp, _, wn), (m, k, n) = mesh_float_plan(gp, x, w, mesh, x_spec, w_spec,
+                                             noisy=noisy)
+    if gp.per_token:
+        xm = _mesh_max(x.abs().amax(dim=-1, keepdim=True), mesh,
+                       axes_of(x_spec[1]))
+    else:
+        xm = _mesh_max(x.abs().amax(), mesh,
+                       axes_of(x_spec[0]) + axes_of(x_spec[1]))
+    cm = _mesh_max(w.abs().amax(dim=0, keepdim=True), mesh, wk)
+    xq = _fake_quant_at(x, xm, gp.bits)
+    wq = _fake_quant_at(w, cm, gp.bits).to(x.dtype)
+    d = _tp_product(xq, wq, row_block_mm if gp.per_token else torch.matmul,
+                    mesh, wk)
+    if not fast:
+        return d
+    out = mean_shift(d, gp.mu)
+    if not noisy:
+        return out
+    s = (scale_from_max(xm, gp.bits) * scale_from_max(cm, gp.bits)).to(
+        torch.float32)
+    xf = wf = None
+    if gp.c1 > 0.0:
+        xf, wf = xq.to(torch.float32), wq.to(torch.float32)
+    var = surrogate_variance(gp, s * s, k, xf, wf, fast=True,
+                             reduce=lambda t: mesh.all_reduce(t, "sum", wk))
+    eps = shard_noise(key, m, n, x.device, mesh, dp, wn)
+    noise = (torch.sqrt(torch.clamp_min(var, 0.0)).to(d.dtype)
+             * eps.reshape(d.shape).to(d.dtype))
+    return out + noise
+
+
+def _tp_product(x, w, mm, mesh, wk):
+    """x @ w on shards: local for a whole contraction, else f32 partial
+    products summed over the K axes `wk` and rounded once."""
     if not wk:
-        return x @ w
-    d = x.to(torch.float32) @ w.to(torch.float32)
+        return mm(x, w)
+    d = mm(x.to(torch.float32), w.to(torch.float32))
     return mesh.all_reduce(d, "sum", wk).to(x.dtype)
 
 
 def _mesh_linear(x, w, ctx: CiMContext, name: str, mesh, x_spec, w_spec):
     p = ctx.p
     if p.mode == "off":
-        return _float_tp(x, w, False, p.bits, mesh, x_spec, w_spec)
+        return _float_tp(x, w, None, mesh, x_spec, w_spec)
     gp, apply = p.routing(name)
-    if apply and p.mode in MESH_MODES:
+    if apply and gp.per_token and gp.mode != "exact":
+        # the shard kernels and the surrogate route quantize x per
+        # tensor; the reference's GSPMD sees whole rows.  No lane reaches
+        # this on a mesh: the spec drafter is per tensor, the verifier
+        # and the sentinel's reference are the exact rung
+        raise NotImplementedError(
+            f"per-token activation scales in mode {gp.mode!r} on shards are "
+            "not ported (ROADMAP queue A 5): only the exact rung takes "
+            "per-token scales under a mesh")
+    if apply and gp.mode in MESH_MODES:
         return model_matmul(x, w, gp, apply=True, mesh=mesh, x_spec=x_spec,
                             w_spec=w_spec, local=True)
-    if apply and p.mode != "exact":
-        raise NotImplementedError(
-            f"mode {p.mode!r} under a mesh is not ported: the integer modes "
-            f"{MESH_MODES} and the float modes exact and off run on shards")
-    return _float_tp(x, w, True, p.bits, mesh, x_spec, w_spec)
+    key = ctx.child(name).key if name else ctx.key
+    if apply and gp.mode == "surrogate":
+        return surrogate_shard_matmul(x, w, gp, key, mesh=mesh,
+                                      x_spec=x_spec, w_spec=w_spec)
+    return _float_tp(x, w, gp, mesh, x_spec, w_spec,
+                     fast=apply and gp.mode == "surrogate_fast", key=key)
 
 
 def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
@@ -342,8 +403,13 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
     dispatch engine's choice (core/approx_gemm.model_matmul); a context
     key draws this matmul's surrogate noise from its own child key.
     Under an ambient mesh x and w are this rank's shards and so is the
-    result (see the module docstring); per-token scales and faults raise
-    there.  An installed `set_linear_override` hook sees the call first."""
+    result (see the module docstring).  There per-token scales run on the
+    exact rung only (the spec verifier and the sentinel's reference): an
+    applied approximate per-token GEMM on shards raises, and so does any
+    fault (the shard kernels quantize their words on load and the float
+    route fake-quantizes, neither sees a defect map; the reference
+    refuses it too).  An installed `set_linear_override` hook sees the
+    call first."""
     assert w.dim() == 2, "cim_linear expects 2-D weights (flatten heads)"
     if _LINEAR_OVERRIDE[0] is not None:
         out = _LINEAR_OVERRIDE[0](x, w, ctx, name)
@@ -352,14 +418,6 @@ def cim_linear(x, w: torch.Tensor, ctx: CiMContext, name: str = "",
                 out = out + bias
             return out
     p = ctx.p
-    if p.per_token and p.mode != "off" and ambient_mesh() is not None:
-        # the reference leaves the shard path for GSPMD, which sees whole
-        # rows; every route here under a mesh takes global per-tensor
-        # scales (`_float_tp` too): a silently different result
-        raise NotImplementedError(
-            "per-token activation scales under a mesh are not ported: the "
-            "shard paths take global per-tensor scales (ROADMAP queue "
-            "A 5); drop the mesh or per_token")
     if p.fault is not None and p.mode != "off" and ambient_mesh() is not None:
         # the shard kernels quantize on load and `_float_tp` fake-quants:
         # neither sees the defect map (the reference refuses it too)

@@ -26,7 +26,8 @@ slice of attention and of the KV caches, and every matmul runs through
 every rank (the reference shards them on the vocabulary; whole, they
 change no number, only memory).  `decode_step(data_parallel=True)` runs
 this rank's rows of a pool split over the data axes and returns the
-logits of the whole pool.  Recurrent stacks run on one device only (the
+logits of the whole pool; `decode_multi(data_parallel=True)` returns
+this rank's rows' logits.  Recurrent stacks run on one device only (the
 reference's recurrent cache specs are a later slice).
 """
 
@@ -333,7 +334,8 @@ class LM:
                                     data_parallel=data_parallel)
         return self._logits(params, x, data_parallel), caches
 
-    def decode_multi(self, params, caches, tokens, pos):
+    def decode_multi(self, params, caches, tokens, pos,
+                     data_parallel: bool = False):
         """Score K continuation tokens a sequence in one pass (the
         speculative-decoding verifier).
 
@@ -343,14 +345,21 @@ class LM:
         distribution after tokens[:, :i+1], what K sequential
         `decode_step` calls give; with per-token activation scales
         (``CiMConfig.per_token``) every GEMM row is computed as it would
-        be alone."""
+        be alone.
+
+        `data_parallel` (a mesh LM): the B rows are this rank's block of
+        a pool split over the data axes, and so are the logits returned
+        (a spec verify and a sentinel's shadow use their own slots')."""
+        if data_parallel and self.mesh is None:
+            raise ValueError("data_parallel decoding needs a mesh LM")
         b, kk = tokens.shape
         pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         off = torch.arange(kk, dtype=torch.int32, device=tokens.device)
         positions = (pos[:, None] + off[None, :] if pos.dim()
                      else (pos + off).expand(b, kk))
         x, caches = self._run_stack(params, self._embed(params, tokens),
-                                    positions, caches, append=True)
+                                    positions, caches,
+                                    data_parallel=data_parallel, append=True)
         return self._logits(params, x), caches
 
 

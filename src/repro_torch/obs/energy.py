@@ -19,6 +19,10 @@ them with each backend's ``reset()`` after profiling, before it arms its
 plan-miss probe.  The reference scales MACs captured in a ``lax.scan``
 body by the stack depth (``obs_mac_scale``); the port runs its layers in
 a Python loop, so every layer's call is announced and nothing is scaled.
+On a mesh every rank profiles its own slots' calls, and every frontend
+of the shard paths announces the global product's MACs (m over the data
+axes, k and n over the model axis), so each rank's meters count the
+global MACs, as the unsharded engine's do.
 
 Energy = sum over captured (family, bits) of macs *
 `energy_model.energy_per_mac_j`: the paper's FreePDK45 anchors (a model
@@ -162,10 +166,11 @@ class LaneEnergyMeter:
             # one spec sub-round = k drafter steps + one (k+1)-wide
             # verify (runtime counting is per executed sub-round)
             d = profile_macs(backend.drafter_lm.decode_step, params, caches,
-                             tok, pos)
+                             tok, pos, data_parallel=mesh)
             v = profile_macs(lm.decode_multi, params, caches,
                              torch.zeros((b, k + 1), dtype=torch.int64,
-                                         device=dev), pos)
+                                         device=dev), pos,
+                             data_parallel=mesh)
             self._spec[k] = (
                 k * d.total + v.total,
                 k * macs_to_energy_j(d.by_family, self.fallback_j_per_mac)

@@ -30,8 +30,13 @@ their caches), prefill groups run replicated on every data rank (each
 inserts only the rows of the slots it owns), and a decode round runs the
 local slots and hands every rank the whole pool's logits, so the
 replicated scheduler makes the same decisions everywhere.  With an
-integer-mode ladder the pool's logits equal the unsharded engine's bit
-for bit.
+integer-mode or `surrogate` ladder the approximate lanes' logits equal
+the unsharded engine's bit for bit (the float lanes' are allclose).  A
+spec lane and the sentinels run on the mesh too (serving/spec.py,
+serving/sentinel.py): each rank drafts, verifies and shadow-scores its
+own slots, and what steers the scheduler (the spec call's counts, a
+sentinel sample) is exchanged over the data axes first.  Faults do not
+compose with a mesh.
 
 `build_engine(spec_decode=k)` makes the exact lane speculative
 (serving/spec.py): a cheaper tier drafts k tokens a round and the exact
@@ -967,7 +972,6 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     exact rung; `spec_ks` are more draft depths warmup runs, so that
     `set_draft_k` builds no plan, and `spec_rounds` the rounds of one
     call.  The verify logits go to the host only with `record_logits`.
-    It does not compose with a mesh.
 
     `fault` (a `core.faults.FaultConfig`) puts as-fabricated stuck-at
     defects into every approximate tier's stored tables and weight words
@@ -976,7 +980,8 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     `SentinelConfig` as `sentinel_cfg`) arms a sentinel on each
     approximate lane, which needs an `exact` tier (its per-token rung is
     the shadow reference); `retry_budget` and `retry_backoff_s` bound the
-    restarts (see `ServingEngine`).  Neither composes with a mesh.
+    restarts (see `ServingEngine`).  Sentinels run on a mesh, faults do
+    not (the shard kernels quantize their words on load).
     `telemetry` (an `obs.EngineTelemetry`) records the serving telemetry
     (see the module docstring)."""
     from repro_torch.device import resolve_device
@@ -986,22 +991,12 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
     from .tiers import TierRouter, build_tiers, spec_pair
 
     check_engine_arch(cfg)
-    if spec_decode is not None and mesh is not None:
-        raise ValueError(
-            "speculative decoding does not compose with a mesh: the "
-            "verifier's per-token scales are row-local and the mesh path "
-            "takes global per-tensor scales (ROADMAP queue A 5)")
     if fault is not None and mesh is not None:
         raise ValueError(
             "fault injection does not compose with a mesh: the shard "
             "kernels quantize their words on load and cannot see the "
             "defect map; drop the mesh or the fault config")
     armed = sentinel or sentinel_cfg is not None
-    if armed and mesh is not None:
-        raise ValueError(
-            "sentinels do not compose with a mesh: they score through "
-            "LM.decode_multi on the whole pool, which the mesh lanes do "
-            "not hold")
     dev = resolve_device(device)
     if tiers is None:
         tiers = build_tiers()
@@ -1026,11 +1021,13 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
             from .spec import SpecDecodeBackend
 
             lanes[tier.name] = SpecDecodeBackend(
-                lm, LM(dataclasses.replace(cfg, cim=d_tier.cim), dev),
+                lm, LM(dataclasses.replace(cfg, cim=d_tier.cim), dev,
+                       mesh=mesh),
                 params, draft_k=spec_decode, draft_ks=spec_ks,
                 rounds_per_call=spec_rounds, keep_logits=record_logits,
                 n_slots=slots_per_tier, max_len=max_len,
-                prompt_buckets=prompt_buckets, group_buckets=group_buckets)
+                prompt_buckets=prompt_buckets, group_buckets=group_buckets,
+                mesh=mesh)
             continue
         lanes[tier.name] = LMLaneBackend(
             lm, params, n_slots=slots_per_tier, max_len=max_len,
@@ -1045,7 +1042,7 @@ def build_engine(cfg, params=None, *, tiers=None, slots_per_tier: int = 4,
             raise ValueError("sentinels need an 'exact' tier as the "
                              "shadow-scoring reference and demotion "
                              f"target; configured: {sorted(by_name)}")
-        ref_lm = reference_lm(cfg, by_name["exact"].cim, dev)
+        ref_lm = reference_lm(cfg, by_name["exact"].cim, dev, mesh=mesh)
         sentinels = {t.name: LaneSentinel(ref_lm, params, t.nmed,
                                           sentinel_cfg)
                      for t in tiers

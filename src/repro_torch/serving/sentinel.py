@@ -30,6 +30,14 @@ read-only): the shadow scores a copy of the lane's K/V, and the lane's
 caches stay bitwise as they were.  Everything else here is host-side
 numpy.  `LaneSentinel.warmup` runs the scorer once before the engine
 arms its plan-miss probe, so trip, probe and recovery build no plan.
+
+On a mesh (a data-parallel pool, serving/engine.py) the reference LM is
+built on the lane's mesh: each rank shadow-scores its own slots on a copy
+of its own K/V, and a sample's agreement count, NMED sum and slot count
+are summed over the data axes before any threshold is applied, so every
+rank takes the same trip, probe and recovery on the same round (its
+scheduler replicated, a decision of one rank alone would leave the
+others waiting in a collective).
 """
 
 from __future__ import annotations
@@ -120,6 +128,14 @@ class RollingStats:
         return float(np.mean(self._nmed)) if self._nmed else 0.0
 
 
+def _row_drift(a: np.ndarray, e: np.ndarray):
+    """Per row: argmax agreement (0/1) and the NMED of lane row `a`
+    against reference row `e` (float64)."""
+    agree = a.argmax(axis=-1) == e.argmax(axis=-1)
+    denom = np.abs(e).mean(axis=-1) + 1e-12
+    return agree, np.abs(a - e).mean(axis=-1) / denom
+
+
 def logit_drift(lane_logits: np.ndarray, ref_logits: np.ndarray,
                 slots) -> Tuple[float, float]:
     """(argmax agreement, normalized mean logit error) over the live
@@ -127,12 +143,26 @@ def logit_drift(lane_logits: np.ndarray, ref_logits: np.ndarray,
     so the statistic is scale-free like the multiplier-level NMED it is
     compared against."""
     idx = np.asarray(list(slots), np.int64)
-    a = np.asarray(lane_logits, np.float64)[idx]
-    e = np.asarray(ref_logits, np.float64)[idx]
-    agree = float((a.argmax(axis=-1) == e.argmax(axis=-1)).mean())
-    denom = np.abs(e).mean(axis=-1) + 1e-12
-    nmed = float((np.abs(a - e).mean(axis=-1) / denom).mean())
-    return agree, nmed
+    agree, nmed = _row_drift(np.asarray(lane_logits, np.float64)[idx],
+                             np.asarray(ref_logits, np.float64)[idx])
+    return float(agree.mean()), float(nmed.mean())
+
+
+def mesh_logit_drift(lane_logits: np.ndarray, ref_rows: np.ndarray,
+                     slots, slot0: int, mesh, axes) -> Tuple[float, float]:
+    """`logit_drift` on a data-parallel pool: `lane_logits` the whole
+    pool's (every rank holds them), `ref_rows` the reference rows of this
+    rank's slots ``[slot0, slot0 + len(ref_rows))``.  Each rank sums the
+    agreements and NMEDs of the live slots it owns; the sums and the
+    count are added over `axes`, so every rank returns the same pair."""
+    n = len(ref_rows)
+    own = np.asarray([s for s in slots if slot0 <= s < slot0 + n], np.int64)
+    agree, nmed = _row_drift(np.asarray(lane_logits, np.float64)[own],
+                             np.asarray(ref_rows, np.float64)[own - slot0])
+    t = torch.tensor([float(agree.sum()), float(nmed.sum()), float(len(own))],
+                     dtype=torch.float64)
+    a_sum, n_sum, count = mesh.all_reduce(t, "sum", axes).tolist()
+    return a_sum / count, n_sum / count
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +227,8 @@ class LaneSentinel:
 
     `lm` is the exact reference model (the spec-decode verifier's config:
     exact family, ``per_token=True``, so the width-1 scoring is the
-    sequential exact decode's) over the lane's weights `params`;
+    sequential exact decode's) over the lane's weights `params` (on a
+    mesh: built on the lane's mesh, over the rank's shards);
     `envelope` is the lane tier's characterized NMED.
 
     Engine protocol, per decode round on a live lane:
@@ -219,6 +250,7 @@ class LaneSentinel:
         self.stats = RollingStats(self.cfg.window)
         self.breaker = CircuitBreaker(self.cfg.cooldown_s)
         self._round = 0
+        self._slot0 = 0               # the first slot of the last shadow
         self.rounds_since_reset = 0
         self.n_checks = 0
         self.last_detection_rounds: Optional[int] = None
@@ -232,17 +264,31 @@ class LaneSentinel:
     # -- shadow scoring ----------------------------------------------------
     def shadow(self, backend) -> np.ndarray:
         """Exact next-token logits (B, V) f32 for the lane's current
-        state.  ``decode_multi`` writes its K/V in place, so it scores a
-        copy of the lane's K/V: ``backend.caches`` is left bitwise as it
-        was (its fill levels too: the decode replaces ``pos``)."""
+        state (on a mesh: of this rank's slots, the backend's
+        ``[slot0, slot0 + n_local)``).  ``decode_multi`` writes its K/V
+        in place, so it scores a copy of the lane's K/V:
+        ``backend.caches`` is left bitwise as it was (its fill levels
+        too: the decode replaces ``pos``)."""
         dev = backend.device
-        tok = torch.as_tensor(backend.slot_tokens[:, None], device=dev)
-        pos = torch.as_tensor(backend.slot_pos.astype(np.int32), device=dev)
+        mine = slice(backend.slot0, backend.slot0 + backend.n_local)
+        self._slot0 = backend.slot0
+        tok = torch.as_tensor(backend.slot_tokens[mine, None], device=dev)
+        pos = torch.as_tensor(backend.slot_pos[mine].astype(np.int32),
+                              device=dev)
         with torch.inference_mode():
-            logits, _ = self.lm.decode_multi(self.params,
-                                             _copy_kv(backend.caches), tok,
-                                             pos)
+            logits, _ = self.lm.decode_multi(
+                self.params, _copy_kv(backend.caches), tok, pos,
+                data_parallel=backend.mesh is not None)
             return logits[:, 0, :].to(torch.float32).cpu().numpy()
+
+    def _drift(self, lane_logits, ref_logits, slots) -> Tuple[float, float]:
+        """`logit_drift` of the lane's logits against the last `shadow`'s
+        over the live `slots`, the same on every rank of a mesh."""
+        mesh = getattr(self.lm, "mesh", None)
+        if mesh is None:
+            return logit_drift(lane_logits, ref_logits, slots)
+        return mesh_logit_drift(lane_logits, ref_logits, slots, self._slot0,
+                                mesh, self.lm.row_axes)
 
     # -- the observation protocol ------------------------------------------
     def due(self) -> bool:
@@ -257,7 +303,7 @@ class LaneSentinel:
         if not np.isfinite(lane).all():
             self._trip(now, "non-finite lane logits")
             return True
-        agree, nmed = logit_drift(lane, ref_logits, slots)
+        agree, nmed = self._drift(lane, ref_logits, slots)
         self.last_agree, self.last_nmed = agree, nmed
         self.stats.push(agree, nmed)
         if self.stats.n < self.cfg.min_samples:
@@ -312,8 +358,8 @@ class LaneSentinel:
             for _ in range(self.cfg.probe_rounds):
                 ref = self.shadow(backend)
                 backend.decode_round()
-                agree, nmed = logit_drift(backend.last_decode_logits, ref,
-                                          [slot])
+                agree, nmed = self._drift(backend.last_decode_logits, ref,
+                                         [slot])
                 if agree < 1.0 or nmed > thresh:
                     ok = False
                     break
@@ -335,11 +381,12 @@ class LaneSentinel:
         return 1
 
 
-def reference_lm(cfg, exact_cim, device=None):
+def reference_lm(cfg, exact_cim, device=None, mesh=None):
     """The sentinel's exact reference model over shared weights: the
     ladder's exact rung with per-token activation scales, the
-    spec-decode verifier's construction (tiers.spec_pair)."""
+    spec-decode verifier's construction (tiers.spec_pair); on the lanes'
+    `mesh`, if they have one."""
     from repro_torch.models.transformer import LM
 
     ref = dataclasses.replace(exact_cim, per_token=True)
-    return LM(dataclasses.replace(cfg, cim=ref), device)
+    return LM(dataclasses.replace(cfg, cim=ref), device, mesh=mesh)

@@ -38,6 +38,18 @@ PyTorch's: on an H100 they matched the single step bitwise up to 8 slots
 x 9 positions (chip_smoke.py phase 11 (b)); a width past that is
 unchecked.
 
+**On a mesh** (a data-parallel pool, serving/engine.py) each rank
+drafts, verifies, accepts and rolls back its own slots: the drafter's
+`decode_step` runs the pool's rows over the data axes (its per-tensor
+scales are the whole pool's, as one device's) and keeps its own rows'
+argmax, the verify `decode_multi` runs its own rows (the per-token rows
+need no other), and the cache surgery is each rank's on its own caches.
+What steers the shared engine goes over the data axes: whether any slot
+has budget left (every rank runs the same sub-rounds, or the collectives
+inside them would wait for a rank that stopped), whether every verify
+logit was finite, and the greedy targets, counts, last tokens and fills
+of every slot, which every rank's scheduler emits.
+
 **Cache invariant:** pool entries at positions >= fill are zero (init,
 prefill's zeroed pad rows, insert, decode writing at fill, and
 `_rollback`).  It makes a rolled-back pool byte-equal to one that never
@@ -66,17 +78,14 @@ class SpecDecodeBackend(LMLaneBackend):
     `rounds_per_call` sub-rounds run in one call (admission happens
     between calls, so a queued request waits up to R - 1 more rounds);
     `keep_logits=False` leaves the verify logits on the device
-    (`last_spec_logits` stays None)."""
+    (`last_spec_logits` stays None).  With `mesh` both LMs must be built
+    on it (see the module docstring)."""
 
     def __init__(self, lm, drafter_lm, params, *, draft_k: int = 4,
                  draft_ks: Optional[Sequence[int]] = None,
                  rounds_per_call: int = 4, keep_logits: bool = True, **kw):
-        if kw.get("mesh") is not None:
-            raise ValueError(
-                "speculative decoding does not support mesh serving: the "
-                "verifier's per-token activation scales are row-local, "
-                "and the mesh path takes global per-tensor scales "
-                "(ROADMAP queue A 5)")
+        if getattr(drafter_lm, "mesh", None) is not kw.get("mesh"):
+            raise ValueError("the drafter's mesh must be the lane's")
         if not getattr(lm.cfg.cim, "per_token", False):
             raise ValueError(
                 "the spec-decode verifier needs per_token=True activation "
@@ -114,16 +123,21 @@ class SpecDecodeBackend(LMLaneBackend):
         tok (B, 1), fill (B,), remaining (B,), g (B, k+1), a (B,),
         logits (B, k+1, V))."""
         c, t, p = caches, tok, fill
+        dp = {"data_parallel": True} if self.mesh is not None else {}
+        mine = slice(self.slot0, self.slot0 + self.n_local)
         drafts = []
         for _ in range(k):
-            lg, c = self.drafter_lm.decode_step(self.params, c, t, p)
+            lg, c = self.drafter_lm.decode_step(self.params, c, t, p, **dp)
+            if dp:
+                lg = lg[mine]                  # the pool's: keep own rows
             t = torch.argmax(lg[:, -1, :].to(torch.float32), dim=-1)[:, None]
             drafts.append(t)
             p = p + 1
         drafts = torch.cat(drafts, dim=1)                      # (B, k)
         caches = _reset_pos(c, fill)
         logits, caches = self.lm.decode_multi(
-            self.params, caches, torch.cat([tok, drafts], dim=1), fill)
+            self.params, caches, torch.cat([tok, drafts], dim=1), fill,
+            **dp)
         g = torch.argmax(logits.to(torch.float32), dim=-1)     # (B, k+1)
         # the agreeing prefix and the bonus / correction token, cut at the
         # budget and at the first EOS among them
@@ -155,16 +169,19 @@ class SpecDecodeBackend(LMLaneBackend):
         call stops early once no slot has budget left (one sub-round
         always runs, so an idle call still drafts and rolls back)."""
         k, rounds, dev = self.draft_k, self.rounds_per_call, self.device
-        tok = torch.as_tensor(self.slot_tokens[:, None], device=dev)
-        fill = torch.as_tensor(self.slot_pos.astype(np.int32), device=dev)
-        rem = torch.as_tensor(np.asarray(remaining, np.int64), device=dev)
-        eos_t = torch.as_tensor(np.asarray(eos, np.int64), device=dev)
+        mine = slice(self.slot0, self.slot0 + self.n_local)
+        tok = torch.as_tensor(self.slot_tokens[mine, None], device=dev)
+        fill = torch.as_tensor(self.slot_pos[mine].astype(np.int32),
+                               device=dev)
+        rem = torch.as_tensor(np.asarray(remaining, np.int64)[mine],
+                              device=dev)
+        eos_t = torch.as_tensor(np.asarray(eos, np.int64)[mine], device=dev)
         gs, as_, lgs = [], [], []
         with torch.inference_mode():
             finite = torch.ones((), dtype=torch.bool, device=dev)
             caches = self.caches
             for r in range(rounds):
-                if r and not bool((rem > 0).any()):
+                if r and not self._any(rem > 0):
                     break                       # every budget is spent
                 caches, tok, fill, rem, g, a, lg = self._round(
                     k, caches, tok, fill, rem, eos_t)
@@ -175,27 +192,47 @@ class SpecDecodeBackend(LMLaneBackend):
                     lgs.append(lg.to(torch.float32))
             self.caches = caches
         n_exec = len(gs)
+        # every slot's targets, counts, last token and fill (one exchange
+        # each over the data axes on a mesh)
+        g_all = self._pool(torch.stack(gs, dim=1))
+        a_all = self._pool(torch.stack(as_, dim=1))
         g = np.zeros((self.n_slots, rounds, k + 1), np.int64)
         a = np.zeros((self.n_slots, rounds), np.int64)
-        g[:, :n_exec] = torch.stack(gs, dim=1).cpu().numpy()
-        a[:, :n_exec] = torch.stack(as_, dim=1).cpu().numpy()
-        if not bool(finite):
+        g[:, :n_exec] = g_all.cpu().numpy()
+        a[:, :n_exec] = a_all.cpu().numpy()
+        if self._any(~finite):
             raise LaneHealthError("the spec lane's verifier produced "
                                   "non-finite logits")
         self.last_spec_logits = None
         if self.keep_logits:
-            lg = torch.stack(lgs, dim=1).cpu().numpy()
+            lg = self._pool(torch.stack(lgs, dim=1)).cpu().numpy()
             self.last_spec_logits = np.zeros(
                 (self.n_slots, rounds) + lg.shape[2:], np.float32)
             self.last_spec_logits[:, :n_exec] = lg
-        self.slot_tokens = tok[:, 0].cpu().numpy().astype(np.int64)
-        self.slot_pos = fill.cpu().numpy().astype(np.int64)
+        self.slot_tokens = self._pool(tok[:, 0]).cpu().numpy().astype(
+            np.int64)
+        self.slot_pos = self._pool(fill).cpu().numpy().astype(np.int64)
         live = a > 0
         self.n_rounds += n_exec
         self.n_drafted += int(k * live.sum())
         self.n_accepted += int((a[live] - 1).sum())
         self.n_emitted += int(a.sum())
         return g, a
+
+    # -- the pool's view on a mesh (identities on one device) ----------------
+    def _pool(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a tensor of this rank's slots."""
+        if self.mesh is None:
+            return t
+        return self.mesh.all_gather(t, self.lm.row_axes, 0)
+
+    def _any(self, flags: torch.Tensor) -> bool:
+        """Whether the flag is set anywhere in the pool (any of this
+        rank's slots, or of another data rank's)."""
+        if self.mesh is None:
+            return bool(flags.any())
+        hit = flags.any().to(torch.int32).reshape(1)
+        return bool(self.mesh.all_reduce(hit, "max", self.lm.row_axes))
 
     @property
     def acceptance_rate(self) -> float:

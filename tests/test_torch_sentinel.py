@@ -311,8 +311,9 @@ def test_build_engine_refusals():
     f = FaultConfig(p_sa0=0.01)
     with pytest.raises(ValueError, match="mesh"):
         build_engine(cfg, fault=f, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        build_engine(cfg, sentinel=True, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):   # armed or not
+        build_engine(cfg, fault=f, sentinel=True, mesh=object(),
+                     device="cpu")
     no_exact = tuple(t for t in build_tiers(mode="hardware")
                      if t.name != "exact")
     with pytest.raises(ValueError, match="exact"):

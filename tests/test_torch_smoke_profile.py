@@ -115,6 +115,10 @@ def test_profile_with_no_kernel_in_any_run_says_not_measured(
      "6IntOutEEEvNS_6ClArgsE", "CiM log kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_17ClusterNibbleCoreELi4ELi64ENS_"
      "6IntOutEEEvNS_6ClArgsE", "CiM nibble kernel"),
+    ("_ZN3cim24surrogate_partial_kernelILi16ELi64ELb0EEEvNS_6SgArgsE",
+     "CiM surrogate partial"),
+    ("void cim::surrogate_partial_kernel<64, 32, true>(cim::SgArgs)",
+     "CiM surrogate partial"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLutCoreELi4ELi64ENS_"
      "11QuantIntOutEEEvNS_6ClArgsE", "CiM partial kernel"),
     ("_ZN3cim19cluster_gemm_kernelINS_14ClusterLogCoreILb1EEELi16ELi64ENS_"
@@ -314,7 +318,15 @@ def test_phases_take_3_to_14(smoke, phases, ok):
     assert smoke.parse_args([]).phases is None
 
 
-def test_phase_9_serves_8_layers_at_the_published_widths(smoke):
+def test_phase_9_serves_8_layers_at_the_published_widths(smoke,
+                                                         monkeypatch):
+    """Phase 9's config, and every engine of its parts (c) hardware, (e)
+    and (g) surrogate with the telemetry, (f) the spec lane with
+    sentinels and the per-token exact engine): 8 of qwen3-1.7b's layers
+    at its published widths; (d)'s shard GEMMs at the LM's shapes."""
+    from types import SimpleNamespace
+
+    from repro_torch import serving
     from repro_torch.configs import get_config
 
     full = get_config("qwen3-1.7b")
@@ -324,6 +336,27 @@ def test_phase_9_serves_8_layers_at_the_published_widths(smoke):
     assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) \
         == (full.d_model, full.n_heads, full.n_kv_heads, full.d_ff,
             full.vocab)
+    built = []
+    monkeypatch.setattr(serving, "build_engine", lambda c, **kw: (
+        built.append((c, kw)), SimpleNamespace(lanes={}))[1])
+    tel = object()
+    smoke._mesh_engine(cfg)
+    smoke._mesh_engine(cfg, mode="surrogate", telemetry=tel)
+    smoke._mesh_spec_engine(cfg)
+    smoke._per_token_exact_engine(cfg)
+    assert [c for c, _ in built] == [cfg] * 4
+    modes = [{t.cim.mode for t in kw["tiers"]} for _, kw in built]
+    assert modes == [{"exact", "hardware"}, {"exact", "surrogate"},
+                     {"exact", "hardware"}, {"exact"}]
+    assert built[1][1]["telemetry"] is tel
+    assert built[2][1]["spec_decode"] == smoke.MESH_SPEC_K
+    assert built[2][1]["sentinel_cfg"].period == smoke.MESH_SENTINEL_PERIOD
+    assert [t.cim.per_token for t in built[3][1]["tiers"]] == [True]
+    assert {(k, n) for _, k, n in smoke.MAIN_SHAPES} == set(
+        smoke.WEIGHT_SHAPES)
+    assert {(full.d_model, full.n_heads * full.head_dim_),
+            (full.d_model, full.d_ff), (full.d_ff, full.d_model)} <= set(
+        smoke.WEIGHT_SHAPES)
 
 
 def test_chip_smoke_phase_13_rehearsed_on_the_cpu(smoke, monkeypatch):

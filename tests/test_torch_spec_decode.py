@@ -234,11 +234,14 @@ def test_macro_and_attention_leave_per_token_out():
 
 
 def test_per_token_matmul_under_a_mesh_raises():
-    """Under a mesh every route takes global per-tensor scales, so a
-    per-token matmul raises rather than compute another result; the mesh
-    frontends refuse it too."""
+    """On shards the integer and surrogate routes take global per-tensor
+    scales, so an applied approximate per-token matmul raises rather than
+    compute another result (only the exact rung, the spec verifier's and
+    the sentinel's reference, runs per-token scales there:
+    tests/test_torch_mesh_spec.py); the mesh frontends refuse it too."""
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models.common import CiMContext, CiMParams, cim_linear
+    from repro_torch.parallel.sharding import P
 
     p = CiMParams.from_config(CiMConfig(family="exact", mode="exact",
                                         per_token=True))
@@ -246,8 +249,12 @@ def test_per_token_matmul_under_a_mesh_raises():
     x, w = torch.zeros(2, 8), torch.zeros(8, 4)
     tok = tmesh._AMBIENT.set(object())
     try:
-        with pytest.raises(NotImplementedError, match="A 5"):
-            cim_linear(x, w, CiMContext(p), "wq")
+        for mode in ("hardware", "bit_exact", "surrogate", "surrogate_fast"):
+            hw = CiMParams.from_config(CiMConfig(family="appro42", mode=mode,
+                                                 per_token=True))
+            ctx = CiMContext(hw, specs={"wq": P(None, "model")})
+            with pytest.raises(NotImplementedError, match="A 5"):
+                cim_linear(x, w, ctx, "wq")
     finally:
         tmesh._AMBIENT.reset(tok)
     assert cim_linear(x, w, CiMContext(p), "wq").shape == (2, 4)
@@ -618,7 +625,7 @@ def test_spec_backend_engine_and_launcher_contracts(models):
     dlm = LM(dataclasses.replace(cfg, cim=d_tier.cim), "cpu")
     kw = dict(n_slots=1, max_len=16, prompt_buckets=(4,),
               group_buckets=(1,))
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):   # the drafter's own
         SpecDecodeBackend(vlm, dlm, tp, mesh=object(), **kw)
     with pytest.raises(ValueError, match="per_token"):
         SpecDecodeBackend(LM(dataclasses.replace(cfg, cim=ex.cim), "cpu"),
@@ -633,9 +640,13 @@ def test_spec_backend_engine_and_launcher_contracts(models):
         b.set_draft_k(3)
     b.set_draft_k(1)
     assert b.draft_k == 1
+    # spec decoding composes with a mesh (tests/test_torch_mesh_spec.py);
+    # faults still do not, spec lane or not
+    from repro_torch.core.faults import FaultConfig
+
     with pytest.raises(ValueError, match="mesh"):
         build_engine(cfg, tp, tiers=tiers, spec_decode=2, mesh=object(),
-                     **ENGINE_KW)
+                     fault=FaultConfig(p_sa0=0.01), **ENGINE_KW)
     import sys
     argv = sys.argv
     sys.argv = ["serve", "--spec-decode", "2", "--mesh", "2", "--ranks",
